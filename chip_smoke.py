@@ -3,26 +3,49 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, one line each (any failure raises and exits non-zero):
+Phases, one or a few lines each (any failure raises and exits non-zero):
 
  1. the card's name and power limit, as nvidia-smi reports them;
- 2. build the CUDA kernels from csrc/ (nvcc, into stark_tpu_torch/_build/);
- 3. every kernel against its plain PyTorch version on the card, bit-equal:
-    the NTT and iNTT (K1 -> K3 -> K2) at n in {2^6, 2^10, 2^16, 2^17,
-    2^20, 2^22} with batch 1 and 3, each kernel alone at the main path's
-    shapes, and the FRI fold (K4) at half in {128, 2^12, 2^21}; kernel and
-    plain times are device time per call from torch.profiler;
- 4-6. FibonacciAir proofs whose sha256 must equal the JAX package's
-    (stark_tpu on the CPU, pinned below): T=64 with 4 tests, T=1024 and
-    T=2^16 with 16 tests, blowup 4;
- 7. the main path at T=2^20, blowup 4, 16 tests (N = 2^22):
-    StarkProver.prove -> StarkVerifier.verify, with the kernel launch
-    counts reset before it and required > 0 after, and the proof's sha256
-    equal to the pinned T=2^20 hash; then the prove and verify wall-time
-    distribution, the synchronised per-phase times, one profiled prove
-    (device time per ported kernel, which must be > 0, and the device's
-    busy share), and a flipped byte and a witness with one changed row
-    rejected.
+ 2. build the CUDA kernels from csrc/ (nvcc, into
+    stark_tpu_torch/_build/); the instruction mix of the hash kernels as
+    compiled, where cuobjdump is installed;
+ 3. every kernel against its plain PyTorch version on the card, bit-equal,
+    at every shape the driven paths give it:
+    - the NTT and iNTT (K1 -> K3 -> K2), strict and lazy, at n in {2^6,
+      2^10, 2^16, 2^17, 2^18, 2^20, 2^22} with batch 1 and 3 (and batch 8,
+      the wide path's, at 2^16 and 2^18), and each kernel alone at the
+      shapes of the main path (batch 1: iNTT 2^20, NTT 2^22) and of the
+      wide path (batch 8: iNTT 2^16, NTT 2^18), with a strict/lazy A/B of
+      device time;
+    - the FRI fold (K4) at every half from 2^21 down to 128;
+    - the row hash (K5/K6) for c = 1 at every N from 2 to 2^22 and for c in
+      {2, 3, 5, 8} at N in {2, 1024, 2^18, 2^20}, one tree level (K7) at W
+      in {2, 2048, 2^17 .. 2^22}, the subtree kernel (K8) at every W from 2
+      to 2^16 against its plain level stack and the host C engine, and a
+      whole W = 2^22 tree's root and 16 opened paths against the host
+      engine;
+    - kernel, plain and (K3) library-call times: device time per call from
+      torch.profiler, every call on another set of buffers out of at least
+      128 MiB of them, so the operands come from device memory and not
+      from the 50 MB L2 a repeated call would hit; each kernel's bound
+      from its bytes and operations;
+    - the SM clock under a hash load, and the instruction rate it gives;
+    - the K7/K8 cutover sweep behind hash_batch.TAIL_CUTOVER;
+ 4. proofs whose sha256 must equal the JAX package's (stark_tpu on the CPU,
+    pinned below): FibonacciAir at T=64, 1024 and 2^16, strict and lazy
+    NTT; the example AIRs (two-register Fibonacci, square, cube at blowup 8,
+    MDS) at T=1024, MDS also at T=4096; each proof verified;
+ 5. the main path, FibonacciAir at T=2^20, blowup 4, 16 tests (N = 2^22):
+    StarkProver.prove -> StarkVerifier.verify with the launch counts set
+    to 0 just before and read just after (every strict kernel > 0), the
+    pinned sha256, the prove and verify wall-time distribution, the
+    synchronised per-phase times (median of 5 proves), one profiled prove (device time under
+    every launched kernel's name > 0, device activities, busy share), a
+    flipped byte and a changed witness row rejected; then the same prove
+    with the lazy NTT kernels (counts, sha256, profile);
+ 6. the wide path, MdsSquareAir (8 registers) at T=2^16, blowup 4, 16 tests
+    (N = 2^18): counts, the sha256 pinned from stark_tpu, wall times,
+    phases, and both reject probes.
 
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -34,6 +57,8 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -41,12 +66,18 @@ import time
 import numpy as np
 import torch
 
-# sha256 of stark_tpu's proof bytes for FibonacciAir, blowup 4 (derived on
-# the CPU with stark_tpu.StarkProver; see CHANGES.md for the command).
+# sha256 of stark_tpu's proof bytes, 16 colinearity tests unless noted
+# (derived on the CPU with stark_tpu.StarkProver; CHANGES.md has the
+# commands).  Keys: (model, T, blowup, tests).
 PINNED = {
-    (64, 4): "0fbe172505bfeaaefa39b0fe788e0e84c845958ff92fdc1330338bfc4d31335c",
-    (1024, 16): "db5758edd257e895c25f040e3952b6aaebc8e3c5d25ef1408713b3710d2d5559",
-    (1 << 16, 16): "aca9d53cda7476d5a8156bd809cd09bd85416b0a96a6b5d15520a0f7b620a118",
+    ("fib", 64, 4, 4): "0fbe172505bfeaaefa39b0fe788e0e84c845958ff92fdc1330338bfc4d31335c",
+    ("fib", 1024, 4, 16): "db5758edd257e895c25f040e3952b6aaebc8e3c5d25ef1408713b3710d2d5559",
+    ("fib", 1 << 16, 4, 16): "aca9d53cda7476d5a8156bd809cd09bd85416b0a96a6b5d15520a0f7b620a118",
+    ("fib2", 1024, 4, 16): "8aa084f58d892fecc475421ff3a70b103680b3ba9d6ac8504c7deaf898367411",
+    ("square", 1024, 4, 16): "f6ba13984ae58983cbdc11555d66a17c20136ea2a746bdd86221b254aca69084",
+    ("cube", 1024, 8, 16): "50c33d4c401ba5bbf71b2139e08aea70001fc0d1254ec111490f150525b7758e",
+    ("mds", 1024, 4, 16): "97cf6cf94a41c0df3c285c34e497c315a14e4083e3897632b1d76e39109f61a6",
+    ("mds", 4096, 4, 16): "fa5fdeb1274b56feea0a8ddd897be2d02ec6db51eea9b9b692a2e3c445fb6c9a",
 }
 MAIN_T = 1 << 20
 # sha256 of the port's T=2^20 proof (blowup 4, 16 tests).  Not from
@@ -55,22 +86,74 @@ MAIN_T = 1 << 20
 # plain versions agree on the whole proof; it now guards against drift.
 MAIN_SHA256 = "94c49ad8fc8cde1b9eaaadd0e2ad3171a8a62019553baa8dd866cc063b9ea264"
 MAIN_RUNS = 20
-NTT_SIZES = (1 << 6, 1 << 10, 1 << 16, 1 << 17, 1 << 20, 1 << 22)
-FOLD_HALVES = (128, 1 << 12, 1 << 21)
+MDS_T = 1 << 16
+# sha256 of stark_tpu's MdsSquareAir proof at T=2^16, blowup 4, 16 tests.
+MDS_SHA256 = "4b25adeb89d3400f7ca4e1599086fbf939e7d81e26478d3d06d653e1d08b5a3b"
+MDS_RUNS = 10
+NTT_SIZES = (1 << 6, 1 << 10, 1 << 16, 1 << 17, 1 << 18, 1 << 20, 1 << 22)
+WIDE_BATCH = 8  # MdsSquareAir's registers
+# (batch, n, inverse) of every transform the two full-width paths run.
+PASS_SHAPES = ((1, MAIN_T, True), (1, 4 * MAIN_T, False),
+               (WIDE_BATCH, MDS_T, True), (WIDE_BATCH, 4 * MDS_T, False))
+FOLD_HALVES = tuple(1 << lg for lg in range(21, 6, -1))
+HASH_WIDTHS = (2, 3, 5, 8)
+HASH_LANES = (2, 1024, 1 << 18, 1 << 20)
+LEAF_LANES = tuple(1 << lg for lg in range(1, 23))
+LEVEL_WIDTHS = (2, 2048) + tuple(1 << lg for lg in range(17, 23))
+TAIL_WIDTHS = tuple(1 << lg for lg in range(1, 17))
+# A timed call takes the next of so many sets of buffers that this many
+# bytes pass between two uses of one set: more than twice the card's 50 MB
+# L2, so every timed call reads its operands from device memory.
+CYCLE_BYTES = 128 << 20
+
+# The card's published peaks (H100 SXM at its full 700 W limit): device
+# memory 3.35 TB/s; 67 TFLOP/s float32 outside the tensor cores, which is
+# one fused multiply-add per lane per clock on 128 lanes per SM.  Integer
+# instructions go through those same lanes, at most one per lane per
+# clock, so the peak for integer operations is half the float32 figure.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 2
+
+# Integer operations, as the kernels' sources write them.
+OPS_BUTTERFLY = {False: 11, True: 8}  # add 3 + sub 3 + Shoup 5; lazy 3 + 2 + 3
+OPS_MONT = 8                          # the REDC of pass 1, per element
+OPS_FOLD = 25                         # two Shoup, one REDC, sub, two adds
+OPS_ABSORB_BYTE = 5                   # add, mask, rotate (2), xor
+OPS_MIX = 9 * 32                      # per byte: sbox 5, group xor 1, add 1, rc 2
+
+
+def _hash_ops(length: int) -> int:
+    """Operations of one hash of ``length`` bytes: the absorbs, a mix per
+    32-byte chunk and the 8 closing mixes."""
+    return OPS_ABSORB_BYTE * length + OPS_MIX * (-(-length // 32) + 8)
+
+
+def _bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least time in ms, which of the two sets it)."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def _profile(fn, reps: int):
     """torch.profiler's kernel-level events of ``reps`` calls of ``fn``
-    (after one warm-up call)."""
+    (after one warm-up call).  The tracer can lose the first kernel
+    launched in a window (seen here: one launch short in every window of
+    the cutover sweep, exactly the first), so each window opens with a
+    launch that is not counted: an erfinv, which nothing timed here uses."""
     fn()
+    first = torch.zeros(8, device="cuda")
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        first.erfinv_()
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "erfinv" not in e.key]
 
 
 def _device_us(event) -> float:
@@ -79,12 +162,49 @@ def _device_us(event) -> float:
     return event.self_cuda_time_total  # torch releases before the rename
 
 
+PROFILE_ATTEMPTS = 3
+_retaken = [0]  # profiles taken again, reported at the end of the run
+
+
 def _device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn``: every kernel and copy it runs."""
-    total = sum(_device_us(e) for e in _profile(fn, reps))
-    if total <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total / 1e3 / reps
+    """Device time per call of ``fn``: every kernel and copy it runs.  The
+    tracer now and then drops a window, or part of one: a profile without
+    device activity, or in which some activity does not occur once or more
+    for each of the ``reps`` equal calls, is taken again,
+    ``PROFILE_ATTEMPTS`` times at most."""
+    for _ in range(PROFILE_ATTEMPTS):
+        events = _profile(fn, reps)
+        total = sum(_device_us(e) for e in events)
+        if total > 0 and all(e.count % reps == 0 for e in events):
+            return total / 1e3 / reps
+        _retaken[0] += 1
+        seen = {e.key[:40]: e.count for e in events}
+        print(f"profile of {reps} calls taken again; it held {seen}", flush=True)
+    raise AssertionError("torch.profiler recorded no complete window")
+
+
+def _copies(nbytes: float) -> int:
+    """Sets of buffers of ``nbytes`` each that a timed loop walks through."""
+    return -(-CYCLE_BYTES // int(nbytes)) + 1
+
+
+def _clones(count: int, *tensors) -> list[tuple]:
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(count - 1)]
+
+
+def _cycled(fn, args_list: list[tuple]):
+    """A call without arguments that gives ``fn`` the next set of
+    ``args_list`` each time and keeps every set's last result alive, so the
+    allocator cannot hand the same output block to consecutive calls."""
+    keep = [None] * len(args_list)
+    calls = [0]
+
+    def call():
+        j = calls[0] % len(args_list)
+        calls[0] += 1
+        keep[j] = fn(*args_list[j])
+
+    return call
 
 
 def _quantiles(xs: list[float]) -> dict[str, float]:
@@ -96,92 +216,395 @@ def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
-def _check_kernels(rng, dev) -> list[dict]:
-    from stark_tpu_torch.ops import fold as FOLD
-    from stark_tpu_torch.ops import ntt_fused as NTF
-    from stark_tpu_torch.ops.fieldops import P
+def _require_equal(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{what}: max |err| {_max_abs_err(got, want)}")
 
-    def rand(shape):
-        vals = rng.integers(0, P, size=shape, dtype=np.int64)
-        return torch.from_numpy(vals).to(torch.int32).to(dev)
 
-    for n in NTT_SIZES:
-        for batch in (1, 3):
-            for inverse in (False, True):
-                x = rand((batch, n) if batch > 1 else (n,))
-                got = NTF.fused_ntt(x, inverse)
-                want = NTF.ntt_plain(x, inverse)
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"NTT n={n} batch={batch} inverse={inverse}: "
-                        f"max |err| {_max_abs_err(got, want)}"
-                    )
-    print(f"ntt: kernels == Stockham at n={list(NTT_SIZES)}, batch 1 and 3, "
-          "forward and inverse", flush=True)
+def _sass_mix(library_path: str) -> None:
+    """Print the instruction count of each hash kernel as compiled (static:
+    the closing mixes are a rolled loop), where cuobjdump is installed."""
+    tool = shutil.which("cuobjdump") or shutil.which(
+        "cuobjdump", path="/usr/local/cuda/bin")
+    if tool is None:
+        print("sass: cuobjdump not installed, instruction mix not read", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass", library_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            current = found.group(1)
+            continue
+        found = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_]*)", line)
+        if found and current in ("stark_hash_rows_kernel",
+                                 "stark_merkle_level_kernel",
+                                 "stark_merkle_tail_kernel"):
+            ops = counts.setdefault(current, {})
+            ops[found.group(1)] = ops.get(found.group(1), 0) + 1
+    for name, ops in counts.items():
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
+        print(f"sass {name}: {sum(ops.values())} instructions, "
+              + ", ".join(f"{k} {v}" for k, v in top), flush=True)
 
-    results = []
 
-    def entry(kernel, got, want, fn, plain_fn, reps):
-        err = _max_abs_err(got, want)
-        if err:
-            raise AssertionError(f"{kernel.name}: max |err| {err}")
-        results.append({
+def _rand_field(rng, dev, shape) -> torch.Tensor:
+    """Seeded field values in [0, p) as the port stores them (int32)."""
+    vals = rng.integers(0, 998244353, size=shape, dtype=np.int64)
+    return torch.from_numpy(vals).to(torch.int32).to(dev)
+
+
+class _Results:
+    """The per-kernel entries of the final JSON line."""
+
+    def __init__(self):
+        self.entries: list[dict] = []
+
+    def add(self, kernel, shape, args_list, fn, plain_fn, reps, nbytes, ops,
+            library_fn=None) -> dict:
+        """Hold ``fn`` against ``plain_fn`` on the first set of
+        ``args_list``, then time each over all the sets in turn."""
+        got, want = fn(*args_list[0]), plain_fn(*args_list[0])
+        _require_equal(f"{kernel.name} at {shape}", got, want)
+        bound_ms, bound_by = _bound(nbytes, ops)
+        entry = {
             "name": kernel.name,
             "route": "cuda",
             "source": kernel.source,
             "replaces": kernel.replaces,
+            "shape": shape,
             "launches": 0,
-            "max_abs_err": err,
-            "ms": _device_ms(fn, reps),
-            "plain_ms": _device_ms(plain_fn, max(reps // 10, 3)),
-        })
+            "max_abs_err": _max_abs_err(got, want),
+            "ms": _device_ms(_cycled(fn, args_list), reps),
+            "plain_ms": _device_ms(_cycled(plain_fn, args_list), max(reps // 10, 3)),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None if library_fn is None
+            else _device_ms(_cycled(library_fn, args_list), reps),
+            "buffer_sets": len(args_list),
+        }
+        self.entries.append(entry)
+        return entry
 
-    # Each NTT kernel alone, at both main-path shapes: the trace iNTT
-    # (n = 2^20, n1 = n2 = 1024) and the LDE (n = 2^22, n1 = n2 = 2048).
-    # The JSON entry keeps the LDE shape; the iNTT shape is printed.
-    for n, inverse in ((MAIN_T, True), (4 * MAIN_T, False)):
+
+def _line(entry: dict) -> str:
+    lib = "" if entry["library_ms"] is None else f", library {entry['library_ms']:.4f}"
+    return (f"{entry['name']} {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
+            f"bound {entry['bound_ms']:.4f} by {entry['bound_by']}{lib})")
+
+
+def _check_ntt(rng, dev, results: _Results) -> None:
+    from stark_tpu_torch.ops import ntt_fused as NTF
+
+    def rand(shape):
+        return _rand_field(rng, dev, shape)
+
+    whole = [(n, b) for n in NTT_SIZES for b in (1, 3)]
+    whole += [(n, b) for b, n, _ in PASS_SHAPES if (n, b) not in whole]
+    for n, batch in whole:
+        for inverse in (False, True):
+            x = rand((batch, n) if batch > 1 else (n,))
+            want = NTF.ntt_plain(x, inverse)
+            what = f"NTT n={n} batch={batch} inverse={inverse}"
+            _require_equal(what, NTF.fused_ntt(x, inverse), want)
+            _require_equal(what + " lazy", NTF.fused_ntt(x, inverse, lazy=True), want)
+    print(f"ntt: strict kernels == lazy kernels == Stockham at n={list(NTT_SIZES)}, "
+          f"batch 1 and 3, and at batch {WIDE_BATCH} for n=2^16 and 2^18, forward "
+          "and inverse", flush=True)
+
+    # Each NTT kernel alone at the shapes the two paths give it.  The JSON
+    # entries keep the main path's LDE shape; the others are printed.
+    for batch, n, inverse in PASS_SHAPES:
         plan = NTF.get_plan(n, inverse, dev)
-        x3 = rand((1, plan.n1, plan.n2))
-        y3 = NTF.ntt_pass1(x3, plan)
-        yt = NTF.ntt_transpose(y3)
-        mark = len(results)
-        entry(NTF.PASS1, y3, NTF.pass1_plain(x3, plan),
-              lambda: NTF.ntt_pass1(x3, plan),
-              lambda: NTF.pass1_plain(x3, plan), 50)
-        entry(NTF.TRANSPOSE, yt, NTF.transpose_plain(y3),
-              lambda: NTF.ntt_transpose(y3),
-              lambda: NTF.transpose_plain(y3), 50)
-        entry(NTF.PASS2, NTF.ntt_pass2(yt, plan), NTF.pass2_plain(yt, plan),
-              lambda: NTF.ntt_pass2(yt, plan),
-              lambda: NTF.pass2_plain(yt, plan), 50)
-        x = x3.reshape(n)
-        full_ms = _device_ms(lambda: NTF.fused_ntt(x, inverse), 50)
-        stockham_ms = _device_ms(lambda: NTF.ntt_plain(x, inverse), 5)
-        print(f"ntt n=2^{n.bit_length() - 1} inverse={inverse}: "
-              + ", ".join(f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f})"
-                          for r in results[mark:])
-              + f"; whole transform {full_ms:.4f} ms (Stockham {stockham_ms:.4f}); "
-              "device time per call",
-              flush=True)
-        if n == MAIN_T:
-            del results[mark:]
+        shape = f"batch={batch}, n=2^{n.bit_length() - 1}"
+        size = batch * n
+        sets = _copies(8 * size)
+        xs = _clones(sets, rand((batch, plan.n1, plan.n2)))
+        ys = [(NTF.ntt_pass1(x3, plan),) for (x3,) in xs]
+        yts = [(NTF.ntt_transpose(y3),) for (y3,) in ys]
+        mark = len(results.entries)
+        for lazy in (False, True):
+            bf = OPS_BUTTERFLY[lazy]
+            results.add(
+                NTF.PASS1_LAZY if lazy else NTF.PASS1, shape, xs,
+                lambda x3, lazy=lazy: NTF.ntt_pass1(x3, plan, lazy),
+                lambda x3, lazy=lazy: NTF.pass1_plain(x3, plan, lazy), 50,
+                nbytes=8 * size + 4 * n,
+                ops=size // 2 * plan.lg1 * bf + size * OPS_MONT)
+            results.add(
+                NTF.PASS2_LAZY if lazy else NTF.PASS2, shape, yts,
+                lambda yt, lazy=lazy: NTF.ntt_pass2(yt, plan, lazy),
+                lambda yt, lazy=lazy: NTF.pass2_plain(yt, plan, lazy), 50,
+                nbytes=8 * size,
+                ops=size // 2 * plan.lg2 * bf + (2 * size if lazy else 0))
+        results.add(
+            NTF.TRANSPOSE, shape, ys, NTF.ntt_transpose, NTF.transpose_plain, 50,
+            nbytes=8 * size, ops=0,
+            library_fn=lambda y3: y3.transpose(1, 2).contiguous())
+        flat = [(x3.reshape((batch, n) if batch > 1 else (n,)),) for (x3,) in xs]
+        # Strict against lazy, in turns within this one call.
+        ab = [_device_ms(_cycled(lambda x, lazy=lazy: NTF.fused_ntt(x, inverse, lazy),
+                                 flat), 50)
+              for lazy in (False, True, True, False)]
+        stockham_ms = _device_ms(_cycled(lambda x: NTF.ntt_plain(x, inverse), flat), 5)
+        print(f"ntt {shape} inverse={inverse} ({sets} buffer sets): "
+              + "; ".join(_line(e) for e in results.entries[mark:])
+              + f"; whole transform strict {ab[0]:.4f}, lazy {ab[1]:.4f}, lazy "
+              f"{ab[2]:.4f}, strict {ab[3]:.4f} ms (Stockham {stockham_ms:.4f}); "
+              "device time per call", flush=True)
+        if (batch, n) != (1, 4 * MAIN_T):
+            del results.entries[mark:]
+
+
+def _check_fold(rng, dev, results: _Results) -> None:
+    from stark_tpu_torch.ops import fold as FOLD
+
+    def rand(shape):
+        return _rand_field(rng, dev, shape)
 
     alpha = (1 << 64) - 12345  # a raw challenge above 2^63
     for half in FOLD_HALVES:
         cw = rand((2 * half,))
         inv_x = rand((half,))
-        got = FOLD.fold(cw, inv_x, alpha)
-        want = FOLD.fold_plain(cw, inv_x, alpha)
-        if half == FOLD_HALVES[-1]:
-            entry(FOLD.FOLD, got, want, lambda: FOLD.fold(cw, inv_x, alpha),
-                  lambda: FOLD.fold_plain(cw, inv_x, alpha), 200)
-        elif not torch.equal(got, want):
-            raise AssertionError(f"fold half={half}: max |err| {_max_abs_err(got, want)}")
-    print(f"fold: kernel == plain at half={list(FOLD_HALVES)}; half=2^21 "
-          f"{results[-1]['ms']:.4f} ms (plain {results[-1]['plain_ms']:.4f}), "
-          "device time per call",
-          flush=True)
-    return results
+        _require_equal(f"fold half={half}", FOLD.fold(cw, inv_x, alpha),
+                       FOLD.fold_plain(cw, inv_x, alpha))
+        if half == FOLD_HALVES[0]:
+            entry = results.add(
+                FOLD.FOLD, "half=2^21", _clones(_copies(16 * half), cw, inv_x),
+                lambda cw, inv_x: FOLD.fold(cw, inv_x, alpha),
+                lambda cw, inv_x: FOLD.fold_plain(cw, inv_x, alpha), 200,
+                nbytes=16 * half, ops=OPS_FOLD * half)
+    print("fold: kernel == plain at every half from 2^21 down to 2^7; half=2^21 "
+          f"({entry['buffer_sets']} buffer sets) " + _line(entry)
+          + ", device time per call", flush=True)
+
+
+def _sm_clock(dev, fn, calls: int = 2000) -> None:
+    """Print the SM clock nvidia-smi reads while ``calls`` calls of ``fn``
+    are queued on the card, and the integer instruction rate it gives."""
+    done = torch.cuda.Event()
+    for _ in range(calls):
+        fn()
+    done.record()
+    samples = []
+    while not done.query():
+        samples.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # The last sample may have been read as the queue ran dry.
+    under_load = samples[:-1] or samples
+    if not under_load:
+        print("clock: the load ended before nvidia-smi answered; not sampled", flush=True)
+        return
+    mhz = [float(line.split()[0]) for line in under_load]
+    print(f"clock under a hash_rows load (clocks.sm, clocks.max.sm, power.draw; "
+          f"{len(under_load)} samples): {under_load[0]} .. {under_load[-1]}; "
+          f"{sms} SMs x 128 lanes x {min(mhz):.0f} MHz = "
+          f"{sms * 128 * min(mhz) * 1e6:.4g} integer instructions/s at most; the "
+          f"bounds use {INT_OPS_PER_S:.4g}", flush=True)
+
+
+def _build_levels(HB, stack: torch.Tensor, cutover: int) -> None:
+    """hash_batch.merkle_build with another cutover, for the sweep."""
+    w, pos = (stack.shape[0] + 1) // 2, 0
+    while w > cutover:
+        HB.merkle_level(stack[pos : pos + w], stack[pos + w : pos + w + w // 2])
+        pos += w
+        w //= 2
+    if w > 1:
+        HB.merkle_tail(stack[pos : pos + w], stack[pos + w :])
+
+
+def _check_hash(rng, dev, results: _Results) -> None:
+    from stark_tpu_torch import native
+    from stark_tpu_torch.merkle import MerkleTree
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    def rand(shape):
+        return _rand_field(rng, dev, shape)
+
+    def digests(w):
+        return torch.from_numpy(
+            rng.integers(0, 256, size=(w, 32), dtype=np.uint8)).to(dev)
+
+    for c, n in [(1, n) for n in LEAF_LANES] + [
+            (c, n) for c in HASH_WIDTHS for n in HASH_LANES]:
+        v = rand((c, n))
+        _require_equal(f"hash_rows c={c} N={n}", HB.hash_rows(v),
+                       HB.hash_rows_plain(v))
+    for w in LEVEL_WIDTHS:
+        nodes = digests(w)
+        _require_equal(f"merkle_level W={w}", HB.merkle_level(nodes),
+                       HB.merkle_level_plain(nodes))
+    assert HB.TAIL_CUTOVER in TAIL_WIDTHS
+    for w in TAIL_WIDTHS:
+        nodes = digests(w)
+        got = HB.merkle_tail(nodes)
+        _require_equal(f"merkle_tail W={w}", got, HB.merkle_tail_plain(nodes))
+        host = np.concatenate(native.merkle_levels(nodes.cpu().numpy())[1:])
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise AssertionError(f"merkle_tail W={w} != the host engine's levels")
+
+    # Whole trees against the host engine: the main path's width, and the
+    # narrowest the pinned proofs build.
+    for w in (4 * MAIN_T, 16):
+        values = rand((w,))
+        tree = MerkleTree.from_leaf_values(values)
+        host_tree = MerkleTree.from_leaf_values(values.cpu().numpy().astype(np.uint32))
+        if tree._stack.device.type != "cuda" or host_tree._stack.device.type != "cpu":
+            raise AssertionError(f"W={w} tree: built on the wrong device")
+        if tree.root != host_tree.root:
+            raise AssertionError(f"W={w} tree: root != the host engine's")
+        idx = [int(i) for i in rng.integers(0, w, size=16)]
+        if tree.open_batch(idx) != host_tree.open_batch(idx):
+            raise AssertionError(f"W={w} tree: opened paths != the host engine's")
+    print("hash: hash_rows == plain for c=1 at every N from 2 to 2^22 and for "
+          f"c={list(HASH_WIDTHS)} at N={list(HASH_LANES)}; merkle_level == plain at "
+          f"W={list(LEVEL_WIDTHS)}; merkle_tail == plain == host engine at every W "
+          "from 2 to 2^16; the roots and 16 paths of a W=2^22 and a W=16 tree == "
+          "the host engine's; all byte-exact", flush=True)
+
+    # Times at the main paths' shapes.
+    w = 4 * MAIN_T
+    values = rand((w,))
+    stack = torch.empty((2 * w - 1, 32), dtype=torch.uint8, device=dev)
+    leaves = HB.leaf_hash(values, stack[:w])
+    leaf = results.add(
+        HB.HASH_ROWS, "c=1, N=2^22", _clones(_copies(36 * w), values[None]),
+        HB.hash_rows, HB.hash_rows_plain, 20,
+        nbytes=(4 + 32) * w, ops=w * _hash_ops(8))
+    n8 = 4 * MDS_T
+    # The same kernel at the wide path's shape: printed, not a JSON entry.
+    row = _Results().add(
+        HB.HASH_ROWS, "c=8, N=2^18",
+        _clones(_copies(64 * n8), rand((WIDE_BATCH, n8))),
+        HB.hash_rows, HB.hash_rows_plain, 20,
+        nbytes=(4 * WIDE_BATCH + 32) * n8, ops=n8 * _hash_ops(64))
+    level = results.add(
+        HB.MERKLE_LEVEL, "W=2^22", _clones(_copies(48 * w), leaves),
+        HB.merkle_level, HB.merkle_level_plain, 20,
+        nbytes=(32 + 16) * w, ops=w // 2 * _hash_ops(64))
+    wt = HB.TAIL_CUTOVER
+    tail = results.add(
+        HB.MERKLE_TAIL, f"W=2^{wt.bit_length() - 1}",
+        _clones(_copies(64 * wt), leaves[:wt]),
+        HB.merkle_tail, HB.merkle_tail_plain, 20,
+        nbytes=32 * (2 * wt - 1), ops=(wt - 1) * _hash_ops(64))
+    print("hash: leaf " + _line(leaf) + "; row c=8 N=2^18 " + _line(row) + "; "
+          + _line(level) + "; " + _line(tail) + "; device time per call, buffer sets "
+          f"{[e['buffer_sets'] for e in (leaf, row, level, tail)]}", flush=True)
+
+    out = torch.empty_like(leaves)
+    _sm_clock(dev, lambda: HB.leaf_hash(values, out))
+
+    # The sweep behind TAIL_CUTOVER: device time to build all levels of a
+    # tree from its leaf digests, K7 above the cutover and K8 from it down
+    # (one stack rebuilt in place, so the narrow levels stay in L2 as they
+    # do on a prove).
+    for lg_w in (22, 18):
+        sub = stack[: (2 << lg_w) - 1].clone() if lg_w < 22 else stack
+        sweep = {
+            f"2^{lg}": round(_device_ms(lambda lg=lg: _build_levels(HB, sub, 1 << lg), 5), 4)
+            for lg in range(10, lg_w + 1, 2)
+        }
+        print(f"cutover sweep, tree of W=2^{lg_w} (ms per build, by cutover; in use "
+              f"2^{HB.TAIL_CUTOVER.bit_length() - 1}): {json.dumps(sweep)}", flush=True)
+
+
+def _prove_checked(name, prover, verifier, trace, want_sha, expect, cuda):
+    """One counted prove -> verify: counts set to 0 just before, read just
+    after; the proof must verify, match ``want_sha`` and have launched every
+    kernel in ``expect``.  Returns (proof, counts)."""
+    cuda.reset_launches()
+    proof = prover.prove(trace)
+    accepted = verifier.verify(proof)
+    counts = cuda.launch_counts()
+    if not accepted:
+        raise AssertionError(f"{name}: proof rejected")
+    sha = hashlib.sha256(proof).hexdigest()
+    if sha != want_sha:
+        raise AssertionError(f"{name}: proof sha256 {sha} != pinned {want_sha}")
+    missing = [k for k in expect if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels not launched: {missing}")
+    return proof, counts
+
+
+def _profiled_prove(name, prover, trace, counts, median_wall, cuda) -> dict:
+    """Profile one prove; every kernel it launched must show device time
+    under its own name.  Returns {kernel: ms}."""
+    for _ in range(PROFILE_ATTEMPTS):  # see _device_ms
+        events = _profile(lambda: prover.prove(trace), 1)
+        kernel_ms = {
+            k.name: sum(_device_us(e) for e in events if k.kernel_symbol in e.key) / 1e3
+            for k in cuda.KERNELS.values() if counts[k.name] > 0
+        }
+        if all(ms > 0 for ms in kernel_ms.values()):
+            break
+        _retaken[0] += 1
+    else:
+        raise AssertionError(f"{name}: a launched kernel shows no device time {kernel_ms}")
+    device_ms = sum(_device_us(e) for e in events) / 1e3
+    top = sorted(events, key=_device_us, reverse=True)[:6]
+    print(f"profiled prove, {name}: {sum(e.count for e in events)} device activities, "
+          f"{device_ms:.3f} ms device time, busy share "
+          f"{device_ms / 1e3 / median_wall:.3f} of the median wall; "
+          f"hand kernels {sum(kernel_ms.values()):.4f} ms "
+          f"{json.dumps({k: round(v, 4) for k, v in kernel_ms.items()})}; "
+          "top: " + "; ".join(f"{_device_us(e) / 1e3:.3f} ms x{e.count} {e.key[:60]}"
+                              for e in top), flush=True)
+    return kernel_ms
+
+
+def _wall(name, prover, verifier, trace, proof, runs) -> float:
+    """Prove/verify wall-time distribution; returns the prove median (s)."""
+    prove_s, verify_s = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        again = prover.prove(trace)
+        torch.cuda.synchronize()
+        prove_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        if again != proof or not verifier.verify(again):
+            raise AssertionError(f"{name}: proof not deterministic or rejected")
+        verify_s.append(time.perf_counter() - t0)
+    print(f"{name} wall over {runs} runs: prove s " + json.dumps(_quantiles(prove_s))
+          + ", verify s " + json.dumps(_quantiles(verify_s)), flush=True)
+    return _quantiles(prove_s)["median"]
+
+
+def _phases(name, prover, trace, runs: int = 5) -> None:
+    """Synchronised per-phase times, the median of ``runs`` proves (a
+    single prove may catch one of Python's full garbage collections)."""
+    from stark_tpu_torch.utils.profiling import PhaseTimer
+
+    samples: dict[str, list[float]] = {}
+    for _ in range(runs):
+        timer = PhaseTimer(sync=torch.cuda.synchronize)
+        prover.prove(trace, timer=timer)
+        for phase, ms in timer.ms().items():
+            samples.setdefault(phase, []).append(ms)
+    print(f"{name} prove phases (ms, synchronised, median and max of {runs} proves): "
+          + json.dumps({k: [round(float(np.median(v)), 3), round(max(v), 3)]
+                        for k, v in samples.items()}), flush=True)
+
+
+def _rejects(name, prover, verifier, trace, proof) -> None:
+    bad = bytearray(proof)
+    bad[100] ^= 1
+    if verifier.verify(bytes(bad)):
+        raise AssertionError(f"{name}: tampered proof accepted")
+    cheat = trace.copy()
+    row = len(trace) // 2
+    cheat[row, 0] = (int(cheat[row, 0]) + 1) % 998244353
+    if verifier.verify(prover.prove(cheat)):
+        raise AssertionError(f"{name}: proof of a wrong witness accepted")
+    print(f"{name}: flipped byte and changed witness row rejected", flush=True)
 
 
 def main() -> int:
@@ -193,10 +616,10 @@ def main() -> int:
         return 1
 
     from stark_tpu_torch import StarkConfig, StarkProver, StarkVerifier
-    from stark_tpu_torch.models import FibonacciAir, fibonacci_trace_mod_p
+    from stark_tpu_torch.models import get_model
     from stark_tpu_torch.ops import cuda
-    from stark_tpu_torch.utils.profiling import PhaseTimer
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
 
@@ -209,98 +632,100 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    cuda.library()
+    lib = cuda.library()
     print(f"build: CUDA kernels built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    _sass_mix(lib._name)
 
     # 3. kernels against their plain versions
-    results = _check_kernels(rng, dev)
+    results = _Results()
+    _check_ntt(rng, dev, results)
+    _check_fold(rng, dev, results)
+    _check_hash(rng, dev, results)
 
-    air = FibonacciAir()
+    # 4. pinned proof bytes
+    for (model, T, blowup, tests), want in PINNED.items():
+        air, trace_fn, _ = get_model(model)
+        cfg = StarkConfig(trace_length=T, blowup=blowup, num_colinearity_tests=tests)
+        trace = trace_fn(T)
+        for lazy in (False, True) if model == "fib" else (False,):
+            proof = StarkProver(air, cfg, lazy_ntt=lazy).prove(trace)
+            got = hashlib.sha256(proof).hexdigest()
+            if got != want:
+                raise AssertionError(f"{model} T={T} lazy={lazy}: sha256 {got} != pinned {want}")
+            if not StarkVerifier(air, cfg).verify(proof):
+                raise AssertionError(f"{model} T={T}: proof rejected")
+        print(f"proof {model} T={T} blowup={blowup} tests={tests}: {len(proof)} bytes, "
+              "verified, sha256 == stark_tpu's"
+              + (" (strict and lazy NTT)" if model == "fib" else ""), flush=True)
 
-    # 4-6. pinned proof bytes
-    for (T, tests), want in PINNED.items():
-        cfg = StarkConfig(trace_length=T, blowup=4, num_colinearity_tests=tests)
-        proof = StarkProver(air, cfg).prove(fibonacci_trace_mod_p(T))
-        got = hashlib.sha256(proof).hexdigest()
-        if got != want:
-            raise AssertionError(f"T={T}: proof sha256 {got} != pinned {want}")
-        print(f"proof T={T} tests={tests}: {len(proof)} bytes, sha256 == stark_tpu's",
-              flush=True)
+    lazy_names = {"ntt_pass1_lazy", "ntt_pass2_lazy"}
+    strict_names = {"ntt_pass1", "ntt_pass2"}
+    every = set(cuda.KERNELS)
+    launches: dict[str, dict[str, int]] = {}
 
-    # 7. the main path at T = 2^20
+    # 5. the main path: FibonacciAir at T = 2^20
+    name = "main path fib T=2^20"
+    air, trace_fn, _ = get_model("fib")
     cfg = StarkConfig(trace_length=MAIN_T, blowup=4, num_colinearity_tests=16)
-    trace = fibonacci_trace_mod_p(MAIN_T)
+    trace = trace_fn(MAIN_T)
     prover = StarkProver(air, cfg)
     verifier = StarkVerifier(air, cfg)
     if not verifier.verify(prover.prove(trace)):  # warm-up
-        raise AssertionError("T=2^20: warm-up proof rejected")
+        raise AssertionError(f"{name}: warm-up proof rejected")
     torch.cuda.reset_peak_memory_stats()
-    cuda.reset_launches()
-    proof = prover.prove(trace)
-    accepted = verifier.verify(proof)
-    counts = cuda.launch_counts()
-    if not accepted:
-        raise AssertionError("T=2^20: proof rejected")
-    sha = hashlib.sha256(proof).hexdigest()
-    if sha != MAIN_SHA256:
-        raise AssertionError(f"T=2^20: proof sha256 {sha} != pinned {MAIN_SHA256}")
-    missing = [name for name, c in counts.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the main path: {missing}")
-    for r in results:
-        r["launches"] = counts[r["name"]]
-    print(f"main path T=2^20: proved and verified, {len(proof)} bytes, sha256 == "
-          f"pinned, launches {counts}, peak device memory "
+    proof, counts = _prove_checked(name, prover, verifier, trace, MAIN_SHA256,
+                                   every - lazy_names, cuda)
+    launches["fib_2^20"] = counts
+    print(f"{name}: proved and verified, {len(proof)} bytes, sha256 == pinned, "
+          f"launches {counts}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    median = _wall(name, prover, verifier, trace, proof, MAIN_RUNS)
+    _phases(name, prover, trace)
+    _profiled_prove(name, prover, trace, counts, median, cuda)
+    _rejects(name, prover, verifier, trace, proof)
 
-    prove_s, verify_s = [], []
-    for _ in range(MAIN_RUNS):
-        t0 = time.perf_counter()
-        again = prover.prove(trace)
-        torch.cuda.synchronize()
-        prove_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        if again != proof or not verifier.verify(again):
-            raise AssertionError("T=2^20: proof not deterministic or rejected")
-        verify_s.append(time.perf_counter() - t0)
-    print(f"main path T=2^20 wall over {MAIN_RUNS} runs: prove s "
-          + json.dumps(_quantiles(prove_s)) + ", verify s "
-          + json.dumps(_quantiles(verify_s)), flush=True)
-
-    timer = PhaseTimer(sync=torch.cuda.synchronize)
-    prover.prove(trace, timer=timer)
-    print("prove phases (ms, synchronised): "
-          + json.dumps({k: round(v, 3) for k, v in timer.ms().items()}), flush=True)
-
-    events = _profile(lambda: prover.prove(trace), 1)
-    device_ms = sum(_device_us(e) for e in events) / 1e3
-    kernel_ms = {
-        k.name: sum(_device_us(e) for e in events if k.kernel_symbol in e.key) / 1e3
-        for k in cuda.KERNELS.values()
-    }
-    if not all(ms > 0 for ms in kernel_ms.values()):
-        raise AssertionError(f"profiled prove: a ported kernel shows no device time {kernel_ms}")
-    top = sorted(events, key=_device_us, reverse=True)[:6]
-    print(f"profiled prove: {sum(e.count for e in events)} device activities, "
-          f"{device_ms:.3f} ms device time, busy share "
-          f"{device_ms / 1e3 / _quantiles(prove_s)['median']:.3f} of the median wall; "
-          f"ported kernels (ms) {json.dumps({k: round(v, 4) for k, v in kernel_ms.items()})}; "
-          "top: " + "; ".join(f"{_device_us(e) / 1e3:.2f} ms x{e.count} {e.key[:70]}"
-                              for e in top), flush=True)
-
-    bad = bytearray(proof)
-    bad[100] ^= 1
-    if verifier.verify(bytes(bad)):
-        raise AssertionError("T=2^20: tampered proof accepted")
-    cheat = trace.copy()
-    cheat[MAIN_T // 2, 0] = (int(cheat[MAIN_T // 2, 0]) + 1) % 998244353
-    if verifier.verify(prover.prove(cheat)):
-        raise AssertionError("T=2^20: proof of a wrong witness accepted")
-    print("main path T=2^20: flipped byte and changed witness row rejected",
+    name = "main path fib T=2^20, lazy NTT"
+    lazy_prover = StarkProver(air, cfg, lazy_ntt=True)
+    lazy_prover.prove(trace)  # warm-up
+    _, counts = _prove_checked(name, lazy_prover, verifier, trace, MAIN_SHA256,
+                               every - strict_names, cuda)
+    launches["fib_2^20_lazy"] = counts
+    print(f"{name}: proved and verified, sha256 == pinned, launches {counts}",
           flush=True)
+    _profiled_prove(name, lazy_prover, trace, counts, median, cuda)
 
-    print(json.dumps({"kernels": results}), flush=True)
+    # 6. the wide path: MdsSquareAir at T = 2^16
+    name = "wide path mds T=2^16"
+    air, trace_fn, _ = get_model("mds")
+    cfg = StarkConfig(trace_length=MDS_T, blowup=4, num_colinearity_tests=16)
+    trace = trace_fn(MDS_T)
+    prover = StarkProver(air, cfg)
+    verifier = StarkVerifier(air, cfg)
+    if not verifier.verify(prover.prove(trace)):  # warm-up
+        raise AssertionError(f"{name}: warm-up proof rejected")
+    proof, counts = _prove_checked(name, prover, verifier, trace, MDS_SHA256,
+                                   every - lazy_names, cuda)
+    launches["mds_2^16"] = counts
+    print(f"{name}: proved and verified, {len(proof)} bytes, sha256 == stark_tpu's, "
+          f"launches {counts}", flush=True)
+    median = _wall(name, prover, verifier, trace, proof, MDS_RUNS)
+    _phases(name, prover, trace)
+    _profiled_prove(name, prover, trace, counts, median, cuda)
+    _rejects(name, prover, verifier, trace, proof)
+
+    for r in results.entries:
+        path = "fib_2^20_lazy" if r["name"] in lazy_names else "fib_2^20"
+        r["launches"] = launches[path][r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in launches.items()}
+    listed = {r["name"] for r in results.entries}
+    if listed != every:
+        raise AssertionError(f"kernels without a result: {sorted(every - listed)}")
+
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; "
+          f"{_retaken[0]} profile(s) came back empty or short and were taken again", flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": results.entries}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -11,8 +11,9 @@ the config.  What crosses over:
 * proofs — bytes, identical in both packages, <-> numpy u8.
 
 Digests cross with ``ops.hash_batch.digests_to_bytes`` / ``bytes_to_digests``:
-the port's ``(32, N)`` u8 tensors <-> numpy ``(N, 32)`` bytes, the layout of
-stark_tpu's host levels.
+the port's node-major ``(N, 32)`` u8 tensors <-> numpy ``(N, 32)`` bytes, the
+layout of stark_tpu's host levels (its device digests are byte-major,
+``(32, N)``: transpose those).
 """
 
 from __future__ import annotations

@@ -35,10 +35,40 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
   return r >= kP ? r - kP : r;
 }
 
-// Montgomery REDC(a * b) = a b 2^-32 mod p for a, b in [0, p).  The low
-// word of a b + m p is zero by the choice of m, so its carry into the high
-// word is 1 exactly when lo != 0; u < 2p before the final subtract, so the
-// result is canonical in [0, p).
+// Harvey's lazy butterflies keep values in [0, 2p) between NTT stages
+// (the JAX package's _addmod_lazy / _sub_lazy / _shoup_lazy,
+// stark_tpu/ops/ntt_fused.py:222-236): the subtract drops its select and
+// the Shoup multiply its final correction.  4p < 2^32, so nothing wraps.
+constexpr uint32_t kTwoP = 2u * kP;
+static_assert(2ull * kTwoP < (1ull << 32), "4p must fit in 32 bits");
+
+// a, b in [0, 2p) -> a + b mod p, in [0, 2p).
+__device__ __forceinline__ uint32_t add_lazy(uint32_t a, uint32_t b) {
+  const uint32_t s = a + b;  // < 4p < 2^32
+  return s >= kTwoP ? s - kTwoP : s;
+}
+
+// a, b in [0, 2p) -> a - b + 2p, in (0, 4p); feeds only shoup_lazy.
+__device__ __forceinline__ uint32_t sub_lazy(uint32_t a, uint32_t b) {
+  return a - b + kTwoP;
+}
+
+// (a * w) mod p or that plus p, in [0, 2p), for any a < 2^32.
+__device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w,
+                                               uint32_t ws) {
+  return a * w - __umulhi(a, ws) * kP;
+}
+
+// [0, 2p) -> [0, p).
+__device__ __forceinline__ uint32_t reduce_once(uint32_t a) {
+  return a >= kP ? a - kP : a;
+}
+
+// Montgomery REDC(a * b) = a b 2^-32 mod p for b in [0, p) and a in
+// [0, 2p) (the lazy butterflies hand pass 1 such an a).  The low word of
+// a b + m p is zero by the choice of m, so its carry into the high word is
+// 1 exactly when lo != 0; a b + m p < 2p p + 2^32 p, so u < 1.47 p < 2p
+// before the final subtract and the result is canonical in [0, p).
 __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
   const uint32_t lo = a * b;
   const uint32_t hi = __umulhi(a, b);

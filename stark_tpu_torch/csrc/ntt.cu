@@ -25,6 +25,12 @@
 // TPU's roll/iota partner fetch and VMEM ping-pong are Mosaic layout
 // devices with no counterpart here.
 //
+// Each pass has a strict and a lazy instantiation (the TPU bodies' lazy
+// flag, _dif_col_stages(..., lazy=True) :253): strict keeps every value in
+// [0, p); lazy keeps [0, 2p) between stages (field.cuh), which saves two
+// selects per butterfly.  Pass 1's REDC absorbs the [0, 2p) operand; pass 2
+// ends with one conditional subtract.  The outputs are bit-identical.
+//
 // What bounds it on the card: each pass moves 8 bytes per element through
 // device memory (pass 1 adds 4 for wm), and does lg_r butterflies per
 // element pair out of shared memory; at n = 2^22 a pass is ~32-48 MB of
@@ -38,9 +44,13 @@
 
 namespace {
 
+using stark::add_lazy;
 using stark::add_mod;
 using stark::mont_mul;
+using stark::reduce_once;
+using stark::shoup_lazy;
 using stark::shoup_mul;
+using stark::sub_lazy;
 using stark::sub_mod;
 
 constexpr int kMaxThreads = 512;
@@ -50,7 +60,7 @@ constexpr int kMaxThreads = 512;
 // shared-memory tile.  tw/tws: the 2^(lg_r - 1) powers of the column root
 // and their Shoup companions; stage s multiplies by tw[j << s].
 // wm: (2^lg_r, cols), read only when kTwiddle.
-template <bool kTwiddle>
+template <bool kTwiddle, bool kLazy>
 __device__ __forceinline__ void col_ntt(const uint32_t* __restrict__ x,
                                         uint32_t* __restrict__ out,
                                         const uint32_t* __restrict__ tw,
@@ -82,9 +92,15 @@ __device__ __forceinline__ void col_ntt(const uint32_t* __restrict__ x,
       const int i1 = i0 + (1 << lg_half);
       const uint32_t u = tile[(i0 << lg_tc) + c];
       const uint32_t v = tile[(i1 << lg_tc) + c];
-      tile[(i0 << lg_tc) + c] = add_mod(u, v);
-      tile[(i1 << lg_tc) + c] =
-          shoup_mul(sub_mod(u, v), tw[j << s], tws[j << s]);
+      if (kLazy) {
+        tile[(i0 << lg_tc) + c] = add_lazy(u, v);
+        tile[(i1 << lg_tc) + c] =
+            shoup_lazy(sub_lazy(u, v), tw[j << s], tws[j << s]);
+      } else {
+        tile[(i0 << lg_tc) + c] = add_mod(u, v);
+        tile[(i1 << lg_tc) + c] =
+            shoup_mul(sub_mod(u, v), tw[j << s], tws[j << s]);
+      }
     }
     __syncthreads();
   }
@@ -95,7 +111,11 @@ __device__ __forceinline__ void col_ntt(const uint32_t* __restrict__ x,
     const int src = (int)(__brev((unsigned)k) >> (32 - lg_r));
     uint32_t v = tile[(src << lg_tc) + c];
     const size_t off = (size_t)k * cols + c0 + c;
-    if (kTwiddle) v = mont_mul(v, wm[off]);
+    if (kTwiddle) {
+      v = mont_mul(v, wm[off]);  // canonical for v in [0, 2p) too
+    } else if (kLazy) {
+      v = reduce_once(v);
+    }
     out[base + off] = v;
   }
 }
@@ -130,27 +150,21 @@ int launch_col_ntt(ColNttKernel kernel, const void* x, void* out,
 // plainly (stark_*_kernel); the host entries below launch them.
 extern "C" {
 
-__global__ void __launch_bounds__(kMaxThreads)
-    stark_ntt_pass1_kernel(const uint32_t* __restrict__ x,
-                           uint32_t* __restrict__ out,
-                           const uint32_t* __restrict__ tw,
-                           const uint32_t* __restrict__ tws,
-                           const uint32_t* __restrict__ wm, int lg_r,
-                           int cols, int lg_tc) {
-  extern __shared__ uint32_t tile[];
-  col_ntt<true>(x, out, tw, tws, wm, lg_r, cols, lg_tc, tile);
-}
+#define STARK_COL_NTT_KERNEL(NAME, TWIDDLE, LAZY)                            \
+  __global__ void __launch_bounds__(kMaxThreads)                             \
+      NAME(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,       \
+           const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tws, \
+           const uint32_t* __restrict__ wm, int lg_r, int cols, int lg_tc) { \
+    extern __shared__ uint32_t tile[];                                       \
+    col_ntt<TWIDDLE, LAZY>(x, out, tw, tws, wm, lg_r, cols, lg_tc, tile);    \
+  }
 
-__global__ void __launch_bounds__(kMaxThreads)
-    stark_ntt_pass2_kernel(const uint32_t* __restrict__ x,
-                           uint32_t* __restrict__ out,
-                           const uint32_t* __restrict__ tw,
-                           const uint32_t* __restrict__ tws,
-                           const uint32_t* __restrict__ wm, int lg_r,
-                           int cols, int lg_tc) {
-  extern __shared__ uint32_t tile[];
-  col_ntt<false>(x, out, tw, tws, wm, lg_r, cols, lg_tc, tile);
-}
+STARK_COL_NTT_KERNEL(stark_ntt_pass1_kernel, true, false)
+STARK_COL_NTT_KERNEL(stark_ntt_pass1_lazy_kernel, true, true)
+STARK_COL_NTT_KERNEL(stark_ntt_pass2_kernel, false, false)
+STARK_COL_NTT_KERNEL(stark_ntt_pass2_lazy_kernel, false, true)
+
+#undef STARK_COL_NTT_KERNEL
 
 // (batch, rows, cols) -> (batch, cols, rows) through a padded 32 x 33
 // shared-memory tile, so both the read and the write are coalesced.
@@ -182,10 +196,26 @@ int stark_ntt_pass1(const void* x, void* out, const void* tw, const void* tws,
                         lg_r, cols, lg_tc, stream);
 }
 
+// K1, lazy butterflies: the same function, bit for bit.
+int stark_ntt_pass1_lazy(const void* x, void* out, const void* tw,
+                         const void* tws, const void* wm, int batch, int lg_r,
+                         int cols, int lg_tc, void* stream) {
+  return launch_col_ntt(stark_ntt_pass1_lazy_kernel, x, out, tw, tws, wm,
+                        batch, lg_r, cols, lg_tc, stream);
+}
+
 // K2: (batch, 2^lg_r, cols) column NTTs.
 int stark_ntt_pass2(const void* x, void* out, const void* tw, const void* tws,
                     int batch, int lg_r, int cols, int lg_tc, void* stream) {
   return launch_col_ntt(stark_ntt_pass2_kernel, x, out, tw, tws, nullptr,
+                        batch, lg_r, cols, lg_tc, stream);
+}
+
+// K2, lazy butterflies: the same function, bit for bit.
+int stark_ntt_pass2_lazy(const void* x, void* out, const void* tw,
+                         const void* tws, int batch, int lg_r, int cols,
+                         int lg_tc, void* stream) {
+  return launch_col_ntt(stark_ntt_pass2_lazy_kernel, x, out, tw, tws, nullptr,
                         batch, lg_r, cols, lg_tc, stream);
 }
 

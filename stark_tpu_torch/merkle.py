@@ -1,21 +1,21 @@
 """Merkle commitment trees.  Contract: reference src/merkle.rs:4-96.
 
-Counterpart of stark_tpu/merkle.py.  Constructors:
-
-* ``MerkleTree(leaves)`` — from a list of :class:`Hash` leaves, mirroring
-  ``MerkleTree::new`` (merkle.rs:11-38).  Host-side.
-* ``MerkleTree.from_leaf_values(values)`` / ``from_leaf_digests`` — leaf
-  hashing and every level at least ``_DEVICE_MIN_WIDTH`` wide run on the
-  tensor's device (ops/hash_batch) and stay there, as ``(32, w)`` uint8
-  tensors in natural node order; the narrower top of the tree is built by
-  the host C engine from one ~32 KB transfer, which also yields the root
-  (narrow levels are launch-bound on the device).  A numpy input, or one
-  narrower than the cutover, builds on the host entirely.
-
-Authentication paths gather every device level's siblings in one indexed
-read and one transfer (:meth:`open_batch`).  Level bytes equal the scalar
+Counterpart of stark_tpu/merkle.py.  A tree is one **level stack**
+(ops/hash_batch): a ``(2W - 1, 32)`` uint8 tensor with the W leaf digests
+first, then each level above, the root last - level bytes equal the scalar
 construction (merkle.rs:18-29: pairwise ``Hash::combine`` bottom-up, every
-level kept).
+level kept).  Constructors:
+
+* ``MerkleTree(leaves)`` - from a list of :class:`Hash` leaves, mirroring
+  ``MerkleTree::new`` (merkle.rs:11-38).  Host engine.
+* ``MerkleTree.from_leaf_values(values)`` / ``from_rows`` /
+  ``from_leaf_digests`` - for a tensor of any width, the leaf hash (kernel
+  K5/K6) writes straight into the stack on the tensor's device and K7/K8
+  build every level to the root there; the host reads back 32 bytes.  A
+  numpy input builds in the host C engine, and its stack is a CPU tensor.
+
+Authentication paths are one gather over the stack and one transfer
+(:meth:`open_batch`), whichever engine built it.
 """
 
 from __future__ import annotations
@@ -27,30 +27,23 @@ from stark_tpu_torch import native
 from stark_tpu_torch.hashfn import Hash
 from stark_tpu_torch.ops import hash_batch as HB
 
-# Tree levels at least this wide are built and kept on device; narrower
-# levels are built on the host (stark_tpu/merkle.py:33).
-_DEVICE_MIN_WIDTH = 1024
-
-
-def _host_levels(leaf_bytes: np.ndarray) -> list[np.ndarray]:
-    """(w, 32) u8 leaf digests -> every level as (w_l, 32) u8, leaf first."""
-    return native.merkle_levels(leaf_bytes)
+def _host_stack(leaf_bytes: np.ndarray) -> torch.Tensor:
+    """(w, 32) u8 leaf digests -> the level stack, by the C engine."""
+    levels = native.merkle_levels(leaf_bytes)
+    return torch.from_numpy(np.concatenate(levels, axis=0))
 
 
 def _to_device(values, device) -> torch.Tensor:
     if isinstance(values, np.ndarray):
-        values = torch.from_numpy(values.astype(np.int64))
-    return values.to(device)
+        values = torch.from_numpy(values.astype(np.int64)).to(torch.int32)
+    return values if device is None else values.to(device)
 
 
 class MerkleTree:
-    """``_dev_levels``: (32, w) u8 tensors, widest first, each at least
-    ``_DEVICE_MIN_WIDTH`` wide (empty for host trees).  ``_top_levels``:
-    (w, 32) u8 numpy levels continuing below the last device level down to
-    the root."""
+    """``_stack``: the (2W - 1, 32) u8 level stack, on the device that built
+    it."""
 
-    def __init__(self, leaves=None, *, _dev_levels=(), _top_levels=None):
-        self._dev_levels = list(_dev_levels)
+    def __init__(self, leaves=None, *, _stack: torch.Tensor | None = None):
         if leaves is not None:
             assert len(leaves) > 0, "Cannot create tree from empty leaves"
             n = len(leaves)
@@ -58,73 +51,75 @@ class MerkleTree:
             arr = np.frombuffer(
                 b"".join(h.data for h in leaves), dtype=np.uint8
             ).reshape(n, 32)
-            self._top_levels = _host_levels(arr)
-        else:
-            assert _top_levels is not None
-            self._top_levels = list(_top_levels)
+            _stack = _host_stack(arr)
+        assert _stack is not None
+        self._stack = _stack
+        self.num_leaves = (int(_stack.shape[0]) + 1) // 2
 
     # -- constructors --------------------------------------------------------
 
     @staticmethod
-    def from_leaf_values(values, device=None) -> "MerkleTree":
-        """leaf_i = Hash::from_field_elements([v_i]) — the FRI codeword
-        commitment (fri.rs:117-128).  ``values``: (n,) tensor or numpy of
-        reduced field values.  ``device``: where to hash; by default the
-        tensor's own device, or the host engine for numpy input."""
+    def from_rows(values, device=None) -> "MerkleTree":
+        """leaf_i = Hash::from_field_elements(column i) of the (c, n)
+        ``values`` (tensor or numpy of reduced field values) - the trace
+        commitment.  ``device``: where to hash; by default the tensor's own
+        device, or the host engine for numpy input."""
         if device is not None:
             values = _to_device(values, device)
-        n = int(values.shape[0])
+        n = int(values.shape[1])
         assert n > 0 and n & (n - 1) == 0
-        if isinstance(values, np.ndarray) or n < _DEVICE_MIN_WIDTH:
-            host = (
-                values if isinstance(values, np.ndarray) else values.cpu().numpy()
-            )
-            digests = native.hash_u64s(host.astype(np.uint64))
-            return MerkleTree(_top_levels=_host_levels(digests))
-        return MerkleTree._finish_device(HB.leaf_hash(values))
+        if isinstance(values, np.ndarray):
+            if values.shape[0] == 1:
+                digests = native.hash_u64s(values[0].astype(np.uint64))
+            else:
+                # The C engine hashes single values only: host rows go
+                # through the row hash's plain version.
+                digests = HB.digests_to_bytes(HB.hash_rows(_to_device(values, None)))
+            return MerkleTree(_stack=_host_stack(digests))
+        stack = torch.empty((2 * n - 1, 32), dtype=torch.uint8, device=values.device)
+        HB.hash_rows(values, stack[:n])
+        return MerkleTree(_stack=HB.merkle_build(stack))
+
+    @staticmethod
+    def from_leaf_values(values, device=None) -> "MerkleTree":
+        """leaf_i = Hash::from_field_elements([v_i]) - the FRI codeword
+        commitment (fri.rs:117-128).  ``values``: (n,) tensor or numpy;
+        ``device`` as in :meth:`from_rows`."""
+        return MerkleTree.from_rows(values[None, :], device)
 
     @staticmethod
     def from_leaf_digests(digests, device=None) -> "MerkleTree":
-        """From leaf digests: (N, 32) u8 numpy bytes or a (32, N) u8 tensor.
-        ``device`` as in :meth:`from_leaf_values`."""
+        """From (N, 32) u8 leaf digests, numpy bytes or a tensor.
+        ``device`` as in :meth:`from_rows`."""
         if device is not None and isinstance(digests, np.ndarray):
             digests = HB.bytes_to_digests(digests, device)
         elif device is not None:
             digests = digests.to(device)
         if isinstance(digests, np.ndarray):
-            return MerkleTree(_top_levels=_host_levels(digests))
-        if digests.shape[1] < _DEVICE_MIN_WIDTH:
-            return MerkleTree(_top_levels=_host_levels(HB.digests_to_bytes(digests)))
-        return MerkleTree._finish_device(digests)
-
-    @staticmethod
-    def _finish_device(leaf_digests: torch.Tensor) -> "MerkleTree":
-        dev = [leaf_digests]
-        while dev[-1].shape[1] > _DEVICE_MIN_WIDTH:
-            dev.append(HB.merkle_level(dev[-1]))
-        top = _host_levels(HB.digests_to_bytes(dev[-1]))
-        return MerkleTree(_dev_levels=dev, _top_levels=top[1:])
+            return MerkleTree(_stack=_host_stack(digests))
+        n = int(digests.shape[0])
+        assert n > 0 and n & (n - 1) == 0
+        stack = torch.empty((2 * n - 1, 32), dtype=torch.uint8, device=digests.device)
+        stack[:n] = digests
+        return MerkleTree(_stack=HB.merkle_build(stack))
 
     # -- level access --------------------------------------------------------
 
     @property
     def levels(self) -> list[np.ndarray]:
         """All levels as host (w, 32) u8 bytes, leaf level first."""
-        return [HB.digests_to_bytes(lv) for lv in self._dev_levels] + list(
-            self._top_levels
-        )
-
-    @property
-    def num_leaves(self) -> int:
-        if self._dev_levels:
-            return int(self._dev_levels[0].shape[1])
-        return int(self._top_levels[0].shape[0])
+        host = HB.digests_to_bytes(self._stack)
+        n = self.num_leaves
+        return [
+            host[HB.level_offset(n, l) : HB.level_offset(n, l + 1)]
+            for l in range(n.bit_length())
+        ]
 
     # -- queries (merkle.rs:40-96) -------------------------------------------
 
     @property
     def root(self) -> Hash:
-        return Hash(self._top_levels[-1][0].tobytes())
+        return Hash(self._stack[-1].cpu().numpy().tobytes())
 
     @staticmethod
     def commit(leaves) -> Hash:
@@ -136,31 +131,22 @@ class MerkleTree:
         assert index < self.num_leaves, "Index out of bounds"
         return self.open_batch([index])[0]
 
-    def _open_top(self, index: int) -> list[Hash]:
-        proof = []
-        idx = index
-        for level in self._top_levels[:-1]:
-            sibling = idx + 1 if idx % 2 == 0 else idx - 1
-            proof.append(Hash(level[sibling].tobytes()))
-            idx //= 2
-        return proof
-
     def open_batch(self, indices: list[int]) -> list[list[Hash]]:
-        """Authentication paths for many indices: the device levels' part
-        in one gather and one transfer, the host top appended."""
-        if not self._dev_levels:
-            return [self._open_top(i) for i in indices]
-        idx = torch.tensor(indices, dtype=torch.int64)
-        idx = idx.to(self._dev_levels[0].device)
-        sib = torch.stack(
-            [lv[:, (idx >> l) ^ 1] for l, lv in enumerate(self._dev_levels)]
-        )  # (L_dev, 32, k)
-        sib = sib.permute(2, 0, 1).cpu().numpy()  # (k, L_dev, 32)
-        shift = len(self._dev_levels)
+        """Authentication paths for many indices: the sibling on level l of
+        leaf i is row ``level_offset(l) + ((i >> l) ^ 1)`` of the stack, so
+        all of them come in one gather and one transfer."""
+        n = self.num_leaves
+        depth = n.bit_length() - 1
+        if depth == 0:
+            return [[] for _ in indices]
+        idx = np.asarray(indices, dtype=np.int64)[:, None]
+        lv = np.arange(depth, dtype=np.int64)[None, :]
+        rows = (2 * n - ((2 * n) >> lv)) + ((idx >> lv) ^ 1)  # (k, depth)
+        rows = torch.from_numpy(rows.reshape(-1)).to(self._stack.device)
+        sib = self._stack[rows].cpu().numpy().reshape(len(indices), depth, 32)
         return [
-            [Hash(sib[q, l].tobytes()) for l in range(shift)]
-            + self._open_top(i >> shift)
-            for q, i in enumerate(indices)
+            [Hash(sib[q, l].tobytes()) for l in range(depth)]
+            for q in range(len(indices))
         ]
 
     @staticmethod

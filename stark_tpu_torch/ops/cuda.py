@@ -1,8 +1,8 @@
 """Build, bind and count the port's hand-written CUDA kernels (csrc/).
 
-Route: ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ctypes.  The build happens at
-the first launch (never at import: the CPU tests import every module), into
+Route: one ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a``
+(``--threads 0``: the sources side by side) into one shared library with a
+plain C interface, loaded with ctypes.  The build happens at the first launch (never at import: the CPU tests import every module), into
 ``stark_tpu_torch/_build/`` (utils/build.py).  Each C entry launches on the
 stream it is given and returns ``cudaGetLastError()``; :meth:`Kernel.launch`
 raises on a non-zero code.  Kernels allocate nothing: wrappers pass
@@ -25,11 +25,11 @@ import torch
 from stark_tpu_torch.utils.build import PACKAGE_DIR, build_library
 
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
-SOURCES = ("ntt.cu", "fold.cu")
-HEADERS = ("field.cuh",)
+SOURCES = ("ntt.cu", "fold.cu", "hash.cu")
+HEADERS = ("field.cuh", "hash.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--threads", "0", "-shared", "-Xcompiler", "-fPIC",
 ]
 
 ptr = ctypes.c_void_p
@@ -106,11 +106,12 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def check_operand(t: torch.Tensor, name: str) -> None:
-    """Kernel operands: contiguous int32 tensors on a CUDA device."""
+def check_operand(t: torch.Tensor, name: str,
+                  dtype: torch.dtype = torch.int32) -> None:
+    """Kernel operands: contiguous tensors of ``dtype`` on a CUDA device."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -114,7 +114,7 @@ def shoup_precompute(w):
     return ((w << np.uint64(32)) // np.uint64(P)).astype(np.uint32)
 
 
-def powers(base: int, n: int, scale: int = 1, device="cpu") -> torch.Tensor:
+def powers(base: int, n: int, scale: int = 1, *, device) -> torch.Tensor:
     """(n,) int64 tensor of scale * base^i mod p, built on ``device`` by
     log-doubling (about log2 n ops, no host transfer)."""
     base %= P

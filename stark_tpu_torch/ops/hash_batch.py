@@ -1,13 +1,36 @@
-"""Device-vectorized commitment hash: N leaves hashed in parallel.
+"""Device commitment hash and Merkle levels: kernels K5-K8 (csrc/hash.cu),
+their wrappers, and the plain PyTorch version of each.
 
-Counterpart of stark_tpu/ops/hash_batch.py (``leaf_hash_core`` :219,
-``row_hash_core`` :246, ``combine_core`` :232, ``digests_to_bytes`` :1051),
-bit-exact with the host engines in hashfn.py (reference src/hash.rs).
+Counterpart of stark_tpu/ops/hash_batch.py, bit-exact with the host engines
+in hashfn.py (reference src/hash.rs):
 
-The 32-byte state of every lane is one stacked ``(32, N)`` uint8 tensor —
-the JAX package's ``_mix_stacked`` form (:100-113) — so each hash step is
-one torch op over all lanes, and uint8 wrapping IS the hash's mod-256
-arithmetic:
+    hash_rows     K5/K6  (c, N) field values -> N digests, lane i the hash
+                         of column i's 8c little-endian bytes
+                         (leaf_hash_rows_core :279 is c = 1,
+                         row_hash_rows_core :290 any c);
+    merkle_level  K7     W node digests -> W/2 parents, parent j =
+                         hash(node 2j || node 2j+1) (level_rows_core :329);
+    merkle_tail   K8     W node digests -> every level above them, down to
+                         the root (_tail_levels_core :433): a block builds
+                         a subtree of 2^10 nodes in shared memory;
+    merkle_build         fills a whole tree's level stack from its leaf
+                         level: K7 for levels wider than TAIL_CUTOVER, K8
+                         from there to the root.
+
+**Layout.**  Digests are node-major ``(N, 32)`` uint8 tensors: node j is
+the 32 contiguous bytes at 32 j.  (The JAX package keeps them byte-major,
+``(32, N)``, a TPU-lane habit; its tests' side transposes.)  A thread reads
+a digest as two 16-byte words, a parent's input left || right is the 64
+contiguous bytes at 64 j, and it is already the host and wire layout, so
+``digests_to_bytes`` is a plain copy.  A tree is one **level stack**, a
+``(2W - 1, 32)`` tensor holding level 0 (the W leaves) first, then W/2
+parents, ... and the root last - the layout of native.merkle_levels - so
+an authentication path is one gather over it.
+
+On a CUDA tensor every wrapper launches its kernel or raises; the plain
+versions (``*_plain``: torch uint8 ops on a stacked byte-major state, where
+uint8 wrapping IS the hash's mod-256 arithmetic) serve CPU tensors and the
+comparisons:
 
 * sbox, the 4-byte-group XOR mixing and the round constants are
   elementwise;
@@ -19,19 +42,43 @@ arithmetic:
   i+7, so byte i depends only on steps i-7 and earlier: runs of 7 bytes
   are independent and go as one slice op each (5 runs per 32-byte chunk
   instead of 32 steps).
-
-These are plain torch ops on the card too; hand kernels for the hash
-(the leaf, row and combine digests and the Merkle levels) are later work.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from stark_tpu_torch.hashfn import PRIMES, ROUND_CONSTANTS
+from stark_tpu_torch.ops import cuda
+
+_SRC = "stark_tpu_torch/csrc/hash.cu"
+_I64 = ctypes.c_longlong
+HASH_ROWS = cuda.Kernel(
+    "hash_rows", "stark_hash_rows", [cuda.ptr] * 2 + [cuda.i32, _I64],
+    source=_SRC, replaces="stark_tpu/ops/hash_batch.py:290",
+)
+MERKLE_LEVEL = cuda.Kernel(
+    "merkle_level", "stark_merkle_level", [cuda.ptr] * 2 + [_I64],
+    source=_SRC, replaces="stark_tpu/ops/hash_batch.py:329",
+)
+MERKLE_TAIL = cuda.Kernel(
+    "merkle_tail", "stark_merkle_tail", [cuda.ptr] * 2 + [_I64, cuda.i32],
+    source=_SRC, replaces="stark_tpu/ops/hash_batch.py:433",
+)
+
+#: log2 of the subtree a K8 block owns (csrc/hash.cu kTailLg).
+TAIL_LG = 10
+#: Levels wider than this go to K7, one launch each; from this width down
+#: K8 builds the rest of the tree.  (The counterpart of the JAX package's
+#: FUSE_MAX_WIDTH.)  K7 keeps every thread hashing; in K8 half of a block's
+#: threads drop out per level, which pays only where a level is too narrow
+#: to fill the card.  Set from chip_smoke.py's cutover sweep on an H100
+#: (PERF.md).
+TAIL_CUTOVER = 1 << 16
 
 
 @functools.lru_cache(maxsize=8)
@@ -106,34 +153,172 @@ def _value_bytes(values: torch.Tensor) -> torch.Tensor:
     return out.reshape(8 * c, n)
 
 
-def row_hash(values: torch.Tensor) -> torch.Tensor:
-    """(c, N) field values -> (32, N) digests:
-    Hash::from_field_elements(row) per lane (hash.rs:7-35), the row's c
-    values as 8c LE bytes.  For c = 1 this is the per-value leaf hash."""
-    return _hash_chunks(_value_bytes(values))
+# ---------------------------------------------------------------------------
+# Plain versions (torch uint8 ops; node-major at the boundary).
+# ---------------------------------------------------------------------------
+
+def hash_rows_plain(values: torch.Tensor) -> torch.Tensor:
+    """(c, N) field values -> (N, 32) digests:
+    Hash::from_field_elements(column) per lane (hash.rs:7-35), the c values
+    as 8c LE bytes.  For c = 1 this is the per-value leaf hash."""
+    return _hash_chunks(_value_bytes(values)).T.contiguous()
 
 
-def leaf_hash(values: torch.Tensor) -> torch.Tensor:
-    """(N,) field values -> (32, N) digests: Hash::from_field_elements(&[v])."""
-    return row_hash(values[None, :])
-
-
-def combine(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """(32, N) x (32, N) -> (32, N): Hash::combine per lane (hash.rs:41-46),
+def combine_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """(N, 32) x (N, 32) -> (N, 32): Hash::combine per lane (hash.rs:41-46),
     the 64-byte input left || right."""
-    return _hash_chunks(torch.cat([left, right], dim=0))
+    return _hash_chunks(torch.cat([left, right], dim=1).T).T.contiguous()
 
 
-def merkle_level(nodes: torch.Tensor) -> torch.Tensor:
-    """(32, W) node digests -> (32, W/2) parents (pairwise combine)."""
-    return combine(nodes[:, 0::2], nodes[:, 1::2])
+def merkle_level_plain(nodes: torch.Tensor) -> torch.Tensor:
+    """(W, 32) node digests -> (W/2, 32) parents (pairwise combine)."""
+    return _hash_chunks(nodes.reshape(-1, 64).T).T.contiguous()
+
+
+def merkle_tail_plain(nodes: torch.Tensor) -> torch.Tensor:
+    """(W, 32) node digests -> (W - 1, 32): every level above them, widest
+    first, the root last."""
+    levels = []
+    while nodes.shape[0] > 1:
+        nodes = merkle_level_plain(nodes)
+        levels.append(nodes)
+    if not levels:
+        return nodes.new_empty((0, 32))
+    return torch.cat(levels, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+def _check_digests(t: torch.Tensor, name: str) -> None:
+    """Digest operands: (N, 32) uint8, contiguous rows."""
+    if t.dim() != 2 or t.shape[1] != 32 or t.dtype != torch.uint8:
+        raise ValueError(
+            f"{name} must be (N, 32) uint8 digests, got "
+            f"{tuple(t.shape)} {t.dtype}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_card_digests(t: torch.Tensor, name: str) -> None:
+    """The kernels move digests as 16-byte words."""
+    cuda.check_operand(t, name, torch.uint8)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _output(out, n: int, like: torch.Tensor) -> torch.Tensor:
+    if out is None:
+        return torch.empty((n, 32), dtype=torch.uint8, device=like.device)
+    _check_digests(out, "out")
+    if out.shape[0] != n or out.device != like.device:
+        raise ValueError(
+            f"out must hold {n} digests on {like.device}, got "
+            f"{out.shape[0]} on {out.device}"
+        )
+    return out
+
+
+def hash_rows(values: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K5/K6: (c, N) int32 field values -> (N, 32) digests, written into
+    ``out`` when given (a slice of a level stack)."""
+    if values.dim() != 2 or values.shape[0] < 1:
+        raise ValueError(f"expected (c, N) values, c >= 1, got {tuple(values.shape)}")
+    c, n = values.shape
+    out = _output(out, n, values)
+    if values.device.type == "cpu":
+        out.copy_(hash_rows_plain(values))
+        return out
+    cuda.check_operand(values, "values")
+    _check_card_digests(out, "out")
+    if n:
+        HASH_ROWS.launch(values.device, values.data_ptr(), out.data_ptr(), c, n)
+    return out
+
+
+def leaf_hash(values: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: (N,) field values -> (N, 32) digests,
+    Hash::from_field_elements(&[v]) per value."""
+    return hash_rows(values[None, :], out)
+
+
+def merkle_level(nodes: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K7: (W, 32) node digests -> (W/2, 32) parents."""
+    _check_digests(nodes, "nodes")
+    w = nodes.shape[0]
+    if w < 2 or w % 2:
+        raise ValueError(f"a level needs an even number of nodes, got {w}")
+    out = _output(out, w // 2, nodes)
+    if nodes.device.type == "cpu":
+        out.copy_(merkle_level_plain(nodes))
+        return out
+    _check_card_digests(nodes, "nodes")
+    _check_card_digests(out, "out")
+    MERKLE_LEVEL.launch(nodes.device, nodes.data_ptr(), out.data_ptr(), w // 2)
+    return out
+
+
+def merkle_tail(nodes: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """K8: (W, 32) node digests, W a power of two -> (W - 1, 32), every
+    level above them (widest first, the root last).  One launch covers up
+    to TAIL_LG levels: a block per 2^TAIL_LG nodes."""
+    _check_digests(nodes, "nodes")
+    w = nodes.shape[0]
+    if not _pow2(w):
+        raise ValueError(f"a subtree needs a power-of-two width, got {w}")
+    out = _output(out, w - 1, nodes)
+    if nodes.device.type == "cpu":
+        out.copy_(merkle_tail_plain(nodes))
+        return out
+    _check_card_digests(nodes, "nodes")
+    _check_card_digests(out, "out")
+    src, pos = nodes, 0
+    while w > 1:
+        lg_sub = min(w.bit_length() - 1, TAIL_LG)
+        MERKLE_TAIL.launch(
+            nodes.device, src.data_ptr(), out[pos:].data_ptr(), w, lg_sub
+        )
+        top = w >> lg_sub
+        pos += w - top
+        src, w = out[pos - top : pos], top
+    return out
+
+
+def merkle_build(stack: torch.Tensor) -> torch.Tensor:
+    """Fill a level stack in place: ``stack`` is (2W - 1, 32) with the W
+    leaf digests in its first W rows; every level above is written behind
+    them, the root last.  Levels wider than TAIL_CUTOVER come from K7, the
+    rest from K8."""
+    _check_digests(stack, "stack")
+    w = (stack.shape[0] + 1) // 2
+    if not _pow2(w) or stack.shape[0] != 2 * w - 1:
+        raise ValueError(f"a level stack has 2W - 1 rows, got {stack.shape[0]}")
+    pos = 0
+    while w > TAIL_CUTOVER:
+        merkle_level(stack[pos : pos + w], stack[pos + w : pos + w + w // 2])
+        pos += w
+        w //= 2
+    if w > 1:
+        merkle_tail(stack[pos : pos + w], stack[pos + w :])
+    return stack
+
+
+def level_offset(num_leaves: int, level: int) -> int:
+    """Row of level ``level``'s first node in a level stack."""
+    return 2 * num_leaves - ((2 * num_leaves) >> level)
 
 
 def digests_to_bytes(digests: torch.Tensor) -> np.ndarray:
-    """(32, N) u8 digest tensor -> (N, 32) u8 host array."""
-    return np.ascontiguousarray(digests.cpu().numpy().T)
+    """(N, 32) u8 digest tensor -> (N, 32) u8 host array."""
+    return digests.cpu().numpy()
 
 
-def bytes_to_digests(arr: np.ndarray, device="cpu") -> torch.Tensor:
-    """(N, 32) u8 host array -> (32, N) u8 digest tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(arr.T)).to(device)
+def bytes_to_digests(arr: np.ndarray, device) -> torch.Tensor:
+    """(N, 32) u8 host array -> (N, 32) u8 digest tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint8)).to(device)

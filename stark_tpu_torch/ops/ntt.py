@@ -10,9 +10,10 @@ coset domains):
 
 Every transform goes through the four-step kernels of ops/ntt_fused.py
 (their plain versions on a CPU tensor); the coset scalings are int64 torch
-ops.  The host numpy engine at the bottom serves the verifier's tiny
-last-codeword check (fri.rs:360-397 replacement), which never touches the
-device.
+ops.  ``lazy`` picks the kernels' [0, 2p) butterflies (bit-identical
+output); strict is the default, as in the JAX package.  The host numpy
+engine at the bottom serves the verifier's tiny last-codeword check
+(fri.rs:360-397 replacement), which never touches the device.
 """
 
 from __future__ import annotations
@@ -25,30 +26,32 @@ from stark_tpu_torch.ops import ntt_fused as NTF
 from stark_tpu_torch.ops.fieldops import P
 
 
-def ntt(coeffs: torch.Tensor) -> torch.Tensor:
+def ntt(coeffs: torch.Tensor, lazy: bool = False) -> torch.Tensor:
     """Forward NTT: coeffs (..., n) -> evaluations at omega^i, natural order."""
-    return NTF.fused_ntt(coeffs, inverse=False)
+    return NTF.fused_ntt(coeffs, inverse=False, lazy=lazy)
 
 
-def intt(evals: torch.Tensor) -> torch.Tensor:
+def intt(evals: torch.Tensor, lazy: bool = False) -> torch.Tensor:
     """Inverse NTT: evaluations at omega^i -> coefficients."""
-    return NTF.fused_ntt(evals, inverse=True)
+    return NTF.fused_ntt(evals, inverse=True, lazy=lazy)
 
 
-def coset_eval(coeffs: torch.Tensor, offset: int) -> torch.Tensor:
+def coset_eval(coeffs: torch.Tensor, offset: int,
+               lazy: bool = False) -> torch.Tensor:
     """Evaluate on {offset * omega^i}: f(off * x) has coefficients
     c_k * off^k, which a plain NTT evaluates on the omega-domain."""
     off = offset % P
     if off == 1:
-        return ntt(coeffs)
+        return ntt(coeffs, lazy)
     scale = F.powers(off, coeffs.shape[-1], device=coeffs.device)
-    return ntt(F.mulmod(coeffs, scale).to(torch.int32))
+    return ntt(F.mulmod(coeffs, scale).to(torch.int32), lazy)
 
 
-def coset_interp(values: torch.Tensor, offset: int) -> torch.Tensor:
+def coset_interp(values: torch.Tensor, offset: int,
+                 lazy: bool = False) -> torch.Tensor:
     """Interpolate values on {offset * omega^i}: the iNTT gives the
     coefficients of f(off * x); undo the scale."""
-    coeffs = intt(values)
+    coeffs = intt(values, lazy)
     off = offset % P
     if off == 1:
         return coeffs
@@ -56,13 +59,14 @@ def coset_interp(values: torch.Tensor, offset: int) -> torch.Tensor:
     return F.mulmod(coeffs, scale).to(torch.int32)
 
 
-def lde(coeffs: torch.Tensor, blowup: int, offset: int) -> torch.Tensor:
+def lde(coeffs: torch.Tensor, blowup: int, offset: int,
+        lazy: bool = False) -> torch.Tensor:
     """Low-degree extension: zero-pad coeffs (..., n) to n*blowup and
     evaluate on the size-(n*blowup) coset {offset * Omega^i}."""
     n = coeffs.shape[-1]
     assert blowup & (blowup - 1) == 0
     padded = torch.nn.functional.pad(coeffs, (0, n * blowup - n))
-    return coset_eval(padded, offset)
+    return coset_eval(padded, offset, lazy)
 
 
 # ---------------------------------------------------------------------------

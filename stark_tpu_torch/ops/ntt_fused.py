@@ -21,6 +21,14 @@ launches its kernel (or raises), on a CPU tensor it runs its plain version
 (int64 torch ops).  There is no size gate: every power of two n >= 4 takes
 the kernels on the card.  :func:`ntt_plain`, a radix-2 Stockham, is the
 plain version of the whole chain.
+
+K1 and K2 each come strict and lazy (``lazy=True``, the JAX package's flag
+of the same name): the lazy butterflies keep values in [0, 2p) between
+stages, drop the subtract's select and the Shoup multiply's final
+correction, and give bit-identical output.  They are kernels of their own
+(``ntt_pass1_lazy``, ``ntt_pass2_lazy``) with their own launch counts; the
+lazy plain versions follow the kernels' DIF stages and [0, 2p) arithmetic
+step by step and assert every range the kernels rely on.
 """
 
 from __future__ import annotations
@@ -49,6 +57,14 @@ TRANSPOSE = cuda.Kernel(
 )
 PASS2 = cuda.Kernel(
     "ntt_pass2", "stark_ntt_pass2", [cuda.ptr] * 4 + [cuda.i32] * 4,
+    source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:409",
+)
+PASS1_LAZY = cuda.Kernel(
+    "ntt_pass1_lazy", "stark_ntt_pass1_lazy", PASS1.argtypes,
+    source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:383",
+)
+PASS2_LAZY = cuda.Kernel(
+    "ntt_pass2_lazy", "stark_ntt_pass2_lazy", PASS2.argtypes,
     source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:409",
 )
 
@@ -169,7 +185,66 @@ def _col_ntt(x3: torch.Tensor, inverse: bool) -> torch.Tensor:
     return _stockham(x3.long().transpose(1, 2), r, inverse).transpose(1, 2)
 
 
-def pass1_plain(x3: torch.Tensor, plan: FusedNTTPlan) -> torch.Tensor:
+_U32 = (1 << 32) - 1
+_TWO_P = 2 * P
+_PINV_NEG = (-pow(P, -1, 1 << 32)) % (1 << 32)  # csrc/field.cuh kPinvNeg
+
+
+def _umulhi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """floor(a * b / 2^32) for int64 tensors of u32 values (the product
+    may pass 2^63, so b goes in 16-bit halves)."""
+    return (a * (b >> 16) + (a * (b & 0xFFFF) >> 16)) >> 16
+
+
+def _in_range(t: torch.Tensor, bound: int, what: str) -> None:
+    if not bool(((t >= 0) & (t < bound)).all()):
+        raise AssertionError(f"lazy NTT: {what} left [0, {bound})")
+
+
+def _col_ntt_lazy(x3: torch.Tensor, tw: torch.Tensor,
+                  tws: torch.Tensor) -> torch.Tensor:
+    """(B, r, c) values in [0, p) -> int64 column transforms in [0, 2p),
+    natural row order: the lazy kernels' DIF stages, one by one
+    (csrc/field.cuh add_lazy / sub_lazy / shoup_lazy)."""
+    b, r, c = x3.shape
+    lg_r = r.bit_length() - 1
+    a = x3.long()
+    w_all, ws_all = tw.long(), tws.long() & _U32
+    for s in range(lg_r):
+        half = r >> (s + 1)
+        a4 = a.reshape(b, 1 << s, 2 * half, c)
+        u, v = a4[:, :, :half], a4[:, :, half:]
+        j = torch.arange(half, device=a.device) << s
+        w, ws = w_all[j][:, None], ws_all[j][:, None]
+        total = u + v
+        top = torch.where(total >= _TWO_P, total - _TWO_P, total)
+        d = u - v + _TWO_P
+        _in_range(d, 2 * _TWO_P, "a - b + 2p")
+        bot = (d * w - _umulhi(d, ws) * P) & _U32
+        a = torch.cat([top, bot], dim=2).reshape(b, r, c)
+        _in_range(a, _TWO_P, f"stage {s}")
+    rows = torch.arange(r, device=a.device)
+    rev = torch.zeros_like(rows)
+    for bit in range(lg_r):
+        rev |= ((rows >> bit) & 1) << (lg_r - 1 - bit)
+    return a[:, rev]
+
+
+def _mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """csrc/field.cuh mont_mul word by word: a in [0, 2p), b in [0, p)."""
+    prod = a * b  # < 2p * p < 2^61
+    lo, hi = prod & _U32, prod >> 32
+    m = lo * _PINV_NEG & _U32
+    u = hi + (m * P >> 32) + (lo != 0)
+    _in_range(u, _TWO_P, "REDC before its final subtract")
+    return torch.where(u >= P, u - P, u)
+
+
+def pass1_plain(x3: torch.Tensor, plan: FusedNTTPlan,
+                lazy: bool = False) -> torch.Tensor:
+    if lazy:
+        y = _col_ntt_lazy(x3, plan.tw1, plan.tw1_shoup)
+        return _mont_mul_plain(y, plan.wm.long()).to(torch.int32)
     y = _col_ntt(x3, plan.inverse)
     return (y * plan.wm.long() % P * F.R_INV % P).to(torch.int32)
 
@@ -178,7 +253,11 @@ def transpose_plain(y3: torch.Tensor) -> torch.Tensor:
     return y3.transpose(1, 2).contiguous()
 
 
-def pass2_plain(y3: torch.Tensor, plan: FusedNTTPlan) -> torch.Tensor:
+def pass2_plain(y3: torch.Tensor, plan: FusedNTTPlan,
+                lazy: bool = False) -> torch.Tensor:
+    if lazy:
+        z = _col_ntt_lazy(y3, plan.tw2, plan.tw2_shoup)
+        return torch.where(z >= P, z - P, z).to(torch.int32)
     return _col_ntt(y3, plan.inverse).to(torch.int32)
 
 
@@ -196,14 +275,15 @@ def _check_batch(x3: torch.Tensor, rows: int, cols: int) -> None:
         raise ValueError(f"expected (B, {rows}, {cols}), got {tuple(x3.shape)}")
 
 
-def ntt_pass1(x3: torch.Tensor, plan: FusedNTTPlan) -> torch.Tensor:
+def ntt_pass1(x3: torch.Tensor, plan: FusedNTTPlan,
+              lazy: bool = False) -> torch.Tensor:
     """K1 on a (B, n1, n2) int32 batch."""
     _check_batch(x3, plan.n1, plan.n2)
     if x3.device.type == "cpu":
-        return pass1_plain(x3, plan)
+        return pass1_plain(x3, plan, lazy)
     cuda.check_operand(x3, "x")
     out = torch.empty_like(x3)
-    PASS1.launch(
+    (PASS1_LAZY if lazy else PASS1).launch(
         x3.device, x3.data_ptr(), out.data_ptr(), plan.tw1.data_ptr(),
         plan.tw1_shoup.data_ptr(), plan.wm.data_ptr(), x3.shape[0],
         plan.lg1, plan.n2, _lg_tile(plan.lg1, plan.n2),
@@ -224,14 +304,15 @@ def ntt_transpose(y3: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def ntt_pass2(y3: torch.Tensor, plan: FusedNTTPlan) -> torch.Tensor:
+def ntt_pass2(y3: torch.Tensor, plan: FusedNTTPlan,
+              lazy: bool = False) -> torch.Tensor:
     """K2 on a (B, n2, n1) int32 batch."""
     _check_batch(y3, plan.n2, plan.n1)
     if y3.device.type == "cpu":
-        return pass2_plain(y3, plan)
+        return pass2_plain(y3, plan, lazy)
     cuda.check_operand(y3, "y")
     out = torch.empty_like(y3)
-    PASS2.launch(
+    (PASS2_LAZY if lazy else PASS2).launch(
         y3.device, y3.data_ptr(), out.data_ptr(), plan.tw2.data_ptr(),
         plan.tw2_shoup.data_ptr(), y3.shape[0], plan.lg2, plan.n1,
         _lg_tile(plan.lg2, plan.n1),
@@ -239,13 +320,15 @@ def ntt_pass2(y3: torch.Tensor, plan: FusedNTTPlan) -> torch.Tensor:
     return out
 
 
-def fused_ntt(x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def fused_ntt(x: torch.Tensor, inverse: bool = False,
+              lazy: bool = False) -> torch.Tensor:
     """(..., n) int32 in [0, p) -> (..., n) int32 (i)NTT, natural order,
     through K1 -> K3 -> K2 (their plain versions on the CPU).  Same
-    contract as stark_tpu's ops/ntt.ntt / intt."""
+    contract as stark_tpu's ops/ntt.ntt / intt; ``lazy`` selects the
+    [0, 2p) butterflies (bit-identical output)."""
     if x.dtype != torch.int32:
         raise ValueError(f"expected int32 field values, got {x.dtype}")
     plan = get_plan(x.shape[-1], inverse, x.device)
     x3 = x.reshape(-1, plan.n1, plan.n2).contiguous()
-    z = ntt_pass2(ntt_transpose(ntt_pass1(x3, plan)), plan)
+    z = ntt_pass2(ntt_transpose(ntt_pass1(x3, plan, lazy)), plan, lazy)
     return z.reshape(x.shape)

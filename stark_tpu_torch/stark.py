@@ -6,7 +6,8 @@ challenges, device data path.  Protocol (prover):
  1. Interpolate each trace register over the trace domain {w^i} (iNTT)
     and low-degree-extend onto the evaluation coset {g * W^j},
     |coset| = T * blowup (NTT) — kernels K1-K3.             [device]
- 2. Merkle-commit the trace LDE (row hashes); absorb the root.
+ 2. Merkle-commit the trace LDE (row hashes K6, tree K7/K8); absorb the
+    root.                                                   [device]
  3. Draw two Fiat-Shamir challenges (alpha_k, beta_k) per constraint; the
     transcript absorbs each challenge's 8 LE bytes (challenge() is pure).
  4. Evaluate transition constraints pointwise on the coset, divide by the
@@ -34,7 +35,6 @@ from stark_tpu_torch.fri import Fri, _verify_paths_batch
 from stark_tpu_torch.merkle import MerkleTree
 from stark_tpu_torch.models.air import Air, BatchOps, BoundaryConstraint, ScalarOps
 from stark_tpu_torch.ops import fieldops as F
-from stark_tpu_torch.ops import hash_batch as HB
 from stark_tpu_torch.ops import ntt as NTT
 from stark_tpu_torch.ops.fieldops import GENERATOR, P, primitive_nth_root
 from stark_tpu_torch.stream import FieldElements, MerklePath, MerkleRoot, ProofStream
@@ -165,9 +165,12 @@ def _draw_constraint_challenges(fs: FiatShamir, field: FiniteField, count: int):
 
 class StarkProver:
     """Proves on ``device`` (default ``cuda``; the CPU runs every kernel's
-    plain version).  Deterministic: no randomness anywhere."""
+    plain version).  ``lazy_ntt`` takes the NTT kernels' [0, 2p)
+    butterflies; the proof bytes are the same.  Deterministic: no
+    randomness anywhere."""
 
-    def __init__(self, air: Air, cfg: StarkConfig, device="cuda"):
+    def __init__(self, air: Air, cfg: StarkConfig, device="cuda",
+                 lazy_ntt: bool = False):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -177,6 +180,7 @@ class StarkProver:
         self.air = air
         self.cfg = cfg
         self.device = device
+        self.lazy_ntt = lazy_ntt
         self.dom = d = _Domain(cfg, air)
         self.fri = d.fri()
         # Trace-independent (N,) domain tables, int64 on the device.
@@ -244,13 +248,16 @@ class StarkProver:
             assert len(trace_rows) == d.T
             cols = witness_to_device(trace_rows, self.device)
             assert tuple(cols.shape) == (self.air.num_registers, d.T)
-            trace_lde = NTT.lde(NTT.intt(cols), cfg.blowup, d.offset)  # (c, N)
+            trace_lde = NTT.lde(
+                NTT.intt(cols, self.lazy_ntt), cfg.blowup, d.offset, self.lazy_ntt
+            )  # (c, N)
 
-        # 2. commit the trace (row digests on the device, narrow top on host)
+        # 2. commit the trace: row digests and every tree level  [device]
         with timer.phase("trace_commit"):
-            trace_tree = MerkleTree.from_leaf_digests(HB.row_hash(trace_lde))
-            stream.push(MerkleRoot(trace_tree.root))
-            fs.absorb(trace_tree.root.data)
+            trace_tree = MerkleTree.from_rows(trace_lde)
+            root = trace_tree.root  # one 32-byte read from the device
+            stream.push(MerkleRoot(root))
+            fs.absorb(root.data)
 
         # 3. constraint-combination challenges (host transcript)
         with timer.phase("challenges"):

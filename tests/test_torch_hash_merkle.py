@@ -1,10 +1,13 @@
 """The port's commitment hash and Merkle trees against stark_tpu.
 
-Golden digests; the native C engine against the numpy engine; the stacked
-uint8 torch hash (ops/hash_batch) against stark_tpu's numpy leaf / row /
-combine cores; tree levels, roots and authentication paths against
-stark_tpu.merkle.MerkleTree at widths 2^4..2^12 (both sides of the 1024-wide
-device/host cutover).  Tolerance zero: bytes must match.
+Golden digests; the native C engine against the numpy engine; the plain
+versions of kernels K5-K8 (ops/hash_batch: row hash, level, subtree level
+stack) against stark_tpu's numpy leaf / row / combine cores, the numpy
+scalar hash and the C engine; tree levels, roots and authentication paths
+against stark_tpu.merkle.MerkleTree at widths 2^4..2^12.  The port keeps digests node-major (N, 32)
+and stark_tpu byte-major (32, N), so stark_tpu's side is transposed.
+Tolerance zero: bytes must match.  On a card only (marker ``gpu``): each
+kernel against its plain version.
 """
 
 import numpy as np
@@ -16,7 +19,8 @@ from stark_tpu_torch.hashfn import Hash as THash
 from stark_tpu_torch.hashfn import hash_bytes, hash_bytes_np
 from stark_tpu_torch.merkle import MerkleTree as TTree
 from stark_tpu_torch.ops import hash_batch as THB
-from torch_port_support import rand_field, to_torch
+from stark_tpu_torch.ops import cuda
+from torch_port_support import cuda_device, rand_field, to_torch  # noqa: F401
 
 GOLDEN_HASHES = {
     b"": "f2de8d1dbca64572c0310f32459054b28a30a5aa56ade96fa7d71fe77b536a66",
@@ -61,7 +65,7 @@ def test_native_matches_numpy_engine():
 @pytest.mark.parametrize("n", [1, 5, 1000])
 def test_leaf_hash_matches_stark_tpu(jHB, n):
     v = rand_field(np.random.default_rng(n), n)
-    want = jHB.leaf_hash_core(np, v)
+    want = jHB.leaf_hash_core(np, v).T
     got = THB.leaf_hash(to_torch(v)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(THB.digests_to_bytes(THB.leaf_hash(to_torch(v))),
@@ -70,26 +74,31 @@ def test_leaf_hash_matches_stark_tpu(jHB, n):
 
 @pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 8])
 def test_row_hash_matches_stark_tpu(jHB, c):
+    # Partial chunks (c = 1, 2, 3, 5) and multi-chunk absorbs (c = 5, 8).
     v = rand_field(np.random.default_rng(c), (c, 300))
-    np.testing.assert_array_equal(
-        THB.row_hash(to_torch(v)).numpy(), jHB.row_hash_core(np, v)
-    )
+    got = THB.hash_rows_plain(to_torch(v)).numpy()
+    np.testing.assert_array_equal(got, jHB.row_hash_core(np, v).T)
+    np.testing.assert_array_equal(THB.hash_rows(to_torch(v)).numpy(), got)
+    for lane in (0, 1, 299):
+        message = b"".join(int(x).to_bytes(8, "little") for x in v[:, lane])
+        assert got[lane].tobytes() == hash_bytes_np(message)
 
 
 def test_combine_matches_stark_tpu(jHB):
     rng = np.random.default_rng(3)
-    left = rng.integers(0, 256, size=(32, 500), dtype=np.uint8)
-    right = rng.integers(0, 256, size=(32, 500), dtype=np.uint8)
-    got = THB.combine(torch.from_numpy(left), torch.from_numpy(right)).numpy()
-    np.testing.assert_array_equal(got, jHB.combine_core(np, left, right))
+    left = rng.integers(0, 256, size=(500, 32), dtype=np.uint8)
+    right = rng.integers(0, 256, size=(500, 32), dtype=np.uint8)
+    got = THB.combine_plain(torch.from_numpy(left), torch.from_numpy(right)).numpy()
+    np.testing.assert_array_equal(got, jHB.combine_core(np, left.T, right.T).T)
     np.testing.assert_array_equal(
         THB.merkle_level(torch.from_numpy(left)).numpy(),
-        jHB.merkle_level_np(left),
+        jHB.merkle_level_np(np.ascontiguousarray(left.T)).T,
     )
     np.testing.assert_array_equal(
-        THB.digests_to_bytes(torch.from_numpy(left)), jHB.digests_to_bytes(left)
+        THB.digests_to_bytes(torch.from_numpy(left)),
+        jHB.digests_to_bytes(np.ascontiguousarray(left.T)),
     )
-    np.testing.assert_array_equal(THB.bytes_to_digests(left.T).numpy(), left)
+    np.testing.assert_array_equal(THB.bytes_to_digests(left, "cpu").numpy(), left)
 
 
 @pytest.mark.parametrize("lg", range(4, 13))
@@ -126,10 +135,12 @@ def test_tree_from_row_digests_matches_stark_tpu(jHB, n):
 
     v = rand_field(np.random.default_rng(n), (2, n))
     jt = JTree.from_leaf_digests(jHB.digests_to_bytes(jHB.row_hash_core(np, v)))
-    tt = TTree.from_leaf_digests(THB.row_hash(to_torch(v)))
+    tt = TTree.from_leaf_digests(THB.hash_rows(to_torch(v)))
     assert tt.root.data == jt.root.data
-    host_bytes = THB.digests_to_bytes(THB.row_hash(to_torch(v)))
+    host_bytes = THB.digests_to_bytes(THB.hash_rows(to_torch(v)))
     assert TTree.from_leaf_digests(host_bytes, device="cpu").root == tt.root
+    assert TTree.from_rows(to_torch(v)).root == tt.root
+    assert TTree.from_rows(v).root == tt.root
     idx = [1, n - 2, 77]
     for got, want in zip(tt.open_batch(idx), jt.open_batch(idx)):
         assert [h.data for h in got] == [h.data for h in want]
@@ -141,3 +152,124 @@ def test_scalar_tree_constructor():
     assert TTree.commit(leaves) == tree.root
     for i in range(8):
         assert TTree.verify(leaves[i], i, tree.open(i), tree.root)
+
+
+@pytest.mark.parametrize("w", [2, 64, 1024, 4096])
+def test_tail_level_stack_matches_stark_tpu_and_native(w, monkeypatch):
+    from stark_tpu.merkle import MerkleTree as JTree
+
+    leaves = np.random.default_rng(w).integers(0, 256, size=(w, 32), dtype=np.uint8)
+    got = THB.merkle_tail_plain(torch.from_numpy(leaves)).numpy()
+    assert got.shape == (w - 1, 32)
+    want = native.merkle_levels(leaves)[1:]
+    np.testing.assert_array_equal(got, np.concatenate(want))
+    for a, b in zip(want, JTree.from_leaf_digests(leaves).levels[1:]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(THB.merkle_tail(torch.from_numpy(leaves)).numpy(), got)
+    # A whole stack, K7's and K8's plain versions on either side of the
+    # cutover between them.
+    for cutover in (1, 16, THB.TAIL_CUTOVER):
+        monkeypatch.setattr(THB, "TAIL_CUTOVER", cutover)
+        stack = torch.zeros((2 * w - 1, 32), dtype=torch.uint8)
+        stack[:w] = torch.from_numpy(leaves)
+        np.testing.assert_array_equal(THB.merkle_build(stack)[w:].numpy(), got)
+    assert [THB.level_offset(w, l) for l in (0, 1)] == [0, w]
+    assert THB.level_offset(w, w.bit_length() - 1) == 2 * w - 2
+
+
+def test_wrappers_reject_bad_operands():
+    good = torch.zeros((4, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        THB.merkle_level(torch.zeros((32, 4), dtype=torch.uint8))  # byte-major
+    with pytest.raises(ValueError):
+        THB.merkle_level(torch.zeros((3, 32), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        THB.merkle_tail(torch.zeros((6, 32), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        THB.merkle_level(good, out=torch.zeros((3, 32), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        THB.hash_rows(torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        THB.merkle_build(torch.zeros((6, 32), dtype=torch.uint8))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    cuda.reset_launches()
+    v = to_torch(rand_field(np.random.default_rng(5), (2, 2048)))
+    TTree.from_rows(v).open_batch([0, 7])
+    assert all(c == 0 for c in cuda.launch_counts().values())
+
+
+@pytest.mark.parametrize("op", ["hash_rows", "merkle_level", "merkle_tail", "ntt"])
+def test_non_cpu_tensor_never_takes_the_plain_version(op):
+    # A tensor that is not on the CPU must reach the kernel's operand check
+    # (which refuses anything but a CUDA tensor), never the plain version:
+    # a meta tensor stands in for a card that is not there.
+    from stark_tpu_torch.ops import ntt_fused as NTF
+
+    digests = torch.zeros((4, 32), dtype=torch.uint8, device="meta")
+    values = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    call = {
+        "hash_rows": lambda: THB.hash_rows(values),
+        "merkle_level": lambda: THB.merkle_level(digests),
+        "merkle_tail": lambda: THB.merkle_tail(digests),
+        "ntt": lambda: NTF.fused_ntt(values, lazy=True),
+    }[op]
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        call()
+
+
+def test_launch_without_a_compiler_raises():
+    import shutil
+
+    if shutil.which("nvcc") or torch.cuda.is_available():
+        pytest.skip("a CUDA toolchain is present")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        THB.HASH_ROWS.launch(torch.device("cuda"), 0, 0, 1, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("n", [2, 1024, 1 << 20])
+def test_hash_rows_kernel_matches_plain_on_card(cuda_device, c, n):
+    v = to_torch(rand_field(np.random.default_rng(c * n), (c, n)), cuda_device)
+    before = cuda.launch_counts()["hash_rows"]
+    got = THB.hash_rows(v)
+    assert cuda.launch_counts()["hash_rows"] == before + 1
+    assert torch.equal(got, THB.hash_rows_plain(v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 2048, 1 << 22])
+def test_level_kernel_matches_plain_on_card(cuda_device, w):
+    nodes = torch.from_numpy(
+        np.random.default_rng(w).integers(0, 256, size=(w, 32), dtype=np.uint8)
+    ).to(cuda_device)
+    before = cuda.launch_counts()["merkle_level"]
+    got = THB.merkle_level(nodes)
+    assert cuda.launch_counts()["merkle_level"] == before + 1
+    assert torch.equal(got, THB.merkle_level_plain(nodes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 64, 1024, 1 << 14, 1 << 16])
+def test_tail_kernel_matches_plain_and_native_on_card(cuda_device, w):
+    leaves = np.random.default_rng(w).integers(0, 256, size=(w, 32), dtype=np.uint8)
+    nodes = torch.from_numpy(leaves).to(cuda_device)
+    before = cuda.launch_counts()["merkle_tail"]
+    got = THB.merkle_tail(nodes)
+    assert cuda.launch_counts()["merkle_tail"] > before
+    assert torch.equal(got, THB.merkle_tail_plain(nodes))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), np.concatenate(native.merkle_levels(leaves)[1:])
+    )
+
+
+@pytest.mark.gpu
+def test_tree_on_card_matches_host_engine(cuda_device):
+    n = 1 << 18
+    v = rand_field(np.random.default_rng(18), (3, n))
+    card, host = TTree.from_rows(to_torch(v, cuda_device)), TTree.from_rows(v)
+    assert card.root == host.root
+    idx = [0, n - 1, 12345, n // 2]
+    assert card.open_batch(idx) == host.open_batch(idx)

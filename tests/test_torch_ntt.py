@@ -1,7 +1,7 @@
 """The port's NTT against stark_tpu: the plain torch paths on the CPU
-(bit-equal, tolerance zero), the four-step plan tables against the Pallas
-engine's, and — on a card only — kernels K1-K3 against their plain
-versions.
+(bit-equal, tolerance zero), strict and lazy, the four-step plan tables
+against the Pallas engine's, and — on a card only — kernels K1-K3 and the
+lazy K1/K2 against their plain versions.
 
 On a CPU tensor ops/ntt routes through the plain versions of the three
 four-step kernels, so these tests hold the kernels' decomposition (plan
@@ -77,6 +77,48 @@ def test_four_step_matches_pallas_kernel(n, inverse):
     np.testing.assert_array_equal(to_numpy(got), want)
 
 
+@pytest.mark.parametrize("n,inverse", [(1 << 16, False), (1 << 16, True)])
+def test_lazy_matches_strict_and_pallas_lazy_kernel(n, inverse):
+    # The TPU kernel's lazy body in interpret mode; the port's lazy plain
+    # versions follow the same [0, 2p) butterflies and assert their ranges.
+    from stark_tpu.ops.ntt_fused import fused_ntt
+
+    x = _input(n, 1, 17 * n + inverse)
+    want = np.asarray(fused_ntt(x, inverse=inverse, interpret=True, lazy=True))
+    t = to_torch(x)
+    np.testing.assert_array_equal(to_numpy(NTF.fused_ntt(t, inverse, lazy=True)), want)
+    np.testing.assert_array_equal(to_numpy(NTF.fused_ntt(t, inverse)), want)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [4, 64, 4096])
+def test_lazy_plain_matches_strict_plain(n, inverse, batch):
+    x = to_torch(_input(n, batch, 19 * n + inverse))
+    strict = NTF.fused_ntt(x, inverse)
+    assert torch.equal(NTF.fused_ntt(x, inverse, lazy=True), strict)
+    assert torch.equal(NTF.ntt_plain(x, inverse), strict)
+    # Each pass on its own, on the same operands.
+    plan = NTF.get_plan(n, inverse, torch.device("cpu"))
+    x3 = x.reshape(-1, plan.n1, plan.n2)
+    y3 = NTF.pass1_plain(x3, plan)
+    assert torch.equal(NTF.pass1_plain(x3, plan, lazy=True), y3)
+    yt = NTF.transpose_plain(y3)
+    assert torch.equal(NTF.pass2_plain(yt, plan, lazy=True), NTF.pass2_plain(yt, plan))
+    # The public transforms carry the flag.
+    assert torch.equal(TN.lde(x, 4, 3, lazy=True), TN.lde(x, 4, 3))
+    assert torch.equal(TN.coset_interp(x, 3, lazy=True), TN.coset_interp(x, 3))
+
+
+def test_lazy_plain_asserts_its_ranges():
+    # Operands outside [0, p) break the [0, 2p) invariant the lazy kernels
+    # rely on; the plain version must notice, not wrap silently.
+    plan = NTF.get_plan(64, False, torch.device("cpu"))
+    bad = torch.full((1, plan.n1, plan.n2), -5, dtype=torch.int32)
+    with pytest.raises(AssertionError):
+        NTF.pass2_plain(bad.transpose(1, 2).contiguous(), plan, lazy=True)
+
+
 @pytest.mark.parametrize("n", [1 << 14, 1 << 16, 1 << 17])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_plan_tables_match_pallas_plan(n, inverse):
@@ -150,3 +192,27 @@ def test_kernels_match_plain_on_card(cuda_device, n, batch, inverse):
     yt = NTF.ntt_transpose(y3)
     assert torch.equal(yt, NTF.transpose_plain(y3))
     assert torch.equal(NTF.ntt_pass2(yt, plan), NTF.pass2_plain(yt, plan))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1 << 6, 1 << 10, 1 << 16, 1 << 17, 1 << 20, 1 << 22])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_lazy_kernels_match_plain_on_card(cuda_device, n, batch, inverse):
+    x = to_torch(_input(n, batch, n + batch), cuda_device)
+    before = cuda.launch_counts()
+    got = NTF.fused_ntt(x, inverse, lazy=True)
+    after = cuda.launch_counts()
+    for name in ("ntt_pass1_lazy", "ntt_transpose", "ntt_pass2_lazy"):
+        assert after[name] == before[name] + 1
+    for name in ("ntt_pass1", "ntt_pass2"):
+        assert after[name] == before[name]
+    assert torch.equal(got, NTF.fused_ntt(x, inverse))
+    assert torch.equal(got, NTF.ntt_plain(x, inverse))
+    plan = NTF.get_plan(n, inverse, cuda_device)
+    x3 = x.reshape(-1, plan.n1, plan.n2)
+    y3 = NTF.ntt_pass1(x3, plan, lazy=True)
+    assert torch.equal(y3, NTF.pass1_plain(x3, plan, lazy=True))
+    yt = NTF.ntt_transpose(y3)
+    assert torch.equal(NTF.ntt_pass2(yt, plan, lazy=True),
+                       NTF.pass2_plain(yt, plan, lazy=True))

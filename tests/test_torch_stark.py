@@ -89,6 +89,8 @@ def test_cheating_witness_rejected(row):
 def test_verify_skill_smoke_t1024():
     cfg = dict(trace_length=1024, blowup=4, num_colinearity_tests=16)
     proof = _prove(cfg, fibonacci_trace_mod_p(1024))
+    lazy = StarkProver(FibonacciAir(), StarkConfig(**cfg), device="cpu", lazy_ntt=True)
+    assert lazy.prove(fibonacci_trace_mod_p(1024)) == proof
     assert _verify(cfg, proof)
     assert hashlib.sha256(proof).hexdigest() == (
         "db5758edd257e895c25f040e3952b6aaebc8e3c5d25ef1408713b3710d2d5559"
@@ -118,15 +120,20 @@ def test_default_device_requires_cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lazy", [False, True])
 @pytest.mark.parametrize("T,tests,want", [
     (64, 4, GOLDEN_T64),
     (1024, 16, "db5758edd257e895c25f040e3952b6aaebc8e3c5d25ef1408713b3710d2d5559"),
 ])
-def test_card_proof_bytes(cuda_device, T, tests, want):
+def test_card_proof_bytes(cuda_device, T, tests, want, lazy):
     cfg = dict(trace_length=T, blowup=4, num_colinearity_tests=tests)
+    prover = StarkProver(FibonacciAir(), StarkConfig(**cfg), cuda_device, lazy_ntt=lazy)
     cuda.reset_launches()
-    proof = _prove(cfg, fibonacci_trace_mod_p(T), cuda_device)
-    assert all(c > 0 for c in cuda.launch_counts().values())
+    proof = prover.prove(fibonacci_trace_mod_p(T))
+    counts = cuda.launch_counts()
+    passes = ("ntt_pass1_lazy", "ntt_pass2_lazy") if lazy else ("ntt_pass1", "ntt_pass2")
+    launched = {"ntt_transpose", "fri_fold", "hash_rows", "merkle_tail", *passes}
+    assert all(counts[k] > 0 for k in launched)
     assert hashlib.sha256(proof).hexdigest() == want
     assert _verify(cfg, proof)
     assert not _verify(cfg, _prove(cfg, _cheat(fibonacci_trace_mod_p(T), 3), cuda_device))
