@@ -16,21 +16,26 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       the wide path's, at 2^16 and 2^18), and each kernel alone at the
       shapes of the main path (batch 1: iNTT 2^20, NTT 2^22) and of the
       wide path (batch 8: iNTT 2^16, NTT 2^18), with a strict/lazy A/B of
-      device time;
+      device time; K1 and K2 alone, strict and lazy, at every n from 2^2
+      to 2^22 with batch 1, 3 and 8 (every column length from 2 to 2^11,
+      so every grouping of the stages into register rounds);
     - the FRI fold (K4) at every half from 2^21 down to 128;
     - the row hash (K5/K6) for c = 1 at every N from 2 to 2^22 and for c in
       {2, 3, 5, 8} at N in {2, 1024, 2^18, 2^20}, one tree level (K7) at W
       in {2, 2048, 2^17 .. 2^22}, the subtree kernel (K8) at every W from 2
-      to 2^16 against its plain level stack and the host C engine, and a
-      whole W = 2^22 tree's root and 16 opened paths against the host
-      engine;
+      to 2^16 against its plain level stack and the host C engine, then
+      for subtrees of 2^1, 2^4, 2^6, 2^8, 2^9 and 2^10 nodes at the widths
+      just below, at and above a launch's two boundaries (one block; the
+      widest top the last block takes), and a whole W = 2^22 tree's root
+      and 16 opened paths against the host engine;
     - kernel, plain and (K3) library-call times: device time per call from
       torch.profiler, every call on another set of buffers out of at least
       128 MiB of them, so the operands come from device memory and not
       from the 50 MB L2 a repeated call would hit; each kernel's bound
       from its bytes and operations;
     - the SM clock under a hash load, and the instruction rate it gives;
-    - the K7/K8 cutover sweep behind hash_batch.TAIL_CUTOVER;
+    - the K7/K8 cutover sweep behind hash_batch.TAIL_CUTOVER and the
+      subtree-size sweep behind hash_batch.tail_sub_lg;
  4. proofs whose sha256 must equal the JAX package's (stark_tpu on the CPU,
     pinned below): FibonacciAir at T=64, 1024 and 2^16, strict and lazy
     NTT; the example AIRs (two-register Fibonacci, square, cube at blowup 8,
@@ -40,8 +45,10 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     to 0 just before and read just after (every strict kernel > 0), the
     pinned sha256, the prove and verify wall-time distribution, the
     synchronised per-phase times (median of 5 proves), one profiled prove (device time under
-    every launched kernel's name > 0, device activities, busy share), a
-    flipped byte and a changed witness row rejected; then the same prove
+    every launched kernel's name > 0, device activities, busy share), the
+    bound of every K8 launch of a prove at its own width summed beside
+    the time measured for them, a flipped byte and a changed witness row
+    rejected; then the same prove
     with the lazy NTT kernels (counts, sha256, profile);
  6. the wide path, MdsSquareAir (8 registers) at T=2^16, blowup 4, 16 tests
     (N = 2^18): counts, the sha256 pinned from stark_tpu, wall times,
@@ -101,6 +108,13 @@ HASH_LANES = (2, 1024, 1 << 18, 1 << 20)
 LEAF_LANES = tuple(1 << lg for lg in range(1, 23))
 LEVEL_WIDTHS = (2, 2048) + tuple(1 << lg for lg in range(17, 23))
 TAIL_WIDTHS = tuple(1 << lg for lg in range(1, 17))
+# log2 of K8's subtree sizes that are held against the plain version, each
+# at lg W = lg_sub - 1, lg_sub, lg_sub + 1 (one block or several) and
+# lg_sub + 9, + 10, + 11 (the last block's top at its widest, and one
+# launch more), as far as they lie in 1..TAIL_MAX_LG_W.
+TAIL_SUBTREES = (1, 4, 6, 8, 9, 10)
+TAIL_MAX_LG_W = 20
+PASS_LGS = tuple(range(2, 23))  # K1/K2 alone: n = 2^lg, batch 1, 3, 8
 # A timed call takes the next of so many sets of buffers that this many
 # bytes pass between two uses of one set: more than twice the card's 50 MB
 # L2, so every timed call reads its operands from device memory.
@@ -114,18 +128,30 @@ CYCLE_BYTES = 128 << 20
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12 / 2
 
-# Integer operations, as the kernels' sources write them.
-OPS_BUTTERFLY = {False: 11, True: 8}  # add 3 + sub 3 + Shoup 5; lazy 3 + 2 + 3
+# Integer operations, as the kernels' sources write them: the fewest known
+# for each function, so that no kernel can be faster than its bound.  A
+# butterfly is add 3 + sub 3 + Shoup 5 (lazy 3 + 2 + 3), whether its stage
+# runs out of shared memory or in a register round.  The hash as
+# csrc/hash.cuh writes it since the masks went and the state stays scaled
+# between mix rounds spends 6.5 per state byte and mix round (sbox:
+# multiply-add, shift, bit select; group XOR 1.5; the diffusion's two
+# multiply-adds) and 5 per absorbed byte (add, two shifts, bit select,
+# XOR).  Until then the count was 9 per byte and round (sbox 5: multiply, mask, rotate 2, XOR;
+# group XOR 1; sum 1; round constant 2), OPS_MIX_BEFORE: the bounds on
+# that count are printed beside the new ones, so that times from before
+# and after can be read on one yardstick.
+OPS_BUTTERFLY = {False: 11, True: 8}
 OPS_MONT = 8                          # the REDC of pass 1, per element
 OPS_FOLD = 25                         # two Shoup, one REDC, sub, two adds
-OPS_ABSORB_BYTE = 5                   # add, mask, rotate (2), xor
-OPS_MIX = 9 * 32                      # per byte: sbox 5, group xor 1, add 1, rc 2
+OPS_ABSORB_BYTE = 5                   # add, two shifts, bit select, xor
+OPS_MIX = 208                         # 6.5 per state byte
+OPS_MIX_BEFORE = 9 * 32
 
 
-def _hash_ops(length: int) -> int:
+def _hash_ops(length: int, mix_ops: int = OPS_MIX) -> int:
     """Operations of one hash of ``length`` bytes: the absorbs, a mix per
     32-byte chunk and the 8 closing mixes."""
-    return OPS_ABSORB_BYTE * length + OPS_MIX * (-(-length // 32) + 8)
+    return OPS_ABSORB_BYTE * length + mix_ops * (-(-length // 32) + 8)
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -245,7 +271,7 @@ def _sass_mix(library_path: str) -> None:
             ops = counts.setdefault(current, {})
             ops[found.group(1)] = ops.get(found.group(1), 0) + 1
     for name, ops in counts.items():
-        top = sorted(ops.items(), key=lambda kv: -kv[1])[:6]
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
         print(f"sass {name}: {sum(ops.values())} instructions, "
               + ", ".join(f"{k} {v}" for k, v in top), flush=True)
 
@@ -313,6 +339,23 @@ def _check_ntt(rng, dev, results: _Results) -> None:
     print(f"ntt: strict kernels == lazy kernels == Stockham at n={list(NTT_SIZES)}, "
           f"batch 1 and 3, and at batch {WIDE_BATCH} for n=2^16 and 2^18, forward "
           "and inverse", flush=True)
+
+    # K1 and K2 alone at every column length from 2 to 2^11 rows.
+    for lg in PASS_LGS:
+        plan = NTF.get_plan(1 << lg, lg % 2 == 1, dev)
+        for batch in (1, 3, WIDE_BATCH):
+            x3 = rand((batch, plan.n1, plan.n2))
+            want1 = NTF.pass1_plain(x3, plan)
+            yt = NTF.transpose_plain(want1)
+            want2 = NTF.pass2_plain(yt, plan)
+            for lazy in (False, True):
+                what = f"n=2^{lg} batch={batch} lazy={lazy}"
+                _require_equal("ntt_pass1 " + what, NTF.ntt_pass1(x3, plan, lazy), want1)
+                _require_equal("ntt_pass2 " + what, NTF.ntt_pass2(yt, plan, lazy), want2)
+    print("ntt: pass 1 and pass 2 alone == plain, strict and lazy, at every n from "
+          f"2^{PASS_LGS[0]} to 2^{PASS_LGS[-1]} (columns of 2 to 2^11 rows: rounds "
+          f"{NTF.round_stages(1)} to {NTF.round_stages(11)}), batch 1, 3 and "
+          f"{WIDE_BATCH}", flush=True)
 
     # Each NTT kernel alone at the shapes the two paths give it.  The JSON
     # entries keep the main path's LDE shape; the others are printed.
@@ -423,6 +466,7 @@ def _build_levels(HB, stack: torch.Tensor, cutover: int) -> None:
 def _check_hash(rng, dev, results: _Results) -> None:
     from stark_tpu_torch import native
     from stark_tpu_torch.merkle import MerkleTree
+    from stark_tpu_torch.ops import cuda
     from stark_tpu_torch.ops import hash_batch as HB
 
     def rand(shape):
@@ -449,6 +493,22 @@ def _check_hash(rng, dev, results: _Results) -> None:
         host = np.concatenate(native.merkle_levels(nodes.cpu().numpy())[1:])
         if not np.array_equal(got.cpu().numpy(), host):
             raise AssertionError(f"merkle_tail W={w} != the host engine's levels")
+    tail_shapes = []
+    for lg_sub in TAIL_SUBTREES:
+        for lg_w in sorted({lg_sub + d for d in (-1, 0, 1, 9, 10, 11)}):
+            if not 1 <= lg_w <= TAIL_MAX_LG_W:
+                continue
+            nodes = digests(1 << lg_w)
+            want = HB.merkle_tail_plain(nodes, lg_sub)
+            cuda.reset_launches()
+            for turn in (1, 2):  # the second finds the ticket as the first left it
+                _require_equal(f"merkle_tail W=2^{lg_w} lg_sub={lg_sub} call {turn}",
+                               HB.merkle_tail(nodes, lg_sub=lg_sub), want)
+            launches = len(list(HB.tail_launches(lg_w, lg_sub)))
+            if cuda.launch_counts()["merkle_tail"] != 2 * launches:
+                raise AssertionError(f"merkle_tail W=2^{lg_w} lg_sub={lg_sub}: not "
+                                     f"{launches} launch(es) per call")
+            tail_shapes.append(f"{lg_sub}:{lg_w}x{launches}")
 
     # Whole trees against the host engine: the main path's width, and the
     # narrowest the pinned proofs build.
@@ -466,8 +526,9 @@ def _check_hash(rng, dev, results: _Results) -> None:
     print("hash: hash_rows == plain for c=1 at every N from 2 to 2^22 and for "
           f"c={list(HASH_WIDTHS)} at N={list(HASH_LANES)}; merkle_level == plain at "
           f"W={list(LEVEL_WIDTHS)}; merkle_tail == plain == host engine at every W "
-          "from 2 to 2^16; the roots and 16 paths of a W=2^22 and a W=16 tree == "
-          "the host engine's; all byte-exact", flush=True)
+          "from 2 to 2^16, and == plain at lg_sub:lg_W x launches "
+          f"{' '.join(tail_shapes)}; the roots and 16 paths of a W=2^22 and a W=16 "
+          "tree == the host engine's; all byte-exact", flush=True)
 
     # Times at the main paths' shapes.
     w = 4 * MAIN_T
@@ -498,6 +559,11 @@ def _check_hash(rng, dev, results: _Results) -> None:
     print("hash: leaf " + _line(leaf) + "; row c=8 N=2^18 " + _line(row) + "; "
           + _line(level) + "; " + _line(tail) + "; device time per call, buffer sets "
           f"{[e['buffer_sets'] for e in (leaf, row, level, tail)]}", flush=True)
+    before = [_bound(0, count * _hash_ops(length, OPS_MIX_BEFORE))[0]
+              for count, length in ((w, 8), (n8, 64), (w // 2, 64), (wt - 1, 64))]
+    print("hash: the same four bounds on the operation count in use until the hash "
+          f"was rewritten ({OPS_MIX_BEFORE} per mix round, now {OPS_MIX}): "
+          + ", ".join(f"{ms:.4f}" for ms in before) + " ms", flush=True)
 
     out = torch.empty_like(leaves)
     _sm_clock(dev, lambda: HB.leaf_hash(values, out))
@@ -514,6 +580,19 @@ def _check_hash(rng, dev, results: _Results) -> None:
         }
         print(f"cutover sweep, tree of W=2^{lg_w} (ms per build, by cutover; in use "
               f"2^{HB.TAIL_CUTOVER.bit_length() - 1}): {json.dumps(sweep)}", flush=True)
+
+    # The sweep behind tail_sub_lg: K8 alone, by the size of a block's
+    # subtree, operands from device memory as for the entry above.
+    for lg_w in (10, 12, 14, 16):
+        sets = _clones(_copies(64 << lg_w), leaves[: 1 << lg_w])
+        sweep = {
+            f"2^{lg}": round(_device_ms(_cycled(
+                lambda n, lg=lg: HB.merkle_tail(n, lg_sub=lg), sets), 10), 4)
+            for lg in range(5, HB.TAIL_MAX_LG + 1)
+        }
+        print(f"subtree sweep, merkle_tail W=2^{lg_w} (ms per call, by nodes of a "
+              f"block's subtree; in use 2^{HB.tail_sub_lg(lg_w)}): {json.dumps(sweep)}",
+              flush=True)
 
 
 def _prove_checked(name, prover, verifier, trace, want_sha, expect, cuda):
@@ -537,9 +616,42 @@ def _prove_checked(name, prover, verifier, trace, want_sha, expect, cuda):
 
 def _profiled_prove(name, prover, trace, counts, median_wall, cuda) -> dict:
     """Profile one prove; every kernel it launched must show device time
-    under its own name.  Returns {kernel: ms}."""
+    under its own name.  Prints that prove's device view and, beside K8's
+    time in it, the bound of each of its K8 launches at the launch's own
+    width, summed.  Returns {kernel: ms}."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    widths = []
+    launch = HB.MERKLE_TAIL.launch
+
+    def recording(device, nodes, out, width, *rest):
+        widths.append(width)
+        launch(device, nodes, out, width, *rest)
+
+    def prove():
+        widths.clear()  # keeps those of the last prove: the profiled one
+        prover.prove(trace)
+
+    HB.MERKLE_TAIL.launch = recording  # shadows the method meanwhile
+    try:
+        kernel_ms = _profiled(name, prove, counts, median_wall, cuda)
+    finally:
+        del HB.MERKLE_TAIL.launch
+    bound_ms, bound_before = (
+        sum(_bound(32 * (2 * w - 1), (w - 1) * _hash_ops(64, mix_ops))[0]
+            for w in widths)
+        for mix_ops in (OPS_MIX, OPS_MIX_BEFORE))
+    by_width = {f"2^{w.bit_length() - 1}": widths.count(w) for w in sorted(set(widths))}
+    print(f"{name}: merkle_tail {len(widths)} launches in the profiled prove, "
+          f"{kernel_ms['merkle_tail']:.4f} ms measured, {bound_ms:.4f} ms the sum of "
+          f"their bounds ({bound_before:.4f} on the earlier operation count); launches "
+          f"by width {json.dumps(by_width)}", flush=True)
+    return kernel_ms
+
+
+def _profiled(name, prove, counts, median_wall, cuda) -> dict:
     for _ in range(PROFILE_ATTEMPTS):  # see _device_ms
-        events = _profile(lambda: prover.prove(trace), 1)
+        events = _profile(prove, 1)
         kernel_ms = {
             k.name: sum(_device_us(e) for e in events if k.kernel_symbol in e.key) / 1e3
             for k in cuda.KERNELS.values() if counts[k.name] > 0
@@ -639,9 +751,10 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     results = _Results()
-    _check_ntt(rng, dev, results)
-    _check_fold(rng, dev, results)
-    _check_hash(rng, dev, results)
+    marks = [time.perf_counter()]
+    for check in (_check_ntt, _check_fold, _check_hash):
+        check(rng, dev, results)
+        marks.append(time.perf_counter())
 
     # 4. pinned proof bytes
     for (model, T, blowup, tests), want in PINNED.items():
@@ -722,7 +835,10 @@ def main() -> int:
     if listed != every:
         raise AssertionError(f"kernels without a result: {sorted(every - listed)}")
 
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s; "
+    marks.append(time.perf_counter())
+    print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
+          "checks: ntt, fold, hash, then the proofs and paths: "
+          f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": results.entries}), flush=True)

@@ -14,18 +14,50 @@
 // reads a digest as two 16-byte words and a parent's input left || right is
 // the 64 contiguous bytes at 64 * j.
 //
-// What bounds them on the card: integer instructions, not memory.  A hash
-// of L bytes costs L absorb steps and ceil(L / 32) + 8 mix rounds, a few
-// hundred integer instructions per mix, against 32 bytes written and at
-// most 64 read.  The design therefore keeps one lane per thread with the
-// whole state in registers (hash.cuh), so the only memory traffic is the
-// input once and the digest once, and fills the card with lanes; K8 exists
-// for the narrow top of a tree, where a level per launch would cost more in
-// launches than in hashing: a block keeps its 2^10 nodes in shared memory
-// and walks up ten levels, half of its threads dropping out per level.
-// The TPU's fixed-width fori_loop, segment compaction and semirev layout
-// are Mosaic/XLA devices with no counterpart here.  Packing four state
-// bytes into one register (SWAR) is the next redesign, not done here.
+// What bounds K5-K7 on the card: integer instructions, not memory.  A hash
+// of L bytes costs L absorb steps and ceil(L / 32) + 8 mix rounds, some
+// 180 instructions per mix, against 32 bytes written and at most 64 read;
+// all but the multiply-adds go through the SM's integer pipe, which takes
+// a warp's instruction every second clock, and that pipe is what K5 and K7
+// fill (hash.cuh says what the arithmetic does about it).  They keep one
+// lane per thread with the whole state in registers, so the only memory
+// traffic is the input once and the digest once, and fill the card with
+// lanes.  The TPU's fixed-width fori_loop, segment compaction and semirev
+// layout are Mosaic/XLA devices with no counterpart here.  Packing four
+// state bytes into one register (SWAR) is a later redesign.
+//
+// What bounds K8: latency.  Level l + 1 of a tree needs level l, so the
+// lg W levels above W nodes are lg W hashes one after the other, whatever
+// the card's width, and one hash is ~1,800 integer-pipe instructions of
+// one thread: a warp alone on its scheduler needs two clocks for each, 1.8
+// us a level at 1980 MHz.  The instruction bound (W - 1 hashes over the
+// card's issue rate) is far below that walk at every W this kernel is
+// given.  The design therefore
+//   - cuts the W nodes into subtrees, one block each (2^9 nodes on 128
+//     blocks at W = 2^16), so the wide levels run on every SM at once; a
+//     block reads its nodes from device memory, keeps the levels it builds
+//     in shared memory (two buffers in turn: one barrier per level) and
+//     writes each level's share into the level stack;
+//   - reaches the root in the same launch: a block that has written its
+//     subtree's root fences, takes a ticket (atomicAdd), and the block that
+//     draws the last ticket - every other root is then visible to it -
+//     reads the 2^lg_top roots back through L2 and walks the top, and sets
+//     the ticket to 0 for the next launch.  A tree's tail is one launch;
+//   - shares hash.cuh's arithmetic with K5-K7: fewer integer-pipe
+//     instructions per hash shorten every one of the serial levels.  Only
+//     the state's form between mix rounds is K8's own (hash.cuh Form:
+//     kOwed, fewer instructions in all, where K5-K7 take kScaled).
+// Tried and measured on an H100, no gain, and not kept (PERF.md): the
+// diffusion sum of the mix as 2, 4 or 8 chains - the warp waits for the
+// integer pipe, not for the chain of adds.  Not built: two hashes
+// interleaved in one thread - the second state doubles the instructions
+// the warp must issue, and where few hashes remain that pipe is the limit,
+// not a lack of independent work.  What would shorten a level further is
+// the opposite, one hash spread over several lanes, so that a warp issues
+// a fraction of the hash's instructions (PERF.md, open questions).
+// ptxas -v (sm_90a, CUDA 12; tools/tune_kernels.py prints it): K5/K6 48
+// registers, K7 48, K8 64 and 24,577 bytes of shared memory; no spills, no
+// stack.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -41,9 +73,54 @@ using stark::mix;
 using stark::pack_digest;
 
 constexpr int kLaneThreads = 256;
-// K8: a block owns 2^kTailLg nodes (32 KB of shared memory).
-constexpr int kTailLg = 10;
-constexpr int kTailThreads = 1 << (kTailLg - 1);
+// K8: a block walks at most kTailMaxLg levels at a time (24 KB of shared
+// memory: 2^9 digests of the level it wrote last, 2^8 of the one before),
+// with at most kTailThreads threads.
+constexpr int kTailMaxLg = 10;
+constexpr int kTailThreads = 256;
+
+// The 2^lg_n digests at src are level l0 of the part of a tree that this
+// block owns, block b's share of a level `width >> l0` wide; build the
+// lg_n levels above them.  Level l of the launch (width >> l nodes) starts
+// at node width - (width >> (l - 1)) of out, and this block's share of it
+// at b * its count of nodes.  The first level is read from device memory
+// through L2 (the top's input was written by other blocks), the later ones
+// from the shared buffer written one level before.
+__device__ __forceinline__ void tail_walk(const uint4* src, uint4* out,
+                                          long long width, int l0, int lg_n,
+                                          long long b, uint4* buf_a,
+                                          uint4* buf_b) {
+  const uint4* below = nullptr;
+  for (int k = 1; k <= lg_n; ++k) {
+    const int count = 1 << (lg_n - k);
+    uint4* mine = (k & 1) ? buf_a : buf_b;
+    const long long first = width - (width >> (l0 + k - 1)) + b * count;
+    for (int j = threadIdx.x; j < count; j += blockDim.x) {
+      uint4 l_lo, l_hi, r_lo, r_hi;
+      if (k == 1) {
+        l_lo = __ldcg(src + 4 * j);
+        l_hi = __ldcg(src + 4 * j + 1);
+        r_lo = __ldcg(src + 4 * j + 2);
+        r_hi = __ldcg(src + 4 * j + 3);
+      } else {
+        l_lo = below[4 * j];
+        l_hi = below[4 * j + 1];
+        r_lo = below[4 * j + 2];
+        r_hi = below[4 * j + 3];
+      }
+      uint32_t s[32];
+      hash_combine<stark::Form::kOwed>(s, l_lo, l_hi, r_lo, r_hi);
+      uint4 lo, hi;
+      pack_digest(s, lo, hi);
+      mine[2 * j] = lo;
+      mine[2 * j + 1] = hi;
+      out[2 * (first + j)] = lo;
+      out[2 * (first + j) + 1] = hi;
+    }
+    __syncthreads();  // `mine` is whole; every read of `below` is done
+    below = mine;
+  }
+}
 
 }  // namespace
 
@@ -92,45 +169,34 @@ __global__ void __launch_bounds__(kLaneThreads)
   out[2 * j + 1] = hi;
 }
 
-// nodes: `width` digests, a multiple of sub = 2^lg_sub (lg_sub <= kTailLg);
-// out: the lg_sub levels above them, one after the other (width / 2 nodes,
-// then width / 4, ...).  Block b owns nodes [b * sub, (b + 1) * sub) and
-// writes its share of each of those levels.
+// nodes: `width` digests, a multiple of 2^lg_sub; out: the levels above
+// them, one after the other (width / 2 nodes, then width / 4, ...).  Block
+// b builds the lg_sub levels above nodes [b 2^lg_sub, (b + 1) 2^lg_sub).
+// With lg_top > 0 (then width = 2^(lg_sub + lg_top)) the block that
+// finishes last builds the lg_top levels above the subtrees' roots too,
+// down to the tree's root; *ticket is 0 at the launch and 0 again after.
 __global__ void __launch_bounds__(kTailThreads)
-    stark_merkle_tail_kernel(const uint4* __restrict__ nodes,
-                             uint4* __restrict__ out, long long width,
-                             int lg_sub) {
-  __shared__ uint4 tile[2 << kTailLg];
-  const int sub = 1 << lg_sub;
-  const int t = threadIdx.x;
-  const uint4* mine = nodes + 2 * (long long)blockIdx.x * sub;
-  for (int e = t; e < 2 * sub; e += blockDim.x) tile[e] = mine[e];
-  __syncthreads();
+    stark_merkle_tail_kernel(const uint4* __restrict__ nodes, uint4* out,
+                             long long width, int lg_sub, int lg_top,
+                             unsigned int* ticket) {
+  __shared__ uint4 buf_a[1 << kTailMaxLg];
+  __shared__ uint4 buf_b[1 << (kTailMaxLg - 1)];
+  __shared__ bool last;
+  const long long b = blockIdx.x;
+  tail_walk(nodes + 2 * (b << lg_sub), out, width, 0, lg_sub, b, buf_a, buf_b);
+  if (lg_top == 0) return;
 
-  long long level_start = 0;  // of the level being written, in nodes of out
-  long long level_width = width >> 1;
-  for (int l = 1; l <= lg_sub; ++l) {
-    const int count = sub >> l;  // this block's nodes on level l
-    const bool active = t < count;
-    uint4 lo, hi;
-    if (active) {
-      uint32_t s[32];
-      hash_combine(s, tile[4 * t], tile[4 * t + 1], tile[4 * t + 2],
-                   tile[4 * t + 3]);
-      pack_digest(s, lo, hi);
-    }
-    __syncthreads();  // every read of the level below is done
-    if (active) {
-      tile[2 * t] = lo;
-      tile[2 * t + 1] = hi;
-      const long long node = level_start + (long long)blockIdx.x * count + t;
-      out[2 * node] = lo;
-      out[2 * node + 1] = hi;
-    }
-    __syncthreads();
-    level_start += level_width;
-    level_width >>= 1;
+  __threadfence();  // this thread's digests, before the block's ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) *ticket = 0;
   }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const long long roots = width - (width >> (lg_sub - 1));
+  tail_walk(out + 2 * roots, out, width, lg_sub, lg_top, 0, buf_a, buf_b);
 }
 
 // K5/K6: (c, n) field values -> n digests.
@@ -153,18 +219,25 @@ int stark_merkle_level(const void* nodes, void* out, long long parents,
   return (int)cudaGetLastError();
 }
 
-// K8: `width` node digests -> the lg_sub levels above them, where
-// 1 <= lg_sub <= 10 and 2^lg_sub divides width.
+// K8: `width` node digests -> the lg_sub levels above them, and with
+// lg_top > 0 every level above those, to the root.  1 <= lg_sub <= 10,
+// 0 <= lg_top <= 10; 2^lg_sub divides width, and width is 2^(lg_sub +
+// lg_top) when lg_top > 0.  ticket: one zeroed 32-bit word of device
+// memory that only launches on this stream use: they follow one another,
+// and each leaves the word at zero.
 int stark_merkle_tail(const void* nodes, void* out, long long width,
-                      int lg_sub, void* stream) {
-  if (lg_sub < 1 || lg_sub > kTailLg || (width & ((1LL << lg_sub) - 1)))
+                      int lg_sub, int lg_top, void* ticket, void* stream) {
+  if (lg_sub < 1 || lg_sub > kTailMaxLg || lg_top < 0 ||
+      lg_top > kTailMaxLg || (width & ((1LL << lg_sub) - 1)) ||
+      (lg_top > 0 && (width != 1LL << (lg_sub + lg_top) || !ticket)))
     return (int)cudaErrorInvalidValue;
-  int threads = 1 << (lg_sub - 1);
+  int threads = 1 << ((lg_sub > lg_top ? lg_sub : lg_top) - 1);
   if (threads < 32) threads = 32;
+  if (threads > kTailThreads) threads = kTailThreads;
   stark_merkle_tail_kernel<<<(unsigned)(width >> lg_sub), threads, 0,
                              (cudaStream_t)stream>>>(
       static_cast<const uint4*>(nodes), static_cast<uint4*>(out), width,
-      lg_sub);
+      lg_sub, lg_top, static_cast<unsigned int*>(ticket));
   return (int)cudaGetLastError();
 }
 

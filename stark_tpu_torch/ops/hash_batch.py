@@ -11,8 +11,9 @@ in hashfn.py (reference src/hash.rs):
     merkle_level  K7     W node digests -> W/2 parents, parent j =
                          hash(node 2j || node 2j+1) (level_rows_core :329);
     merkle_tail   K8     W node digests -> every level above them, down to
-                         the root (_tail_levels_core :433): a block builds
-                         a subtree of 2^10 nodes in shared memory;
+                         the root (_tail_levels_core :433), in one launch:
+                         a block per subtree (tail_sub_lg), and the block
+                         that finishes last builds the top;
     merkle_build         fills a whole tree's level stack from its leaf
                          level: K7 for levels wider than TAIL_CUTOVER, K8
                          from there to the root.
@@ -66,12 +67,20 @@ MERKLE_LEVEL = cuda.Kernel(
     source=_SRC, replaces="stark_tpu/ops/hash_batch.py:329",
 )
 MERKLE_TAIL = cuda.Kernel(
-    "merkle_tail", "stark_merkle_tail", [cuda.ptr] * 2 + [_I64, cuda.i32],
+    "merkle_tail", "stark_merkle_tail",
+    [cuda.ptr] * 2 + [_I64, cuda.i32, cuda.i32, cuda.ptr],
     source=_SRC, replaces="stark_tpu/ops/hash_batch.py:433",
 )
 
-#: log2 of the subtree a K8 block owns (csrc/hash.cu kTailLg).
-TAIL_LG = 10
+#: The subtree a K8 block owns leaves 2^TAIL_TOP_LG roots to the block that
+#: builds the top, but is never smaller than 2^TAIL_MIN_SUB_LG nodes: set
+#: from chip_smoke.py's subtree sweep on an H100 (PERF.md).
+TAIL_TOP_LG = 7
+TAIL_MIN_SUB_LG = 6
+#: The most levels one block walks at a time (csrc/hash.cu kTailMaxLg): a
+#: subtree, or the top that the last block builds.  A launch therefore
+#: reaches the root from up to 2^(2 TAIL_MAX_LG) nodes.
+TAIL_MAX_LG = 10
 #: Levels wider than this go to K7, one launch each; from this width down
 #: K8 builds the rest of the tree.  (The counterpart of the JAX package's
 #: FUSE_MAX_WIDTH.)  K7 keeps every thread hashing; in K8 half of a block's
@@ -132,13 +141,14 @@ def _absorb(s: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _hash_chunks(data: torch.Tensor, final_mixes: int = 8) -> torch.Tensor:
+def _hash_chunks(data: torch.Tensor) -> torch.Tensor:
     """(L, N) u8 messages (one per lane) -> (32, N) digests: absorb each
-    32-byte chunk with a mix after it, then the final mixes (hash.rs:7-30)."""
+    32-byte chunk with a mix after it, then the 8 final mixes
+    (hash.rs:7-30)."""
     s = _init_state(data.shape[1], data.device)
     for start in range(0, data.shape[0], 32):
         s = _mix(_absorb(s, data[start : start + 32]))
-    for _ in range(final_mixes):
+    for _ in range(8):
         s = _mix(s)
     return s
 
@@ -175,16 +185,47 @@ def merkle_level_plain(nodes: torch.Tensor) -> torch.Tensor:
     return _hash_chunks(nodes.reshape(-1, 64).T).T.contiguous()
 
 
-def merkle_tail_plain(nodes: torch.Tensor) -> torch.Tensor:
+def tail_sub_lg(lg_w: int) -> int:
+    """log2 of the subtree a K8 block owns when W = 2^lg_w nodes come in."""
+    return min(max(lg_w - TAIL_TOP_LG, TAIL_MIN_SUB_LG), TAIL_MAX_LG, lg_w)
+
+
+def tail_launches(lg_w: int, lg_sub: int | None = None):
+    """K8's launches for a subtree of 2^lg_w nodes, as (lg_sub, lg_top)
+    pairs: each builds lg_sub levels, a block per 2^lg_sub nodes, and
+    lg_top more in the block that finishes last.  One launch reaches the
+    root unless more than 2^TAIL_MAX_LG subtree roots would be left.
+    ``lg_sub`` fixes the subtree size; by default tail_sub_lg chooses."""
+    while lg_w > 0:
+        sub = tail_sub_lg(lg_w) if lg_sub is None else min(lg_w, lg_sub)
+        top = lg_w - sub if lg_w - sub <= TAIL_MAX_LG else 0
+        yield sub, top
+        lg_w -= sub + top
+
+
+def merkle_tail_plain(nodes: torch.Tensor,
+                      lg_sub: int | None = None) -> torch.Tensor:
     """(W, 32) node digests -> (W - 1, 32): every level above them, widest
-    first, the root last."""
-    levels = []
-    while nodes.shape[0] > 1:
-        nodes = merkle_level_plain(nodes)
-        levels.append(nodes)
-    if not levels:
-        return nodes.new_empty((0, 32))
-    return torch.cat(levels, dim=0)
+    first, the root last, built as K8 builds them: launch by launch, each
+    block's subtree on its own with its share of a level written at the
+    block's offset, then the top."""
+    w = nodes.shape[0]
+    out = nodes.new_empty((w - 1, 32))
+    pos = 0
+    for sub, top in tail_launches(w.bit_length() - 1, lg_sub):
+        # Every subtree's levels, then the top's as those of one block.
+        for blocks, levels in ((nodes.shape[0] >> sub, sub), (1, top)):
+            part = nodes.reshape(blocks, -1, 32)
+            for _ in range(levels):
+                count = part.shape[1] // 2
+                part = merkle_level_plain(part.reshape(-1, 32)).reshape(
+                    blocks, count, 32
+                )
+                # block b's share of the level starts at its node b * count
+                out[pos : pos + blocks * count] = part.reshape(-1, 32)
+                pos += blocks * count
+            nodes = part.reshape(-1, 32)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -264,29 +305,52 @@ def merkle_level(nodes: torch.Tensor, out: torch.Tensor | None = None) -> torch.
     return out
 
 
-def merkle_tail(nodes: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """K8's ticket counter for the launches on one stream of ``device``
+    (``stream`` is its handle): one zeroed word, which every launch leaves
+    at zero again.  Launches on one stream follow one another, so they can
+    share it; launches on two streams may overlap and get a word each.  (A
+    captured graph holds the word of the stream it was captured on: two
+    such graphs must not be replayed at the same time.)"""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def merkle_tail(nodes: torch.Tensor, out: torch.Tensor | None = None,
+                lg_sub: int | None = None) -> torch.Tensor:
     """K8: (W, 32) node digests, W a power of two -> (W - 1, 32), every
-    level above them (widest first, the root last).  One launch covers up
-    to TAIL_LG levels: a block per 2^TAIL_LG nodes."""
+    level above them (widest first, the root last).  One launch for W up
+    to 2^(2 TAIL_MAX_LG): a block per subtree, the top by the block that
+    finishes last (``tail_launches``; ``lg_sub`` fixes the subtree size)."""
     _check_digests(nodes, "nodes")
     w = nodes.shape[0]
     if not _pow2(w):
         raise ValueError(f"a subtree needs a power-of-two width, got {w}")
+    if lg_sub is not None and not 1 <= lg_sub <= TAIL_MAX_LG:
+        raise ValueError(f"lg_sub must be in 1..{TAIL_MAX_LG}, got {lg_sub}")
     out = _output(out, w - 1, nodes)
     if nodes.device.type == "cpu":
-        out.copy_(merkle_tail_plain(nodes))
+        out.copy_(merkle_tail_plain(nodes, lg_sub))
         return out
     _check_card_digests(nodes, "nodes")
     _check_card_digests(out, "out")
+    stream = torch.cuda.current_stream(nodes.device).cuda_stream
+    ticket = _ticket(nodes.device, stream)
     src, pos = nodes, 0
-    while w > 1:
-        lg_sub = min(w.bit_length() - 1, TAIL_LG)
-        MERKLE_TAIL.launch(
-            nodes.device, src.data_ptr(), out[pos:].data_ptr(), w, lg_sub
-        )
-        top = w >> lg_sub
-        pos += w - top
-        src, w = out[pos - top : pos], top
+    for sub, top in tail_launches(w.bit_length() - 1, lg_sub):
+        try:
+            MERKLE_TAIL.launch(
+                nodes.device, src.data_ptr(), out[pos:].data_ptr(), w, sub,
+                top, ticket.data_ptr(),
+            )
+        except RuntimeError:
+            # A launch that failed may have left tickets drawn: the next
+            # one must find the word at zero all the same.
+            ticket.zero_()
+            raise
+        left = w >> (sub + top)
+        pos += w - left
+        src, w = out[pos - left : pos], left
     return out
 
 

@@ -26,9 +26,16 @@ K1 and K2 each come strict and lazy (``lazy=True``, the JAX package's flag
 of the same name): the lazy butterflies keep values in [0, 2p) between
 stages, drop the subtract's select and the Shoup multiply's final
 correction, and give bit-identical output.  They are kernels of their own
-(``ntt_pass1_lazy``, ``ntt_pass2_lazy``) with their own launch counts; the
-lazy plain versions follow the kernels' DIF stages and [0, 2p) arithmetic
-step by step and assert every range the kernels rely on.
+(``ntt_pass1_lazy``, ``ntt_pass2_lazy``) with their own launch counts.
+
+The column kernels run their radix-2 DIF stages in rounds of up to four,
+a round's 2^q elements in one thread's registers (csrc/ntt.cu).  The plain
+versions of K1 and K2 (``_col_ntt_rounds``) follow that: the same rounds,
+element-to-thread mapping, twiddle indices, u32 arithmetic and
+bit-reversed store, strict and lazy, and assert every range the kernels
+rely on.  ``_col_ntt`` (Stockham) and ``_col_ntt_lazy`` (one radix-2 stage
+at a time) compute the same columns independently of that grouping: the
+tests hold the rounds against them.
 """
 
 from __future__ import annotations
@@ -42,13 +49,23 @@ from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
 from stark_tpu_torch.ops.fieldops import P, primitive_nth_root
 
-#: Column-tile budget of one block, in elements (64 KB of shared memory):
-#: a pass over columns of length 2^lg_r takes 2^14 / 2^lg_r of them at once.
-_SMEM_ELEMS = 1 << 14
+#: Column-tile budget of one block, in elements (128 KB of shared memory):
+#: a pass over columns of length 2^lg_r takes 2^15 / 2^lg_r of them at once.
+_SMEM_ELEMS = 1 << 15
+#: A pass that would run on fewer blocks than this takes narrower tiles,
+#: down to _MIN_TILE_COLS columns (a 32-byte run of a row), so that a small
+#: transform still reaches most of the card's 132 SMs.
+_MIN_BLOCKS = 128
+_MIN_TILE_COLS = 8
+#: Threads of a block: one per radix-16 unit of its tile, at most this many
+#: (csrc/ntt.cu kMaxThreads).
+_MAX_THREADS = 1024
+#: Stages of the longest round (csrc/ntt.cu kMaxRound).
+MAX_ROUND = 4
 
 _SRC = "stark_tpu_torch/csrc/ntt.cu"
 PASS1 = cuda.Kernel(
-    "ntt_pass1", "stark_ntt_pass1", [cuda.ptr] * 5 + [cuda.i32] * 4,
+    "ntt_pass1", "stark_ntt_pass1", [cuda.ptr] * 5 + [cuda.i32] * 5,
     source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:383",
 )
 TRANSPOSE = cuda.Kernel(
@@ -56,7 +73,7 @@ TRANSPOSE = cuda.Kernel(
     source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:345",
 )
 PASS2 = cuda.Kernel(
-    "ntt_pass2", "stark_ntt_pass2", [cuda.ptr] * 4 + [cuda.i32] * 4,
+    "ntt_pass2", "stark_ntt_pass2", [cuda.ptr] * 4 + [cuda.i32] * 5,
     source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:409",
 )
 PASS1_LAZY = cuda.Kernel(
@@ -180,7 +197,8 @@ def get_plan(n: int, inverse: bool, device: torch.device) -> FusedNTTPlan:
 
 def _col_ntt(x3: torch.Tensor, inverse: bool) -> torch.Tensor:
     """(B, r, c) -> int64 length-r transforms down each column, no 1/r
-    (root primitive_nth_root(r) = w^(n/r), the pass's column root)."""
+    (root primitive_nth_root(r) = w^(n/r), the pass's column root).  A
+    reference for ``_col_ntt_rounds``."""
     r = x3.shape[1]
     return _stockham(x3.long().transpose(1, 2), r, inverse).transpose(1, 2)
 
@@ -204,8 +222,9 @@ def _in_range(t: torch.Tensor, bound: int, what: str) -> None:
 def _col_ntt_lazy(x3: torch.Tensor, tw: torch.Tensor,
                   tws: torch.Tensor) -> torch.Tensor:
     """(B, r, c) values in [0, p) -> int64 column transforms in [0, 2p),
-    natural row order: the lazy kernels' DIF stages, one by one
-    (csrc/field.cuh add_lazy / sub_lazy / shoup_lazy)."""
+    natural row order: the lazy DIF stages, one radix-2 stage at a time
+    (csrc/field.cuh add_lazy / sub_lazy / shoup_lazy).  A reference for
+    ``_col_ntt_rounds``, equal to it value for value."""
     b, r, c = x3.shape
     lg_r = r.bit_length() - 1
     a = x3.long()
@@ -223,11 +242,74 @@ def _col_ntt_lazy(x3: torch.Tensor, tw: torch.Tensor,
         bot = (d * w - _umulhi(d, ws) * P) & _U32
         a = torch.cat([top, bot], dim=2).reshape(b, r, c)
         _in_range(a, _TWO_P, f"stage {s}")
+    return a[:, _bit_reverse(torch.arange(r, device=a.device), lg_r)]
+
+
+def round_stages(lg_r: int) -> list[int]:
+    """The kernels' rounds for a column of 2^lg_r rows (csrc/ntt.cu
+    Rounds): ceil(lg_r / MAX_ROUND) of them, as even as can be, the
+    longer ones last.  11 -> [3, 4, 4]."""
+    count = -(-lg_r // MAX_ROUND)
+    base, longer = divmod(lg_r, count)
+    return [base] * (count - longer) + [base + 1] * longer
+
+
+def _bit_reverse(v: torch.Tensor, bits: int) -> torch.Tensor:
+    rev = torch.zeros_like(v)
+    for bit in range(bits):
+        rev |= ((v >> bit) & 1) << (bits - 1 - bit)
+    return rev
+
+
+def _col_ntt_rounds(x3: torch.Tensor, tw: torch.Tensor, tws: torch.Tensor,
+                    lazy: bool) -> torch.Tensor:
+    """(B, r, c) values in [0, p) -> int64 column transforms, natural row
+    order, in [0, p) (strict) or [0, 2p) (lazy), as csrc/ntt.cu computes
+    them: round by round, every element where its thread holds it.  In a
+    round of q stages starting at stage s0, with b_lo = lg_r - s0 - q, row
+    (hi << (b_lo + q)) | (m << b_lo) | lo is element m of unit (hi, lo);
+    stage s0 + t pairs m with m + 2^(q-1-t) and multiplies the difference
+    by tw[(((m mod 2^(q-1-t)) << b_lo) | lo) << (s0 + t)]; the last round
+    stores row (hi << q) | m at (reversed m) << (lg_r - q) | reversed hi.
+    Asserts every range the kernels rely on."""
+    b, r, c = x3.shape
+    lg_r = r.bit_length() - 1
+    a = x3.long()
+    w_all, ws_all = tw.long(), tws.long() & _U32
+    bound = _TWO_P if lazy else P
+    s0 = q = 0
+    for q in round_stages(lg_r):
+        b_lo = lg_r - s0 - q
+        lo = torch.arange(1 << b_lo, device=a.device)
+        for t in range(q):
+            half = 1 << (q - 1 - t)
+            # (B, hi, block of 2 half, upper or lower half, k, lo, c)
+            v = a.reshape(b, 1 << s0, 1 << t, 2, half, 1 << b_lo, c)
+            u, d = v[:, :, :, 0], v[:, :, :, 1]
+            k = torch.arange(half, device=a.device)
+            e = ((k[:, None] << b_lo) | lo) << (s0 + t)
+            w, ws = w_all[e][..., None], ws_all[e][..., None]
+            total = u + d
+            top = torch.where(total >= bound, total - bound, total)
+            if lazy:
+                diff = u - d + _TWO_P
+                _in_range(diff, 2 * _TWO_P, "a - b + 2p")
+            else:
+                diff = torch.where(u >= d, u - d, u - d + P)
+            bot = (diff * w - _umulhi(diff, ws) * P) & _U32
+            _in_range(bot, _TWO_P, "the Shoup product")
+            if not lazy:
+                bot = torch.where(bot >= P, bot - P, bot)
+            a = torch.stack([top, bot], dim=3).reshape(b, r, c)
+            _in_range(a, bound, f"stage {s0 + t}")
+        s0 += q
     rows = torch.arange(r, device=a.device)
-    rev = torch.zeros_like(rows)
-    for bit in range(lg_r):
-        rev |= ((rows >> bit) & 1) << (lg_r - 1 - bit)
-    return a[:, rev]
+    place = (_bit_reverse(rows & ((1 << q) - 1), q) << (lg_r - q)) | _bit_reverse(
+        rows >> q, lg_r - q
+    )
+    out = torch.empty_like(a)
+    out[:, place] = a
+    return out
 
 
 def _mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -242,11 +324,8 @@ def _mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def pass1_plain(x3: torch.Tensor, plan: FusedNTTPlan,
                 lazy: bool = False) -> torch.Tensor:
-    if lazy:
-        y = _col_ntt_lazy(x3, plan.tw1, plan.tw1_shoup)
-        return _mont_mul_plain(y, plan.wm.long()).to(torch.int32)
-    y = _col_ntt(x3, plan.inverse)
-    return (y * plan.wm.long() % P * F.R_INV % P).to(torch.int32)
+    y = _col_ntt_rounds(x3, plan.tw1, plan.tw1_shoup, lazy)
+    return _mont_mul_plain(y, plan.wm.long()).to(torch.int32)
 
 
 def transpose_plain(y3: torch.Tensor) -> torch.Tensor:
@@ -255,19 +334,22 @@ def transpose_plain(y3: torch.Tensor) -> torch.Tensor:
 
 def pass2_plain(y3: torch.Tensor, plan: FusedNTTPlan,
                 lazy: bool = False) -> torch.Tensor:
-    if lazy:
-        z = _col_ntt_lazy(y3, plan.tw2, plan.tw2_shoup)
-        return torch.where(z >= P, z - P, z).to(torch.int32)
-    return _col_ntt(y3, plan.inverse).to(torch.int32)
+    z = _col_ntt_rounds(y3, plan.tw2, plan.tw2_shoup, lazy)
+    return torch.where(z >= P, z - P, z).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def _lg_tile(lg_r: int, cols: int) -> int:
+def _launch_shape(lg_r: int, cols: int, batch: int) -> tuple[int, int]:
+    """(log2 of a block's tile width in columns, threads of a block) for a
+    pass over ``batch`` arrays of 2^lg_r rows by ``cols`` columns."""
     tc = min(cols, max(1, _SMEM_ELEMS >> lg_r))
-    return tc.bit_length() - 1
+    while tc > _MIN_TILE_COLS and batch * (cols // tc) < _MIN_BLOCKS:
+        tc //= 2
+    threads = min(max((tc << lg_r) >> MAX_ROUND, 32), _MAX_THREADS)
+    return tc.bit_length() - 1, threads
 
 
 def _check_batch(x3: torch.Tensor, rows: int, cols: int) -> None:
@@ -286,7 +368,7 @@ def ntt_pass1(x3: torch.Tensor, plan: FusedNTTPlan,
     (PASS1_LAZY if lazy else PASS1).launch(
         x3.device, x3.data_ptr(), out.data_ptr(), plan.tw1.data_ptr(),
         plan.tw1_shoup.data_ptr(), plan.wm.data_ptr(), x3.shape[0],
-        plan.lg1, plan.n2, _lg_tile(plan.lg1, plan.n2),
+        plan.lg1, plan.n2, *_launch_shape(plan.lg1, plan.n2, x3.shape[0]),
     )
     return out
 
@@ -315,7 +397,7 @@ def ntt_pass2(y3: torch.Tensor, plan: FusedNTTPlan,
     (PASS2_LAZY if lazy else PASS2).launch(
         y3.device, y3.data_ptr(), out.data_ptr(), plan.tw2.data_ptr(),
         plan.tw2_shoup.data_ptr(), y3.shape[0], plan.lg2, plan.n1,
-        _lg_tile(plan.lg2, plan.n1),
+        *_launch_shape(plan.lg2, plan.n1, y3.shape[0]),
     )
     return out
 

@@ -2,7 +2,8 @@
 
 Golden digests; the native C engine against the numpy engine; the plain
 versions of kernels K5-K8 (ops/hash_batch: row hash, level, subtree level
-stack) against stark_tpu's numpy leaf / row / combine cores, the numpy
+stack; K8's decomposition into subtrees and a top, and its chained
+diffusion sum) against stark_tpu's numpy leaf / row / combine cores, the numpy
 scalar hash and the C engine; tree levels, roots and authentication paths
 against stark_tpu.merkle.MerkleTree at widths 2^4..2^12.  The port keeps digests node-major (N, 32)
 and stark_tpu byte-major (32, N), so stark_tpu's side is transposed.
@@ -14,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from stark_tpu_torch import native
+from stark_tpu_torch import hashfn, native
 from stark_tpu_torch.hashfn import Hash as THash
-from stark_tpu_torch.hashfn import hash_bytes, hash_bytes_np
+from stark_tpu_torch.hashfn import ROUND_CONSTANTS, hash_bytes, hash_bytes_np
 from stark_tpu_torch.merkle import MerkleTree as TTree
 from stark_tpu_torch.ops import hash_batch as THB
 from stark_tpu_torch.ops import cuda
@@ -177,8 +178,82 @@ def test_tail_level_stack_matches_stark_tpu_and_native(w, monkeypatch):
     assert THB.level_offset(w, w.bit_length() - 1) == 2 * w - 2
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_mix_matches_the_sequential_diffusion(seed):
+    # The plain mix takes the neighbour diffusion as a prefix sum (and the
+    # kernels as a chain of multiply-adds); hash.rs:77-81 writes it as a
+    # loop that updates the state in place.  Both must agree on any state.
+    rng = np.random.default_rng(seed)
+    states = rng.integers(0, 256, size=(32, 4000), dtype=np.uint8)
+    states[:, 0], states[:, 1], states[:, 2] = 0, 255, 128
+    x = states.astype(np.int64) * 251 & 0xFF
+    x = ((x << 1) | (x >> 7)) & 0xFF ^ 0x63
+    t = x.reshape(8, 4, -1)
+    g = np.stack([t[:, 0] ^ t[:, 1] ^ t[:, 3], t[:, 0] ^ t[:, 2] ^ t[:, 3],
+                  t[:, 0] ^ t[:, 1] ^ t[:, 2], t[:, 1] ^ t[:, 2] ^ t[:, 3]],
+                 axis=1).reshape(32, -1)
+    for i in range(32):
+        g[i] = (g[i] + g[(i + 1) % 32] + g[(i + 31) % 32]) & 0xFF
+    want = (g + ROUND_CONSTANTS[:, None]) & 0xFF
+    got = THB._mix(torch.from_numpy(states))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.uint8))
+    np.testing.assert_array_equal(
+        got[:, :8].numpy(),
+        np.stack([hashfn._mix_state(states[:, j]) for j in range(8)], axis=1))
+
+
+@pytest.mark.parametrize("lg_sub", [1, 4, 8, 10])
+@pytest.mark.parametrize("lg_w", [1, 3, 8, 9, 12])
+def test_tail_decomposition_matches_level_by_level(lg_w, lg_sub):
+    # merkle_tail_plain follows K8: a block per subtree of 2^lg_sub nodes,
+    # each block's share of a level at the block's offset, then the top.
+    w = 1 << lg_w
+    leaves = np.random.default_rng(w + lg_sub).integers(
+        0, 256, size=(w, 32), dtype=np.uint8)
+    levels, nodes = [], torch.from_numpy(leaves)
+    while nodes.shape[0] > 1:
+        nodes = THB.merkle_level_plain(nodes)
+        levels.append(nodes)
+    want = torch.cat(levels)
+    assert torch.equal(THB.merkle_tail_plain(torch.from_numpy(leaves), lg_sub), want)
+    assert torch.equal(THB.merkle_tail(torch.from_numpy(leaves), lg_sub=lg_sub), want)
+    np.testing.assert_array_equal(
+        want.numpy(), np.concatenate(native.merkle_levels(leaves)[1:]))
+
+
+@pytest.mark.parametrize("lg_w,lg_sub,want", [
+    (16, 8, [(8, 8)]),            # one launch from the cutover width
+    (8, 8, [(8, 0)]),             # one block: nothing left for a top
+    (9, 8, [(8, 1)]),
+    (18, 8, [(8, 10)]),           # the widest top a block takes
+    (19, 8, [(8, 0), (8, 3)]),    # a top of 2^11 would not fit: two launches
+    (22, 8, [(8, 0), (8, 6)]),
+    (5, 8, [(5, 0)]),
+    (12, 1, [(1, 0), (1, 10)]),
+])
+def test_tail_launches(lg_w, lg_sub, want):
+    got = list(THB.tail_launches(lg_w, lg_sub))
+    assert got == want
+    assert sum(sub + top for sub, top in got) == lg_w
+
+
+@pytest.mark.parametrize("lg_w", range(1, 25))
+def test_tail_default_subtrees_reach_the_root(lg_w):
+    # The wrapper's own choice of subtree: one launch up to 2^20 nodes,
+    # every launch within what a block can hold.
+    got = list(THB.tail_launches(lg_w))
+    assert sum(sub + top for sub, top in got) == lg_w
+    assert all(1 <= sub <= THB.TAIL_MAX_LG and 0 <= top <= THB.TAIL_MAX_LG
+               for sub, top in got)
+    assert len(got) == 1 or lg_w > 2 * THB.TAIL_MAX_LG
+    assert THB.tail_sub_lg(16) == 9 and THB.tail_sub_lg(3) == 3
+
+
 def test_wrappers_reject_bad_operands():
     good = torch.zeros((4, 32), dtype=torch.uint8)
+    for lg_sub in (0, THB.TAIL_MAX_LG + 1):
+        with pytest.raises(ValueError):
+            THB.merkle_tail(good, lg_sub=lg_sub)
     with pytest.raises(ValueError):
         THB.merkle_level(torch.zeros((32, 4), dtype=torch.uint8))  # byte-major
     with pytest.raises(ValueError):
@@ -258,11 +333,56 @@ def test_tail_kernel_matches_plain_and_native_on_card(cuda_device, w):
     nodes = torch.from_numpy(leaves).to(cuda_device)
     before = cuda.launch_counts()["merkle_tail"]
     got = THB.merkle_tail(nodes)
-    assert cuda.launch_counts()["merkle_tail"] > before
+    assert cuda.launch_counts()["merkle_tail"] == before + 1  # to the root
     assert torch.equal(got, THB.merkle_tail_plain(nodes))
     np.testing.assert_array_equal(
         got.cpu().numpy(), np.concatenate(native.merkle_levels(leaves)[1:])
     )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lg_sub", [1, 4, 6, 8, 9, 10])
+@pytest.mark.parametrize("lg_w", [1, 5, 7, 8, 9, 10, 11, 16, 17, 18, 19, 20])
+def test_tail_kernel_at_every_subtree_size_on_card(cuda_device, lg_w, lg_sub):
+    # Widths just below, at and above the two boundaries of a launch: one
+    # block (W = 2^lg_sub) and the widest top (W = 2^(lg_sub + 10)).
+    w = 1 << lg_w
+    nodes = torch.from_numpy(np.random.default_rng(w + lg_sub).integers(
+        0, 256, size=(w, 32), dtype=np.uint8)).to(cuda_device)
+    want = THB.merkle_tail_plain(nodes, lg_sub)
+    for _ in range(2):  # the ticket must come back to zero
+        before = cuda.launch_counts()["merkle_tail"]
+        got = THB.merkle_tail(nodes, lg_sub=lg_sub)
+        launches = len(list(THB.tail_launches(lg_w, lg_sub)))
+        assert cuda.launch_counts()["merkle_tail"] == before + launches
+        assert torch.equal(got, want)
+        stream = torch.cuda.current_stream(nodes.device).cuda_stream
+        assert int(THB._ticket(nodes.device, stream)) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lg_w", [10, 16])
+def test_tail_kernel_on_two_streams_on_card(cuda_device, lg_w):
+    # Launches on different streams may overlap: each stream has a ticket
+    # word of its own, so neither tree's top starts on the other's count.
+    w = 1 << lg_w
+    rng = np.random.default_rng(lg_w)
+    nodes = [torch.from_numpy(rng.integers(0, 256, size=(w, 32), dtype=np.uint8)
+                              ).to(cuda_device) for _ in range(2)]
+    want = [THB.merkle_tail_plain(n) for n in nodes]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got[k].append(THB.merkle_tail(nodes[k]))
+    torch.cuda.synchronize()
+    for k, stream in enumerate(streams):
+        assert all(torch.equal(g, want[k]) for g in got[k])
+        assert int(THB._ticket(nodes[k].device, stream.cuda_stream)) == 0
+    assert (THB._ticket(nodes[0].device, streams[0].cuda_stream).data_ptr()
+            != THB._ticket(nodes[0].device, streams[1].cuda_stream).data_ptr())
 
 
 @pytest.mark.gpu

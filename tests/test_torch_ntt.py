@@ -1,6 +1,7 @@
 """The port's NTT against stark_tpu: the plain torch paths on the CPU
 (bit-equal, tolerance zero), strict and lazy, the four-step plan tables
-against the Pallas engine's, and — on a card only — kernels K1-K3 and the
+against the Pallas engine's, the column kernels' register rounds against
+the stage-by-stage column transforms, and — on a card only — kernels K1-K3 and the
 lazy K1/K2 against their plain versions.
 
 On a CPU tensor ops/ntt routes through the plain versions of the three
@@ -110,6 +111,62 @@ def test_lazy_plain_matches_strict_plain(n, inverse, batch):
     assert torch.equal(TN.coset_interp(x, 3, lazy=True), TN.coset_interp(x, 3))
 
 
+@pytest.mark.parametrize("lg_r", range(1, 14))
+def test_round_stages(lg_r):
+    rounds = NTF.round_stages(lg_r)
+    assert sum(rounds) == lg_r and len(rounds) == -(-lg_r // NTF.MAX_ROUND)
+    assert rounds == sorted(rounds) and rounds[-1] - rounds[0] <= 1
+    assert 1 <= rounds[0] and rounds[-1] <= NTF.MAX_ROUND
+
+
+def _column_tables(lg_r):
+    from stark_tpu_torch.ops import fieldops as F
+
+    root = F.primitive_nth_root(1 << lg_r)
+    return NTF._shoup_pair(F.powers(root, max(1, (1 << lg_r) // 2), device="cpu"))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("lg_r", range(1, 12))
+def test_column_rounds_match_stage_by_stage(lg_r, batch):
+    # The kernels' register rounds (element-to-thread mapping, twiddle
+    # indices, the bit-reversed store) against the Stockham columns and,
+    # value for value in [0, 2p), against the radix-2 lazy stage loop.
+    tw, tws = _column_tables(lg_r)
+    x3 = to_torch(rand_field(np.random.default_rng(100 * lg_r + batch),
+                             (batch, 1 << lg_r, 5)))
+    x3[0, :, 0] = NTF.P - 1
+    strict = NTF._col_ntt_rounds(x3, tw, tws, lazy=False)
+    assert torch.equal(strict, NTF._col_ntt(x3, False))
+    lazy = NTF._col_ntt_rounds(x3, tw, tws, lazy=True)
+    assert torch.equal(lazy, NTF._col_ntt_lazy(x3, tw, tws))
+    assert torch.equal(torch.where(lazy >= NTF.P, lazy - NTF.P, lazy), strict)
+
+
+@pytest.mark.parametrize("lg", range(2, 14))
+def test_every_split_matches_stark_tpu(jN, lg):
+    # Even and odd splits (lg1 = lg // 2, lg2 = lg - lg1) through both
+    # passes' rounds, strict and lazy.
+    x = _input(1 << lg, 2, 23 * lg)
+    t = to_torch(x)
+    for inverse, want in ((False, jN.ntt(x)), (True, jN.intt(x))):
+        for lazy in (False, True):
+            got = NTF.fused_ntt(t, inverse, lazy=lazy)
+            np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("lg", [2, 6, 12, 16, 17, 20, 22, 24, 26])
+def test_launch_shape_fits_a_block(lg, batch):
+    for lg_r, cols in ((lg // 2, 1 << (lg - lg // 2)), (lg - lg // 2, 1 << (lg // 2))):
+        lg_tc, threads = NTF._launch_shape(lg_r, cols, batch)
+        assert cols % (1 << lg_tc) == 0
+        assert 32 <= threads <= 1024 and threads % 32 == 0
+        # twiddle pairs + the tile with its worst padding (csrc/ntt.cu)
+        words = (1 << lg_r) + (1 << (lg_r + lg_tc)) * 3 // 2
+        assert 4 * words <= 227 * 1024
+
+
 def test_lazy_plain_asserts_its_ranges():
     # Operands outside [0, p) break the [0, 2p) invariant the lazy kernels
     # rely on; the plain version must notice, not wrap silently.
@@ -216,3 +273,21 @@ def test_lazy_kernels_match_plain_on_card(cuda_device, n, batch, inverse):
     yt = NTF.ntt_transpose(y3)
     assert torch.equal(NTF.ntt_pass2(yt, plan, lazy=True),
                        NTF.pass2_plain(yt, plan, lazy=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("lg", range(2, 23))
+def test_pass_kernels_at_every_column_length_on_card(cuda_device, lg, batch):
+    # n = 2^lg gives pass 1 columns of 2^(lg // 2) rows and pass 2 columns
+    # of 2^(lg - lg // 2): every grouping of stages into rounds from 1 to
+    # 11, strict and lazy, each pass against its plain version.
+    plan = NTF.get_plan(1 << lg, lg % 3 == 0, cuda_device)
+    x3 = to_torch(rand_field(np.random.default_rng(lg * 10 + batch),
+                             (batch, plan.n1, plan.n2)), cuda_device)
+    want = NTF.pass1_plain(x3, plan)
+    yt = NTF.transpose_plain(want)
+    want2 = NTF.pass2_plain(yt, plan)
+    for lazy in (False, True):
+        assert torch.equal(NTF.ntt_pass1(x3, plan, lazy), want)
+        assert torch.equal(NTF.ntt_pass2(yt, plan, lazy), want2)
