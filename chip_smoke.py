@@ -17,8 +17,14 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       shapes of the main path (batch 1: iNTT 2^20, NTT 2^22) and of the
       wide path (batch 8: iNTT 2^16, NTT 2^18), with a strict/lazy A/B of
       device time; K1 and K2 alone, strict and lazy, at every n from 2^2
-      to 2^22 with batch 1, 3 and 8 (every column length from 2 to 2^11,
-      so every grouping of the stages into register rounds);
+      to 2^22 with batch 1, 3 and 8 and at n = 2^23, the longest transform
+      the field has, with batch 1
+      (every column length from 2 to 2^12, so every grouping of the
+      stages into register rounds and every tile width the launch rule
+      gives), each call made twice in a row; K3 alone at the (n1, n2) of
+      every such n (its edge route up to n = 8, its vector route from n =
+      16 on) and at shapes that are not square, not multiples of its
+      tile, or not multiples of 4 on one side or both, each twice;
     - the FRI fold (K4) at every half from 2^21 down to 128;
     - the row hash (K5/K6) for c = 1 at every N from 2 to 2^22 and for c in
       {2, 3, 5, 8} at N in {2, 1024, 2^18, 2^20}, one tree level (K7) at W
@@ -115,6 +121,15 @@ TAIL_WIDTHS = tuple(1 << lg for lg in range(1, 17))
 TAIL_SUBTREES = (1, 4, 6, 8, 9, 10)
 TAIL_MAX_LG_W = 20
 PASS_LGS = tuple(range(2, 23))  # K1/K2 alone: n = 2^lg, batch 1, 3, 8
+PASS_LGS_LONG = (23,)  # and batch 1 only: columns of 2^12 rows, the field's longest
+# K3 alone, (batch, rows, cols): both routes (16-byte accesses need rows and
+# cols that are multiples of 4), around the vector route's 32 x 128 tile.
+TRANSPOSE_SHAPES = (
+    (1, 2, 2), (3, 2, 4), (8, 4, 2), (1, 4, 4), (3, 4, 4), (8, 4, 4),
+    (3, 96, 40), (3, 97, 40), (3, 96, 41), (1, 33, 129), (2, 36, 132),
+    (8, 32, 128), (1, 28, 124), (1, 4, 2048), (1, 2048, 4), (3, 8, 260),
+    (8, 1, 7), (2, 100, 100), (1, 1024, 4096), (3, 4096, 512),
+)
 # A timed call takes the next of so many sets of buffers that this many
 # bytes pass between two uses of one set: more than twice the card's 50 MB
 # L2, so every timed call reads its operands from device memory.
@@ -340,22 +355,46 @@ def _check_ntt(rng, dev, results: _Results) -> None:
           f"batch 1 and 3, and at batch {WIDE_BATCH} for n=2^16 and 2^18, forward "
           "and inverse", flush=True)
 
-    # K1 and K2 alone at every column length from 2 to 2^11 rows.
-    for lg in PASS_LGS:
+    # K1, K3 and K2 alone at every column length from 2 to 2^12 rows, each
+    # call twice in a row (a second call finds what the first one left).
+    shapes = [(lg, batch) for lg in PASS_LGS for batch in (1, 3, WIDE_BATCH)]
+    shapes += [(lg, 1) for lg in PASS_LGS_LONG]
+    tiles = set()
+    for lg, batch in shapes:
         plan = NTF.get_plan(1 << lg, lg % 2 == 1, dev)
-        for batch in (1, 3, WIDE_BATCH):
-            x3 = rand((batch, plan.n1, plan.n2))
-            want1 = NTF.pass1_plain(x3, plan)
-            yt = NTF.transpose_plain(want1)
-            want2 = NTF.pass2_plain(yt, plan)
+        x3 = rand((batch, plan.n1, plan.n2))
+        want1 = NTF.pass1_plain(x3, plan)
+        yt = NTF.transpose_plain(want1)
+        want2 = NTF.pass2_plain(yt, plan)
+        tiles.add(NTF._launch_shape(plan.lg1, plan.n2, batch))
+        tiles.add(NTF._launch_shape(plan.lg2, plan.n1, batch))
+        for turn in (1, 2):
+            what = f"n=2^{lg} batch={batch} call {turn}"
+            _require_equal("ntt_transpose " + what, NTF.ntt_transpose(want1), yt)
             for lazy in (False, True):
-                what = f"n=2^{lg} batch={batch} lazy={lazy}"
+                what = f"n=2^{lg} batch={batch} lazy={lazy} call {turn}"
                 _require_equal("ntt_pass1 " + what, NTF.ntt_pass1(x3, plan, lazy), want1)
                 _require_equal("ntt_pass2 " + what, NTF.ntt_pass2(yt, plan, lazy), want2)
-    print("ntt: pass 1 and pass 2 alone == plain, strict and lazy, at every n from "
-          f"2^{PASS_LGS[0]} to 2^{PASS_LGS[-1]} (columns of 2 to 2^11 rows: rounds "
-          f"{NTF.round_stages(1)} to {NTF.round_stages(11)}), batch 1, 3 and "
-          f"{WIDE_BATCH}", flush=True)
+    print("ntt: pass 1, the transpose and pass 2 alone == plain, strict and lazy, at "
+          f"every n from 2^{PASS_LGS[0]} to 2^{PASS_LGS[-1]}, batch 1, 3 and "
+          f"{WIDE_BATCH}, and at n=2^{PASS_LGS_LONG[0]}, batch 1 (columns of 2 to "
+          f"2^12 rows: rounds {NTF.round_stages(1)} to {NTF.round_stages(12)}; tiles "
+          "of (log2 columns, threads) "
+          f"{sorted(tiles)}), each call twice", flush=True)
+
+    # K3 on both sides of its shape rule and around its tile.
+    routes = {"vector": [], "edge": []}
+    for b, r, c in TRANSPOSE_SHAPES:
+        y3 = rand((b, r, c))
+        want = NTF.transpose_plain(y3)
+        for turn in (1, 2):
+            _require_equal(f"ntt_transpose ({b}, {r}, {c}) call {turn}",
+                           NTF.ntt_transpose(y3), want)
+        routes["vector" if NTF._transpose_vector(r, c) else "edge"].append((b, r, c))
+    if not routes["vector"] or not routes["edge"]:
+        raise AssertionError(f"ntt_transpose: a route was not driven: {routes}")
+    print(f"ntt: transpose == plain, each call twice, on the vector route at "
+          f"{routes['vector']} and on the edge route at {routes['edge']}", flush=True)
 
     # Each NTT kernel alone at the shapes the two paths give it.  The JSON
     # entries keep the main path's LDE shape; the others are printed.

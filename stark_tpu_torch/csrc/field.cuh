@@ -17,13 +17,26 @@ constexpr uint32_t kPinvNeg = 998244351u;
 static_assert(static_cast<uint32_t>(kP * kPinvNeg) == 0xFFFFFFFFu,
               "kPinvNeg must be -p^-1 mod 2^32");
 
+// [0, 2p) -> [0, p), as min(a, a - p): a - p wraps around to above a when
+// a < p.  One instruction on Hopper, the DPX add-and-minimum (VIADDMNMX),
+// where a compare and a select were two on the same integer pipe.
+__device__ __forceinline__ uint32_t reduce_once(uint32_t a) {
+  return __viaddmin_u32(a, 0u - kP, a);
+}
+
 __device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;  // < 2p < 2^31: no wrap
-  return s >= kP ? s - kP : s;
+  return reduce_once(a + b);  // a + b < 2p < 2^31: no wrap
 }
 
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a - b + kP;
+  const uint32_t d = a - b;  // wraps around to above d + p when a < b
+  return __viaddmin_u32(d, kP, d);
+}
+
+// a, b in [0, p) -> a - b + p, in (0, 2p): the difference mod p, left
+// unreduced for shoup_mul, which takes any operand.
+__device__ __forceinline__ uint32_t sub_open(uint32_t a, uint32_t b) {
+  return a - b + kP;
 }
 
 // (a * w) mod p for a constant w < p with companion ws = floor(w 2^32 / p).
@@ -31,8 +44,7 @@ __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
 __device__ __forceinline__ uint32_t shoup_mul(uint32_t a, uint32_t w,
                                               uint32_t ws) {
   const uint32_t q = __umulhi(a, ws);
-  const uint32_t r = a * w - q * kP;
-  return r >= kP ? r - kP : r;
+  return reduce_once(a * w - q * kP);
 }
 
 // Harvey's lazy butterflies keep values in [0, 2p) between NTT stages
@@ -45,7 +57,7 @@ static_assert(2ull * kTwoP < (1ull << 32), "4p must fit in 32 bits");
 // a, b in [0, 2p) -> a + b mod p, in [0, 2p).
 __device__ __forceinline__ uint32_t add_lazy(uint32_t a, uint32_t b) {
   const uint32_t s = a + b;  // < 4p < 2^32
-  return s >= kTwoP ? s - kTwoP : s;
+  return __viaddmin_u32(s, 0u - kTwoP, s);
 }
 
 // a, b in [0, 2p) -> a - b + 2p, in (0, 4p); feeds only shoup_lazy.
@@ -59,11 +71,6 @@ __device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w,
   return a * w - __umulhi(a, ws) * kP;
 }
 
-// [0, 2p) -> [0, p).
-__device__ __forceinline__ uint32_t reduce_once(uint32_t a) {
-  return a >= kP ? a - kP : a;
-}
-
 // Montgomery REDC(a * b) = a b 2^-32 mod p for b in [0, p) and a in
 // [0, 2p) (the lazy butterflies hand pass 1 such an a).  The low word of
 // a b + m p is zero by the choice of m, so its carry into the high word is
@@ -74,7 +81,7 @@ __device__ __forceinline__ uint32_t mont_mul(uint32_t a, uint32_t b) {
   const uint32_t hi = __umulhi(a, b);
   const uint32_t m = lo * kPinvNeg;
   const uint32_t u = hi + __umulhi(m, kP) + (lo != 0u ? 1u : 0u);
-  return u >= kP ? u - kP : u;
+  return reduce_once(u);
 }
 
 }  // namespace stark

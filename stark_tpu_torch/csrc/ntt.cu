@@ -14,26 +14,44 @@
 //   pass 2  column NTTs of length n2 (root omega^n1); the (n2, n1)
 //           row-major result IS the natural-order transform.
 //
-// Column NTT design (K1; K2 runs the same column function).  A block owns
-// a tile of 2^lg_tc whole columns.  The lg_r radix-2 DIF stages are cut
-// into rounds of at most four (round_stages: 11 = 3 + 4 + 4, 10 = 3 + 3 +
-// 4, 9 = 3 + 3 + 3, 8 = 4 + 4; a column of 16 rows or fewer is one round).
-// In a round of q stages a thread holds the 2^q elements of one column
-// whose rows differ only in the q bits the round works on, runs the q
-// stages on them in registers, and puts them back: the round's partners
-// are all in the thread, so the block meets at one barrier per round, not
-// one per stage.  The first round reads its elements straight from device
-// memory and the last one writes straight to it, so the tile in shared
-// memory is written and read once per inner boundary (twice each at 2^22,
-// where the stage loop this replaces crossed it 11 times with 11
-// barriers).  The 2^(lg_r - 1) twiddles and their Shoup companions are
-// copied into shared memory once per block as (w, w') pairs; a round of q
-// stages reads 2^q - 1 of them per thread for 2^(q-1) q butterflies.
-// Neighbouring threads take neighbouring columns, so every access to
-// device memory is a run of 2^lg_tc values of one row, and a warp's
-// accesses to the tile fall in 32 different banks: for tiles narrower than
-// 32 columns the last round's rows lie 2^q apart, and the tile is padded
-// by 32 / 2^q words per 32 so that they still do.
+// Column NTT design (K1 and K2 run the same column function).  A block
+// owns a tile of 2^lg_tc whole columns.  The lg_r radix-2 DIF stages are
+// cut into rounds of at most four, the longer ones first (round_stages: 11
+// = 4 + 4 + 3, 10 = 4 + 3 + 3, 9 = 3 + 3 + 3, 8 = 4 + 4; a column of 16
+// rows or fewer is one round).  In a round of q stages a thread holds the
+// 2^q elements of one column whose rows differ only in the q bits the
+// round works on, runs the q stages on them in registers, and puts them
+// back: the round's partners are all in the thread, so the block meets at
+// one barrier per round, not one per stage.  The first round reads its
+// elements straight from device memory and the last one writes straight
+// to it, so the tile in shared memory is written and read once per inner
+// boundary.  A warp starts its butterflies as soon as its own loads have
+// landed, and its stores leave behind it while it goes on: the loads and
+// stores of some warps overlap the arithmetic of others without any
+// staging.  The longest round comes first because its 16 loads per thread
+// are what keeps device memory busy at the start, when nothing else can
+// run.  The 2^(lg_r - 1) twiddles and their Shoup companions are copied
+// into shared memory once per block as (w, w') pairs, after the first
+// round's loads have been issued and before its butterflies, so the two
+// trips to device memory overlap; a round of q stages reads 2^q - 1 of
+// them per thread for 2^(q-1) q butterflies.
+//
+// Addresses.  Neighbouring threads take neighbouring columns, so every
+// access to device memory is a run of 2^lg_tc values of one row.  A unit's
+// 2^q elements lie 2^(b_lo + lg_tc) elements apart (b_lo the stage bits
+// below the round's), so a thread computes one base for its unit and the
+// element m is at base + m * pitch, pitch the same for the whole block:
+// one multiply-add per access, in the tile and in device memory (offsets
+// into a batch entry fit 32 bits).  For that the tile's padding has to
+// keep equal steps equal.  The padding is there for the last round of a
+// tile narrower than a warp: its rows (hi << q) | m lie 2^q rows apart
+// for the warp's 32 / 2^lg_tc values of hi, which without padding are the
+// same banks.  One row of padding (2^lg_tc words) after every 2^q rows
+// moves each hi to the next 2^lg_tc banks, so a warp's 32 accesses fall
+// in 32 banks in every round (a test enumerates it), and it keeps the
+// steps equal: in the last round all of a unit lies between two pads, in
+// the earlier rounds its elements lie whole numbers of pads apart (b_lo
+// >= q there).
 //
 // DIF leaves a column bit-reversed; the last round stores row r at its
 // bit-reversed place, so the output is in natural order and the TPU
@@ -44,39 +62,56 @@
 //
 // Each pass has a strict and a lazy instantiation (the TPU bodies' lazy
 // flag, _dif_col_stages(..., lazy=True) :253): strict keeps every value in
-// [0, p); lazy keeps [0, 2p) between stages (field.cuh), which saves two
-// selects per butterfly.  Grouping the stages into rounds changes neither
-// the order nor the operands of any butterfly - a value still passes
-// through its lg_r stages one after the other, in registers or not - so
-// the range argument is the one of field.cuh, stage by stage: inputs in
-// [0, p), add_lazy and shoup_lazy return [0, 2p), sub_lazy's (0, 4p) feeds
-// only shoup_lazy.  Pass 1's REDC absorbs the [0, 2p) operand; pass 2 ends
-// with one conditional subtract.  The outputs are bit-identical.
+// [0, p); lazy keeps [0, 2p) between stages (field.cuh).  Grouping the
+// stages into rounds changes neither the order nor the operands of any
+// butterfly - a value still passes through its lg_r stages one after the
+// other, in registers or not - so the range argument is the one of
+// field.cuh, stage by stage: inputs in [0, p), add_lazy and shoup_lazy
+// return [0, 2p), sub_lazy's (0, 4p) feeds only shoup_lazy.  Pass 1's REDC
+// absorbs the [0, 2p) operand; pass 2 ends with one conditional subtract.
+// The strict butterfly hands its difference to the Shoup product as a - b
+// + p in (0, 2p), which that product takes (any u32) and reduces to the
+// same canonical value, and every correction is Hopper's add-and-minimum
+// (VIADDMNMX, field.cuh reduce_once): 7 instructions a butterfly where
+// compare and select made 11, the lazy one 6.  The outputs are
+// bit-identical.
 //
-// What bounds it on the card: bytes.  A pass moves 8 bytes per element
-// through device memory (pass 1 adds 4 for wm) and does lg_r / 2
-// butterflies of 8-11 instructions per element; at n = 2^22 that is 48 MB
-// against the H100 SXM's published 3.35 TB/s (15 us) and 0.29e9
-// instructions against 33.5e12 per second (9 us).  After this design a
-// pass reaches 30-45 % of the byte bound (PERF.md): at these sizes all of
-// a pass's blocks are on the card at once, so every block loads, then
-// computes, then stores at the same time as every other, and nothing
-// overlaps the three.  Tile width and threads per block come from the
-// wrapper (ops/ntt_fused.py _launch_shape, set from the sweep of
-// tools/tune_kernels.py): tiles of 2^15 elements, one thread per radix-16
-// unit, and narrower tiles where a pass would otherwise run on fewer than
-// 128 blocks.  That last rule leaves the passes of n = 2^20 with tiles 8
-// columns wide (16 at 2^22), so a row of the tile is a 32-byte run of
-// device memory, the narrowest that wastes no sector: in the sweep wider
-// rows on fewer blocks were slower there (pass 1 with 16 columns on 64
-// blocks 16.5 us against 12.5), because 64 blocks leave half of the
-// card's SMs without work.  Wider rows at full occupancy need a block that
-// holds less than a whole column, which this four-step layout does not
-// give; loads that run ahead of the butterflies (cp.async, a second tile
-// in flight) are the next step and are not built.
+// What bounds it on the card: the instructions, not the bytes.  A pass
+// moves 8 bytes per element through device memory (pass 1 adds 4 for wm):
+// 32 MB at n = 2^22, 10 us at the H100 SXM's published 3.35 TB/s.
+// tools/tune_kernels.py times the kernels with parts of their work taken
+// out (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md has the table): of pass
+// 2's 23.4 us at n = 2^22, 8.2 are the tile, the twiddles, the barriers,
+// the indices and the launch, 8.5 the butterflies, and 6.7 are device
+// memory that the arithmetic does not hide; at n = 2^20 (9.3 us) the
+// three are 4.3, 2.2 and 2.9, and a launch alone is 1.3.  So the kernel
+// cannot reach half of its byte bound by moving bytes better.  A ring of tile buffers filled by 16-byte
+// cp.async copies, a block walking over several column groups, was built
+// and measured slower at every shape (31.5 us against 28.6 at 2^22): the
+// block then waits for a whole group to land where here each warp waits
+// only for its own rows, a column of 2^11 rows leaves room for two groups
+// a block, and the copy costs one more trip through shared memory.  It is
+// not in the source.  What did help is in the paragraphs above: fewer
+// instructions per butterfly and per access, one latency less at the
+// start, more loads in flight in the first round, and smaller blocks.
+//
+// Tile width and threads per block come from the wrapper
+// (ops/ntt_fused.py _launch_shape, set from the sweep of
+// tools/tune_kernels.py): tiles of 2^13 elements, at least 8 columns wide
+// (a row of the tile is then a 32-byte run of device memory, the narrowest
+// that wastes no sector), one thread per radix-16 unit and at most 512,
+// narrower tiles where a pass would otherwise run on fewer than 128
+// blocks.  Two to four such blocks share an SM and drift apart, so one's
+// loads and stores overlap another's butterflies.
+//
+// K3 is at the end of the file: 4 x 4 blocks transposed in registers
+// between 16-byte loads and 16-byte stores, no shared memory, for rows and
+// columns that are multiples of 4; the padded 32 x 33 shared tile for the
+// rest.
+//
 // ptxas -v (sm_90a, CUDA 12, __launch_bounds__(1024); tools/tune_kernels.py
-// prints it): 64 registers for pass 1 and both pass 2 kernels, 62 for lazy
-// pass 1; no spills, no stack.
+// prints it): 64 registers for all four column kernels, 34 for the
+// transpose's vector route, 18 for its edge route; no spills, no stack.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -91,7 +126,7 @@ using stark::reduce_once;
 using stark::shoup_lazy;
 using stark::shoup_mul;
 using stark::sub_lazy;
-using stark::sub_mod;
+using stark::sub_open;
 
 // The most threads of a block; the register budget follows from it
 // (65,536 registers over 1024 threads: 64 each).
@@ -99,27 +134,33 @@ constexpr int kMaxThreads = 1024;
 constexpr int kMaxRound = 4;  // stages per round: radix 16
 constexpr int kMaxLgR = 13;   // a column and its twiddles must fit a block
 constexpr int kSmemMax = 227 * 1024;
+constexpr int kNoPad = 31;  // a pad shift under which no index is padded
 
 // The rounds of a length-2^lg_r column: ceil(lg_r / 4) of them, as even as
-// can be, the longer ones last.
+// can be, the longer ones first.
 struct Rounds {
-  int count, base, longer;  // `longer` rounds of base + 1 stages at the end
+  int count, base, longer;  // `longer` rounds of base + 1 stages at the start
   __host__ __device__ explicit Rounds(int lg_r)
       : count((lg_r + kMaxRound - 1) / kMaxRound),
         base(lg_r / count),
         longer(lg_r - base * count) {}
   __host__ __device__ int stages(int round) const {
-    return base + (round >= count - longer ? 1 : 0);
+    return base + (round < longer ? 1 : 0);
   }
 };
 
-// m's low `bits` bits in reverse order (m and bits are constants wherever
-// this is called, so it folds).
-__device__ __forceinline__ int reversed(int m, int bits) {
-  int r = 0;
-#pragma unroll
-  for (int b = 0; b < bits; ++b) r |= ((m >> b) & 1) << (bits - 1 - b);
-  return r;
+// m's low `bits` bits in reverse order, 1 <= bits <= 32.  Where m and bits
+// are constants it folds; written as a loop over the bits it did not, and
+// cost the last round some forty instructions for every store.
+__device__ __forceinline__ uint32_t reversed(uint32_t m, int bits) {
+  return __brev(m) >> (32 - bits);
+}
+
+// Element e of a tile of 2^lg_tc columns lies at word e + 2^lg_tc * (e >>
+// pad_shift): one row of padding after every 2^pad_shift elements (see the
+// head note).
+__host__ __device__ inline int tile_word(int e, int pad_shift, int lg_tc) {
+  return e + ((e >> pad_shift) << lg_tc);
 }
 
 // One round of Q stages, the stages s0 .. s0 + Q - 1 of the column NTT, on
@@ -129,42 +170,67 @@ __device__ __forceinline__ int reversed(int m, int bits) {
 // rest.  Stage s0 + t pairs m with m + 2^(Q-1-t) and multiplies the
 // difference by tw[j << (s0 + t)], j the row's offset in its half block:
 // j = ((m mod 2^(Q-1-t)) << b_lo) | lo.
-// `first`: the elements come from x, else from the tile; `last` (b_lo is 0
-// then): they go to out, row r at r's bit-reversed place, through the
-// pass's closing step, else back to the tile.  x, out and wm point at the
-// block's first column of the batch entry.
+// `first`: the elements come from x, and the block fills its twiddle pairs
+// twd from tw/tws while the first unit's loads are on their way; else they
+// come from the tile.  `last` (b_lo is 0 then): they go to out, row r at
+// r's bit-reversed place, through the pass's closing step, else back to the
+// tile.  x, out and wm point at the tile's first column of its batch entry.
+// Every address is a base that the thread computes once for its unit plus
+// m times a pitch that is the same for the whole block: in the tile
+// because a unit's elements lie whole runs of padding apart (or, in the
+// last round, inside one run), in device memory because they lie whole
+// rows apart.
 template <int Q, bool kTwiddle, bool kLazy>
 __device__ __forceinline__ void ntt_round(
     const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-    const uint32_t* __restrict__ wm, const uint2* twd, uint32_t* tile,
-    int lg_r, int cols, int lg_tc, int pad, int s0, bool first, bool last) {
+    const uint32_t* __restrict__ wm, const uint32_t* __restrict__ tw,
+    const uint32_t* __restrict__ tws, uint2* twd, uint32_t* tile, int lg_r,
+    int cols, int lg_tc, int pad_shift, int s0, bool first, bool last) {
   constexpr int kM = 1 << Q;
   const int b_lo = lg_r - s0 - Q;
   const int units = 1 << (lg_r - Q + lg_tc);
-  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+  const int step = 1 << (b_lo + lg_tc);  // elements between m and m + 1
+  const int pitch = tile_word(step, pad_shift, lg_tc);
+  // Offsets into a batch entry fit 32 bits (the launcher sees to it).
+  const uint32_t x_pitch = (uint32_t)cols << b_lo;
+  const int hi_bits = lg_r - Q;  // of the last round, where b_lo is 0
+  const uint32_t out_pitch = (uint32_t)cols << hi_bits;
+  // Every thread makes the same number of turns, so that the barrier after
+  // the twiddle fill is met by all of them.
+  const int turns = (units + blockDim.x - 1) / blockDim.x;
+  for (int turn = 0; turn < turns; ++turn) {
+    const int u = turn * blockDim.x + threadIdx.x;
+    const bool mine = u < units;
     const int c = u & ((1 << lg_tc) - 1);
     const int g = u >> lg_tc;
     const int lo = g & ((1 << b_lo) - 1);
     const int hi = g >> b_lo;
     const int row0 = (hi << (b_lo + Q)) | lo;
+    uint32_t* cell = tile + tile_word((row0 << lg_tc) + c, pad_shift, lg_tc);
     uint32_t v[kM];
-    if (first) {
+    if (mine) {
+      if (first) {
+        const uint32_t src = (uint32_t)row0 * cols + c;
 #pragma unroll
-      for (int m = 0; m < kM; ++m)
-        v[m] = x[(size_t)(row0 + (m << b_lo)) * cols + c];
-    } else {
+        for (int m = 0; m < kM; ++m) v[m] = x[src + m * x_pitch];
+      } else {
 #pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        const int e = ((row0 + (m << b_lo)) << lg_tc) + c;
-        v[m] = tile[e + (e >> 5) * pad];
+        for (int m = 0; m < kM; ++m) v[m] = cell[m * pitch];
       }
     }
+    if (first && turn == 0) {
+      for (int i = threadIdx.x; i < (1 << (lg_r - 1)); i += blockDim.x)
+        twd[i] = make_uint2(tw[i], tws[i]);
+      __syncthreads();
+    }
+    if (!mine) continue;
 #pragma unroll
     for (int t = 0; t < Q; ++t) {
       const int half = 1 << (Q - 1 - t);
+      const uint2* tw_lo = twd + (lo << (s0 + t));
 #pragma unroll
       for (int k = 0; k < half; ++k) {
-        const uint2 w = twd[((k << b_lo) | lo) << (s0 + t)];
+        const uint2 w = tw_lo[k << (b_lo + s0 + t)];
 #pragma unroll
         for (int m0 = k; m0 < kM; m0 += 2 * half) {
           const uint32_t a = v[m0];
@@ -174,20 +240,18 @@ __device__ __forceinline__ void ntt_round(
             v[m0 + half] = shoup_lazy(sub_lazy(a, b), w.x, w.y);
           } else {
             v[m0] = add_mod(a, b);
-            v[m0 + half] = shoup_mul(sub_mod(a, b), w.x, w.y);
+            v[m0 + half] = shoup_mul(sub_open(a, b), w.x, w.y);
           }
         }
       }
     }
     if (last) {
       // Row (hi << Q) | m goes to (reversed m) << (lg_r - Q) | reversed hi.
-      const int hi_bits = lg_r - Q;
-      const int hi_rev =
-          hi_bits == 0 ? 0 : (int)(__brev((unsigned)hi) >> (32 - hi_bits));
+      const uint32_t hi_rev = hi_bits == 0 ? 0 : reversed(hi, hi_bits);
+      const uint32_t off0 = hi_rev * cols + c;
 #pragma unroll
       for (int m = 0; m < kM; ++m) {
-        const size_t off =
-            (size_t)((reversed(m, Q) << hi_bits) | hi_rev) * cols + c;
+        const uint32_t off = off0 + reversed(m, Q) * out_pitch;
         uint32_t y = v[m];
         if (kTwiddle) {
           y = mont_mul(y, wm[off]);  // canonical for y in [0, 2p) too
@@ -198,10 +262,7 @@ __device__ __forceinline__ void ntt_round(
       }
     } else {
 #pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        const int e = ((row0 + (m << b_lo)) << lg_tc) + c;
-        tile[e + (e >> 5) * pad] = v[m];
-      }
+      for (int m = 0; m < kM; ++m) cell[m * pitch] = v[m];
     }
   }
 }
@@ -210,22 +271,17 @@ __device__ __forceinline__ void ntt_round(
 // columns [bx * 2^lg_tc, (bx + 1) * 2^lg_tc) of batch entry by.  tw/tws:
 // the 2^(lg_r - 1) powers of the column root and their Shoup companions.
 // wm: (2^lg_r, cols), read only when kTwiddle.  smem: the twiddle pairs,
-// then the tile (element e at word e + (e >> 5) * pad).
+// then the tile.
 template <bool kTwiddle, bool kLazy>
 __device__ __forceinline__ void col_ntt(const uint32_t* __restrict__ x,
                                         uint32_t* __restrict__ out,
                                         const uint32_t* __restrict__ tw,
                                         const uint32_t* __restrict__ tws,
                                         const uint32_t* __restrict__ wm,
-                                        int lg_r, int cols, int lg_tc, int pad,
-                                        uint32_t* smem) {
-  const int pairs = 1 << (lg_r - 1);
+                                        int lg_r, int cols, int lg_tc,
+                                        int pad_shift, uint32_t* smem) {
   uint2* twd = reinterpret_cast<uint2*>(smem);
-  uint32_t* tile = smem + 2 * pairs;
-  for (int i = threadIdx.x; i < pairs; i += blockDim.x)
-    twd[i] = make_uint2(tw[i], tws[i]);
-  __syncthreads();
-
+  uint32_t* tile = smem + (1 << lg_r);  // after the 2^(lg_r - 1) pairs
   const size_t c0 = (size_t)blockIdx.x << lg_tc;
   const size_t base = (size_t)blockIdx.y * ((size_t)cols << lg_r) + c0;
   x += base;
@@ -240,24 +296,32 @@ __device__ __forceinline__ void col_ntt(const uint32_t* __restrict__ x,
     const bool last = r == rounds.count - 1;
     switch (q) {
       case 1:
-        ntt_round<1, kTwiddle, kLazy>(x, out, wm, twd, tile, lg_r, cols, lg_tc,
-                                      pad, s0, first, last);
+        ntt_round<1, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
+                                      cols, lg_tc, pad_shift, s0, first, last);
         break;
       case 2:
-        ntt_round<2, kTwiddle, kLazy>(x, out, wm, twd, tile, lg_r, cols, lg_tc,
-                                      pad, s0, first, last);
+        ntt_round<2, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
+                                      cols, lg_tc, pad_shift, s0, first, last);
         break;
       case 3:
-        ntt_round<3, kTwiddle, kLazy>(x, out, wm, twd, tile, lg_r, cols, lg_tc,
-                                      pad, s0, first, last);
+        ntt_round<3, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
+                                      cols, lg_tc, pad_shift, s0, first, last);
         break;
       default:
-        ntt_round<4, kTwiddle, kLazy>(x, out, wm, twd, tile, lg_r, cols, lg_tc,
-                                      pad, s0, first, last);
+        ntt_round<4, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
+                                      cols, lg_tc, pad_shift, s0, first, last);
     }
     s0 += q;
     if (!last) __syncthreads();
   }
+}
+
+// Tiles narrower than a warp: pad for the last round (see the head note).
+int pad_shift_of(int lg_r, int lg_tc) {
+  const Rounds rounds(lg_r);
+  return rounds.count > 1 && lg_tc < 5
+             ? rounds.stages(rounds.count - 1) + lg_tc
+             : kNoPad;
 }
 
 using ColNttKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
@@ -267,17 +331,14 @@ using ColNttKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
 int launch_col_ntt(ColNttKernel kernel, const void* x, void* out,
                    const void* tw, const void* tws, const void* wm, int batch,
                    int lg_r, int cols, int lg_tc, int threads, void* stream) {
-  if (lg_r < 1 || lg_r > kMaxLgR || lg_tc < 0 || lg_tc > 20 || batch < 1 ||
-      cols < 1 || (cols & ((1 << lg_tc) - 1)) || threads < 32 ||
+  if (lg_r < 1 || lg_r > kMaxLgR || lg_tc < 0 || lg_r + lg_tc > 20 ||
+      batch < 1 || cols < 1 || cols > (1 << (31 - lg_r)) ||
+      (cols & ((1 << lg_tc) - 1)) || threads < 32 ||
       threads > kMaxThreads || threads % 32)
     return (int)cudaErrorInvalidValue;
-  // Tiles narrower than a warp: pad for the last round (see the head note).
-  const Rounds rounds(lg_r);
-  const int pad = rounds.count > 1 && lg_tc < 5
-                      ? 32 >> rounds.stages(rounds.count - 1)
-                      : 0;
-  const long long total = 1LL << (lg_r + lg_tc);
-  const long long words = (1LL << lg_r) + total + (total >> 5) * pad;
+  const int pad_shift = pad_shift_of(lg_r, lg_tc);
+  const long long words =
+      (1LL << lg_r) + tile_word(1 << (lg_r + lg_tc), pad_shift, lg_tc);
   if (words * 4 > kSmemMax) return (int)cudaErrorInvalidValue;
   const int smem = (int)words * 4;
   if (smem > 48 * 1024) {
@@ -289,14 +350,20 @@ int launch_col_ntt(ColNttKernel kernel, const void* x, void* out,
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(tws),
-      static_cast<const uint32_t*>(wm), lg_r, cols, lg_tc, pad);
+      static_cast<const uint32_t*>(wm), lg_r, cols, lg_tc, pad_shift);
   return (int)cudaGetLastError();
 }
+
+// K3's two tile shapes (rows x columns of the input).
+constexpr int kEdgeTile = 32;
+constexpr int kVecTileRows = 32;
+constexpr int kVecTileCols = 128;
+constexpr int kVecThreads = 256;
 
 }  // namespace
 
 // The __global__ functions have C linkage so that a profile names them
-// plainly (stark_*_kernel); the host entries below launch them.
+// plainly (stark_*_kernel...); the host entries below launch them.
 extern "C" {
 
 #define STARK_COL_NTT_KERNEL(NAME, TWIDDLE, LAZY)                             \
@@ -304,9 +371,9 @@ extern "C" {
       NAME(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,        \
            const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tws, \
            const uint32_t* __restrict__ wm, int lg_r, int cols, int lg_tc,    \
-           int pad) {                                                         \
-    extern __shared__ uint2 smem[];                                           \
-    col_ntt<TWIDDLE, LAZY>(x, out, tw, tws, wm, lg_r, cols, lg_tc, pad,       \
+           int pad_shift) {                                                   \
+    extern __shared__ uint4 smem[];                                           \
+    col_ntt<TWIDDLE, LAZY>(x, out, tw, tws, wm, lg_r, cols, lg_tc, pad_shift, \
                            reinterpret_cast<uint32_t*>(smem));                \
   }
 
@@ -317,22 +384,57 @@ STARK_COL_NTT_KERNEL(stark_ntt_pass2_lazy_kernel, false, true)
 
 #undef STARK_COL_NTT_KERNEL
 
-// (batch, rows, cols) -> (batch, cols, rows) through a padded 32 x 33
-// shared-memory tile, so both the read and the write are coalesced.
-__global__ void stark_ntt_transpose_kernel(const uint32_t* __restrict__ x,
-                                           uint32_t* __restrict__ out,
-                                           int rows, int cols) {
-  __shared__ uint32_t tile[32][33];
+// K3, the vector route: (batch, rows, cols) -> (batch, cols, rows) with rows
+// and cols multiples of 4 and x, out 16-byte aligned.  A thread reads a 4 x
+// 4 block as four 16-byte loads down four rows, transposes it in its
+// registers and writes four 16-byte stores down four rows of the output.
+// Lanes 4 k .. 4 k + 3 of a warp sit side by side along the input's row
+// (64 bytes) and lanes k, k + 4, ... along the output's (128 bytes); the
+// eight warps of a block side by side along the input's row, so block (bx,
+// by, bz) moves the tile of 32 rows by 128 columns at (32 by, 128 bx) of
+// batch entry bz, and both directions move whole 128-byte lines.  No shared
+// memory and no barrier, 64 bytes in flight per thread.
+__global__ void __launch_bounds__(kVecThreads)
+    stark_ntt_transpose_kernel(const uint32_t* __restrict__ x,
+                               uint32_t* __restrict__ out, int rows,
+                               int cols) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.y * kVecTileRows + ((lane >> 2) << 2);
+  const int c = blockIdx.x * kVecTileCols +
+                (((threadIdx.x >> 5) << 4) | ((lane & 3) << 2));
+  if (r >= rows || c >= cols) return;
   const size_t base = (size_t)blockIdx.z * rows * cols;
-  const int r0 = blockIdx.y * 32;
-  const int c0 = blockIdx.x * 32;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+  const size_t in_step = (size_t)(cols >> 2);  // a row, in uint4
+  const size_t out_step = (size_t)(rows >> 2);
+  const uint4* src =
+      reinterpret_cast<const uint4*>(x + base + (size_t)r * cols + c);
+  const uint4 a0 = src[0];
+  const uint4 a1 = src[in_step];
+  const uint4 a2 = src[2 * in_step];
+  const uint4 a3 = src[3 * in_step];
+  uint4* dst = reinterpret_cast<uint4*>(out + base + (size_t)c * rows + r);
+  dst[0] = make_uint4(a0.x, a1.x, a2.x, a3.x);
+  dst[out_step] = make_uint4(a0.y, a1.y, a2.y, a3.y);
+  dst[2 * out_step] = make_uint4(a0.z, a1.z, a2.z, a3.z);
+  dst[3 * out_step] = make_uint4(a0.w, a1.w, a2.w, a3.w);
+}
+
+// K3, any rows and cols: a padded 32 x 33 shared-memory tile, 4-byte loads
+// and stores, both coalesced.
+__global__ void stark_ntt_transpose_kernel_edge(const uint32_t* __restrict__ x,
+                                                uint32_t* __restrict__ out,
+                                                int rows, int cols) {
+  __shared__ uint32_t tile[kEdgeTile][kEdgeTile + 1];
+  const size_t base = (size_t)blockIdx.z * rows * cols;
+  const int r0 = blockIdx.y * kEdgeTile;
+  const int c0 = blockIdx.x * kEdgeTile;
+  for (int i = threadIdx.y; i < kEdgeTile; i += blockDim.y) {
     const int r = r0 + i;
     const int c = c0 + threadIdx.x;
     if (r < rows && c < cols) tile[i][threadIdx.x] = x[base + (size_t)r * cols + c];
   }
   __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
+  for (int i = threadIdx.y; i < kEdgeTile; i += blockDim.y) {
     const int c = c0 + i;
     const int r = r0 + threadIdx.x;
     if (c < cols && r < rows) out[base + (size_t)c * rows + r] = tile[threadIdx.x][i];
@@ -371,13 +473,28 @@ int stark_ntt_pass2_lazy(const void* x, void* out, const void* tw,
                         batch, lg_r, cols, lg_tc, threads, stream);
 }
 
-// K3: (batch, rows, cols) -> (batch, cols, rows).
+// K3: (batch, rows, cols) -> (batch, cols, rows), a block per tile on the
+// vector route (`vector` != 0) or on the edge route.
 int stark_ntt_transpose(const void* x, void* out, int batch, int rows,
-                        int cols, void* stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((unsigned)((cols + 31) / 32), (unsigned)((rows + 31) / 32),
-                  (unsigned)batch);
-  stark_ntt_transpose_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+                        int cols, int vector, void* stream) {
+  if (batch < 1 || rows < 1 || cols < 1) return (int)cudaErrorInvalidValue;
+  const int tile_r = vector ? kVecTileRows : kEdgeTile;
+  const int tile_c = vector ? kVecTileCols : kEdgeTile;
+  const dim3 grid((unsigned)((cols + tile_c - 1) / tile_c),
+                  (unsigned)((rows + tile_r - 1) / tile_r), (unsigned)batch);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  if (!vector) {
+    stark_ntt_transpose_kernel_edge<<<grid, dim3(kEdgeTile, 8), 0,
+                                      (cudaStream_t)stream>>>(
+        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), rows,
+        cols);
+    return (int)cudaGetLastError();
+  }
+  if (rows % 4 || cols % 4) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  stark_ntt_transpose_kernel<<<grid, kVecThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), rows,
       cols);
   return (int)cudaGetLastError();

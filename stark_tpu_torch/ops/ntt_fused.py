@@ -29,13 +29,18 @@ correction, and give bit-identical output.  They are kernels of their own
 (``ntt_pass1_lazy``, ``ntt_pass2_lazy``) with their own launch counts.
 
 The column kernels run their radix-2 DIF stages in rounds of up to four,
-a round's 2^q elements in one thread's registers (csrc/ntt.cu).  The plain
-versions of K1 and K2 (``_col_ntt_rounds``) follow that: the same rounds,
-element-to-thread mapping, twiddle indices, u32 arithmetic and
-bit-reversed store, strict and lazy, and assert every range the kernels
-rely on.  ``_col_ntt`` (Stockham) and ``_col_ntt_lazy`` (one radix-2 stage
-at a time) compute the same columns independently of that grouping: the
-tests hold the rounds against them.
+the longer rounds first, a round's 2^q elements in one thread's registers
+(csrc/ntt.cu).  The plain versions of K1 and K2 (``_col_ntt_rounds``)
+follow that: the same rounds, element-to-thread mapping, twiddle indices,
+u32 arithmetic (the strict butterfly's difference goes into the Shoup
+product as a - b + p, unreduced) and bit-reversed store, strict and lazy,
+and assert every range the kernels rely on.  K3 transposes 4 x 4 blocks in
+registers between 16-byte loads and stores where rows and columns are
+multiples of 4 (``_transpose_vector``), and goes through a padded 32 x 33
+shared tile with 4-byte accesses elsewhere: both are the hand kernel, the
+choice is a rule on the shape.  ``_col_ntt`` (Stockham) and
+``_col_ntt_lazy`` (one radix-2 stage at a time) compute the same columns
+independently of that grouping: the tests hold the rounds against them.
 """
 
 from __future__ import annotations
@@ -49,19 +54,29 @@ from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
 from stark_tpu_torch.ops.fieldops import P, primitive_nth_root
 
-#: Column-tile budget of one block, in elements (128 KB of shared memory):
-#: a pass over columns of length 2^lg_r takes 2^15 / 2^lg_r of them at once.
-_SMEM_ELEMS = 1 << 15
-#: A pass that would run on fewer blocks than this takes narrower tiles,
-#: down to _MIN_TILE_COLS columns (a 32-byte run of a row), so that a small
-#: transform still reaches most of the card's 132 SMs.
-_MIN_BLOCKS = 128
+#: Column-tile budget of one block, in elements (32 KB of shared memory):
+#: a pass over columns of length 2^lg_r takes 2^13 / 2^lg_r of them at once,
+#: and at least _MIN_TILE_COLS (a 32-byte run of a row) where the array has
+#: them.  Two to four such blocks share an SM, so one's loads and stores
+#: overlap another's butterflies.
+_SMEM_ELEMS = 1 << 13
 _MIN_TILE_COLS = 8
+#: A pass that would run on fewer blocks than this takes narrower tiles,
+#: down to _MIN_TILE_COLS columns, so that a small transform still reaches
+#: most of the card's 132 SMs.
+_MIN_BLOCKS = 128
 #: Threads of a block: one per radix-16 unit of its tile, at most this many
-#: (csrc/ntt.cu kMaxThreads).
-_MAX_THREADS = 1024
+#: (a column of 2^11 rows gives them two units each).
+_MAX_THREADS = 512
 #: Stages of the longest round (csrc/ntt.cu kMaxRound).
 MAX_ROUND = 4
+#: Shared memory a block may use (csrc/ntt.cu kSmemMax).
+SMEM_BYTES = 227 * 1024
+
+#: Rows and columns of a transpose must be multiples of this for 16-byte
+#: accesses in both directions (K3's vector route, a block of 256 threads
+#: per tile of 32 rows by 128 columns); other shapes take its edge route.
+VECTOR_COLS = 4
 
 _SRC = "stark_tpu_torch/csrc/ntt.cu"
 PASS1 = cuda.Kernel(
@@ -69,7 +84,7 @@ PASS1 = cuda.Kernel(
     source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:383",
 )
 TRANSPOSE = cuda.Kernel(
-    "ntt_transpose", "stark_ntt_transpose", [cuda.ptr] * 2 + [cuda.i32] * 3,
+    "ntt_transpose", "stark_ntt_transpose", [cuda.ptr] * 2 + [cuda.i32] * 4,
     source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:345",
 )
 PASS2 = cuda.Kernel(
@@ -248,10 +263,10 @@ def _col_ntt_lazy(x3: torch.Tensor, tw: torch.Tensor,
 def round_stages(lg_r: int) -> list[int]:
     """The kernels' rounds for a column of 2^lg_r rows (csrc/ntt.cu
     Rounds): ceil(lg_r / MAX_ROUND) of them, as even as can be, the
-    longer ones last.  11 -> [3, 4, 4]."""
+    longer ones first.  11 -> [4, 4, 3]."""
     count = -(-lg_r // MAX_ROUND)
     base, longer = divmod(lg_r, count)
-    return [base] * (count - longer) + [base + 1] * longer
+    return [base + 1] * longer + [base] * (count - longer)
 
 
 def _bit_reverse(v: torch.Tensor, bits: int) -> torch.Tensor:
@@ -291,11 +306,10 @@ def _col_ntt_rounds(x3: torch.Tensor, tw: torch.Tensor, tws: torch.Tensor,
             w, ws = w_all[e][..., None], ws_all[e][..., None]
             total = u + d
             top = torch.where(total >= bound, total - bound, total)
-            if lazy:
-                diff = u - d + _TWO_P
-                _in_range(diff, 2 * _TWO_P, "a - b + 2p")
-            else:
-                diff = torch.where(u >= d, u - d, u - d + P)
+            # The difference goes unreduced into the Shoup product, which
+            # takes any u32: a - b + 2p (lazy) or a - b + p (strict).
+            diff = u - d + bound
+            _in_range(diff, 2 * bound, "a - b + its offset")
             bot = (diff * w - _umulhi(diff, ws) * P) & _U32
             _in_range(bot, _TWO_P, "the Shoup product")
             if not lazy:
@@ -344,12 +358,32 @@ def pass2_plain(y3: torch.Tensor, plan: FusedNTTPlan,
 
 def _launch_shape(lg_r: int, cols: int, batch: int) -> tuple[int, int]:
     """(log2 of a block's tile width in columns, threads of a block) for a
-    pass over ``batch`` arrays of 2^lg_r rows by ``cols`` columns."""
-    tc = min(cols, max(1, _SMEM_ELEMS >> lg_r))
+    pass over ``batch`` arrays of 2^lg_r rows by ``cols`` columns (set from
+    the sweep of tools/tune_kernels.py)."""
+    tc = min(cols, max(_MIN_TILE_COLS, _SMEM_ELEMS >> lg_r))
     while tc > _MIN_TILE_COLS and batch * (cols // tc) < _MIN_BLOCKS:
         tc //= 2
+    while _block_bytes(lg_r, tc.bit_length() - 1) > SMEM_BYTES:
+        tc //= 2  # columns of 2^13 rows: 8 of them do not fit a block
     threads = min(max((tc << lg_r) >> MAX_ROUND, 32), _MAX_THREADS)
     return tc.bit_length() - 1, threads
+
+
+def _block_bytes(lg_r: int, lg_tc: int) -> int:
+    """Shared memory of a column kernel's block: the twiddle pairs and a tile
+    of 2^lg_r rows by 2^lg_tc columns with its padding (csrc/ntt.cu
+    pad_shift_of, tile_word): one row after every 2^q, q the stages of the
+    last round, for tiles under 32 columns whose columns take more than one
+    round."""
+    elems = 1 << (lg_r + lg_tc)
+    rounds = round_stages(lg_r)
+    pad = elems >> rounds[-1] if len(rounds) > 1 and lg_tc < 5 else 0
+    return 4 * ((1 << lg_r) + elems + pad)
+
+
+def _transpose_vector(rows: int, cols: int) -> bool:
+    """Whether a (rows, cols) transpose takes K3's vector route."""
+    return rows % VECTOR_COLS == 0 and cols % VECTOR_COLS == 0
 
 
 def _check_batch(x3: torch.Tensor, rows: int, cols: int) -> None:
@@ -381,8 +415,11 @@ def ntt_transpose(y3: torch.Tensor) -> torch.Tensor:
         return transpose_plain(y3)
     cuda.check_operand(y3, "y")
     b, r, c = y3.shape
+    if y3.data_ptr() % 16:  # a view into the middle of an allocation
+        y3 = y3.clone()
     out = torch.empty((b, c, r), dtype=y3.dtype, device=y3.device)
-    TRANSPOSE.launch(y3.device, y3.data_ptr(), out.data_ptr(), b, r, c)
+    TRANSPOSE.launch(y3.device, y3.data_ptr(), out.data_ptr(), b, r, c,
+                     int(_transpose_vector(r, c)))
     return out
 
 

@@ -1,5 +1,6 @@
-"""The sweep behind the column NTT's launch shape, and what ``ptxas``
-reports for every kernel.  Needs a CUDA card and nvcc.
+"""The sweeps behind the NTT kernels' launch shapes, what bounds the column
+kernels, and what ``ptxas`` reports for every kernel.  Needs a CUDA card and
+nvcc.
 
     python3 -m stark_tpu_torch.tools.tune_kernels [--seed N]
 
@@ -9,10 +10,22 @@ Prints, in this order:
 * ``ptxas``: registers, spills and static shared memory of every kernel as
   built for the port (``nvcc -Xptxas -v``): the figures in the head
   comments of csrc/ntt.cu and csrc/hash.cu;
-* ``ntt``: K1's and K2's device time, strict and lazy, at the shapes of
-  the two full-width proves, for every tile width and thread count the
-  kernels accept, each first held against the plain version.  The rule in
-  ``ntt_fused._launch_shape`` was read off these lines.
+* ``floor``: the time of an empty kernel (built here from a two-line
+  source, not part of the port) at the grids and block sizes that K2 and
+  K3 launch with: what a launch costs before it moves a byte;
+* ``parts``: K1 and K2 timed with parts of their work taken out - the
+  butterflies, the loads from device memory, the stores to it - in a copy
+  of csrc/ntt.cu that this tool patches and builds into a temporary
+  directory (the port's library is not touched): what the kernels' time is
+  made of, and how much of the memory traffic the arithmetic hides;
+* ``ntt pass1``, ``ntt pass2``: K1's and K2's device time, strict and lazy,
+  at the shapes of the two full-width proves, for every tile width and
+  thread count the kernels accept, each first held against the plain
+  version.  The rule in ``ntt_fused._launch_shape`` was read off these
+  lines;
+* ``ntt transpose``: K3's vector route, its edge route (4-byte accesses
+  through a shared tile) on the same shape, and the library call
+  ``x3.transpose(1, 2).contiguous()`` on the same operands, each twice.
 
 (K8's subtree size, ``hash_batch.tail_sub_lg``, and ``TAIL_CUTOVER`` have
 their sweeps in chip_smoke.py.)
@@ -25,11 +38,13 @@ from device memory.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -43,7 +58,52 @@ CYCLE_BYTES = 128 << 20
 PASS_SHAPES = ((1, 1 << 20, True), (1, 1 << 22, False),
                (8, 1 << 16, True), (8, 1 << 18, False))
 THREADS = (128, 256, 512, 1024)
-SMEM_BYTES = 227 * 1024  # csrc/ntt.cu kSmemMax
+
+# What ``parts`` takes out of the column kernels, as bits of a mode word
+# that the patched launcher passes in the upper bits of pad_shift.
+NO_BUTTERFLIES, NO_LOADS, NO_STORES = 1, 2, 4
+PARTS = {
+    "whole": 0,
+    "no butterflies": NO_BUTTERFLIES,
+    "no device memory": NO_LOADS | NO_STORES,
+    "neither (tile, twiddles, barriers, indices)": NO_BUTTERFLIES | NO_LOADS | NO_STORES,
+    "no loads": NO_LOADS,
+    "no stores": NO_STORES,
+}
+# (text of csrc/ntt.cu, its replacement); each must occur exactly once.
+PARTS_PATCHES = (
+    ("constexpr int kNoPad = 31;", "constexpr int kNoPad = 31;\nint g_mode = 0;"),
+    ("    int cols, int lg_tc, int pad_shift, int s0, bool first, bool last) {\n"
+     "  constexpr int kM = 1 << Q;",
+     "    int cols, int lg_tc, int pad_shift_mode, int s0, bool first, bool last) {\n"
+     "  const int mode = pad_shift_mode >> 8;\n"
+     "  const int pad_shift = pad_shift_mode & 255;\n"
+     "  constexpr int kM = 1 << Q;"),
+    ("      if (first) {\n        const uint32_t src",
+     "      if (first && (mode & 2)) {\n"
+     "        for (int m = 0; m < kM; ++m) v[m] = u + m;\n"
+     "      } else if (first) {\n        const uint32_t src"),
+    ("    if (!mine) continue;\n#pragma unroll",
+     "    if (!mine) continue;\n    if (!(mode & 1))\n#pragma unroll"),
+    ("        out[off] = y;", "        if (!(mode & 4) || y == 0xDEADBEEFu) out[off] = y;"),
+    ("lg_r, cols, lg_tc, pad_shift);\n  return (int)cudaGetLastError();",
+     "lg_r, cols, lg_tc, pad_shift | (g_mode << 8));\n  return (int)cudaGetLastError();"),
+    ("const char* stark_cuda_error_string(int code) {",
+     "void stark_set_mode(int mode) { g_mode = mode; }\n\n"
+     "const char* stark_cuda_error_string(int code) {"),
+)
+
+FLOOR_SOURCE = """
+#include <cuda_runtime.h>
+__global__ void floor_kernel() {}
+extern "C" int floor_launch(int blocks, int threads, int smem, void* stream) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(floor_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  floor_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def device_us(fn, reps: int) -> float:
@@ -111,61 +171,167 @@ def ptxas() -> dict:
     return found
 
 
-def launch_pass(name: str, x3, out, plan, lazy: bool, lg_tc: int, threads: int) -> None:
+def launch_pass(name: str, x3, out, plan, lazy: bool, lg_tc: int, threads: int,
+                lib=None) -> None:
     """K1 (``pass1``) or K2 on ``x3`` into ``out`` with the given tile
-    width and thread count in place of ``_launch_shape``'s."""
+    width and thread count in place of ``_launch_shape``'s; through the
+    port's wrapper, or through ``lib``, a library built by ``parts_library``."""
     batch = x3.shape[0]
     if name == "pass1":
-        (NTF.PASS1_LAZY if lazy else NTF.PASS1).launch(
-            x3.device, x3.data_ptr(), out.data_ptr(), plan.tw1.data_ptr(),
-            plan.tw1_shoup.data_ptr(), plan.wm.data_ptr(), batch, plan.lg1,
-            plan.n2, lg_tc, threads)
+        kernel = NTF.PASS1_LAZY if lazy else NTF.PASS1
+        args = (x3.data_ptr(), out.data_ptr(), plan.tw1.data_ptr(),
+                plan.tw1_shoup.data_ptr(), plan.wm.data_ptr(), batch, plan.lg1,
+                plan.n2, lg_tc, threads)
     else:
-        (NTF.PASS2_LAZY if lazy else NTF.PASS2).launch(
-            x3.device, x3.data_ptr(), out.data_ptr(), plan.tw2.data_ptr(),
-            plan.tw2_shoup.data_ptr(), batch, plan.lg2, plan.n1, lg_tc, threads)
+        kernel = NTF.PASS2_LAZY if lazy else NTF.PASS2
+        args = (x3.data_ptr(), out.data_ptr(), plan.tw2.data_ptr(),
+                plan.tw2_shoup.data_ptr(), batch, plan.lg2, plan.n1, lg_tc, threads)
+    if lib is None:
+        kernel.launch(x3.device, *args)
+    elif getattr(lib, kernel.symbol)(
+            *args, torch.cuda.current_stream(x3.device).cuda_stream) != 0:
+        raise RuntimeError(f"{kernel.symbol} of the patched library failed")
+
+
+def timed(launch, args, want, what: str, reps: int = 30) -> float:
+    """us per call of ``launch(operand, out)`` over the sets ``args``, after
+    holding its result on the first set against ``want``."""
+    first, out = args[0]
+    out.zero_()
+    launch(first, out)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError(f"{what} != plain")
+    return round(device_us(cycled(launch, args), reps), 2)
+
+
+def build_temporary(source: str, name: str) -> ctypes.CDLL:
+    """``source`` compiled beside the port's headers in a temporary
+    directory and loaded (the mapping outlives the directory)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src, lib = os.path.join(tmp, name + ".cu"), os.path.join(tmp, name + ".so")
+        with open(src, "w") as f:
+            f.write(source)
+        subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", cuda.CSRC, "-o", lib, src],
+                       check=True)
+        return ctypes.CDLL(lib)
+
+
+def parts_library() -> ctypes.CDLL:
+    """csrc/ntt.cu with ``PARTS_PATCHES`` applied: the same kernels, which
+    leave out what ``stark_set_mode``'s bits name."""
+    with open(os.path.join(cuda.CSRC, "ntt.cu")) as f:
+        source = f.read()
+    for old, new in PARTS_PATCHES:
+        if source.count(old) != 1:
+            raise RuntimeError(f"csrc/ntt.cu has moved on: {old!r} occurs "
+                               f"{source.count(old)} times")
+        source = source.replace(old, new)
+    lib = build_temporary(source, "ntt_parts")
+    for kernel in (NTF.PASS1, NTF.PASS1_LAZY, NTF.PASS2, NTF.PASS2_LAZY):
+        getattr(lib, kernel.symbol).argtypes = [*kernel.argtypes, ctypes.c_void_p]
+    lib.stark_set_mode.argtypes = [ctypes.c_int]
+    lib.stark_set_mode.restype = None
+    return lib
+
+
+def tune_floor(dev) -> None:
+    fn = build_temporary(FLOOR_SOURCE, "floor").floor_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    table = {}
+    for batch, n, inverse in PASS_SHAPES:
+        plan = NTF.get_plan(n, inverse, dev)
+        lg_tc, threads = NTF._launch_shape(plan.lg2, plan.n1, batch)
+        shapes = {
+            "pass2": (batch * (plan.n1 >> lg_tc), threads, NTF._block_bytes(plan.lg2, lg_tc)),
+            "transpose": (batch * -(-plan.n1 // 32) * -(-plan.n2 // 128), 256, 0),
+        }
+        for key, shape in shapes.items():
+            def launch(shape=shape):
+                if fn(*shape, torch.cuda.current_stream(dev).cuda_stream) != 0:
+                    raise RuntimeError(f"floor kernel refused {shape}")
+
+            table[f"batch={batch} n=2^{n.bit_length() - 1} {key} {shape[0]}x{shape[1]}"] = (
+                round(device_us(launch, 30), 2))
+    print("floor: us per launch of an empty kernel, blocks x threads (and shared "
+          "memory) as in use: " + json.dumps(table), flush=True)
+
+
+def operands(rng, dev, batch: int, n: int, plan):
+    """Sets of (operand, output) for pass 1, the transpose and pass 2."""
+    vals = rng.integers(0, 998244353, size=(batch, plan.n1, plan.n2))
+    x3 = torch.from_numpy(vals).to(torch.int32).to(dev)
+    xs = sets(8 * batch * n, x3, torch.empty_like(x3))
+    ys, yts = [], []
+    for x, _ in xs:
+        y = NTF.ntt_pass1(x, plan)
+        yt = NTF.ntt_transpose(y)
+        ys.append((y, torch.empty_like(yt)))
+        yts.append((yt, torch.empty_like(yt)))
+    return xs, ys, yts
+
+
+def tune_parts(rng, dev) -> None:
+    lib = parts_library()
+    for batch, n, inverse in PASS_SHAPES:
+        plan = NTF.get_plan(n, inverse, dev)
+        xs, _, yts = operands(rng, dev, batch, n, plan)
+        for name, args, lg_r, cols in (("pass1", xs, plan.lg1, plan.n2),
+                                       ("pass2", yts, plan.lg2, plan.n1)):
+            shape = NTF._launch_shape(lg_r, cols, batch)
+            table = {}
+            for lazy in (False, True):
+                row = {}
+                for part, mode in PARTS.items():
+                    lib.stark_set_mode(mode)
+                    row[part] = round(device_us(cycled(
+                        lambda a, o: launch_pass(name, a, o, plan, lazy, *shape, lib=lib),
+                        args), 30), 2)
+                lib.stark_set_mode(0)
+                table["lazy" if lazy else "strict"] = row
+            print(f"parts {name} batch={batch} n=2^{n.bit_length() - 1} (tile "
+                  f"{1 << shape[0]} x {shape[1]} threads) us: {json.dumps(table)}",
+                  flush=True)
 
 
 def tune_ntt(rng, dev) -> None:
     for batch, n, inverse in PASS_SHAPES:
         plan = NTF.get_plan(n, inverse, dev)
-        vals = rng.integers(0, 998244353, size=(batch, plan.n1, plan.n2))
-        x3 = torch.from_numpy(vals).to(torch.int32).to(dev)
-        # every set: an operand and an output buffer of its own
-        xs = sets(8 * batch * n, x3, torch.empty_like(x3))
-        yts = []
-        for x, _ in xs:
-            yt = NTF.ntt_transpose(NTF.ntt_pass1(x, plan))
-            yts.append((yt, torch.empty_like(yt)))
+        xs, ys, yts = operands(rng, dev, batch, n, plan)
+        size = f"batch={batch} n=2^{n.bit_length() - 1}"
         for name, args, lg_r, cols in (("pass1", xs, plan.lg1, plan.n2),
                                        ("pass2", yts, plan.lg2, plan.n1)):
-            first, out = args[0]
-            want = (NTF.pass1_plain if name == "pass1" else NTF.pass2_plain)(first, plan)
+            want = (NTF.pass1_plain if name == "pass1" else NTF.pass2_plain)(
+                args[0][0], plan)
             table = {}
             for lg_tc in range(2, 8):
-                # the twiddle pairs, the tile and at most a quarter of padding
-                words = (1 << lg_r) + (1 << (lg_r + lg_tc)) * 1.25
-                if (1 << lg_tc) > cols or words * 4 > SMEM_BYTES:
+                if (1 << lg_tc) > cols or NTF._block_bytes(lg_r, lg_tc) > NTF.SMEM_BYTES:
                     continue
                 for threads in THREADS:
-                    times = []
-                    for lazy in (False, True):
-                        out.zero_()
-                        launch_pass(name, first, out, plan, lazy, lg_tc, threads)
-                        torch.cuda.synchronize()
-                        if not torch.equal(out, want):
-                            raise AssertionError(
-                                f"{name} n={n} tile {1 << lg_tc} x {threads} threads "
-                                f"lazy={lazy} != plain")
-                        times.append(round(device_us(cycled(
-                            lambda a, o, lazy=lazy: launch_pass(
-                                name, a, o, plan, lazy, lg_tc, threads),
-                            args), 30), 2))
-                    table[f"{1 << lg_tc}x{threads}"] = times
+                    table[f"{1 << lg_tc}x{threads}"] = [
+                        timed(lambda a, o, lazy=lazy: launch_pass(
+                            name, a, o, plan, lazy, lg_tc, threads), args, want,
+                            f"{name} {size} tile {1 << lg_tc} x {threads} lazy={lazy}")
+                        for lazy in (False, True)]
             used = NTF._launch_shape(lg_r, cols, batch)
-            print(f"ntt {name} batch={batch} n=2^{n.bit_length() - 1} (lg_r={lg_r}; "
-                  f"in use tile {1 << used[0]} x {used[1]} threads) us [strict, lazy] "
-                  f"by tile columns x threads: {json.dumps(table)}", flush=True)
+            print(f"ntt {name} {size} (lg_r={lg_r}; in use tile {1 << used[0]} x "
+                  f"{used[1]} threads) us [strict, lazy] by tile columns x threads: "
+                  f"{json.dumps(table)}", flush=True)
+
+        # K3: the vector route, the edge route, the library call.
+        want = NTF.transpose_plain(ys[0][0])
+        b, r, c = ys[0][0].shape
+
+        def transpose(vector):
+            return lambda a, o: NTF.TRANSPOSE.launch(
+                a.device, a.data_ptr(), o.data_ptr(), b, r, c, vector)
+
+        routes = {"vector route": transpose(1), "edge route": transpose(0),
+                  "library": lambda a, o: o.copy_(a.transpose(1, 2))}
+        table = {key: [timed(fn, ys, want, f"transpose {size} {key}") for _ in range(2)]
+                 for key, fn in routes.items()}
+        print(f"ntt transpose {size} ({b}, {r}, {c}) us, each twice: "
+              f"{json.dumps(table)}", flush=True)
 
 
 def main() -> int:
@@ -179,7 +345,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     print("ptxas: " + json.dumps(ptxas(), indent=1), flush=True)
-    tune_ntt(np.random.default_rng(args.seed), torch.device("cuda"))
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    tune_floor(dev)
+    tune_parts(rng, dev)
+    tune_ntt(rng, dev)
     return 0
 
 

@@ -115,8 +115,8 @@ def test_lazy_plain_matches_strict_plain(n, inverse, batch):
 def test_round_stages(lg_r):
     rounds = NTF.round_stages(lg_r)
     assert sum(rounds) == lg_r and len(rounds) == -(-lg_r // NTF.MAX_ROUND)
-    assert rounds == sorted(rounds) and rounds[-1] - rounds[0] <= 1
-    assert 1 <= rounds[0] and rounds[-1] <= NTF.MAX_ROUND
+    assert rounds == sorted(rounds, reverse=True) and rounds[0] - rounds[-1] <= 1
+    assert 1 <= rounds[-1] and rounds[0] <= NTF.MAX_ROUND
 
 
 def _column_tables(lg_r):
@@ -162,9 +162,8 @@ def test_launch_shape_fits_a_block(lg, batch):
         lg_tc, threads = NTF._launch_shape(lg_r, cols, batch)
         assert cols % (1 << lg_tc) == 0
         assert 32 <= threads <= 1024 and threads % 32 == 0
-        # twiddle pairs + the tile with its worst padding (csrc/ntt.cu)
-        words = (1 << lg_r) + (1 << (lg_r + lg_tc)) * 3 // 2
-        assert 4 * words <= 227 * 1024
+        # twiddle pairs + the tile with its padding (csrc/ntt.cu)
+        assert NTF._block_bytes(lg_r, lg_tc) <= 227 * 1024
 
 
 def test_lazy_plain_asserts_its_ranges():
@@ -231,6 +230,179 @@ def test_wrappers_reject_bad_operands():
         NTF.ntt_pass1(torch.zeros((1, 4, 16), dtype=torch.int32), plan)
 
 
+# ---------------------------------------------------------------------------
+# Pass 2 and the transpose alone against the JAX package's kernels.
+# ---------------------------------------------------------------------------
+
+PASS2_LGS = [2, 3, 4, 5, 7, 10, 13]
+# (rows, cols): both routes of K3 (16-byte accesses need multiples of 4) and
+# shapes that are not multiples of its 32 x 128 tile.
+TRANSPOSES = [(2, 2), (2, 4), (4, 2), (4, 4), (96, 40), (97, 40), (96, 41),
+              (33, 129), (36, 132), (32, 128), (28, 124), (4, 2048), (2048, 4),
+              (8, 260), (1, 7), (100, 100), (512, 512), (1024, 512)]
+
+
+def _jax_pass2(yt, root, lazy):
+    """stark_tpu's pass-2 kernel (``_pass2_body`` under ``pl.pallas_call``,
+    interpret mode, launched as ``_fused_ntt_jit`` launches it) down the
+    columns of the (rows, cols) uint32 array ``yt``, ``root`` the primitive
+    rows-th root, with its bit-reversed rows put back in natural order."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from stark_tpu.ops import ntt_fused as JF
+
+    rows, cols = yt.shape
+    lg = rows.bit_length() - 1
+    t2 = min(JF._T_PASS2, cols)
+    stw, stws = JF.FusedNTTPlan._dif_stage_tables(root, rows)
+    vec = pl.BlockSpec((rows, t2), lambda j: (0, j), memory_space=pltpu.VMEM)
+    tab = pl.BlockSpec((rows, lg), lambda j: (0, 0), memory_space=pltpu.VMEM)
+    z = pl.pallas_call(
+        functools.partial(JF._pass2_body, lazy=lazy),
+        grid=(cols // t2,),
+        in_specs=[vec, tab, tab],
+        out_specs=vec,
+        out_shape=jax.ShapeDtypeStruct((rows, cols), jnp.uint32),
+        scratch_shapes=[pltpu.VMEM((rows, t2), jnp.uint32)],
+        interpret=True,
+    )(jnp.asarray(yt), jnp.asarray(stw), jnp.asarray(stws))
+    return np.asarray(z)[JF._bitrev_perm(rows)]
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("lg", PASS2_LGS)
+def test_pass2_plain_matches_pallas_pass2(lg, batch, lazy):
+    # n = 2^lg: pass 2 runs down columns of 2^(lg - lg // 2) rows, 2^(lg // 2)
+    # of them: 2 columns (n = 4, 8: a row is no 16-byte run), 4, 8 (the
+    # narrowest tile the launch rule keeps) and more.
+    from stark_tpu_torch.ops import fieldops as F
+
+    inverse = lg % 2 == 1
+    plan = NTF.get_plan(1 << lg, inverse, torch.device("cpu"))
+    yt = rand_field(np.random.default_rng(1000 * lg + 10 * batch + lazy),
+                    (batch, plan.n2, plan.n1))
+    got = to_numpy(NTF.pass2_plain(to_torch(yt), plan, lazy))
+    root = pow(NTF._root(1 << lg, inverse), plan.n1, F.P)
+    for b in range(batch):
+        np.testing.assert_array_equal(got[b], _jax_pass2(yt[b], root, lazy))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("rows,cols", TRANSPOSES)
+def test_transpose_plain_matches_pallas_transpose(rows, cols, batch):
+    from stark_tpu.ops.ntt_fused import _pallas_transpose
+
+    y3 = rand_field(np.random.default_rng(rows * 7919 + cols + batch),
+                    (batch, rows, cols))
+    got = to_numpy(NTF.transpose_plain(to_torch(y3)))
+    assert got.shape == (batch, cols, rows)
+    for b in range(batch):
+        np.testing.assert_array_equal(
+            got[b], np.asarray(_pallas_transpose(y3[b], interpret=True)))
+
+
+def _smoke_pass_shapes():
+    """(lg_r, cols, batch) of every column pass chip_smoke.py launches."""
+    import chip_smoke as CS
+
+    sizes = {(n.bit_length() - 1, b) for n in CS.NTT_SIZES for b in (1, 3)}
+    sizes |= {(n.bit_length() - 1, b) for b, n, _ in CS.PASS_SHAPES}
+    sizes |= {(lg, b) for lg in CS.PASS_LGS for b in (1, 3, CS.WIDE_BATCH)}
+    sizes |= {(lg, 1) for lg in CS.PASS_LGS_LONG}
+    shapes = set()
+    for lg, b in sizes:
+        shapes.add((lg // 2, 1 << (lg - lg // 2), b))
+        shapes.add((lg - lg // 2, 1 << (lg // 2), b))
+    return sorted(shapes)
+
+
+def test_launch_rules_hold_at_every_smoke_shape():
+    # The kernels' own preconditions (csrc/ntt.cu launch_col_ntt and
+    # stark_ntt_transpose) at every shape chip_smoke.py drives.
+    import chip_smoke as CS
+
+    for lg_r, cols, batch in _smoke_pass_shapes():
+        lg_tc, threads = NTF._launch_shape(lg_r, cols, batch)
+        tc = 1 << lg_tc
+        assert 1 <= lg_r <= 13 and lg_r + lg_tc <= 20
+        assert cols % tc == 0                        # tiles divide the columns
+        assert NTF._block_bytes(lg_r, lg_tc) <= NTF.SMEM_BYTES
+        assert 32 <= threads <= 1024 and threads % 32 == 0
+        assert tc == cols or 4 * tc >= 32            # a tile's row: 32 bytes or the array's
+    shapes = list(CS.TRANSPOSE_SHAPES)
+    shapes += [(b, 1 << lg_r, cols) for lg_r, cols, b in _smoke_pass_shapes()]
+    routes = set()
+    for b, r, c in shapes:
+        vector = NTF._transpose_vector(r, c)
+        routes.add(vector)
+        # 16-byte runs in both directions exactly where the vector route runs
+        assert vector == (r % 4 == 0 and c % 4 == 0)
+        # a block per tile: the grid's second and third dimensions
+        assert -(-r // 32) <= 65535 and b <= 65535
+    assert routes == {True, False}
+
+
+def _bank_multiplicity(lg_r, lg_tc):
+    """The most words of one bank that a warp touches in one access to the
+    tile, per round, with csrc/ntt.cu's element-to-thread mapping and
+    padding."""
+    rounds = NTF.round_stages(lg_r)
+    pad_shift = rounds[-1] + lg_tc if len(rounds) > 1 and lg_tc < 5 else 31
+    worst, s0 = [], 0
+    for q in rounds:
+        b_lo = lg_r - s0 - q
+        units = 1 << (lg_r - q + lg_tc)
+        most = 0
+        for warp in range(0, units, 32):
+            for m in range(1 << q):
+                banks = {}
+                for u in range(warp, min(warp + 32, units)):
+                    c, g = u & ((1 << lg_tc) - 1), u >> lg_tc
+                    lo, hi = g & ((1 << b_lo) - 1), g >> b_lo
+                    e = (((hi << (b_lo + q)) | (m << b_lo) | lo) << lg_tc) + c
+                    word = e + ((e >> pad_shift) << lg_tc)
+                    banks.setdefault(word % 32, set()).add(word)
+                most = max(most, max(len(words) for words in banks.values()))
+        worst.append(most)
+        s0 += q
+    return worst
+
+
+@pytest.mark.parametrize("lg_r", [8, 9, 10, 11, 12])
+@pytest.mark.parametrize("lg_tc", [2, 3, 4, 5])
+def test_tile_padding_leaves_no_bank_conflict(lg_r, lg_tc):
+    # The argument of csrc/ntt.cu's head note, checked by enumeration: in
+    # every round a warp's 32 accesses fall in 32 different banks.
+    assert _bank_multiplicity(lg_r, lg_tc) == [1] * len(NTF.round_stages(lg_r))
+
+
+def test_tile_padding_keeps_unit_addresses_linear():
+    # csrc/ntt.cu addresses element m of a unit as base + m * pitch: true
+    # when the padded index of (e0 + m * step) is that of e0 plus m times
+    # that of step, for every unit of every round.
+    for lg_r in range(1, 13):
+        for lg_tc in range(0, 6):
+            rounds = NTF.round_stages(lg_r)
+            pad_shift = rounds[-1] + lg_tc if len(rounds) > 1 and lg_tc < 5 else 31
+            word = lambda e: e + ((e >> pad_shift) << lg_tc)  # noqa: E731
+            s0 = 0
+            for q in rounds:
+                b_lo = lg_r - s0 - q
+                step = 1 << (b_lo + lg_tc)
+                for u in range(1 << (lg_r - q + lg_tc)):
+                    c, g = u & ((1 << lg_tc) - 1), u >> lg_tc
+                    lo, hi = g & ((1 << b_lo) - 1), g >> b_lo
+                    e0 = ((((hi << (b_lo + q)) | lo)) << lg_tc) + c
+                    for m in (1, (1 << q) - 1):
+                        assert word(e0 + m * step) == word(e0) + m * word(step)
+                s0 += q
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1 << 6, 1 << 10, 1 << 16, 1 << 17, 1 << 20, 1 << 22])
 @pytest.mark.parametrize("batch", [1, 3])
@@ -291,3 +463,36 @@ def test_pass_kernels_at_every_column_length_on_card(cuda_device, lg, batch):
     for lazy in (False, True):
         assert torch.equal(NTF.ntt_pass1(x3, plan, lazy), want)
         assert torch.equal(NTF.ntt_pass2(yt, plan, lazy), want2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize(
+    "lg,batch",
+    [(lg, b) for lg in PASS2_LGS + [16, 18, 20, 22] for b in (1, 3, 8)] + [(23, 1)])
+def test_pass2_kernel_twice_on_card(cuda_device, lg, batch, lazy):
+    plan = NTF.get_plan(1 << lg, lg % 2 == 1, cuda_device)
+    yt = to_torch(rand_field(np.random.default_rng(1000 * lg + 10 * batch + lazy),
+                             (batch, plan.n2, plan.n1)), cuda_device)
+    want = NTF.pass2_plain(yt, plan, lazy)
+    name = "ntt_pass2_lazy" if lazy else "ntt_pass2"
+    before = cuda.launch_counts()[name]
+    for _ in range(2):
+        assert torch.equal(NTF.ntt_pass2(yt, plan, lazy), want)
+    assert cuda.launch_counts()[name] == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("rows,cols", TRANSPOSES + [(2048, 2048), (1024, 4096)])
+def test_transpose_kernel_twice_on_card(cuda_device, rows, cols, batch):
+    y3 = to_torch(rand_field(np.random.default_rng(rows * 7919 + cols + batch),
+                             (batch, rows, cols)), cuda_device)
+    want = NTF.transpose_plain(y3)
+    before = cuda.launch_counts()["ntt_transpose"]
+    for _ in range(2):
+        assert torch.equal(NTF.ntt_transpose(y3), want)
+    assert cuda.launch_counts()["ntt_transpose"] == before + 2
+    # a view that starts 4 bytes into its allocation is copied, not refused
+    flat = torch.cat([y3.reshape(-1)[:1], y3.reshape(-1)])
+    assert torch.equal(NTF.ntt_transpose(flat[1:].reshape(batch, rows, cols)), want)
