@@ -42,23 +42,35 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     - the SM clock under a hash load, and the instruction rate it gives;
     - the K7/K8 cutover sweep behind hash_batch.TAIL_CUTOVER and the
       subtree-size sweep behind hash_batch.tail_sub_lg;
+    - the device witnesses (K12): fib_expand at every length the paths and
+      the pinned proofs use and at lengths that cut the last block,
+      mds_expand at (T, block) up to (2^16, 64) and (2^16, 1), each call
+      twice, and the whole witness functions against the host traces;
  4. proofs whose sha256 must equal the JAX package's (stark_tpu on the CPU,
     pinned below): FibonacciAir at T=64, 1024 and 2^16, strict and lazy
     NTT; the example AIRs (two-register Fibonacci, square, cube at blowup 8,
-    MDS) at T=1024, MDS also at T=4096; each proof verified;
- 5. the main path, FibonacciAir at T=2^20, blowup 4, 16 tests (N = 2^22):
-    StarkProver.prove -> StarkVerifier.verify with the launch counts set
-    to 0 just before and read just after (every strict kernel > 0), the
-    pinned sha256, the prove and verify wall-time distribution, the
-    synchronised per-phase times (median of 5 proves), one profiled prove (device time under
-    every launched kernel's name > 0, device activities, busy share), the
-    bound of every K8 launch of a prove at its own width summed beside
-    the time measured for them, a flipped byte and a changed witness row
-    rejected; then the same prove
-    with the lazy NTT kernels (counts, sha256, profile);
+    MDS) at T=1024, MDS also at T=4096; each proof verified, and the query
+    gather (K13) held against its plain version on each prove's plan;
+ 5. the main path, FibonacciAir at T=2^20, blowup 4, 16 tests (N = 2^22),
+    proved from columns made on the card (fibonacci_trace_cols_device, as
+    bench.py proves it): witness -> StarkProver.prove(trace_cols=...) ->
+    StarkVerifier.verify with the launch counts set to 0 just before and
+    read just after (every kernel of the path > 0, the query gather
+    exactly once), K13 against its plain version on that prove's plan,
+    the pinned sha256, which a prove from host rows must give too; the
+    witness + prove and verify wall-time distributions, with Python's full
+    garbage collections (gc.callbacks) that fell inside a prove; the
+    synchronised per-phase times (median of 5 proves); the device-to-host
+    copies of one prove's fri_query phase from the profiler's memcpy
+    events (exactly one); K13 timed on that plan; one profiled prove
+    (device time under every launched kernel's name > 0, device
+    activities, busy share), the bound of every K8 launch of a prove at
+    its own width summed beside the time measured for them, a flipped
+    byte and a changed element of the device witness rejected; then the
+    same prove with the lazy NTT kernels (counts, sha256, profile);
  6. the wide path, MdsSquareAir (8 registers) at T=2^16, blowup 4, 16 tests
-    (N = 2^18): counts, the sha256 pinned from stark_tpu, wall times,
-    phases, and both reject probes.
+    (N = 2^18), from mds_square_trace_cols_device (as bench.py's mds_e2e):
+    the same, with the sha256 pinned from stark_tpu.
 
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -68,6 +80,8 @@ CUDA device is visible.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import hashlib
 import json
 import re
@@ -98,11 +112,17 @@ MAIN_T = 1 << 20
 # port's plain torch path run on a host CPU, so the card's kernels and the
 # plain versions agree on the whole proof; it now guards against drift.
 MAIN_SHA256 = "94c49ad8fc8cde1b9eaaadd0e2ad3171a8a62019553baa8dd866cc063b9ea264"
-MAIN_RUNS = 20
+MAIN_RUNS = 40
 MDS_T = 1 << 16
 # sha256 of stark_tpu's MdsSquareAir proof at T=2^16, blowup 4, 16 tests.
 MDS_SHA256 = "4b25adeb89d3400f7ca4e1599086fbf939e7d81e26478d3d06d653e1d08b5a3b"
-MDS_RUNS = 10
+MDS_RUNS = 20
+MDS_BLOCK = 64  # mds_square_trace_cols_device's default, as bench.py proves it
+# K12 against its plain version at these (T) and (T, block): the lengths the
+# paths and the pinned proofs use, and lengths that cut the last block.
+FIB_WITNESS_LENGTHS = (1, 2, 3, 64, 1000, 1024, 1 << 16, MAIN_T)
+MDS_WITNESS_SHAPES = ((1, 64), (5, 1), (1000, 7), (1024, 64), (4096, 64),
+                      (MDS_T, 1), (MDS_T, MDS_BLOCK))
 NTT_SIZES = (1 << 6, 1 << 10, 1 << 16, 1 << 17, 1 << 18, 1 << 20, 1 << 22)
 WIDE_BATCH = 8  # MdsSquareAir's registers
 # (batch, n, inverse) of every transform the two full-width paths run.
@@ -161,6 +181,13 @@ OPS_FOLD = 25                         # two Shoup, one REDC, sub, two adds
 OPS_ABSORB_BYTE = 5                   # add, two shifts, bit select, xor
 OPS_MIX = 208                         # 6.5 per state byte
 OPS_MIX_BEFORE = 9 * 32
+# K12.  A Montgomery product is 7 (multiply low, multiply high, multiply by
+# -p^-1, multiply high, add, carry, add-and-minimum), a Shoup product 4, an
+# addition mod p 2.  fib_expand: three products and an addition per element;
+# mds_expand per step: 64 Shoup products, 64 additions, 8 squares of two
+# Montgomery products.
+OPS_FIB_EXPAND = 3 * 7 + 2
+OPS_MDS_STEP = 64 * 4 + 64 * 2 + 8 * 2 * 7
 
 
 def _hash_ops(length: int, mix_ops: int = OPS_MIX) -> int:
@@ -176,12 +203,13 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def _profile(fn, reps: int):
+def _profile(fn, reps: int, skip: tuple = ()):
     """torch.profiler's kernel-level events of ``reps`` calls of ``fn``
-    (after one warm-up call).  The tracer can lose the first kernel
-    launched in a window (seen here: one launch short in every window of
-    the cutover sweep, exactly the first), so each window opens with a
-    launch that is not counted: an erfinv, which nothing timed here uses."""
+    (after one warm-up call), without those whose name holds one of
+    ``skip``.  The tracer can lose the first kernel launched in a window
+    (seen here: one launch short in every window of the cutover sweep,
+    exactly the first), so each window opens with a launch that is not
+    counted: an erfinv, which nothing timed here uses."""
     fn()
     first = torch.zeros(8, device="cuda")
     torch.cuda.synchronize()
@@ -194,7 +222,7 @@ def _profile(fn, reps: int):
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and "erfinv" not in e.key]
+            and not any(k in e.key for k in ("erfinv",) + skip)]
 
 
 def _device_us(event) -> float:
@@ -203,18 +231,19 @@ def _device_us(event) -> float:
     return event.self_cuda_time_total  # torch releases before the rename
 
 
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 8  # a window has come back short three times in a row
 _retaken = [0]  # profiles taken again, reported at the end of the run
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn``: every kernel and copy it runs.  The
+def _device_ms(fn, reps: int, skip: tuple = ()) -> float:
+    """Device time per call of ``fn``: every kernel and copy it runs but
+    those named in ``skip`` (see _profile).  The
     tracer now and then drops a window, or part of one: a profile without
     device activity, or in which some activity does not occur once or more
     for each of the ``reps`` equal calls, is taken again,
     ``PROFILE_ATTEMPTS`` times at most."""
     for _ in range(PROFILE_ATTEMPTS):
-        events = _profile(fn, reps)
+        events = _profile(fn, reps, skip)
         total = sum(_device_us(e) for e in events)
         if total > 0 and all(e.count % reps == 0 for e in events):
             return total / 1e3 / reps
@@ -304,12 +333,21 @@ class _Results:
         self.entries: list[dict] = []
 
     def add(self, kernel, shape, args_list, fn, plain_fn, reps, nbytes, ops,
-            library_fn=None) -> dict:
+            library_fn=None, flush=None) -> dict:
         """Hold ``fn`` against ``plain_fn`` on the first set of
-        ``args_list``, then time each over all the sets in turn."""
+        ``args_list``, then time each over all the sets in turn.  ``flush``:
+        a call made before each timed one, whose device time is not counted
+        (_L2Flush), for operands that cannot be cycled."""
         got, want = fn(*args_list[0]), plain_fn(*args_list[0])
         _require_equal(f"{kernel.name} at {shape}", got, want)
         bound_ms, bound_by = _bound(nbytes, ops)
+
+        def timed(f, reps):
+            call = _cycled(f, args_list)
+            if flush is None:
+                return _device_ms(call, reps)
+            return _device_ms(lambda: (flush(), call()), reps, skip=flush.skip)
+
         entry = {
             "name": kernel.name,
             "route": "cuda",
@@ -318,12 +356,11 @@ class _Results:
             "shape": shape,
             "launches": 0,
             "max_abs_err": _max_abs_err(got, want),
-            "ms": _device_ms(_cycled(fn, args_list), reps),
-            "plain_ms": _device_ms(_cycled(plain_fn, args_list), max(reps // 10, 3)),
+            "ms": timed(fn, reps),
+            "plain_ms": timed(plain_fn, max(reps // 10, 3)),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None if library_fn is None
-            else _device_ms(_cycled(library_fn, args_list), reps),
+            "library_ms": None if library_fn is None else timed(library_fn, reps),
             "buffer_sets": len(args_list),
         }
         self.entries.append(entry)
@@ -634,12 +671,142 @@ def _check_hash(rng, dev, results: _Results) -> None:
               flush=True)
 
 
-def _prove_checked(name, prover, verifier, trace, want_sha, expect, cuda):
-    """One counted prove -> verify: counts set to 0 just before, read just
-    after; the proof must verify, match ``want_sha`` and have launched every
-    kernel in ``expect``.  Returns (proof, counts)."""
+class _L2Flush:
+    """Overwrites 128 MiB, more than twice the card's 50 MB L2, so that the
+    call after it reads its operands from device memory; its kernel is left
+    out of the timed device time by name."""
+
+    skip = ("bitwise_not",)
+
+    def __init__(self, dev):
+        self.buf = torch.zeros(CYCLE_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def __call__(self):
+        self.buf.bitwise_not_()
+
+
+def _check_witness(rng, dev, results: _Results) -> None:
+    """K12 against its plain version at every length the paths and pinned
+    proofs use and at lengths that cut the last block; timed at the main
+    path's and the wide path's shapes."""
+    from stark_tpu_torch import native
+    from stark_tpu_torch.models import examples as ex
+    from stark_tpu_torch.models.fibonacci import (
+        fibonacci_seeds,
+        fibonacci_trace_cols_device,
+        fibonacci_trace_mod_p,
+    )
+    from stark_tpu_torch.ops import witness as W
+
+    def fib_seeds(T):
+        seeds, nb = fibonacci_seeds(T)
+        return torch.from_numpy(seeds.view(np.int32)).to(dev), nb
+
+    for T in FIB_WITNESS_LENGTHS:
+        seeds, nb = fib_seeds(T)
+        for turn in (1, 2):
+            _require_equal(f"fib_expand T={T} call {turn}", W.fib_expand(seeds, nb, T),
+                           W.fib_expand_plain(seeds, nb, T))
+        if T <= 1 << 16:
+            host = torch.from_numpy(fibonacci_trace_mod_p(T).T.astype(np.int32))
+            _require_equal(f"fibonacci_trace_cols_device T={T}",
+                           fibonacci_trace_cols_device(T).cpu(), host)
+    consts = _rand_field(rng, dev, (72,))
+    for T, block in MDS_WITNESS_SHAPES:
+        nb = -(-T // block)
+        seeds = _rand_field(rng, dev, (nb, 8))
+        for turn in (1, 2):
+            _require_equal(f"mds_expand T={T} block={block} call {turn}",
+                           W.mds_expand(consts, seeds, block, T),
+                           W.mds_expand_plain(consts, seeds, block, T))
+        if T <= 4096:
+            host = torch.from_numpy(ex.mds_square_trace(T).T.astype(np.int32))
+            _require_equal(f"mds_square_trace_cols_device T={T} block={block}",
+                           ex.mds_square_trace_cols_device(T, block).cpu(), host)
+
+    seeds, nb = fib_seeds(MAIN_T)
+    fib = results.add(
+        W.FIB_EXPAND, "T=2^20", [(seeds,)],
+        lambda s: W.fib_expand(s, nb, MAIN_T), lambda s: W.fib_expand_plain(s, nb, MAIN_T),
+        50, nbytes=4 * MAIN_T + 4 * seeds.numel(), ops=OPS_FIB_EXPAND * MAIN_T)
+    m, rc = np.array(ex._MDS), np.array(ex._RC)
+    nb = MDS_T // MDS_BLOCK
+    walked = native.mds_seed_walk(m, rc, np.arange(1, 9), nb, MDS_BLOCK, 998244353)
+    mds_consts = torch.from_numpy(
+        np.concatenate([m.reshape(-1), rc]).astype(np.uint32).view(np.int32)).to(dev)
+    mds_seeds = torch.from_numpy(walked.view(np.int32)).to(dev)
+    mds = results.add(
+        W.MDS_EXPAND, f"T=2^16, block {MDS_BLOCK}", [(mds_consts, mds_seeds)],
+        lambda c, s: W.mds_expand(c, s, MDS_BLOCK, MDS_T),
+        lambda c, s: W.mds_expand_plain(c, s, MDS_BLOCK, MDS_T), 50,
+        nbytes=32 * MDS_T + 32 * nb + 4 * 72, ops=OPS_MDS_STEP * MDS_T)
+    print(f"witness: fib_expand == plain at T={list(FIB_WITNESS_LENGTHS)}, mds_expand "
+          f"== plain at (T, block) {list(MDS_WITNESS_SHAPES)}, each call twice; the "
+          "device columns == the host traces up to T=2^16 / 4096; "
+          + _line(fib) + "; " + _line(mds) + "; device time per call", flush=True)
+
+
+@contextlib.contextmanager
+def _recording_gathers(plans: list):
+    """Every GatherPlan that ops.gather.gather is handed meanwhile is
+    appended to ``plans`` (the plan keeps its sources alive)."""
+    from stark_tpu_torch.ops import gather as G
+
+    launch = G.gather
+
+    def recording(plan):
+        plans.append(plan)
+        return launch(plan)
+
+    G.gather = recording
+    try:
+        yield
+    finally:
+        G.gather = launch
+
+
+def _check_plans(what: str, plans: list) -> str:
+    """K13 against its plain version on every recorded plan; a summary."""
+    from stark_tpu_torch.ops import gather as G
+
+    shapes = []
+    for plan in plans:
+        _require_equal(f"query_gather of {what}", G.gather(plan), G.gather_plain(plan))
+        n_req = sum(idx.size for _, idx, _ in plan.requests)
+        shapes.append(f"{len(plan.sources)} sources, {n_req} requests, {plan.words} words")
+    return "; ".join(shapes)
+
+
+def _time_gather(name, plan, results: _Results | None, dev) -> dict:
+    """K13 timed on a prove's own plan, with the L2 flushed before each
+    call (its sources are a prove's trees and codewords: too large to
+    cycle); also the kernel alone, without the table's upload."""
+    from stark_tpu_torch.ops import gather as G
+
+    words = plan.words
+    table_bytes = 8 * plan.table().size
+    flush = _L2Flush(dev)
+    entry = (results or _Results()).add(
+        G.QUERY_GATHER, name, [(plan,)], G.gather, G.gather_plain, 50,
+        nbytes=8 * words + table_bytes, ops=0, flush=flush)
+    events = _profile(lambda: (flush(), G.gather(plan)), 50, skip=flush.skip)
+    kernel_us = sum(_device_us(e) for e in events if G.QUERY_GATHER.kernel_symbol in e.key)
+    print(f"query_gather, {name}: {words * 4} bytes gathered, table {table_bytes} bytes; "
+          + _line(entry) + f"; the kernel alone {kernel_us / 50 / 1e3:.4f} ms; device "
+          "time per call, L2 flushed before each", flush=True)
+    return entry
+
+
+def _prove_checked(name, prover, verifier, witness, want_sha, expect, cuda):
+    """One counted witness -> prove -> verify: counts set to 0 just before,
+    read just after; the proof must verify, match ``want_sha``, have
+    launched every kernel in ``expect`` and the query gather once.  K13 is
+    then held against its plain version on the prove's plan.  Returns
+    (proof, counts, plan)."""
+    plans: list = []
     cuda.reset_launches()
-    proof = prover.prove(trace)
+    with _recording_gathers(plans):
+        proof = prover.prove(trace_cols=witness())
     accepted = verifier.verify(proof)
     counts = cuda.launch_counts()
     if not accepted:
@@ -650,14 +817,18 @@ def _prove_checked(name, prover, verifier, trace, want_sha, expect, cuda):
     missing = [k for k in expect if counts[k] == 0]
     if missing:
         raise AssertionError(f"{name}: kernels not launched: {missing}")
-    return proof, counts
+    if counts["query_gather"] != 1 or len(plans) != 1:
+        raise AssertionError(f"{name}: {counts['query_gather']} query gathers in a prove")
+    print(f"{name}: query_gather == plain on the prove's plan ("
+          + _check_plans(name, plans) + ")", flush=True)
+    return proof, counts, plans[0]
 
 
-def _profiled_prove(name, prover, trace, counts, median_wall, cuda) -> dict:
-    """Profile one prove; every kernel it launched must show device time
-    under its own name.  Prints that prove's device view and, beside K8's
-    time in it, the bound of each of its K8 launches at the launch's own
-    width, summed.  Returns {kernel: ms}."""
+def _profiled_prove(name, prover, witness, counts, median_wall, cuda) -> dict:
+    """Profile one witness + prove; every kernel it launched must show
+    device time under its own name.  Prints that prove's device view and,
+    beside K8's time in it, the bound of each of its K8 launches at the
+    launch's own width, summed.  Returns {kernel: ms}."""
     from stark_tpu_torch.ops import hash_batch as HB
 
     widths = []
@@ -669,7 +840,7 @@ def _profiled_prove(name, prover, trace, counts, median_wall, cuda) -> dict:
 
     def prove():
         widths.clear()  # keeps those of the last prove: the profiled one
-        prover.prove(trace)
+        prover.prove(trace_cols=witness())
 
     HB.MERKLE_TAIL.launch = recording  # shadows the method meanwhile
     try:
@@ -712,32 +883,106 @@ def _profiled(name, prove, counts, median_wall, cuda) -> dict:
     return kernel_ms
 
 
-def _wall(name, prover, verifier, trace, proof, runs) -> float:
-    """Prove/verify wall-time distribution; returns the prove median (s)."""
-    prove_s, verify_s = [], []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        again = prover.prove(trace)
+def _query_copies(name, prover, witness) -> None:
+    """Device-to-host copies in one prove's fri_query phase, from the
+    profiler's memcpy events: each phase is a record_function range, and a
+    copy counts as the phase's when its middle lies inside the range.  The
+    query phase must make exactly one."""
+    from stark_tpu_torch.utils.profiling import PhaseTimer
+
+    class Marked(PhaseTimer):
+        @contextlib.contextmanager
+        def phase(self, phase_name):
+            with torch.profiler.record_function("phase:" + phase_name):
+                yield
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(PROFILE_ATTEMPTS):
+        prover.prove(trace_cols=witness())
         torch.cuda.synchronize()
-        prove_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        if again != proof or not verifier.verify(again):
-            raise AssertionError(f"{name}: proof not deterministic or rejected")
-        verify_s.append(time.perf_counter() - t0)
-    print(f"{name} wall over {runs} runs: prove s " + json.dumps(_quantiles(prove_s))
+        with torch.profiler.profile(activities=acts) as prof:
+            prover.prove(trace_cols=witness(), timer=Marked())
+            torch.cuda.synchronize()
+        events = prof.events()
+        phases = {e.name[len("phase:"):]: e.time_range for e in events
+                  if e.name.startswith("phase:")}
+        copies = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "DtoH" in e.name]
+        if "fri_query" in phases and copies:
+            break
+        _retaken[0] += 1
+    else:
+        raise AssertionError(f"{name}: no memcpy event or phase range recorded")
+
+    def inside(e, r):
+        mid = (e.time_range.start + e.time_range.end) / 2
+        return r.start <= mid <= r.end
+
+    by_phase = {k: sum(inside(e, r) for e in copies) for k, r in phases.items()}
+    query = [e for e in copies if inside(e, phases["fri_query"])]
+    print(f"{name}: device-to-host copies by phase {json.dumps(by_phase)} of "
+          f"{len(copies)} in the prove; in fri_query: "
+          + ", ".join(f"{e.name} {(e.time_range.end - e.time_range.start):.1f} us"
+                      for e in query), flush=True)
+    if len(query) != 1:
+        raise AssertionError(f"{name}: {len(query)} device-to-host copies in fri_query")
+
+
+def _wall(name, prover, verifier, witness, proof, runs) -> float:
+    """Witness + prove and verify wall-time distributions; returns the
+    prove median (s).  Python's generation-2 (full) collections are
+    recorded through gc.callbacks: which fell inside a prove, and for how
+    long."""
+    prove_s, verify_s, windows, collections = [], [], [], []
+
+    def on_gc(phase, info):
+        if info["generation"] == 2:
+            collections.append((phase, time.perf_counter()))
+
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            again = prover.prove(trace_cols=witness())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            prove_s.append(t1 - t0)
+            windows.append((t0, t1))
+            if again != proof or not verifier.verify(again):
+                raise AssertionError(f"{name}: proof not deterministic or rejected")
+            verify_s.append(time.perf_counter() - t1)
+    finally:
+        gc.callbacks.remove(on_gc)
+    starts = [t for ph, t in collections if ph == "start"]
+    stops = [t for ph, t in collections if ph == "stop"]
+    full = list(zip(starts, stops))
+    per_prove = [[(b - a) * 1e3 for a, b in full if t0 <= a <= t1] for t0, t1 in windows]
+    median = float(np.median(prove_s))
+    slow = [i for i, s in enumerate(prove_s) if s > 2 * median]
+    print(f"{name} wall over {runs} runs: witness + prove s " + json.dumps(_quantiles(prove_s))
           + ", verify s " + json.dumps(_quantiles(verify_s)), flush=True)
-    return _quantiles(prove_s)["median"]
+    print(f"{name} full collections (gc generation 2): {len(full)} in the runs, "
+          f"{sum(map(len, per_prove))} inside a prove, ms "
+          + json.dumps([round(ms, 3) for ms in sum(per_prove, [])])
+          + f"; proves over twice the median: "
+          + json.dumps([{"run": i, "ms": round(prove_s[i] * 1e3, 3),
+                         "gen2_ms": [round(ms, 3) for ms in per_prove[i]]} for i in slow]),
+          flush=True)
+    return median
 
 
-def _phases(name, prover, trace, runs: int = 5) -> None:
+def _phases(name, prover, witness, runs: int = 5) -> None:
     """Synchronised per-phase times, the median of ``runs`` proves (a
-    single prove may catch one of Python's full garbage collections)."""
+    single prove may catch one of Python's full garbage collections); the
+    witness is a phase of its own, before the prove's."""
     from stark_tpu_torch.utils.profiling import PhaseTimer
 
     samples: dict[str, list[float]] = {}
     for _ in range(runs):
         timer = PhaseTimer(sync=torch.cuda.synchronize)
-        prover.prove(trace, timer=timer)
+        with timer.phase("witness"):
+            cols = witness()
+        prover.prove(trace_cols=cols, timer=timer)
         for phase, ms in timer.ms().items():
             samples.setdefault(phase, []).append(ms)
     print(f"{name} prove phases (ms, synchronised, median and max of {runs} proves): "
@@ -745,17 +990,40 @@ def _phases(name, prover, trace, runs: int = 5) -> None:
                         for k, v in samples.items()}), flush=True)
 
 
-def _rejects(name, prover, verifier, trace, proof) -> None:
+def _rejects(name, prover, verifier, witness, proof) -> None:
     bad = bytearray(proof)
     bad[100] ^= 1
     if verifier.verify(bytes(bad)):
         raise AssertionError(f"{name}: tampered proof accepted")
-    cheat = trace.copy()
-    row = len(trace) // 2
-    cheat[row, 0] = (int(cheat[row, 0]) + 1) % 998244353
-    if verifier.verify(prover.prove(cheat)):
+    cheat = witness().clone()
+    col = cheat.shape[1] // 2
+    cheat[0, col] = (int(cheat[0, col]) + 1) % 998244353
+    if verifier.verify(prover.prove(trace_cols=cheat)):
         raise AssertionError(f"{name}: proof of a wrong witness accepted")
-    print(f"{name}: flipped byte and changed witness row rejected", flush=True)
+    print(f"{name}: flipped byte and changed device witness element rejected", flush=True)
+
+
+def _drive(name, key, prover, verifier, witness, rows, want_sha, expect, runs, cuda,
+           launches: dict) -> tuple:
+    """A path: warm-up, the counted prove (launches[key]), one prove from
+    host rows that must give the same bytes, wall times, phases, the query
+    phase's copies.  Returns (proof, counts, plan, median wall s)."""
+    if not verifier.verify(prover.prove(trace_cols=witness())):  # warm-up
+        raise AssertionError(f"{name}: warm-up proof rejected")
+    torch.cuda.reset_peak_memory_stats()
+    proof, counts, plan = _prove_checked(name, prover, verifier, witness, want_sha,
+                                         expect, cuda)
+    launches[key] = counts
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if hashlib.sha256(prover.prove(rows)).hexdigest() != want_sha:
+        raise AssertionError(f"{name}: the proof from host rows differs")
+    print(f"{name}: proved from device columns and verified, {len(proof)} bytes, sha256 "
+          f"== pinned, and == the proof from host rows; launches {counts}, peak device "
+          f"memory {peak:.3f} GiB", flush=True)
+    median = _wall(name, prover, verifier, witness, proof, runs)
+    _phases(name, prover, witness)
+    _query_copies(name, prover, witness)
+    return proof, counts, plan, median
 
 
 def main() -> int:
@@ -791,92 +1059,104 @@ def main() -> int:
     # 3. kernels against their plain versions
     results = _Results()
     marks = [time.perf_counter()]
-    for check in (_check_ntt, _check_fold, _check_hash):
+    for check in (_check_ntt, _check_fold, _check_hash, _check_witness):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
-    # 4. pinned proof bytes
+    # 4. pinned proof bytes, K13 held against its plain version on each plan
     for (model, T, blowup, tests), want in PINNED.items():
         air, trace_fn, _ = get_model(model)
         cfg = StarkConfig(trace_length=T, blowup=blowup, num_colinearity_tests=tests)
         trace = trace_fn(T)
+        plans: list = []
         for lazy in (False, True) if model == "fib" else (False,):
-            proof = StarkProver(air, cfg, lazy_ntt=lazy).prove(trace)
+            with _recording_gathers(plans):
+                proof = StarkProver(air, cfg, lazy_ntt=lazy).prove(trace)
             got = hashlib.sha256(proof).hexdigest()
             if got != want:
                 raise AssertionError(f"{model} T={T} lazy={lazy}: sha256 {got} != pinned {want}")
             if not StarkVerifier(air, cfg).verify(proof):
                 raise AssertionError(f"{model} T={T}: proof rejected")
+        shapes = _check_plans(f"{model} T={T}", plans)
         print(f"proof {model} T={T} blowup={blowup} tests={tests}: {len(proof)} bytes, "
               "verified, sha256 == stark_tpu's"
-              + (" (strict and lazy NTT)" if model == "fib" else ""), flush=True)
+              + (" (strict and lazy NTT)" if model == "fib" else "")
+              + f"; query_gather == plain ({shapes})", flush=True)
+
+    from stark_tpu_torch.models.examples import mds_square_trace_cols_device
+    from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
 
     lazy_names = {"ntt_pass1_lazy", "ntt_pass2_lazy"}
     strict_names = {"ntt_pass1", "ntt_pass2"}
     every = set(cuda.KERNELS)
     launches: dict[str, dict[str, int]] = {}
 
-    # 5. the main path: FibonacciAir at T = 2^20
+    # 5. the main path: FibonacciAir at T = 2^20, from device columns
     name = "main path fib T=2^20"
     air, trace_fn, _ = get_model("fib")
     cfg = StarkConfig(trace_length=MAIN_T, blowup=4, num_colinearity_tests=16)
-    trace = trace_fn(MAIN_T)
+    rows = trace_fn(MAIN_T)
     prover = StarkProver(air, cfg)
     verifier = StarkVerifier(air, cfg)
-    if not verifier.verify(prover.prove(trace)):  # warm-up
-        raise AssertionError(f"{name}: warm-up proof rejected")
-    torch.cuda.reset_peak_memory_stats()
-    proof, counts = _prove_checked(name, prover, verifier, trace, MAIN_SHA256,
-                                   every - lazy_names, cuda)
-    launches["fib_2^20"] = counts
-    print(f"{name}: proved and verified, {len(proof)} bytes, sha256 == pinned, "
-          f"launches {counts}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
-    median = _wall(name, prover, verifier, trace, proof, MAIN_RUNS)
-    _phases(name, prover, trace)
-    _profiled_prove(name, prover, trace, counts, median, cuda)
-    _rejects(name, prover, verifier, trace, proof)
+
+    def fib_cols():
+        return fibonacci_trace_cols_device(MAIN_T)
+
+    proof, counts, plan, median = _drive(
+        name, "fib_2^20", prover, verifier, fib_cols, rows, MAIN_SHA256,
+        every - lazy_names - {"mds_expand"}, MAIN_RUNS, cuda, launches)
+    _time_gather("fib T=2^20 prove", plan, results, dev)
+    del plan
+    _profiled_prove(name, prover, fib_cols, counts, median, cuda)
+    _rejects(name, prover, verifier, fib_cols, proof)
 
     name = "main path fib T=2^20, lazy NTT"
     lazy_prover = StarkProver(air, cfg, lazy_ntt=True)
-    lazy_prover.prove(trace)  # warm-up
-    _, counts = _prove_checked(name, lazy_prover, verifier, trace, MAIN_SHA256,
-                               every - strict_names, cuda)
+    lazy_prover.prove(trace_cols=fib_cols())  # warm-up
+    _, counts, _ = _prove_checked(name, lazy_prover, verifier, fib_cols, MAIN_SHA256,
+                                  every - strict_names - {"mds_expand"}, cuda)
     launches["fib_2^20_lazy"] = counts
     print(f"{name}: proved and verified, sha256 == pinned, launches {counts}",
           flush=True)
-    _profiled_prove(name, lazy_prover, trace, counts, median, cuda)
+    _profiled_prove(name, lazy_prover, fib_cols, counts, median, cuda)
 
-    # 6. the wide path: MdsSquareAir at T = 2^16
+    # 6. the wide path: MdsSquareAir at T = 2^16, from device columns
     name = "wide path mds T=2^16"
     air, trace_fn, _ = get_model("mds")
     cfg = StarkConfig(trace_length=MDS_T, blowup=4, num_colinearity_tests=16)
-    trace = trace_fn(MDS_T)
     prover = StarkProver(air, cfg)
     verifier = StarkVerifier(air, cfg)
-    if not verifier.verify(prover.prove(trace)):  # warm-up
-        raise AssertionError(f"{name}: warm-up proof rejected")
-    proof, counts = _prove_checked(name, prover, verifier, trace, MDS_SHA256,
-                                   every - lazy_names, cuda)
-    launches["mds_2^16"] = counts
-    print(f"{name}: proved and verified, {len(proof)} bytes, sha256 == stark_tpu's, "
-          f"launches {counts}", flush=True)
-    median = _wall(name, prover, verifier, trace, proof, MDS_RUNS)
-    _phases(name, prover, trace)
-    _profiled_prove(name, prover, trace, counts, median, cuda)
-    _rejects(name, prover, verifier, trace, proof)
 
+    def mds_cols():
+        return mds_square_trace_cols_device(MDS_T, MDS_BLOCK)
+
+    proof, counts, plan, median = _drive(
+        name, "mds_2^16", prover, verifier, mds_cols, trace_fn(MDS_T), MDS_SHA256,
+        every - lazy_names - {"fib_expand"}, MDS_RUNS, cuda, launches)
+    _time_gather("mds T=2^16 prove", plan, None, dev)
+    del plan
+    _profiled_prove(name, prover, mds_cols, counts, median, cuda)
+    _rejects(name, prover, verifier, mds_cols, proof)
+
+    # Each kernel's launches are those of the path that runs it.
     for r in results.entries:
-        path = "fib_2^20_lazy" if r["name"] in lazy_names else "fib_2^20"
+        if r["name"] in lazy_names:
+            path = "fib_2^20_lazy"
+        elif r["name"] == "mds_expand":
+            path = "mds_2^16"
+        else:
+            path = "fib_2^20"
         r["launches"] = launches[path][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in launches.items()}
+        if r["launches"] == 0:
+            raise AssertionError(f"{r['name']}: no launch on the path that runs it")
     listed = {r["name"] for r in results.entries}
     if listed != every:
         raise AssertionError(f"kernels without a result: {sorted(every - listed)}")
 
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
-          "checks: ntt, fold, hash, then the proofs and paths: "
+          "checks: ntt, fold, hash, witness, then the proofs and paths: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again", flush=True)
     print(smi, flush=True)

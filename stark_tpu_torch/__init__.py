@@ -6,12 +6,16 @@ the same AIR, config and witness it emits byte-identical proofs: the same
 roots, transcript, challenges, query indices and wire bytes (reference
 src/hash.rs, src/fiat_shamir.rs, src/stream.rs, src/fri.rs).
 
-This slice is the single-device Fibonacci path, ``StarkProver.prove`` ->
-``StarkVerifier.verify``.  The TPU's Pallas kernels on that path are
-hand-written CUDA here (csrc/: the four-step NTT K1-K3 and the FRI fold
-K4), built with nvcc at first use; on a CPU tensor every kernel wrapper
-runs its plain torch version instead.  Importing the package imports
-neither jax nor stark_tpu.
+Ported so far: the single-device ``StarkProver.prove`` (from host rows,
+or from columns made on the card: ``prove(trace_cols=...)``) ->
+``StarkVerifier.verify`` / ``verify_batch`` path for FibonacciAir and the
+example AIRs.  The TPU's Pallas kernels on that path, and the jnp
+functions that need a kernel of their own here, are hand-written CUDA
+(csrc/: the four-step NTT K1-K3, the FRI fold K4, the hash and Merkle
+kernels K5-K8, the device witnesses K12, the query phase's gather K13),
+built with nvcc at first use; on a CPU tensor every kernel wrapper runs
+its plain torch version instead.  Importing the package imports neither
+jax nor stark_tpu.
 """
 
 from stark_tpu_torch.field import FiniteField, FieldElement, P

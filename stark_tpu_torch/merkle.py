@@ -15,7 +15,9 @@ level kept).  Constructors:
   numpy input builds in the host C engine, and its stack is a CPU tensor.
 
 Authentication paths are one gather over the stack and one transfer
-(:meth:`open_batch`), whichever engine built it.
+(:meth:`open_batch`, rows from :func:`path_rows`), whichever engine built
+it; the prover's query phase gathers them with its values in one launch
+(ops/gather.py).
 """
 
 from __future__ import annotations
@@ -37,6 +39,25 @@ def _to_device(values, device) -> torch.Tensor:
     if isinstance(values, np.ndarray):
         values = torch.from_numpy(values.astype(np.int64)).to(torch.int32)
     return values if device is None else values.to(device)
+
+
+def path_rows(num_leaves: int, indices) -> np.ndarray:
+    """(k, depth) int64 rows of a level stack that hold the authentication
+    paths of leaves ``indices``, bottom-up: the sibling on level l of leaf
+    i is row ``level_offset(l) + ((i >> l) ^ 1)``, level_offset(l) =
+    2W - 2W / 2^l.  (stark_tpu/merkle.py's gather_operands and
+    open_batch_dev serve its layouts; every tree of the port is one
+    stack.)"""
+    depth = num_leaves.bit_length() - 1
+    idx = np.asarray(indices, dtype=np.int64).reshape(-1, 1)
+    lv = np.arange(depth, dtype=np.int64)[None, :]
+    return (2 * num_leaves - ((2 * num_leaves) >> lv)) + ((idx >> lv) ^ 1)
+
+
+def paths_from_sib(sib: np.ndarray) -> list[list[Hash]]:
+    """(k, depth, 32) u8 fetched sibling digests -> k paths of Hash
+    objects (stark_tpu/merkle.py:paths_from_dev, query-major)."""
+    return [[Hash(row.tobytes()) for row in path] for path in sib]
 
 
 class MerkleTree:
@@ -132,22 +153,11 @@ class MerkleTree:
         return self.open_batch([index])[0]
 
     def open_batch(self, indices: list[int]) -> list[list[Hash]]:
-        """Authentication paths for many indices: the sibling on level l of
-        leaf i is row ``level_offset(l) + ((i >> l) ^ 1)`` of the stack, so
-        all of them come in one gather and one transfer."""
-        n = self.num_leaves
-        depth = n.bit_length() - 1
-        if depth == 0:
-            return [[] for _ in indices]
-        idx = np.asarray(indices, dtype=np.int64)[:, None]
-        lv = np.arange(depth, dtype=np.int64)[None, :]
-        rows = (2 * n - ((2 * n) >> lv)) + ((idx >> lv) ^ 1)  # (k, depth)
-        rows = torch.from_numpy(rows.reshape(-1)).to(self._stack.device)
-        sib = self._stack[rows].cpu().numpy().reshape(len(indices), depth, 32)
-        return [
-            [Hash(sib[q, l].tobytes()) for l in range(depth)]
-            for q in range(len(indices))
-        ]
+        """Authentication paths for many indices: one gather over the level
+        stack (:func:`path_rows`) and one transfer."""
+        rows = path_rows(self.num_leaves, indices)
+        sib = self._stack[torch.from_numpy(rows.reshape(-1)).to(self._stack.device)]
+        return paths_from_sib(sib.cpu().numpy().reshape(*rows.shape, 32))
 
     @staticmethod
     def verify(leaf: Hash, index: int, proof: list[Hash], root: Hash) -> bool:

@@ -1,7 +1,9 @@
 """Additional AIR examples beyond the reference's Fibonacci workload.
 
-Counterpart of stark_tpu/models/examples.py (its AIRs and host trace
-generators; the device witness re-expansion there is not ported yet).  The
+Counterpart of stark_tpu/models/examples.py: its AIRs, their host trace
+generators and the MDS device witness (:func:`mds_square_trace_cols_device`;
+not its all-device fallback _mds_device_trace_fn, which its own docstring
+measured 2x slower than the host walk the port always has).  The
 reference ships only the Fibonacci trace generator (reference
 src/trace.rs:36-49) and no constraint system at all; these AIRs exercise
 the composer's generality: multiple registers, multiple constraints, and
@@ -13,8 +15,12 @@ namespace of models/air.py, so they carry no tensor code of their own.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from stark_tpu_torch import native
 from stark_tpu_torch.models.air import Air, BoundaryConstraint
+from stark_tpu_torch.ops import cuda
+from stark_tpu_torch.ops import witness as W
 from stark_tpu_torch.ops.fieldops import P
 
 
@@ -168,3 +174,24 @@ def mds_square_trace(length: int) -> np.ndarray:
         mixed = (m @ s) % P
         s = (mixed * mixed % P + rc) % P
     return rows
+
+
+def mds_square_trace_cols_device(length: int, block: int = 64,
+                                 device="cuda") -> torch.Tensor:
+    """(8, length) int32 trace columns on ``device``, equal to
+    ``mds_square_trace(length).T``.  The recurrence is nonlinear, so its
+    T-step depth cannot be split: the host's C engine walks the seed chain
+    (native.mds_seed_walk, every ``block``-th state) and the card expands
+    all blocks in parallel (kernel K12, ops/witness.mds_expand); only
+    M | rc and the (T/block, 8) seeds are uploaded, in one copy.  Feed it to
+    ``StarkProver.prove(trace_cols=...)``."""
+    device = cuda.device_or_raise(device, "mds_square_trace_cols_device")
+    assert length >= 1
+    block = max(1, min(block, length))
+    nb = (length + block - 1) // block
+    m, rc = np.array(_MDS), np.array(_RC)
+    seeds = native.mds_seed_walk(m, rc, np.arange(1, _MDS_W + 1), nb, block, P)
+    packed = np.concatenate([m.reshape(-1), rc, seeds.reshape(-1)]).astype(np.uint32)
+    dev = torch.from_numpy(packed.view(np.int32)).to(device)
+    k = _MDS_W * _MDS_W + _MDS_W
+    return W.mds_expand(dev[:k], dev[k:].view(nb, _MDS_W), block, length)

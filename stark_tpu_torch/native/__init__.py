@@ -4,7 +4,7 @@ The C source is the JAX package's host engine, copied so that this package
 never imports ``stark_tpu`` (which imports jax).  It is compiled with ``cc``
 into ``stark_tpu_torch/_build/`` at first use (utils/build.py) and serves
 the host control plane: the Fiat-Shamir hash, index sampling, the narrow
-Merkle levels and the verifier's path checks.  The numpy engine in
+Merkle levels, the verifier's path checks and the MDS witness's seed walk.  The numpy engine in
 hashfn.py is the cross-check the tests hold it against.
 """
 
@@ -23,6 +23,7 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hash.c")
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _u64 = ctypes.c_uint64
+_u32p = ctypes.POINTER(ctypes.c_uint32)
 
 _SIGNATURES = {
     "stark_hash": ([_u8p, _u64, _u8p], None),
@@ -34,6 +35,7 @@ _SIGNATURES = {
         [_u64p, _u64, _u64p, _u8p, _u64, _u8p, _u64],
         ctypes.c_int64,
     ),
+    "stark_mds_seed_walk": ([_u32p, _u32p, _u32p, _u64, _u64, _u64, _u32p], None),
 }
 
 
@@ -136,3 +138,25 @@ def merkle_verify_batch(
             k,
         )
     )
+
+
+def mds_seed_walk(m, rc, s0, nb: int, block: int, p: int) -> np.ndarray:
+    """Walk the width-8 quadratic chain s' = (M s)^2 + rc mod p for
+    nb*block steps from ``s0`` and return the (nb, 8) uint32 block-start
+    states; the card re-expands the blocks in parallel
+    (models/examples.mds_square_trace_cols_device)."""
+    m = np.ascontiguousarray(m, dtype=np.uint32)
+    rc = np.ascontiguousarray(rc, dtype=np.uint32)
+    s0 = np.ascontiguousarray(s0, dtype=np.uint32)
+    assert m.shape == (8, 8) and rc.shape == (8,) and s0.shape == (8,)
+    out = np.empty((nb, 8), dtype=np.uint32)
+    _lib().stark_mds_seed_walk(
+        m.ctypes.data_as(_u32p),
+        rc.ctypes.data_as(_u32p),
+        s0.ctypes.data_as(_u32p),
+        nb,
+        block,
+        p,
+        out.ctypes.data_as(_u32p),
+    )
+    return out

@@ -4,7 +4,8 @@
  * Bit-exact C implementation of the commitment hash (contract: reference
  * src/hash.rs:7-99) plus the host-sequential protocol loops built on it:
  * FRI index sampling (fri.rs:168-213), Merkle levels and Merkle path
- * verification (merkle.rs:18-29, 82-96).
+ * verification (merkle.rs:18-29, 82-96), and the seed walk of the MDS
+ * witness.
  *
  * Bulk hashing runs on the device (ops/hash_batch.py); this library takes
  * the host-side scalar path and the narrow Merkle levels.
@@ -329,4 +330,35 @@ int64_t stark_merkle_verify_batch(const uint64_t *leaf_values, uint64_t c,
           return (int64_t)(base + q);
   }
   return -1;
+}
+
+/* --------------------------------------------------------------------------
+ * Width-8 quadratic chain walk (the MDS witness's seed chain,
+ * models/examples.py MdsSquareAir): s' = (M s)^2 + rc (mod p), writing every
+ * `block`-th state.  The recurrence is nonlinear, so its T-step sequential
+ * depth cannot be split: the host walks it and the card re-expands the
+ * blocks in parallel (kernel K12, csrc/witness.cu).  Entries < p < 2^30, so
+ * an 8-term u64 accumulator stays < 2^63: one % per matvec row, one per
+ * square + rc.
+ * -------------------------------------------------------------------------- */
+void stark_mds_seed_walk(const uint32_t *m /* 8x8 row-major */,
+                         const uint32_t *rc /* 8 */,
+                         const uint32_t *s0 /* 8 */,
+                         uint64_t nb, uint64_t block, uint64_t p,
+                         uint32_t *seeds_out /* nb*8 */) {
+  uint64_t s[8], nx[8], b, t;
+  int i, j;
+  for (i = 0; i < 8; i++) s[i] = s0[i];
+  for (b = 0; b < nb; b++) {
+    for (i = 0; i < 8; i++) seeds_out[b * 8 + i] = (uint32_t)s[i];
+    for (t = 0; t < block; t++) {
+      for (i = 0; i < 8; i++) {
+        uint64_t acc = 0;
+        for (j = 0; j < 8; j++) acc += (uint64_t)m[i * 8 + j] * s[j];
+        acc %= p;
+        nx[i] = (acc * acc % p + rc[i]) % p;
+      }
+      for (i = 0; i < 8; i++) s[i] = nx[i];
+    }
+  }
 }

@@ -25,7 +25,7 @@ import torch
 from stark_tpu_torch.utils.build import PACKAGE_DIR, build_library
 
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
-SOURCES = ("ntt.cu", "fold.cu", "hash.cu")
+SOURCES = ("ntt.cu", "fold.cu", "hash.cu", "gather.cu", "witness.cu")
 HEADERS = ("field.cuh", "hash.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -115,3 +115,19 @@ def check_operand(t: torch.Tensor, name: str,
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def device_or_raise(device, what: str) -> torch.device:
+    """``device`` as a torch.device with its index (``cuda`` is the current
+    card, as the tensors made there report it); raises if it names CUDA
+    and no card is visible (entry points never carry on on the CPU
+    unasked)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: no CUDA device (pass device='cpu' for the "
+                           "plain torch path)")
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -16,7 +16,8 @@ challenges, device data path.  Protocol (prover):
     beta_k, and sum: the composition codeword.              [device]
  5. FRI-prove the composition codeword (fri.py; folds are kernel K4).
  6. Open the trace Merkle tree at every FRI round-0 query point and its
-    frame-shifted companions.
+    frame-shifted companions: these reads join FRI's query phase, one
+    gather (kernel K13) and one fetch for the whole of it.
 
 The verifier mirrors 2-5 from the proof stream on the host, then checks at
 each FRI query point that the composition value FRI recorded equals the one
@@ -27,17 +28,26 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from stark_tpu_torch.convert import field_to_numpy, witness_to_device
+from stark_tpu_torch.convert import witness_to_device
 from stark_tpu_torch.field import FiniteField
 from stark_tpu_torch.fri import Fri, _verify_paths_batch
 from stark_tpu_torch.merkle import MerkleTree
 from stark_tpu_torch.models.air import Air, BatchOps, BoundaryConstraint, ScalarOps
+from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
 from stark_tpu_torch.ops import ntt as NTT
 from stark_tpu_torch.ops.fieldops import GENERATOR, P, primitive_nth_root
-from stark_tpu_torch.stream import FieldElements, MerklePath, MerkleRoot, ProofStream
+from stark_tpu_torch.stream import (
+    FieldElements,
+    MerklePath,
+    MerkleRoot,
+    ProofStream,
+    wire_field_elements,
+    wire_merkle_paths,
+)
 from stark_tpu_torch.transcript import FiatShamir
 from stark_tpu_torch.utils.profiling import NULL_TIMER, reason
 
@@ -171,12 +181,7 @@ class StarkProver:
 
     def __init__(self, air: Air, cfg: StarkConfig, device="cuda",
                  lazy_ntt: bool = False):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "StarkProver: no CUDA device (pass device='cpu' for the "
-                "plain torch path)"
-            )
+        device = cuda.device_or_raise(device, "StarkProver")
         self.air = air
         self.cfg = cfg
         self.device = device
@@ -235,9 +240,38 @@ class StarkProver:
             ci += 1
         return total.to(torch.int32)
 
-    def prove(self, trace_rows, timer=NULL_TIMER) -> bytes:
+    def _witness(self, trace_rows, trace_cols) -> torch.Tensor:
+        """The (c, T) int32 witness on the prover's device: host rows or
+        columns are uploaded once; a tensor must already lie there."""
+        d = self.dom
+        if trace_cols is None:
+            if trace_rows is None or len(trace_rows) != d.T:
+                raise ValueError(f"trace_rows must hold {d.T} rows")
+            cols = witness_to_device(trace_rows, self.device)
+        elif trace_rows is not None:
+            raise ValueError("pass trace_rows or trace_cols, not both")
+        elif isinstance(trace_cols, torch.Tensor):
+            if trace_cols.device != self.device:
+                raise ValueError(f"trace_cols on {trace_cols.device}, the prover "
+                                 f"on {self.device}")
+            if trace_cols.dtype != torch.int32:
+                raise ValueError(f"trace_cols must be int32, got {trace_cols.dtype}")
+            cols = trace_cols
+        else:
+            cols = witness_to_device(trace_cols, self.device, rows=False)
+        if tuple(cols.shape) != (self.air.num_registers, d.T):
+            raise ValueError(f"the witness is {tuple(cols.shape)}, the AIR needs "
+                             f"{(self.air.num_registers, d.T)}")
+        return cols
+
+    def prove(self, trace_rows=None, timer=NULL_TIMER, *, trace_cols=None) -> bytes:
         """``trace_rows``: (T, c) rows (list or ndarray, reference
-        trace.rs:29-34 ingestion semantics)."""
+        trace.rs:29-34 ingestion semantics).  ``trace_cols``: instead, the
+        (c, T) columns of reduced values: an int32 tensor on the prover's
+        device (models.fibonacci_trace_cols_device,
+        models.examples.mds_square_trace_cols_device: the witness never
+        crosses from the host), or numpy columns, uploaded once
+        (stark_tpu/stark.py:364-387)."""
         d, cfg = self.dom, self.cfg
         field = FiniteField()
         fs = FiatShamir()
@@ -245,9 +279,7 @@ class StarkProver:
 
         # 1. trace columns -> coefficients -> LDE on the coset  [device]
         with timer.phase("lde"):
-            assert len(trace_rows) == d.T
-            cols = witness_to_device(trace_rows, self.device)
-            assert tuple(cols.shape) == (self.air.num_registers, d.T)
+            cols = self._witness(trace_rows, trace_cols)
             trace_lde = NTT.lde(
                 NTT.intt(cols, self.lazy_ntt), cfg.blowup, d.offset, self.lazy_ntt
             )  # (c, N)
@@ -268,29 +300,28 @@ class StarkProver:
         with timer.phase("compose"):
             composition = self._compose(trace_lde, alphas, betas)
 
-        # 5. FRI
-        top_indices = self.fri.prove(composition, fs, stream, timer=timer)
-
-        # 6. trace openings at the FRI round-0 query points + frame shifts
-        with timer.phase("trace_open"):
+        # 5. FRI, with the trace openings (step 6) riding the query phase's
+        # one gather and one fetch (stark_tpu/stark.py:446-548).
+        def _open_dispatch(top_indices, plan):
+            """The openings: per FRI round-0 query point (a, a + half) of
+            each sampled index, each frame offset's row."""
             half = d.N // 2
-            query_points = []
-            for idx in top_indices:
-                a = idx % half
-                query_points.extend([a, a + half])
-            cols_idx = [
-                (qp + k * cfg.blowup) % d.N
-                for qp in query_points
-                for k in self.air.frame_offsets
-            ]
-            vals = field_to_numpy(
-                trace_lde[:, torch.tensor(cols_idx, device=self.device)]
-            )
-            paths = trace_tree.open_batch(cols_idx)
-            for t in range(len(cols_idx)):
-                stream.push(FieldElements(tuple(int(v) for v in vals[:, t])))
-                stream.push(MerklePath(tuple(paths[t])))
+            a = np.asarray(top_indices, dtype=np.int64) % half
+            qp = np.stack([a, a + half], axis=1).reshape(-1, 1)
+            offs = np.asarray([k * cfg.blowup for k in self.air.frame_offsets])
+            cols_idx = ((qp + offs[None, :]) % d.N).reshape(-1)
+            return (plan.values(trace_lde, cols_idx),
+                    plan.paths(trace_tree._stack, cols_idx))
 
+        def _open_emit(slots, fetched):
+            """Per opening its values, then its path (raw wire segments)."""
+            vals, sib = (s.take(fetched) for s in slots)
+            stream.push_raw(np.concatenate(
+                [wire_field_elements(vals), wire_merkle_paths(sib)], axis=1
+            ).tobytes())
+
+        self.fri.prove(composition, fs, stream, timer=timer,
+                       extra_dispatch=_open_dispatch, extra_emit=_open_emit)
         return stream.serialize()
 
 
@@ -303,7 +334,9 @@ class StarkVerifier:
         self.dom = _Domain(cfg, air)
         self.fri = self.dom.fri()
 
-    def verify(self, proof: bytes) -> bool:
+    def verify(self, proof: bytes, path_sink: list | None = None) -> bool:
+        """``path_sink``: defer Merkle path authentication to the caller
+        (see :meth:`verify_batch`); every other check still runs here."""
         d, cfg = self.dom, self.cfg
         field = FiniteField()
         fs = FiatShamir()
@@ -320,7 +353,7 @@ class StarkVerifier:
         alphas, betas = _draw_constraint_challenges(fs, field, n_terms)
 
         polynomial_values: list = []
-        if not self.fri.verify(stream, fs, polynomial_values):
+        if not self.fri.verify(stream, fs, polynomial_values, path_sink=path_sink):
             return False
 
         # Trace openings: pop rows + paths in stream order, authenticate
@@ -346,7 +379,9 @@ class StarkVerifier:
                 triples.append(("trace", j, values, trace_root, path_obj))
                 trace_rows[k] = values
             openings.append((idx, comp_fe, trace_rows))
-        if _verify_paths_batch(triples) is not None:
+        if path_sink is not None:
+            path_sink.extend(triples)
+        elif _verify_paths_batch(triples) is not None:
             reason("trace_path_verify", "trace opening fails authentication")
             return False
         for idx, comp_fe, trace_rows in openings:
@@ -355,3 +390,23 @@ class StarkVerifier:
                 reason("composition_mismatch", "composition spot check failed")
                 return False
         return True
+
+    def verify_batch(self, proofs: list[bytes]) -> list[bool]:
+        """Every proof's checks but the Merkle paths run as in
+        :meth:`verify`; then ALL proofs' paths go through one amortized
+        native batch call (grouped by path length and leaf arity).  If any
+        path fails, the proofs still standing are verified one by one, so
+        each result stays exact (stark_tpu/stark.py:703-730)."""
+        results, all_triples = [], []
+        for proof in proofs:
+            sink: list = []
+            ok = self.verify(proof, path_sink=sink)
+            if ok:
+                all_triples.extend(sink)
+            results.append(ok)
+        if _verify_paths_batch(all_triples) is None:
+            return results
+        return [
+            self.verify(proof) if ok else False
+            for proof, ok in zip(proofs, results)
+        ]

@@ -6,7 +6,10 @@ Wire format (stream.rs:35-64): per object a tag byte then payload —
   2: FieldElements — u64 LE count, then values as u64 LE
   3: MerklePath   — u64 LE count, then 32-byte hashes
 Deserialization is tolerant: truncated items are skipped, unknown tags end
-parsing (stream.rs:66-168).  Pop is FIFO (stream.rs:27-33).
+parsing (stream.rs:66-168).  Pop is FIFO (stream.rs:27-33).  The prover's
+bulk emission pushes pre-serialized segments (:meth:`ProofStream.push_raw`,
+built by :func:`wire_field_elements` / :func:`wire_merkle_paths`), which
+serialize verbatim.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import struct
 from collections import deque
 from dataclasses import dataclass
+
+import numpy as np
 
 from stark_tpu_torch.field import FieldElement, FiniteField
 from stark_tpu_torch.hashfn import Hash
@@ -73,8 +78,6 @@ class FieldElements:
 
     def values_u64(self):
         """Raw u64 wire values as a numpy array (zero-copy when wire-backed)."""
-        import numpy as np
-
         if self._elements is None:
             buf, off, count, _ = self._wire
             return np.frombuffer(buf, dtype="<u8", count=count, offset=off)
@@ -142,12 +145,64 @@ class ProofObject:
     MerklePath = MerklePath
 
 
+def wire_field_elements(rows) -> np.ndarray:
+    """Wire bytes of k FieldElements objects (tag 2) at once: ``rows`` is
+    a (k, m) array of values (any integer dtype, field values < 2^32);
+    row q of the (k, 9 + 8m) u8 result is object q (stream.rs:45-52)."""
+    rows = np.asarray(rows)
+    k, m = rows.shape
+    out = np.empty((k, 9 + 8 * m), dtype=np.uint8)
+    out[:, 0] = 2
+    out[:, 1:9] = np.frombuffer(m.to_bytes(8, "little"), dtype=np.uint8)
+    out[:, 9:] = rows.astype("<u8").view(np.uint8).reshape(k, 8 * m)
+    return out
+
+
+def wire_merkle_paths(sib) -> np.ndarray:
+    """Wire bytes of k MerklePath objects (tag 3) at once: ``sib`` is a
+    (k, L, 32) u8 array of sibling digests, bottom-up; row q of the
+    (k, 9 + 32L) u8 result is path q (stream.rs:53-63)."""
+    sib = np.asarray(sib, dtype=np.uint8)
+    k, L = sib.shape[:2]
+    out = np.empty((k, 9 + 32 * L), dtype=np.uint8)
+    out[:, 0] = 3
+    out[:, 1:9] = np.frombuffer(L.to_bytes(8, "little"), dtype=np.uint8)
+    out[:, 9:] = sib.reshape(k, 32 * L)
+    return out
+
+
+def raw_field_elements(values) -> bytes:
+    """Wire bytes of ONE FieldElements object from a 1-D sequence of ints."""
+    return wire_field_elements(np.asarray(values, dtype=np.uint64)[None]).tobytes()
+
+
+def raw_merkle_path(path) -> bytes:
+    """Wire bytes of ONE MerklePath object from its (L, 32) u8 sibling
+    digests.  (stark_tpu's ``raw_merkle_path(sib, q)`` takes query q of a
+    level-major (L, k, 32) array; the port's gathers are query-major.)"""
+    return wire_merkle_paths(np.asarray(path, dtype=np.uint8)[None]).tobytes()
+
+
+class _Raw(bytes):
+    """Pre-serialized wire segment (one or more whole objects) pushed by
+    the prover's bulk emit paths: one bytes object per query phase round
+    instead of one Hash per tree level.  Serialization output is
+    byte-identical; prover-side streams are never popped, so the object
+    view is unused."""
+
+
 class ProofStream:
     def __init__(self, objects=None):
         self.objects = deque(objects or [])
 
     def push(self, obj) -> None:
         self.objects.append(obj)
+
+    def push_raw(self, data: bytes) -> None:
+        """Append an already-serialized segment (whole objects in wire
+        format; the caller is trusted, tests pin byte-equality with the
+        object path)."""
+        self.objects.append(_Raw(data))
 
     def pop(self):
         return self.objects.popleft() if self.objects else None
@@ -158,7 +213,9 @@ class ProofStream:
     def serialize(self) -> bytes:
         out = bytearray()
         for obj in self.objects:
-            if isinstance(obj, MerkleRoot):
+            if isinstance(obj, _Raw):
+                out.extend(obj)
+            elif isinstance(obj, MerkleRoot):
                 out.append(0)
                 out.extend(obj.hash.data)
             elif isinstance(obj, FieldElementObj):

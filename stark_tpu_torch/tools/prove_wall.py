@@ -1,0 +1,101 @@
+"""Prove wall times on one CUDA card, with Python's garbage collections
+that fall inside each prove.
+
+    python3 -m stark_tpu_torch.tools.prove_wall [--model fib|mds] [--log2-t N] [--runs N]
+
+Proves from host rows (``StarkProver.prove(rows)``, the entry every
+version of the port has) ``--runs`` times after two warm-up proves, each
+ending in ``torch.cuda.synchronize()``, and records every collection
+through ``gc.callbacks``.  Prints one JSON line: the card, the prove
+wall-time quantiles, the collections of each generation in the runs and
+inside a prove (count and ms), and every prove over twice the median with
+the collections inside it.  To measure an earlier checkout of the port
+with the same script, run it by path with that checkout's root first on
+``PYTHONPATH``:
+
+    PYTHONPATH=/path/to/checkout python3 stark_tpu_torch/tools/prove_wall.py
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", default="fib", choices=("fib", "mds"))
+    parser.add_argument("--log2-t", type=int, default=20)
+    parser.add_argument("--runs", type=int, default=100)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("prove_wall: no CUDA device visible")
+
+    import stark_tpu_torch
+    from stark_tpu_torch import StarkConfig, StarkProver
+    from stark_tpu_torch.models import get_model
+
+    T = 1 << args.log2_t
+    air, trace_fn, _ = get_model(args.model)
+    prover = StarkProver(air, StarkConfig(trace_length=T, blowup=4,
+                                          num_colinearity_tests=16))
+    rows = trace_fn(T)
+    for _ in range(2):
+        prover.prove(rows)
+    torch.cuda.synchronize()
+
+    events: list[tuple[str, int, float]] = []
+
+    def on_gc(phase, info):
+        events.append((phase, info["generation"], time.perf_counter()))
+
+    windows = []
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(args.runs):
+            t0 = time.perf_counter()
+            prover.prove(rows)
+            torch.cuda.synchronize()
+            windows.append((t0, time.perf_counter()))
+    finally:
+        gc.callbacks.remove(on_gc)
+
+    starts = [(g, t) for phase, g, t in events if phase == "start"]
+    stops = [t for phase, _, t in events if phase == "stop"]
+    collections = [(g, a, b) for (g, a), b in zip(starts, stops)]
+    walls = np.array([(b - a) * 1e3 for a, b in windows])
+    median = float(np.median(walls))
+
+    def inside(t0, t1):
+        return [(g, (b - a) * 1e3) for g, a, b in collections if t0 <= a <= t1]
+
+    by_gen = {}
+    for g in (0, 1, 2):
+        ms = [m for t0, t1 in windows for gg, m in inside(t0, t1) if gg == g]
+        by_gen[f"gen{g}"] = {"in_runs": sum(1 for gg, _, _ in collections if gg == g),
+                             "inside_proves": len(ms), "ms": round(sum(ms), 3),
+                             "max_ms": round(max(ms), 3) if ms else 0.0}
+    slow = [{"run": i, "ms": round(float(walls[i]), 3),
+             "gc": [[g, round(m, 3)] for g, m in inside(*windows[i])]}
+            for i in range(len(walls)) if walls[i] > 2 * median]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    q = np.quantile(walls, [0, 0.25, 0.5, 0.75, 0.95, 1])
+    print(json.dumps({
+        "card": smi, "package": stark_tpu_torch.__file__, "model": args.model,
+        "T": T, "runs": args.runs,
+        "prove_ms": dict(zip(("min", "q1", "median", "q3", "p95", "max"),
+                             (round(float(v), 3) for v in q))),
+        "collections": by_gen, "over_twice_median": slow,
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 """Per-phase timing + structured failure reasons.
 
 * :class:`PhaseTimer` — wall-clock per phase (lde / trace_commit /
-  challenges / compose / fri_commit / fri_sample / fri_query /
-  trace_open), accumulated into a dict.  ``StarkProver.prove`` and
+  challenges / compose / fri_commit / fri_sample / fri_query, the trace
+  openings inside it), accumulated into a dict.  ``StarkProver.prove`` and
   ``Fri.prove`` accept ``timer=``.  Phases measure HOST wall time; CUDA
   work is asynchronous, so pass ``sync=torch.cuda.synchronize`` to charge
   each phase with the device work it enqueued instead of the phase that

@@ -1,0 +1,173 @@
+"""The device witnesses (kernel K12, ops/witness.py; models.fibonacci_trace
+_cols_device, models.examples.mds_square_trace_cols_device) and the C seed
+walk against stark_tpu: on the CPU the plain versions equal stark_tpu's
+functions and the host traces, at lengths that are not powers of two and
+at several MDS block sizes; the MDS proof from device columns equals the
+one from host rows and stark_tpu's.  On a card, each kernel equals its
+plain version.  Tolerance zero: every value is an exact integer mod p."""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from stark_tpu_torch import StarkConfig, StarkProver, StarkVerifier, native
+from stark_tpu_torch.models import examples as ex
+from stark_tpu_torch.models.fibonacci import (
+    fibonacci_seeds,
+    fibonacci_trace_cols_device,
+    fibonacci_trace_mod_p,
+)
+from stark_tpu_torch.ops import cuda
+from stark_tpu_torch.ops import witness as W
+from stark_tpu_torch.ops.fieldops import P
+from torch_port_support import cuda_device, rand_field, to_numpy, to_torch  # noqa: F401
+
+FIB_LENGTHS = [1, 2, 3, 1000, 1024]
+MDS_LENGTHS = [1, 5, 64, 1000]
+MDS_BLOCKS = [1, 7, 64]
+# sha256 of stark_tpu's MdsSquareAir proof at T=1024, blowup 4, 16 tests,
+# from prove(trace_cols=mds_square_trace_cols_device(1024)) on the CPU (its
+# trace-rows proof has the same bytes; chip_smoke.py pins it too).
+MDS_1024 = "97cf6cf94a41c0df3c285c34e497c315a14e4083e3897632b1d76e39109f61a6"
+
+
+@pytest.mark.parametrize("T", FIB_LENGTHS)
+def test_fibonacci_device_cols_equal_stark_tpu(T):
+    from stark_tpu.models.fibonacci import fibonacci_trace_cols_device as j_cols
+
+    got = to_numpy(fibonacci_trace_cols_device(T, device="cpu"))
+    assert got.shape == (1, T)
+    np.testing.assert_array_equal(got, np.asarray(j_cols(T)))
+    np.testing.assert_array_equal(got, fibonacci_trace_mod_p(T).T)
+
+
+@pytest.mark.parametrize("T", FIB_LENGTHS)
+def test_fib_expand_plain_equals_stark_tpu_block_fn(T):
+    """Random seeds (not only Fibonacci's) through both expansions."""
+    from stark_tpu.models.fibonacci import _fib_block_fn
+
+    _, nb = fibonacci_seeds(T)
+    b = 1 << max(0, (T.bit_length() - 1) // 2)
+    rng = np.random.default_rng(T)
+    s0, s1 = rand_field(rng, nb), rand_field(rng, nb)
+    u0, u1 = rand_field(rng, b), rand_field(rng, b)
+    want = np.asarray(_fib_block_fn(T)(s0, s1, u0, u1))
+    got = W.fib_expand(to_torch(np.concatenate([s0, s1, u0, u1])), nb, T)
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("block", MDS_BLOCKS)
+@pytest.mark.parametrize("T", MDS_LENGTHS)
+def test_mds_device_cols_equal_stark_tpu(T, block):
+    from stark_tpu.models.examples import mds_square_trace_cols_device as j_cols
+
+    got = to_numpy(ex.mds_square_trace_cols_device(T, block, device="cpu"))
+    assert got.shape == (8, T)
+    np.testing.assert_array_equal(got, np.asarray(j_cols(T, block)))
+    np.testing.assert_array_equal(got, ex.mds_square_trace(T).T)
+
+
+@pytest.mark.parametrize("block", [1, 5, 64])
+def test_mds_expand_plain_equals_stark_tpu_expand_fn(block):
+    """Random block-start states through both expansions."""
+    from stark_tpu.models.examples import _mds_expand_fn
+
+    seeds = rand_field(np.random.default_rng(block), (9, 8))
+    consts = np.concatenate([np.array(ex._MDS).reshape(-1), ex._RC]).astype(np.uint32)
+    want = np.asarray(_mds_expand_fn(block)(seeds))
+    got = W.mds_expand(to_torch(consts), to_torch(seeds), block, 9 * block)
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("nb,block", [(1, 1), (3, 7), (16, 64)])
+def test_mds_seed_walk_equals_stark_tpu(nb, block):
+    from stark_tpu import native as j_native
+
+    args = (np.array(ex._MDS), np.array(ex._RC), np.arange(1, 9), nb, block, P)
+    got = native.mds_seed_walk(*args)
+    assert got.dtype == np.uint32 and got.shape == (nb, 8)
+    np.testing.assert_array_equal(got, j_native.mds_seed_walk(*args))
+
+
+def test_witness_functions_require_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError):
+        fibonacci_trace_cols_device(8)
+    with pytest.raises(RuntimeError):
+        ex.mds_square_trace_cols_device(8)
+
+
+def test_expand_rejects_bad_shapes():
+    seeds = torch.zeros(2 * 3 + 2 * 4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        W.fib_expand(seeds, 3, 13)          # 3 blocks of 4 hold at most 12
+    with pytest.raises(ValueError):
+        W.fib_expand(seeds[:-2], 3, 8)      # B = 3 is no power of two
+    consts = torch.zeros(72, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        W.mds_expand(consts, torch.zeros((2, 8), dtype=torch.int32), 4, 4)
+    with pytest.raises(ValueError):
+        W.mds_expand(consts[:64], torch.zeros((2, 8), dtype=torch.int32), 4, 8)
+
+
+@pytest.fixture(scope="module")
+def mds_proofs():
+    cfg = StarkConfig(trace_length=1024, blowup=4, num_colinearity_tests=16)
+    prover = StarkProver(ex.MdsSquareAir(), cfg, device="cpu")
+    cols = ex.mds_square_trace_cols_device(1024, device="cpu")
+    return (cfg, prover.prove(trace_cols=cols),
+            prover.prove(ex.mds_square_trace(1024)),
+            prover.prove(trace_cols=to_numpy(cols)))
+
+
+def test_mds_proof_from_device_cols_equals_stark_tpu(mds_proofs):
+    cfg, from_cols, from_rows, from_numpy_cols = mds_proofs
+    assert from_cols == from_rows == from_numpy_cols
+    assert hashlib.sha256(from_cols).hexdigest() == MDS_1024
+    assert StarkVerifier(ex.MdsSquareAir(), cfg).verify(from_cols)
+
+
+def test_mds_changed_device_cols_rejected(mds_proofs):
+    cfg = mds_proofs[0]
+    cols = ex.mds_square_trace_cols_device(1024, device="cpu").clone()
+    cols[3, 500] = (int(cols[3, 500]) + 1) % P
+    proof = StarkProver(ex.MdsSquareAir(), cfg, device="cpu").prove(trace_cols=cols)
+    assert not StarkVerifier(ex.MdsSquareAir(), cfg).verify(proof)
+
+
+# -- on the card ---------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", FIB_LENGTHS + [1 << 16, 1 << 20])
+def test_card_fib_expand(cuda_device, T):
+    seeds, nb = fibonacci_seeds(T)
+    seeds = torch.from_numpy(seeds.view(np.int32)).to(cuda_device)
+    want = W.fib_expand_plain(seeds, nb, T)
+    cuda.reset_launches()
+    for _ in range(2):
+        assert torch.equal(W.fib_expand(seeds, nb, T), want)
+    assert cuda.launch_counts()["fib_expand"] == 2
+    assert torch.equal(fibonacci_trace_cols_device(T).cpu(),
+                       fibonacci_trace_cols_device(T, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,block", [(1, 64), (5, 1), (1000, 7), (1024, 64),
+                                     (4096, 64), (1 << 16, 64), (1 << 16, 1)])
+def test_card_mds_expand(cuda_device, T, block):
+    got = ex.mds_square_trace_cols_device(T, block)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), ex.mds_square_trace_cols_device(T, block, device="cpu"))
+    rng = np.random.default_rng(T + block)
+    nb = -(-T // block)
+    consts = to_torch(np.concatenate([np.array(ex._MDS).reshape(-1), ex._RC]), cuda_device)
+    seeds = to_torch(rand_field(rng, (nb, 8)), cuda_device)
+    want = W.mds_expand_plain(consts, seeds, block, T)
+    cuda.reset_launches()
+    for _ in range(2):
+        assert torch.equal(W.mds_expand(consts, seeds, block, T), want)
+    assert cuda.launch_counts()["mds_expand"] == 2
