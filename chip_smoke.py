@@ -7,8 +7,10 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
 
  1. the card's name and power limit, as nvidia-smi reports them;
  2. build the CUDA kernels from csrc/ (nvcc, into
-    stark_tpu_torch/_build/); the instruction mix of the hash kernels as
-    compiled, where cuobjdump is installed;
+    stark_tpu_torch/_build/); nvcc's version (K13 carries its plan in up to
+    32 KB of launch parameters, which CUDA 12.1 and later allow); the
+    registers ptxas gives K12 and K13; the instruction mix of the hash
+    kernels as compiled, where cuobjdump is installed;
  3. every kernel against its plain PyTorch version on the card, bit-equal,
     at every shape the driven paths give it:
     - the NTT and iNTT (K1 -> K3 -> K2), strict and lazy, at n in {2^6,
@@ -44,8 +46,11 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       subtree-size sweep behind hash_batch.tail_sub_lg;
     - the device witnesses (K12): fib_expand at every length the paths and
       the pinned proofs use and at lengths that cut the last block,
-      mds_expand at (T, block) up to (2^16, 64) and (2^16, 1), each call
-      twice, and the whole witness functions against the host traces;
+      mds_expand at (T, block) up to (2^16, 64) and (2^16, 1) and at blocks
+      longer than its staging chunk, each call twice, and the whole witness
+      functions against the host traces;
+    - the query gather (K13) on a synthetic plan too large for one
+      launch's parameters, which goes out in several;
  4. proofs whose sha256 must equal the JAX package's (stark_tpu on the CPU,
     pinned below): FibonacciAir at T=64, 1024 and 2^16, strict and lazy
     NTT; the example AIRs (two-register Fibonacci, square, cube at blowup 8,
@@ -62,7 +67,9 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     garbage collections (gc.callbacks) that fell inside a prove; the
     synchronised per-phase times (median of 5 proves); the device-to-host
     copies of one prove's fri_query phase from the profiler's memcpy
-    events (exactly one); K13 timed on that plan; one profiled prove
+    events (exactly one); the host time of fri_query's parts (plan build,
+    table encoding, launch, fetch wait, emission); K13 timed on that
+    plan; one profiled prove
     (device time under every launched kernel's name > 0, device
     activities, busy share), the bound of every K8 launch of a prove at
     its own width summed beside the time measured for them, a flipped
@@ -122,7 +129,9 @@ MDS_BLOCK = 64  # mds_square_trace_cols_device's default, as bench.py proves it
 # paths and the pinned proofs use, and lengths that cut the last block.
 FIB_WITNESS_LENGTHS = (1, 2, 3, 64, 1000, 1024, 1 << 16, MAIN_T)
 MDS_WITNESS_SHAPES = ((1, 64), (5, 1), (1000, 7), (1024, 64), (4096, 64),
-                      (MDS_T, 1), (MDS_T, MDS_BLOCK))
+                      (MDS_T, 1), (MDS_T, MDS_BLOCK), (1000, 130), (300, 300))
+# K13 on a plan too large for one launch: requests of each of six kinds.
+SPLIT_REQUESTS = 4000
 NTT_SIZES = (1 << 6, 1 << 10, 1 << 16, 1 << 17, 1 << 18, 1 << 20, 1 << 22)
 WIDE_BATCH = 8  # MdsSquareAir's registers
 # (batch, n, inverse) of every transform the two full-width paths run.
@@ -183,11 +192,16 @@ OPS_MIX = 208                         # 6.5 per state byte
 OPS_MIX_BEFORE = 9 * 32
 # K12.  A Montgomery product is 7 (multiply low, multiply high, multiply by
 # -p^-1, multiply high, add, carry, add-and-minimum), a Shoup product 4, an
-# addition mod p 2.  fib_expand: three products and an addition per element;
-# mds_expand per step: 64 Shoup products, 64 additions, 8 squares of two
-# Montgomery products.
+# addition mod p 2.  fib_expand: three products and an addition per element.
+# mds_expand per step as csrc/witness.cu now computes it: 64 wide
+# multiply-adds (the lazy 64-bit row sums), and per row one reduction by
+# the constant p (multiply by -p^-1, multiply high, carry, add, two
+# add-and-minimums: 6), one Montgomery square and an addition mod p.  Until
+# then it was 64 Shoup products, 64 additions and 8 squares of two
+# Montgomery products, OPS_MDS_STEP_BEFORE: its bound is printed beside.
 OPS_FIB_EXPAND = 3 * 7 + 2
-OPS_MDS_STEP = 64 * 4 + 64 * 2 + 8 * 2 * 7
+OPS_MDS_STEP = 64 + 8 * (6 + 7 + 2)
+OPS_MDS_STEP_BEFORE = 64 * 4 + 64 * 2 + 8 * 2 * 7
 
 
 def _hash_ops(length: int, mix_ops: int = OPS_MIX) -> int:
@@ -740,10 +754,14 @@ def _check_witness(rng, dev, results: _Results) -> None:
         lambda c, s: W.mds_expand(c, s, MDS_BLOCK, MDS_T),
         lambda c, s: W.mds_expand_plain(c, s, MDS_BLOCK, MDS_T), 50,
         nbytes=32 * MDS_T + 32 * nb + 4 * 72, ops=OPS_MDS_STEP * MDS_T)
+    before = _bound(32 * MDS_T + 32 * nb + 4 * 72, OPS_MDS_STEP_BEFORE * MDS_T)
     print(f"witness: fib_expand == plain at T={list(FIB_WITNESS_LENGTHS)}, mds_expand "
           f"== plain at (T, block) {list(MDS_WITNESS_SHAPES)}, each call twice; the "
           "device columns == the host traces up to T=2^16 / 4096; "
-          + _line(fib) + "; " + _line(mds) + "; device time per call", flush=True)
+          + _line(fib) + "; " + _line(mds) + "; device time per call; mds_expand's "
+          f"bound on the operation count of the thread-per-block design "
+          f"({OPS_MDS_STEP_BEFORE} a step, now {OPS_MDS_STEP}): {before[0]:.4f} ms by "
+          f"{before[1]}", flush=True)
 
 
 @contextlib.contextmanager
@@ -777,24 +795,133 @@ def _check_plans(what: str, plans: list) -> str:
     return "; ".join(shapes)
 
 
+def _table_bytes(plan) -> tuple[int, list[int]]:
+    """(the bytes of ``plan``'s table as encoded: header, sources, slots,
+    tasks and indices of every launch; the parameter struct of each)."""
+    launches = plan.encode(0)
+    used = sum(4 * (8 + 4 * int(p[0]) + 4 * int(p[1]) + int(p[2]) + int(p[3]))
+               for p in launches)
+    return used, [p.nbytes for p in launches]
+
+
+def _check_split_gather(rng, dev, results: _Results) -> None:
+    """K13 on a synthetic plan whose table does not fit one launch's
+    parameters: value requests of 1, 3 and 40 words and paths of depth 1,
+    4 and 10, SPLIT_REQUESTS of each, against the plain version; the plan
+    must go out in several launches into the one output buffer."""
+    from stark_tpu_torch.merkle import MerkleTree
+    from stark_tpu_torch.ops import cuda
+    from stark_tpu_torch.ops import gather as G
+
+    n = 1 << 10
+    plan = G.GatherPlan()
+    for shape in (n, (3, n), (40, n)):
+        plan.values(_rand_field(rng, dev, shape), rng.integers(0, n, size=SPLIT_REQUESTS))
+    for depth in (1, 4, 10):
+        stack = MerkleTree.from_leaf_values(_rand_field(rng, dev, (1 << depth,)))._stack
+        plan.paths(stack, rng.integers(0, 1 << depth, size=SPLIT_REQUESTS))
+    want = G.gather_plain(plan)
+    cuda.reset_launches()
+    for turn in (1, 2):
+        _require_equal(f"query_gather, split plan, call {turn}", G.gather(plan), want)
+    launches = cuda.launch_counts()["query_gather"] // 2
+    if launches < 2:
+        raise AssertionError(f"query_gather: the split plan took {launches} launch(es)")
+    used, sizes = _table_bytes(plan)
+    print(f"query_gather == plain on a split plan ({len(plan.sources)} sources, "
+          f"{6 * SPLIT_REQUESTS} requests, {plan.words} words, table {used} bytes): "
+          f"{launches} launches of {sizes} parameter bytes, each call twice", flush=True)
+
+
 def _time_gather(name, plan, results: _Results | None, dev) -> dict:
     """K13 timed on a prove's own plan, with the L2 flushed before each
     call (its sources are a prove's trees and codewords: too large to
-    cycle); also the kernel alone, without the table's upload."""
+    cycle); also the kernel alone, without the host's encoding and the
+    output's allocation."""
     from stark_tpu_torch.ops import gather as G
 
     words = plan.words
-    table_bytes = 8 * plan.table().size
+    table_bytes, sizes = _table_bytes(plan)
     flush = _L2Flush(dev)
     entry = (results or _Results()).add(
         G.QUERY_GATHER, name, [(plan,)], G.gather, G.gather_plain, 50,
         nbytes=8 * words + table_bytes, ops=0, flush=flush)
     events = _profile(lambda: (flush(), G.gather(plan)), 50, skip=flush.skip)
     kernel_us = sum(_device_us(e) for e in events if G.QUERY_GATHER.kernel_symbol in e.key)
-    print(f"query_gather, {name}: {words * 4} bytes gathered, table {table_bytes} bytes; "
-          + _line(entry) + f"; the kernel alone {kernel_us / 50 / 1e3:.4f} ms; device "
-          "time per call, L2 flushed before each", flush=True)
+    # What a launch costs before the plan's size counts: one request.
+    one = G.GatherPlan()
+    one.values(plan.sources[0], [0])
+    one_ms = _device_ms(lambda: (flush(), G.gather(one)), 50, skip=flush.skip)
+    n_req = sum(idx.size for _, idx, _ in plan.requests)
+    print(f"query_gather, {name}: {n_req} requests, {words * 4} bytes gathered, table "
+          f"{table_bytes} bytes as encoded, launched as {sizes} parameter bytes; "
+          + _line(entry) + f"; the kernel alone {kernel_us / 50 / 1e3:.4f} ms; one "
+          f"request alone {one_ms:.4f} ms; device time per call, L2 flushed before each",
+          flush=True)
     return entry
+
+
+def _query_split(name, prover, witness, runs: int = 5) -> None:
+    """Host time of the parts of the fri_query phase, the median of ``runs``
+    synchronised proves: the plan build (the phase's start to the fetch),
+    the table's encoding, the launch call, the fetch's wait (the rest of
+    the fetch: output and pinned buffers, the copy, the event) and the
+    emission (the fetch's return to the phase's end)."""
+    from stark_tpu_torch.ops import gather as G
+    from stark_tpu_torch.utils.profiling import PhaseTimer
+
+    marks: dict[str, float] = {}
+
+    def timed(key, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                marks[key] = marks.get(key, 0.0) + time.perf_counter() - t0
+        return call
+
+    class Marked(PhaseTimer):
+        @contextlib.contextmanager
+        def phase(self, phase_name):
+            if phase_name == "fri_query":
+                marks["start"] = time.perf_counter()
+            with super().phase(phase_name):
+                yield
+            if phase_name == "fri_query":
+                marks["end"] = time.perf_counter()
+
+    fetch, encode, launch = G.fetch, G.GatherPlan.encode, G.QUERY_GATHER.launch
+
+    def marked_fetch(plan):
+        marks["fetch_in"] = time.perf_counter()
+        try:
+            return fetch(plan)
+        finally:
+            marks["fetch_out"] = time.perf_counter()
+
+    parts: dict[str, list[float]] = {}
+    G.fetch, G.GatherPlan.encode = marked_fetch, timed("encode", encode)
+    G.QUERY_GATHER.launch = timed("launch", launch)  # shadows the method meanwhile
+    try:
+        for _ in range(runs):
+            marks.clear()
+            prover.prove(trace_cols=witness(), timer=Marked(sync=torch.cuda.synchronize))
+            inside = marks["fetch_out"] - marks["fetch_in"]
+            for part, sec in (
+                    ("phase", marks["end"] - marks["start"]),
+                    ("plan build", marks["fetch_in"] - marks["start"]),
+                    ("table encoding", marks["encode"]),
+                    ("launch", marks["launch"]),
+                    ("fetch wait", inside - marks["encode"] - marks["launch"]),
+                    ("emission", marks["end"] - marks["fetch_out"])):
+                parts.setdefault(part, []).append(sec * 1e3)
+    finally:
+        G.fetch, G.GatherPlan.encode = fetch, encode
+        del G.QUERY_GATHER.launch
+    print(f"{name} fri_query split (ms, host clock, median and max of {runs} proves): "
+          + json.dumps({k: [round(float(np.median(v)), 4), round(max(v), 4)]
+                        for k, v in parts.items()}), flush=True)
 
 
 def _prove_checked(name, prover, verifier, witness, want_sha, expect, cuda):
@@ -1054,12 +1181,18 @@ def main() -> int:
     lib = cuda.library()
     print(f"build: CUDA kernels built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    release = subprocess.run([cuda._nvcc(), "--version"], capture_output=True, text=True,
+                             check=True).stdout.strip().splitlines()[-2:]
+    print("nvcc: " + " / ".join(release), flush=True)
+    from stark_tpu_torch.tools.tune_kernels import ptxas
+
+    print("ptxas, K12 and K13: " + json.dumps(ptxas(("witness.cu", "gather.cu"))), flush=True)
     _sass_mix(lib._name)
 
     # 3. kernels against their plain versions
     results = _Results()
     marks = [time.perf_counter()]
-    for check in (_check_ntt, _check_fold, _check_hash, _check_witness):
+    for check in (_check_ntt, _check_fold, _check_hash, _check_witness, _check_split_gather):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
@@ -1105,6 +1238,7 @@ def main() -> int:
     proof, counts, plan, median = _drive(
         name, "fib_2^20", prover, verifier, fib_cols, rows, MAIN_SHA256,
         every - lazy_names - {"mds_expand"}, MAIN_RUNS, cuda, launches)
+    _query_split(name, prover, fib_cols)
     _time_gather("fib T=2^20 prove", plan, results, dev)
     del plan
     _profiled_prove(name, prover, fib_cols, counts, median, cuda)
@@ -1156,7 +1290,7 @@ def main() -> int:
 
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
-          "checks: ntt, fold, hash, witness, then the proofs and paths: "
+          "checks: ntt, fold, hash, witness, split gather, then the proofs and paths: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again", flush=True)
     print(smi, flush=True)

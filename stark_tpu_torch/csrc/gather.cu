@@ -7,69 +7,113 @@
 // launches; here they are one launch, and its output is one buffer that
 // comes back to the host in one copy (ops/gather.py).
 //
-// Operands, one int64 table built on the host (ops/gather.py:GatherPlan):
-//   sources, 4 words each: device address, kind, a, b
+// Operands: the whole plan rides in the launch's parameter space, one
+// __grid_constant__ struct of 4, 16 or 32 KB (32,764 bytes of parameters
+// are allowed from CUDA 12.1 on, Volta and later), encoded on the host by
+// ops/gather.py:GatherPlan.encode, as 32-bit words:
+//   header (8 words): n_src, n_slot, n_task, n_index, out address (2), 0, 0
+//   sources, 4 words each: address (2), a, kind << 31 | b
 //     kind 0, field values: a (c, n) int32 array; a = n, b = c;
 //     kind 1, a tree's level stack: a (2W - 1, 32) u8 array; a = W,
 //       b = depth = log2 W;
-//   requests, 3 words each: source, index, first output word
-//     values: the c words src[j * n + index], j < c;
-//     paths: the depth digests of index's authentication path, bottom-up;
-//       the sibling on level l is stack row 2W - 2W / 2^l + ((index >> l) ^ 1)
-//       (merkle.py:path_rows), 8 words each.
+//   slots, 4 words each: source, requests k, first output word, first index
+//     a request j < k of the slot writes its w words (values: c; paths:
+//     8 depth) from first + j w on;
+//   tasks, 1 word each, a warp's: slot | first request j0 << 16
+//     a warp takes 32 / w requests of a slot where w <= 32, else one;
+//   indices, 1 word a request.
+// A request's words: values, src[i * n + index] for i < c; paths, the
+// depth digests of index's authentication path, bottom-up: the sibling on
+// level l is stack row 2W - 2W / 2^l + ((index >> l) ^ 1) (merkle.py:
+// path_rows), 8 words each.
 //
-// What bounds it on the card: nothing but latency.  A Fibonacci T = 2^20
-// prove gathers ~0.45 MB in ~1.6k requests (0.3 us of device-memory time at
-// 3.35 TB/s); each request costs a table read and then its dependent loads.
-// So the design is the plainest one that keeps every access coalesced where
-// the data allows: a warp per request, grid-stride over requests, lanes over
-// the request's words, so a warp reads four whole 32-byte digests per turn.
+// What bounds it on the card: latency.  A Fibonacci T = 2^20 prove gathers
+// ~0.4 MB in ~1.6k requests (0.13 us of device-memory time each way at
+// 3.35 TB/s).  So the table rides in the constant bank that the launch
+// itself carries: no copy goes up before the launch, and a warp's only
+// trip to device memory is its data.  Lanes go to requests by width, so a
+// warp serves 32 single-value requests at once and a path's 8 depth words
+// take a warp.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// C linkage, so that a profile names the kernel plainly.
-extern "C" {
+constexpr uint32_t kHeaderWords = 8;
 
-__global__ void stark_query_gather_kernel(const long long* __restrict__ table,
-                                          int n_src, int n_req,
-                                          uint32_t* __restrict__ out) {
-  const long long* reqs = table + 4 * (long long)n_src;
-  const int lane = threadIdx.x & 31;
-  const int warps = (gridDim.x * blockDim.x) >> 5;
-  for (int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < n_req;
-       r += warps) {
-    const long long* req = reqs + 3 * (long long)r;
-    const long long* src = table + 4 * req[0];
-    const long long index = req[1];
-    uint32_t* dst = out + req[2];
-    const uint32_t* base = reinterpret_cast<const uint32_t*>(src[0]);
-    const int b = (int)src[3];
-    if (src[1] == 0) {
-      const long long n = src[2];
-      for (int j = lane; j < b; j += 32) dst[j] = base[j * n + index];
+template <int kBytes>
+struct GatherParams {
+  uint32_t w[kBytes / 4];
+};
+
+// Every read of the table indexes the parameter struct itself (no pointer
+// into it), so that each stays a load from the constant bank.
+template <int kBytes>
+__global__ void __launch_bounds__(256)
+stark_query_gather_kernel(const __grid_constant__ GatherParams<kBytes> p) {
+  const uint32_t n_src = p.w[0], n_slot = p.w[1], n_task = p.w[2];
+  const uint32_t task = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (task >= n_task) return;
+  uint32_t* out = reinterpret_cast<uint32_t*>((uint64_t)p.w[4] | (uint64_t)p.w[5] << 32);
+  const uint32_t slots = kHeaderWords + 4 * n_src;
+  const uint32_t tasks = slots + 4 * n_slot;
+  const uint32_t t_word = p.w[tasks + task];
+  const uint32_t slot = slots + 4 * (t_word & 0xffffu);
+  const uint32_t j0 = t_word >> 16;
+  const uint32_t src = kHeaderWords + 4 * p.w[slot];
+  const uint32_t* base = reinterpret_cast<const uint32_t*>(
+      (uint64_t)p.w[src] | (uint64_t)p.w[src + 1] << 32);
+  const uint64_t a = p.w[src + 2];
+  const bool path = p.w[src + 3] >> 31;
+  const uint32_t b = p.w[src + 3] & 0x7fffffffu;
+  const uint32_t width = path ? 8 * b : b;
+  const uint32_t per_warp = width <= 32 ? 32 / width : 1;
+  const uint32_t count = min(per_warp, p.w[slot + 1] - j0);
+  uint32_t* dst = out + p.w[slot + 2] + (uint64_t)j0 * width;
+  const uint32_t index = tasks + n_task + p.w[slot + 3] + j0;
+  for (uint32_t t = threadIdx.x & 31; t < count * width; t += 32) {
+    const uint32_t q = count == 1 ? 0 : t / width;
+    const uint32_t word = t - q * width;
+    const uint64_t i = p.w[index + q];
+    uint64_t at;
+    if (path) {
+      const int l = word >> 3;
+      at = 8 * ((2 * a - ((2 * a) >> l)) + ((i >> l) ^ 1)) + (word & 7);
     } else {
-      const long long w2 = 2 * src[2];
-      for (int t = lane; t < 8 * b; t += 32) {
-        const int l = t >> 3;
-        const long long row = (w2 - (w2 >> l)) + ((index >> l) ^ 1);
-        dst[t] = base[8 * row + (t & 7)];
-      }
+      at = word * a + i;
     }
+    dst[t] = base[at];
   }
 }
 
-// table: 4 * n_src + 3 * n_req int64 words on the card; out: the output
-// words.  One launch, on ``stream``.
-int stark_query_gather(const void* table, int n_src, int n_req, void* out,
-                       void* stream) {
-  const int threads = 256;  // 8 warps, a request each
-  int blocks = (n_req + 7) / 8;
-  if (blocks > 1024) blocks = 1024;
-  if (blocks < 1) blocks = 1;
-  stark_query_gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      static_cast<const long long*>(table), n_src, n_req,
-      static_cast<uint32_t*>(out));
-  return (int)cudaGetLastError();
+namespace {
+
+template <int kBytes>
+int launch(const void* params, cudaStream_t stream) {
+  const uint32_t n_task = static_cast<const uint32_t*>(params)[2];
+  const int threads = 256;  // 8 warps, a task each
+  const int blocks = (int)((n_task + 7) / 8);
+  void* args[] = {const_cast<void*>(params)};
+  return (int)cudaLaunchKernel((const void*)stark_query_gather_kernel<kBytes>,
+                               dim3(blocks > 0 ? blocks : 1), dim3(threads),
+                               args, 0, stream);
+}
+
+}  // namespace
+
+// C linkage for the entry; the kernel is a template, which a profile shows
+// as stark_query_gather_kernel<kBytes>.
+extern "C" {
+
+// params: the encoded plan, nbytes of it, one of the sizes
+// ops/gather.py:PARAM_BYTES names (the struct the kernel is built for):
+// the launch copies it into the parameter space.  One launch, on `stream`.
+int stark_query_gather(const void* params, int nbytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nbytes) {
+    case 4096: return launch<4096>(params, s);
+    case 16384: return launch<16384>(params, s);
+    case 32752: return launch<32752>(params, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -14,11 +14,18 @@
 // What bounds them on the card.  fib_expand writes 4 bytes per element and
 // computes three Montgomery products: bound by bytes (4 MB at T = 2^20, 1.3
 // us at 3.35 TB/s), one thread per element.  mds_expand is a chain of
-// `block` dependent steps of 64 constant products, 8 squares and 72 adds
-// per block: T = 2^16 at block 64 is only 1,024 blocks, so a thread per
-// block (state in registers, M and its Shoup companions in shared memory)
-// leaves most of the card idle and the time is one thread's latency chain;
-// splitting the 8 rows of M s across lanes is the next step, not taken.
+// `block` dependent steps per block: T = 2^16 at block 64 is only 1,024
+// blocks, so what bounds it is the latency of one step times `block`, and
+// what the design does is shorten the step and spread the blocks.  An
+// 8-lane group runs a block, lane i owning row i of M s: the state is
+// broadcast inside the group with __shfl_sync, the row's 8 products are
+// summed lazily in 64 bits (each < p^2 < 2^60, the sum < 2^63) and reduced
+// once, by a Montgomery reduction with the constant p.  The constants are
+// M 2^48 mod p, so that reduction leaves 2^16 (M s)_i, and one Montgomery
+// square of that is (M s)_i^2 itself (2^32 = (2^16)^2).  Each group stages
+// its states in shared memory and writes every row's run of words
+// coalesced, kMdsChunk steps at a time, so any `block` fits.  T = 2^16 at
+// block 64 runs 8,192 lanes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -26,18 +33,40 @@
 
 using stark::add_mod;
 using stark::kP;
+using stark::kPinvNeg;
 using stark::mont_mul;
-using stark::shoup_mul;
+using stark::reduce_once;
 
 namespace {
 
 // 2^64 mod p: mont_mul(x, kR2) = x 2^32 mod p, so mont_mul(mont_mul(a, b),
-// kR2) = a b mod p for a, b in [0, p).
+// kR2) = a b mod p for a, b in [0, p).  2^80 mod p: mont_mul(m, kR80) =
+// m 2^48 mod p.
 constexpr uint64_t kR1 = (1ull << 32) % kP;
 constexpr uint32_t kR2 = static_cast<uint32_t>(kR1 * kR1 % kP);
+constexpr uint32_t kR80 = static_cast<uint32_t>((uint64_t)kR2 * (1u << 16) % kP);
 
-__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b) {
-  return mont_mul(mont_mul(a, b), kR2);
+// mds_expand's launch: 8 lanes a block, kMdsBlocks blocks a CTA; states
+// staged for kMdsChunk steps between two flushes.
+constexpr int kMdsBlocks = 8;
+constexpr int kMdsThreads = 8 * kMdsBlocks;
+constexpr int kMdsChunk = 64;
+
+// One step of row i (the lane's) of s' = (M s)^2 + rc: s_j from lane j of
+// the group, x = sum_j mh_j s_j < 8 (p - 1)^2 < 2^63 in 64 bits, then one
+// Montgomery reduction u = x 2^-32 mod p, u < 3p before two corrections:
+// u = 2^16 (M s)_i, and mont_mul(u, u) = 2^32 (M s)_i^2 2^-32.
+__device__ __forceinline__ uint32_t mds_row_step(uint32_t s, const uint32_t* mh,
+                                                 uint32_t rc) {
+  uint64_t x = 0;
+#pragma unroll
+  for (int j = 0; j < 8; j++)
+    x += (uint64_t)mh[j] * __shfl_sync(0xffffffffu, s, j, 8);
+  const uint32_t lo = (uint32_t)x;
+  const uint32_t hi = (uint32_t)(x >> 32);
+  uint32_t u = hi + __umulhi(lo * kPinvNeg, kP) + (lo != 0u ? 1u : 0u);
+  u = reduce_once(__viaddmin_u32(u, 0u - 2u * kP, u));  // [0, 3p) -> [0, p)
+  return add_mod(mont_mul(u, u), rc);
 }
 
 }  // namespace
@@ -77,46 +106,47 @@ int stark_fib_expand(const void* seeds, void* out, int nb, int lg_b,
 }
 
 // consts: M (8 x 8, row-major), rc (8); seeds: (nb, 8); out: (8, length).
-__global__ void stark_mds_expand_kernel(const uint32_t* __restrict__ consts,
-                                        const uint32_t* __restrict__ seeds,
-                                        uint32_t* __restrict__ out, int nb,
-                                        int block, long long length) {
-  __shared__ uint32_t m[64], ms[64], rc[8];
-  for (int t = threadIdx.x; t < 64; t += blockDim.x) {
-    m[t] = consts[t];
-    ms[t] = (uint32_t)(((uint64_t)consts[t] << 32) / kP);  // Shoup companion
-  }
-  for (int t = threadIdx.x; t < 8; t += blockDim.x) rc[t] = consts[64 + t];
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
-  uint32_t s[8];
+// A CTA of kMdsThreads lanes runs kMdsBlocks blocks, a group of 8 lanes each;
+// every lane takes every step, so the group's shuffles always find all 32
+// lanes of the warp (a block past nb runs on zeros and stores nothing).
+__global__ void __launch_bounds__(kMdsThreads)
+stark_mds_expand_kernel(const uint32_t* __restrict__ consts,
+                        const uint32_t* __restrict__ seeds,
+                        uint32_t* __restrict__ out, int nb, int block,
+                        long long length) {
+  __shared__ uint32_t stage[kMdsBlocks][8][kMdsChunk + 1];  // +1: no bank conflicts
+  const int row = threadIdx.x & 7;
+  const int g = threadIdx.x >> 3;
+  const long long b = (long long)blockIdx.x * kMdsBlocks + g;
+  const bool live = b < nb;
+  uint32_t mh[8];
 #pragma unroll
-  for (int i = 0; i < 8; i++) s[i] = seeds[8 * b + i];
-  long long t = (long long)b * block;
-  const long long end = t + block < length ? t + block : length;
-  for (; t < end; t++) {
-#pragma unroll
-    for (int i = 0; i < 8; i++) out[i * length + t] = s[i];
-    uint32_t nx[8];
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-      uint32_t acc = shoup_mul(s[0], m[8 * i], ms[8 * i]);
-#pragma unroll
-      for (int j = 1; j < 8; j++)
-        acc = add_mod(acc, shoup_mul(s[j], m[8 * i + j], ms[8 * i + j]));
-      nx[i] = add_mod(mul_mod(acc, acc), rc[i]);
+  for (int j = 0; j < 8; j++) mh[j] = mont_mul(consts[8 * row + j], kR80);  // m 2^48
+  const uint32_t rc = consts[64 + row];
+  uint32_t s = live ? seeds[8 * b + row] : 0u;
+  const long long first = b * block;
+  for (int t0 = 0; t0 < block; t0 += kMdsChunk) {
+    const int n = block - t0 < kMdsChunk ? block - t0 : kMdsChunk;
+    for (int k = 0; k < n; k++) {
+      stage[g][row][k] = s;
+      s = mds_row_step(s, mh, rc);
     }
+    __syncwarp();
+    if (live) {
 #pragma unroll
-    for (int i = 0; i < 8; i++) s[i] = nx[i];
+      for (int r = 0; r < 8; r++) {
+        uint32_t* dst = out + r * length + first + t0;
+        for (int k = row; k < n && first + t0 + k < length; k += 8) dst[k] = stage[g][r][k];
+      }
+    }
+    __syncwarp();
   }
 }
 
 int stark_mds_expand(const void* consts, const void* seeds, void* out, int nb,
                      int block, long long length, void* stream) {
-  const int threads = 32;  // a warp per SM: the chain's latency bounds it, not throughput
-  const int blocks = (nb + threads - 1) / threads;
-  stark_mds_expand_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (nb + kMdsBlocks - 1) / kMdsBlocks;
+  stark_mds_expand_kernel<<<blocks, kMdsThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(consts),
       static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(out), nb,
       block, length);

@@ -472,18 +472,28 @@ def _verify_paths_batch(triples):
     position, or None when every path verifies.  Paths of equal (length,
     leaf arity) go through ONE native call per group; the global first
     failure is the minimum over groups' first failures, since group
-    members keep their relative order."""
+    members keep their relative order.  A group whose leaves the native
+    engine does not take (more than 64 values) is verified path by path,
+    as stark_tpu/fri.py:1520-1548 does."""
     if not triples:
         return None
 
     def _row(val):
         return val if isinstance(val, (list, tuple)) else [val]
 
+    def _scalar(qs):
+        for q in qs:
+            _, idx, val, root, path_obj = triples[q]
+            leaf = Hash.from_field_elements(_row(val))
+            if not MerkleTree.verify(leaf, idx, list(path_obj.path), root):
+                return q
+        return None
+
     groups: dict[tuple, list[int]] = {}
     for q, (_, _, val, _, path_obj) in enumerate(triples):
         groups.setdefault((len(path_obj), len(_row(val))), []).append(q)
     fails = []
-    for (L, _c), qs in groups.items():
+    for (L, _), qs in groups.items():
         paths_flat = b"".join(triples[q][4].raw_bytes() for q in qs)
         roots_flat = b"".join(triples[q][3].data for q in qs)
         f = native.merkle_verify_batch(
@@ -493,9 +503,11 @@ def _verify_paths_batch(triples):
             L,
             roots_flat,
         )
-        if f == -2:
-            raise ValueError(f"leaf rows of {_c} values: the native engine takes 1..64")
-        if f >= 0:
+        if f == -2:  # leaf arity the native engine does not take
+            f_scalar = _scalar(qs)
+            if f_scalar is not None:
+                fails.append(f_scalar)
+        elif f >= 0:
             fails.append(qs[f])
     return min(fails) if fails else None
 

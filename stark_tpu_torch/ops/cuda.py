@@ -69,8 +69,9 @@ class Kernel:
     """One C entry point of the library: binding, provenance, launch count.
 
     ``symbol`` is the host entry; the ``__global__`` function it launches is
-    ``symbol + "_kernel"`` with C linkage (:attr:`kernel_symbol`), the name a
-    profile shows for it."""
+    ``symbol + "_kernel"`` (:attr:`kernel_symbol`), with C linkage, so that
+    a profile shows that name (K13's is a template: a profile shows the
+    name with its template argument)."""
 
     def __init__(self, name: str, symbol: str, argtypes, *, source: str,
                  replaces: str):

@@ -13,9 +13,11 @@ the host, every read the query phase and the trace openings make:
 
 :func:`fetch` runs all of them as one launch into one buffer of 32-bit
 words and brings that buffer to the host in one copy; each request's
-:class:`Slot` cuts its piece out.  On a CPU tensor :func:`gather` runs the
-plain version, torch indexing over the same list; on CUDA tensors it
-launches the kernel or raises.  Every source must stay alive and unchanged
+:class:`Slot` cuts its piece out.  The launch takes the plan itself as
+its parameters (:meth:`GatherPlan.encode`), so no table goes up to the
+card first; a plan too large for one launch's parameters takes several.
+On a CPU tensor :func:`gather` runs the plain version, torch indexing
+over the same list; on CUDA tensors it launches the kernel or raises.  Every source must stay alive and unchanged
 until the fetch has landed: the plan holds a reference to each.
 """
 
@@ -30,13 +32,21 @@ from stark_tpu_torch.merkle import path_rows
 from stark_tpu_torch.ops import cuda
 
 QUERY_GATHER = cuda.Kernel(
-    "query_gather", "stark_query_gather",
-    [cuda.ptr, cuda.i32, cuda.i32, cuda.ptr],
+    "query_gather", "stark_query_gather", [cuda.ptr, cuda.i32],
     source="stark_tpu_torch/csrc/gather.cu",
     replaces="stark_tpu/fri.py:307",
 )
 
 VALUES, PATHS = 0, 1
+
+# The sizes of the parameter struct that csrc/gather.cu is built for, in
+# bytes (the largest within the 32,764 bytes of parameters that CUDA 12.1
+# allows a launch); a launch carries the smallest that holds its part of
+# the plan.
+PARAM_BYTES = (4096, 16384, 32752)
+HEADER_WORDS = 8
+_MAX_WORDS = PARAM_BYTES[-1] // 4
+_U32 = 1 << 32
 
 
 @dataclass(frozen=True)
@@ -64,7 +74,7 @@ class Slot:
 
 
 class GatherPlan:
-    """Every read of one launch: the sources (tensors on one device) and,
+    """Every read of one gather: the sources (tensors on one device) and,
     per request, (source, indices, first output word)."""
 
     def __init__(self):
@@ -119,17 +129,73 @@ class GatherPlan:
         s = self._source(stack, PATHS, w, depth)
         return self._add(s, PATHS, indices, 8 * depth, w)
 
-    def table(self) -> np.ndarray:
-        """The kernel's int64 operand table (csrc/gather.cu): 4 words per
-        source (address, kind, a, b), then 3 per request (source, index,
-        first output word)."""
-        srcs = np.array([(t.data_ptr(), *m) for t, m in zip(self.sources, self._meta)],
-                        dtype=np.int64).reshape(-1, 4)
-        reqs = [np.stack([np.full(idx.size, s, dtype=np.int64), idx,
-                          slot.first + slot.width * np.arange(idx.size, dtype=np.int64)],
-                         axis=1)
-                for s, idx, slot in self.requests]
-        return np.concatenate([srcs.reshape(-1)] + [r.reshape(-1) for r in reqs])
+    def encode(self, out_address: int) -> list[np.ndarray]:
+        """The kernel's operands (csrc/gather.cu): one uint32 array per
+        launch, each of one of the :data:`PARAM_BYTES` sizes, that writes
+        into the buffer at ``out_address``.  Each holds the header, every
+        source, then its pieces of the requests: a slot per piece (source,
+        requests, first output word, first index), a task per warp (slot |
+        first request << 16; a warp takes 32 // w requests of w <= 32 words,
+        else one) and an index per request.  A plan too large for one
+        launch is cut into several; both proves' plans take one.  Raises
+        where a field does not fit its bits."""
+        n_src = len(self.sources)
+        srcs = np.zeros((n_src, 4), dtype=np.uint64)
+        for i, (t, (kind, a, b)) in enumerate(zip(self.sources, self._meta)):
+            if not (0 < a < _U32 and 0 <= b < 1 << 31):
+                raise ValueError(f"gather source {i}: ({a}, {b}) does not fit 32 bits")
+            ptr = t.data_ptr()
+            srcs[i] = (ptr % _U32, ptr >> 32, a, kind << 31 | b)
+        fixed = HEADER_WORDS + 4 * n_src
+        if fixed + 6 > _MAX_WORDS:
+            raise ValueError(f"{n_src} gather sources: a launch holds at most "
+                             f"{(_MAX_WORDS - HEADER_WORDS - 6) // 4}")
+        if self.words >= _U32:
+            raise ValueError(f"{self.words} output words do not fit 32 bits")
+        launches, pieces, room = [], [], _MAX_WORDS - fixed
+        for s, idx, slot in self.requests:
+            if slot.width == 0 or idx.size == 0:
+                continue
+            per_warp = 32 // slot.width if slot.width <= 32 else 1
+            j = 0
+            while j < idx.size:
+                # A piece of n requests takes 4 + n + ceil(n / per_warp) words.
+                n = min(idx.size - j, (room - 4) * per_warp // (per_warp + 1))
+                while n > 0 and 4 + n + -(-n // per_warp) > room:
+                    n -= 1
+                if n < 1:
+                    launches.append(pieces)
+                    pieces, room = [], _MAX_WORDS - fixed
+                    continue
+                pieces.append((s, idx[j : j + n], slot.first + j * slot.width, per_warp))
+                room -= 4 + n + -(-n // per_warp)
+                j += n
+        if pieces or not launches:
+            launches.append(pieces)
+        return [_params(srcs, pieces, out_address) for pieces in launches]
+
+
+def _params(srcs: np.ndarray, pieces: list, out_address: int) -> np.ndarray:
+    """One launch's parameter words (GatherPlan.encode)."""
+    src, first, per_warp = (np.array([p[i] for p in pieces], dtype=np.int64).reshape(-1)
+                            for i in (0, 2, 3))
+    k = np.array([p[1].size for p in pieces], dtype=np.int64)
+    indices = np.concatenate([p[1] for p in pieces] + [np.zeros(0, dtype=np.int64)])
+    if indices.size and indices.max() >= _U32:
+        raise ValueError(f"gather index {indices.max()} does not fit 32 bits")
+    slots = np.stack([src, k, first, np.cumsum(k) - k], axis=1)
+    warps = -(-k // per_warp)
+    start = np.repeat(np.cumsum(warps) - warps, warps)
+    j0 = (np.arange(warps.sum()) - start) * np.repeat(per_warp, warps)
+    tasks = np.repeat(np.arange(len(pieces)), warps) | j0 << 16
+    head = np.array([len(srcs), len(pieces), tasks.size, indices.size,
+                     out_address % _U32, out_address >> 32, 0, 0], dtype=np.uint64)
+    words = np.concatenate([head, srcs.reshape(-1), slots.reshape(-1).astype(np.uint64),
+                            tasks.astype(np.uint64), indices.astype(np.uint64)])
+    size = next(b for b in PARAM_BYTES if 4 * words.size <= b)
+    out = np.zeros(size // 4, dtype=np.uint32)
+    out[: words.size] = words
+    return out
 
 
 def gather_plain(plan: GatherPlan) -> torch.Tensor:
@@ -156,7 +222,8 @@ def _check_sources(plan: GatherPlan) -> None:
 
 def gather(plan: GatherPlan) -> torch.Tensor:
     """All of ``plan``'s reads into one (words,) int32 tensor on the
-    sources' device: one K13 launch on a card, the plain version on the
+    sources' device: K13 launches (one for a prove's plan) carrying the
+    encoded plan in their parameters on a card, the plain version on the
     CPU."""
     if not plan.requests:
         raise ValueError("an empty gather plan")
@@ -164,11 +231,9 @@ def gather(plan: GatherPlan) -> torch.Tensor:
     if dev.type == "cpu":
         return gather_plain(plan)
     _check_sources(plan)
-    table = torch.from_numpy(plan.table()).pin_memory().to(dev, non_blocking=True)
     out = torch.empty(plan.words, dtype=torch.int32, device=dev)
-    n_req = sum(idx.size for _, idx, _ in plan.requests)
-    QUERY_GATHER.launch(dev, table.data_ptr(), len(plan.sources), n_req,
-                        out.data_ptr())
+    for params in plan.encode(out.data_ptr()):
+        QUERY_GATHER.launch(dev, params.ctypes.data, params.nbytes)
     return out
 
 

@@ -145,20 +145,25 @@ def sets(nbytes: int, *tensors):
     return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(count - 1)]
 
 
-def ptxas() -> dict:
-    """{kernel: "N regs, spill S/L B, smem M B"} for every kernel."""
-    found = {}
-    for source in cuda.SOURCES:
-        proc = subprocess.run(
+def ptxas(sources=cuda.SOURCES) -> dict:
+    """{kernel: "N regs, spill S/L B, smem M B"} for every kernel of
+    ``sources`` (csrc/ file names), one nvcc per source, all at once."""
+    procs = [
+        subprocess.Popen(
             [cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", os.devnull,
              os.path.join(cuda.CSRC, source)],
-            capture_output=True, text=True)
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for source in sources
+    ]
+    found = {}
+    for source, proc in zip(sources, procs):
+        stderr = proc.communicate()[1]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{stderr}")
         name = None
         spill = ""
-        for line in proc.stderr.splitlines():
+        for line in stderr.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = m.group(1)

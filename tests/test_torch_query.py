@@ -142,6 +142,139 @@ def test_gather_plan_rejects_bad_requests():
         G.gather(G.GatherPlan())
 
 
+# -- K13's parameter encoding, decoded as csrc/gather.cu reads it ----------------
+
+
+def decode_launch(params: np.ndarray, memory: dict, out: np.ndarray) -> None:
+    """One launch of csrc/gather.cu's kernel in numpy: every warp (task) and
+    lane, addressing exactly as the kernel does.  ``memory``: source address
+    -> that tensor's storage as a flat uint32 array; ``out``: the output
+    words, at the address in the header."""
+    w = params.astype(np.uint64)
+    assert params.nbytes in G.PARAM_BYTES
+    n_src, n_slot, n_task = (int(v) for v in w[:3])
+    slots = G.HEADER_WORDS + 4 * n_src
+    tasks = slots + 4 * n_slot
+    assert int(w[3]) == int(w[slots + 3 : tasks : 4][-1] + w[slots + 1 : tasks : 4][-1])
+    for task in range(n_task):
+        t_word = int(w[tasks + task])
+        slot = slots + 4 * (t_word & 0xFFFF)
+        j0 = t_word >> 16
+        src = G.HEADER_WORDS + 4 * int(w[slot])
+        base = memory[int(w[src]) | int(w[src + 1]) << 32]
+        a, path, b = int(w[src + 2]), int(w[src + 3]) >> 31, int(w[src + 3]) & 0x7FFFFFFF
+        width = 8 * b if path else b
+        per_warp = 32 // width if width <= 32 else 1
+        count = min(per_warp, int(w[slot + 1]) - j0)
+        dst = int(w[slot + 2]) + j0 * width
+        index = tasks + n_task + int(w[slot + 3]) + j0
+        for lane in range(32):
+            for t in range(lane, count * width, 32):
+                q = 0 if count == 1 else t // width
+                word = t - q * width
+                i = int(w[index + q])
+                if path:
+                    lv = word >> 3
+                    at = 8 * ((2 * a - ((2 * a) >> lv)) + ((i >> lv) ^ 1)) + (word & 7)
+                else:
+                    at = word * a + i
+                out[dst + t] = base[at]
+
+
+def decode_plan(plan: G.GatherPlan) -> tuple[np.ndarray, int]:
+    """(the words every launch of ``plan.encode`` writes, the launches)."""
+    memory = {t.data_ptr(): t.numpy().view(np.uint32).reshape(-1) for t in plan.sources}
+    out = np.full(plan.words, 0xDEADBEEF, dtype=np.uint32)
+    launches = plan.encode(out_address=(1 << 40) + 12)
+    for params in launches:
+        assert int(params[4]) | int(params[5]) << 32 == (1 << 40) + 12
+        decode_launch(params, memory, out)
+    return out, len(launches)
+
+
+@pytest.fixture
+def recorded_plans(monkeypatch):
+    """Every GatherPlan the prover hands ops.gather.gather meanwhile."""
+    plans, launch = [], G.gather
+
+    def recording(plan):
+        plans.append(plan)
+        return launch(plan)
+
+    monkeypatch.setattr(G, "gather", recording)
+    return plans
+
+
+@pytest.mark.parametrize("cfg", [CFG_256, CFG_1024], ids=["T=256", "T=1024"])
+def test_encoding_decodes_to_plain_gather_on_prove_plans(recorded_plans, cfg):
+    _prover(cfg).prove(fibonacci_trace_mod_p(cfg["trace_length"]))
+    (plan,) = recorded_plans
+    got, launches = decode_plan(plan)
+    assert launches == 1
+    np.testing.assert_array_equal(got, G.gather_plain(plan).numpy().view(np.uint32))
+
+
+def _synthetic_plan(rng, k: int, device="cpu") -> G.GatherPlan:
+    """Value requests of 1, 3 and 40 words and paths of depth 1 to 10 in
+    ``k`` requests of each kind, with zero-width paths (W = 1) between."""
+    plan = G.GatherPlan()
+    n = 1 << 10
+    cw, lde3, lde40 = (to_torch(rand_field(rng, shape), device)
+                       for shape in (n, (3, n), (40, n)))
+    stacks = [MerkleTree.from_leaf_values(cw[: 1 << d])._stack for d in (1, 4, 10)]
+    one = MerkleTree.from_leaf_values(cw[:1])._stack
+    for src in (cw, lde3, lde40):
+        plan.values(src, rng.integers(0, n, size=k))
+    for stack in stacks:
+        plan.paths(stack, rng.integers(0, (stack.shape[0] + 1) // 2, size=k))
+        plan.paths(one, [0, 0])
+    plan.values(cw, [n - 1])
+    return plan
+
+
+@pytest.mark.parametrize("k,launches", [(7, 1), (300, 1), (4000, 5)])
+def test_encoding_decodes_to_plain_gather_when_split(k, launches):
+    plan = _synthetic_plan(np.random.default_rng(k), k)
+    got, made = decode_plan(plan)
+    assert made == launches
+    np.testing.assert_array_equal(got, G.gather_plain(plan).numpy().view(np.uint32))
+
+
+def test_encoding_sizes_and_bounds():
+    rng = np.random.default_rng(5)
+    plan = _synthetic_plan(rng, 7)
+    (params,) = plan.encode(0)
+    assert params.dtype == np.uint32 and params.nbytes == G.PARAM_BYTES[0]
+    # 4,000 requests of each kind: every launch within the largest struct.
+    big = _synthetic_plan(rng, 4000).encode(0)
+    assert {p.nbytes for p in big} <= set(G.PARAM_BYTES)
+    assert big[0].nbytes == G.PARAM_BYTES[-1]
+    # The table of the launch before: 32 bytes a source, 24 a request.
+    n_req = sum(idx.size for _, idx, _ in plan.requests)
+    used = int(params[0]) * 4 + int(params[1]) * 4 + int(params[2]) + int(params[3])
+    assert 4 * (G.HEADER_WORDS + used) < 32 * len(plan.sources) + 24 * n_req
+
+
+def test_encoding_raises_on_what_it_cannot_hold():
+    plan = G.GatherPlan()
+    cw = torch.zeros(8, dtype=torch.int32)
+    plan.values(cw, [1, 2])
+    src, idx, slot = plan.requests[0]
+    plan.requests[0] = (src, np.array([1, 1 << 32]), slot)   # past 32 bits
+    with pytest.raises(ValueError, match="index"):
+        plan.encode(0)
+    many = G.GatherPlan()
+    keep = [torch.zeros(1, dtype=torch.int32) for _ in range(2100)]
+    for t in keep:
+        many.values(t, [0])
+    with pytest.raises(ValueError, match="sources"):
+        many.encode(0)
+    fewer = G.GatherPlan()
+    for t in keep[:2000]:
+        fewer.values(t, [0])
+    assert len(fewer.encode(0)) >= 1
+
+
 def test_fri_single_round_query_equals_object_path():
     """Fri.query (one round: dispatch, fetch, emit) against the objects
     built from open_batch and direct reads, stream order of fri.rs:215-248."""
@@ -296,6 +429,18 @@ def test_card_query_gather(cuda_device, n):
         assert torch.equal(G.gather(plan), want)
     assert cuda.launch_counts()["query_gather"] == 2
     np.testing.assert_array_equal(G.fetch(plan), want.cpu().numpy().view(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,launches", [(7, 1), (300, 1), (4000, 5)])
+def test_card_query_gather_split(cuda_device, k, launches):
+    """The synthetic plans of the encoding's tests, on the card: a plan
+    too large for one launch's parameters goes out in several."""
+    plan = _synthetic_plan(np.random.default_rng(k), k, cuda_device)
+    want = G.gather_plain(plan)
+    cuda.reset_launches()
+    assert torch.equal(G.gather(plan), want)
+    assert cuda.launch_counts()["query_gather"] == launches
 
 
 @pytest.mark.gpu

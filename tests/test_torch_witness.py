@@ -7,10 +7,14 @@ one from host rows and stark_tpu's.  On a card, each kernel equals its
 plain version.  Tolerance zero: every value is an exact integer mod p."""
 
 import hashlib
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from stark_tpu_torch import StarkConfig, StarkProver, StarkVerifier, native
 from stark_tpu_torch.models import examples as ex
@@ -91,6 +95,112 @@ def test_mds_seed_walk_equals_stark_tpu(nb, block):
     np.testing.assert_array_equal(got, j_native.mds_seed_walk(*args))
 
 
+# -- K12 mds_expand's lane arithmetic (csrc/witness.cu) as Python ints -----------
+
+M32 = (1 << 32) - 1
+CSRC = os.path.join(os.path.dirname(cuda.__file__), os.pardir, "csrc")
+# The constants witness.cu uses: -p^-1 mod 2^32 (field.cuh), 2^64 and 2^80
+# mod p (kR2, kR80), computed as it computes them.
+K_PINV_NEG = 998244351
+K_R2 = ((1 << 32) % P) ** 2 % P
+K_R80 = K_R2 * (1 << 16) % P
+
+
+def _min_wrapped(u: int, minus: int) -> int:
+    """__viaddmin_u32(u, -minus, u): min(u - minus mod 2^32, u)."""
+    return min((u - minus) & M32, u)
+
+
+def _mont_mul(a: int, b: int) -> int:
+    lo, hi = (a * b) & M32, (a * b) >> 32
+    u = hi + (((lo * K_PINV_NEG) & M32) * P >> 32) + (lo != 0)
+    assert u < 2 * P
+    return _min_wrapped(u, P)
+
+
+def _lane_step(s: list[int], mh_row: list[int], rc: int) -> int:
+    """Row i of one step as a lane computes it: the lazy 64-bit row sum,
+    one Montgomery reduction by the constant p (u < 3p, two corrections),
+    the Montgomery square, + rc."""
+    x = sum(m * v for m, v in zip(mh_row, s))
+    assert x < 1 << 63
+    lo, hi = x & M32, x >> 32
+    u = hi + (((lo * K_PINV_NEG) & M32) * P >> 32) + (lo != 0)
+    assert u < 3 * P and u <= M32
+    u = _min_wrapped(_min_wrapped(u, 2 * P), P)
+    sq = _mont_mul(u, u)
+    return _min_wrapped(sq + rc, P)
+
+
+def _lane_model(consts, seeds, block: int, length: int) -> np.ndarray:
+    """mds_expand as the kernel's lanes compute it: (8, length)."""
+    m = [int(v) for v in consts[:64]]
+    mh = [[_mont_mul(m[8 * i + j], K_R80) for j in range(8)] for i in range(8)]
+    rc = [int(v) for v in consts[64:]]
+    out = np.zeros((8, length), dtype=np.uint32)
+    for b, seed in enumerate(seeds):
+        s = [int(v) for v in seed]
+        for k in range(block):
+            if b * block + k < length:
+                out[:, b * block + k] = s
+            s = [_lane_step(s, mh[i], rc[i]) for i in range(8)]
+    return out
+
+
+def test_lane_model_constants_are_the_kernels():
+    with open(os.path.join(CSRC, "field.cuh")) as f:
+        assert re.search(rf"kPinvNeg = {K_PINV_NEG}u;", f.read())
+    with open(os.path.join(CSRC, "witness.cu")) as f:
+        src = f.read()
+    assert "kR2 = static_cast<uint32_t>(kR1 * kR1 % kP)" in src
+    assert "kR80 = static_cast<uint32_t>((uint64_t)kR2 * (1u << 16) % kP)" in src
+    assert (P * K_PINV_NEG) & M32 == M32
+    assert _mont_mul(1, K_R80) == pow(2, 48, P)
+
+
+_field = st.one_of(st.sampled_from([0, 1, P - 1]), st.integers(0, P - 1))
+
+
+@pytest.mark.parametrize("block", MDS_BLOCKS)
+@settings(max_examples=8, deadline=None)
+@given(seeds=st.lists(st.lists(_field, min_size=8, max_size=8), min_size=1, max_size=3))
+def test_lane_model_equals_plain_and_stark_tpu(block, seeds):
+    from stark_tpu.models.examples import _mds_expand_fn
+
+    seeds = np.array(seeds, dtype=np.uint32)
+    consts = np.concatenate([np.array(ex._MDS).reshape(-1), ex._RC]).astype(np.uint32)
+    length = len(seeds) * block
+    got = _lane_model(consts, seeds, block, length)
+    np.testing.assert_array_equal(
+        got, to_numpy(W.mds_expand_plain(to_torch(consts), to_torch(seeds), block, length)))
+    np.testing.assert_array_equal(got, np.asarray(_mds_expand_fn(block)(seeds)))
+
+
+@pytest.mark.parametrize("block", MDS_BLOCKS)
+@settings(max_examples=8, deadline=None)
+@given(consts=st.lists(_field, min_size=72, max_size=72),
+       seeds=st.lists(st.lists(_field, min_size=8, max_size=8), min_size=1, max_size=3),
+       cut=st.integers(0, 6))
+def test_lane_model_equals_plain_any_constants(block, consts, seeds, cut):
+    """Any M and rc (the kernel takes them as operands), and a last block
+    cut short."""
+    consts, seeds = np.array(consts, dtype=np.uint32), np.array(seeds, dtype=np.uint32)
+    length = max(len(seeds) * block - min(cut, block - 1), 1)
+    np.testing.assert_array_equal(
+        _lane_model(consts, seeds, block, length),
+        to_numpy(W.mds_expand_plain(to_torch(consts), to_torch(seeds), block, length)))
+
+
+@pytest.mark.parametrize("mh,s", [(P - 1, P - 1), (P - 1, 0), (0, P - 1), (1, 1)])
+def test_lane_step_at_the_largest_lazy_sum(mh, s):
+    """x = 8 (p - 1)^2, the largest row sum, still reduces exactly."""
+    x = 8 * mh * s
+    assert 8 * (P - 1) ** 2 < 1 << 63
+    inv = pow(1 << 32, -1, P)
+    want = (pow(x * inv % P, 2, P) * inv + 5) % P
+    assert _lane_step([s] * 8, [mh] * 8, 5) == want
+
+
 def test_witness_functions_require_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -157,7 +267,8 @@ def test_card_fib_expand(cuda_device, T):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,block", [(1, 64), (5, 1), (1000, 7), (1024, 64),
-                                     (4096, 64), (1 << 16, 64), (1 << 16, 1)])
+                                     (4096, 64), (1 << 16, 64), (1 << 16, 1),
+                                     (1000, 130), (300, 300), (1000, 1000)])
 def test_card_mds_expand(cuda_device, T, block):
     got = ex.mds_square_trace_cols_device(T, block)
     assert got.is_cuda
