@@ -27,7 +27,9 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       every such n (its edge route up to n = 8, its vector route from n =
       16 on) and at shapes that are not square, not multiples of its
       tile, or not multiples of 4 on one side or both, each twice;
-    - the FRI fold (K4) at every half from 2^21 down to 128;
+    - the FRI fold (K4) at every half from 2^21 down to 128, and the fold
+      with alpha in device memory (K4-dyn) at (1, half) for the same halves
+      and at the batch paths' (B, half), B in {8, 32}, half 2^15 .. 2^7;
     - the row hash (K5/K6) for c = 1 at every N from 2 to 2^22 and for c in
       {2, 3, 5, 8} at N in {2, 1024, 2^18, 2^20}, one tree level (K7) at W
       in {2, 2048, 2^17 .. 2^22}, the subtree kernel (K8) at every W from 2
@@ -44,11 +46,17 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     - the SM clock under a hash load, and the instruction rate it gives;
     - the K7/K8 cutover sweep behind hash_batch.TAIL_CUTOVER and the
       subtree-size sweep behind hash_batch.tail_sub_lg;
+    - K8 for forests at every per-tree width the batch paths give it, B in
+      {8, 32}, each call twice, and the batch paths' first and last FRI
+      forests against their trees built on the host;
+    - the Fiat-Shamir sponge (K9) for B in {1, 8, 32} lanes at every
+      pending length 0 .. 31, two roots absorbed and challenges drawn;
     - the device witnesses (K12): fib_expand at every length the paths and
       the pinned proofs use and at lengths that cut the last block,
       mds_expand at (T, block) up to (2^16, 64) and (2^16, 1) and at blocks
       longer than its staging chunk, each call twice, and the whole witness
-      functions against the host traces;
+      functions against the host traces; fib_expand's time beside the
+      design it replaced (built here from tools/tune_kernels.py), in turn;
     - the query gather (K13) on a synthetic plan too large for one
       launch's parameters, which goes out in several;
  4. proofs whose sha256 must equal the JAX package's (stark_tpu on the CPU,
@@ -67,17 +75,27 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     garbage collections (gc.callbacks) that fell inside a prove; the
     synchronised per-phase times (median of 5 proves); the device-to-host
     copies of one prove's fri_query phase from the profiler's memcpy
-    events (exactly one); the host time of fri_query's parts (plan build,
+    events (exactly one in fri_commit, the device chain's fetch, and one
+    in fri_query); the host time of fri_query's parts (plan build,
     table encoding, launch, fetch wait, emission); K13 timed on that
     plan; one profiled prove
     (device time under every launched kernel's name > 0, device
     activities, busy share), the bound of every K8 launch of a prove at
     its own width summed beside the time measured for them, a flipped
     byte and a changed element of the device witness rejected; then the
-    same prove with the lazy NTT kernels (counts, sha256, profile);
+    same prove with the lazy NTT kernels (counts, sha256, profile), and
+    with the device chain off (the host commit path: K4, the same sha256,
+    its phases and copies);
  6. the wide path, MdsSquareAir (8 registers) at T=2^16, blowup 4, 16 tests
     (N = 2^18), from mds_square_trace_cols_device (as bench.py's mds_e2e):
-    the same, with the sha256 pinned from stark_tpu.
+    the same, with the sha256 pinned from stark_tpu;
+ 7. the batched prover at bench.py's three batched cells, T=2^14, blowup
+    4, 16 tests: batch8 (prove_batch, B=8), pipe32x2 (prove_many of 64
+    traces at B=32, depth 2) and mds_pipe8x2 (MdsSquareAir, prove_many of
+    16 device-witness traces at B=8): every proof's sha256 equal to the
+    single prove's, verify_batch accepting them and rejecting a flipped
+    byte, proofs/s over 20 calls, the device-to-host copies of a call (3 a
+    batch), the launches of a call, a profiled call.
 
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -138,6 +156,17 @@ WIDE_BATCH = 8  # MdsSquareAir's registers
 PASS_SHAPES = ((1, MAIN_T, True), (1, 4 * MAIN_T, False),
                (WIDE_BATCH, MDS_T, True), (WIDE_BATCH, 4 * MDS_T, False))
 FOLD_HALVES = tuple(1 << lg for lg in range(21, 6, -1))
+# The batched paths (bench.py's batch8, pipe32x2 and mds_pipe8x2): T=2^14,
+# blowup 4, 16 tests, so N = 2^16 and 10 FRI rounds (codewords 2^16 ..
+# 2^7, folds to halves 2^15 .. 2^7).
+BATCH_T = 1 << 14
+BATCH_RUNS = 20
+# (name, model, batch, traces a call (0: prove_batch of one batch), depth)
+BATCH_CELLS = (("batch8", "fib", 8, 0, 2), ("pipe32x2", "fib", 32, 64, 2),
+               ("mds_pipe8x2", "mds", 8, 16, 2))
+BATCHES = (8, 32)
+BATCH_HALVES = tuple(1 << lg for lg in range(15, 6, -1))
+SPONGE_LANES = (1, 8, 32)
 HASH_WIDTHS = (2, 3, 5, 8)
 HASH_LANES = (2, 1024, 1 << 18, 1 << 20)
 LEAF_LANES = tuple(1 << lg for lg in range(1, 23))
@@ -199,9 +228,11 @@ OPS_MIX_BEFORE = 9 * 32
 # add-and-minimums: 6), one Montgomery square and an addition mod p.  Until
 # then it was 64 Shoup products, 64 additions and 8 squares of two
 # Montgomery products, OPS_MDS_STEP_BEFORE: its bound is printed beside.
-OPS_FIB_EXPAND = 3 * 7 + 2
+OPS_FIB_EXPAND = 2 * 7 + 2  # now: two products and an addition (3 * 7 + 2 before)
 OPS_MDS_STEP = 64 + 8 * (6 + 7 + 2)
 OPS_MDS_STEP_BEFORE = 64 * 4 + 64 * 2 + 8 * 2 * 7
+# K4-dyn: K4's count, the Shoup product by alpha a Montgomery one (7).
+OPS_FOLD_DYN = OPS_FOLD - 4 + 7
 
 
 def _hash_ops(length: int, mix_ops: int = OPS_MIX) -> int:
@@ -229,10 +260,13 @@ def _profile(fn, reps: int, skip: tuple = ()):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        first.erfinv_()
+        for _ in range(PAD_LAUNCHES):
+            first.erfinv_()
         torch.cuda.synchronize()
         for _ in range(reps):
             fn()
+        for _ in range(PAD_LAUNCHES):
+            first.erfinv_()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -246,7 +280,28 @@ def _device_us(event) -> float:
 
 
 PROFILE_ATTEMPTS = 8  # a window has come back short three times in a row
+PAD_LAUNCHES = 4
 _retaken = [0]  # profiles taken again, reported at the end of the run
+_event_timed: list[str] = []  # what _device_ms timed with events instead
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` from two CUDA events around ``reps``
+    calls, enqueued while a sleep kernel holds the stream, so that the
+    calls run back to back on the card and no host time lies between the
+    events (the kernels' own time, and the card's step from one to the
+    next; for a call that spends longer on the host than on the card, as
+    the plain versions do, the host's time too)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(40_000_000)  # ~20 ms at 1980 MHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _device_ms(fn, reps: int, skip: tuple = ()) -> float:
@@ -256,6 +311,7 @@ def _device_ms(fn, reps: int, skip: tuple = ()) -> float:
     device activity, or in which some activity does not occur once or more
     for each of the ``reps`` equal calls, is taken again,
     ``PROFILE_ATTEMPTS`` times at most."""
+    held = []
     for _ in range(PROFILE_ATTEMPTS):
         events = _profile(fn, reps, skip)
         total = sum(_device_us(e) for e in events)
@@ -264,7 +320,16 @@ def _device_ms(fn, reps: int, skip: tuple = ()) -> float:
         _retaken[0] += 1
         seen = {e.key[:40]: e.count for e in events}
         print(f"profile of {reps} calls taken again; it held {seen}", flush=True)
-    raise AssertionError("torch.profiler recorded no complete window")
+        held.append(seen)
+        if len(held) >= 3 and held[-1] == held[-2] == held[-3]:
+            break  # the same window three times: no use in a fourth
+    if skip:  # the flush's kernel would count: no event timing for it
+        raise AssertionError("torch.profiler recorded no complete window")
+    seen = ", ".join(sorted({e.key[:40] for e in events})) or "nothing"
+    _event_timed.append(seen)
+    print(f"profile of {reps} calls: no complete window in {PROFILE_ATTEMPTS}; timed "
+          f"with CUDA events instead ({seen})", flush=True)
+    return _event_ms(fn, reps)
 
 
 def _copies(nbytes: float) -> int:
@@ -347,12 +412,14 @@ class _Results:
         self.entries: list[dict] = []
 
     def add(self, kernel, shape, args_list, fn, plain_fn, reps, nbytes, ops,
-            library_fn=None, flush=None) -> dict:
+            library_fn=None, flush=None, checked=None) -> dict:
         """Hold ``fn`` against ``plain_fn`` on the first set of
         ``args_list``, then time each over all the sets in turn.  ``flush``:
         a call made before each timed one, whose device time is not counted
-        (_L2Flush), for operands that cannot be cycled."""
-        got, want = fn(*args_list[0]), plain_fn(*args_list[0])
+        (_L2Flush), for operands that cannot be cycled.  ``checked``: the
+        (kernel, plain) results of a comparison made by the caller, for a
+        kernel that updates its operands in place."""
+        got, want = checked or (fn(*args_list[0]), plain_fn(*args_list[0]))
         _require_equal(f"{kernel.name} at {shape}", got, want)
         bound_ms, bound_by = _bound(nbytes, ops)
 
@@ -362,6 +429,18 @@ class _Results:
                 return _device_ms(call, reps)
             return _device_ms(lambda: (flush(), call()), reps, skip=flush.skip)
 
+        ms = timed(fn, reps)
+        for _ in range(2):
+            if ms >= bound_ms:
+                break
+            # Under the least time the card could take: a profile that lost
+            # part of its window and still held a multiple of the calls.
+            print(f"{kernel.name} at {shape}: {ms:.4f} ms is under its bound "
+                  f"{bound_ms:.4f}; timed again", flush=True)
+            _retaken[0] += 1
+            ms = timed(fn, reps)
+        if ms < bound_ms:
+            raise AssertionError(f"{kernel.name} at {shape}: {ms} ms under its bound")
         entry = {
             "name": kernel.name,
             "route": "cuda",
@@ -370,7 +449,7 @@ class _Results:
             "shape": shape,
             "launches": 0,
             "max_abs_err": _max_abs_err(got, want),
-            "ms": timed(fn, reps),
+            "ms": ms,
             "plain_ms": timed(plain_fn, max(reps // 10, 3)),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
@@ -512,6 +591,27 @@ def _check_fold(rng, dev, results: _Results) -> None:
     print("fold: kernel == plain at every half from 2^21 down to 2^7; half=2^21 "
           f"({entry['buffer_sets']} buffer sets) " + _line(entry)
           + ", device time per call", flush=True)
+
+    # K4-dyn: the single prove's (1, half) shapes and the batch paths'.
+    shapes = [(1, h) for h in FOLD_HALVES] + [(b, h) for b in BATCHES for h in BATCH_HALVES]
+    for b, half in shapes:
+        cws, inv_x = rand((b, 2 * half)), rand((half,))
+        alpha = rand((b,))
+        _require_equal(f"fold_dyn ({b}, {half})", FOLD.fold_dyn(cws, inv_x, alpha),
+                       FOLD.fold_dyn_plain(cws, inv_x, alpha))
+    timed = {}
+    for b, half in ((1, FOLD_HALVES[0]), (32, BATCH_HALVES[0]), (8, BATCH_HALVES[0])):
+        cws, inv_x, alpha = rand((b, 2 * half)), rand((half,)), rand((b,))
+        timed[(b, half)] = (results if b == 1 else _Results()).add(
+            FOLD.FOLD_DYN, f"({b}, half=2^{half.bit_length() - 1})",
+            _clones(_copies(16 * b * half), cws, inv_x, alpha),
+            FOLD.fold_dyn, FOLD.fold_dyn_plain, 200 if b == 1 else 50,
+            nbytes=16 * b * half + 4 * b, ops=OPS_FOLD_DYN * b * half)
+    print(f"fold_dyn: kernel == plain at (1, half) for half 2^21 .. 2^7 and at (B, half) "
+          f"for B in {list(BATCHES)}, half 2^15 .. 2^7; "
+          + "; ".join(f"(B={b}, half=2^{h.bit_length() - 1}) " + _line(e)
+                      for (b, h), e in timed.items()) + ", device time per call",
+          flush=True)
 
 
 def _sm_clock(dev, fn, calls: int = 2000) -> None:
@@ -685,6 +785,103 @@ def _check_hash(rng, dev, results: _Results) -> None:
               flush=True)
 
 
+def _check_forest(rng, dev, results: _Results) -> None:
+    """K8-forest against its plain version at every per-tree width the
+    batch paths' forests hand it (a forest is built with K7 while it is
+    wider than TAIL_CUTOVER), each call twice (the tickets); whole FRI
+    forests of the batch paths' first and last rounds against their trees
+    built one by one on the host; timed at the widest launch."""
+    from stark_tpu_torch.merkle import Forest, MerkleTree
+    from stark_tpu_torch.ops import cuda
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    def digests(w):
+        return torch.from_numpy(
+            rng.integers(0, 256, size=(w, 32), dtype=np.uint8)).to(dev)
+
+    shapes = []
+    for b in BATCHES:
+        for lg in range(1, (HB.TAIL_CUTOVER // b).bit_length()):
+            nodes = digests(b << lg)
+            want = HB.forest_tail_plain(nodes, b)
+            cuda.reset_launches()
+            for turn in (1, 2):
+                _require_equal(f"merkle_forest B={b} n=2^{lg} call {turn}",
+                               HB.merkle_forest(nodes, b), want)
+            shapes.append(f"{b}x2^{lg}:{cuda.launch_counts()['merkle_forest'] // 2}")
+        for lg in (BATCH_T.bit_length() + 1, 7):  # the first and last FRI rounds
+            values = _rand_field(rng, dev, (b, 1 << lg))
+            forest = Forest.from_values(values)
+            for t in (0, b - 1):
+                host = MerkleTree.from_leaf_values(values[t].cpu().numpy().astype(np.uint32))
+                if not np.array_equal(forest.tree(t)._stack.cpu().numpy(),
+                                      host._stack.numpy()):
+                    raise AssertionError(f"forest B={b} n=2^{lg}: tree {t} != host engine")
+    timed = {}
+    for b in (32, 8):
+        w = HB.TAIL_CUTOVER
+        timed[b] = (results if b == 32 else _Results()).add(
+            HB.MERKLE_FOREST, f"B={b}, n=2^{(w // b).bit_length() - 1}",
+            _clones(_copies(64 * w), digests(w)),
+            lambda x, b=b: HB.merkle_forest(x, b),
+            lambda x, b=b: HB.forest_tail_plain(x, b), 20,
+            nbytes=32 * (2 * w - b), ops=(w - b) * _hash_ops(64))
+    print("forest: merkle_forest == plain at B x n : launches "
+          + " ".join(shapes) + ", each call twice; the first and last FRI round's "
+          f"forest at B={list(BATCHES)} == the host engine's trees; "
+          + "; ".join(f"B={b} " + _line(e) for b, e in timed.items())
+          + ", device time per call", flush=True)
+
+
+def _check_sponge(rng, dev, results: _Results) -> None:
+    """K9 against its plain version for B in SPONGE_LANES lanes at every
+    pending length: a prefix of 64 + q bytes, then two roots absorbed with
+    the challenge drawn (state, pending tail, copy and alpha held equal);
+    timed on a root absorb with the Fibonacci prove's tail of 16 bytes."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    def data(b, m):
+        return torch.from_numpy(rng.integers(0, 256, size=(b, m), dtype=np.uint8))
+
+    for b in SPONGE_LANES:
+        for q in range(32):
+            card, plain = HB.Sponge(b, dev), HB.Sponge(b, "cpu")
+            prefix = data(b, 64 + q)
+            card.absorb(prefix.to(dev))
+            plain.absorb(prefix)
+            for r in range(2):
+                root = data(b, 32)
+                alpha = torch.empty(b, dtype=torch.int32, device=dev)
+                copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+                want = torch.empty(b, dtype=torch.int32)
+                card.absorb(root.to(dev), copy, alpha)
+                plain.absorb(root, alpha=want)
+                for what, got, ref in (("alpha", alpha, want), ("copy", copy, root),
+                                       ("state", card.state, plain.state),
+                                       ("pending", card.pending[:, :q], plain.pending[:, :q])):
+                    _require_equal(f"sponge B={b} q={q} root {r} {what}", got.cpu(), ref)
+    timed = {}
+    q = 16
+    for b in SPONGE_LANES:
+        sp = HB.Sponge(b, dev)
+        sp.absorb(data(b, 64 + q).to(dev))
+        root = data(b, 32).to(dev)
+        copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+        alpha = torch.empty(b, dtype=torch.int32, device=dev)
+        want = HB.sponge_absorb_plain(sp.state, sp.pending, sp.q, root)[2].to(torch.int32)
+        sp.absorb(root, copy, alpha)
+        timed[b] = (results if b == 1 else _Results()).add(
+            HB.SPONGE, f"B={b}, a root after a {q}-byte tail", [(sp, root, copy, alpha)],
+            lambda s, r, c, a: (s.absorb(r, c, a), a)[1],
+            lambda s, r, c, a: HB.sponge_absorb_plain(s.state, s.pending, s.q, r)[2],
+            50, nbytes=b * (2 * 32 + 2 * q + 2 * 32 + 4),
+            ops=b * (OPS_ABSORB_BYTE * (32 + q) + OPS_MIX * 10), checked=(alpha, want))
+    print(f"sponge: kernel == plain for B={list(SPONGE_LANES)} at every pending length "
+          "0 .. 31 after two full chunks, two roots each; "
+          + "; ".join(f"B={b} " + _line(e) for b, e in timed.items())
+          + ", device time per call (a chain of ~10 mixes: latency)", flush=True)
+
+
 class _L2Flush:
     """Overwrites 128 MiB, more than twice the card's 50 MB L2, so that the
     call after it reads its operands from device memory; its kernel is left
@@ -743,6 +940,20 @@ def _check_witness(rng, dev, results: _Results) -> None:
         W.FIB_EXPAND, "T=2^20", [(seeds,)],
         lambda s: W.fib_expand(s, nb, MAIN_T), lambda s: W.fib_expand_plain(s, nb, MAIN_T),
         50, nbytes=4 * MAIN_T + 4 * seeds.numel(), ops=OPS_FIB_EXPAND * MAIN_T)
+    # The kernel before its redesign, built beside it, on the same seeds:
+    # the two in turn (before, after, after, before).
+    from stark_tpu_torch.tools.tune_kernels import fib_expand_before
+
+    before_fn = fib_expand_before()
+    for T in FIB_WITNESS_LENGTHS:
+        s, n = fib_seeds(T)
+        _require_equal(f"fib_expand before T={T}", before_fn(s, n, T),
+                       W.fib_expand_plain(s, n, T))
+    turns = [_device_ms(lambda f=f: f(seeds, nb, MAIN_T), 50)
+             for f in (before_fn, W.fib_expand, W.fib_expand, before_fn)]
+    print("witness: fib_expand at T=2^20, device time per call in turn (ms), the "
+          "design before (one thread an element), the kernel in use twice, the one "
+          f"before: {json.dumps([round(t, 5) for t in turns])}", flush=True)
     m, rc = np.array(ex._MDS), np.array(ex._RC)
     nb = MDS_T // MDS_BLOCK
     walked = native.mds_seed_walk(m, rc, np.arange(1, 9), nb, MDS_BLOCK, 998244353)
@@ -1010,11 +1221,13 @@ def _profiled(name, prove, counts, median_wall, cuda) -> dict:
     return kernel_ms
 
 
-def _query_copies(name, prover, witness) -> None:
-    """Device-to-host copies in one prove's fri_query phase, from the
-    profiler's memcpy events: each phase is a record_function range, and a
-    copy counts as the phase's when its middle lies inside the range.  The
-    query phase must make exactly one."""
+def _d2h_copies(run, phased: bool = True):
+    """The device-to-host copies of one ``run(timer)``, from the profiler's
+    memcpy events, and each phase's: a phase is a record_function range,
+    and a copy counts as the phase's when its middle lies inside the range
+    (``phased``: the run times its phases with the timer, and a window
+    without them is taken again).  Returns ({phase: copies}, [copy
+    events])."""
     from stark_tpu_torch.utils.profiling import PhaseTimer
 
     class Marked(PhaseTimer):
@@ -1025,34 +1238,45 @@ def _query_copies(name, prover, witness) -> None:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_ATTEMPTS):
-        prover.prove(trace_cols=witness())
+        run(Marked())
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
-            prover.prove(trace_cols=witness(), timer=Marked())
+            run(Marked())
             torch.cuda.synchronize()
         events = prof.events()
-        phases = {e.name[len("phase:"):]: e.time_range for e in events
-                  if e.name.startswith("phase:")}
+        phases = {}
+        for e in events:
+            if e.name.startswith("phase:"):
+                phases.setdefault(e.name[len("phase:"):], []).append(e.time_range)
         copies = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                   and "DtoH" in e.name]
-        if "fri_query" in phases and copies:
+        if copies and ("fri_query" in phases or not phased):
             break
         _retaken[0] += 1
     else:
-        raise AssertionError(f"{name}: no memcpy event or phase range recorded")
+        raise AssertionError("no memcpy event or phase range recorded")
 
-    def inside(e, r):
+    def inside(e, ranges):
         mid = (e.time_range.start + e.time_range.end) / 2
-        return r.start <= mid <= r.end
+        return any(r.start <= mid <= r.end for r in ranges)
 
-    by_phase = {k: sum(inside(e, r) for e in copies) for k, r in phases.items()}
-    query = [e for e in copies if inside(e, phases["fri_query"])]
+    return {k: sum(inside(e, r) for e in copies) for k, r in phases.items()}, copies
+
+
+def _query_copies(name, prover, witness, commit_copies: int | None = 1) -> None:
+    """Device-to-host copies in one prove, by phase: the query phase must
+    make exactly one, and the FRI commit ``commit_copies`` (one on the
+    device chain; None: not held to a count)."""
+    by_phase, copies = _d2h_copies(
+        lambda timer: prover.prove(trace_cols=witness(), timer=timer))
     print(f"{name}: device-to-host copies by phase {json.dumps(by_phase)} of "
-          f"{len(copies)} in the prove; in fri_query: "
-          + ", ".join(f"{e.name} {(e.time_range.end - e.time_range.start):.1f} us"
-                      for e in query), flush=True)
-    if len(query) != 1:
-        raise AssertionError(f"{name}: {len(query)} device-to-host copies in fri_query")
+          f"{len(copies)} in the prove", flush=True)
+    if by_phase["fri_query"] != 1:
+        raise AssertionError(f"{name}: {by_phase['fri_query']} device-to-host copies "
+                             "in fri_query")
+    if commit_copies is not None and by_phase["fri_commit"] != commit_copies:
+        raise AssertionError(f"{name}: {by_phase['fri_commit']} device-to-host copies "
+                             f"in fri_commit, not {commit_copies}")
 
 
 def _wall(name, prover, verifier, witness, proof, runs) -> float:
@@ -1153,6 +1377,87 @@ def _drive(name, key, prover, verifier, witness, rows, want_sha, expect, runs, c
     return proof, counts, plan, median
 
 
+def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
+    """One batched cell at T=BATCH_T: a call is prove_batch of one batch
+    (count 0) or prove_many of ``count`` traces, every trace the same, as
+    bench.py proves them (host rows for Fibonacci, device columns for
+    MdsSquareAir).  The counted call (launches[cell]): each proof's sha256
+    equal to the single prove's, verify_batch accepting them all and
+    rejecting one with a flipped byte; then proofs/s over BATCH_RUNS calls,
+    the device-to-host copies of a call (3 a batch), and a profiled call
+    (device time by kernel, busy share).  Returns the cell's summary."""
+    from stark_tpu_torch import BatchStarkProver, StarkConfig, StarkProver, StarkVerifier
+    from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.models.examples import mds_square_trace_cols_device
+
+    air, trace_fn, _ = get_model(model)
+    cfg = StarkConfig(trace_length=BATCH_T, blowup=4, num_colinearity_tests=16)
+    if model == "mds":
+        item = mds_square_trace_cols_device(BATCH_T)
+        single = StarkProver(air, cfg).prove(trace_cols=item)
+        key = "traces_cols"
+    else:
+        item = trace_fn(BATCH_T)
+        single = StarkProver(air, cfg).prove(item)
+        key = "traces"
+    want = hashlib.sha256(single).hexdigest()
+    prover = BatchStarkProver(air, cfg, batch)
+    verifier = StarkVerifier(air, cfg)
+    proofs = count or batch
+    batches = -(-proofs // batch)
+    if count:
+        def call():
+            return prover.prove_many(**{key: [item] * count}, depth=depth)
+    else:
+        def call():
+            return prover.prove_batch(**{key: [item] * batch})
+
+    call()  # warm-up
+    cuda.reset_launches()
+    out = call()
+    counts = cuda.launch_counts()
+    launches[cell] = counts
+    if len(out) != proofs or any(hashlib.sha256(p).hexdigest() != want for p in out):
+        raise AssertionError(f"{cell}: a batch proof differs from the single prove")
+    bad = bytearray(out[-1])
+    bad[100] ^= 1
+    if verifier.verify_batch(out) != [True] * proofs or \
+            verifier.verify_batch([out[0], bytes(bad)]) != [True, False]:
+        raise AssertionError(f"{cell}: verify_batch did not accept the proofs and "
+                             "reject the flipped byte")
+    missing = [k for k in ("merkle_forest", "sponge_absorb", "fri_fold_dyn", "hash_rows",
+                           "query_gather") if counts[k] == 0]
+    # A batch's gather is one plan, one output and one copy; a plan larger
+    # than one launch's parameters goes out in several launches.
+    if missing or counts["fri_fold"] or counts["query_gather"] < batches:
+        raise AssertionError(f"{cell}: launches {counts}")
+
+    walls = []
+    for _ in range(BATCH_RUNS):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rates = [proofs / w for w in walls]
+    median = float(np.median(walls))
+    _, copies = _d2h_copies(lambda timer: call(), phased=False)
+    if len(copies) != 3 * batches:
+        raise AssertionError(f"{cell}: {len(copies)} device-to-host copies in a call, "
+                             f"not {3 * batches}")
+    kernel_ms = _profiled(cell, call, counts, median, cuda)
+    per_call = {k: counts[k] for k in ("sponge_absorb", "fri_fold_dyn", "merkle_forest",
+                                       "merkle_level", "hash_rows", "query_gather")}
+    print(f"{cell} ({model}, T=2^{BATCH_T.bit_length() - 1}, B={batch}, "
+          f"{'prove_many of %d, depth %d' % (count, depth) if count else 'prove_batch'}): "
+          f"{proofs} proofs a call, each sha256 == the single prove's ({want[:16]}...), "
+          f"verify_batch accepts them and rejects a flipped byte; proofs/s over "
+          f"{BATCH_RUNS} calls {json.dumps(_quantiles(rates))}; wall s "
+          f"{json.dumps(_quantiles(walls))}; device-to-host copies a call {len(copies)}; "
+          f"launches a call {json.dumps(per_call)}", flush=True)
+    return {"cell": cell, "proofs_per_s_median": float(np.median(rates)),
+            "kernel_ms": kernel_ms}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1192,7 +1497,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     results = _Results()
     marks = [time.perf_counter()]
-    for check in (_check_ntt, _check_fold, _check_hash, _check_witness, _check_split_gather):
+    for check in (_check_ntt, _check_fold, _check_forest, _check_sponge, _check_hash,
+                  _check_witness, _check_split_gather):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
@@ -1221,6 +1527,9 @@ def main() -> int:
 
     lazy_names = {"ntt_pass1_lazy", "ntt_pass2_lazy"}
     strict_names = {"ntt_pass1", "ntt_pass2"}
+    # K4 runs on the host commit path (device_chain off), K8-forest only in
+    # batches of more than one proof.
+    elsewhere = {"fri_fold", "merkle_forest"}
     every = set(cuda.KERNELS)
     launches: dict[str, dict[str, int]] = {}
 
@@ -1237,7 +1546,7 @@ def main() -> int:
 
     proof, counts, plan, median = _drive(
         name, "fib_2^20", prover, verifier, fib_cols, rows, MAIN_SHA256,
-        every - lazy_names - {"mds_expand"}, MAIN_RUNS, cuda, launches)
+        every - lazy_names - elsewhere - {"mds_expand"}, MAIN_RUNS, cuda, launches)
     _query_split(name, prover, fib_cols)
     _time_gather("fib T=2^20 prove", plan, results, dev)
     del plan
@@ -1248,11 +1557,29 @@ def main() -> int:
     lazy_prover = StarkProver(air, cfg, lazy_ntt=True)
     lazy_prover.prove(trace_cols=fib_cols())  # warm-up
     _, counts, _ = _prove_checked(name, lazy_prover, verifier, fib_cols, MAIN_SHA256,
-                                  every - strict_names - {"mds_expand"}, cuda)
+                                  every - strict_names - elsewhere - {"mds_expand"}, cuda)
     launches["fib_2^20_lazy"] = counts
     print(f"{name}: proved and verified, sha256 == pinned, launches {counts}",
           flush=True)
     _profiled_prove(name, lazy_prover, fib_cols, counts, median, cuda)
+
+    # The host commit path (device_chain off): a root read and a host
+    # challenge a round, the fold K4 with a host alpha; the same bytes.
+    name = "main path fib T=2^20, device_chain off"
+    host_prover = StarkProver(air, cfg)
+    host_prover.fri.device_chain = False
+    host_prover.prove(trace_cols=fib_cols())  # warm-up
+    _, counts, _ = _prove_checked(
+        name, host_prover, verifier, fib_cols, MAIN_SHA256,
+        every - lazy_names - {"mds_expand", "merkle_forest", "sponge_absorb",
+                              "fri_fold_dyn"}, cuda)
+    if counts["sponge_absorb"] or counts["fri_fold_dyn"]:
+        raise AssertionError(f"{name}: the device chain ran: {counts}")
+    launches["fib_2^20_host_alpha"] = counts
+    print(f"{name}: proved and verified, sha256 == pinned, launches {counts}", flush=True)
+    _phases(name, host_prover, fib_cols)
+    _query_copies(name, host_prover, fib_cols, commit_copies=None)
+    del host_prover
 
     # 6. the wide path: MdsSquareAir at T = 2^16, from device columns
     name = "wide path mds T=2^16"
@@ -1266,11 +1593,17 @@ def main() -> int:
 
     proof, counts, plan, median = _drive(
         name, "mds_2^16", prover, verifier, mds_cols, trace_fn(MDS_T), MDS_SHA256,
-        every - lazy_names - {"fib_expand"}, MDS_RUNS, cuda, launches)
+        every - lazy_names - elsewhere - {"fib_expand"}, MDS_RUNS, cuda, launches)
     _time_gather("mds T=2^16 prove", plan, None, dev)
     del plan
     _profiled_prove(name, prover, mds_cols, counts, median, cuda)
     _rejects(name, prover, verifier, mds_cols, proof)
+
+    # 7. the batched paths (bench.py's batch8, pipe32x2, mds_pipe8x2)
+    cells = [_drive_batch(*cell, cuda=cuda, launches=launches) for cell in BATCH_CELLS]
+    print("batched cells, proofs/s medians: "
+          + json.dumps({c["cell"]: round(c["proofs_per_s_median"], 2) for c in cells}),
+          flush=True)
 
     # Each kernel's launches are those of the path that runs it.
     for r in results.entries:
@@ -1278,6 +1611,10 @@ def main() -> int:
             path = "fib_2^20_lazy"
         elif r["name"] == "mds_expand":
             path = "mds_2^16"
+        elif r["name"] == "fri_fold":
+            path = "fib_2^20_host_alpha"
+        elif r["name"] == "merkle_forest":
+            path = "batch8"
         else:
             path = "fib_2^20"
         r["launches"] = launches[path][r["name"]]
@@ -1290,9 +1627,11 @@ def main() -> int:
 
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
-          "checks: ntt, fold, hash, witness, split gather, then the proofs and paths: "
+          "checks: ntt, fold, forest, sponge, hash, witness, split gather, then the "
+          "proofs and paths: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
-          f"{_retaken[0]} profile(s) came back empty or short and were taken again", flush=True)
+          f"{_retaken[0]} profile(s) came back empty or short and were taken again; "
+          f"timed with CUDA events instead: {_event_timed or 'none'}", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": results.entries}), flush=True)
     print(json.dumps({

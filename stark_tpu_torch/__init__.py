@@ -7,12 +7,15 @@ roots, transcript, challenges, query indices and wire bytes (reference
 src/hash.rs, src/fiat_shamir.rs, src/stream.rs, src/fri.rs).
 
 Ported so far: the single-device ``StarkProver.prove`` (from host rows,
-or from columns made on the card: ``prove(trace_cols=...)``) ->
+or from columns made on the card: ``prove(trace_cols=...)``) and the
+batched prover ``BatchStarkProver.prove_batch`` / ``prove_many`` (B proofs
+at once, each byte-identical to its single prove) ->
 ``StarkVerifier.verify`` / ``verify_batch`` path for FibonacciAir and the
 example AIRs.  The TPU's Pallas kernels on that path, and the jnp
 functions that need a kernel of their own here, are hand-written CUDA
-(csrc/: the four-step NTT K1-K3, the FRI fold K4, the hash and Merkle
-kernels K5-K8, the device witnesses K12, the query phase's gather K13),
+(csrc/: the four-step NTT K1-K3, the FRI folds K4 and K4-dyn, the hash
+and Merkle kernels K5-K8 and K8's forest entry, the Fiat-Shamir sponge K9,
+the device witnesses K12, the query phase's gather K13),
 built with nvcc at first use; on a CPU tensor every kernel wrapper runs
 its plain torch version instead.  Importing the package imports neither
 jax nor stark_tpu.
@@ -25,6 +28,7 @@ from stark_tpu_torch.transcript import FiatShamir
 from stark_tpu_torch.stream import ProofObject, ProofStream
 from stark_tpu_torch.fri import Fri
 from stark_tpu_torch.stark import StarkConfig, StarkProver, StarkVerifier
+from stark_tpu_torch.batch import BatchStarkProver
 
 __all__ = [
     "P",
@@ -39,4 +43,5 @@ __all__ = [
     "StarkConfig",
     "StarkProver",
     "StarkVerifier",
+    "BatchStarkProver",
 ]

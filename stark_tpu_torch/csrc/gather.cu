@@ -15,7 +15,9 @@
 //   sources, 4 words each: address (2), a, kind << 31 | b
 //     kind 0, field values: a (c, n) int32 array; a = n, b = c;
 //     kind 1, a tree's level stack: a (2W - 1, 32) u8 array; a = W,
-//       b = depth = log2 W;
+//       b = depth = log2 W; or a forest's, B trees of width 2^b side by
+//       side, (2W - B, 32): leaf i of tree b is leaf b 2^b + i, and the
+//       formula below gives its path;
 //   slots, 4 words each: source, requests k, first output word, first index
 //     a request j < k of the slot writes its w words (values: c; paths:
 //     8 depth) from first + j w on;

@@ -1,5 +1,6 @@
 // Commitment hash and Merkle trees for Hopper: kernels K5/K6 (leaf and row
-// digests), K7 (one tree level) and K8 (a whole subtree per block).
+// digests), K7 (one tree level), K8 (a whole subtree per block) with its
+// forest entry, and K9 (the Fiat-Shamir sponge of the device commit chain).
 //
 // They replace functions of the JAX package that are XLA-fused jnp on the
 // TPU (Mosaic could not lower u8 vectors, stark_tpu/ops/pallas_kernels.py
@@ -8,7 +9,13 @@
 //                       row_hash_rows_core (:290, K6);
 //   stark_merkle_level  combine_rows_core / level_rows_core (:313-345, K7);
 //   stark_merkle_tail   _tail_levels_core / _tail_loop (:433-538, K8) with
-//                       the level stack that stack_path_gather (:566) reads.
+//                       the level stack that stack_path_gather (:566) reads;
+//   stark_merkle_forest forest_tail_levels_core (:510, K8 for forests: B
+//                       trees side by side, each built down to its own
+//                       root) and stark_tpu/batch.py's _forest_* (:53-138);
+//   stark_sponge_absorb the incremental transcript sponge (:831-919, K9):
+//                       sponge_from_bytes, sponge_absorb, sponge_state,
+//                       state_alpha, device_sponge_root_alpha.
 //
 // Digests are node-major: node j is the 32 bytes at 32 * j, so a thread
 // reads a digest as two 16-byte words and a parent's input left || right is
@@ -61,10 +68,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "field.cuh"
 #include "hash.cuh"
 
 namespace {
 
+using stark::absorb_byte;
 using stark::absorb_value;
 using stark::hash_combine;
 using stark::hash_finish;
@@ -120,6 +129,66 @@ __device__ __forceinline__ void tail_walk(const uint4* src, uint4* out,
     __syncthreads();  // `mine` is whole; every read of `below` is done
     below = mine;
   }
+}
+
+// K9: bytes c .. c + 31 of a lane's stream pending (q bytes) || data, as 8
+// little-endian words; bytes at or past `total` read as 0.
+__device__ __forceinline__ void sponge_chunk(uint32_t (&w)[8],
+                                             const uint8_t* pend, int q,
+                                             const uint8_t* in, int c,
+                                             int total) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) w[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int x = c + i;
+    const uint32_t byte = x >= total ? 0u : x < q ? pend[x] : in[x - q];
+    w[i >> 2] |= byte << (8 * (i & 3));
+  }
+}
+
+// Absorb bytes kPos .. len - 1 of the chunk held in w (hash.rs:14-23):
+// every state index stays a compile-time constant.
+template <int kPos>
+__device__ __forceinline__ void absorb_prefix(uint32_t (&s)[32],
+                                              const uint32_t (&w)[8], int len) {
+  if constexpr (kPos < 32) {
+    if (kPos < len) {
+      absorb_byte<kPos>(s, w[kPos >> 2] >> (8 * (kPos & 3)));
+      absorb_prefix<kPos + 1>(s, w, len);
+    }
+  }
+}
+
+// The body of K8 and of its forest entry.  Block b builds the lg_sub levels
+// above nodes [b 2^lg_sub, (b + 1) 2^lg_sub).  With lg_top > 0 the blocks
+// come in trees of 2^lg_top (tree = b >> lg_top): the block of a tree that
+// finishes last builds the lg_top levels above that tree's subtree roots,
+// down to the tree's root; tickets[tree] is 0 at the launch and 0 again
+// after.  A forest's trees lie side by side in every level, so tree t's
+// share of a level of `count` nodes a tree starts at its node t count.
+__device__ __forceinline__ void tail_body(const uint4* __restrict__ nodes,
+                                          uint4* out, long long width,
+                                          int lg_sub, int lg_top,
+                                          unsigned int* tickets,
+                                          uint4* buf_a, uint4* buf_b) {
+  __shared__ bool last;
+  const long long b = blockIdx.x;
+  tail_walk(nodes + 2 * (b << lg_sub), out, width, 0, lg_sub, b, buf_a, buf_b);
+  if (lg_top == 0) return;
+
+  const long long tree = b >> lg_top;
+  __threadfence();  // this thread's digests, before the block's ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets + tree, 1u) == (1u << lg_top) - 1;
+    if (last) tickets[tree] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const long long roots = width - (width >> (lg_sub - 1)) + (tree << lg_top);
+  tail_walk(out + 2 * roots, out, width, lg_sub, lg_top, tree, buf_a, buf_b);
 }
 
 }  // namespace
@@ -181,22 +250,79 @@ __global__ void __launch_bounds__(kTailThreads)
                              unsigned int* ticket) {
   __shared__ uint4 buf_a[1 << kTailMaxLg];
   __shared__ uint4 buf_b[1 << (kTailMaxLg - 1)];
-  __shared__ bool last;
-  const long long b = blockIdx.x;
-  tail_walk(nodes + 2 * (b << lg_sub), out, width, 0, lg_sub, b, buf_a, buf_b);
-  if (lg_top == 0) return;
+  tail_body(nodes, out, width, lg_sub, lg_top, ticket, buf_a, buf_b);
+}
 
-  __threadfence();  // this thread's digests, before the block's ticket
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    if (last) *ticket = 0;
+// K8 for a forest: `width` digests, trees of 2^(lg_sub + lg_top) nodes side
+// by side (with lg_top = 0, of any multiple of 2^lg_sub); out: the levels
+// above them, as K8 writes them, the last level the trees' roots (with
+// lg_top > 0).  tickets: one zeroed word a tree.
+__global__ void __launch_bounds__(kTailThreads)
+    stark_merkle_forest_kernel(const uint4* __restrict__ nodes, uint4* out,
+                               long long width, int lg_sub, int lg_top,
+                               unsigned int* tickets) {
+  __shared__ uint4 buf_a[1 << kTailMaxLg];
+  __shared__ uint4 buf_b[1 << (kTailMaxLg - 1)];
+  tail_body(nodes, out, width, lg_sub, lg_top, tickets, buf_a, buf_b);
+}
+
+// K9: per lane (one thread), the incremental transcript sponge of
+// stark_tpu/ops/hash_batch.py:831-919.  A lane's state is the hash state
+// after every full 32-byte chunk it has absorbed (32 bytes) and the
+// pending tail of q < 32 bytes after them.  One launch appends m bytes a
+// lane: the stream pending || data is cut into full chunks, each absorbed
+// and mixed into the state (hash.rs:13-24), and what is left, fewer than 32
+// bytes, becomes the new pending tail ((q + m) mod 32 bytes).  With alpha,
+// a copy of the state is finalized as a hash of every byte so far would
+// be (the pending tail absorbed as a partial chunk and mixed, then the 8
+// closing mixes, hash.rs:25-27) and its first 8 digest bytes, a
+// little-endian u64, are written reduced mod p: the FRI challenge the host
+// transcript draws (fiat_shamir.rs:19-25), as the fold takes it.
+//   state, pending: (lanes, 32) u8, updated in place; fresh: start from
+//   the initial state (q must be 0); data: (lanes, m) u8; copy: where the
+//   data bytes are also written (or null); alpha: (lanes,) (or null).
+__global__ void stark_sponge_absorb_kernel(uint8_t* state, uint8_t* pending,
+                                           int q, int fresh,
+                                           const uint8_t* __restrict__ data,
+                                           int m, uint8_t* copy,
+                                           uint32_t* alpha, int lanes) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  uint8_t* st = state + 32 * lane;
+  uint8_t* pend = pending + 32 * lane;
+  const uint8_t* in = data + (long long)m * lane;
+  uint32_t s[32];
+  if (fresh) {
+    hash_init(s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = st[i];
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const long long roots = width - (width >> (lg_sub - 1));
-  tail_walk(out + 2 * roots, out, width, lg_sub, lg_top, 0, buf_a, buf_b);
+  const int total = q + m;
+  int c = 0;
+  uint32_t w[8];
+  for (; c + 32 <= total; c += 32) {
+    sponge_chunk(w, pend, q, in, c, total);
+    absorb_prefix<0>(s, w, 32);
+    mix(s);
+  }
+  const int rest = total - c;
+  sponge_chunk(w, pend, q, in, c, total);  // the new pending tail
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = (uint8_t)s[i];
+  for (int i = 0; i < rest; ++i) pend[i] = (uint8_t)(w[i >> 2] >> (8 * (i & 3)));
+  if (copy != nullptr)
+    for (int i = 0; i < m; ++i) copy[(long long)m * lane + i] = in[i];
+  if (alpha == nullptr) return;
+  if (rest > 0) {
+    absorb_prefix<0>(s, w, rest);
+    mix(s);
+  }
+  hash_finish<stark::Form::kOwed>(s);  // a lone thread: fewest instructions
+  uint64_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v |= (uint64_t)(s[i] & 0xFFu) << (8 * i);
+  alpha[lane] = (uint32_t)(v % stark::kP);
 }
 
 // K5/K6: (c, n) field values -> n digests.
@@ -238,6 +364,42 @@ int stark_merkle_tail(const void* nodes, void* out, long long width,
                              (cudaStream_t)stream>>>(
       static_cast<const uint4*>(nodes), static_cast<uint4*>(out), width,
       lg_sub, lg_top, static_cast<unsigned int*>(ticket));
+  return (int)cudaGetLastError();
+}
+
+// K8 for a forest: as stark_merkle_tail, `width` node digests in trees of
+// 2^(lg_sub + lg_top) nodes (lg_top > 0), each built to its own root, the
+// block of a tree that finishes last taking the top; with lg_top = 0 the
+// lg_sub levels above every subtree.  tickets: one zeroed word a tree, left
+// at zero, used only by launches on this stream.
+int stark_merkle_forest(const void* nodes, void* out, long long width,
+                        int lg_sub, int lg_top, void* tickets, void* stream) {
+  if (lg_sub < 1 || lg_sub > kTailMaxLg || lg_top < 0 ||
+      lg_top > kTailMaxLg || (width & ((1LL << (lg_sub + lg_top)) - 1)) ||
+      (lg_top > 0 && !tickets))
+    return (int)cudaErrorInvalidValue;
+  int threads = 1 << ((lg_sub > lg_top ? lg_sub : lg_top) - 1);
+  if (threads < 32) threads = 32;
+  if (threads > kTailThreads) threads = kTailThreads;
+  stark_merkle_forest_kernel<<<(unsigned)(width >> lg_sub), threads, 0,
+                               (cudaStream_t)stream>>>(
+      static_cast<const uint4*>(nodes), static_cast<uint4*>(out), width,
+      lg_sub, lg_top, static_cast<unsigned int*>(tickets));
+  return (int)cudaGetLastError();
+}
+
+// K9: append m bytes a lane to `lanes` sponges (see the kernel).
+int stark_sponge_absorb(void* state, void* pending, int q, int fresh,
+                        const void* data, int m, void* copy, void* alpha,
+                        int lanes, void* stream) {
+  if (q < 0 || q > 31 || m < 0 || lanes < 1 || (fresh && q))
+    return (int)cudaErrorInvalidValue;
+  const int threads = lanes < 128 ? lanes : 128;
+  stark_sponge_absorb_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                               (cudaStream_t)stream>>>(
+      static_cast<uint8_t*>(state), static_cast<uint8_t*>(pending), q, fresh,
+      static_cast<const uint8_t*>(data), m, static_cast<uint8_t*>(copy),
+      static_cast<uint32_t*>(alpha), lanes);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,19 @@
 //     mod p each; row t = b block + k of the (8, length) output is state k
 //     of block b (the host walks the seed chain, native.mds_seed_walk).
 //
-// What bounds them on the card.  fib_expand writes 4 bytes per element and
-// computes three Montgomery products: bound by bytes (4 MB at T = 2^20, 1.3
-// us at 3.35 TB/s), one thread per element.  mds_expand is a chain of
+// What bounds them on the card.  fib_expand writes 4 bytes per element: it
+// is bound by bytes (4 MB at T = 2^20, 1.3 us at 3.35 TB/s), on top of the
+// ~1.2-1.7 us any launch takes.  So the grid is one wave, a CTA per SM,
+// and a thread owns 8 consecutive columns j of the block and walks rows k
+// four at a time: it issues its loads (its 16 u values, the seeds of four
+// rows) before it computes, puts the u values into Montgomery form once
+// (u 2^32 mod p), so that an element is two Montgomery products and one
+// addition mod p, with no product to undo 2^-32, and writes each row's 8
+// elements as two 16-byte stores.  (The grid of 4,096 x 256 threads, an
+// element each, ran its blocks in waves, each wave a trip to memory: 5.0
+// us at T = 2^20; a load at the top of each row's step made a chain of
+// trips too: 5.2 us, PERF.md.)  Blocks narrower than 8
+// columns (T < 64) take one element at a time.  mds_expand is a chain of
 // `block` dependent steps per block: T = 2^16 at block 64 is only 1,024
 // blocks, so what bounds it is the latency of one step times `block`, and
 // what the design does is shorten the step and spread the blocks.  An
@@ -39,8 +49,8 @@ using stark::reduce_once;
 
 namespace {
 
-// 2^64 mod p: mont_mul(x, kR2) = x 2^32 mod p, so mont_mul(mont_mul(a, b),
-// kR2) = a b mod p for a, b in [0, p).  2^80 mod p: mont_mul(m, kR80) =
+// 2^64 mod p: mont_mul(x, kR2) = x 2^32 mod p, the Montgomery form of x,
+// and mont_mul(a, that) = a x mod p.  2^80 mod p: mont_mul(m, kR80) =
 // m 2^48 mod p.
 constexpr uint64_t kR1 = (1ull << 32) % kP;
 constexpr uint32_t kR2 = static_cast<uint32_t>(kR1 * kR1 % kP);
@@ -74,31 +84,99 @@ __device__ __forceinline__ uint32_t mds_row_step(uint32_t s, const uint32_t* mh,
 // C linkage, so that a profile names the kernels plainly.
 extern "C" {
 
-// seeds: s0 (nb), s1 (nb), u0 (B), u1 (B), one after the other.
-__global__ void stark_fib_expand_kernel(const uint32_t* __restrict__ seeds,
-                                        uint32_t* __restrict__ out, int nb,
-                                        int lg_b, long long length) {
+// fib_expand: one CTA of kFibThreads per SM; a thread owns kFibCols
+// columns and takes its rows kFibRows at a time.
+constexpr int kFibThreads = 256;
+constexpr int kFibCols = 8;
+constexpr int kFibRows = 4;
+
+// seeds: s0 (nb), s1 (nb), u0 (B), u1 (B), one after the other; B = 2^lg_b.
+// The grid's thread count is a multiple of B / kFibCols (stark_fib_expand).
+__global__ void __launch_bounds__(kFibThreads)
+    stark_fib_expand_kernel(const uint32_t* __restrict__ seeds,
+                            uint32_t* __restrict__ out, int nb, int lg_b,
+                            long long length) {
   const uint32_t* s0 = seeds;
   const uint32_t* s1 = seeds + nb;
   const uint32_t* u0 = seeds + 2 * nb;
   const uint32_t* u1 = u0 + (1 << lg_b);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < length; i += stride) {
-    const long long k = i >> lg_b;
-    const int j = (int)(i & ((1 << lg_b) - 1));
-    // (s1 u1 + s0 u0) 2^-32, then times 2^64 2^-32.
-    out[i] = mont_mul(add_mod(mont_mul(s1[k], u1[j]), mont_mul(s0[k], u0[j])),
-                      kR2);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  if (lg_b < 3) {  // blocks of 1, 2 or 4 columns: an element a step
+    for (long long i = tid; i < length; i += threads) {
+      const long long k = i >> lg_b;
+      const int j = (int)(i & ((1 << lg_b) - 1));
+      out[i] = add_mod(mont_mul(s1[k], mont_mul(u1[j], kR2)),
+                       mont_mul(s0[k], mont_mul(u0[j], kR2)));
+    }
+    return;
+  }
+  const int lg_groups = lg_b - 3;  // column groups of kFibCols
+  const int j0 = (int)(tid & ((1 << lg_groups) - 1)) * kFibCols;
+  const long long lanes = threads >> lg_groups;
+  // Every load a thread makes is issued before it computes: its u values
+  // and the seeds of its first kFibRows rows (one trip to memory, where
+  // a load at the top of each row's step would make a chain of them).
+  uint32_t m0[kFibCols], m1[kFibCols];
+#pragma unroll
+  for (int c = 0; c < kFibCols; ++c) {
+    m0[c] = u0[j0 + c];
+    m1[c] = u1[j0 + c];
+  }
+  long long k0 = tid >> lg_groups;
+  uint32_t a[kFibRows], b[kFibRows];
+#pragma unroll
+  for (int r = 0; r < kFibRows; ++r) {
+    const long long k = k0 + r * lanes;
+    a[r] = k < nb ? s0[k] : 0u;
+    b[r] = k < nb ? s1[k] : 0u;
+  }
+  // u 2^32 mod p: mont_mul(s, that) = s u mod p.
+#pragma unroll
+  for (int c = 0; c < kFibCols; ++c) {
+    m0[c] = mont_mul(m0[c], kR2);
+    m1[c] = mont_mul(m1[c], kR2);
+  }
+  for (; k0 < nb; k0 += kFibRows * lanes) {
+#pragma unroll
+    for (int r = 0; r < kFibRows; ++r) {
+      const long long k = k0 + r * lanes;
+      if (k >= nb) break;
+      uint32_t v[kFibCols];
+#pragma unroll
+      for (int c = 0; c < kFibCols; ++c)
+        v[c] = add_mod(mont_mul(b[r], m1[c]), mont_mul(a[r], m0[c]));
+      const long long first = (k << lg_b) + j0;
+      if (first + kFibCols <= length) {
+        uint4* dst = reinterpret_cast<uint4*>(out + first);
+        dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kFibCols; ++c)
+          if (first + c < length) out[first + c] = v[c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kFibRows; ++r) {  // the next rows' seeds
+      const long long k = k0 + (kFibRows + r) * lanes;
+      a[r] = k < nb ? s0[k] : 0u;
+      b[r] = k < nb ? s1[k] : 0u;
+    }
   }
 }
 
+// out must be 16-byte aligned.  sms: the card's SM count (the grid).
 int stark_fib_expand(const void* seeds, void* out, int nb, int lg_b,
-                     long long length, void* stream) {
-  const int threads = 256;
-  long long blocks = (length + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  stark_fib_expand_kernel<<<(unsigned)blocks, threads, 0,
+                     long long length, int sms, void* stream) {
+  long long blocks = sms;
+  if (lg_b >= 3) {
+    // a whole number of rows of column groups: threads % (B / 8) == 0
+    const long long groups = 1LL << (lg_b - 3);
+    const long long per_block = groups > kFibThreads ? groups / kFibThreads : 1;
+    blocks = (blocks + per_block - 1) / per_block * per_block;
+  }
+  stark_fib_expand_kernel<<<(unsigned)blocks, kFibThreads, 0,
                             (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(out), nb,
       lg_b, length);

@@ -14,6 +14,11 @@ level kept).  Constructors:
   build every level to the root there; the host reads back 32 bytes.  A
   numpy input builds in the host C engine, and its stack is a CPU tensor.
 
+A :class:`Forest` is B trees of one width side by side, as the batched
+prover commits B proofs at once (stark_tpu/batch.py:BatchedTrees): one
+level stack of ``2 B n - B`` rows that stops at the B roots
+(ops/hash_batch).
+
 Authentication paths are one gather over the stack and one transfer
 (:meth:`open_batch`, rows from :func:`path_rows`), whichever engine built
 it; the prover's query phase gathers them with its values in one launch
@@ -41,14 +46,17 @@ def _to_device(values, device) -> torch.Tensor:
     return values if device is None else values.to(device)
 
 
-def path_rows(num_leaves: int, indices) -> np.ndarray:
+def path_rows(num_leaves: int, indices, depth: int | None = None) -> np.ndarray:
     """(k, depth) int64 rows of a level stack that hold the authentication
     paths of leaves ``indices``, bottom-up: the sibling on level l of leaf
     i is row ``level_offset(l) + ((i >> l) ^ 1)``, level_offset(l) =
-    2W - 2W / 2^l.  (stark_tpu/merkle.py's gather_operands and
-    open_batch_dev serve its layouts; every tree of the port is one
-    stack.)"""
-    depth = num_leaves.bit_length() - 1
+    2W - 2W / 2^l.  ``depth`` defaults to log2 W (a tree); a forest of
+    trees of width 2^depth stops there, and leaf i of tree b is its leaf
+    b 2^depth + i.  (stark_tpu/merkle.py's gather_operands and
+    open_batch_dev, stark_tpu/batch.py's open_batch_dev serve its
+    layouts; every tree and forest of the port is one stack.)"""
+    if depth is None:
+        depth = num_leaves.bit_length() - 1
     idx = np.asarray(indices, dtype=np.int64).reshape(-1, 1)
     lv = np.arange(depth, dtype=np.int64)[None, :]
     return (2 * num_leaves - ((2 * num_leaves) >> lv)) + ((idx >> lv) ^ 1)
@@ -165,3 +173,52 @@ class MerkleTree:
         return native.merkle_verify(
             leaf.data, index, [h.data for h in proof], root.data
         )
+
+
+class Forest:
+    """B trees of width n side by side (stark_tpu/batch.py:BatchedTrees,
+    :141-190): ``stack`` is the (2 B n - B, 32) u8 level stack of one tree
+    of width B n stopped at the B roots, on the device that built it.
+    Tree b's leaves are the stack's rows b n .. (b + 1) n - 1, and the
+    path of its leaf i is that of leaf b n + i (:meth:`global_index`,
+    ``GatherPlan.paths(stack, ..., depth)``)."""
+
+    def __init__(self, stack: torch.Tensor, trees: int):
+        self.stack = stack
+        self.B = trees
+        self.n = (int(stack.shape[0]) + trees) // (2 * trees)
+        self.depth = self.n.bit_length() - 1
+
+    @staticmethod
+    def from_rows(values: torch.Tensor) -> "Forest":
+        """(B, c, n) field values -> tree b's leaf j =
+        Hash::from_field_elements(values[b, :, j]) (the trace forest)."""
+        b, c, n = values.shape
+        if n < 1 or n & (n - 1):
+            raise ValueError(f"a forest's trees need a power-of-two width, got {n}")
+        lanes = values.permute(1, 0, 2).reshape(c, b * n)
+        stack = torch.empty((2 * b * n - b, 32), dtype=torch.uint8, device=values.device)
+        HB.hash_rows(lanes.contiguous(), stack[: b * n])
+        return Forest(HB.forest_build(stack, b), b)
+
+    @staticmethod
+    def from_values(values: torch.Tensor) -> "Forest":
+        """(B, n) field values -> tree b's leaf i = Hash::from_field_elements(
+        [values[b, i]]) (a FRI round's codewords)."""
+        return Forest.from_rows(values[:, None, :])
+
+    def roots_dev(self) -> torch.Tensor:
+        """(B, 32) u8 roots, a view of the stack's last rows."""
+        return self.stack[-self.B :]
+
+    def global_index(self, indices) -> np.ndarray:
+        """(B, k) per-tree leaf indices -> (B, k) leaves of the stack."""
+        idx = np.asarray(indices, dtype=np.int64).reshape(self.B, -1)
+        return idx + self.n * np.arange(self.B, dtype=np.int64)[:, None]
+
+    def tree(self, b: int) -> MerkleTree:
+        """Tree b on its own (a copy of its nodes: tests and checks)."""
+        w = self.B * self.n
+        rows = [self.stack[HB.level_offset(w, l) + b * (self.n >> l):][: self.n >> l]
+                for l in range(self.depth + 1)]
+        return MerkleTree(_stack=torch.cat(rows))

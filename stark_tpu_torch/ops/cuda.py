@@ -118,6 +118,13 @@ def check_operand(t: torch.Tensor, name: str,
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (kernels that size their grid
+    to the card)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def device_or_raise(device, what: str) -> torch.device:
     """``device`` as a torch.device with its index (``cuda`` is the current
     card, as the tensors made there report it); raises if it names CUDA

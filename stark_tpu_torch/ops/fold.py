@@ -1,4 +1,5 @@
-"""FRI fold on the card: kernel K4 (csrc/fold.cu) and its plain version.
+"""FRI fold on the card: kernels K4 and K4-dyn (csrc/fold.cu) and their
+plain versions.
 
 Counterpart of stark_tpu/ops/pallas_kernels.py:fold_pallas, the same math as
 stark_tpu/fri.py:_fold_kernel (reference src/fri.rs:57-91 re-algorithmized):
@@ -7,8 +8,11 @@ stark_tpu/fri.py:_fold_kernel (reference src/fri.rs:57-91 re-algorithmized):
     a = codeword[i], b = codeword[i + half],
 
 with x_i^-1 = (offset * omega^i)^-1 precomputed per round in Montgomery form
-(fri.FriPlan.inv_x_mont).  The raw challenge ``alpha`` is a Python int up to
-2^64 — it is reduced mod p before it reaches a tensor or the kernel.
+(fri.FriPlan.inv_x_mont).  K4 (``fold``) takes the raw challenge ``alpha``
+as a Python int up to 2^64: it is reduced mod p before it reaches a tensor
+or the kernel.  K4-dyn (``fold_dyn``, stark_tpu/fri.py:_fold_kernel_dynamic)
+folds B codewords, each with its own alpha mod p read from device memory,
+where the device commit chain's sponge (K9) wrote it.
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ FOLD = cuda.Kernel(
     [cuda.ptr] * 3 + [ctypes.c_longlong] + [ctypes.c_uint] * 4,
     source="stark_tpu_torch/csrc/fold.cu",
     replaces="stark_tpu/ops/pallas_kernels.py:104",
+)
+FOLD_DYN = cuda.Kernel(
+    "fri_fold_dyn", "stark_fri_fold_dyn",
+    [cuda.ptr] * 4 + [ctypes.c_longlong, cuda.i32] + [ctypes.c_uint] * 2,
+    source="stark_tpu_torch/csrc/fold.cu",
+    replaces="stark_tpu/fri.py:85",
 )
 
 
@@ -65,4 +75,44 @@ def fold(codeword: torch.Tensor, inv_x_mont: torch.Tensor,
         out.data_ptr(), n // 2, a_red, int(F.shoup_precompute(a_red)),
         INV2, INV2_SHOUP,
     )
+    return out
+
+
+def fold_dyn_plain(codewords: torch.Tensor, inv_x_mont: torch.Tensor,
+                   alpha: torch.Tensor) -> torch.Tensor:
+    """int64 torch ops: row b folded with alpha[b] (reduced), as
+    _fold_kernel_dynamic computes it: mont_mul(inv_x_mont, alpha) = alpha /
+    x, a full product by (a - b), then the halving."""
+    half = codewords.shape[1] // 2
+    a, b = codewords[:, :half].long(), codewords[:, half:].long()
+    s = (a + b) % P
+    d = (a - b) % P
+    t = inv_x_mont.long()[None, :] * alpha.long()[:, None] % P * F.R_INV % P
+    return ((s + t * d % P) % P * INV2 % P).to(torch.int32)
+
+
+def fold_dyn(codewords: torch.Tensor, inv_x_mont: torch.Tensor,
+             alpha: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, n) int32 codewords -> (B, n/2) int32, row b folded with the
+    reduced challenge ``alpha[b]`` ((B,) int32 on the codewords' device);
+    written into ``out`` when given."""
+    if codewords.dim() != 2 or codewords.shape[1] < 2 or codewords.shape[1] % 2:
+        raise ValueError(f"expected (B, n) codewords, n even, got {tuple(codewords.shape)}")
+    rows, half = codewords.shape[0], codewords.shape[1] // 2
+    if tuple(inv_x_mont.shape) != (half,):
+        raise ValueError("inverse-x ladder must have length n/2")
+    if tuple(alpha.shape) != (rows,) or alpha.dtype != torch.int32:
+        raise ValueError(f"alpha must be ({rows},) int32, got {tuple(alpha.shape)} {alpha.dtype}")
+    if out is None:
+        out = torch.empty((rows, half), dtype=torch.int32, device=codewords.device)
+    elif tuple(out.shape) != (rows, half) or out.dtype != torch.int32:
+        raise ValueError(f"out must be ({rows}, {half}) int32")
+    if codewords.device.type == "cpu":
+        out.copy_(fold_dyn_plain(codewords, inv_x_mont, alpha))
+        return out
+    for t, name in ((codewords, "codewords"), (inv_x_mont, "inv_x_mont"),
+                    (alpha, "alpha"), (out, "out")):
+        cuda.check_operand(t, name)
+    FOLD_DYN.launch(codewords.device, codewords.data_ptr(), inv_x_mont.data_ptr(),
+                    alpha.data_ptr(), out.data_ptr(), half, rows, INV2, INV2_SHOUP)
     return out

@@ -117,15 +117,22 @@ class GatherPlan:
         s = self._source(src, VALUES, n, c)
         return self._add(s, VALUES, indices, c, n)
 
-    def paths(self, stack: torch.Tensor, indices) -> Slot:
+    def paths(self, stack: torch.Tensor, indices, depth: int | None = None) -> Slot:
         """The authentication paths of leaves ``indices`` of a (2W - 1, 32)
-        u8 level stack: a (k, log2 W, 32) slot."""
-        w = (int(stack.shape[0]) + 1) // 2
-        if stack.dtype != torch.uint8 or tuple(stack.shape) != (2 * w - 1, 32) \
-                or w & (w - 1):
-            raise ValueError(f"paths source: a (2W - 1, 32) u8 level stack, got "
-                             f"{stack.dtype} {tuple(stack.shape)}")
-        depth = w.bit_length() - 1
+        u8 level stack: a (k, log2 W, 32) slot.  With ``depth``, the stack
+        is a forest's, (2W - B, 32) for B trees of width 2^depth (merkle.py:
+        Forest), and leaf i of tree b is leaf b 2^depth + i: a (k, depth,
+        32) slot."""
+        rows = int(stack.shape[0])
+        if depth is None:
+            w = (rows + 1) // 2
+            depth = w.bit_length() - 1
+        else:
+            w = rows * (1 << depth) // ((2 << depth) - 1)
+        if stack.dtype != torch.uint8 or stack.dim() != 2 or stack.shape[1] != 32 \
+                or w < 1 or w % (1 << depth) or 2 * w - (w >> depth) != rows:
+            raise ValueError(f"paths source: a level stack of trees of width 2^"
+                             f"{depth}, got {stack.dtype} {tuple(stack.shape)}")
         s = self._source(stack, PATHS, w, depth)
         return self._add(s, PATHS, indices, 8 * depth, w)
 
@@ -208,7 +215,7 @@ def gather_plain(plan: GatherPlan) -> torch.Tensor:
             sel = torch.from_numpy(idx).to(src.device)
             parts.append(src.reshape(b, a)[:, sel].T.reshape(-1))
         else:
-            rows = torch.from_numpy(path_rows(a, idx).reshape(-1)).to(src.device)
+            rows = torch.from_numpy(path_rows(a, idx, b).reshape(-1)).to(src.device)
             parts.append(src.view(torch.int32)[rows].reshape(-1))
     return torch.cat(parts)
 
@@ -237,10 +244,9 @@ def gather(plan: GatherPlan) -> torch.Tensor:
     return out
 
 
-def fetch(plan: GatherPlan) -> np.ndarray:
-    """:func:`gather`, then the buffer on the host as (words,) uint32: on a
-    card one copy into pinned memory, waited for with an event."""
-    words = gather(plan)
+def to_host(words: torch.Tensor) -> np.ndarray:
+    """A (words,) int32 tensor on the host as uint32: from a card, one copy
+    into pinned memory, waited for with an event."""
     if words.device.type == "cpu":
         return words.numpy().view(np.uint32)
     host = torch.empty(words.shape, dtype=torch.int32, pin_memory=True)
@@ -249,3 +255,9 @@ def fetch(plan: GatherPlan) -> np.ndarray:
     landed.record(torch.cuda.current_stream(words.device))
     landed.synchronize()
     return host.numpy().view(np.uint32)
+
+
+def fetch(plan: GatherPlan) -> np.ndarray:
+    """:func:`gather`, then the buffer on the host as (words,) uint32
+    (:func:`to_host`)."""
+    return to_host(gather(plan))

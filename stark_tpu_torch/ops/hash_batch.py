@@ -14,9 +14,20 @@ in hashfn.py (reference src/hash.rs):
                          the root (_tail_levels_core :433), in one launch:
                          a block per subtree (tail_sub_lg), and the block
                          that finishes last builds the top;
+    merkle_forest K8     the same for B trees of one width side by side
+                         (a forest), each down to its own root
+                         (forest_tail_levels_core :510): the block of a
+                         tree that finishes last builds that tree's top;
     merkle_build         fills a whole tree's level stack from its leaf
                          level: K7 for levels wider than TAIL_CUTOVER, K8
-                         from there to the root.
+                         from there to the root; forest_build a forest's;
+    Sponge        K9     the incremental Fiat-Shamir sponge of the device
+                         commit chain (sponge_from_bytes :831,
+                         sponge_absorb :850, sponge_state :860,
+                         state_alpha :869, device_sponge_root_alpha :911):
+                         B lanes, each the hash state after its full
+                         32-byte chunks and a pending tail; a launch
+                         appends bytes and draws the challenge mod p.
 
 **Layout.**  Digests are node-major ``(N, 32)`` uint8 tensors: node j is
 the 32 contiguous bytes at 32 j.  (The JAX package keeps them byte-major,
@@ -26,7 +37,12 @@ contiguous bytes at 64 j, and it is already the host and wire layout, so
 ``digests_to_bytes`` is a plain copy.  A tree is one **level stack**, a
 ``(2W - 1, 32)`` tensor holding level 0 (the W leaves) first, then W/2
 parents, ... and the root last - the layout of native.merkle_levels - so
-an authentication path is one gather over it.
+an authentication path is one gather over it.  A **forest** of B trees of
+width n is the level stack of one tree of width B n stopped at the B
+roots, ``(2 B n - B, 32)``: tree b's nodes of a level are that level's
+b-th share, so no pairing crosses a tree's edge, K7 builds a forest's
+level as it builds a tree's, and the authentication path of leaf i of
+tree b is the first log2 n siblings of leaf b n + i.
 
 On a CUDA tensor every wrapper launches its kernel or raises; the plain
 versions (``*_plain``: torch uint8 ops on a stacked byte-major state, where
@@ -55,6 +71,7 @@ import torch
 
 from stark_tpu_torch.hashfn import PRIMES, ROUND_CONSTANTS
 from stark_tpu_torch.ops import cuda
+from stark_tpu_torch.ops.fieldops import P as _P
 
 _SRC = "stark_tpu_torch/csrc/hash.cu"
 _I64 = ctypes.c_longlong
@@ -70,6 +87,16 @@ MERKLE_TAIL = cuda.Kernel(
     "merkle_tail", "stark_merkle_tail",
     [cuda.ptr] * 2 + [_I64, cuda.i32, cuda.i32, cuda.ptr],
     source=_SRC, replaces="stark_tpu/ops/hash_batch.py:433",
+)
+MERKLE_FOREST = cuda.Kernel(
+    "merkle_forest", "stark_merkle_forest",
+    [cuda.ptr] * 2 + [_I64, cuda.i32, cuda.i32, cuda.ptr],
+    source=_SRC, replaces="stark_tpu/ops/hash_batch.py:510",
+)
+SPONGE = cuda.Kernel(
+    "sponge_absorb", "stark_sponge_absorb",
+    [cuda.ptr] * 2 + [cuda.i32] * 2 + [cuda.ptr, cuda.i32] + [cuda.ptr] * 2 + [cuda.i32],
+    source=_SRC, replaces="stark_tpu/ops/hash_batch.py:911",
 )
 
 #: The subtree a K8 block owns leaves 2^TAIL_TOP_LG roots to the block that
@@ -190,31 +217,38 @@ def tail_sub_lg(lg_w: int) -> int:
     return min(max(lg_w - TAIL_TOP_LG, TAIL_MIN_SUB_LG), TAIL_MAX_LG, lg_w)
 
 
-def tail_launches(lg_w: int, lg_sub: int | None = None):
-    """K8's launches for a subtree of 2^lg_w nodes, as (lg_sub, lg_top)
-    pairs: each builds lg_sub levels, a block per 2^lg_sub nodes, and
-    lg_top more in the block that finishes last.  One launch reaches the
-    root unless more than 2^TAIL_MAX_LG subtree roots would be left.
-    ``lg_sub`` fixes the subtree size; by default tail_sub_lg chooses."""
-    while lg_w > 0:
-        sub = tail_sub_lg(lg_w) if lg_sub is None else min(lg_w, lg_sub)
-        top = lg_w - sub if lg_w - sub <= TAIL_MAX_LG else 0
+def tail_launches(lg_w: int, lg_sub: int | None = None,
+                  lg_tree: int | None = None):
+    """K8's launches for 2^lg_w nodes in trees of 2^lg_tree (one tree by
+    default), as (lg_sub, lg_top) pairs: each builds lg_sub levels, a
+    block per 2^lg_sub nodes, and lg_top more in the block of each tree
+    that finishes last.  One launch reaches the roots unless more than
+    2^TAIL_MAX_LG subtree roots a tree would be left.  ``lg_sub`` fixes
+    the subtree size; by default tail_sub_lg chooses from the width."""
+    lg_tree = lg_w if lg_tree is None else lg_tree
+    while lg_tree > 0:
+        sub = min(tail_sub_lg(lg_w) if lg_sub is None else lg_sub, lg_tree)
+        top = lg_tree - sub if lg_tree - sub <= TAIL_MAX_LG else 0
         yield sub, top
         lg_w -= sub + top
+        lg_tree -= sub + top
 
 
-def merkle_tail_plain(nodes: torch.Tensor,
-                      lg_sub: int | None = None) -> torch.Tensor:
-    """(W, 32) node digests -> (W - 1, 32): every level above them, widest
-    first, the root last, built as K8 builds them: launch by launch, each
-    block's subtree on its own with its share of a level written at the
-    block's offset, then the top."""
+def merkle_tail_plain(nodes: torch.Tensor, lg_sub: int | None = None,
+                      trees: int = 1) -> torch.Tensor:
+    """(W, 32) node digests -> (W - trees, 32): every level above them,
+    widest first, the roots last, built as K8 builds them: launch by
+    launch, each block's subtree on its own with its share of a level
+    written at the block's offset, then each tree's top.  ``trees`` > 1:
+    a forest of that many trees of width W / trees side by side, each
+    built to its own root, as K8-forest builds it."""
     w = nodes.shape[0]
-    out = nodes.new_empty((w - 1, 32))
+    out = nodes.new_empty((w - trees, 32))
     pos = 0
-    for sub, top in tail_launches(w.bit_length() - 1, lg_sub):
-        # Every subtree's levels, then the top's as those of one block.
-        for blocks, levels in ((nodes.shape[0] >> sub, sub), (1, top)):
+    lg_tree = (w // trees).bit_length() - 1
+    for sub, top in tail_launches(w.bit_length() - 1, lg_sub, lg_tree):
+        # Every subtree's levels, then the tops' as those of a block a tree.
+        for blocks, levels in ((nodes.shape[0] >> sub, sub), (trees, top)):
             part = nodes.reshape(blocks, -1, 32)
             for _ in range(levels):
                 count = part.shape[1] // 2
@@ -226,6 +260,55 @@ def merkle_tail_plain(nodes: torch.Tensor,
                 pos += blocks * count
             nodes = part.reshape(-1, 32)
     return out
+
+
+def forest_tail_plain(nodes: torch.Tensor, trees: int) -> torch.Tensor:
+    """(B n, 32) leaf digests of ``trees`` = B trees of width n -> (B n -
+    B, 32): merkle_tail_plain applied to every tree (all at once), its
+    levels laid out as the forest's (each level the trees' shares side by
+    side, the B roots last)."""
+    return merkle_tail_plain(nodes, None, trees)
+
+
+def _stream_alpha(s: torch.Tensor) -> torch.Tensor:
+    """(32, B) u8 finalized states -> (B,) int64: the first 8 digest bytes
+    as a little-endian u64, mod p (stark_tpu's state_alpha)."""
+    acc = torch.zeros(s.shape[1], dtype=torch.int64, device=s.device)
+    for i in range(8):
+        acc = (acc + s[i].long() * pow(2, 8 * i, _P)) % _P
+    return acc
+
+
+def sponge_state_plain(state: torch.Tensor, pending: torch.Tensor,
+                       q: int) -> torch.Tensor:
+    """(B, 32) cached states and their q-byte pending tails -> (B, 32)
+    digests of every byte absorbed: the tail absorbed as a partial chunk
+    and mixed, then the 8 closing mixes (stark_tpu's sponge_state)."""
+    s = state.T.clone()
+    if q:
+        s = _mix(_absorb(s, pending[:, :q].T.contiguous()))
+    for _ in range(8):
+        s = _mix(s)
+    return s.T.contiguous()
+
+
+def sponge_absorb_plain(state: torch.Tensor, pending: torch.Tensor, q: int,
+                        data: torch.Tensor, fresh: bool = False):
+    """K9's plain version: (B, 32) state and pending (q bytes), (B, m)
+    data -> (state, pending, alpha): the state after every full chunk of
+    pending || data, the new (B, 32) pending (its first (q + m) mod 32
+    bytes), and the (B,) int64 challenge mod p of all bytes so far."""
+    b = data.shape[0]
+    s = _init_state(b, data.device) if fresh else state.T.clone()
+    stream = torch.cat([pending[:, :q], data], dim=1).T  # (q + m, B)
+    full = stream.shape[0] // 32 * 32
+    for c in range(0, full, 32):
+        s = _mix(_absorb(s, stream[c : c + 32]))
+    new_pending = torch.zeros_like(pending)
+    new_pending[:, : stream.shape[0] - full] = stream[full:].T
+    state = s.T.contiguous()
+    digest = sponge_state_plain(state, new_pending, stream.shape[0] - full)
+    return state, new_pending, _stream_alpha(digest.T)
 
 
 # ---------------------------------------------------------------------------
@@ -354,23 +437,144 @@ def merkle_tail(nodes: torch.Tensor, out: torch.Tensor | None = None,
     return out
 
 
+#: The most trees one K8-forest launch takes (its ticket words).
+FOREST_MAX_TREES = 1 << 12
+
+
+@functools.lru_cache(maxsize=64)
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """K8-forest's ticket counters, one word a tree, for the launches on
+    one stream of ``device`` (as _ticket)."""
+    return torch.zeros(FOREST_MAX_TREES, dtype=torch.int32, device=device)
+
+
+def merkle_forest(nodes: torch.Tensor, trees: int,
+                  out: torch.Tensor | None = None,
+                  lg_sub: int | None = None) -> torch.Tensor:
+    """K8 for a forest: (B n, 32) digests of ``trees`` = B trees of width
+    n, a power of two -> (B n - B, 32), every level above them, each
+    level the trees' shares side by side, the B roots last.  One launch
+    for n up to 2^(2 TAIL_MAX_LG): a block per subtree, each tree's top by
+    its block that finishes last (``tail_launches``)."""
+    _check_digests(nodes, "nodes")
+    w = nodes.shape[0]
+    n = w // trees if trees > 0 else 0
+    if trees < 1 or n * trees != w or not _pow2(n):
+        raise ValueError(f"{w} digests are not {trees} trees of a power-of-two width")
+    if trees > FOREST_MAX_TREES:
+        raise ValueError(f"at most {FOREST_MAX_TREES} trees, got {trees}")
+    if lg_sub is not None and not 1 <= lg_sub <= TAIL_MAX_LG:
+        raise ValueError(f"lg_sub must be in 1..{TAIL_MAX_LG}, got {lg_sub}")
+    out = _output(out, w - trees, nodes)
+    if nodes.device.type == "cpu":
+        out.copy_(forest_tail_plain(nodes, trees))
+        return out
+    _check_card_digests(nodes, "nodes")
+    _check_card_digests(out, "out")
+    stream = torch.cuda.current_stream(nodes.device).cuda_stream
+    tickets = _tickets(nodes.device, stream)
+    src, pos = nodes, 0
+    for sub, top in tail_launches(w.bit_length() - 1, lg_sub, n.bit_length() - 1):
+        try:
+            MERKLE_FOREST.launch(
+                nodes.device, src.data_ptr(), out[pos:].data_ptr(), w, sub,
+                top, tickets.data_ptr(),
+            )
+        except RuntimeError:
+            tickets.zero_()  # as in merkle_tail
+            raise
+        left = w >> (sub + top)
+        pos += w - left
+        src, w = out[pos - left : pos], left
+    return out
+
+
+def forest_build(stack: torch.Tensor, trees: int = 1) -> torch.Tensor:
+    """Fill a forest's level stack in place: ``stack`` is (2W - B, 32) for
+    ``trees`` = B trees of width W / B (B = 1: a tree, (2W - 1, 32)), with
+    the W leaf digests in its first W rows; every level above is written
+    behind them, the B roots last.  Levels wider than TAIL_CUTOVER come
+    from K7; the rest from K8, or K8-forest where B > 1."""
+    _check_digests(stack, "stack")
+    w = (stack.shape[0] + trees) // 2
+    n = w // trees if trees > 0 else 0
+    if trees < 1 or n * trees != w or not _pow2(n) or stack.shape[0] != 2 * w - trees:
+        raise ValueError(f"a level stack of {trees} trees has 2W - {trees} rows, "
+                         f"got {stack.shape[0]}")
+    pos = 0
+    while w > TAIL_CUTOVER and w > trees:
+        merkle_level(stack[pos : pos + w], stack[pos + w : pos + w + w // 2])
+        pos += w
+        w //= 2
+    if w > trees:
+        if trees == 1:
+            merkle_tail(stack[pos : pos + w], stack[pos + w :])
+        else:
+            merkle_forest(stack[pos : pos + w], trees, stack[pos + w :])
+    return stack
+
+
 def merkle_build(stack: torch.Tensor) -> torch.Tensor:
     """Fill a level stack in place: ``stack`` is (2W - 1, 32) with the W
     leaf digests in its first W rows; every level above is written behind
     them, the root last.  Levels wider than TAIL_CUTOVER come from K7, the
     rest from K8."""
-    _check_digests(stack, "stack")
-    w = (stack.shape[0] + 1) // 2
-    if not _pow2(w) or stack.shape[0] != 2 * w - 1:
-        raise ValueError(f"a level stack has 2W - 1 rows, got {stack.shape[0]}")
-    pos = 0
-    while w > TAIL_CUTOVER:
-        merkle_level(stack[pos : pos + w], stack[pos + w : pos + w + w // 2])
-        pos += w
-        w //= 2
-    if w > 1:
-        merkle_tail(stack[pos : pos + w], stack[pos + w :])
-    return stack
+    return forest_build(stack, 1)
+
+
+class Sponge:
+    """K9's state for B transcripts (lanes): ``state`` (B, 32) u8, the hash
+    state after each lane's full 32-byte chunks, and ``pending`` (B, 32)
+    u8 whose first ``q`` bytes are the tail after them (the same q for
+    every lane: the lanes absorb the same lengths).  Its launches go on the
+    tensors' device; on the CPU the plain version runs."""
+
+    def __init__(self, lanes: int, device):
+        self.state = torch.empty((lanes, 32), dtype=torch.uint8, device=device)
+        self.pending = torch.zeros((lanes, 32), dtype=torch.uint8, device=device)
+        self.q = 0
+        self._fresh = True
+
+    @property
+    def lanes(self) -> int:
+        return int(self.state.shape[0])
+
+    def absorb(self, data: torch.Tensor, copy: torch.Tensor | None = None,
+               alpha: torch.Tensor | None = None) -> None:
+        """Append ``data`` ((B, m) u8, row b to lane b); write the bytes
+        also into ``copy`` ((B, m) u8) and, with ``alpha`` ((B,) int32),
+        each lane's challenge mod p after them (the first 8 bytes of the
+        hash of every byte so far, a little-endian u64)."""
+        b, m = self.lanes, int(data.shape[1]) if data.dim() == 2 else -1
+        for t, name in ((data, "data"), (copy, "copy")):
+            if t is not None and (t.dtype != torch.uint8 or tuple(t.shape) != (b, m)
+                                  or t.device != self.state.device):
+                raise ValueError(f"{name} must be ({b}, m) u8 on {self.state.device}, "
+                                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+        if alpha is not None and (alpha.dtype != torch.int32 or tuple(alpha.shape) != (b,)
+                                  or alpha.device != self.state.device):
+            raise ValueError(f"alpha must be ({b},) int32 on {self.state.device}")
+        if self.state.device.type == "cpu":
+            state, pending, got = sponge_absorb_plain(self.state, self.pending, self.q,
+                                                      data, self._fresh)
+            self.state.copy_(state)
+            self.pending.copy_(pending)
+            if copy is not None:
+                copy.copy_(data)
+            if alpha is not None:
+                alpha.copy_(got)
+        else:
+            for t, name in ((data, "data"), (copy, "copy"), (alpha, "alpha")):
+                if t is not None:
+                    cuda.check_operand(t, name, t.dtype)
+            SPONGE.launch(
+                self.state.device, self.state.data_ptr(), self.pending.data_ptr(),
+                self.q, int(self._fresh), data.data_ptr(), m,
+                None if copy is None else copy.data_ptr(),
+                None if alpha is None else alpha.data_ptr(), b,
+            )
+        self.q = (self.q + m) % 32
+        self._fresh = False
 
 
 def level_offset(num_leaves: int, level: int) -> int:

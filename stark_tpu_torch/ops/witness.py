@@ -30,7 +30,7 @@ from stark_tpu_torch.ops.fieldops import P
 _SRC = "stark_tpu_torch/csrc/witness.cu"
 _I64 = ctypes.c_longlong
 FIB_EXPAND = cuda.Kernel(
-    "fib_expand", "stark_fib_expand", [cuda.ptr] * 2 + [cuda.i32] * 2 + [_I64],
+    "fib_expand", "stark_fib_expand", [cuda.ptr] * 2 + [cuda.i32] * 2 + [_I64, cuda.i32],
     source=_SRC, replaces="stark_tpu/models/fibonacci.py:58",
 )
 MDS_EXPAND = cuda.Kernel(
@@ -70,7 +70,7 @@ def fib_expand(seeds: torch.Tensor, nb: int, length: int) -> torch.Tensor:
     cuda.check_operand(seeds, "seeds")
     out = torch.empty((1, length), dtype=torch.int32, device=seeds.device)
     FIB_EXPAND.launch(seeds.device, seeds.data_ptr(), out.data_ptr(), nb,
-                      b.bit_length() - 1, length)
+                      b.bit_length() - 1, length, cuda.sm_count(seeds.device))
     return out
 
 

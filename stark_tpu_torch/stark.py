@@ -34,10 +34,12 @@ import torch
 from stark_tpu_torch.convert import witness_to_device
 from stark_tpu_torch.field import FiniteField
 from stark_tpu_torch.fri import Fri, _verify_paths_batch
-from stark_tpu_torch.merkle import MerkleTree
+from stark_tpu_torch.hashfn import Hash
+from stark_tpu_torch.merkle import Forest
 from stark_tpu_torch.models.air import Air, BatchOps, BoundaryConstraint, ScalarOps
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
+from stark_tpu_torch.ops import gather as G
 from stark_tpu_torch.ops import ntt as NTT
 from stark_tpu_torch.ops.fieldops import GENERATOR, P, primitive_nth_root
 from stark_tpu_torch.stream import (
@@ -215,17 +217,23 @@ class StarkProver:
         ]
 
     def _compose(self, trace_lde: torch.Tensor, alphas, betas) -> torch.Tensor:
-        """(c, N) int32 LDE -> (N,) int32 composition codeword (elementwise
-        int64 torch ops; stark_tpu/stark.py:_compose_impl)."""
+        """(c, N) int32 LDE -> (N,) int32 composition codeword, or B proofs
+        at once: (B, c, N) -> (B, N) (elementwise int64 torch ops;
+        stark_tpu/stark.py:_compose_impl, which stark_tpu/batch.py vmaps).
+        ``alphas[k]``, ``betas[k]``: term k's weights, host ints for one
+        proof, (B, 1) int64 tensors for B."""
         d = self.dom
         lde = trace_lde.long()
-        # ONE roll of the whole (c, N) tensor per frame offset.
+        # ONE roll of the whole LDE per frame offset; the registers are
+        # its rows (dimension -2).
         frame = {
-            k: list(lde if k == 0 else torch.roll(lde, -k * self.cfg.blowup, -1))
+            k: list((lde if k == 0 else torch.roll(lde, -k * self.cfg.blowup, -1))
+                    .unbind(-2))
             for k in self.air.frame_offsets
         }
         cons = self.air.transition_constraints(frame, BatchOps)
-        total = torch.zeros(d.N, dtype=torch.int64, device=self.device)
+        total = torch.zeros(lde.shape[:-2] + (d.N,), dtype=torch.int64,
+                            device=lde.device)
         ci = 0
         for c in cons:
             q = F.mulmod(F.mulmod(c, self.excl), self.zinv)
@@ -272,57 +280,86 @@ class StarkProver:
         models.examples.mds_square_trace_cols_device: the witness never
         crosses from the host), or numpy columns, uploaded once
         (stark_tpu/stark.py:364-387)."""
+        with timer.phase("lde"):
+            cols = self._witness(trace_rows, trace_cols)
+        return self._prove_columns(cols[None], timer)[0]
+
+    def _prove_columns(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
+        """B proofs of (B, c, T) int32 witness columns on the prover's device,
+        each byte-identical to its own prove (stark_tpu/stark.py:364-568;
+        for B > 1 stark_tpu/batch.py:_prove_batch_classic, :941-1149).
+        Three reads from the card for the batch: the B trace roots, the
+        FRI chain's one fetch, the query phase's one gather."""
         d, cfg = self.dom, self.cfg
         field = FiniteField()
-        fs = FiatShamir()
-        stream = ProofStream()
+        b = int(cols.shape[0])
+        fss = [FiatShamir() for _ in range(b)]
+        streams = [ProofStream() for _ in range(b)]
 
         # 1. trace columns -> coefficients -> LDE on the coset  [device]
         with timer.phase("lde"):
-            cols = self._witness(trace_rows, trace_cols)
+            c, t = cols.shape[1:]
             trace_lde = NTT.lde(
-                NTT.intt(cols, self.lazy_ntt), cfg.blowup, d.offset, self.lazy_ntt
-            )  # (c, N)
+                NTT.intt(cols.reshape(b * c, t), self.lazy_ntt), cfg.blowup,
+                d.offset, self.lazy_ntt,
+            ).reshape(b, c, d.N)
 
-        # 2. commit the trace: row digests and every tree level  [device]
+        # 2. commit the traces: row digests and every level of the B trees
+        # (one forest), then the B roots in one read  [device]
         with timer.phase("trace_commit"):
-            trace_tree = MerkleTree.from_rows(trace_lde)
-            root = trace_tree.root  # one 32-byte read from the device
-            stream.push(MerkleRoot(root))
-            fs.absorb(root.data)
+            trace_forest = Forest.from_rows(trace_lde)
+            roots = G.to_host(trace_forest.roots_dev().view(torch.int32))
+            for j in range(b):
+                root = Hash(roots[j].tobytes())
+                streams[j].push(MerkleRoot(root))
+                fss[j].absorb(root.data)
 
-        # 3. constraint-combination challenges (host transcript)
+        # 3. constraint-combination challenges (host transcripts)
         with timer.phase("challenges"):
             n_terms = d.num_transition + len(d.boundary)
-            alphas, betas = _draw_constraint_challenges(fs, field, n_terms)
+            drawn = [_draw_constraint_challenges(fs, field, n_terms) for fs in fss]
+            if b == 1:
+                alphas, betas = drawn[0]
+            else:
+                # (B, 2, terms) -> per term a (B, 1) column of each
+                ab = torch.tensor(drawn, dtype=torch.int64).to(self.device)
+                alphas, betas = ab[:, 0, :, None].unbind(1), ab[:, 1, :, None].unbind(1)
 
-        # 4. composition codeword  [device]
+        # 4. composition codewords  [device]
         with timer.phase("compose"):
-            composition = self._compose(trace_lde, alphas, betas)
+            composition = self._compose(trace_lde if b > 1 else trace_lde[0],
+                                        alphas, betas)
 
         # 5. FRI, with the trace openings (step 6) riding the query phase's
         # one gather and one fetch (stark_tpu/stark.py:446-548).
-        def _open_dispatch(top_indices, plan):
+        offs = np.asarray([k * cfg.blowup for k in self.air.frame_offsets])
+        half = d.N // 2
+
+        def _open_dispatch(indices, plan):
             """The openings: per FRI round-0 query point (a, a + half) of
-            each sampled index, each frame offset's row."""
-            half = d.N // 2
-            a = np.asarray(top_indices, dtype=np.int64) % half
-            qp = np.stack([a, a + half], axis=1).reshape(-1, 1)
-            offs = np.asarray([k * cfg.blowup for k in self.air.frame_offsets])
-            cols_idx = ((qp + offs[None, :]) % d.N).reshape(-1)
-            return (plan.values(trace_lde, cols_idx),
-                    plan.paths(trace_tree._stack, cols_idx))
+            each sampled index, each frame offset's row; per proof its
+            values, and every proof's paths in one request."""
+            a = np.asarray(indices, dtype=np.int64).reshape(b, -1) % half
+            qp = np.stack([a, a + half], axis=2).reshape(b, -1, 1)
+            cols_idx = ((qp + offs[None, None, :]) % d.N).reshape(b, -1)
+            return ([plan.values(trace_lde[j], cols_idx[j]) for j in range(b)],
+                    plan.paths(trace_forest.stack, trace_forest.global_index(cols_idx),
+                               trace_forest.depth))
 
         def _open_emit(slots, fetched):
             """Per opening its values, then its path (raw wire segments)."""
-            vals, sib = (s.take(fetched) for s in slots)
-            stream.push_raw(np.concatenate(
-                [wire_field_elements(vals), wire_merkle_paths(sib)], axis=1
-            ).tobytes())
+            vals, sib = slots
+            sib = sib.take(fetched)
+            sib = sib.reshape((b, -1) + sib.shape[1:])
+            for j in range(b):
+                streams[j].push_raw(np.concatenate(
+                    [wire_field_elements(vals[j].take(fetched)),
+                     wire_merkle_paths(sib[j])], axis=1,
+                ).tobytes())
 
-        self.fri.prove(composition, fs, stream, timer=timer,
-                       extra_dispatch=_open_dispatch, extra_emit=_open_emit)
-        return stream.serialize()
+        self.fri.prove_batch(composition.reshape(b, d.N), fss, streams, timer=timer,
+                             extra_dispatch=_open_dispatch, extra_emit=_open_emit)
+        return [stream.serialize() for stream in streams]
 
 
 class StarkVerifier:

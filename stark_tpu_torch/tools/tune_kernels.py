@@ -28,7 +28,9 @@ Prints, in this order:
   ``x3.transpose(1, 2).contiguous()`` on the same operands, each twice.
 
 (K8's subtree size, ``hash_batch.tail_sub_lg``, and ``TAIL_CUTOVER`` have
-their sweeps in chip_smoke.py.)
+their sweeps in chip_smoke.py.)  ``fib_expand_before`` builds K12
+``fib_expand`` as it was before its redesign (one thread an element, three
+Montgomery products), which chip_smoke.py times beside the kernel in use.
 
 Times are device time per call (``device_us``); every call takes the next
 of several sets of buffers, at least 128 MiB apart, so the operands come
@@ -102,6 +104,47 @@ extern "C" int floor_launch(int blocks, int threads, int smem, void* stream) {
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   floor_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
+}
+"""
+
+
+# K12 fib_expand before its redesign: one thread an element, the grid
+# capped at 4,096 x 256 threads, three Montgomery products an element.
+FIB_EXPAND_BEFORE_SOURCE = """
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+using stark::add_mod;
+using stark::kP;
+using stark::mont_mul;
+constexpr uint64_t kR1 = (1ull << 32) % kP;
+constexpr uint32_t kR2 = static_cast<uint32_t>(kR1 * kR1 % kP);
+extern "C" {
+__global__ void fib_expand_before_kernel(const uint32_t* __restrict__ seeds,
+                                         uint32_t* __restrict__ out, int nb,
+                                         int lg_b, long long length) {
+  const uint32_t* s0 = seeds;
+  const uint32_t* s1 = seeds + nb;
+  const uint32_t* u0 = seeds + 2 * nb;
+  const uint32_t* u1 = u0 + (1 << lg_b);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < length; i += stride) {
+    const long long k = i >> lg_b;
+    const int j = (int)(i & ((1 << lg_b) - 1));
+    out[i] = mont_mul(add_mod(mont_mul(s1[k], u1[j]), mont_mul(s0[k], u0[j])),
+                      kR2);
+  }
+}
+int fib_expand_before(const void* seeds, void* out, int nb, int lg_b,
+                      long long length, void* stream) {
+  long long blocks = (length + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  fib_expand_before_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(out), nb,
+      lg_b, length);
+  return (int)cudaGetLastError();
+}
 }
 """
 
@@ -238,6 +281,25 @@ def parts_library() -> ctypes.CDLL:
     lib.stark_set_mode.argtypes = [ctypes.c_int]
     lib.stark_set_mode.restype = None
     return lib
+
+
+def fib_expand_before():
+    """A call ``(seeds, nb, length) -> (1, length) int32`` of K12
+    fib_expand as it was before its redesign, built here (not part of the
+    port): the yardstick of the redesign."""
+    fn = build_temporary(FIB_EXPAND_BEFORE_SOURCE, "fib_before").fib_expand_before
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_longlong,
+                                                                 ctypes.c_void_p]
+
+    def call(seeds, nb, length):
+        out = torch.empty((1, length), dtype=torch.int32, device=seeds.device)
+        lg_b = ((seeds.shape[0] - 2 * nb) // 2).bit_length() - 1
+        if fn(seeds.data_ptr(), out.data_ptr(), nb, lg_b, length,
+              torch.cuda.current_stream(seeds.device).cuda_stream) != 0:
+            raise RuntimeError("fib_expand_before failed")
+        return out
+
+    return call
 
 
 def tune_floor(dev) -> None:

@@ -5,7 +5,11 @@ versions of kernels K5-K8 (ops/hash_batch: row hash, level, subtree level
 stack; K8's decomposition into subtrees and a top, and its chained
 diffusion sum) against stark_tpu's numpy leaf / row / combine cores, the numpy
 scalar hash and the C engine; tree levels, roots and authentication paths
-against stark_tpu.merkle.MerkleTree at widths 2^4..2^12.  The port keeps digests node-major (N, 32)
+against stark_tpu.merkle.MerkleTree at widths 2^4..2^12; forests (B trees
+side by side: K8-forest's plain version and the paths K13 reads from a
+forest's stack) against stark_tpu.batch.BatchedTrees; the sponge of the
+device commit chain (K9's plain version) against stark_tpu's sponge_*
+functions and transcript_state_core.  The port keeps digests node-major (N, 32)
 and stark_tpu byte-major (32, N), so stark_tpu's side is transposed.
 Tolerance zero: bytes must match.  On a card only (marker ``gpu``): each
 kernel against its plain version.
@@ -18,6 +22,7 @@ import torch
 from stark_tpu_torch import hashfn, native
 from stark_tpu_torch.hashfn import Hash as THash
 from stark_tpu_torch.hashfn import ROUND_CONSTANTS, hash_bytes, hash_bytes_np
+from stark_tpu_torch.merkle import Forest as TForest
 from stark_tpu_torch.merkle import MerkleTree as TTree
 from stark_tpu_torch.ops import hash_batch as THB
 from stark_tpu_torch.ops import cuda
@@ -393,3 +398,193 @@ def test_tree_on_card_matches_host_engine(cuda_device):
     assert card.root == host.root
     idx = [0, n - 1, 12345, n // 2]
     assert card.open_batch(idx) == host.open_batch(idx)
+
+
+# -- K9: the sponge of the device commit chain --------------------------------
+
+
+@pytest.mark.parametrize("q", range(32))
+def test_sponge_plain_matches_stark_tpu(jHB, q):
+    # A q-byte pending tail after a prefix of 0, 1 or 2 full chunks: every
+    # regime for B = 3 lanes, one a case for B = 1 (each regime in turn);
+    # then a 32-byte root absorbed and the challenge drawn (the per-round
+    # step), against stark_tpu's sponge_from_bytes, sponge_absorb,
+    # sponge_state and state_alpha.  The digest of the whole bytes equals
+    # the host hash's, and transcript_state_core's in one regime a case.
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(100 + q)
+    for b, full in [(3, 0), (3, 1), (3, 2), (1, q % 3)]:
+        prefix = rng.integers(0, 256, size=(b, 32 * full + q), dtype=np.uint8)
+        root = rng.integers(0, 256, size=(b, 32), dtype=np.uint8)
+        sp = THB.Sponge(b, "cpu")
+        sp.absorb(torch.from_numpy(prefix))
+        j_state, j_pending = jHB.sponge_from_bytes(jnp.asarray(prefix.T))
+        assert sp.q == q == j_pending.shape[0]
+        np.testing.assert_array_equal(sp.state.numpy(), np.asarray(j_state).T)
+        np.testing.assert_array_equal(sp.pending[:, :q].numpy(), np.asarray(j_pending).T)
+
+        alpha, copy = torch.empty(b, dtype=torch.int32), torch.empty((b, 32), dtype=torch.uint8)
+        sp.absorb(torch.from_numpy(root), copy, alpha)
+        j_state, j_pending = jHB.sponge_absorb(j_state, j_pending, jnp.asarray(root.T))
+        j_final = jHB.sponge_state(j_state, j_pending)
+        digest = THB.sponge_state_plain(sp.state, sp.pending, sp.q).numpy()
+        np.testing.assert_array_equal(sp.state.numpy(), np.asarray(j_state).T)
+        np.testing.assert_array_equal(digest, np.asarray(j_final).T)
+        np.testing.assert_array_equal(alpha.numpy(), np.asarray(jHB.state_alpha(j_final)))
+        np.testing.assert_array_equal(copy.numpy(), root)
+        whole = np.concatenate([prefix, root], axis=1)
+        for lane in range(b):
+            assert digest[lane].tobytes() == hash_bytes(whole[lane].tobytes())
+        if b == 3 and full == q % 3:
+            core = jHB.transcript_state_core(jnp.asarray(whole), rolled=True)
+            np.testing.assert_array_equal(
+                digest, np.stack([np.asarray(r) for r in core], axis=1))
+
+
+def test_sponge_challenge_is_the_transcripts():
+    # The challenge the sponge draws is the host transcript's, reduced.
+    from stark_tpu_torch.field import FiniteField
+    from stark_tpu_torch.transcript import FiatShamir
+
+    rng = np.random.default_rng(7)
+    fs, sp = FiatShamir(), THB.Sponge(1, "cpu")
+    prefix = rng.integers(0, 256, size=(1, 80), dtype=np.uint8)
+    fs.absorb(prefix.tobytes())
+    sp.absorb(torch.from_numpy(prefix))
+    for _ in range(5):
+        root = rng.integers(0, 256, size=(1, 32), dtype=np.uint8)
+        alpha = torch.empty(1, dtype=torch.int32)
+        sp.absorb(torch.from_numpy(root), alpha=alpha)
+        fs.absorb(root.tobytes())
+        assert int(alpha) == fs.challenge(FiniteField()).value % 998244353
+
+
+def test_sponge_rejects_bad_operands():
+    sp = THB.Sponge(2, "cpu")
+    with pytest.raises(ValueError):
+        sp.absorb(torch.zeros((3, 32), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        sp.absorb(torch.zeros((2, 32), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        sp.absorb(torch.zeros((2, 32), dtype=torch.uint8),
+                  alpha=torch.zeros(2, dtype=torch.int64))
+
+
+# -- K8 for forests -----------------------------------------------------------
+
+
+def _j_level_digests(rows) -> np.ndarray:
+    """A stark_tpu forest level (32 arrays, proof-major lanes) -> (B w, 32)."""
+    return np.stack([np.asarray(r).reshape(-1) for r in rows], axis=1)
+
+
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("n", [2, 16, 256])
+@pytest.mark.parametrize("kind", ["values", "rows"])
+def test_forest_matches_stark_tpu_batched_trees(kind, n, b):
+    # Every level of the forest's stack and the paths K13 reads from it
+    # (gather_plain over GatherPlan.paths with the forest's depth) against
+    # stark_tpu's BatchedTrees levels and open_batch_dev.
+    import jax.numpy as jnp
+
+    from stark_tpu.batch import BatchedTrees
+    from stark_tpu_torch.ops import gather as G
+
+    rng = np.random.default_rng(n * 10 + b)
+    if kind == "values":
+        vals = rand_field(rng, (b, n))
+        ours = TForest.from_values(to_torch(vals))
+        ref = BatchedTrees.from_values(vals, b, n)
+    else:
+        vals = rand_field(rng, (b, 3, n))
+        ours = TForest.from_rows(to_torch(vals))
+        ref = BatchedTrees.from_rows(vals, b, 3, n)
+    assert (ours.B, ours.n, ours.depth) == (b, n, n.bit_length() - 1)
+    want = np.concatenate([_j_level_digests(rows) for rows, _ in ref.levels])
+    np.testing.assert_array_equal(ours.stack.numpy(), want)
+    np.testing.assert_array_equal(ours.roots_dev().numpy(),
+                                  np.asarray(ref.root_bytes_dev()))
+
+    idx = rng.integers(0, n, size=(b, 5)).astype(np.int32)
+    plan = G.GatherPlan()
+    slot = plan.paths(ours.stack, ours.global_index(idx).reshape(-1), ours.depth)
+    got = slot.take(G.gather_plain(plan).numpy().view(np.uint32))
+    ref_paths = np.asarray(ref.open_batch_dev(jnp.asarray(idx)))  # (depth, B, k, 32)
+    np.testing.assert_array_equal(got.reshape(b, 5, ours.depth, 32),
+                                  ref_paths.transpose(1, 2, 0, 3))
+
+
+@pytest.mark.parametrize("b,lg_n", [(2, 1), (3, 4), (4, 10), (2, 11), (8, 12)])
+def test_forest_tail_is_each_trees_tail(b, lg_n):
+    # forest_tail_plain against the trees one at a time, and each tree of
+    # the forest against its own MerkleTree; its launch decomposition.
+    n = 1 << lg_n
+    leaves = torch.from_numpy(np.random.default_rng(lg_n).integers(
+        0, 256, size=(b * n, 32), dtype=np.uint8))
+    forest = TForest(torch.cat([leaves, THB.merkle_forest(leaves, b)]), b)
+    for t in range(b):
+        tree = TTree.from_leaf_digests(leaves[t * n : (t + 1) * n])
+        assert torch.equal(forest.tree(t)._stack, tree._stack)
+    launches = list(THB.tail_launches((b * n).bit_length() - 1, None, lg_n))
+    assert sum(sub + top for sub, top in launches) == lg_n
+    assert all(1 <= sub <= THB.TAIL_MAX_LG and top <= THB.TAIL_MAX_LG
+               for sub, top in launches)
+
+
+def test_forest_build_uses_the_level_kernel_above_the_cutover(monkeypatch):
+    # Wide levels go to K7 (pairs never cross a tree's edge), the rest to
+    # K8-forest: the stack equals the trees built one by one.
+    monkeypatch.setattr(THB, "TAIL_CUTOVER", 8)
+    b, n = 4, 64
+    vals = to_torch(rand_field(np.random.default_rng(3), (b, n)))
+    forest = TForest.from_values(vals)
+    for t in range(b):
+        assert torch.equal(forest.tree(t)._stack,
+                           TTree.from_leaf_values(vals[t])._stack)
+
+
+def test_forest_wrappers_reject_bad_operands():
+    good = torch.zeros((8, 32), dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        THB.merkle_forest(good, 3)          # 8 leaves are not 3 trees
+    with pytest.raises(ValueError):
+        THB.merkle_forest(torch.zeros((12, 32), dtype=torch.uint8), 2)  # width 6
+    with pytest.raises(ValueError):
+        THB.forest_build(torch.zeros((15, 32), dtype=torch.uint8), 2)   # 2W - B rows
+    with pytest.raises(ValueError):
+        THB.merkle_forest(torch.zeros((8, 32), dtype=torch.uint8, device="meta"), 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 32])
+@pytest.mark.parametrize("lg_n", [1, 4, 9, 10, 11, 14, 16])
+def test_forest_kernel_matches_plain_on_card(cuda_device, b, lg_n):
+    n = 1 << lg_n
+    leaves = torch.from_numpy(np.random.default_rng(lg_n).integers(
+        0, 256, size=(b * n, 32), dtype=np.uint8)).to(cuda_device)
+    want = THB.forest_tail_plain(leaves.cpu(), b)
+    before = cuda.launch_counts()["merkle_forest"]
+    for _ in range(2):  # the tickets are left at zero
+        assert torch.equal(THB.merkle_forest(leaves, b).cpu(), want)
+    assert cuda.launch_counts()["merkle_forest"] > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("length", [0, 1, 31, 32, 80, 95])
+def test_sponge_kernel_matches_plain_on_card(cuda_device, b, length):
+    rng = np.random.default_rng(b * 100 + length)
+    prefix = torch.from_numpy(rng.integers(0, 256, size=(b, length), dtype=np.uint8))
+    card, plain = THB.Sponge(b, cuda_device), THB.Sponge(b, "cpu")
+    card.absorb(prefix.to(cuda_device))
+    plain.absorb(prefix)
+    for _ in range(3):
+        root = torch.from_numpy(rng.integers(0, 256, size=(b, 32), dtype=np.uint8))
+        a = torch.empty(b, dtype=torch.int32, device=cuda_device)
+        c = torch.empty((b, 32), dtype=torch.uint8, device=cuda_device)
+        want = torch.empty(b, dtype=torch.int32)
+        card.absorb(root.to(cuda_device), c, a)
+        plain.absorb(root, alpha=want)
+        assert torch.equal(a.cpu(), want) and torch.equal(c.cpu(), root)
+        assert torch.equal(card.state.cpu(), plain.state)

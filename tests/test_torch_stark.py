@@ -132,7 +132,8 @@ def test_card_proof_bytes(cuda_device, T, tests, want, lazy):
     proof = prover.prove(fibonacci_trace_mod_p(T))
     counts = cuda.launch_counts()
     passes = ("ntt_pass1_lazy", "ntt_pass2_lazy") if lazy else ("ntt_pass1", "ntt_pass2")
-    launched = {"ntt_transpose", "fri_fold", "hash_rows", "merkle_tail", *passes}
+    launched = {"ntt_transpose", "fri_fold_dyn", "sponge_absorb", "hash_rows", "merkle_tail",
+                *passes}
     assert all(counts[k] > 0 for k in launched)
     assert hashlib.sha256(proof).hexdigest() == want
     assert _verify(cfg, proof)

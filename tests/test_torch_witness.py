@@ -158,6 +158,47 @@ def test_lane_model_constants_are_the_kernels():
     assert _mont_mul(1, K_R80) == pow(2, 48, P)
 
 
+def _fib_thread_model(seeds: np.ndarray, nb: int, length: int) -> np.ndarray:
+    """fib_expand as the kernel's threads compute it (csrc/witness.cu): a
+    thread owns 8 columns j of the block (every column alone where the
+    block is narrower than 8), puts u0[j], u1[j] into Montgomery form once
+    (mont_mul(u, 2^64 mod p) = u 2^32 mod p), and for each row k writes
+    mont_mul(s1[k], that of u1) + mont_mul(s0[k], that of u0) mod p, the
+    row's elements past ``length`` not written."""
+    b = (len(seeds) - 2 * nb) // 2
+    s0, s1 = [int(v) for v in seeds[:nb]], [int(v) for v in seeds[nb : 2 * nb]]
+    u0 = [int(v) for v in seeds[2 * nb : 2 * nb + b]]
+    u1 = [int(v) for v in seeds[2 * nb + b :]]
+    cols = 8 if b >= 8 else 1
+    out = np.zeros(nb * b, dtype=np.uint32)
+    for j0 in range(0, b, cols):
+        m0 = [_mont_mul(u0[j0 + c], K_R2) for c in range(cols)]
+        m1 = [_mont_mul(u1[j0 + c], K_R2) for c in range(cols)]
+        for k in range(nb):
+            for c in range(cols):
+                v = _mont_mul(s1[k], m1[c]) + _mont_mul(s0[k], m0[c])
+                out[k * b + j0 + c] = _min_wrapped(v, P)
+    return out[:length]
+
+
+@pytest.mark.parametrize("T", FIB_LENGTHS + [8, 64, 100, 4096])
+def test_fib_thread_model_equals_stark_tpu_block_fn(T):
+    """Random seeds, 0 and p - 1 among them, through the kernel's
+    arithmetic with u pre-scaled into Montgomery form, stark_tpu's block
+    function and the plain version."""
+    from stark_tpu.models.fibonacci import _fib_block_fn
+
+    _, nb = fibonacci_seeds(T)
+    b = 1 << max(0, (T.bit_length() - 1) // 2)
+    rng = np.random.default_rng(T + 1)
+    parts = [rand_field(rng, nb), rand_field(rng, nb), rand_field(rng, b), rand_field(rng, b)]
+    seeds = np.concatenate(parts)
+    want = np.asarray(_fib_block_fn(T)(*parts)).reshape(-1)
+    np.testing.assert_array_equal(_fib_thread_model(seeds, nb, T), want)
+    np.testing.assert_array_equal(
+        to_numpy(W.fib_expand_plain(to_torch(seeds), nb, T)).reshape(-1), want)
+
+
 _field = st.one_of(st.sampled_from([0, 1, P - 1]), st.integers(0, P - 1))
 
 
