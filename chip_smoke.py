@@ -7,9 +7,12 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
 
  1. the card's name and power limit, as nvidia-smi reports them;
  2. build the CUDA kernels from csrc/ (nvcc, into
-    stark_tpu_torch/_build/); nvcc's version (K13 carries its plan in up to
-    32 KB of launch parameters, which CUDA 12.1 and later allow); the
-    registers ptxas gives K12 and K13; the instruction mix of the hash
+    stark_tpu_torch/_build/) and, side by side, the composition kernel K11
+    of every AIR driven below, generated from the AIR (ops/compose.py):
+    each generated source's sha256 and its nvcc time; nvcc's version (K13
+    and K11 carry their plans and weights in up to 32 KB of launch
+    parameters, which CUDA 12.1 and later allow); the registers ptxas
+    gives K12, K13, K9 and each AIR's K11; the instruction mix of the hash
     kernels as compiled, where cuobjdump is installed;
  3. every kernel against its plain PyTorch version on the card, bit-equal,
     at every shape the driven paths give it:
@@ -50,7 +53,17 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       {8, 32}, each call twice, and the batch paths' first and last FRI
       forests against their trees built on the host;
     - the Fiat-Shamir sponge (K9) for B in {1, 8, 32} lanes at every
-      pending length 0 .. 31, two roots absorbed and challenges drawn;
+      pending length 0 .. 31, two roots absorbed and challenges drawn; its
+      design before the redesign (built here from tools/tune_kernels.py)
+      against the plain version, then the two timed in turn, and the
+      latency bound (an empty launch and the 10 mixes of one thread);
+    - the composition codeword (K11) against the eager compose, bit-equal,
+      each call twice, at every AIR and shape the paths and pins use:
+      Fibonacci T=2^20 and MDS T=2^16 at B = 1, the batched cells' (8, .,
+      2^16) and (32, ., 2^16), the example AIRs at T=1024 (and Fibonacci
+      at 64 and 2^16, MDS at 4096), the 65-register AIR at T=64; timed
+      with its bound and the eager version's device time at the first
+      three;
     - the device witnesses (K12): fib_expand at every length the paths and
       the pinned proofs use and at lengths that cut the last block,
       mds_expand at (T, block) up to (2^16, 64) and (2^16, 1) and at blocks
@@ -68,12 +81,13 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     proved from columns made on the card (fibonacci_trace_cols_device, as
     bench.py proves it): witness -> StarkProver.prove(trace_cols=...) ->
     StarkVerifier.verify with the launch counts set to 0 just before and
-    read just after (every kernel of the path > 0, the query gather
-    exactly once), K13 against its plain version on that prove's plan,
+    read just after (every kernel of the path > 0, the query gather and
+    the composition kernel exactly once, the eager compose never), K13 against its plain version on that prove's plan,
     the pinned sha256, which a prove from host rows must give too; the
     witness + prove and verify wall-time distributions, with Python's full
     garbage collections (gc.callbacks) that fell inside a prove; the
-    synchronised per-phase times (median of 5 proves); the device-to-host
+    synchronised per-phase times (median of 5 proves; a compose phase
+    among them); the device-to-host
     copies of one prove's fri_query phase from the profiler's memcpy
     events (exactly one in fri_commit, the device chain's fetch, and one
     in fri_query); the host time of fri_query's parts (plan build,
@@ -95,7 +109,7 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     16 device-witness traces at B=8): every proof's sha256 equal to the
     single prove's, verify_batch accepting them and rejecting a flipped
     byte, proofs/s over 20 calls, the device-to-host copies of a call (3 a
-    batch), the launches of a call, a profiled call.
+    batch), the launches of a call (K11 once a batch), a profiled call.
 
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -114,6 +128,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -167,6 +182,15 @@ BATCH_CELLS = (("batch8", "fib", 8, 0, 2), ("pipe32x2", "fib", 32, 64, 2),
 BATCHES = (8, 32)
 BATCH_HALVES = tuple(1 << lg for lg in range(15, 6, -1))
 SPONGE_LANES = (1, 8, 32)
+# K11 against its plain version at every (model, T, blowup, B) the driven
+# paths and the pinned proofs give it; the first three also timed.
+COMPOSE_CASES = (("fib", MAIN_T, 4, 1), ("mds", MDS_T, 4, 1), ("fib", BATCH_T, 4, 8),
+                 ("fib", BATCH_T, 4, 32), ("mds", BATCH_T, 4, 8), ("fib", 64, 4, 1),
+                 ("fib", 1024, 4, 1), ("fib", 1 << 16, 4, 1), ("fib2", 1024, 4, 1),
+                 ("square", 1024, 4, 1), ("cube", 1024, 8, 1), ("mds", 1024, 4, 1),
+                 ("mds", 4096, 4, 1), ("wide", 64, 4, 1))
+COMPOSE_TIMED = 3
+WIDE_REGISTERS = 65  # tests/test_torch_wide.py's AIR
 HASH_WIDTHS = (2, 3, 5, 8)
 HASH_LANES = (2, 1024, 1 << 18, 1 << 20)
 LEAF_LANES = tuple(1 << lg for lg in range(1, 23))
@@ -881,6 +905,130 @@ def _check_sponge(rng, dev, results: _Results) -> None:
           + "; ".join(f"B={b} " + _line(e) for b, e in timed.items())
           + ", device time per call (a chain of ~10 mixes: latency)", flush=True)
 
+    # The design before the redesign, built beside it (tools/tune_kernels.py),
+    # held against the plain version, then the two in turn (before, after,
+    # after, before) and the before's empty launch: the latency bound is
+    # that launch plus the 10 mixes of one thread, a warp's integer-pipe
+    # instruction every 2 clocks at the clock the card reports.
+    from stark_tpu_torch.tools.tune_kernels import sponge_before
+
+    before = sponge_before()
+    for b in SPONGE_LANES:
+        for tail in (0, 1, 16, 31):
+            old_sp, plain = HB.Sponge(b, dev), HB.Sponge(b, "cpu")
+            prefix = data(b, 64 + tail)
+            before(old_sp, prefix.to(dev))
+            plain.absorb(prefix)
+            root = data(b, 32)
+            alpha = torch.empty(b, dtype=torch.int32, device=dev)
+            want = torch.empty(b, dtype=torch.int32)
+            before(old_sp, root.to(dev), None, alpha)
+            plain.absorb(root, alpha=want)
+            _require_equal(f"sponge before B={b} q={tail}", alpha.cpu(), want)
+    clock = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    turns = {}
+    for b in SPONGE_LANES:
+        sp = HB.Sponge(b, dev)
+        sp.absorb(data(b, 64 + q).to(dev))
+        root = data(b, 32).to(dev)
+        copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+        alpha = torch.empty(b, dtype=torch.int32, device=dev)
+        calls = (lambda: before(sp, root, copy, alpha), lambda: sp.absorb(root, copy, alpha))
+        turns[b] = [_device_ms(calls[i], 50) * 1e3 for i in (0, 1, 1, 0)]
+        turns[b].append(_device_ms(lambda: before(sp, root, copy, alpha, 2), 50) * 1e3)
+    latency = {b: t[4] + 10 * OPS_MIX * 2 / (clock * 1e6) * 1e6 for b, t in turns.items()}
+    timed[1]["latency_bound_ms"] = latency[1] / 1e3
+    print("sponge: the design before == plain (B in "
+          f"{list(SPONGE_LANES)}, q in 0, 1, 16, 31); a root after a {q}-byte tail, us "
+          "per call in turn (before, after, after, before; then the before's empty "
+          f"launch): {json.dumps({b: [round(x, 3) for x in t] for b, t in turns.items()})}"
+          f"; latency bound (that launch + 10 mixes of {OPS_MIX} integer-pipe "
+          f"instructions at 2 clocks each, {clock} MHz) us "
+          f"{json.dumps({b: round(x, 3) for b, x in latency.items()})}", flush=True)
+
+
+def _air(model: str):
+    """An AIR by name: the registry's, or "wide", the 65-register AIR of
+    tests/test_torch_wide.py (register i counts up by i + 1 a row from i)."""
+    from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.models.air import Air, BoundaryConstraint
+
+    if model != "wide":
+        return get_model(model)[0]
+
+    class WideCounterAir(Air):
+        num_registers = WIDE_REGISTERS
+        frame_offsets = (0, 1)
+        constraint_degree = 1
+
+        def transition_constraints(self, frame, ops):
+            return [ops.sub(ops.sub(frame[1][i], frame[0][i]), ops.const(i + 1, frame[0][i]))
+                    for i in range(WIDE_REGISTERS)]
+
+        def boundary_constraints(self, trace_length):
+            return [BoundaryConstraint(row=0, register=i, value=i)
+                    for i in range(WIDE_REGISTERS)]
+
+    return WideCounterAir()
+
+
+def _compose_programs() -> dict:
+    """{model: ComposeProgram} of every AIR that COMPOSE_CASES drives."""
+    from stark_tpu_torch.ops import compose as CO
+    from stark_tpu_torch.stark import StarkConfig, _Domain
+
+    programs = {}
+    for model, T, blowup, _ in COMPOSE_CASES:
+        air = _air(model)
+        d = _Domain(StarkConfig(trace_length=T, blowup=blowup), air)
+        prog = CO.ComposeProgram(air, d.boundary)
+        programs.setdefault(prog.sha256, (model, prog))
+    return dict(programs.values())
+
+
+def _check_compose(rng, dev, results: _Results) -> None:
+    """K11 against its plain version (the eager compose on the card) at
+    every case of COMPOSE_CASES, each call twice; the first cases timed,
+    with the L2 flushed before each call, against their bound: one read
+    of the LDE rows the AIR reads and of each table, one write, or the
+    generated body's operations."""
+    from stark_tpu_torch import StarkConfig, StarkProver
+    from stark_tpu_torch.ops import compose as CO
+
+    flush = _L2Flush(dev)
+    timed = []
+    for case, (model, T, blowup, b) in enumerate(COMPOSE_CASES):
+        air = _air(model)
+        prover = StarkProver(air, StarkConfig(trace_length=T, blowup=blowup))
+        prog, tables, n = prover.program, prover.tables, prover.dom.N
+        lde = _rand_field(rng, dev, (b, air.num_registers, n))
+        al = rng.integers(0, 998244353, size=(b, prog.terms))
+        be = rng.integers(0, 998244353, size=(b, prog.terms))
+        args = (lde[0], al[0], be[0]) if b == 1 else (lde, al, be)
+
+        def plain(x, a, w, prog=prog, tables=tables, blowup=blowup):
+            return CO.compose_plain(prog, x, tables, a, w, blowup)
+
+        want = plain(*args)
+        for turn in (1, 2):
+            _require_equal(f"compose {model} T={T} B={b} call {turn}",
+                           prover._compose(*args), want)
+        if case < COMPOSE_TIMED:
+            shape = f"{model} T=2^{T.bit_length() - 1}, (B, c, N) = ({b}, {air.num_registers}, 2^{n.bit_length() - 1})"
+            entry = (results if case == 0 else _Results()).add(
+                CO.COMPOSE, shape, [args], prover._compose, plain, 50,
+                nbytes=4 * n * (b * prog.registers_read() + prog.table_loads() + b),
+                ops=b * n * prog.operations(), flush=flush)
+            entry["operations_per_point"] = prog.operations()
+            timed.append(entry)
+        del prover, lde, want
+    print(f"compose: kernel == plain (the eager compose on the card), each call twice, at "
+          f"(model, T, blowup, B) {[c for c in COMPOSE_CASES]}; L2 flushed before each "
+          "timed call: " + "; ".join(f"{e['shape']}: " + _line(e) for e in timed)
+          + ", device time per call", flush=True)
+
 
 class _L2Flush:
     """Overwrites 128 MiB, more than twice the card's 50 MB L2, so that the
@@ -1141,12 +1289,23 @@ def _prove_checked(name, prover, verifier, witness, want_sha, expect, cuda):
     launched every kernel in ``expect`` and the query gather once.  K13 is
     then held against its plain version on the prove's plan.  Returns
     (proof, counts, plan)."""
+    from stark_tpu_torch.ops import compose as CO
+
     plans: list = []
-    cuda.reset_launches()
-    with _recording_gathers(plans):
-        proof = prover.prove(trace_cols=witness())
-    accepted = verifier.verify(proof)
-    counts = cuda.launch_counts()
+    eager: list = []
+    plain = CO.compose_plain
+    CO.compose_plain = lambda *a, **k: eager.append(1) or plain(*a, **k)
+    try:
+        cuda.reset_launches()
+        with _recording_gathers(plans):
+            proof = prover.prove(trace_cols=witness())
+        accepted = verifier.verify(proof)
+        counts = cuda.launch_counts()
+    finally:
+        CO.compose_plain = plain
+    if eager or counts["compose"] != 1:
+        raise AssertionError(f"{name}: {len(eager)} eager composes and {counts['compose']} "
+                             "K11 launches in a prove, not 0 and 1")
     if not accepted:
         raise AssertionError(f"{name}: proof rejected")
     sha = hashlib.sha256(proof).hexdigest()
@@ -1246,7 +1405,10 @@ def _d2h_copies(run, phased: bool = True):
         events = prof.events()
         phases = {}
         for e in events:
-            if e.name.startswith("phase:"):
+            # The host's ranges: a range's device-side annotation spans its
+            # kernels, which run behind the host and reach into later phases.
+            if e.name.startswith("phase:") and \
+                    e.device_type == torch.autograd.DeviceType.CPU:
                 phases.setdefault(e.name[len("phase:"):], []).append(e.time_range)
         copies = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                   and "DtoH" in e.name]
@@ -1336,6 +1498,8 @@ def _phases(name, prover, witness, runs: int = 5) -> None:
         prover.prove(trace_cols=cols, timer=timer)
         for phase, ms in timer.ms().items():
             samples.setdefault(phase, []).append(ms)
+    if "compose" not in samples:
+        raise AssertionError(f"{name}: no compose phase in {sorted(samples)}")
     print(f"{name} prove phases (ms, synchronised, median and max of {runs} proves): "
           + json.dumps({k: [round(float(np.median(v)), 3), round(max(v), 3)]
                         for k, v in samples.items()}), flush=True)
@@ -1429,7 +1593,8 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
                            "query_gather") if counts[k] == 0]
     # A batch's gather is one plan, one output and one copy; a plan larger
     # than one launch's parameters goes out in several launches.
-    if missing or counts["fri_fold"] or counts["query_gather"] < batches:
+    if missing or counts["fri_fold"] or counts["query_gather"] < batches or \
+            counts["compose"] != batches:
         raise AssertionError(f"{cell}: launches {counts}")
 
     walls = []
@@ -1446,7 +1611,8 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
                              f"not {3 * batches}")
     kernel_ms = _profiled(cell, call, counts, median, cuda)
     per_call = {k: counts[k] for k in ("sponge_absorb", "fri_fold_dyn", "merkle_forest",
-                                       "merkle_level", "hash_rows", "query_gather")}
+                                       "merkle_level", "hash_rows", "query_gather",
+                                       "compose")}
     print(f"{cell} ({model}, T=2^{BATCH_T.bit_length() - 1}, B={batch}, "
           f"{'prove_many of %d, depth %d' % (count, depth) if count else 'prove_batch'}): "
           f"{proofs} proofs a call, each sha256 == the single prove's ({want[:16]}...), "
@@ -1481,24 +1647,42 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
 
-    # 2. build
+    # 2. build: the port's library and every driven AIR's K11 library, one
+    # nvcc each, all at once
+    from stark_tpu_torch.ops import compose as CO
+
     t0 = time.perf_counter()
-    lib = cuda.library()
-    print(f"build: CUDA kernels built and loaded in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    programs = _compose_programs()
+    with ThreadPoolExecutor(len(programs) + 1) as pool:
+        built = [pool.submit(cuda.library)] + [
+            pool.submit(CO.library, prog.source) for prog in programs.values()]
+        lib = built[0].result()
+        for job in built[1:]:
+            job.result()
+    print(f"build: CUDA kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          "(the port's library and each AIR's compose library side by side); compose "
+          "sources generated (sha256, nvcc s): "
+          + json.dumps({m: [p.sha256, round(CO.BUILD_SECONDS[p.sha256], 2)]
+                        for m, p in programs.items()}), flush=True)
     release = subprocess.run([cuda._nvcc(), "--version"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[-2:]
     print("nvcc: " + " / ".join(release), flush=True)
     from stark_tpu_torch.tools.tune_kernels import ptxas
 
-    print("ptxas, K12 and K13: " + json.dumps(ptxas(("witness.cu", "gather.cu"))), flush=True)
+    paths = {CO._source_file(p.source): m for m, p in programs.items()}
+    regs = ptxas(("witness.cu", "gather.cu", "hash.cu", *paths), by_source=True)
+    print("ptxas, K12, K13 and K9: " + json.dumps(
+        {k: v for src in ("witness.cu", "gather.cu", "hash.cu") for k, v in regs[src].items()
+         if "sponge" in k or src != "hash.cu"}), flush=True)
+    print("ptxas, K11 by AIR (each weight capacity): " + json.dumps(
+        {paths[src]: sorted(set(regs[src].values())) for src in paths}), flush=True)
     _sass_mix(lib._name)
 
     # 3. kernels against their plain versions
     results = _Results()
     marks = [time.perf_counter()]
-    for check in (_check_ntt, _check_fold, _check_forest, _check_sponge, _check_hash,
-                  _check_witness, _check_split_gather):
+    for check in (_check_ntt, _check_fold, _check_forest, _check_sponge, _check_compose,
+                  _check_hash, _check_witness, _check_split_gather):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
@@ -1627,7 +1811,7 @@ def main() -> int:
 
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
-          "checks: ntt, fold, forest, sponge, hash, witness, split gather, then the "
+          "checks: ntt, fold, forest, sponge, compose, hash, witness, split gather, then the "
           "proofs and paths: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again; "

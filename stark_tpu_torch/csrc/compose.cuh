@@ -1,0 +1,213 @@
+// K11: the composition codeword, one thread a point of the coset, for B
+// proofs at once: the AIR-independent part.  It replaces
+// stark_tpu/stark.py::StarkProver._compose_impl (:570-616), which
+// stark_tpu/batch.py vmaps over (B, c, N) (:554-559).
+//
+// An AIR's transition constraints are user code, written once against an
+// op namespace (models/air.py); ops/compose.py records them as a
+// straight-line tape and generates, per AIR, a source that defines
+//   struct Air {
+//     kTransitions, kBoundaries, kRows, kTerms,
+//     boundary_row(j) (the index of boundary j's row among the distinct
+//     rows), boundary_value(j),
+//     values(at, c, v): the transition constraints c[k] at one point from
+//       the frame loads at(offset, register), and v[j] the register that
+//       boundary j reads, at offset 0;
+//   };
+// then includes this header's STARK_COMPOSE_ENTRY(Air).  Built with nvcc it
+// is the kernel with its C entry stark_compose; built with a host C++
+// compiler (field.cuh's host branch) it is stark_compose_host, the same
+// per-point function in a loop over every point, for the CPU tests.
+//
+// At point i of proof b, with x the coset point, the codeword is
+//   sum_k C_k(frame) exz(x) (a_k xt(x) + b_k)
+//   + sum_j (lde_reg_j(x) - value_j) dinv_row_j(x) (a_j xb(x) + b_j),
+// exz = excl zinv the transition zerofier's factor, xt and xb the degree
+// shifts x^s_t and x^s_b, dinv_r = 1 / (x - w^r), each an (N,) table of
+// canonical values made once per prover.  It is computed as
+//   exz (xt sum_k a_k C_k + sum_k b_k C_k)
+//   + sum_rows dinv_r (xb sum_{j on r} a_j d_j + sum_{j on r} b_j d_j):
+// per term two Shoup products by launch constants, per table one
+// Montgomery product.  The weights come premultiplied on the host (a R^2
+// and b R, R = 2^32 mod p, each with its Shoup companion), so that the
+// Montgomery products' factors R^-1 cancel and every value stays exact:
+// the result equals the eager version's bit for bit.
+//
+// What bounds it: bytes where the AIR is narrow (Fibonacci at N = 2^22:
+// one read of the LDE and of five tables, one write), operations where its
+// constraints are many (MdsSquareAir: 8 constraints of 8 products each).
+// The simple design of this PR: one thread a point, loads coalesced along
+// N, every load of a point issued before its arithmetic (the generated
+// body loads first), the weights in the launch's parameters (no upload
+// for a prove).  Computing x^s in the kernel, to read fewer tables, is a
+// later redesign (ROADMAP).
+#pragma once
+
+#include <stdint.h>
+#include <string.h>
+
+#include "field.cuh"
+
+namespace stark {
+
+// R = 2^32 mod p and its Shoup companion: a Montgomery product times R.
+constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % kP);
+constexpr uint32_t kR1Shoup = (uint32_t)(((uint64_t)kR1 << 32) / kP);
+
+// a b mod p for a, b in [0, p): the Montgomery product a b R^-1, times R.
+__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b) {
+  return shoup_mul(mont_mul(a, b), kR1, kR1Shoup);
+}
+
+// The frame of one point: register r at offset k is row r of this proof's
+// (c, n) LDE at (i + k blowup) mod n.
+struct Frame {
+  const uint32_t* lde;
+  long long n;
+  long long i;
+  int blowup;
+  __device__ __forceinline__ uint32_t operator()(int offset, int reg) const {
+    return lde[reg * n + ((i + (long long)offset * blowup) & (n - 1))];
+  }
+};
+
+struct ComposeArgs {
+  const uint32_t* lde;   // (B, c, n)
+  const uint32_t* exz;   // (n,) excl * zinv
+  const uint32_t* xt;    // (n,) x^s_t
+  const uint32_t* xb;    // (n,) x^s_b
+  const uint32_t* dinv;  // (rows, n) 1 / (x - w^row), a row per distinct row
+  uint32_t* out;         // (B, n)
+  long long n;
+  int c;
+  int blowup;
+  int proofs;
+};
+
+// The codeword at point i of proof b; w: the proof's 4 kTerms weight words,
+// per term a R^2, its companion, b R, its companion.
+template <class Air>
+__device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
+                                                  const uint32_t* w, int b,
+                                                  long long i) {
+  const Frame at{a.lde + (long long)b * a.c * a.n, a.n, i, a.blowup};
+  uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
+  uint32_t v[Air::kBoundaries > 0 ? Air::kBoundaries : 1];
+  Air::values(at, c, v);
+  uint32_t total = 0;
+  if (Air::kTransitions > 0) {
+    uint32_t sa = 0, sb = 0;
+#pragma unroll
+    for (int k = 0; k < Air::kTransitions; ++k) {
+      sa = add_mod(sa, shoup_mul(c[k], w[4 * k], w[4 * k + 1]));
+      sb = add_mod(sb, shoup_mul(c[k], w[4 * k + 2], w[4 * k + 3]));
+    }
+    total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], sa), sb));
+  }
+  if (Air::kBoundaries > 0) {
+    const uint32_t xb = a.xb[i];
+#pragma unroll
+    for (int r = 0; r < Air::kRows; ++r) {
+      uint32_t sa = 0, sb = 0;
+#pragma unroll
+      for (int j = 0; j < Air::kBoundaries; ++j) {
+        if (Air::boundary_row(j) != r) continue;
+        const uint32_t d = sub_open(v[j], Air::boundary_value(j));  // (0, 2p)
+        const uint32_t* wj = w + 4 * (Air::kTransitions + j);
+        sa = add_mod(sa, shoup_mul(d, wj[0], wj[1]));
+        sb = add_mod(sb, shoup_mul(d, wj[2], wj[3]));
+      }
+      total = add_mod(total, mont_mul(a.dinv[r * a.n + i],
+                                      add_mod(mont_mul(xb, sa), sb)));
+    }
+  }
+  return total;
+}
+
+}  // namespace stark
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+namespace stark {
+
+constexpr int kComposeThreads = 256;
+
+// The weights of every proof of a launch, as launch parameters.
+template <int kWords>
+struct ComposeWords {
+  uint32_t w[kWords];
+};
+
+template <class Air, int kWords>
+__global__ void __launch_bounds__(kComposeThreads)
+    stark_compose_kernel(const __grid_constant__ ComposeArgs a,
+                         const __grid_constant__ ComposeWords<kWords> w) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const int b = blockIdx.y;
+  a.out[(long long)b * a.n + i] =
+      compose_point<Air>(a, w.w + 4 * Air::kTerms * b, b, i);
+}
+
+template <class Air, int kWords>
+int compose_launch(const ComposeArgs& a, const void* words, int nwords,
+                   cudaStream_t stream) {
+  ComposeWords<kWords> w;
+  memcpy(w.w, words, 4 * (size_t)nwords);
+  const dim3 grid((unsigned)((a.n + kComposeThreads - 1) / kComposeThreads),
+                  (unsigned)a.proofs);
+  stark_compose_kernel<Air, kWords><<<grid, kComposeThreads, 0, stream>>>(a, w);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace stark
+
+// The C entry of one AIR's library: B = proofs proofs' (c, n) LDEs, n a
+// power of two, nwords = 4 kTerms B weight words (at most 8,000: the
+// launch's parameters hold 32 KB since CUDA 12.1).
+#define STARK_COMPOSE_ENTRY(AIR)                                              \
+  extern "C" int stark_compose(const void* lde, const void* exz,             \
+                               const void* xt, const void* xb,               \
+                               const void* dinv, void* out, long long n,     \
+                               int c, int blowup, int proofs,                \
+                               const void* words, int nwords, void* stream) { \
+    const stark::ComposeArgs a{                                               \
+        static_cast<const uint32_t*>(lde), static_cast<const uint32_t*>(exz), \
+        static_cast<const uint32_t*>(xt),  static_cast<const uint32_t*>(xb),  \
+        static_cast<const uint32_t*>(dinv), static_cast<uint32_t*>(out),      \
+        n, c, blowup, proofs};                                                \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
+    if (n < 1 || (n & (n - 1)) || c != AIR::kRegisters || proofs < 1 ||       \
+        proofs > 65535 || nwords != 4 * AIR::kTerms * proofs)                 \
+      return (int)cudaErrorInvalidValue;                                      \
+    if (nwords <= 256) return stark::compose_launch<AIR, 256>(a, words, nwords, s); \
+    if (nwords <= 2048)                                                       \
+      return stark::compose_launch<AIR, 2048>(a, words, nwords, s);           \
+    if (nwords <= 8000)                                                       \
+      return stark::compose_launch<AIR, 8000>(a, words, nwords, s);           \
+    return (int)cudaErrorInvalidValue;                                        \
+  }                                                                           \
+  extern "C" const char* stark_cuda_error_string(int code) {                  \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));                \
+  }
+
+#else  // a host compiler
+
+#define STARK_COMPOSE_ENTRY(AIR)                                              \
+  extern "C" int stark_compose_host(const uint32_t* lde, const uint32_t* exz, \
+                                    const uint32_t* xt, const uint32_t* xb,   \
+                                    const uint32_t* dinv, uint32_t* out,      \
+                                    long long n, int c, int blowup,           \
+                                    int proofs, const uint32_t* words) {      \
+    const stark::ComposeArgs a{lde, exz, xt, xb, dinv, out,                   \
+                               n, c, blowup, proofs};                         \
+    if (c != AIR::kRegisters) return 1;                                       \
+    for (int b = 0; b < proofs; ++b)                                          \
+      for (long long i = 0; i < n; ++i)                                       \
+        out[(long long)b * n + i] = stark::compose_point<AIR>(                \
+            a, words + 4 * AIR::kTerms * b, b, i);                            \
+    return 0;                                                                 \
+  }
+
+#endif

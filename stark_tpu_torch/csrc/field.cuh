@@ -9,6 +9,21 @@
 
 #include <stdint.h>
 
+#ifndef __CUDACC__
+// A host C++ compiler: the CPU tests build the composition kernel's
+// generated per-point body (ops/compose.py, compose.cuh) with it.  The
+// qualifiers go, and the two intrinsics get their meaning in plain C++.
+#define __device__
+#define __forceinline__ inline
+static inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32);
+}
+static inline uint32_t __viaddmin_u32(uint32_t a, uint32_t b, uint32_t c) {
+  const uint32_t s = a + b;
+  return s < c ? s : c;
+}
+#endif
+
 namespace stark {
 
 constexpr uint32_t kP = 998244353u;

@@ -63,8 +63,8 @@
 // the opposite, one hash spread over several lanes, so that a warp issues
 // a fraction of the hash's instructions (PERF.md, open questions).
 // ptxas -v (sm_90a, CUDA 12; tools/tune_kernels.py prints it): K5/K6 48
-// registers, K7 48, K8 64 and 24,577 bytes of shared memory; no spills, no
-// stack.
+// registers, K7 48, K8 64 and 24,577 bytes of shared memory, K9 80; no
+// spills, no stack.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -75,6 +75,8 @@ namespace {
 
 using stark::absorb_byte;
 using stark::absorb_value;
+using stark::absorb_word;
+using stark::pack4;
 using stark::hash_combine;
 using stark::hash_finish;
 using stark::hash_init;
@@ -131,19 +133,43 @@ __device__ __forceinline__ void tail_walk(const uint4* src, uint4* out,
   }
 }
 
-// K9: bytes c .. c + 31 of a lane's stream pending (q bytes) || data, as 8
-// little-endian words; bytes at or past `total` read as 0.
+// K9: word j of a lane's data (bytes 4j .. 4j + 3, little-endian), 0 for j
+// < 0 and past the m bytes.  ``vec``: the rows are 4-byte aligned, one
+// load a word; else four byte loads.
+__device__ __forceinline__ uint32_t sponge_data_word(const uint8_t* in, int m,
+                                                     bool vec, int j) {
+  if (j < 0 || 4 * j >= m) return 0u;
+  if (vec) return reinterpret_cast<const uint32_t*>(in)[j];
+  uint32_t w = 0;
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    if (4 * j + x < m) w |= (uint32_t)in[4 * j + x] << (8 * x);
+  return w;
+}
+
+// K9: chunk t of a lane's stream pending (q bytes) || data, as 8
+// little-endian words, bytes past the stream 0.  q = 4 a + r is the same
+// for every lane.  Stream word u = 8 t + k is pending word u for u < a;
+// after that it is data bytes 4 u - q .. 4 u - q + 3: the last r bytes of
+// data word u - a - 1 and the first 4 - r of word u - a, one funnel shift
+// of the two (at u = a the first part is pending word a's r bytes).  No
+// branch on a byte: a chunk is 9 word loads (one trip to memory) and a
+// funnel shift a word.
 __device__ __forceinline__ void sponge_chunk(uint32_t (&w)[8],
-                                             const uint8_t* pend, int q,
-                                             const uint8_t* in, int c,
-                                             int total) {
+                                             const uint32_t (&pend)[8], int q,
+                                             const uint8_t* in, int m,
+                                             bool vec, int t) {
+  const int a = q >> 2;
+  const int shift = 32 - 8 * (q & 3);  // 32: the word is data word u - a
+  uint32_t d[9];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) w[k] = 0;
+  for (int k = 0; k < 9; ++k) d[k] = sponge_data_word(in, m, vec, 8 * t + k - a - 1);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int x = c + i;
-    const uint32_t byte = x >= total ? 0u : x < q ? pend[x] : in[x - q];
-    w[i >> 2] |= byte << (8 * (i & 3));
+  for (int k = 0; k < 8; ++k) {
+    const int u = 8 * t + k;
+    const uint32_t lo = u == a ? __funnelshift_lc(0u, pend[k], shift) : d[k];
+    const uint32_t word = __funnelshift_rc(lo, d[k + 1], shift);
+    w[k] = u < a ? pend[k] : word;
   }
 }
 
@@ -272,56 +298,101 @@ __global__ void __launch_bounds__(kTailThreads)
 // pending tail of q < 32 bytes after them.  One launch appends m bytes a
 // lane: the stream pending || data is cut into full chunks, each absorbed
 // and mixed into the state (hash.rs:13-24), and what is left, fewer than 32
-// bytes, becomes the new pending tail ((q + m) mod 32 bytes).  With alpha,
-// a copy of the state is finalized as a hash of every byte so far would
-// be (the pending tail absorbed as a partial chunk and mixed, then the 8
-// closing mixes, hash.rs:25-27) and its first 8 digest bytes, a
+// bytes, becomes the new pending tail ((q + m) mod 32 bytes, then zeros).
+// With alpha, a copy of the state is finalized as a hash of every byte so
+// far would be (the pending tail absorbed as a partial chunk and mixed,
+// then the 8 closing mixes, hash.rs:25-27) and its first 8 digest bytes, a
 // little-endian u64, are written reduced mod p: the FRI challenge the host
 // transcript draws (fiat_shamir.rs:19-25), as the fold takes it.
-//   state, pending: (lanes, 32) u8, updated in place; fresh: start from
-//   the initial state (q must be 0); data: (lanes, m) u8; copy: where the
-//   data bytes are also written (or null); alpha: (lanes,) (or null).
-__global__ void stark_sponge_absorb_kernel(uint8_t* state, uint8_t* pending,
-                                           int q, int fresh,
+//   state, pending: (lanes, 32) u8, 16-byte aligned rows, updated in
+//   place; fresh: start from the initial state (q must be 0); data:
+//   (lanes, m) u8; copy: where the data bytes are also written (or null);
+//   alpha: (lanes,) (or null).
+//
+// What bounds it: latency.  At B = 1 one thread runs the launch, so what it
+// costs is its chain: the launch, its trips to memory, the mixes one after
+// the other (a root's absorb and the 8 closing mixes, ~1.9 us on an H100).
+// On an H100 its design before this one took 6.8 us against 1.2 for an
+// empty launch and 4.9 with its mixes taken out (PERF.md): byte loads of
+// the state, the tail and the data, each chunk byte behind two compares on
+// q, byte loops for the new tail and the copy.  Now state, pending, the
+// new tail and (for rows of 16-byte words) the copy move as 16-byte words,
+// a chunk is assembled from data words by funnel shifts (sponge_chunk),
+// and the loads of the first chunk and of the tail are issued before any
+// arithmetic: for a root absorb (m = 32) that is every load of the launch,
+// one trip.
+__global__ void stark_sponge_absorb_kernel(uint4* state, uint4* pending, int q,
+                                           int fresh,
                                            const uint8_t* __restrict__ data,
                                            int m, uint8_t* copy,
                                            uint32_t* alpha, int lanes) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  uint8_t* st = state + 32 * lane;
-  uint8_t* pend = pending + 32 * lane;
   const uint8_t* in = data + (long long)m * lane;
+  const bool vec = ((reinterpret_cast<uintptr_t>(data) | (uintptr_t)m) & 3) == 0;
+  const uint4 p0 = pending[2 * lane], p1 = pending[2 * lane + 1];
+  const uint32_t pend[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+  uint4 s0 = make_uint4(0, 0, 0, 0), s1 = s0;
+  if (!fresh) {
+    s0 = state[2 * lane];
+    s1 = state[2 * lane + 1];
+  }
+  const int total = q + m;
+  const int full = total >> 5;
+  const int rest = total & 31;
+  uint32_t first[8], tail[8];
+  sponge_chunk(first, pend, q, in, m, vec, 0);
+  sponge_chunk(tail, pend, q, in, m, vec, full);
+  if (copy != nullptr) {
+    uint8_t* out = copy + (long long)m * lane;
+    if (((reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(copy) |
+          (uintptr_t)m) & 15) == 0) {
+      const uint4* src = reinterpret_cast<const uint4*>(in);
+      for (int j = 0; j < m / 16; ++j) reinterpret_cast<uint4*>(out)[j] = src[j];
+    } else {
+      for (int i = 0; i < m; ++i) out[i] = in[i];
+    }
+  }
   uint32_t s[32];
   if (fresh) {
     hash_init(s);
   } else {
+    const uint32_t st[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = st[i];
+    for (int i = 0; i < 32; ++i) s[i] = st[i >> 2] >> (8 * (i & 3));  // byte i, low 8 bits
   }
-  const int total = q + m;
-  int c = 0;
-  uint32_t w[8];
-  for (; c + 32 <= total; c += 32) {
-    sponge_chunk(w, pend, q, in, c, total);
-    absorb_prefix<0>(s, w, 32);
+  for (int t = 0; t < full; ++t) {
+    uint32_t w[8];
+    if (t == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[k] = first[k];
+    } else {
+      sponge_chunk(w, pend, q, in, m, vec, t);
+    }
+    absorb_word<0>(s, w[0]);
+    absorb_word<4>(s, w[1]);
+    absorb_word<8>(s, w[2]);
+    absorb_word<12>(s, w[3]);
+    absorb_word<16>(s, w[4]);
+    absorb_word<20>(s, w[5]);
+    absorb_word<24>(s, w[6]);
+    absorb_word<28>(s, w[7]);
     mix(s);
   }
-  const int rest = total - c;
-  sponge_chunk(w, pend, q, in, c, total);  // the new pending tail
-#pragma unroll
-  for (int i = 0; i < 32; ++i) st[i] = (uint8_t)s[i];
-  for (int i = 0; i < rest; ++i) pend[i] = (uint8_t)(w[i >> 2] >> (8 * (i & 3)));
-  if (copy != nullptr)
-    for (int i = 0; i < m; ++i) copy[(long long)m * lane + i] = in[i];
+  uint4 lo, hi;
+  pack_digest(s, lo, hi);
+  state[2 * lane] = lo;
+  state[2 * lane + 1] = hi;
+  pending[2 * lane] = make_uint4(tail[0], tail[1], tail[2], tail[3]);
+  pending[2 * lane + 1] = make_uint4(tail[4], tail[5], tail[6], tail[7]);
   if (alpha == nullptr) return;
   if (rest > 0) {
-    absorb_prefix<0>(s, w, rest);
+    absorb_prefix<0>(s, tail, rest);
     mix(s);
   }
   hash_finish<stark::Form::kOwed>(s);  // a lone thread: fewest instructions
-  uint64_t v = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) v |= (uint64_t)(s[i] & 0xFFu) << (8 * i);
+  const uint64_t v = (uint64_t)pack4(s[0], s[1], s[2], s[3]) |
+                     (uint64_t)pack4(s[4], s[5], s[6], s[7]) << 32;
   alpha[lane] = (uint32_t)(v % stark::kP);
 }
 
@@ -395,9 +466,11 @@ int stark_sponge_absorb(void* state, void* pending, int q, int fresh,
   if (q < 0 || q > 31 || m < 0 || lanes < 1 || (fresh && q))
     return (int)cudaErrorInvalidValue;
   const int threads = lanes < 128 ? lanes : 128;
+  if ((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15)
+    return (int)cudaErrorMisalignedAddress;
   stark_sponge_absorb_kernel<<<(lanes + threads - 1) / threads, threads, 0,
                                (cudaStream_t)stream>>>(
-      static_cast<uint8_t*>(state), static_cast<uint8_t*>(pending), q, fresh,
+      static_cast<uint4*>(state), static_cast<uint4*>(pending), q, fresh,
       static_cast<const uint8_t*>(data), m, static_cast<uint8_t*>(copy),
       static_cast<uint32_t*>(alpha), lanes);
   return (int)cudaGetLastError();

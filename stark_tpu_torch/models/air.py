@@ -14,7 +14,9 @@ completes the pipeline: an AIR declares
 * ``boundary_constraints`` — (row, register, value) fixtures.
 
 Constraint evaluation is pointwise over the LDE domain: :class:`BatchOps`
-runs it as int64 torch ops over whole (N,) tensors.
+runs it as int64 torch ops over whole (N,) tensors; :class:`TapeOps`
+records it once as a straight-line :class:`Tape`, from which ops/compose.py
+generates the composition kernel K11 for the AIR.
 """
 
 from __future__ import annotations
@@ -62,6 +64,115 @@ class ScalarOps:
     @staticmethod
     def const(value, like):
         return value % P
+
+
+class Tape:
+    """A straight-line program over F_p: node j is ``nodes[j]``, one of
+    ``("in", offset, register)`` (a frame value), ``("const", v)`` (v in
+    [0, p)), ``("add" | "sub" | "mul", a, b)`` or ``("neg", a)`` with a, b
+    earlier nodes.  Equal nodes are one node, operands of ``add`` and
+    ``mul`` in order, and an operation on constants alone is its value.
+    ``outputs``: the node of each transition constraint."""
+
+    def __init__(self):
+        self.nodes: list[tuple] = []
+        self._index: dict[tuple, int] = {}
+        self.outputs: list[int] = []
+
+    def node(self, key: tuple) -> "TapeValue":
+        j = self._index.get(key)
+        if j is None:
+            j = self._index[key] = len(self.nodes)
+            self.nodes.append(key)
+        return TapeValue(self, j)
+
+    def const_value(self, j: int):
+        """The value of node j if it is a constant, else None."""
+        node = self.nodes[j]
+        return node[1] if node[0] == "const" else None
+
+    def live(self) -> list[int]:
+        """The nodes the outputs depend on, in tape order."""
+        need = set(self.outputs)
+        for j in range(len(self.nodes) - 1, -1, -1):
+            if j in need and self.nodes[j][0] in ("add", "sub", "mul", "neg"):
+                need.update(self.nodes[j][1:])
+        return sorted(need)
+
+    def evaluate(self, frame) -> list[int]:
+        """The outputs at one point, ``frame[k][r]`` host ints (a small
+        interpreter: the tape's semantics, held against ScalarOps)."""
+        vals: list[int] = []
+        for node in self.nodes:
+            op = node[0]
+            if op == "in":
+                vals.append(int(frame[node[1]][node[2]]) % P)
+            elif op == "const":
+                vals.append(node[1])
+            elif op == "neg":
+                vals.append(-vals[node[1]] % P)
+            else:
+                a, b = vals[node[1]], vals[node[2]]
+                vals.append((a + b if op == "add" else a - b if op == "sub" else a * b) % P)
+        return [vals[j] for j in self.outputs]
+
+
+class TapeValue:
+    """A value of :class:`TapeOps`: node ``index`` of ``tape``."""
+
+    __slots__ = ("tape", "index")
+
+    def __init__(self, tape: Tape, index: int):
+        self.tape = tape
+        self.index = index
+
+
+class TapeOps:
+    """The same arithmetic recorded as a :class:`Tape` (one record per AIR:
+    :func:`record_constraints`)."""
+
+    def __init__(self, tape: Tape):
+        self.tape = tape
+
+    def _binary(self, op: str, a: TapeValue, b: TapeValue) -> TapeValue:
+        ca, cb = self.tape.const_value(a.index), self.tape.const_value(b.index)
+        if ca is not None and cb is not None:
+            return self.const(ScalarOps.add(ca, cb) if op == "add" else
+                              ScalarOps.sub(ca, cb) if op == "sub" else
+                              ScalarOps.mul(ca, cb), a)
+        i, j = a.index, b.index
+        if op != "sub" and j < i:
+            i, j = j, i
+        return self.tape.node((op, i, j))
+
+    def add(self, a, b):
+        return self._binary("add", a, b)
+
+    def sub(self, a, b):
+        return self._binary("sub", a, b)
+
+    def mul(self, a, b):
+        return self._binary("mul", a, b)
+
+    def neg(self, a):
+        c = self.tape.const_value(a.index)
+        if c is not None:
+            return self.const(-c, a)
+        return self.tape.node(("neg", a.index))
+
+    def const(self, value, like):
+        return self.tape.node(("const", int(value) % P))
+
+
+def record_constraints(air: "Air") -> Tape:
+    """``air.transition_constraints`` recorded once over a frame of input
+    nodes (every offset of ``air.frame_offsets``, every register)."""
+    tape = Tape()
+    ops = TapeOps(tape)
+    frame = {k: [tape.node(("in", k, r)) for r in range(air.num_registers)]
+             for k in air.frame_offsets}
+    tape.outputs = [v.index for v in air.transition_constraints(frame, ops)]
+    return tape
 
 
 @dataclass(frozen=True)

@@ -59,6 +59,8 @@ def library() -> ctypes.CDLL:
     lib.stark_cuda_error_string.argtypes = [i32]
     lib.stark_cuda_error_string.restype = ctypes.c_char_p
     for k in KERNELS.values():
+        if k.generated:
+            continue
         fn = getattr(lib, k.symbol)
         fn.argtypes = [*k.argtypes, ptr]  # every entry ends with the stream
         fn.restype = i32
@@ -70,12 +72,15 @@ class Kernel:
 
     ``symbol`` is the host entry; the ``__global__`` function it launches is
     ``symbol + "_kernel"`` (:attr:`kernel_symbol`), with C linkage, so that
-    a profile shows that name (K13's is a template: a profile shows the
-    name with its template argument)."""
+    a profile shows that name (K13's and K11's are templates: a profile
+    shows the name with its template arguments).  A ``generated`` kernel
+    (K11) lives in a library of its own, one per AIR (ops/compose.py),
+    which its wrapper passes to :meth:`launch`."""
 
     def __init__(self, name: str, symbol: str, argtypes, *, source: str,
-                 replaces: str):
+                 replaces: str, generated: bool = False):
         self.name = name
+        self.generated = generated
         self.symbol = symbol
         self.kernel_symbol = symbol + "_kernel"
         self.argtypes = list(argtypes)
@@ -84,9 +89,10 @@ class Kernel:
         self.launches = 0
         KERNELS[name] = self
 
-    def launch(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream; raise if the launch fails."""
-        lib = library()
+    def launch(self, device: torch.device, *args, lib: ctypes.CDLL | None = None) -> None:
+        """Launch on ``device``'s current stream, from ``lib`` (default: the
+        port's library); raise if the launch fails."""
+        lib = lib or library()
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, self.symbol)(*args, stream)
         if rc != 0:

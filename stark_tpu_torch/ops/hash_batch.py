@@ -533,11 +533,16 @@ class Sponge:
         self.state = torch.empty((lanes, 32), dtype=torch.uint8, device=device)
         self.pending = torch.zeros((lanes, 32), dtype=torch.uint8, device=device)
         self.q = 0
-        self._fresh = True
+        self.fresh = True
 
     @property
     def lanes(self) -> int:
         return int(self.state.shape[0])
+
+    def advance(self, m: int) -> None:
+        """Account for ``m`` bytes absorbed."""
+        self.q = (self.q + m) % 32
+        self.fresh = False
 
     def absorb(self, data: torch.Tensor, copy: torch.Tensor | None = None,
                alpha: torch.Tensor | None = None) -> None:
@@ -556,7 +561,7 @@ class Sponge:
             raise ValueError(f"alpha must be ({b},) int32 on {self.state.device}")
         if self.state.device.type == "cpu":
             state, pending, got = sponge_absorb_plain(self.state, self.pending, self.q,
-                                                      data, self._fresh)
+                                                      data, self.fresh)
             self.state.copy_(state)
             self.pending.copy_(pending)
             if copy is not None:
@@ -569,12 +574,11 @@ class Sponge:
                     cuda.check_operand(t, name, t.dtype)
             SPONGE.launch(
                 self.state.device, self.state.data_ptr(), self.pending.data_ptr(),
-                self.q, int(self._fresh), data.data_ptr(), m,
+                self.q, int(self.fresh), data.data_ptr(), m,
                 None if copy is None else copy.data_ptr(),
                 None if alpha is None else alpha.data_ptr(), b,
             )
-        self.q = (self.q + m) % 32
-        self._fresh = False
+        self.advance(m)
 
 
 def level_offset(num_leaves: int, level: int) -> int:

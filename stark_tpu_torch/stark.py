@@ -36,7 +36,8 @@ from stark_tpu_torch.field import FiniteField
 from stark_tpu_torch.fri import Fri, _verify_paths_batch
 from stark_tpu_torch.hashfn import Hash
 from stark_tpu_torch.merkle import Forest
-from stark_tpu_torch.models.air import Air, BatchOps, BoundaryConstraint, ScalarOps
+from stark_tpu_torch.models.air import Air, BoundaryConstraint, ScalarOps
+from stark_tpu_torch.ops import compose as CO
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
 from stark_tpu_torch.ops import gather as G
@@ -190,63 +191,43 @@ class StarkProver:
         self.lazy_ntt = lazy_ntt
         self.dom = d = _Domain(cfg, air)
         self.fri = d.fri()
-        # Trace-independent (N,) domain tables, int64 on the device.
-        self.x_dom = F.powers(d.Omega, d.N, scale=d.offset, device=device)
+        # The composition kernel generated from the AIR (K11), and its
+        # trace-independent (N,) tables: int32 canonical values on the
+        # device, made once here (in int64) and read once a point.
+        self.program = CO.ComposeProgram(air, d.boundary)
+        x_dom = F.powers(d.Omega, d.N, scale=d.offset, device=device)
         rho = pow(d.Omega, d.T, P)                                  # order = blowup
         zinv_cycle = [
             F.host_inv(pow(d.offset, d.T, P) * pow(rho, j, P) - 1)
             for j in range(cfg.blowup)
         ]
-        self.zinv = torch.tensor(zinv_cycle, dtype=torch.int64, device=device).repeat(d.T)
-        excl = torch.ones(d.N, dtype=torch.int64, device=device)
+        exz = torch.tensor(zinv_cycle, dtype=torch.int64, device=device).repeat(d.T)
         for w in d.excluded:
-            excl = F.mulmod(excl, F.submod(self.x_dom, w))
-        self.excl = excl
-        self.xshift_t = F.powers(
+            exz = F.mulmod(exz, F.submod(x_dom, w))
+        xshift_t = F.powers(
             pow(d.Omega, d.transition_shift, P), d.N,
             scale=pow(d.offset, d.transition_shift, P), device=device,
         )
-        self.xshift_b = F.powers(
+        xshift_b = F.powers(
             pow(d.Omega, d.boundary_shift, P), d.N,
             scale=pow(d.offset, d.boundary_shift, P), device=device,
         )
-        # Boundary-quotient denominators 1/(x - w^row), trace-independent.
-        self.dinv = [
-            F.invmod(F.submod(self.x_dom, pow(d.omega, bc.row, P)))
-            for bc in d.boundary
-        ]
+        # Boundary-quotient denominators 1/(x - w^row), one per distinct row.
+        dinv = [F.invmod(F.submod(x_dom, pow(d.omega, row, P)))
+                for row in self.program.rows]
+        dinv = torch.stack(dinv) if dinv else torch.zeros((1, d.N), dtype=torch.int64,
+                                                          device=device)
+        self.tables = CO.Tables(*(t.to(torch.int32).contiguous()
+                                  for t in (exz, xshift_t, xshift_b, dinv)))
 
     def _compose(self, trace_lde: torch.Tensor, alphas, betas) -> torch.Tensor:
         """(c, N) int32 LDE -> (N,) int32 composition codeword, or B proofs
-        at once: (B, c, N) -> (B, N) (elementwise int64 torch ops;
-        stark_tpu/stark.py:_compose_impl, which stark_tpu/batch.py vmaps).
-        ``alphas[k]``, ``betas[k]``: term k's weights, host ints for one
-        proof, (B, 1) int64 tensors for B."""
-        d = self.dom
-        lde = trace_lde.long()
-        # ONE roll of the whole LDE per frame offset; the registers are
-        # its rows (dimension -2).
-        frame = {
-            k: list((lde if k == 0 else torch.roll(lde, -k * self.cfg.blowup, -1))
-                    .unbind(-2))
-            for k in self.air.frame_offsets
-        }
-        cons = self.air.transition_constraints(frame, BatchOps)
-        total = torch.zeros(lde.shape[:-2] + (d.N,), dtype=torch.int64,
-                            device=lde.device)
-        ci = 0
-        for c in cons:
-            q = F.mulmod(F.mulmod(c, self.excl), self.zinv)
-            w = F.addmod(F.mulmod(self.xshift_t, alphas[ci]), betas[ci])
-            total = F.addmod(total, F.mulmod(w, q))
-            ci += 1
-        for bi, bc in enumerate(d.boundary):
-            num = F.submod(frame[0][bc.register], bc.value % P)
-            q = F.mulmod(num, self.dinv[bi])
-            w = F.addmod(F.mulmod(self.xshift_b, alphas[ci]), betas[ci])
-            total = F.addmod(total, F.mulmod(w, q))
-            ci += 1
-        return total.to(torch.int32)
+        at once: (B, c, N) -> (B, N) (stark_tpu/stark.py:_compose_impl,
+        which stark_tpu/batch.py vmaps): kernel K11 on a card, its plain
+        version on the CPU (ops/compose.py).  ``alphas``, ``betas``: the
+        terms' weights, (terms,) host ints for one proof, (B, terms) for B."""
+        return CO.compose(self.program, trace_lde, self.tables, alphas, betas,
+                          self.cfg.blowup)
 
     def _witness(self, trace_rows, trace_cols) -> torch.Tensor:
         """The (c, T) int32 witness on the prover's device: host rows or
@@ -317,13 +298,10 @@ class StarkProver:
         # 3. constraint-combination challenges (host transcripts)
         with timer.phase("challenges"):
             n_terms = d.num_transition + len(d.boundary)
-            drawn = [_draw_constraint_challenges(fs, field, n_terms) for fs in fss]
-            if b == 1:
-                alphas, betas = drawn[0]
-            else:
-                # (B, 2, terms) -> per term a (B, 1) column of each
-                ab = torch.tensor(drawn, dtype=torch.int64).to(self.device)
-                alphas, betas = ab[:, 0, :, None].unbind(1), ab[:, 1, :, None].unbind(1)
+            drawn = np.asarray([_draw_constraint_challenges(fs, field, n_terms)
+                                for fs in fss], dtype=np.int64).reshape(b, 2, n_terms)
+            alphas, betas = (drawn[0, 0], drawn[0, 1]) if b == 1 else (
+                drawn[:, 0], drawn[:, 1])
 
         # 4. composition codewords  [device]
         with timer.phase("compose"):

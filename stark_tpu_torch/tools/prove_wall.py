@@ -2,6 +2,7 @@
 that fall inside each prove.
 
     python3 -m stark_tpu_torch.tools.prove_wall [--model fib|mds] [--log2-t N] [--runs N]
+        [--phase-runs N]
 
 Proves from host rows (``StarkProver.prove(rows)``, the entry every
 version of the port has) ``--runs`` times after two warm-up proves, each
@@ -9,7 +10,9 @@ ending in ``torch.cuda.synchronize()``, and records every collection
 through ``gc.callbacks``.  Prints one JSON line: the card, the prove
 wall-time quantiles, the collections of each generation in the runs and
 inside a prove (count and ms), and every prove over twice the median with
-the collections inside it.  To measure an earlier checkout of the port
+the collections inside it; then each phase's synchronised time
+(``utils.profiling.PhaseTimer``), the median of ``--phase-runs`` more
+proves.  To measure an earlier checkout of the port
 with the same script, run it by path with that checkout's root first on
 ``PYTHONPATH``:
 
@@ -33,6 +36,7 @@ def main() -> None:
     parser.add_argument("--model", default="fib", choices=("fib", "mds"))
     parser.add_argument("--log2-t", type=int, default=20)
     parser.add_argument("--runs", type=int, default=100)
+    parser.add_argument("--phase-runs", type=int, default=5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("prove_wall: no CUDA device visible")
@@ -40,6 +44,7 @@ def main() -> None:
     import stark_tpu_torch
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.utils.profiling import PhaseTimer
 
     T = 1 << args.log2_t
     air, trace_fn, _ = get_model(args.model)
@@ -84,6 +89,12 @@ def main() -> None:
     slow = [{"run": i, "ms": round(float(walls[i]), 3),
              "gc": [[g, round(m, 3)] for g, m in inside(*windows[i])]}
             for i in range(len(walls)) if walls[i] > 2 * median]
+    phases: dict[str, list[float]] = {}
+    for _ in range(args.phase_runs):
+        timer = PhaseTimer(sync=torch.cuda.synchronize)
+        prover.prove(rows, timer=timer)
+        for phase, ms in timer.ms().items():
+            phases.setdefault(phase, []).append(ms)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -94,6 +105,7 @@ def main() -> None:
         "prove_ms": dict(zip(("min", "q1", "median", "q3", "p95", "max"),
                              (round(float(v), 3) for v in q))),
         "collections": by_gen, "over_twice_median": slow,
+        "phase_ms_median": {k: round(float(np.median(v)), 3) for k, v in phases.items()},
     }), flush=True)
 
 

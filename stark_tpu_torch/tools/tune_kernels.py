@@ -25,12 +25,17 @@ Prints, in this order:
   lines;
 * ``ntt transpose``: K3's vector route, its edge route (4-byte accesses
   through a shared tile) on the same shape, and the library call
-  ``x3.transpose(1, 2).contiguous()`` on the same operands, each twice.
+  ``x3.transpose(1, 2).contiguous()`` on the same operands, each twice;
+* ``sponge split`` (first): K9 as it was before its redesign, as an empty
+  kernel with its parameters, with its mixes taken out and whole, then
+  the kernel in use, in turn and back, for B in {1, 8, 32}: what its time
+  is made of (``--only sponge`` runs that alone).
 
 (K8's subtree size, ``hash_batch.tail_sub_lg``, and ``TAIL_CUTOVER`` have
 their sweeps in chip_smoke.py.)  ``fib_expand_before`` builds K12
 ``fib_expand`` as it was before its redesign (one thread an element, three
-Montgomery products), which chip_smoke.py times beside the kernel in use.
+Montgomery products), and ``sponge_before`` K9 as it was (byte loads and
+stores), which chip_smoke.py times beside the kernels in use.
 
 Times are device time per call (``device_us``); every call takes the next
 of several sets of buffers, at least 128 MiB apart, so the operands come
@@ -149,6 +154,104 @@ int fib_expand_before(const void* seeds, void* out, int nb, int lg_b,
 """
 
 
+# K9 sponge_absorb before its redesign (as csrc/hash.cu had it): byte
+# loads of the state, the pending tail and the data, each chunk byte behind
+# two compares, byte loops for the new tail and the copy.  kMode 0 is the
+# kernel as it was, 1 the same with its mixes taken out (the chunk absorbs,
+# loads and stores stay), 2 an empty kernel with its parameters: the three
+# parts of its time.
+SPONGE_BEFORE_SOURCE = """
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+#include "hash.cuh"
+using namespace stark;
+__device__ __forceinline__ void sponge_chunk(uint32_t (&w)[8], const uint8_t* pend,
+                                             int q, const uint8_t* in, int c,
+                                             int total) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) w[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int x = c + i;
+    const uint32_t byte = x >= total ? 0u : x < q ? pend[x] : in[x - q];
+    w[i >> 2] |= byte << (8 * (i & 3));
+  }
+}
+template <int kPos>
+__device__ __forceinline__ void absorb_prefix(uint32_t (&s)[32],
+                                              const uint32_t (&w)[8], int len) {
+  if constexpr (kPos < 32) {
+    if (kPos < len) {
+      absorb_byte<kPos>(s, w[kPos >> 2] >> (8 * (kPos & 3)));
+      absorb_prefix<kPos + 1>(s, w, len);
+    }
+  }
+}
+template <int kMode>
+__global__ void sponge_before_kernel(uint8_t* state, uint8_t* pending, int q,
+                                     int fresh, const uint8_t* __restrict__ data,
+                                     int m, uint8_t* copy, uint32_t* alpha,
+                                     int lanes) {
+  if (kMode == 2) return;
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  uint8_t* st = state + 32 * lane;
+  uint8_t* pend = pending + 32 * lane;
+  const uint8_t* in = data + (long long)m * lane;
+  uint32_t s[32];
+  if (fresh) {
+    hash_init(s);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = st[i];
+  }
+  const int total = q + m;
+  int c = 0;
+  uint32_t w[8];
+  for (; c + 32 <= total; c += 32) {
+    sponge_chunk(w, pend, q, in, c, total);
+    absorb_prefix<0>(s, w, 32);
+    if (kMode == 0) mix(s);
+  }
+  const int rest = total - c;
+  sponge_chunk(w, pend, q, in, c, total);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) st[i] = (uint8_t)s[i];
+  for (int i = 0; i < rest; ++i) pend[i] = (uint8_t)(w[i >> 2] >> (8 * (i & 3)));
+  if (copy != nullptr)
+    for (int i = 0; i < m; ++i) copy[(long long)m * lane + i] = in[i];
+  if (alpha == nullptr) return;
+  if (rest > 0) {
+    absorb_prefix<0>(s, w, rest);
+    if (kMode == 0) mix(s);
+  }
+  if (kMode == 0) hash_finish<Form::kOwed>(s);
+  uint64_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v |= (uint64_t)(s[i] & 0xFFu) << (8 * i);
+  alpha[lane] = (uint32_t)(v % kP);
+}
+extern "C" int sponge_before(int mode, void* state, void* pending, int q, int fresh,
+                             const void* data, int m, void* copy, void* alpha,
+                             int lanes, void* stream) {
+  if (q < 0 || q > 31 || m < 0 || lanes < 1 || (fresh && q))
+    return (int)cudaErrorInvalidValue;
+  const int threads = lanes < 128 ? lanes : 128;
+  const int blocks = (lanes + threads - 1) / threads;
+  auto* k = mode == 0 ? sponge_before_kernel<0>
+            : mode == 1 ? sponge_before_kernel<1> : sponge_before_kernel<2>;
+  k<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      static_cast<uint8_t*>(state), static_cast<uint8_t*>(pending), q, fresh,
+      static_cast<const uint8_t*>(data), m, static_cast<uint8_t*>(copy),
+      static_cast<uint32_t*>(alpha), lanes);
+  return (int)cudaGetLastError();
+}
+"""
+#: sponge_before's modes, as ``sponge_split`` names them.
+SPONGE_PARTS = {"empty kernel": 2, "no mixes": 1, "whole": 0}
+
+
 def device_us(fn, reps: int) -> float:
     """Device time per call of ``fn`` in us: ``reps`` calls captured into a
     CUDA graph, the replay timed between two events.  No host work lies
@@ -188,14 +291,16 @@ def sets(nbytes: int, *tensors):
     return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(count - 1)]
 
 
-def ptxas(sources=cuda.SOURCES) -> dict:
+def ptxas(sources=cuda.SOURCES, by_source: bool = False) -> dict:
     """{kernel: "N regs, spill S/L B, smem M B"} for every kernel of
-    ``sources`` (csrc/ file names), one nvcc per source, all at once."""
+    ``sources`` (csrc/ file names, or paths such as a generated K11
+    source), one nvcc per source, all at once; ``by_source``: {source:
+    {kernel: ...}} (K11's sources name their kernels alike)."""
     procs = [
         subprocess.Popen(
             [cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
              "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o", os.devnull,
-             os.path.join(cuda.CSRC, source)],
+             "-I", cuda.CSRC, os.path.join(cuda.CSRC, source)],
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         for source in sources
     ]
@@ -206,6 +311,8 @@ def ptxas(sources=cuda.SOURCES) -> dict:
             raise RuntimeError(f"nvcc failed on {source}:\n{stderr}")
         name = None
         spill = ""
+        if by_source:
+            found[source] = {}
         for line in stderr.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
@@ -215,7 +322,8 @@ def ptxas(sources=cuda.SOURCES) -> dict:
                 spill = f"spill {m.group(1)}/{m.group(2)} B"
             m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
             if m and name:
-                found[name] = f"{m.group(1)} regs, {spill}, smem {m.group(2) or 0} B"
+                (found[source] if by_source else found)[name] = (
+                    f"{m.group(1)} regs, {spill}, smem {m.group(2) or 0} B")
     return found
 
 
@@ -300,6 +408,55 @@ def fib_expand_before():
         return out
 
     return call
+
+
+def sponge_before():
+    """A call ``(sponge, data, copy, alpha, mode=0)`` that absorbs ``data``
+    into an ``ops.hash_batch.Sponge`` as ``Sponge.absorb`` does, through K9
+    as it was before its redesign (built here, not part of the port), or
+    with parts of it taken out (``mode``, see SPONGE_PARTS)."""
+    fn = build_temporary(SPONGE_BEFORE_SOURCE, "sponge_before").sponge_before
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+
+    def call(sp, data, copy=None, alpha=None, mode=0):
+        m = int(data.shape[1])
+        if fn(mode, sp.state.data_ptr(), sp.pending.data_ptr(), sp.q, int(sp.fresh),
+              data.data_ptr(), m, None if copy is None else copy.data_ptr(),
+              None if alpha is None else alpha.data_ptr(), sp.lanes,
+              torch.cuda.current_stream(data.device).cuda_stream) != 0:
+            raise RuntimeError("sponge_before failed")
+        sp.advance(m)
+        return alpha
+
+    return call
+
+
+def sponge_split(rng, dev, lanes=(1, 8, 32)) -> dict:
+    """K9's time split: per B, a root absorbed after a 16-byte tail (the
+    Fibonacci prove's round) by the design before as an empty kernel, with
+    its mixes taken out, whole, then by the kernel in use, and back in
+    reverse order; us per call."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    before = sponge_before()
+    table = {}
+    for b in lanes:
+        sp = HB.Sponge(b, dev)
+        sp.absorb(torch.from_numpy(rng.integers(0, 256, (b, 80), dtype=np.uint8)).to(dev))
+        root = torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev)
+        copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+        alpha = torch.empty(b, dtype=torch.int32, device=dev)
+        calls = {f"before, {part}": (lambda mode=mode: before(sp, root, copy, alpha, mode))
+                 for part, mode in SPONGE_PARTS.items()}
+        calls["in use"] = lambda: sp.absorb(root, copy, alpha)
+        order = list(calls) + list(reversed(calls))
+        times = {}
+        for key in order:
+            times.setdefault(key, []).append(round(device_us(calls[key], 50), 3))
+        table[f"B={b}"] = times
+    return table
 
 
 def tune_floor(dev) -> None:
@@ -404,6 +561,8 @@ def tune_ntt(rng, dev) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", choices=("sponge", "floor", "parts", "ntt"),
+                        help="run one sweep (after ptxas)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("tune_kernels: no CUDA device visible", file=sys.stderr)
@@ -414,9 +573,15 @@ def main() -> int:
     print("ptxas: " + json.dumps(ptxas(), indent=1), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
-    tune_floor(dev)
-    tune_parts(rng, dev)
-    tune_ntt(rng, dev)
+    if args.only in (None, "sponge"):
+        print("sponge split, us per call, each in turn and back (CUDA-graph replay): "
+              + json.dumps(sponge_split(rng, dev)), flush=True)
+    if args.only in (None, "floor"):
+        tune_floor(dev)
+    if args.only in (None, "parts"):
+        tune_parts(rng, dev)
+    if args.only in (None, "ntt"):
+        tune_ntt(rng, dev)
     return 0
 
 

@@ -213,6 +213,7 @@ def test_card_batch_equals_single_proves(cuda_device, model):
     counts = cuda.launch_counts()
     assert all(counts[k] > 0 for k in ("merkle_forest", "sponge_absorb", "fri_fold_dyn"))
     assert counts["fri_fold"] == 0 and counts["query_gather"] == 1
+    assert counts["compose"] == 1  # one K11 launch for the batch
     single = _single(air, cfg, "cpu")
     for proof, item in zip(got, items):
         want = single.prove(item) if kw == "traces" else single.prove(trace_cols=item.cpu())

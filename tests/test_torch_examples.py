@@ -156,6 +156,7 @@ def test_card_proof_bytes(cuda_device, model):
     counts = cuda.launch_counts()
     assert all(counts[k] > 0 for k in ("hash_rows", "merkle_tail", "fri_fold_dyn",
                                        "sponge_absorb", "ntt_pass1"))
+    assert counts["compose"] == 1
     assert hashlib.sha256(proof).hexdigest() == PINNED_1024[model]
     assert port_verify(model, cfg, proof)
     assert not port_verify(

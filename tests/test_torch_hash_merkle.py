@@ -442,6 +442,52 @@ def test_sponge_plain_matches_stark_tpu(jHB, q):
                 digest, np.stack([np.asarray(r) for r in core], axis=1))
 
 
+def _funnel_rc(lo: int, hi: int, shift: int) -> int:
+    """CUDA's __funnelshift_rc: (hi:lo) >> min(shift, 32), the low word."""
+    return ((hi << 32 | lo) >> min(shift, 32)) & 0xFFFFFFFF
+
+
+def _funnel_lc(lo: int, hi: int, shift: int) -> int:
+    """CUDA's __funnelshift_lc: (hi:lo) << min(shift, 32), the high word."""
+    return ((hi << 32 | lo) << min(shift, 32)) >> 32 & 0xFFFFFFFF
+
+
+def _sponge_chunk_model(pend: np.ndarray, q: int, data: np.ndarray, t: int) -> bytes:
+    """What a K9 thread computes for chunk t of its stream pending (q
+    bytes) || data (csrc/hash.cu sponge_chunk): 8 words, each a pending
+    word or one funnel shift of two data words, as 32 bytes."""
+    words = pend.view("<u4")
+    m, a, shift = data.size, q >> 2, 32 - 8 * (q & 3)
+
+    def d(j: int) -> int:
+        if j < 0 or 4 * j >= m:
+            return 0
+        return int.from_bytes(data[4 * j : min(4 * j + 4, m)].tobytes(), "little")
+
+    out = []
+    for k in range(8):
+        u = 8 * t + k
+        lo = _funnel_lc(0, int(words[k]), shift) if u == a else d(8 * t + k - a - 1)
+        word = _funnel_rc(lo, d(8 * t + k - a), shift)
+        out.append(int(words[k]) if u < a else word)
+    return b"".join(w.to_bytes(4, "little") for w in out)
+
+
+@pytest.mark.parametrize("q", range(32))
+def test_sponge_chunk_words_model(q):
+    # Every chunk of pending || data, and the zero-padded tail, from words:
+    # for m the prefixes of the example AIRs' proves (32 + 16 terms: 64,
+    # 80, 96, 288), a root (32), chip_smoke.py's 64 + q, short and odd m.
+    rng = np.random.default_rng(q)
+    pend = rng.integers(0, 256, size=32, dtype=np.uint8)  # bytes past q: not read
+    for m in sorted({0, 1, 5, 31, 32, 33, 64, 80, 96, 288, 64 + q}):
+        data = rng.integers(0, 256, size=m, dtype=np.uint8)
+        stream = pend[:q].tobytes() + data.tobytes()
+        for t in range((q + m) // 32 + 1):
+            want = stream[32 * t : 32 * t + 32].ljust(32, b"\0")
+            assert _sponge_chunk_model(pend, q, data, t) == want, (q, m, t)
+
+
 def test_sponge_challenge_is_the_transcripts():
     # The challenge the sponge draws is the host transcript's, reduced.
     from stark_tpu_torch.field import FiniteField

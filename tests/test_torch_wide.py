@@ -186,4 +186,5 @@ def test_card_wide_proof(cuda_device):
     assert proof == host
     assert hashlib.sha256(proof).hexdigest() == WIDE_64
     assert counts["hash_rows"] > 0 and counts["query_gather"] == 1
+    assert counts["compose"] == 1
     assert _verifier().verify(proof)
