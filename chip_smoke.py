@@ -50,8 +50,16 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     - the K7/K8 cutover sweep behind hash_batch.TAIL_CUTOVER and the
       subtree-size sweep behind hash_batch.tail_sub_lg;
     - K8 for forests at every per-tree width the batch paths give it, B in
-      {8, 32}, each call twice, and the batch paths' first and last FRI
-      forests against their trees built on the host;
+      {8, 32}, and K8 at every W from 2 to 2^16, each at most 1, 4 and 8
+      lanes a hash in the narrow levels (forests each call twice), and the
+      batch paths' first and last FRI forests against their trees built on
+      the host; both kernels' design before the redesign (one lane a hash
+      at every level, built here from tools/tune_kernels.py) against the
+      plain version too, then timed in turn with the kernel in use (before,
+      after, after, before) at (32, 2^11), (8, 2^13) and W = 2^16, with the
+      sweep of the most lanes a hash behind hash_batch.TAIL_LANES and the
+      latency bound (an empty launch and the levels' hashes one after
+      another, _tail_latency_ms);
     - the Fiat-Shamir sponge (K9) for B in {1, 8, 32} lanes at every
       pending length 0 .. 31, two roots absorbed and challenges drawn; its
       design before the redesign (built here from tools/tune_kernels.py)
@@ -61,9 +69,11 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       each call twice, at every AIR and shape the paths and pins use:
       Fibonacci T=2^20 and MDS T=2^16 at B = 1, the batched cells' (8, .,
       2^16) and (32, ., 2^16), the example AIRs at T=1024 (and Fibonacci
-      at 64 and 2^16, MDS at 4096), the 65-register AIR at T=64; timed
-      with its bound and the eager version's device time at the first
-      three;
+      at 64 and 2^16, MDS at 4096), the 65-register AIR at T=64, and every
+      AIR at T=1024 with B = 8 and 32; timed with its bound and the eager
+      version's device time at the first three, each also in turn with
+      the design before (every sum of the generated body eager; built here
+      from tools/tune_kernels.py);
     - the device witnesses (K12): fib_expand at every length the paths and
       the pinned proofs use and at lengths that cut the last block,
       mds_expand at (T, block) up to (2^16, 64) and (2^16, 1) and at blocks
@@ -182,13 +192,25 @@ BATCH_CELLS = (("batch8", "fib", 8, 0, 2), ("pipe32x2", "fib", 32, 64, 2),
 BATCHES = (8, 32)
 BATCH_HALVES = tuple(1 << lg for lg in range(15, 6, -1))
 SPONGE_LANES = (1, 8, 32)
+# K8-forest timed at the batch paths' widest launch (n = 2^16 / B).
+FOREST_TIMED = (32, 8)
+# Integer-pipe instructions of one combine hash in K8's walk, as csrc/
+# hash.cuh writes it (hash.cu's head comment: ~1,800): one lane a hash, 10
+# mix rounds of 4.5 a state byte in the kOwed form (sbox shift and bit
+# select 2, group XOR 1.5, the diffusion's add 1) and 64 absorbed bytes of
+# 5; over L lanes, a lane's share: 32 / L bytes of each mix round, and
+# each absorbed byte 5 times (the 5 waves of split_absorb).
+INT_PIPE_HASH = 10 * 144 + 64 * 5
+INT_PIPE_SPLIT_BYTE = 10 * 4.5 + 2 * 5 * 5
 # K11 against its plain version at every (model, T, blowup, B) the driven
 # paths and the pinned proofs give it; the first three also timed.
 COMPOSE_CASES = (("fib", MAIN_T, 4, 1), ("mds", MDS_T, 4, 1), ("fib", BATCH_T, 4, 8),
                  ("fib", BATCH_T, 4, 32), ("mds", BATCH_T, 4, 8), ("fib", 64, 4, 1),
                  ("fib", 1024, 4, 1), ("fib", 1 << 16, 4, 1), ("fib2", 1024, 4, 1),
                  ("square", 1024, 4, 1), ("cube", 1024, 8, 1), ("mds", 1024, 4, 1),
-                 ("mds", 4096, 4, 1), ("wide", 64, 4, 1))
+                 ("mds", 4096, 4, 1), ("wide", 64, 4, 1)) + tuple(
+    (model, 1024, 8 if model == "cube" else 4, b)
+    for model in ("fib", "fib2", "square", "cube", "mds", "wide") for b in (8, 32))
 COMPOSE_TIMED = 3
 WIDE_REGISTERS = 65  # tests/test_torch_wide.py's AIR
 HASH_WIDTHS = (2, 3, 5, 8)
@@ -259,10 +281,41 @@ OPS_MDS_STEP_BEFORE = 64 * 4 + 64 * 2 + 8 * 2 * 7
 OPS_FOLD_DYN = OPS_FOLD - 4 + 7
 
 
+#: The designs before each redesign (tools/tune_kernels.py), built in the
+#: build step: sponge, fib_expand, forest, floor (an empty kernel) and
+#: compose by (model, T).
+BEFORE: dict = {}
+
+
 def _hash_ops(length: int, mix_ops: int = OPS_MIX) -> int:
     """Operations of one hash of ``length`` bytes: the absorbs, a mix per
     32-byte chunk and the 8 closing mixes."""
     return OPS_ABSORB_BYTE * length + mix_ops * (-(-length // 32) + 8)
+
+
+def _tail_latency_ms(lg_w: int, lg_tree: int, lanes: int, clock_mhz: float,
+                     launch_ms: float) -> float:
+    """K8's latency bound for 2^lg_w nodes in trees of 2^lg_tree at most
+    ``lanes`` lanes a hash: for each launch an empty launch, then its
+    levels one after another (the subtrees' blocks side by side, then the
+    top's block), each level a hash's integer-pipe instructions at its
+    lanes (INT_PIPE_*), a warp's instruction every 2 clocks, times the
+    warps each of the SM's 4 schedulers runs at that level.  Shuffle
+    latency and the ticket are not in it."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    clocks = 0.0
+    launches = 0
+    for threads, sub_l, top_l in HB.tail_plan(lg_w, None, lg_tree, lanes):
+        launches += 1
+        for levels in (sub_l, top_l):
+            for k, ell in enumerate(levels, 1):
+                count = 1 << (len(levels) - k)
+                rounds = -(-count // threads) if ell == 1 else 1
+                warps = -(-min(count * ell, threads) // 32)
+                per = (INT_PIPE_HASH if ell == 1 else INT_PIPE_SPLIT_BYTE * 32 / ell)
+                clocks += rounds * -(-warps // 4) * per * 2
+    return launches * launch_ms + clocks / (clock_mhz * 1e3)
 
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -703,10 +756,15 @@ def _check_hash(rng, dev, results: _Results) -> None:
     for w in TAIL_WIDTHS:
         nodes = digests(w)
         got = HB.merkle_tail(nodes)
-        _require_equal(f"merkle_tail W={w}", got, HB.merkle_tail_plain(nodes))
+        want = HB.merkle_tail_plain(nodes)
+        _require_equal(f"merkle_tail W={w}", got, want)
         host = np.concatenate(native.merkle_levels(nodes.cpu().numpy())[1:])
         if not np.array_equal(got.cpu().numpy(), host):
             raise AssertionError(f"merkle_tail W={w} != the host engine's levels")
+        for lanes in HB.LANE_CHOICES:
+            _require_equal(f"merkle_tail W={w} lanes {lanes}",
+                           HB.merkle_tail(nodes, lanes=lanes), want)
+        _require_equal(f"merkle_tail before W={w}", BEFORE["forest"](nodes), want)
     tail_shapes = []
     for lg_sub in TAIL_SUBTREES:
         for lg_w in sorted({lg_sub + d for d in (-1, 0, 1, 9, 10, 11)}):
@@ -770,6 +828,26 @@ def _check_hash(rng, dev, results: _Results) -> None:
         _clones(_copies(64 * wt), leaves[:wt]),
         HB.merkle_tail, HB.merkle_tail_plain, 20,
         nbytes=32 * (2 * wt - 1), ops=(wt - 1) * _hash_ops(64))
+    # The design before (every level one lane a hash) and the kernel in
+    # use in turn, by the most lanes a hash, and the latency bound.
+    lg_wt = wt.bit_length() - 1
+    clock, launch_ms = _max_clock(), _empty_launch_ms(dev)
+    tail["latency_bound_ms"] = _tail_latency_ms(lg_wt, lg_wt, HB.TAIL_LANES, clock, launch_ms)
+    tail["latency_bound_before_ms"] = _tail_latency_ms(lg_wt, lg_wt, 1, clock, launch_ms)
+    sets = _clones(_copies(64 * wt), leaves[:wt])
+    calls = (_cycled(BEFORE["forest"], sets), _cycled(HB.merkle_tail, sets))
+    tail["turns_ms"] = [_device_ms(calls[i], 20) for i in (0, 1, 1, 0)]
+    tail["lanes_sweep_ms"] = {ll: _device_ms(_cycled(
+        lambda x, ll=ll: HB.merkle_tail(x, lanes=ll), sets), 20) for ll in HB.LANE_CHOICES}
+    print(f"hash: merkle_tail == plain at every W from 2 to 2^16 at most "
+          f"{list(HB.LANE_CHOICES)} lanes "
+          f"a hash, the design before == plain; at W=2^{lg_wt}: latency bound "
+          f"{tail['latency_bound_ms']:.4f} ms (one lane a hash: "
+          f"{tail['latency_bound_before_ms']:.4f}; {clock} MHz, an empty launch "
+          f"{launch_ms:.5f}); in turn before, after, after, before (ms) "
+          f"{json.dumps([round(t, 5) for t in tail['turns_ms']])}; by most lanes a hash "
+          f"{json.dumps({k: round(v, 5) for k, v in tail['lanes_sweep_ms'].items()})}",
+          flush=True)
     print("hash: leaf " + _line(leaf) + "; row c=8 N=2^18 " + _line(row) + "; "
           + _line(level) + "; " + _line(tail) + "; device time per call, buffer sets "
           f"{[e['buffer_sets'] for e in (leaf, row, level, tail)]}", flush=True)
@@ -809,12 +887,29 @@ def _check_hash(rng, dev, results: _Results) -> None:
               flush=True)
 
 
+def _max_clock() -> int:
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def _empty_launch_ms(dev) -> float:
+    """Device time of an empty kernel's launch (tools/tune_kernels.py's
+    floor kernel, built with the rest) at K8's block size."""
+    fn = BEFORE["floor"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _device_ms(lambda: fn(128, 256, 0, stream), 50)
+
+
 def _check_forest(rng, dev, results: _Results) -> None:
     """K8-forest against its plain version at every per-tree width the
     batch paths' forests hand it (a forest is built with K7 while it is
-    wider than TAIL_CUTOVER), each call twice (the tickets); whole FRI
-    forests of the batch paths' first and last rounds against their trees
-    built one by one on the host; timed at the widest launch."""
+    wider than TAIL_CUTOVER), at every most lanes a hash (LANE_CHOICES), each
+    call twice (the tickets); whole FRI forests of the batch paths' first
+    and last rounds against their trees built on the host; timed at the
+    widest launch; the design before (every level one lane a hash, built
+    from tools/tune_kernels.py) held against plain, then the two in turn,
+    the sweep of the most lanes a hash, and the latency bound."""
     from stark_tpu_torch.merkle import Forest, MerkleTree
     from stark_tpu_torch.ops import cuda
     from stark_tpu_torch.ops import hash_batch as HB
@@ -823,16 +918,20 @@ def _check_forest(rng, dev, results: _Results) -> None:
         return torch.from_numpy(
             rng.integers(0, 256, size=(w, 32), dtype=np.uint8)).to(dev)
 
+    before = BEFORE["forest"]
     shapes = []
     for b in BATCHES:
         for lg in range(1, (HB.TAIL_CUTOVER // b).bit_length()):
             nodes = digests(b << lg)
             want = HB.forest_tail_plain(nodes, b)
             cuda.reset_launches()
-            for turn in (1, 2):
-                _require_equal(f"merkle_forest B={b} n=2^{lg} call {turn}",
-                               HB.merkle_forest(nodes, b), want)
-            shapes.append(f"{b}x2^{lg}:{cuda.launch_counts()['merkle_forest'] // 2}")
+            for lanes in HB.LANE_CHOICES:
+                for turn in (1, 2):
+                    _require_equal(f"merkle_forest B={b} n=2^{lg} lanes {lanes} call {turn}",
+                                   HB.merkle_forest(nodes, b, lanes=lanes), want)
+            _require_equal(f"merkle_forest before B={b} n=2^{lg}", before(nodes, b), want)
+            calls = 2 * len(HB.LANE_CHOICES)
+            shapes.append(f"{b}x2^{lg}:{cuda.launch_counts()['merkle_forest'] // calls}")
         for lg in (BATCH_T.bit_length() + 1, 7):  # the first and last FRI rounds
             values = _rand_field(rng, dev, (b, 1 << lg))
             forest = Forest.from_values(values)
@@ -841,20 +940,39 @@ def _check_forest(rng, dev, results: _Results) -> None:
                 if not np.array_equal(forest.tree(t)._stack.cpu().numpy(),
                                       host._stack.numpy()):
                     raise AssertionError(f"forest B={b} n=2^{lg}: tree {t} != host engine")
+    clock, launch_ms = _max_clock(), _empty_launch_ms(dev)
     timed = {}
-    for b in (32, 8):
-        w = HB.TAIL_CUTOVER
+    w = HB.TAIL_CUTOVER
+    for b in FOREST_TIMED:
+        lg_n = (w // b).bit_length() - 1
+        sets = _clones(_copies(64 * w), digests(w))
         timed[b] = (results if b == 32 else _Results()).add(
-            HB.MERKLE_FOREST, f"B={b}, n=2^{(w // b).bit_length() - 1}",
-            _clones(_copies(64 * w), digests(w)),
+            HB.MERKLE_FOREST, f"B={b}, n=2^{lg_n}", sets,
             lambda x, b=b: HB.merkle_forest(x, b),
             lambda x, b=b: HB.forest_tail_plain(x, b), 20,
             nbytes=32 * (2 * w - b), ops=(w - b) * _hash_ops(64))
+        lg_w = w.bit_length() - 1
+        timed[b]["latency_bound_ms"] = _tail_latency_ms(lg_w, lg_n, HB.TAIL_LANES, clock,
+                                                        launch_ms)
+        timed[b]["latency_bound_before_ms"] = _tail_latency_ms(lg_w, lg_n, 1, clock, launch_ms)
+        calls = (_cycled(lambda x, b=b: before(x, b), sets),
+                 _cycled(lambda x, b=b: HB.merkle_forest(x, b), sets))
+        timed[b]["turns_ms"] = [_device_ms(calls[i], 20) for i in (0, 1, 1, 0)]
+        timed[b]["lanes_sweep_ms"] = {
+            ll: _device_ms(_cycled(lambda x, b=b, ll=ll: HB.merkle_forest(x, b, lanes=ll),
+                                   sets), 20) for ll in HB.LANE_CHOICES}
     print("forest: merkle_forest == plain at B x n : launches "
-          + " ".join(shapes) + ", each call twice; the first and last FRI round's "
+          + " ".join(shapes) + f", at most {list(HB.LANE_CHOICES)} lanes a hash, each call twice, and "
+          "the design before == plain at each; the first and last FRI round's "
           f"forest at B={list(BATCHES)} == the host engine's trees; "
-          + "; ".join(f"B={b} " + _line(e) for b, e in timed.items())
-          + ", device time per call", flush=True)
+          + "; ".join(f"B={b} " + _line(e) + ", latency bound "
+                      f"{e['latency_bound_ms']:.4f} (one lane a hash: "
+                      f"{e['latency_bound_before_ms']:.4f}); in turn before, after, after, "
+                      f"before {json.dumps([round(t, 5) for t in e['turns_ms']])}; by most "
+                      f"lanes a hash {json.dumps({k: round(v, 5) for k, v in e['lanes_sweep_ms'].items()})}"
+                      for b, e in timed.items())
+          + f"; ms per call (device time), {clock} MHz, an empty launch {launch_ms:.5f} ms",
+          flush=True)
 
 
 def _check_sponge(rng, dev, results: _Results) -> None:
@@ -910,9 +1028,7 @@ def _check_sponge(rng, dev, results: _Results) -> None:
     # after, before) and the before's empty launch: the latency bound is
     # that launch plus the 10 mixes of one thread, a warp's integer-pipe
     # instruction every 2 clocks at the clock the card reports.
-    from stark_tpu_torch.tools.tune_kernels import sponge_before
-
-    before = sponge_before()
+    before = BEFORE["sponge"]
     for b in SPONGE_LANES:
         for tail in (0, 1, 16, 31):
             old_sp, plain = HB.Sponge(b, dev), HB.Sponge(b, "cpu")
@@ -925,9 +1041,7 @@ def _check_sponge(rng, dev, results: _Results) -> None:
             before(old_sp, root.to(dev), None, alpha)
             plain.absorb(root, alpha=want)
             _require_equal(f"sponge before B={b} q={tail}", alpha.cpu(), want)
-    clock = int(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
+    clock = _max_clock()
     turns = {}
     for b in SPONGE_LANES:
         sp = HB.Sponge(b, dev)
@@ -974,16 +1088,20 @@ def _air(model: str):
     return WideCounterAir()
 
 
-def _compose_programs() -> dict:
-    """{model: ComposeProgram} of every AIR that COMPOSE_CASES drives."""
+def _compose_program(model: str, T: int, blowup: int):
     from stark_tpu_torch.ops import compose as CO
     from stark_tpu_torch.stark import StarkConfig, _Domain
 
+    air = _air(model)
+    return CO.ComposeProgram(air, _Domain(StarkConfig(trace_length=T, blowup=blowup),
+                                          air).boundary)
+
+
+def _compose_programs() -> dict:
+    """{model: ComposeProgram} of every AIR that COMPOSE_CASES drives."""
     programs = {}
     for model, T, blowup, _ in COMPOSE_CASES:
-        air = _air(model)
-        d = _Domain(StarkConfig(trace_length=T, blowup=blowup), air)
-        prog = CO.ComposeProgram(air, d.boundary)
+        prog = _compose_program(model, T, blowup)
         programs.setdefault(prog.sha256, (model, prog))
     return dict(programs.values())
 
@@ -993,7 +1111,8 @@ def _check_compose(rng, dev, results: _Results) -> None:
     every case of COMPOSE_CASES, each call twice; the first cases timed,
     with the L2 flushed before each call, against their bound: one read
     of the LDE rows the AIR reads and of each table, one write, or the
-    generated body's operations."""
+    generated body's operations; each timed case also in turn with the
+    design before (every sum of the generated body eager)."""
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.ops import compose as CO
 
@@ -1022,12 +1141,23 @@ def _check_compose(rng, dev, results: _Results) -> None:
                 nbytes=4 * n * (b * prog.registers_read() + prog.table_loads() + b),
                 ops=b * n * prog.operations(), flush=flush)
             entry["operations_per_point"] = prog.operations()
+            # The design before (eager sums; built from tools/tune_kernels.py)
+            # held against plain, then in turn.
+            old = BEFORE["compose"][(model, T)]
+            _require_equal(f"compose before {model} T={T} B={b}",
+                           old(args[0], tables, args[1], args[2], blowup), want)
+            calls = (lambda: (flush(), old(args[0], tables, args[1], args[2], blowup)),
+                     lambda: (flush(), prover._compose(*args)))
+            entry["turns_ms"] = [_device_ms(calls[i], 50, skip=flush.skip)
+                                 for i in (0, 1, 1, 0)]
             timed.append(entry)
         del prover, lde, want
     print(f"compose: kernel == plain (the eager compose on the card), each call twice, at "
           f"(model, T, blowup, B) {[c for c in COMPOSE_CASES]}; L2 flushed before each "
-          "timed call: " + "; ".join(f"{e['shape']}: " + _line(e) for e in timed)
-          + ", device time per call", flush=True)
+          "timed call: " + "; ".join(
+              f"{e['shape']}: " + _line(e) + ", in turn with the design before (before, "
+              f"after, after, before) {json.dumps([round(t, 5) for t in e['turns_ms']])}"
+              for e in timed) + ", device time per call", flush=True)
 
 
 class _L2Flush:
@@ -1090,9 +1220,7 @@ def _check_witness(rng, dev, results: _Results) -> None:
         50, nbytes=4 * MAIN_T + 4 * seeds.numel(), ops=OPS_FIB_EXPAND * MAIN_T)
     # The kernel before its redesign, built beside it, on the same seeds:
     # the two in turn (before, after, after, before).
-    from stark_tpu_torch.tools.tune_kernels import fib_expand_before
-
-    before_fn = fib_expand_before()
+    before_fn = BEFORE["fib_expand"]
     for T in FIB_WITNESS_LENGTHS:
         s, n = fib_seeds(T)
         _require_equal(f"fib_expand before T={T}", before_fn(s, n, T),
@@ -1385,8 +1513,8 @@ def _d2h_copies(run, phased: bool = True):
     memcpy events, and each phase's: a phase is a record_function range,
     and a copy counts as the phase's when its middle lies inside the range
     (``phased``: the run times its phases with the timer, and a window
-    without them is taken again).  Returns ({phase: copies}, [copy
-    events])."""
+    without them, or with a copy outside every phase, is taken again).
+    Returns ({phase: copies}, [copy events])."""
     from stark_tpu_torch.utils.profiling import PhaseTimer
 
     class Marked(PhaseTimer):
@@ -1394,6 +1522,10 @@ def _d2h_copies(run, phased: bool = True):
         def phase(self, phase_name):
             with torch.profiler.record_function("phase:" + phase_name):
                 yield
+
+    def inside(e, ranges):
+        mid = (e.time_range.start + e.time_range.end) / 2
+        return any(r.start <= mid <= r.end for r in ranges)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_ATTEMPTS):
@@ -1412,17 +1544,18 @@ def _d2h_copies(run, phased: bool = True):
                 phases.setdefault(e.name[len("phase:"):], []).append(e.time_range)
         copies = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                   and "DtoH" in e.name]
-        if copies and ("fri_query" in phases or not phased):
+        by_phase = {k: sum(inside(e, r) for e in copies) for k, r in phases.items()}
+        # A window whose copies do not all fall inside a phase (the host's
+        # and the device's clocks drawn apart, seen once in a window of 3
+        # copies) is taken again; the counts are checked by the caller.
+        if copies and (not phased or ("fri_query" in phases
+                                      and sum(by_phase.values()) == len(copies))):
             break
         _retaken[0] += 1
     else:
-        raise AssertionError("no memcpy event or phase range recorded")
-
-    def inside(e, ranges):
-        mid = (e.time_range.start + e.time_range.end) / 2
-        return any(r.start <= mid <= r.end for r in ranges)
-
-    return {k: sum(inside(e, r) for e in copies) for k, r in phases.items()}, copies
+        raise AssertionError("no memcpy event or phase range recorded, or copies "
+                             "outside every phase in every window")
+    return by_phase, copies
 
 
 def _query_copies(name, prover, witness, commit_copies: int | None = 1) -> None:
@@ -1653,21 +1786,33 @@ def main() -> int:
 
     t0 = time.perf_counter()
     programs = _compose_programs()
-    with ThreadPoolExecutor(len(programs) + 1) as pool:
+    from stark_tpu_torch.tools import tune_kernels as TK
+
+    # The designs before each redesign, built beside the port (nvcc each,
+    # all at once), into BEFORE: timed in turn with the kernels in use.
+    befores = {"sponge": TK.sponge_before, "fib_expand": TK.fib_expand_before,
+               "forest": TK.forest_before, "floor": TK.floor_kernel}
+    timed_cases = {(model, T): blowup for model, T, blowup, _ in COMPOSE_CASES[:COMPOSE_TIMED]}
+    with ThreadPoolExecutor(len(programs) + len(befores) + len(timed_cases) + 1) as pool:
         built = [pool.submit(cuda.library)] + [
             pool.submit(CO.library, prog.source) for prog in programs.values()]
+        jobs = {key: pool.submit(fn) for key, fn in befores.items()}
+        composes = {case: pool.submit(lambda case=case: TK.compose_before(
+            _compose_program(*case, timed_cases[case]))) for case in timed_cases}
         lib = built[0].result()
         for job in built[1:]:
             job.result()
+        BEFORE.update({key: job.result() for key, job in jobs.items()})
+        BEFORE["compose"] = {case: job.result() for case, job in composes.items()}
     print(f"build: CUDA kernels built and loaded in {time.perf_counter() - t0:.1f} s "
-          "(the port's library and each AIR's compose library side by side); compose "
-          "sources generated (sha256, nvcc s): "
+          "(the port's library, each AIR's compose library and the designs before the "
+          "redesigns side by side); compose sources generated (sha256, nvcc s): "
           + json.dumps({m: [p.sha256, round(CO.BUILD_SECONDS[p.sha256], 2)]
                         for m, p in programs.items()}), flush=True)
     release = subprocess.run([cuda._nvcc(), "--version"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[-2:]
     print("nvcc: " + " / ".join(release), flush=True)
-    from stark_tpu_torch.tools.tune_kernels import ptxas
+    ptxas = TK.ptxas
 
     paths = {CO._source_file(p.source): m for m, p in programs.items()}
     regs = ptxas(("witness.cu", "gather.cu", "hash.cu", *paths), by_source=True)

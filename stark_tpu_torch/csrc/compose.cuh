@@ -36,11 +36,19 @@
 // What bounds it: bytes where the AIR is narrow (Fibonacci at N = 2^22:
 // one read of the LDE and of five tables, one write), operations where its
 // constraints are many (MdsSquareAir: 8 constraints of 8 products each).
-// The simple design of this PR: one thread a point, loads coalesced along
-// N, every load of a point issued before its arithmetic (the generated
-// body loads first), the weights in the launch's parameters (no upload
-// for a prove).  Computing x^s in the kernel, to read fewer tables, is a
-// later redesign (ROADMAP).
+// One thread a point, loads coalesced along N, every load of a point
+// issued before its arithmetic (the generated body loads first), the
+// weights in the launch's parameters (no upload for a prove).  Where the
+// constraints sum products by constants, the generated body sums them
+// lazily in 64 bits (Lazy sums below; ops/compose.py generate_source): a
+// multiply-add a product, one reduction a sum.
+// Tried on an H100 and not kept (PERF.md; tools/tune_kernels.py
+// compose_coset rebuilds it): exz, x^s_t and x^s_b computed in the kernel
+// from small tables and stepped from point to point, so that only the LDE
+// and the dinv rows are read (64 MiB against 112 at Fibonacci T=2^20).
+// The kernel is not bound by its bytes alone there: on an H100 it ran at
+// 47.3-47.9 us against 39.9-40.4 for the design before lazy sums, and at
+// batch8's (8, 1, 2^16) at 8.6-8.9 against 5.6-6.1.
 #pragma once
 
 #include <stdint.h>
@@ -57,6 +65,34 @@ constexpr uint32_t kR1Shoup = (uint32_t)(((uint64_t)kR1 << 32) / kP);
 // a b mod p for a, b in [0, p): the Montgomery product a b R^-1, times R.
 __device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b) {
   return shoup_mul(mont_mul(a, b), kR1, kR1Shoup);
+}
+
+// Lazy sums.  A term is a canonical value times a constant in [0, p), a
+// 64-bit product below p^2 < 2^60; kLazyTerms of them stay below 2^64.  A
+// longer sum folds (fold64) every so often; a folded sum counts as
+// kFoldTerms terms.  The generated body writes each coefficient c as c R
+// mod p, so that reduce64's 2^-32 takes R back and the sum is exact.
+constexpr int kLazyTerms = 16;
+constexpr int kFoldTerms = 2;
+static_assert((uint64_t)(kP - 1) * (kP - 1) <= ~0ull / kLazyTerms,
+              "kLazyTerms products of values below p fit in 64 bits");
+static_assert(((1ull << 32) - 1) * kR1 + (1ull << 32) <= 2ull * (kP - 1) * (kP - 1),
+              "a folded sum counts as kFoldTerms products");
+
+// x = hi 2^32 + lo < 2^64 -> hi R + lo: the same value mod p, below 2^32 R
+// + 2^32 < 2 p^2 (and < 2^61).
+__device__ __forceinline__ uint64_t fold64(uint64_t x) {
+  return (uint64_t)(uint32_t)(x >> 32) * kR1 + (uint32_t)x;
+}
+
+// x 2^-32 mod p, canonical, for x < 2^64: fold, then Montgomery's
+// reduction of y = fold(x) < 2^61 (u = y_hi + (m p)_hi + carry < 2^29 + p
+// + 2 < 2p: one correction).
+__device__ __forceinline__ uint32_t reduce64(uint64_t x) {
+  const uint64_t y = fold64(x);
+  const uint32_t lo = (uint32_t)y;
+  const uint32_t m = lo * kPinvNeg;
+  return reduce_once((uint32_t)(y >> 32) + __umulhi(m, kP) + (lo != 0u ? 1u : 0u));
 }
 
 // The frame of one point: register r at offset k is row r of this proof's

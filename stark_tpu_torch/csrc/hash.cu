@@ -54,17 +54,20 @@
 //     instructions per hash shorten every one of the serial levels.  Only
 //     the state's form between mix rounds is K8's own (hash.cuh Form:
 //     kOwed, fewer instructions in all, where K5-K7 take kScaled).
+//   - spreads each hash of a level narrower than the block over several
+//     lanes (tail_lanes: the block's threads a hash, at most kTailLanes;
+//     hash.cuh split_combine), so that a lone warp issues a fraction of
+//     a hash's instructions and the levels near a root shorten; a level
+//     that fills the block keeps one lane a hash, the fewest instructions.
 // Tried and measured on an H100, no gain, and not kept (PERF.md): the
 // diffusion sum of the mix as 2, 4 or 8 chains - the warp waits for the
 // integer pipe, not for the chain of adds.  Not built: two hashes
 // interleaved in one thread - the second state doubles the instructions
 // the warp must issue, and where few hashes remain that pipe is the limit,
-// not a lack of independent work.  What would shorten a level further is
-// the opposite, one hash spread over several lanes, so that a warp issues
-// a fraction of the hash's instructions (PERF.md, open questions).
+// not a lack of independent work.
 // ptxas -v (sm_90a, CUDA 12; tools/tune_kernels.py prints it): K5/K6 48
-// registers, K7 48, K8 64 and 24,577 bytes of shared memory, K9 80; no
-// spills, no stack.
+// registers, K7 48, K8 and K8-forest 64 and 24,577 bytes of shared
+// memory, K9 80; no spills, no stack.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +92,59 @@ constexpr int kLaneThreads = 256;
 // with at most kTailThreads threads.
 constexpr int kTailMaxLg = 10;
 constexpr int kTailThreads = 256;
+// K8: at most kTailLanes lanes a hash in a level narrower than the block,
+// and the form a split state keeps between mix rounds (hash.cuh Form):
+// each set from tools/tune_kernels.py --only forest and chip_smoke.py's
+// sweep on an H100 (PERF.md).
+constexpr int kTailLanes = 8;
+constexpr stark::Form kSplitForm = stark::Form::kOwed;
+
+// Lanes a hash at a level of `count` hashes in a block of `threads`: the
+// block's threads spread over the level, up to lanes_max a hash (1, 4 or
+// 8); one lane where they would not give a hash four.  (Two lanes a hash
+// measured slower than one on an H100, and every width of the split hash
+// is code that a lone warp fetches cold, PERF.md.)
+__device__ __forceinline__ int tail_lanes(int count, int threads, int lanes_max) {
+  const int spread = threads / count;
+  if (spread < 4) return 1;
+  return spread < lanes_max ? spread : lanes_max;
+}
+
+// One level of a block's walk with L lanes a hash (hash.cuh split_combine):
+// hash j of the level is threads L j .. L j + L - 1, and lane r reads and
+// writes words kW r .. kW r + kW - 1 of each digest.  count L <= the
+// block's threads.  A warp with any of the level's hashes runs whole: its
+// lanes past them hash zeros and store nothing (the shuffles take the
+// whole warp's mask).
+template <int L>
+__device__ __forceinline__ void tail_level_split(const uint32_t* in, bool global,
+                                                 uint32_t* mine, uint32_t* out,
+                                                 long long first, int count) {
+  constexpr int kW = stark::SplitLane<L>::kW;
+  const int u = threadIdx.x;
+  // A warp with none of the level's hashes leaves; the vote's result is the
+  // same in every lane, which the compiler can see.
+  if (!__any_sync(0xFFFFFFFFu, u < count * L)) return;
+  const bool mine_hash = u < count * L;
+  const int j = u / L;
+  const stark::SplitLane<L> ln(u & (L - 1));
+  const uint32_t* pair = in + 16 * j + kW * ln.r;
+  uint32_t l[kW], rt[kW];
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    l[w] = !mine_hash ? 0u : global ? __ldcg(pair + w) : pair[w];
+    rt[w] = !mine_hash ? 0u : global ? __ldcg(pair + 8 + w) : pair[8 + w];
+  }
+  uint32_t s[32 / L];
+  stark::split_combine<L, kSplitForm>(s, l, rt, ln);
+  if (!mine_hash) return;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    const uint32_t word = pack4(s[4 * w], s[4 * w + 1], s[4 * w + 2], s[4 * w + 3]);
+    mine[8 * j + kW * ln.r + w] = word;
+    out[8 * (first + j) + kW * ln.r + w] = word;
+  }
+}
 
 // The 2^lg_n digests at src are level l0 of the part of a tree that this
 // block owns, block b's share of a level `width >> l0` wide; build the
@@ -96,37 +152,50 @@ constexpr int kTailThreads = 256;
 // at node width - (width >> (l - 1)) of out, and this block's share of it
 // at b * its count of nodes.  The first level is read from device memory
 // through L2 (the top's input was written by other blocks), the later ones
-// from the shared buffer written one level before.
+// from the shared buffer written one level before.  A level that fills the
+// block hashes one lane a thread; a narrower one spreads each hash over
+// tail_lanes lanes.
 __device__ __forceinline__ void tail_walk(const uint4* src, uint4* out,
                                           long long width, int l0, int lg_n,
                                           long long b, uint4* buf_a,
-                                          uint4* buf_b) {
+                                          uint4* buf_b, int lanes_max) {
   const uint4* below = nullptr;
   for (int k = 1; k <= lg_n; ++k) {
     const int count = 1 << (lg_n - k);
     uint4* mine = (k & 1) ? buf_a : buf_b;
     const long long first = width - (width >> (l0 + k - 1)) + b * count;
-    for (int j = threadIdx.x; j < count; j += blockDim.x) {
-      uint4 l_lo, l_hi, r_lo, r_hi;
-      if (k == 1) {
-        l_lo = __ldcg(src + 4 * j);
-        l_hi = __ldcg(src + 4 * j + 1);
-        r_lo = __ldcg(src + 4 * j + 2);
-        r_hi = __ldcg(src + 4 * j + 3);
-      } else {
-        l_lo = below[4 * j];
-        l_hi = below[4 * j + 1];
-        r_lo = below[4 * j + 2];
-        r_hi = below[4 * j + 3];
+    const int lanes = tail_lanes(count, blockDim.x, lanes_max);
+    if (lanes > 1) {
+      const uint32_t* in = reinterpret_cast<const uint32_t*>(k == 1 ? src : below);
+      uint32_t* m32 = reinterpret_cast<uint32_t*>(mine);
+      uint32_t* o32 = reinterpret_cast<uint32_t*>(out);
+      if (lanes == 4)
+        tail_level_split<4>(in, k == 1, m32, o32, first, count);
+      else
+        tail_level_split<8>(in, k == 1, m32, o32, first, count);
+    } else {
+      for (int j = threadIdx.x; j < count; j += blockDim.x) {
+        uint4 l_lo, l_hi, r_lo, r_hi;
+        if (k == 1) {
+          l_lo = __ldcg(src + 4 * j);
+          l_hi = __ldcg(src + 4 * j + 1);
+          r_lo = __ldcg(src + 4 * j + 2);
+          r_hi = __ldcg(src + 4 * j + 3);
+        } else {
+          l_lo = below[4 * j];
+          l_hi = below[4 * j + 1];
+          r_lo = below[4 * j + 2];
+          r_hi = below[4 * j + 3];
+        }
+        uint32_t s[32];
+        hash_combine<stark::Form::kOwed>(s, l_lo, l_hi, r_lo, r_hi);
+        uint4 lo, hi;
+        pack_digest(s, lo, hi);
+        mine[2 * j] = lo;
+        mine[2 * j + 1] = hi;
+        out[2 * (first + j)] = lo;
+        out[2 * (first + j) + 1] = hi;
       }
-      uint32_t s[32];
-      hash_combine<stark::Form::kOwed>(s, l_lo, l_hi, r_lo, r_hi);
-      uint4 lo, hi;
-      pack_digest(s, lo, hi);
-      mine[2 * j] = lo;
-      mine[2 * j + 1] = hi;
-      out[2 * (first + j)] = lo;
-      out[2 * (first + j) + 1] = hi;
     }
     __syncthreads();  // `mine` is whole; every read of `below` is done
     below = mine;
@@ -197,10 +266,12 @@ __device__ __forceinline__ void tail_body(const uint4* __restrict__ nodes,
                                           uint4* out, long long width,
                                           int lg_sub, int lg_top,
                                           unsigned int* tickets,
-                                          uint4* buf_a, uint4* buf_b) {
+                                          uint4* buf_a, uint4* buf_b,
+                                          int lanes_max) {
   __shared__ bool last;
   const long long b = blockIdx.x;
-  tail_walk(nodes + 2 * (b << lg_sub), out, width, 0, lg_sub, b, buf_a, buf_b);
+  tail_walk(nodes + 2 * (b << lg_sub), out, width, 0, lg_sub, b, buf_a, buf_b,
+            lanes_max);
   if (lg_top == 0) return;
 
   const long long tree = b >> lg_top;
@@ -214,7 +285,8 @@ __device__ __forceinline__ void tail_body(const uint4* __restrict__ nodes,
   if (!last) return;
   __threadfence();
   const long long roots = width - (width >> (lg_sub - 1)) + (tree << lg_top);
-  tail_walk(out + 2 * roots, out, width, lg_sub, lg_top, tree, buf_a, buf_b);
+  tail_walk(out + 2 * roots, out, width, lg_sub, lg_top, tree, buf_a, buf_b,
+            lanes_max);
 }
 
 }  // namespace
@@ -273,10 +345,10 @@ __global__ void __launch_bounds__(kLaneThreads)
 __global__ void __launch_bounds__(kTailThreads)
     stark_merkle_tail_kernel(const uint4* __restrict__ nodes, uint4* out,
                              long long width, int lg_sub, int lg_top,
-                             unsigned int* ticket) {
+                             unsigned int* ticket, int lanes_max) {
   __shared__ uint4 buf_a[1 << kTailMaxLg];
   __shared__ uint4 buf_b[1 << (kTailMaxLg - 1)];
-  tail_body(nodes, out, width, lg_sub, lg_top, ticket, buf_a, buf_b);
+  tail_body(nodes, out, width, lg_sub, lg_top, ticket, buf_a, buf_b, lanes_max);
 }
 
 // K8 for a forest: `width` digests, trees of 2^(lg_sub + lg_top) nodes side
@@ -286,10 +358,10 @@ __global__ void __launch_bounds__(kTailThreads)
 __global__ void __launch_bounds__(kTailThreads)
     stark_merkle_forest_kernel(const uint4* __restrict__ nodes, uint4* out,
                                long long width, int lg_sub, int lg_top,
-                               unsigned int* tickets) {
+                               unsigned int* tickets, int lanes_max) {
   __shared__ uint4 buf_a[1 << kTailMaxLg];
   __shared__ uint4 buf_b[1 << (kTailMaxLg - 1)];
-  tail_body(nodes, out, width, lg_sub, lg_top, tickets, buf_a, buf_b);
+  tail_body(nodes, out, width, lg_sub, lg_top, tickets, buf_a, buf_b, lanes_max);
 }
 
 // K9: per lane (one thread), the incremental transcript sponge of
@@ -421,9 +493,13 @@ int stark_merkle_level(const void* nodes, void* out, long long parents,
 // 0 <= lg_top <= 10; 2^lg_sub divides width, and width is 2^(lg_sub +
 // lg_top) when lg_top > 0.  ticket: one zeroed 32-bit word of device
 // memory that only launches on this stream use: they follow one another,
-// and each leaves the word at zero.
+// and each leaves the word at zero.  lanes: the most lanes a hash in the
+// narrow levels (1, 4 or 8; 0: kTailLanes).
 int stark_merkle_tail(const void* nodes, void* out, long long width,
-                      int lg_sub, int lg_top, void* ticket, void* stream) {
+                      int lg_sub, int lg_top, void* ticket, int lanes,
+                      void* stream) {
+  if (lanes == 0) lanes = kTailLanes;
+  if (lanes != 1 && lanes != 4 && lanes != 8) return (int)cudaErrorInvalidValue;
   if (lg_sub < 1 || lg_sub > kTailMaxLg || lg_top < 0 ||
       lg_top > kTailMaxLg || (width & ((1LL << lg_sub) - 1)) ||
       (lg_top > 0 && (width != 1LL << (lg_sub + lg_top) || !ticket)))
@@ -434,7 +510,7 @@ int stark_merkle_tail(const void* nodes, void* out, long long width,
   stark_merkle_tail_kernel<<<(unsigned)(width >> lg_sub), threads, 0,
                              (cudaStream_t)stream>>>(
       static_cast<const uint4*>(nodes), static_cast<uint4*>(out), width,
-      lg_sub, lg_top, static_cast<unsigned int*>(ticket));
+      lg_sub, lg_top, static_cast<unsigned int*>(ticket), lanes);
   return (int)cudaGetLastError();
 }
 
@@ -444,7 +520,10 @@ int stark_merkle_tail(const void* nodes, void* out, long long width,
 // lg_sub levels above every subtree.  tickets: one zeroed word a tree, left
 // at zero, used only by launches on this stream.
 int stark_merkle_forest(const void* nodes, void* out, long long width,
-                        int lg_sub, int lg_top, void* tickets, void* stream) {
+                        int lg_sub, int lg_top, void* tickets, int lanes,
+                        void* stream) {
+  if (lanes == 0) lanes = kTailLanes;
+  if (lanes != 1 && lanes != 4 && lanes != 8) return (int)cudaErrorInvalidValue;
   if (lg_sub < 1 || lg_sub > kTailMaxLg || lg_top < 0 ||
       lg_top > kTailMaxLg || (width & ((1LL << (lg_sub + lg_top)) - 1)) ||
       (lg_top > 0 && !tickets))
@@ -455,7 +534,7 @@ int stark_merkle_forest(const void* nodes, void* out, long long width,
   stark_merkle_forest_kernel<<<(unsigned)(width >> lg_sub), threads, 0,
                                (cudaStream_t)stream>>>(
       static_cast<const uint4*>(nodes), static_cast<uint4*>(out), width,
-      lg_sub, lg_top, static_cast<unsigned int*>(tickets));
+      lg_sub, lg_top, static_cast<unsigned int*>(tickets), lanes);
   return (int)cudaGetLastError();
 }
 

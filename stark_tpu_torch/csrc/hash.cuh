@@ -227,6 +227,212 @@ __device__ __forceinline__ uint32_t pack4(uint32_t b0, uint32_t b1,
                      0x5410);
 }
 
+// ---------------------------------------------------------------------------
+// One hash spread over L lanes (L in {2, 4, 8}), for the levels of a tree
+// that are narrower than the block (K8, hash.cu tail_walk).  The L lanes
+// are consecutive threads of a warp, a group; lane r holds the kM = 32 / L
+// state bytes at positions kM r .. kM r + kM - 1, one a register as above,
+// so every group of four bytes lies in one lane: the sbox and the group XOR
+// stay in the lane, and each lane issues 1 / L of their instructions.
+//   - The diffusion, new[i] = T_i + g[i + 1] with T_i = g0 + g31 + 2 (g1 +
+//     ... + g_i) (see mix), is a prefix sum: a lane sums its own bytes,
+//     and adds the totals of the lanes before it, each fetched by its own
+//     shuffle, all issued at once and summed as a tree; new[31] = g31 +
+//     new[0] + new[30] takes g0 + g1 from lane 0.  g[i + 1] of a lane's
+//     last byte and g31 come by a shuffle each, in the same batch: a mix
+//     waits for one shuffle's latency, not for lg L of them in a row (a
+//     scan with __shfl_up_sync), where a lone warp runs the level.
+//   - The absorb chains position p into p + 7 (5 deep: 0 -> 7 -> ... ->
+//     28), and p in 25..31 into p - 25 after that byte's own absorb.  Every
+//     lane computes all its bytes in each of 5 waves, from the value at p -
+//     7 that the wave before fetched (a shuffle a byte from the lane
+//     holding it); a position of chain step k is right from wave k on.  One
+//     more fetch gives the bytes 0..6 their XOR with 25..31.
+// Shuffles have width L, so the groups of a warp shuffle apart, and the
+// whole warp's mask: every lane of a warp that splits runs the split hash
+// (lanes past a level's hashes on inputs they do not store), so the
+// compiler emits plain shuffles.  With a group's own mask, which it cannot
+// prove convergent, it wrapped each in a warp-synchronous fallback
+// (WARPSYNC.COLLECTIVE) that doubled a hash's latency on an H100
+// (PERF.md).
+
+// The initial state and the round constants, four bytes to a word: a lane
+// reads the words of its own positions.  In device memory, not in the
+// constant bank: the lanes of a warp read different words, which the
+// constant cache would serve one after another and L1 serves at once.
+constexpr uint32_t bytes4(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+  return b0 | b1 << 8 | b2 << 16 | b3 << 24;
+}
+constexpr uint32_t kPrime0 = bytes4(2, 3, 5, 7), kPrime1 = bytes4(11, 13, 17, 19),
+                   kPrime2 = bytes4(23, 29, 31, 37), kPrime3 = bytes4(41, 43, 47, 53);
+constexpr uint32_t kRc0 = bytes4(0x01, 0x02, 0x04, 0x08), kRc1 = bytes4(0x10, 0x20, 0x40, 0x80),
+                   kRc2 = bytes4(0x1B, 0x36, 0x6C, 0xD8), kRc3 = bytes4(0xAB, 0x4D, 0x9A, 0x2F),
+                   kRc4 = bytes4(0x5E, 0xBC, 0x63, 0xC6), kRc5 = bytes4(0x97, 0x35, 0x6A, 0xD4),
+                   kRc6 = bytes4(0xB3, 0x7D, 0xFA, 0xEF), kRc7 = bytes4(0xC5, 0x91, 0x39, 0x72);
+__device__ const uint32_t kPrimeWords[4] = {kPrime0, kPrime1, kPrime2, kPrime3};
+__device__ const uint32_t kRcWords[8] = {kRc0, kRc1, kRc2, kRc3, kRc4, kRc5, kRc6, kRc7};
+
+// A lane's part of one split hash: its group position r, and its round
+// constants rc (and 502 rc, the sbox's share) at its positions.
+template <int L>
+struct SplitLane {
+  static_assert(L == 2 || L == 4 || L == 8, "2, 4 or 8 lanes a hash");
+  static constexpr int kM = 32 / L;  // state bytes a lane
+  static constexpr int kW = kM / 4;  // words a lane holds of a digest
+  static constexpr unsigned mask = 0xFFFFFFFFu;  // the whole warp (above)
+  int r;
+  uint32_t rc[kM], rc502[kM];
+
+  __device__ __forceinline__ explicit SplitLane(int lane) : r(lane) {
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      const uint32_t word = __ldg(kRcWords + r * kW + w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        rc[4 * w + j] = word >> (8 * j);
+        rc502[4 * w + j] = 502u * rc[4 * w + j];
+      }
+    }
+  }
+  // All ones where own byte j is at a position below 7, else 0.  (The
+  // lane-dependent choices here are masks, not branches: the compiler
+  // keeps a split hash free of branches, around which it would wrap each
+  // shuffle in a warp-synchronous fallback.)
+  __device__ __forceinline__ uint32_t low(int j) const {
+    return 0u - (uint32_t)(kM * r + j < 7);
+  }
+};
+
+template <int L>
+__device__ __forceinline__ void split_init(uint32_t (&s)[32 / L],
+                                           const SplitLane<L>& ln) {
+  constexpr int kW = SplitLane<L>::kW;
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+    const uint32_t word = __ldg(kPrimeWords + ((ln.r * kW + w) & 3));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[4 * w + j] = word >> (8 * j);
+  }
+}
+
+// x[j] = v at position (kM r + j - 7) mod 32: the lane's own byte j - 7,
+// or byte j - 7 + back kM of the lane `back` before it in the group.
+template <int L>
+__device__ __forceinline__ void split_fetch7(uint32_t (&x)[32 / L],
+                                             const uint32_t (&v)[32 / L],
+                                             const SplitLane<L>& ln) {
+  constexpr int kM = SplitLane<L>::kM;
+#pragma unroll
+  for (int j = 0; j < kM; ++j) {
+    const int byte = (j + 32 - 7) % kM;  // j - 7, or j - 7 + back kM
+    const int back = (7 - j + kM - 1) / kM;
+    x[j] = j >= 7 ? v[byte] : __shfl_sync(ln.mask, v[byte], ln.r - back + L, L);
+  }
+}
+
+// Absorb a 32-byte chunk; the lane holds its bytes kM r .. kM r + kM - 1
+// as kW little-endian words d (hash.rs:14-23, absorb_byte).
+template <int L>
+__device__ __forceinline__ void split_absorb(uint32_t (&s)[32 / L],
+                                             const uint32_t (&d)[32 / L / 4],
+                                             const SplitLane<L>& ln) {
+  constexpr int kM = SplitLane<L>::kM;
+  uint32_t v[kM], x[kM];
+#pragma unroll
+  for (int j = 0; j < kM; ++j) x[j] = 0u;
+#pragma unroll 1
+  for (int wave = 0; wave < 5; ++wave) {  // rolled: less code to fetch
+#pragma unroll
+    for (int j = 0; j < kM; ++j) {
+      const uint32_t t = (s[j] ^ x[j]) + (d[j >> 2] >> (8 * (j & 3)));
+      v[j] = select_bits(0xF8u, t << 3, t >> 5);
+    }
+    split_fetch7<L>(x, v, ln);
+    if (wave < 4) {
+#pragma unroll
+      for (int j = 0; j < kM; ++j) x[j] &= ~ln.low(j);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kM; ++j) s[j] = v[j] ^ (x[j] & ln.low(j));
+}
+
+// One mix round (mix above) of a split state, kIn -> kOut.
+template <int L, Form kIn, Form kOut>
+__device__ __forceinline__ void split_mix(uint32_t (&s)[32 / L],
+                                          const SplitLane<L>& ln) {
+  constexpr int kM = SplitLane<L>::kM;
+  constexpr uint32_t kInMul = kIn == Form::kScaled ? kSboxMul : 502u;
+  // The diffusion's scale: kScaled sums kChainMul u (multiply-adds).
+  constexpr uint32_t kK = kOut == Form::kScaled ? kChainMul : 1u;
+  uint32_t g[kM];
+#pragma unroll
+  for (int q = 0; q < kM / 4; ++q) {
+    uint32_t x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = 4 * q + j;
+      x[j] = sbox_rotated(s[i] * kInMul + (kIn == Form::kBytes ? 0u : ln.rc502[i]));
+    }
+    const uint32_t a = x[0] ^ 0x63u;
+    g[4 * q] = a ^ x[1] ^ x[3];
+    g[4 * q + 1] = a ^ x[2] ^ x[3];
+    g[4 * q + 2] = a ^ x[1] ^ x[2];
+    g[4 * q + 3] = (x[1] ^ 0x63u) ^ x[2] ^ x[3];
+  }
+  // Every shuffle the diffusion needs, at once: one hop of latency a mix.
+  // g[p + 1] of the lane's last byte, g31, g0 + g1 (lane 0's), and the
+  // lane totals of the local sums (below) of every lane before this one.
+  const uint32_t g_next = __shfl_down_sync(ln.mask, g[0], 1, L);  // unused at r = L - 1
+  const uint32_t g31 = __shfl_sync(ln.mask, g[kM - 1], L - 1, L);
+  const uint32_t g01 = __shfl_sync(ln.mask, g[0] + g[1], 0, L);
+  // loc[j]: T at the lane's byte j less K g31 (which every T holds): the
+  // lane's own positions' shares, position 0 K g0, every other 2 K g.
+  uint32_t loc[kM];
+  loc[0] = g[0] * select_bits(0u - (uint32_t)(ln.r == 0), kK, 2u * kK);
+#pragma unroll
+  for (int j = 1; j < kM; ++j) loc[j] = g[j] * (2u * kK) + loc[j - 1];
+  uint32_t part[L];  // lane d's total where d < r, else 0
+#pragma unroll
+  for (int d = 0; d < L; ++d) {
+    const uint32_t t = __shfl_sync(ln.mask, loc[kM - 1], d, L);
+    part[d] = t & (0u - (uint32_t)(d < ln.r));
+  }
+#pragma unroll
+  for (int w = 1; w < L; w <<= 1)  // a tree: lg L dependent adds
+#pragma unroll
+    for (int d = 0; d + w < L; d += 2 * w) part[d] += part[d + w];
+  const uint32_t before = part[0] + g31 * kK;
+  uint32_t n[kM];  // new[p] before its round constant
+#pragma unroll
+  for (int j = 0; j < kM; ++j)
+    n[j] = (j + 1 < kM ? g[j + 1] : g_next) * kK + (before + loc[j]);
+  // new[31] = g31 + new[0] + new[30], new[0] = g0 + g31 + g1, in the last
+  // lane.
+  n[kM - 1] = select_bits(0u - (uint32_t)(ln.r == L - 1), (g31 + g31 + g01) * kK + n[kM - 2],
+                          n[kM - 1]);
+#pragma unroll
+  for (int j = 0; j < kM; ++j) s[j] = n[j] + (kOut == Form::kBytes ? ln.rc[j] : 0u);
+}
+
+// Hash::combine (hash.rs:41-46) of a split state: l and rt are the lane's
+// words of the left and the right digest.
+template <int L, Form kBetween>
+__device__ __forceinline__ void split_combine(uint32_t (&s)[32 / L],
+                                              const uint32_t (&l)[32 / L / 4],
+                                              const uint32_t (&rt)[32 / L / 4],
+                                              const SplitLane<L>& ln) {
+  split_init<L>(s, ln);
+  split_absorb<L>(s, l, ln);
+  split_mix<L, Form::kBytes, Form::kBytes>(s, ln);
+  split_absorb<L>(s, rt, ln);
+  split_mix<L, Form::kBytes, Form::kBytes>(s, ln);
+  split_mix<L, Form::kBytes, kBetween>(s, ln);
+#pragma unroll 1
+  for (int k = 0; k < 6; ++k) split_mix<L, kBetween, kBetween>(s, ln);
+  split_mix<L, kBetween, Form::kBytes>(s, ln);
+}
+
 // The state as a digest: two 16-byte words, byte i of the digest = the low
 // byte of s[i].
 __device__ __forceinline__ void pack_digest(const uint32_t (&s)[32], uint4& lo,

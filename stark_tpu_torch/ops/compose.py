@@ -6,8 +6,10 @@ and of its vmap over a batch (stark_tpu/batch.py:554-559).  The AIR's
 transition constraints are user code, so the kernel is generated per AIR:
 ``models.air.record_constraints`` records them once as a straight-line
 tape, :func:`generate_source` writes it as a C++ function of one point
-(every node a local ``uint32_t``, canonical in [0, p), a product by a
-constant a Shoup product with its companion computed here), and
+(every node a local ``uint32_t``, canonical in [0, p); a sum with products
+by constants one lazy 64-bit sum of its linear form, reduced once; any
+other product by a constant a Shoup product with its companion computed
+here), and
 csrc/compose.cuh adds what no AIR changes: the frame loads, the zerofier
 factor, the boundary quotients, the weights and the sum, over a (B, c, N)
 grid.  The generated source goes into ``stark_tpu_torch/_build/`` and is
@@ -50,17 +52,75 @@ R2 = R1 * R1 % P
 #: Seconds each AIR library's build took in this process, by the sha256 of
 #: its generated source (0.0: found built).
 BUILD_SECONDS: dict[str, float] = {}
+#: Products a lazy 64-bit sum takes before it folds, and what a folded sum
+#: counts as (csrc/compose.cuh kLazyTerms, kFoldTerms).
+LAZY_TERMS, FOLD_TERMS = 16, 2
 # Integer operations per point, as the generated body and compose.cuh
 # compute them: a Montgomery product 7, a Shoup product 4, an addition or
 # subtraction mod p 2, a product of two variables 11 (Montgomery, then
-# Shoup by R).
+# Shoup by R); a term of a lazy sum is one 64-bit multiply-add, a fold one
+# more, the closing reduction 6 (fold, multiply, multiply high, carry,
+# add, add-and-minimum).
 OPS_MONT, OPS_SHOUP, OPS_ADD, OPS_MUL = 7, 4, 2, 11
+OPS_WIDE, OPS_FOLD, OPS_REDUCE = 1, 1, 6
 
 
 def shoup(w: np.ndarray) -> np.ndarray:
     """Shoup companions floor(w 2^32 / p) of values w in [0, p)."""
     return ((np.asarray(w, dtype=np.uint64) << np.uint64(32)) // np.uint64(P)).astype(
         np.uint32)
+
+
+def lazy_folds(terms: int) -> int:
+    """Folds a lazy sum of ``terms`` products makes (one before each term
+    that would be its LAZY_TERMS + 1-th since the last)."""
+    folds, count = 0, 0
+    for _ in range(terms):
+        if count == LAZY_TERMS:
+            folds, count = folds + 1, FOLD_TERMS
+        count += 1
+    return folds
+
+
+def lazy_ops(terms: int) -> int:
+    """Operations of a lazy sum of ``terms`` products, reduced once."""
+    return terms * OPS_WIDE + lazy_folds(terms) * OPS_FOLD + OPS_REDUCE
+
+
+def _linear_forms(tape) -> dict:
+    """{node: (coefficients {base node: c}, constant)} of every live node
+    that is linear in its inputs (add, sub, neg, a product by a constant):
+    its value is sum c x + constant mod p over bases x, each a frame input
+    or a product of two variables."""
+    forms: dict = {}
+
+    def form(j):
+        c = tape.const_value(j)
+        if c is not None:
+            return {}, c
+        return forms.get(j, ({j: 1}, 0))
+
+    for j in tape.live():
+        node = tape.nodes[j]
+        op = node[0]
+        if op in ("add", "sub"):
+            (fa, ca), (fb, cb) = form(node[1]), form(node[2])
+            sign = 1 if op == "add" else P - 1
+            d = dict(fa)
+            for k, v in fb.items():
+                d[k] = (d.get(k, 0) + sign * v) % P
+            forms[j] = ({k: v for k, v in d.items() if v}, (ca + sign * cb) % P)
+        elif op == "neg":
+            fa, ca = form(node[1])
+            forms[j] = ({k: P - v for k, v in fa.items()}, -ca % P)
+        elif op == "mul":
+            ca, cb = tape.const_value(node[1]), tape.const_value(node[2])
+            if ca is not None or cb is not None:
+                x, w = (node[2], ca) if ca is not None else (node[1], cb)
+                fx, cx = form(x)
+                forms[j] = ({k: v * w % P for k, v in fx.items() if v * w % P},
+                            cx * w % P)
+    return forms
 
 
 class ComposeProgram:
@@ -78,7 +138,7 @@ class ComposeProgram:
         self.groups = [self.rows.index(int(bc.row)) for bc in self.boundary]
         self.transitions = len(self.tape.outputs)
         self.terms = self.transitions + len(self.boundary)
-        self.source = generate_source(self)
+        self.source, self.body_operations = generate_source(self)
         self.sha256 = hashlib.sha256(self.source.encode()).hexdigest()
 
     def weights(self, alphas, betas) -> np.ndarray:
@@ -93,15 +153,9 @@ class ComposeProgram:
         return np.stack([wa, shoup(wa), wb, shoup(wb)], axis=2).reshape(a.shape[0], -1)
 
     def operations(self) -> int:
-        """Integer operations per point (the bound's count)."""
-        ops = 0
-        for j in self.tape.live():
-            node = self.tape.nodes[j]
-            if node[0] in ("add", "sub", "neg"):
-                ops += OPS_ADD
-            elif node[0] == "mul":
-                consts = sum(self.tape.const_value(x) is not None for x in node[1:])
-                ops += OPS_SHOUP if consts else OPS_MUL
+        """Integer operations per point (the bound's count): the generated
+        body's, then compose.cuh's weighted sums and table products."""
+        ops = self.body_operations
         # Per term two Shoup products and two additions; per weighted sum
         # two Montgomery products and an addition, and one more addition
         # into the total per boundary row; a subtraction per boundary.
@@ -122,27 +176,68 @@ class ComposeProgram:
         return len(regs | {int(bc.register) for bc in self.boundary})
 
 
-def generate_source(program: ComposeProgram) -> str:
-    """The AIR's C++ source: ``struct Air`` (csrc/compose.cuh) and its entry.
-    The same bytes for the same AIR and boundary list."""
+def generate_source(program: ComposeProgram) -> tuple[str, int]:
+    """The AIR's C++ source, ``struct Air`` (csrc/compose.cuh) and its
+    entry, and the operations per point of its body.  The same bytes for
+    the same AIR and boundary list.
+
+    A node the constraints need as a value (an output, an operand of a
+    product of two variables) that is a sum with products by constants
+    other than +-1 is written as a lazy 64-bit sum of its linear form over
+    frame inputs and such products (each coefficient c as c R mod p, each
+    constant k as k R mod p, which the reduction's 2^-32 takes back);
+    every other node as the tape has it: a product by a constant a Shoup
+    product with its literal companion, an addition or subtraction mod p,
+    a product of two variables mul_mod."""
     tape, air = program.tape, program.air
-    live = tape.live()
+    forms = _linear_forms(tape)
 
     def ref(j: int) -> str:
         c = tape.const_value(j)
         return f"{c}u" if c is not None else f"n{j}"
 
-    loads, body = [], []
-    for j in live:
+    def lazy(j: int) -> bool:
+        d = forms.get(j, ({}, 0))[0]
+        return len(d) >= 2 and any(v not in (1, P - 1) for v in d.values())
+
+    need = set(tape.outputs)
+    for j in sorted(tape.live(), reverse=True):
+        if j not in need:
+            continue
+        node = tape.nodes[j]
+        if lazy(j):
+            need.update(forms[j][0])
+        elif node[0] != "in":
+            need.update(x for x in node[1:] if tape.const_value(x) is None)
+
+    loads, body, ops = [], [], 0
+    for j in sorted(need):
         node = tape.nodes[j]
         op = node[0]
         if op == "in":
             loads.append(f"    const uint32_t n{j} = at({node[1]}, {node[2]});")
+        elif lazy(j):
+            d, k = forms[j]
+            terms = [f"(uint64_t)n{x} * {c * R1 % P}u" for x, c in sorted(d.items())]
+            if k:
+                terms.append(f"{k * R1 % P}ull")
+            body.append(f"    uint64_t s{j} = {terms[0]};")
+            count = 1
+            for t in terms[1:]:
+                if count == LAZY_TERMS:
+                    body.append(f"    s{j} = stark::fold64(s{j});")
+                    count = FOLD_TERMS
+                body.append(f"    s{j} += {t};")
+                count += 1
+            body.append(f"    const uint32_t n{j} = stark::reduce64(s{j});")
+            ops += lazy_ops(len(terms))
         elif op == "neg":
             body.append(f"    const uint32_t n{j} = stark::sub_mod(0u, {ref(node[1])});")
+            ops += OPS_ADD
         elif op in ("add", "sub"):
             body.append(f"    const uint32_t n{j} = stark::{op}_mod({ref(node[1])}, "
                         f"{ref(node[2])});")
+            ops += OPS_ADD
         elif op == "mul":
             a, b = node[1], node[2]
             ca, cb = tape.const_value(a), tape.const_value(b)
@@ -150,9 +245,11 @@ def generate_source(program: ComposeProgram) -> str:
                 x, w = (b, ca) if ca is not None else (a, cb)
                 body.append(f"    const uint32_t n{j} = stark::shoup_mul(n{x}, {w}u, "
                             f"{int(shoup(w))}u);")
+                ops += OPS_SHOUP
             else:
                 body.append(f"    const uint32_t n{j} = stark::mul_mod(n{a}, n{b});")
-    inputs = {(tape.nodes[j][1], tape.nodes[j][2]): j for j in live
+                ops += OPS_MUL
+    inputs = {(tape.nodes[j][1], tape.nodes[j][2]): j for j in need
               if tape.nodes[j][0] == "in"}
     bounds = []
     for i, bc in enumerate(program.boundary):
@@ -169,7 +266,7 @@ def generate_source(program: ComposeProgram) -> str:
     nb = len(program.boundary)
     rows = ", ".join(str(g) for g in program.groups) or "0"
     values = ", ".join(f"{int(bc.value) % P}u" for bc in program.boundary) or "0u"
-    return "\n".join([
+    source = "\n".join([
         f"// Kernel K11 for the AIR {type(air).__name__}, generated by",
         "// stark_tpu_torch/ops/compose.py from its transition constraints.",
         '#include "compose.cuh"',
@@ -205,6 +302,7 @@ def generate_source(program: ComposeProgram) -> str:
         "STARK_COMPOSE_ENTRY(stark_air::Air)",
         "",
     ])
+    return source, ops
 
 
 def _source_file(source: str) -> str:
@@ -261,6 +359,30 @@ class Tables:
 
     def __init__(self, exz, xt, xb, dinv):
         self.exz, self.xt, self.xb, self.dinv = exz, xt, xb, dinv
+
+    @classmethod
+    def build(cls, *, n: int, trace_length: int, blowup: int, offset: int, omega_n: int,
+              omega_t: int, excluded: list[int], shift_t: int, shift_b: int,
+              rows: list[int], device) -> "Tables":
+        """The tables of a coset x_i = offset omega_n^i of n points (a
+        trace domain of ``trace_length`` generated by omega_t), made once
+        (in int64, stored int32): the transition zerofier's factor 1 /
+        (x^T - 1) prod_e (x - excluded_e), the degree shifts x^shift_t and
+        x^shift_b, and 1 / (x - omega_t^r) for each boundary row r."""
+        x_dom = F.powers(omega_n, n, scale=offset, device=device)
+        rho = pow(omega_n, trace_length, P)                         # order = blowup
+        zinv_cycle = [F.host_inv(pow(offset, trace_length, P) * pow(rho, j, P) - 1)
+                      for j in range(blowup)]
+        exz = torch.tensor(zinv_cycle, dtype=torch.int64, device=device).repeat(
+            n // blowup)
+        for w in excluded:
+            exz = F.mulmod(exz, F.submod(x_dom, w))
+        xt, xb = (F.powers(pow(omega_n, s, P), n, scale=pow(offset, s, P), device=device)
+                  for s in (shift_t, shift_b))
+        dinv = [F.invmod(F.submod(x_dom, pow(omega_t, row, P))) for row in rows]
+        dinv = torch.stack(dinv) if dinv else torch.zeros((1, n), dtype=torch.int64,
+                                                          device=device)
+        return cls(*(t.to(torch.int32).contiguous() for t in (exz, xt, xb, dinv)))
 
 
 def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,

@@ -13,7 +13,9 @@ in hashfn.py (reference src/hash.rs):
     merkle_tail   K8     W node digests -> every level above them, down to
                          the root (_tail_levels_core :433), in one launch:
                          a block per subtree (tail_sub_lg), and the block
-                         that finishes last builds the top;
+                         that finishes last builds the top; a level
+                         narrower than the block spreads each hash over
+                         several lanes (tail_lanes, tail_plan);
     merkle_forest K8     the same for B trees of one width side by side
                          (a forest), each down to its own root
                          (forest_tail_levels_core :510): the block of a
@@ -85,12 +87,12 @@ MERKLE_LEVEL = cuda.Kernel(
 )
 MERKLE_TAIL = cuda.Kernel(
     "merkle_tail", "stark_merkle_tail",
-    [cuda.ptr] * 2 + [_I64, cuda.i32, cuda.i32, cuda.ptr],
+    [cuda.ptr] * 2 + [_I64, cuda.i32, cuda.i32, cuda.ptr, cuda.i32],
     source=_SRC, replaces="stark_tpu/ops/hash_batch.py:433",
 )
 MERKLE_FOREST = cuda.Kernel(
     "merkle_forest", "stark_merkle_forest",
-    [cuda.ptr] * 2 + [_I64, cuda.i32, cuda.i32, cuda.ptr],
+    [cuda.ptr] * 2 + [_I64, cuda.i32, cuda.i32, cuda.ptr, cuda.i32],
     source=_SRC, replaces="stark_tpu/ops/hash_batch.py:510",
 )
 SPONGE = cuda.Kernel(
@@ -101,13 +103,21 @@ SPONGE = cuda.Kernel(
 
 #: The subtree a K8 block owns leaves 2^TAIL_TOP_LG roots to the block that
 #: builds the top, but is never smaller than 2^TAIL_MIN_SUB_LG nodes: set
-#: from chip_smoke.py's subtree sweep on an H100 (PERF.md).
+#: from chip_smoke.py's subtree sweep on an H100 (PERF.md; 2^8 since the
+#: narrow levels spread a hash over several lanes, which made the deeper
+#: walk of a larger subtree cheaper than a wider top).
 TAIL_TOP_LG = 7
-TAIL_MIN_SUB_LG = 6
+TAIL_MIN_SUB_LG = 8
 #: The most levels one block walks at a time (csrc/hash.cu kTailMaxLg): a
 #: subtree, or the top that the last block builds.  A launch therefore
 #: reaches the root from up to 2^(2 TAIL_MAX_LG) nodes.
 TAIL_MAX_LG = 10
+#: The most threads of a K8 block (csrc/hash.cu kTailThreads), and the most
+#: lanes one hash takes in a level narrower than the block (kTailLanes):
+#: set from chip_smoke.py's sweep on an H100 (PERF.md).
+TAIL_THREADS = 256
+TAIL_LANES = 8
+LANE_CHOICES = (1, 4, 8)
 #: Levels wider than this go to K7, one launch each; from this width down
 #: K8 builds the rest of the tree.  (The counterpart of the JAX package's
 #: FUSE_MAX_WIDTH.)  K7 keeps every thread hashing; in K8 half of a block's
@@ -232,6 +242,33 @@ def tail_launches(lg_w: int, lg_sub: int | None = None,
         yield sub, top
         lg_w -= sub + top
         lg_tree -= sub + top
+
+
+def tail_threads(lg_sub: int, lg_top: int) -> int:
+    """The threads of a K8 block for a launch (csrc/hash.cu): half the
+    widest level it walks, at least a warp, at most TAIL_THREADS."""
+    return min(max(1 << (max(lg_sub, lg_top) - 1), 32), TAIL_THREADS)
+
+
+def tail_lanes(count: int, threads: int, lanes_max: int = TAIL_LANES) -> int:
+    """Lanes a hash at a level of ``count`` hashes in a block of
+    ``threads`` (csrc/hash.cu tail_lanes): the block's threads spread over
+    the level, at most ``lanes_max`` a hash; one lane where they would
+    not give a hash four."""
+    spread = threads // count
+    return 1 if spread < 4 else min(spread, lanes_max)
+
+
+def tail_plan(lg_w: int, lg_sub: int | None = None, lg_tree: int | None = None,
+              lanes_max: int = TAIL_LANES):
+    """K8's launches as tail_launches gives them, each as (threads, lanes
+    of each subtree level, lanes of each top level): what a block of each
+    walk runs, level by level."""
+    for sub, top in tail_launches(lg_w, lg_sub, lg_tree):
+        threads = tail_threads(sub, top)
+        yield (threads,
+               [tail_lanes(1 << (sub - k), threads, lanes_max) for k in range(1, sub + 1)],
+               [tail_lanes(1 << (top - k), threads, lanes_max) for k in range(1, top + 1)])
 
 
 def merkle_tail_plain(nodes: torch.Tensor, lg_sub: int | None = None,
@@ -399,18 +436,28 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
+def _check_lanes(lanes: int | None) -> int:
+    lanes = TAIL_LANES if lanes is None else lanes
+    if lanes not in LANE_CHOICES:
+        raise ValueError(f"lanes must be one of {LANE_CHOICES}, got {lanes}")
+    return lanes
+
+
 def merkle_tail(nodes: torch.Tensor, out: torch.Tensor | None = None,
-                lg_sub: int | None = None) -> torch.Tensor:
+                lg_sub: int | None = None, lanes: int | None = None) -> torch.Tensor:
     """K8: (W, 32) node digests, W a power of two -> (W - 1, 32), every
     level above them (widest first, the root last).  One launch for W up
     to 2^(2 TAIL_MAX_LG): a block per subtree, the top by the block that
-    finishes last (``tail_launches``; ``lg_sub`` fixes the subtree size)."""
+    finishes last (``tail_launches``; ``lg_sub`` fixes the subtree size).
+    A level narrower than the block spreads each hash over up to ``lanes``
+    lanes (``tail_lanes``; default TAIL_LANES): the same digests."""
     _check_digests(nodes, "nodes")
     w = nodes.shape[0]
     if not _pow2(w):
         raise ValueError(f"a subtree needs a power-of-two width, got {w}")
     if lg_sub is not None and not 1 <= lg_sub <= TAIL_MAX_LG:
         raise ValueError(f"lg_sub must be in 1..{TAIL_MAX_LG}, got {lg_sub}")
+    lanes = _check_lanes(lanes)
     out = _output(out, w - 1, nodes)
     if nodes.device.type == "cpu":
         out.copy_(merkle_tail_plain(nodes, lg_sub))
@@ -424,7 +471,7 @@ def merkle_tail(nodes: torch.Tensor, out: torch.Tensor | None = None,
         try:
             MERKLE_TAIL.launch(
                 nodes.device, src.data_ptr(), out[pos:].data_ptr(), w, sub,
-                top, ticket.data_ptr(),
+                top, ticket.data_ptr(), lanes,
             )
         except RuntimeError:
             # A launch that failed may have left tickets drawn: the next
@@ -450,12 +497,13 @@ def _tickets(device: torch.device, stream: int) -> torch.Tensor:
 
 def merkle_forest(nodes: torch.Tensor, trees: int,
                   out: torch.Tensor | None = None,
-                  lg_sub: int | None = None) -> torch.Tensor:
+                  lg_sub: int | None = None, lanes: int | None = None) -> torch.Tensor:
     """K8 for a forest: (B n, 32) digests of ``trees`` = B trees of width
     n, a power of two -> (B n - B, 32), every level above them, each
     level the trees' shares side by side, the B roots last.  One launch
     for n up to 2^(2 TAIL_MAX_LG): a block per subtree, each tree's top by
-    its block that finishes last (``tail_launches``)."""
+    its block that finishes last (``tail_launches``); ``lanes`` as in
+    merkle_tail."""
     _check_digests(nodes, "nodes")
     w = nodes.shape[0]
     n = w // trees if trees > 0 else 0
@@ -465,6 +513,7 @@ def merkle_forest(nodes: torch.Tensor, trees: int,
         raise ValueError(f"at most {FOREST_MAX_TREES} trees, got {trees}")
     if lg_sub is not None and not 1 <= lg_sub <= TAIL_MAX_LG:
         raise ValueError(f"lg_sub must be in 1..{TAIL_MAX_LG}, got {lg_sub}")
+    lanes = _check_lanes(lanes)
     out = _output(out, w - trees, nodes)
     if nodes.device.type == "cpu":
         out.copy_(forest_tail_plain(nodes, trees))
@@ -478,7 +527,7 @@ def merkle_forest(nodes: torch.Tensor, trees: int,
         try:
             MERKLE_FOREST.launch(
                 nodes.device, src.data_ptr(), out[pos:].data_ptr(), w, sub,
-                top, tickets.data_ptr(),
+                top, tickets.data_ptr(), lanes,
             )
         except RuntimeError:
             tickets.zero_()  # as in merkle_tail

@@ -39,7 +39,6 @@ from stark_tpu_torch.merkle import Forest
 from stark_tpu_torch.models.air import Air, BoundaryConstraint, ScalarOps
 from stark_tpu_torch.ops import compose as CO
 from stark_tpu_torch.ops import cuda
-from stark_tpu_torch.ops import fieldops as F
 from stark_tpu_torch.ops import gather as G
 from stark_tpu_torch.ops import ntt as NTT
 from stark_tpu_torch.ops.fieldops import GENERATOR, P, primitive_nth_root
@@ -193,32 +192,13 @@ class StarkProver:
         self.fri = d.fri()
         # The composition kernel generated from the AIR (K11), and its
         # trace-independent (N,) tables: int32 canonical values on the
-        # device, made once here (in int64) and read once a point.
+        # device, made once here and read once a point.
         self.program = CO.ComposeProgram(air, d.boundary)
-        x_dom = F.powers(d.Omega, d.N, scale=d.offset, device=device)
-        rho = pow(d.Omega, d.T, P)                                  # order = blowup
-        zinv_cycle = [
-            F.host_inv(pow(d.offset, d.T, P) * pow(rho, j, P) - 1)
-            for j in range(cfg.blowup)
-        ]
-        exz = torch.tensor(zinv_cycle, dtype=torch.int64, device=device).repeat(d.T)
-        for w in d.excluded:
-            exz = F.mulmod(exz, F.submod(x_dom, w))
-        xshift_t = F.powers(
-            pow(d.Omega, d.transition_shift, P), d.N,
-            scale=pow(d.offset, d.transition_shift, P), device=device,
-        )
-        xshift_b = F.powers(
-            pow(d.Omega, d.boundary_shift, P), d.N,
-            scale=pow(d.offset, d.boundary_shift, P), device=device,
-        )
-        # Boundary-quotient denominators 1/(x - w^row), one per distinct row.
-        dinv = [F.invmod(F.submod(x_dom, pow(d.omega, row, P)))
-                for row in self.program.rows]
-        dinv = torch.stack(dinv) if dinv else torch.zeros((1, d.N), dtype=torch.int64,
-                                                          device=device)
-        self.tables = CO.Tables(*(t.to(torch.int32).contiguous()
-                                  for t in (exz, xshift_t, xshift_b, dinv)))
+        self.tables = CO.Tables.build(
+            n=d.N, trace_length=d.T, blowup=cfg.blowup, offset=d.offset,
+            omega_n=d.Omega, omega_t=d.omega, excluded=d.excluded,
+            shift_t=d.transition_shift, shift_b=d.boundary_shift,
+            rows=self.program.rows, device=device)
 
     def _compose(self, trace_lde: torch.Tensor, alphas, betas) -> torch.Tensor:
         """(c, N) int32 LDE -> (N,) int32 composition codeword, or B proofs

@@ -2,7 +2,7 @@
 kernels, and what ``ptxas`` reports for every kernel.  Needs a CUDA card and
 nvcc.
 
-    python3 -m stark_tpu_torch.tools.tune_kernels [--seed N]
+    python3 -m stark_tpu_torch.tools.tune_kernels [--seed N] [--only SWEEP]
 
 Prints, in this order:
 
@@ -26,7 +26,22 @@ Prints, in this order:
 * ``ntt transpose``: K3's vector route, its edge route (4-byte accesses
   through a shared tile) on the same shape, and the library call
   ``x3.transpose(1, 2).contiguous()`` on the same operands, each twice;
-* ``sponge split`` (first): K9 as it was before its redesign, as an empty
+* ``hash latency`` (first): one warp hashing a chain of combines with 1,
+  2, 4 or 8 lanes a hash, whole, its absorbs alone and its mixes alone:
+  what a level of K8 near a root costs (``--only latency``);
+* ``forest turns``: K8 at W = 2^16 and K8-forest at (32, 2^11) and (8,
+  2^13), the design before (one lane a hash), the design in use and the
+  same with the other form between mix rounds, in turn and back, then by
+  the most lanes a hash (``--only forest``);
+* ``tail in prove``: each K8 launch of profiled Fibonacci T=2^20 proves,
+  width and device time (``--only tail-in-prove``; run by path with
+  another checkout first on ``PYTHONPATH`` it measures that checkout);
+* ``compose turns``: K11 at Fibonacci T=2^20, MDS T=2^16 and batch8's (8,
+  1, 2^16), the design before (eager sums), the design in use (lazy sums
+  in the generated body) and the redesign tried and not kept (the coset
+  computed in the kernel, ``compose_coset``), in turn and back (``--only
+  compose``);
+* ``sponge split``: K9 as it was before its redesign, as an empty
   kernel with its parameters, with its mixes taken out and whole, then
   the kernel in use, in turn and back, for B in {1, 8, 32}: what its time
   is made of (``--only sponge`` runs that alone).
@@ -34,8 +49,11 @@ Prints, in this order:
 (K8's subtree size, ``hash_batch.tail_sub_lg``, and ``TAIL_CUTOVER`` have
 their sweeps in chip_smoke.py.)  ``fib_expand_before`` builds K12
 ``fib_expand`` as it was before its redesign (one thread an element, three
-Montgomery products), and ``sponge_before`` K9 as it was (byte loads and
-stores), which chip_smoke.py times beside the kernels in use.
+Montgomery products), ``sponge_before`` K9 as it was (byte loads and
+stores), ``forest_before`` K8 and K8-forest as they were (one lane a hash
+at every level), ``compose_before`` K11 as it was (every sum eager),
+``floor_kernel`` an empty kernel: chip_smoke.py times them beside the
+kernels in use.
 
 Times are device time per call (``device_us``); every call takes the next
 of several sets of buffers, at least 128 MiB apart, so the operands come
@@ -248,6 +266,103 @@ extern "C" int sponge_before(int mode, void* state, void* pending, int q, int fr
   return (int)cudaGetLastError();
 }
 """
+# K8 and K8-forest before their redesign (csrc/hash.cu as it was): every
+# level one lane a hash, whatever its width.  Its forest entry takes a
+# single tree as a forest of one.
+FOREST_BEFORE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+#include "hash.cuh"
+using namespace stark;
+namespace {
+constexpr int kTailMaxLg = 10;
+constexpr int kTailThreads = 256;
+__device__ __forceinline__ void tail_walk(const uint4* src, uint4* out,
+                                          long long width, int l0, int lg_n,
+                                          long long b, uint4* buf_a,
+                                          uint4* buf_b) {
+  const uint4* below = nullptr;
+  for (int k = 1; k <= lg_n; ++k) {
+    const int count = 1 << (lg_n - k);
+    uint4* mine = (k & 1) ? buf_a : buf_b;
+    const long long first = width - (width >> (l0 + k - 1)) + b * count;
+    for (int j = threadIdx.x; j < count; j += blockDim.x) {
+      uint4 l_lo, l_hi, r_lo, r_hi;
+      if (k == 1) {
+        l_lo = __ldcg(src + 4 * j);
+        l_hi = __ldcg(src + 4 * j + 1);
+        r_lo = __ldcg(src + 4 * j + 2);
+        r_hi = __ldcg(src + 4 * j + 3);
+      } else {
+        l_lo = below[4 * j];
+        l_hi = below[4 * j + 1];
+        r_lo = below[4 * j + 2];
+        r_hi = below[4 * j + 3];
+      }
+      uint32_t s[32];
+      hash_combine<stark::Form::kOwed>(s, l_lo, l_hi, r_lo, r_hi);
+      uint4 lo, hi;
+      pack_digest(s, lo, hi);
+      mine[2 * j] = lo;
+      mine[2 * j + 1] = hi;
+      out[2 * (first + j)] = lo;
+      out[2 * (first + j) + 1] = hi;
+    }
+    __syncthreads();
+    below = mine;
+  }
+}
+__device__ __forceinline__ void tail_body(const uint4* __restrict__ nodes,
+                                          uint4* out, long long width,
+                                          int lg_sub, int lg_top,
+                                          unsigned int* tickets,
+                                          uint4* buf_a, uint4* buf_b) {
+  __shared__ bool last;
+  const long long b = blockIdx.x;
+  tail_walk(nodes + 2 * (b << lg_sub), out, width, 0, lg_sub, b, buf_a, buf_b);
+  if (lg_top == 0) return;
+  const long long tree = b >> lg_top;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets + tree, 1u) == (1u << lg_top) - 1;
+    if (last) tickets[tree] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const long long roots = width - (width >> (lg_sub - 1)) + (tree << lg_top);
+  tail_walk(out + 2 * roots, out, width, lg_sub, lg_top, tree, buf_a, buf_b);
+}
+}  // namespace
+extern "C" {
+__global__ void __launch_bounds__(kTailThreads)
+    forest_before_kernel(const uint4* __restrict__ nodes, uint4* out,
+                               long long width, int lg_sub, int lg_top,
+                               unsigned int* tickets) {
+  __shared__ uint4 buf_a[1 << kTailMaxLg];
+  __shared__ uint4 buf_b[1 << (kTailMaxLg - 1)];
+  tail_body(nodes, out, width, lg_sub, lg_top, tickets, buf_a, buf_b);
+}
+int forest_before(const void* nodes, void* out, long long width,
+                        int lg_sub, int lg_top, void* tickets, void* stream) {
+  if (lg_sub < 1 || lg_sub > kTailMaxLg || lg_top < 0 ||
+      lg_top > kTailMaxLg || (width & ((1LL << (lg_sub + lg_top)) - 1)) ||
+      (lg_top > 0 && !tickets))
+    return (int)cudaErrorInvalidValue;
+  int threads = 1 << ((lg_sub > lg_top ? lg_sub : lg_top) - 1);
+  if (threads < 32) threads = 32;
+  if (threads > kTailThreads) threads = kTailThreads;
+  forest_before_kernel<<<(unsigned)(width >> lg_sub), threads, 0,
+                               (cudaStream_t)stream>>>(
+      static_cast<const uint4*>(nodes), static_cast<uint4*>(out), width,
+      lg_sub, lg_top, static_cast<unsigned int*>(tickets));
+  return (int)cudaGetLastError();
+}
+}
+"""
+
 #: sponge_before's modes, as ``sponge_split`` names them.
 SPONGE_PARTS = {"empty kernel": 2, "no mixes": 1, "whole": 0}
 
@@ -292,7 +407,7 @@ def sets(nbytes: int, *tensors):
 
 
 def ptxas(sources=cuda.SOURCES, by_source: bool = False) -> dict:
-    """{kernel: "N regs, spill S/L B, smem M B"} for every kernel of
+    """{kernel: "N regs, spill S/L B, stack F B, smem M B"} for every kernel of
     ``sources`` (csrc/ file names, or paths such as a generated K11
     source), one nvcc per source, all at once; ``by_source``: {source:
     {kernel: ...}} (K11's sources name their kernels alike)."""
@@ -310,20 +425,22 @@ def ptxas(sources=cuda.SOURCES, by_source: bool = False) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{stderr}")
         name = None
-        spill = ""
+        spill = stack = ""
         if by_source:
             found[source] = {}
         for line in stderr.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
             if m:
-                spill = f"spill {m.group(1)}/{m.group(2)} B"
+                stack = f"stack {m.group(1)} B"
+                spill = f"spill {m.group(2)}/{m.group(3)} B"
             m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
             if m and name:
                 (found[source] if by_source else found)[name] = (
-                    f"{m.group(1)} regs, {spill}, smem {m.group(2) or 0} B")
+                    f"{m.group(1)} regs, {spill}, {stack}, smem {m.group(2) or 0} B")
     return found
 
 
@@ -361,15 +478,17 @@ def timed(launch, args, want, what: str, reps: int = 30) -> float:
     return round(device_us(cycled(launch, args), reps), 2)
 
 
-def build_temporary(source: str, name: str) -> ctypes.CDLL:
-    """``source`` compiled beside the port's headers in a temporary
-    directory and loaded (the mapping outlives the directory)."""
+def build_temporary(source: str, name: str, headers: dict | None = None) -> ctypes.CDLL:
+    """``source`` compiled beside the port's headers (and ``headers``,
+    {file name: text}, written beside it) in a temporary directory and
+    loaded (the mapping outlives the directory)."""
     with tempfile.TemporaryDirectory() as tmp:
         src, lib = os.path.join(tmp, name + ".cu"), os.path.join(tmp, name + ".so")
-        with open(src, "w") as f:
-            f.write(source)
-        subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", cuda.CSRC, "-o", lib, src],
-                       check=True)
+        for file, text in {**(headers or {}), name + ".cu": source}.items():
+            with open(os.path.join(tmp, file), "w") as f:
+                f.write(text)
+        subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", tmp, "-I", cuda.CSRC, "-o",
+                        lib, src], check=True)
         return ctypes.CDLL(lib)
 
 
@@ -433,6 +552,754 @@ def sponge_before():
     return call
 
 
+# One warp hashing a chain of combines, d <- combine(d, d), with L lanes a
+# hash (L = 1: hash.cuh's one-lane hash_combine; else split_combine), kMode
+# 0 the whole combine, 1 its two absorbs and none of its 10 mixes, 2 its
+# mixes and no absorb: the latency of one hash of K8's narrow levels and
+# what it is made of.  `hashes` hashes side by side (hashes L <= 32; the
+# split warp runs whole, as in K8).
+HASH_LATENCY_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+#include "hash.cuh"
+using namespace stark;
+template <int L, int kMode>
+__global__ void hash_latency_kernel(uint32_t* io, int reps, int hashes) {
+  const int u = threadIdx.x;
+  if (L == 1 && u >= hashes) return;
+  if constexpr (L == 1) {
+    uint4 lo = make_uint4(io[8 * u], io[8 * u + 1], io[8 * u + 2], io[8 * u + 3]);
+    uint4 hi = make_uint4(io[8 * u + 4], io[8 * u + 5], io[8 * u + 6], io[8 * u + 7]);
+    for (int k = 0; k < reps; ++k) {
+      uint32_t s[32];
+      if (kMode == 2) {
+        hash_init(s);
+        s[0] += lo.x;
+        mix(s);
+        mix(s);
+        hash_finish<Form::kOwed>(s);
+      } else if (kMode == 1) {
+        hash_init(s);
+        absorb_digest(s, lo, hi);
+        absorb_digest(s, hi, lo);
+      } else {
+        hash_combine<Form::kOwed>(s, lo, hi, lo, hi);
+      }
+      pack_digest(s, lo, hi);
+    }
+    io[8 * u] = lo.x ^ lo.y ^ lo.z ^ lo.w ^ hi.x ^ hi.y ^ hi.z ^ hi.w;
+  } else {
+    constexpr int kW = SplitLane<L>::kW;
+    const SplitLane<L> ln(u & (L - 1));
+    uint32_t d[kW];
+    for (int w = 0; w < kW; ++w) d[w] = u < hashes * L ? io[8 * (u / L) + kW * ln.r + w] : 0u;
+    for (int k = 0; k < reps; ++k) {
+      uint32_t s[32 / L];
+      if (kMode == 2) {
+        split_init<L>(s, ln);
+        s[0] += d[0];
+        split_mix<L, Form::kBytes, Form::kBytes>(s, ln);
+        split_mix<L, Form::kBytes, Form::kBytes>(s, ln);
+        split_mix<L, Form::kBytes, Form::kOwed>(s, ln);
+#pragma unroll 1
+        for (int r = 0; r < 6; ++r) split_mix<L, Form::kOwed, Form::kOwed>(s, ln);
+        split_mix<L, Form::kOwed, Form::kBytes>(s, ln);
+      } else if (kMode == 1) {
+        split_init<L>(s, ln);
+        split_absorb<L>(s, d, ln);
+        split_absorb<L>(s, d, ln);
+      } else {
+        split_combine<L, Form::kOwed>(s, d, d, ln);
+      }
+      for (int w = 0; w < kW; ++w) d[w] = pack4(s[4 * w], s[4 * w + 1], s[4 * w + 2], s[4 * w + 3]);
+    }
+    if (u < hashes * L) io[8 * (u / L) + kW * ln.r] = d[0];
+  }
+}
+template <int L>
+int launch_l(int mode, uint32_t* io, int reps, int hashes, cudaStream_t st) {
+  if (mode == 0) hash_latency_kernel<L, 0><<<1, 32, 0, st>>>(io, reps, hashes);
+  if (mode == 1) hash_latency_kernel<L, 1><<<1, 32, 0, st>>>(io, reps, hashes);
+  if (mode == 2) hash_latency_kernel<L, 2><<<1, 32, 0, st>>>(io, reps, hashes);
+  return (int)cudaGetLastError();
+}
+extern "C" int hash_latency(int lanes, int mode, void* io, int reps, int hashes,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  uint32_t* p = static_cast<uint32_t*>(io);
+  if (lanes == 1) return launch_l<1>(mode, p, reps, hashes, st);
+  if (lanes == 2) return launch_l<2>(mode, p, reps, hashes, st);
+  if (lanes == 4) return launch_l<4>(mode, p, reps, hashes, st);
+  return launch_l<8>(mode, p, reps, hashes, st);
+}
+"""
+#: hash_latency's modes.
+LATENCY_PARTS = {"combine": 0, "absorbs": 1, "mixes": 2}
+
+
+def hash_latency(dev, reps: int = 2000) -> dict:
+    """us per hash of a chain of combines in one warp, by lanes a hash and
+    part (LATENCY_PARTS), one hash and a full warp of them side by side;
+    CUDA events around one launch of ``reps`` hashes, after a warm-up."""
+    fn = build_temporary(HASH_LATENCY_SOURCE, "hash_latency").hash_latency
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    io = torch.arange(256, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    table = {}
+    for lanes in (1, 2, 4, 8):
+        for part, mode in LATENCY_PARTS.items():
+            for hashes in (1, 32 // lanes):
+                fn(lanes, mode, io.data_ptr(), 10, hashes, stream)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                if fn(lanes, mode, io.data_ptr(), reps, hashes, stream) != 0:
+                    raise RuntimeError("hash_latency failed")
+                end.record()
+                torch.cuda.synchronize()
+                table[f"L={lanes} {part} x{hashes}"] = round(
+                    start.elapsed_time(end) * 1e3 / reps, 4)
+    return table
+
+
+def _forest_call(fn, extra=()):
+    """A call ``(nodes, trees=1) -> levels`` through ``fn``, a C entry
+    with stark_merkle_forest's operands (and ``extra`` before the
+    stream): the launches ``hash_batch.merkle_forest`` makes, with tickets
+    of its own."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p] + [ctypes.c_int] * len(extra)
+                   + [ctypes.c_void_p])
+    tickets = {}
+
+    def call(nodes, trees=1):
+        w = nodes.shape[0]
+        n = w // trees
+        out = torch.empty((w - trees, 32), dtype=torch.uint8, device=nodes.device)
+        t = tickets.setdefault(nodes.device, torch.zeros(
+            HB.FOREST_MAX_TREES, dtype=torch.int32, device=nodes.device))
+        src, pos = nodes, 0
+        for sub, top in HB.tail_launches(w.bit_length() - 1, None, n.bit_length() - 1):
+            if fn(src.data_ptr(), out[pos:].data_ptr(), w, sub, top, t.data_ptr(), *extra,
+                  torch.cuda.current_stream(nodes.device).cuda_stream) != 0:
+                raise RuntimeError("forest launch failed")
+            left = w >> (sub + top)
+            pos += w - left
+            src, w = out[pos - left : pos], left
+        return out
+
+    return call
+
+
+def forest_before():
+    """A call ``(nodes, trees=1)`` of K8-forest (a tree: trees = 1) as it
+    was before its redesign, built here (not part of the port): every
+    level one lane a hash."""
+    return _forest_call(build_temporary(FOREST_BEFORE_SOURCE, "forest_before").forest_before)
+
+
+#: The form a split state keeps between mix rounds in csrc/hash.cu, and
+#: the other one, which ``forest_form_other`` builds for the A/B.
+FORMS = ("stark::Form::kOwed", "stark::Form::kScaled")
+
+
+def forest_form_other():
+    """A call ``(nodes, trees=1)`` of K8-forest as csrc/hash.cu has it but
+    with the other form between the split hash's mix rounds (hash.cuh
+    Form), built here into a temporary library."""
+    with open(os.path.join(cuda.CSRC, "hash.cu")) as f:
+        source = f.read()
+    found = [form for form in FORMS if f"kSplitForm = {form};" in source]
+    if len(found) != 1:
+        raise RuntimeError("csrc/hash.cu has moved on: kSplitForm not found")
+    other = FORMS[1 - FORMS.index(found[0])]
+    source = source.replace(f"kSplitForm = {found[0]};", f"kSplitForm = {other};")
+    lib = build_temporary(source, "forest_other_form")
+    return _forest_call(lib.stark_merkle_forest, extra=(0,))
+
+
+def compose_before_source(program) -> str:
+    """The AIR's K11 source as the generator wrote it before lazy sums:
+    every node of the tape eager (csrc/compose.cuh is the same but for the
+    lazy helpers, which this source does not call)."""
+    from stark_tpu_torch.ops.compose import shoup
+
+    tape, air = program.tape, program.air
+    live = tape.live()
+
+    def ref(j: int) -> str:
+        c = tape.const_value(j)
+        return f"{c}u" if c is not None else f"n{j}"
+
+    loads, body = [], []
+    for j in live:
+        node = tape.nodes[j]
+        if node[0] == "in":
+            loads.append(f"    const uint32_t n{j} = at({node[1]}, {node[2]});")
+        elif node[0] == "neg":
+            body.append(f"    const uint32_t n{j} = stark::sub_mod(0u, {ref(node[1])});")
+        elif node[0] in ("add", "sub"):
+            body.append(f"    const uint32_t n{j} = stark::{node[0]}_mod({ref(node[1])}, "
+                        f"{ref(node[2])});")
+        elif node[0] == "mul":
+            ca, cb = tape.const_value(node[1]), tape.const_value(node[2])
+            if ca is not None or cb is not None:
+                x, w = (node[2], ca) if ca is not None else (node[1], cb)
+                body.append(f"    const uint32_t n{j} = stark::shoup_mul(n{x}, {w}u, "
+                            f"{int(shoup(w))}u);")
+            else:
+                body.append(f"    const uint32_t n{j} = stark::mul_mod(n{node[1]}, n{node[2]});")
+    inputs = {(tape.nodes[j][1], tape.nodes[j][2]): j for j in live
+              if tape.nodes[j][0] == "in"}
+    bounds = []
+    for i, bc in enumerate(program.boundary):
+        j = inputs.get((0, int(bc.register)))
+        if j is None:
+            loads.append(f"    const uint32_t b{i} = at(0, {int(bc.register)});")
+            bounds.append(f"    v[{i}] = b{i};")
+        else:
+            bounds.append(f"    v[{i}] = n{j};")
+    nb, nt = len(program.boundary), program.transitions
+    rows = ", ".join(str(g) for g in program.groups) or "0"
+    values = ", ".join(f"{int(bc.value) % 998244353}u" for bc in program.boundary) or "0u"
+    return "\n".join([
+        '#include "compose.cuh"',
+        "struct Air {",
+        f"  static constexpr int kRegisters = {air.num_registers};",
+        f"  static constexpr int kTransitions = {nt};",
+        f"  static constexpr int kBoundaries = {nb};",
+        f"  static constexpr int kRows = {len(program.rows)};",
+        f"  static constexpr int kTerms = {program.terms};",
+        "  __device__ __forceinline__ static int boundary_row(int j) {",
+        f"    constexpr int k[{max(nb, 1)}] = {{{rows}}};",
+        "    return k[j];",
+        "  }",
+        "  __device__ __forceinline__ static uint32_t boundary_value(int j) {",
+        f"    constexpr uint32_t k[{max(nb, 1)}] = {{{values}}};",
+        "    return k[j];",
+        "  }",
+        "  __device__ __forceinline__ static void values(const stark::Frame& at,",
+        f"      uint32_t (&c)[{max(nt, 1)}], uint32_t (&v)[{max(nb, 1)}]) {{",
+        *loads, *body, *[f"    c[{k}] = {ref(j)};" for k, j in enumerate(tape.outputs)],
+        *bounds,
+        "  }",
+        "};",
+        "STARK_COMPOSE_ENTRY(Air)",
+        "",
+    ])
+
+
+# K11 as tried in its redesign and not kept (csrc/compose.cuh says why):
+# only the LDE and the dinv rows read, exz, x^s_t and x^s_b computed in the
+# kernel (a thread's first point from small tables, each next point 2^S
+# further by a Shoup product), every sum lazy in 64 bits, the boundaries'
+# values folded into row constants of the weights.  Built by compose_coset
+# from the AIR's generated source.
+COMPOSE_COSET_HEADER = r"""
+#pragma once
+
+#include <stdint.h>
+#include <string.h>
+
+#include "field.cuh"
+
+namespace stark {
+
+#ifdef __CUDACC__
+#define STARK_LDG(p) __ldg(p)
+#else
+#define STARK_LDG(p) (*(p))
+#endif
+
+constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % kP);
+constexpr uint32_t kR1Shoup = (uint32_t)(((uint64_t)kR1 << 32) / kP);
+
+__device__ __forceinline__ uint32_t mul_mod(uint32_t a, uint32_t b) {
+  return shoup_mul(mont_mul(a, b), kR1, kR1Shoup);
+}
+
+__device__ __forceinline__ uint64_t fold64(uint64_t x) {
+  return (uint64_t)(uint32_t)(x >> 32) * kR1 + (uint32_t)x;
+}
+
+__device__ __forceinline__ uint32_t reduce64(uint64_t x) {
+  const uint64_t y = fold64(x);
+  const uint32_t lo = (uint32_t)y;
+  const uint32_t m = lo * kPinvNeg;
+  return reduce_once((uint32_t)(y >> 32) + __umulhi(m, kP) + (lo != 0u ? 1u : 0u));
+}
+
+constexpr int kLazyTerms = 16;
+constexpr int kFoldTerms = 2;
+static_assert((uint64_t)(kP - 1) * (kP - 1) <= ~0ull / kLazyTerms,
+              "kLazyTerms products of values below p fit in 64 bits");
+static_assert(((1ull << 32) - 1) * kR1 + (1ull << 32) <= 2ull * (kP - 1) * (kP - 1),
+              "a folded sum counts as kFoldTerms products");
+
+struct Lazy64 {
+  uint64_t x;
+  int terms;
+  __device__ __forceinline__ Lazy64() : x(0), terms(0) {}
+  __device__ __forceinline__ explicit Lazy64(uint32_t k) : x(k), terms(1) {}
+  __device__ __forceinline__ void add(uint32_t a, uint32_t w) {
+    if (terms == kLazyTerms) {
+      x = fold64(x);
+      terms = kFoldTerms;
+    }
+    x += (uint64_t)a * w;
+    ++terms;
+  }
+  __device__ __forceinline__ uint32_t reduce() const { return reduce64(x); }
+};
+
+struct Frame {
+  const uint32_t* lde;
+  uint32_t n;
+  uint32_t i;
+  uint32_t blowup;
+  __device__ __forceinline__ uint32_t operator()(int offset, int reg) const {
+    return lde[reg * n + ((i + offset * blowup) & (n - 1))];
+  }
+};
+
+struct ComposeArgs {
+  const uint32_t* lde;
+  const uint32_t* small;
+  const uint32_t* dinv;
+  uint32_t* out;
+  uint32_t n;
+  int c;
+  int blowup;
+  int h;
+  int lg_stride;
+  int proofs;
+  uint32_t step[6];
+};
+
+struct SmallTables {
+  int excluded, x_lo, x_hi, xt_lo, xt_hi, xb_lo, xb_hi;
+  __device__ __forceinline__ SmallTables(const ComposeArgs& a, int kExcluded) {
+    const int lo = 1 << a.h;
+    const int hi = (int)(a.n >> a.h);
+    excluded = a.blowup;
+    x_lo = excluded + kExcluded;
+    x_hi = x_lo + lo;
+    xt_lo = x_hi + hi;
+    xt_hi = xt_lo + lo;
+    xb_lo = xt_hi + hi;
+    xb_hi = xb_lo + lo;
+  }
+};
+
+template <class Air>
+struct CosetPoint {
+  static constexpr bool kLinear = Air::kTransitions > 0 && Air::kExcluded == 1;
+  static constexpr bool kX = Air::kTransitions > 0 && Air::kExcluded > 1;
+  static constexpr bool kXt = Air::kTransitions > 0;
+  static constexpr bool kXb = Air::kBoundaries > 0;
+  uint32_t zc, x, xt, xb, ez, d;
+  uint32_t ex[Air::kExcluded > 0 ? Air::kExcluded : 1];
+
+  __device__ __forceinline__ CosetPoint(const ComposeArgs& a, uint32_t i) {
+    const SmallTables st(a, Air::kExcluded);
+    const uint32_t* t = a.small;
+    const uint32_t lo = i & ((1u << a.h) - 1), hi = i >> a.h;
+    zc = kXt ? STARK_LDG(t + (i & (a.blowup - 1))) : 0u;
+#pragma unroll
+    for (int e = 0; e < Air::kExcluded; ++e) ex[e] = kXt ? STARK_LDG(t + st.excluded + e) : 0u;
+    x = kXt && Air::kExcluded > 0
+            ? mont_mul(STARK_LDG(t + st.x_hi + hi), STARK_LDG(t + st.x_lo + lo)) : 0u;
+    xt = kXt ? mont_mul(STARK_LDG(t + st.xt_hi + hi), STARK_LDG(t + st.xt_lo + lo)) : 0u;
+    xb = kXb ? mont_mul(STARK_LDG(t + st.xb_hi + hi), STARK_LDG(t + st.xb_lo + lo)) : 0u;
+    ez = kLinear ? mont_mul(zc, sub_mod(x, ex[0])) : 0u;
+    d = kLinear ? mul_mod(mont_mul(zc, ex[0]), sub_mod(a.step[0], 1u)) : 0u;
+  }
+  __device__ __forceinline__ void next(const ComposeArgs& a) {
+    if (kLinear) ez = add_mod(shoup_mul(ez, a.step[0], a.step[1]), d);
+    if (kX) x = shoup_mul(x, a.step[0], a.step[1]);
+    if (kXt) xt = shoup_mul(xt, a.step[2], a.step[3]);
+    if (kXb) xb = shoup_mul(xb, a.step[4], a.step[5]);
+  }
+  __device__ __forceinline__ uint32_t exz() const {
+    if (kLinear) return ez;
+    uint32_t v = zc;
+#pragma unroll
+    for (int e = 0; e < Air::kExcluded; ++e) v = mont_mul(v, sub_mod(x, ex[e]));
+    return v;
+  }
+};
+
+template <class Air>
+constexpr int kComposeWords = 2 * Air::kTerms + 2 * Air::kRows;
+
+template <class Air>
+__device__ __forceinline__ uint32_t compose_point(const uint32_t* w,
+                                                  const uint32_t (&in)[Air::kInputs],
+                                                  const uint32_t* dv,
+                                                  const CosetPoint<Air>& cp) {
+  uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
+  uint32_t v[Air::kBoundaries > 0 ? Air::kBoundaries : 1];
+  Air::values(in, c, v);
+  uint32_t total = 0;
+  if (Air::kTransitions > 0) {
+    Lazy64 sa, sb;
+#pragma unroll
+    for (int k = 0; k < Air::kTransitions; ++k) {
+      sa.add(c[k], w[2 * k]);
+      sb.add(c[k], w[2 * k + 1]);
+    }
+    total = mont_mul(cp.exz(), add_mod(mont_mul(cp.xt, sa.reduce()), sb.reduce()));
+  }
+  if (Air::kBoundaries > 0) {
+    const uint32_t* wk = w + 2 * Air::kTerms;
+#pragma unroll
+    for (int r = 0; r < Air::kRows; ++r) {
+      Lazy64 ra(wk[2 * r]), rb(wk[2 * r + 1]);
+#pragma unroll
+      for (int j = 0; j < Air::kBoundaries; ++j) {
+        if (Air::boundary_row(j) != r) continue;
+        ra.add(v[j], w[2 * (Air::kTransitions + j)]);
+        rb.add(v[j], w[2 * (Air::kTransitions + j) + 1]);
+      }
+      total = add_mod(total, mont_mul(dv[r], add_mod(mont_mul(cp.xb, ra.reduce()),
+                                                     rb.reduce())));
+    }
+  }
+  return total;
+}
+
+template <class Air>
+constexpr int kBatch = Air::kInputs + Air::kRows <= 12 ? 4 : Air::kInputs + Air::kRows <= 40 ? 2 : 1;
+
+template <class Air>
+__device__ __forceinline__ void compose_thread(const ComposeArgs& a, const uint32_t* w,
+                                               int b, uint32_t t) {
+  constexpr int kB = kBatch<Air>;
+  constexpr int kR = Air::kRows > 0 ? Air::kRows : 1;
+  const uint32_t* lde = a.lde + (size_t)b * a.c * a.n;
+  uint32_t* out = a.out + (size_t)b * a.n;
+  const uint32_t stride = 1u << a.lg_stride;
+  CosetPoint<Air> cp(a, t);
+  for (uint32_t i0 = t; i0 < a.n; i0 += kB * stride) {
+    uint32_t in[kB][Air::kInputs], dv[kB][kR];
+#pragma unroll
+    for (int q = 0; q < kB; ++q) {
+      const uint32_t i = i0 + q * stride;
+      if (q > 0 && i >= a.n) break;
+      Air::loads(Frame{lde, a.n, i, (uint32_t)a.blowup}, in[q]);
+#pragma unroll
+      for (int r = 0; r < Air::kRows; ++r) dv[q][r] = a.dinv[r * a.n + i];
+    }
+#pragma unroll
+    for (int q = 0; q < kB; ++q) {
+      const uint32_t i = i0 + q * stride;
+      if (q > 0 && i >= a.n) break;
+      out[i] = compose_point<Air>(w, in[q], dv[q], cp);
+      cp.next(a);
+    }
+  }
+}
+
+}
+
+#define STARK_COMPOSE_CHECK(AIR)                                              \
+  (n < 1 || (n & (n - 1)) || c != AIR::kRegisters || proofs < 1 ||           \
+   proofs > 65535 || blowup < 1 || (blowup & (blowup - 1)) || h < 0 ||       \
+   (1LL << h) > n || lg_stride < 0 || (1LL << lg_stride) > n ||              \
+   (1LL << lg_stride) % blowup || (long long)c * n > 0xFFFFFFFFLL ||         \
+   nwords != stark::kComposeWords<AIR> * proofs)
+#define STARK_COMPOSE_ARGS                                                    \
+  stark::ComposeArgs a{static_cast<const uint32_t*>(lde),                     \
+                       static_cast<const uint32_t*>(small),                   \
+                       static_cast<const uint32_t*>(dinv),                    \
+                       static_cast<uint32_t*>(out), (uint32_t)n, c, blowup, h, \
+                       lg_stride, proofs, {}};                                \
+  memcpy(a.step, steps, sizeof(a.step));
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+namespace stark {
+
+constexpr int kComposeThreads = 256;
+
+template <int kWords>
+struct ComposeWords {
+  uint32_t w[kWords];
+};
+
+template <class Air, int kWords>
+__global__ void __launch_bounds__(kComposeThreads)
+    compose_coset_kernel(const __grid_constant__ ComposeArgs a,
+                         const __grid_constant__ ComposeWords<kWords> w) {
+  const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >> a.lg_stride) return;
+  const int b = blockIdx.y;
+  compose_thread<Air>(a, w.w + kComposeWords<Air> * b, b, t);
+}
+
+template <class Air, int kWords>
+int compose_launch(const ComposeArgs& a, const void* words, int nwords,
+                   cudaStream_t stream) {
+  ComposeWords<kWords> w;
+  memcpy(w.w, words, 4 * (size_t)nwords);
+  const dim3 grid(((1u << a.lg_stride) + kComposeThreads - 1) / kComposeThreads,
+                  (unsigned)a.proofs);
+  compose_coset_kernel<Air, kWords><<<grid, kComposeThreads, 0, stream>>>(a, w);
+  return (int)cudaGetLastError();
+}
+
+}
+
+#define STARK_COMPOSE_ENTRY(AIR)                                              \
+  extern "C" int compose_coset(const void* lde, const void* small,           \
+                               const void* dinv, void* out, long long n,     \
+                               int c, int blowup, int h, int lg_stride,      \
+                               int proofs, const void* steps,                \
+                               const void* words, int nwords, void* stream) { \
+    if (STARK_COMPOSE_CHECK(AIR)) return (int)cudaErrorInvalidValue;          \
+    STARK_COMPOSE_ARGS                                                        \
+    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
+    if (nwords <= 256) return stark::compose_launch<AIR, 256>(a, words, nwords, s); \
+    if (nwords <= 2048)                                                       \
+      return stark::compose_launch<AIR, 2048>(a, words, nwords, s);           \
+    if (nwords <= 8000)                                                       \
+      return stark::compose_launch<AIR, 8000>(a, words, nwords, s);           \
+    return (int)cudaErrorInvalidValue;                                        \
+  }                                                                           \
+  extern "C" const char* stark_cuda_error_string(int code) {                  \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));                \
+  }
+#endif
+"""
+
+
+def compose_coset_source(program) -> str:
+    """The AIR's generated K11 source (ops/compose.py) rewritten for
+    COMPOSE_COSET_HEADER: the frame loads as loads(at, in), the body on
+    in[], the excluded points' count."""
+    lines = program.source.splitlines()
+    loads = [re.match(r"    const uint32_t (\w+) = at\((\d+), (\d+)\);", line) for line in lines]
+    found = [m.groups() for m in loads if m]
+    out = []
+    for line, m in zip(lines, loads):
+        if m:
+            continue
+        if line.startswith('#include "compose.cuh"'):
+            line = '#include "compose_coset.cuh"'
+        if "static constexpr int kTerms" in line:
+            out += [line, f"  static constexpr int kExcluded = {program.air.max_offset};",
+                    f"  static constexpr int kInputs = {len(found)};",
+                    "  __device__ __forceinline__ static void loads(const stark::Frame& at,",
+                    f"                                               uint32_t (&in)[{len(found)}]) {{",
+                    *[f"    in[{k}] = at({o}, {r});" for k, (_, o, r) in enumerate(found)],
+                    "  }"]
+            continue
+        if line.strip() == "const stark::Frame& at,":
+            out += [f"      const uint32_t (&in)[{len(found)}],"]
+            continue
+        out.append(line)
+        if line.startswith("      uint32_t (&v)[") and line.endswith("{"):  # values' body
+            out += [f"    const uint32_t {name} = in[{k}];" for k, (name, _, _) in enumerate(found)]
+    return "\n".join(out) + "\n"
+
+
+def compose_coset(prover):
+    """A call ``(lde, alphas, betas) -> codeword`` of K11 as tried in its
+    redesign (COMPOSE_COSET_HEADER; not part of the port) for ``prover``'s
+    AIR and domain: its small tables, launch stride and weight words are
+    made here as that design made them."""
+    from stark_tpu_torch.ops import fieldops as F
+    from stark_tpu_torch.ops.compose import R1, R2, shoup
+
+    p = 998244353
+    prog, d = prover.program, prover.dom
+    fn = build_temporary(compose_coset_source(prog), "compose_coset",
+                         {"compose_coset.cuh": COMPOSE_COSET_HEADER}).compose_coset
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    n, blowup, dev = d.N, prover.cfg.blowup, prover.device
+    h = (n.bit_length()) // 2
+    rho = pow(d.Omega, d.T, p)
+    cycle = [F.host_inv(pow(d.offset, d.T, p) * pow(rho, j, p) - 1) * pow(R1, len(d.excluded), p)
+             % p for j in range(blowup)]
+    parts = [torch.tensor(cycle + [w % p for w in d.excluded], dtype=torch.int64, device=dev)]
+    shifts = (1, d.transition_shift, d.boundary_shift)
+    for s in shifts:
+        base = pow(d.Omega, s, p)
+        parts += [F.powers(base, 1 << h, device=dev),
+                  F.powers(pow(base, 1 << h, p), n >> h, scale=pow(d.offset, s, p) * R1,
+                           device=dev)]
+    small = torch.cat(parts).to(torch.int32).contiguous()
+    r3 = R2 * R1 % p
+    vals = np.asarray([int(bc.value) % p for bc in prog.boundary], dtype=np.uint64)
+
+    def call(lde, alphas, betas):
+        lde3 = lde[None] if lde.dim() == 2 else lde
+        b = lde3.shape[0]
+        a = np.atleast_2d(np.asarray(alphas, dtype=np.int64)).astype(np.uint64) % np.uint64(p)
+        bt = np.atleast_2d(np.asarray(betas, dtype=np.int64)).astype(np.uint64) % np.uint64(p)
+        wa, wb = a * np.uint64(r3) % np.uint64(p), bt * np.uint64(R2) % np.uint64(p)
+        words = [np.stack([wa, wb], axis=2).reshape(b, -1)]
+        if prog.rows:
+            ks = []
+            for w in (wa, wb):
+                k = np.zeros((b, len(prog.rows)), dtype=np.uint64)
+                for j, g in enumerate(prog.groups):
+                    k[:, g] += w[:, prog.transitions + j] * vals[j] % np.uint64(p)
+                ks.append((np.uint64(p) - k % np.uint64(p)) % np.uint64(p))
+            words.append(np.stack(ks, axis=2).reshape(b, -1))
+        words = np.ascontiguousarray(np.concatenate(words, axis=1).astype(np.uint32))
+        lg_n = n.bit_length() - 1
+        more = max(0, (n * b).bit_length() - 1 - 18)
+        stride = max(lg_n - more, min(lg_n, max(8, blowup.bit_length() - 1)))
+        step = pow(d.Omega, 1 << stride, p)
+        steps = np.asarray([v for x in (step, pow(step, shifts[1], p), pow(step, shifts[2], p))
+                            for v in (x, int(shoup(x)))], dtype=np.uint32)
+        out = torch.empty((b, n), dtype=torch.int32, device=lde.device)
+        if fn(lde3.data_ptr(), small.data_ptr(), prover.tables.dinv.data_ptr(), out.data_ptr(),
+              n, lde3.shape[1], blowup, h, stride, b, steps.ctypes.data, words.ctypes.data,
+              words.size, torch.cuda.current_stream(lde.device).cuda_stream) != 0:
+            raise RuntimeError("compose_coset failed")
+        return out[0] if lde.dim() == 2 else out
+
+    return call
+
+
+def compose_before(program):
+    """A call ``(lde, tables, alphas, betas, blowup) -> codeword`` of K11
+    for ``program``'s AIR as it was before lazy sums, built here (not part
+    of the port): every sum of its body eager; the same operands, weights
+    and launch as ops.compose.compose."""
+    from stark_tpu_torch.ops.compose import COMPOSE
+
+    fn = build_temporary(compose_before_source(program), "compose_before").stark_compose
+    fn.argtypes = [*COMPOSE.argtypes, ctypes.c_void_p]
+
+    def call(lde, tables, alphas, betas, blowup):
+        lde3 = lde[None] if lde.dim() == 2 else lde
+        b, c, n = lde3.shape
+        words = np.ascontiguousarray(program.weights(alphas, betas))
+        out = torch.empty((b, n), dtype=torch.int32, device=lde.device)
+        if fn(lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
+              tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
+              words.ctypes.data, words.size,
+              torch.cuda.current_stream(lde.device).cuda_stream) != 0:
+            raise RuntimeError("compose_before failed")
+        return out[0] if lde.dim() == 2 else out
+
+    return call
+
+
+def forest_turns(rng, dev) -> dict:
+    """K8 at W = 2^16 and K8-forest at (32, 2^11) and (8, 2^13): the design
+    before, the design in use and the in-use design with the other form
+    between mix rounds, each in turn and back; then the design in use by
+    the most lanes a hash; us per call."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    before, other = forest_before(), forest_form_other()
+    table = {}
+    for trees in (1, 32, 8):
+        w = 1 << 16
+        args = sets(64 * w, torch.from_numpy(
+            rng.integers(0, 256, size=(w, 32), dtype=np.uint8)).to(dev))
+        want = HB.forest_tail_plain(args[0][0], trees)
+        calls = {"before": lambda x: before(x, trees),
+                 "in use": lambda x: HB.merkle_forest(x, trees),
+                 "other form": lambda x: other(x, trees)}
+        for key, fn in calls.items():
+            if not torch.equal(fn(args[0][0]), want):
+                raise AssertionError(f"forest {key} B={trees} != plain")
+        order = list(calls) + list(reversed(calls))
+        times = {}
+        for key in order:
+            times.setdefault(key, []).append(round(device_us(cycled(calls[key], args), 20), 2))
+        for lanes in HB.LANE_CHOICES:
+            times[f"{lanes} lanes"] = round(device_us(cycled(
+                lambda x: HB.merkle_forest(x, trees, lanes=lanes), args), 20), 2)
+        table[f"B={trees}, n=2^{(w // trees).bit_length() - 1}"] = times
+    return table
+
+
+def compose_turns(rng, dev) -> dict:
+    """K11 at Fibonacci T=2^20, MDS T=2^16 and batch8's (8, 1, 2^16): the
+    design before, the design in use and the redesign tried and not kept
+    (compose_coset), each held against the kernel in use, then timed in
+    turn and back; us per call."""
+    from stark_tpu_torch import StarkConfig, StarkProver
+    from stark_tpu_torch.models import get_model
+
+    table = {}
+    for model, t, b in (("fib", 1 << 20, 1), ("mds", 1 << 16, 1), ("fib", 1 << 14, 8)):
+        air = get_model(model)[0]
+        prover = StarkProver(air, StarkConfig(trace_length=t, blowup=4), dev)
+        old, coset = compose_before(prover.program), compose_coset(prover)
+        lde = torch.from_numpy(rng.integers(0, 998244353, size=(b, air.num_registers,
+                                                                prover.dom.N))).to(
+            torch.int32).to(dev)
+        al, be = (rng.integers(0, 998244353, size=(b, prover.program.terms)) for _ in range(2))
+        want = prover._compose(lde, al, be)
+        calls = {"before": lambda x: old(x, prover.tables, al, be, 4),
+                 "in use": lambda x: prover._compose(x, al, be),
+                 "coset redesign": lambda x: coset(x, al, be)}
+        for key, fn in calls.items():
+            if not torch.equal(fn(lde), want):
+                raise AssertionError(f"compose {key} {model} != the kernel in use")
+        args = sets(4 * lde.numel(), lde)
+        times = {}
+        for key in list(calls) + list(reversed(calls)):
+            times.setdefault(key, []).append(round(device_us(cycled(calls[key], args), 20), 2))
+        table[f"{model} T=2^{t.bit_length() - 1} B={b}"] = times
+    return table
+
+
+def tail_in_prove(dev, proves: int = 3) -> list:
+    """K8's launches inside profiled Fibonacci T=2^20 proves from device
+    witnesses (after three unprofiled ones): per prove, each launch's
+    log2 width and device us, in launch order.  Run by path with another
+    checkout first on ``PYTHONPATH`` (as tools/prove_wall.py), it measures
+    that checkout's K8."""
+    from stark_tpu_torch import StarkConfig, StarkProver
+    from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    prover = StarkProver(get_model("fib")[0], StarkConfig(
+        trace_length=1 << 20, blowup=4, num_colinearity_tests=16), dev)
+    for _ in range(3):
+        prover.prove(trace_cols=fibonacci_trace_cols_device(1 << 20))
+    widths, launch = [], HB.MERKLE_TAIL.launch
+
+    def recording(device, nodes, out, width, *rest):
+        widths.append(width)
+        launch(device, nodes, out, width, *rest)
+
+    HB.MERKLE_TAIL.launch = recording  # shadows the method meanwhile
+    table = []
+    try:
+        for _ in range(proves):
+            widths.clear()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                prover.prove(trace_cols=fibonacci_trace_cols_device(1 << 20))
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events() if "merkle_tail" in e.name
+                             and e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            if len(events) != len(widths):
+                raise AssertionError(f"{len(events)} K8 events for {len(widths)} launches")
+            table.append([(w.bit_length() - 1, round(e.time_range.end - e.time_range.start, 2))
+                          for w, e in zip(widths, events)])
+    finally:
+        del HB.MERKLE_TAIL.launch
+    return table
+
+
 def sponge_split(rng, dev, lanes=(1, 8, 32)) -> dict:
     """K9's time split: per B, a root absorbed after a 16-byte tail (the
     Fibonacci prove's round) by the design before as an empty kernel, with
@@ -459,9 +1326,16 @@ def sponge_split(rng, dev, lanes=(1, 8, 32)) -> dict:
     return table
 
 
-def tune_floor(dev) -> None:
+def floor_kernel():
+    """``floor_launch(blocks, threads, smem, stream)``: an empty kernel's
+    launch (FLOOR_SOURCE, built here), returning its CUDA error code."""
     fn = build_temporary(FLOOR_SOURCE, "floor").floor_launch
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return fn
+
+
+def tune_floor(dev) -> None:
+    fn = floor_kernel()
     table = {}
     for batch, n, inverse in PASS_SHAPES:
         plan = NTF.get_plan(n, inverse, dev)
@@ -561,7 +1435,8 @@ def tune_ntt(rng, dev) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--only", choices=("sponge", "floor", "parts", "ntt"),
+    parser.add_argument("--only", choices=("latency", "forest", "tail-in-prove", "compose",
+                                           "sponge", "floor", "parts", "ntt"),
                         help="run one sweep (after ptxas)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -573,6 +1448,21 @@ def main() -> int:
     print("ptxas: " + json.dumps(ptxas(), indent=1), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    if args.only in (None, "latency"):
+        print("hash latency, us per hash of a chain in one warp, by lanes a hash, part and "
+              "hashes side by side: " + json.dumps(hash_latency(dev)), flush=True)
+    if args.only in (None, "forest"):
+        print("forest turns, us per call, each in turn and back (CUDA-graph replay): "
+              + json.dumps(forest_turns(rng, dev)), flush=True)
+    if args.only in (None, "tail-in-prove"):
+        import stark_tpu_torch
+
+        print(f"tail in prove ({stark_tpu_torch.__file__}), per profiled Fibonacci T=2^20 "
+              "prove, each K8 launch's [log2 width, device us]: "
+              + json.dumps(tail_in_prove(dev)), flush=True)
+    if args.only in (None, "compose"):
+        print("compose turns, us per call, each in turn and back (CUDA-graph replay): "
+              + json.dumps(compose_turns(rng, dev)), flush=True)
     if args.only in (None, "sponge"):
         print("sponge split, us per call, each in turn and back (CUDA-graph replay): "
               + json.dumps(sponge_split(rng, dev)), flush=True)

@@ -129,22 +129,214 @@ def test_generated_source_same_bytes_per_air_and_distinct():
     assert len(set(sources.values())) == len(sources)
 
 
-@pytest.mark.parametrize("model", MODEL_NAMES)
-def test_host_built_body_matches_eager(model):
-    prover, lde, alphas, betas = operands(model, 3, 30)
-    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
-    prog, tables = prover.program, prover.tables
+def host_compose(prog, tables, lde: np.ndarray, alphas, betas, blowup: int) -> np.ndarray:
+    """The generated per-point function built with the host C++ compiler
+    (csrc/compose.cuh's host entry), run at every point of B = lde.shape[0]
+    proofs."""
     lib = CO.host_library(prog.source)
     arrs = [np.ascontiguousarray(t.numpy()) for t in
             (tables.exz, tables.xt, tables.xb, tables.dinv)]
     words = np.ascontiguousarray(prog.weights(alphas, betas))
-    lde = np.ascontiguousarray(lde)
-    out = np.zeros((3, prover.dom.N), dtype=np.uint32)
-    rc = lib.stark_compose_host(lde.ctypes.data, *(a.ctypes.data for a in arrs),
-                                out.ctypes.data, prover.dom.N, lde.shape[1],
-                                prover.cfg.blowup, 3, words.ctypes.data)
+    lde = np.ascontiguousarray(lde.astype(np.uint32))
+    b, c, n = lde.shape
+    out = np.zeros((b, n), dtype=np.uint32)
+    rc = lib.stark_compose_host(lde.ctypes.data, *(x.ctypes.data for x in arrs),
+                                out.ctypes.data, n, c, blowup, b, words.ctypes.data)
     assert rc == 0
-    np.testing.assert_array_equal(out, want.astype(np.uint32))
+    return out
+
+
+@pytest.mark.parametrize("model", MODEL_NAMES)
+def test_host_built_body_matches_eager(model):
+    prover, lde, alphas, betas = operands(model, 3, 30)
+    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
+    got = host_compose(prover.program, prover.tables, lde, alphas, betas, prover.cfg.blowup)
+    np.testing.assert_array_equal(got, want.astype(np.uint32))
+
+
+def blowups(model: str):
+    return [b for b in (4, 8, 16) if b >= get_model(model)[2]]
+
+
+@pytest.fixture(scope="module")
+def jax_wide():
+    from stark_tpu import StarkConfig as JConfig
+    from stark_tpu import StarkProver as JProver
+    from stark_tpu.models.air import Air as JAir
+    from stark_tpu.models.air import BoundaryConstraint as JBoundary
+
+    return {b: JProver(wide_air(JAir, JBoundary), JConfig(trace_length=T, blowup=b))
+            for b in (4, 8)}
+
+
+# The kernel's per-point function (host build: the lazy sums of the
+# generated body) against stark_tpu at every AIR, at each blowup an AIR
+# allows among 4, 8 and 16 (StarkConfig refuses blowup 2 in both packages;
+# test_host_built_body_at_blowup_2 takes it below the config), one proof
+# and B = 3 against jax.vmap.
+CASES = [(m, bl, b) for m in MODEL_NAMES for bl in blowups(m) for b in (1, 3)] + [
+    ("wide65", bl, b) for bl in (4, 8) for b in (1, 3)]
+
+
+@pytest.mark.parametrize("model, blowup, b", CASES)
+def test_host_built_body_matches_stark_tpu(jax_provers, jax_wide, model, blowup, b):
+    import jax
+    import jax.numpy as jnp
+    from stark_tpu import StarkConfig as JConfig
+    from stark_tpu import StarkProver as JProver
+    from stark_tpu.models import get_model as j_get_model
+
+    if model == "wide65":
+        air, jp = wide_air(Air, BoundaryConstraint), jax_wide[blowup]
+    else:
+        air = get_model(model)[0]
+        jp = (jax_provers[model] if blowup == get_model(model)[2] else
+              JProver(j_get_model(model)[0], JConfig(trace_length=T, blowup=blowup)))
+    prover = StarkProver(air, StarkConfig(trace_length=T, blowup=blowup), device="cpu")
+    rng = np.random.default_rng(blowup * 10 + b)
+    lde = rand_field(rng, (b, air.num_registers, prover.dom.N))
+    alphas, betas = (rand_field(rng, (b, prover.program.terms)) for _ in range(2))
+    got = host_compose(prover.program, prover.tables, lde, alphas, betas, blowup)
+    if b == 1:
+        want = jp._compose_impl(jnp.asarray(lde[0]), jnp.asarray(alphas[0]),
+                                jnp.asarray(betas[0]), *jp._domain_consts())[None]
+    else:
+        want = jax.vmap(jp._compose_impl, in_axes=(0, 0, 0) + (None,) * 6)(
+            jnp.asarray(lde), jnp.asarray(alphas), jnp.asarray(betas), *jp._domain_consts())
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def tables_at(air, trace_length: int, blowup: int):
+    """K11's tables and program for a coset of ``blowup`` times the trace
+    domain, built without a StarkConfig (which takes blowup >= 4), with
+    the degree shifts of a domain at blowup 8 (every example AIR takes it)."""
+    from stark_tpu_torch.ops.fieldops import GENERATOR, primitive_nth_root
+    from stark_tpu_torch.stark import _Domain
+
+    d = _Domain(StarkConfig(trace_length=trace_length, blowup=8), air)
+    n = trace_length * blowup
+    tables = CO.Tables.build(
+        n=n, trace_length=trace_length, blowup=blowup, offset=GENERATOR,
+        omega_n=primitive_nth_root(n), omega_t=d.omega, excluded=d.excluded,
+        shift_t=d.transition_shift, shift_b=d.boundary_shift,
+        rows=list(dict.fromkeys(int(bc.row) for bc in d.boundary)), device="cpu")
+    return CO.ComposeProgram(air, d.boundary), tables
+
+
+@pytest.mark.parametrize("model", MODEL_NAMES)
+@pytest.mark.parametrize("b", [1, 3])
+def test_host_built_body_at_blowup_2(model, b):
+    air = get_model(model)[0]
+    prog, tables = tables_at(air, T, 2)
+    rng = np.random.default_rng(b)
+    lde = rand_field(rng, (b, air.num_registers, 2 * T))
+    alphas, betas = (rand_field(rng, (b, prog.terms)) for _ in range(2))
+    want = CO.compose_plain(prog, torch.from_numpy(lde.astype(np.int32)), tables,
+                            alphas, betas, 2)
+    np.testing.assert_array_equal(host_compose(prog, tables, lde, alphas, betas, 2),
+                                  want.numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("model, blowup", [(m, bl) for m in MODEL_NAMES for bl in blowups(m)])
+def test_tables_match_stark_tpu_domain_consts(jax_provers, model, blowup):
+    # Tables.build (exz = excl zinv, x^s_t, x^s_b, a dinv row per distinct
+    # boundary row) against stark_tpu's domain constants.
+    from stark_tpu import StarkConfig as JConfig
+    from stark_tpu import StarkProver as JProver
+    from stark_tpu.models import get_model as j_get_model
+
+    prover = StarkProver(get_model(model)[0], StarkConfig(trace_length=T, blowup=blowup),
+                         device="cpu")
+    jp = JProver(j_get_model(model)[0], JConfig(trace_length=T, blowup=blowup))
+    x_dom, zinv, excl, xt, xb, dinv = (np.asarray(a).astype(np.int64)
+                                       for a in jp._domain_consts())
+    t = prover.tables
+    np.testing.assert_array_equal(t.exz.numpy(), excl * zinv % P)
+    np.testing.assert_array_equal(t.xt.numpy(), xt)
+    np.testing.assert_array_equal(t.xb.numpy(), xb)
+    rows = [int(bc.row) for bc in prover.dom.boundary]
+    for j, g in enumerate(prover.program.groups):
+        assert rows[j] == prover.program.rows[g]
+        np.testing.assert_array_equal(t.dinv[g].numpy(), dinv[j])
+
+
+class LongSumAir(Air):
+    """Sums past the lazy limit: 20 registers, two constraints built on a
+    sum of 20 products by p - 1 and p - 2 (the largest coefficients), one
+    squaring it, and a boundary a register on one row (a row sum of 21
+    terms)."""
+
+    num_registers = 20
+    frame_offsets = (0, 1)
+    constraint_degree = 2
+
+    def transition_constraints(self, frame, ops):
+        acc = None
+        for j in range(self.num_registers):
+            term = ops.mul(frame[0][j], ops.const(P - 1 - (j % 2), frame[0][j]))
+            acc = term if acc is None else ops.add(acc, term)
+        return [ops.sub(frame[1][0], ops.mul(acc, acc)), acc]
+
+    def boundary_constraints(self, trace_length):
+        return [BoundaryConstraint(row=0, register=j, value=0)
+                for j in range(self.num_registers)]
+
+
+def test_lazy_sums_fold_past_sixteen_products():
+    air = LongSumAir()
+    prover = StarkProver(air, StarkConfig(trace_length=T, blowup=8), device="cpu")
+    prog = prover.program
+    assert prog.source.count("stark::fold64") == 1   # the 20-term sum, once
+    assert CO.lazy_folds(16) == 0 and CO.lazy_folds(17) == 1 and CO.lazy_folds(31) == 2
+    n = prover.dom.N
+    worst = np.full((2, air.num_registers, n), P - 1, dtype=np.int64)
+    rng = np.random.default_rng(3)
+    mixed = rand_field(rng, (2, air.num_registers, n))
+    for lde in (worst, mixed):
+        w = np.full((2, prog.terms), P - 1, dtype=np.int64)
+        for alphas, betas in ((w, w), (rand_field(rng, w.shape), w)):
+            want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas)
+            np.testing.assert_array_equal(
+                host_compose(prog, prover.tables, lde, alphas, betas, 8),
+                want.numpy().astype(np.uint32))
+
+
+class DeepAir(Air):
+    """Frame depth 2 (two excluded points, two frame offsets past 0):
+    s[i + 2] = s[i + 1] + s[i]."""
+
+    num_registers = 1
+    frame_offsets = (0, 1, 2)
+    constraint_degree = 1
+
+    def transition_constraints(self, frame, ops):
+        return [ops.sub(frame[2][0], ops.add(frame[1][0], frame[0][0]))]
+
+    def boundary_constraints(self, trace_length):
+        return [BoundaryConstraint(row=0, register=0, value=1),
+                BoundaryConstraint(row=1, register=0, value=1)]
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_host_built_body_with_two_excluded_points(b):
+    prover = StarkProver(DeepAir(), StarkConfig(trace_length=T, blowup=4), device="cpu")
+    assert prover.dom.max_off == 2 and len(prover.dom.excluded) == 2
+    rng = np.random.default_rng(b)
+    lde = rand_field(rng, (b, 1, prover.dom.N))
+    alphas, betas = (rand_field(rng, (b, prover.program.terms)) for _ in range(2))
+    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
+    np.testing.assert_array_equal(
+        host_compose(prover.program, prover.tables, lde, alphas, betas, 4),
+        want.astype(np.uint32))
+
+
+def test_generated_body_sums_mds_rows_lazily():
+    prog = StarkProver(get_model("mds")[0], config("mds"), device="cpu").program
+    # 8 lazy row sums of 8 products each, 8 squares, no Shoup product left.
+    assert prog.source.count("stark::reduce64") == 8
+    assert prog.source.count("stark::mul_mod") == 8
+    assert "shoup_mul" not in prog.source
+    assert prog.operations() < 702   # the eager body's count (PR 8)
 
 
 def test_tables_one_dinv_per_distinct_row():
@@ -196,6 +388,21 @@ def test_wide_kernel_matches_eager_on_card(cuda_device):
     want = prover._compose(lde, alphas, betas)
     got = StarkProver(air, cfg, cuda_device)._compose(lde.to(cuda_device), alphas, betas)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model, trace_length, b", [("fib", 1 << 20, 1), ("mds", 1 << 16, 1),
+                                                    ("fib", 1 << 14, 8)])
+def test_kernel_at_the_paths_shapes_on_card(cuda_device, model, trace_length, b):
+    # Fibonacci T=2^20 and MDS T=2^16 proves, batch8's (8, 1, 2^16).
+    air = get_model(model)[0]
+    card = StarkProver(air, StarkConfig(trace_length=trace_length, blowup=4), cuda_device)
+    rng = np.random.default_rng(trace_length + b)
+    lde = torch.from_numpy(rand_field(rng, (b, air.num_registers, card.dom.N)).astype(
+        np.int32)).to(cuda_device)
+    alphas, betas = (rand_field(rng, (b, card.program.terms)) for _ in range(2))
+    want = CO.compose_plain(card.program, lde, card.tables, alphas, betas, 4)
+    assert torch.equal(card._compose(lde, alphas, betas), want)
 
 
 @pytest.mark.gpu

@@ -207,6 +207,139 @@ def test_mix_matches_the_sequential_diffusion(seed):
         np.stack([hashfn._mix_state(states[:, j]) for j in range(8)], axis=1))
 
 
+# A model of the hash spread over L lanes (csrc/hash.cuh split_*), in
+# uint32 arithmetic as a lane computes it (the bits above a state byte's
+# low 8 left as they fall): (N, L, m) states, lane r holding the m = 32 / L
+# bytes at positions m r .. m r + m - 1, each cross-lane read the shuffle
+# the kernel makes.
+_PRIMES = np.array([2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53], np.uint32)
+_SBOX_MUL = np.uint32(0x9E3779B1)
+_CHAIN_MUL = np.uint32((502 * pow(0x9E3779B1, -1, 1 << 32)) % (1 << 32))
+
+
+def _select(mask, a, b):
+    return (a & np.uint32(mask)) | (b & np.uint32(~mask & 0xFFFFFFFF))
+
+
+def _positions(lanes: int) -> np.ndarray:
+    m = 32 // lanes
+    return np.arange(lanes)[:, None] * m + np.arange(m)[None, :]
+
+
+def _fetch7(v: np.ndarray, lanes: int) -> np.ndarray:
+    """x[.., r, j] = v at position (m r + j - 7) mod 32: split_fetch7, a
+    shuffle from lane r - back (mod L) for j < 7."""
+    m = 32 // lanes
+    x = np.empty_like(v)
+    for j in range(m):
+        byte, back = (j + 32 - 7) % m, (7 - j + m - 1) // m
+        x[..., j] = v[..., byte] if j >= 7 else np.roll(v[..., byte], back, axis=-1)
+    return x
+
+
+def _split_absorb(s, d, lanes):
+    low = _positions(lanes) < 7
+    x = np.zeros_like(s)
+    for wave in range(5):
+        t = (s ^ x) + d
+        v = _select(0xF8, t << np.uint32(3), t >> np.uint32(5))
+        x = _fetch7(v, lanes)
+        if wave < 4:
+            x = np.where(low, np.uint32(0), x)
+    return np.where(low, v ^ x, v)
+
+
+def _split_mix(s, lanes, form_in, form_out):
+    m = 32 // lanes
+    rc = ROUND_CONSTANTS.astype(np.uint32)[_positions(lanes)]
+    mul = _SBOX_MUL if form_in == "scaled" else np.uint32(502)
+    z = s * mul + (np.uint32(0) if form_in == "bytes" else np.uint32(502) * rc)
+    x = _select(0xFE, z, z >> np.uint32(8)).reshape(s.shape[:-1] + (m // 4, 4))
+    a = x[..., 0] ^ np.uint32(0x63)
+    g = np.stack([a ^ x[..., 1] ^ x[..., 3], a ^ x[..., 2] ^ x[..., 3], a ^ x[..., 1] ^ x[..., 2],
+                  (x[..., 1] ^ np.uint32(0x63)) ^ x[..., 2] ^ x[..., 3]], axis=-1)
+    g = g.reshape(s.shape)
+    k = _CHAIN_MUL if form_out == "scaled" else np.uint32(1)
+    g_next = np.concatenate([g[..., 1:, 0], g[..., -1:, 0]], axis=-1)  # shfl_down 1
+    g31 = g[..., -1, -1]                                                 # shfl from L - 1
+    loc = g * np.uint32(2 * int(k) % (1 << 32))
+    loc[..., 0, 0] = (g[..., 0, 0] + g31) * k
+    loc = np.cumsum(loc, axis=-1, dtype=np.uint32)                       # the lane's own prefix
+    inc = loc[..., -1].copy()
+    d = 1
+    while d < lanes:                                                     # shfl_up scan
+        up = np.zeros_like(inc)
+        up[..., d:] = inc[..., :-d]
+        inc = inc + up
+        d *= 2
+    before = (inc - loc[..., -1])[..., None]
+    nxt = np.concatenate([g[..., 1:], g_next[..., None]], axis=-1)
+    n = nxt * k + (before + loc)
+    n[..., -1, -1] = g31 * k + (n[..., 0, 0] + n[..., -1, -2])           # new[31]
+    return n + (rc if form_out == "bytes" else np.uint32(0))
+
+
+def split_combine_model(left: np.ndarray, right: np.ndarray, lanes: int,
+                        between: str = "owed") -> np.ndarray:
+    """(N, 32) x (N, 32) u8 digests -> (N, 32): Hash::combine as L lanes
+    compute it (split_combine)."""
+    shape = (left.shape[0], lanes, 32 // lanes)
+    s = np.broadcast_to(_PRIMES[_positions(lanes) & 15], shape).astype(np.uint32)
+    s = _split_absorb(s, left.reshape(shape).astype(np.uint32), lanes)
+    s = _split_mix(s, lanes, "bytes", "bytes")
+    s = _split_absorb(s, right.reshape(shape).astype(np.uint32), lanes)
+    s = _split_mix(s, lanes, "bytes", "bytes")
+    s = _split_mix(s, lanes, "bytes", between)
+    for _ in range(6):
+        s = _split_mix(s, lanes, between, between)
+    s = _split_mix(s, lanes, between, "bytes")
+    return (s & np.uint32(0xFF)).astype(np.uint8).reshape(-1, 32)
+
+
+@pytest.mark.parametrize("between", ["owed", "scaled"])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_split_hash_model_matches_combine(jHB, lanes, between):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(lanes)
+    left = rng.integers(0, 256, size=(300, 32), dtype=np.uint8)
+    right = rng.integers(0, 256, size=(300, 32), dtype=np.uint8)
+    left[0], right[1] = 0, 255
+    got = split_combine_model(left, right, lanes, between)
+    for i in range(8):
+        want = THash.combine(THash(left[i].tobytes()), THash(right[i].tobytes()))
+        assert got[i].tobytes() == want.data
+    rows = jHB.combine_rows_core(tuple(jnp.asarray(left.T)), tuple(jnp.asarray(right.T)))
+    np.testing.assert_array_equal(got, np.stack([np.asarray(r) for r in rows], axis=1))
+
+
+@pytest.mark.parametrize("lg_w", range(1, 25))
+def test_tail_lanes_per_level(lg_w):
+    # Each level of each launch: one lane a hash unless the block's threads
+    # give each of its hashes four or more, then as many as they give,
+    # never more than lanes_max, whole groups within the block; the levels
+    # are tail_launches'.
+    for lg_sub in (None,) + tuple(range(1, THB.TAIL_MAX_LG + 1)):
+        for lanes_max in THB.LANE_CHOICES:
+            launches = list(THB.tail_launches(lg_w, lg_sub))
+            plan = list(THB.tail_plan(lg_w, lg_sub, lanes_max=lanes_max))
+            assert len(plan) == len(launches)
+            for (sub, top), (threads, sub_l, top_l) in zip(launches, plan):
+                assert threads == THB.tail_threads(sub, top) and 32 <= threads <= 256
+                assert (len(sub_l), len(top_l)) == (sub, top)
+                for levels, lanes in ((sub, sub_l), (top, top_l)):
+                    for k, ell in enumerate(lanes, 1):
+                        count = 1 << (levels - k)
+                        assert ell in THB.LANE_CHOICES and ell <= lanes_max
+                        if 4 * count > threads:
+                            assert ell == 1
+                        else:
+                            assert count * ell <= threads
+                            assert ell == lanes_max or count * ell == threads
+                    assert lanes == sorted(lanes)  # narrower levels, more lanes
+    assert list(THB.tail_plan(lg_w)) == list(THB.tail_plan(lg_w, lanes_max=THB.TAIL_LANES))
+
+
 @pytest.mark.parametrize("lg_sub", [1, 4, 8, 10])
 @pytest.mark.parametrize("lg_w", [1, 3, 8, 9, 12])
 def test_tail_decomposition_matches_level_by_level(lg_w, lg_sub):
@@ -634,3 +767,48 @@ def test_sponge_kernel_matches_plain_on_card(cuda_device, b, length):
         plain.absorb(root, alpha=want)
         assert torch.equal(a.cpu(), want) and torch.equal(c.cpu(), root)
         assert torch.equal(card.state.cpu(), plain.state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("lg_sub", [None, 1, 6])
+@pytest.mark.parametrize("lg_w", [1, 2, 5, 6, 9, 10, 11, 16, 17, 20])
+def test_tail_kernel_at_every_lane_count_on_card(cuda_device, lg_w, lg_sub, lanes):
+    w = 1 << lg_w
+    nodes = torch.from_numpy(np.random.default_rng(w + lanes).integers(
+        0, 256, size=(w, 32), dtype=np.uint8)).to(cuda_device)
+    want = THB.merkle_tail_plain(nodes, lg_sub)
+    for _ in range(2):
+        assert torch.equal(THB.merkle_tail(nodes, lg_sub=lg_sub, lanes=lanes), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("b, lg_n", [(8, 1), (8, 5), (8, 13), (32, 4), (32, 11), (3, 9)])
+def test_forest_kernel_at_every_lane_count_on_card(cuda_device, b, lg_n, lanes):
+    leaves = torch.from_numpy(np.random.default_rng(b * lg_n + lanes).integers(
+        0, 256, size=(b << lg_n, 32), dtype=np.uint8)).to(cuda_device)
+    want = THB.forest_tail_plain(leaves.cpu(), b)
+    for _ in range(2):  # the tickets are left at zero
+        assert torch.equal(THB.merkle_forest(leaves, b, lanes=lanes).cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_split_levels_on_two_streams_on_card(cuda_device, lanes):
+    # Trees and forests on two streams at once, the narrow levels split.
+    rng = np.random.default_rng(lanes)
+    nodes = [torch.from_numpy(rng.integers(0, 256, size=(1 << 12, 32), dtype=np.uint8)
+                              ).to(cuda_device) for _ in range(2)]
+    want = [THB.merkle_tail_plain(nodes[0]), THB.forest_tail_plain(nodes[1].cpu(), 8)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        with torch.cuda.stream(streams[0]):
+            got[0].append(THB.merkle_tail(nodes[0], lanes=lanes))
+        with torch.cuda.stream(streams[1]):
+            got[1].append(THB.merkle_forest(nodes[1], 8, lanes=lanes))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want[0]) for g in got[0])
+    assert all(torch.equal(g.cpu(), want[1]) for g in got[1])
