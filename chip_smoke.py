@@ -12,7 +12,7 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     each generated source's sha256 and its nvcc time; nvcc's version (K13
     and K11 carry their plans and weights in up to 32 KB of launch
     parameters, which CUDA 12.1 and later allow); the registers ptxas
-    gives K12, K13, K9 and each AIR's K11; the instruction mix of the hash
+    gives K12, K13, K9, K4-dyn and each AIR's K11; the instruction mix of the hash
     kernels as compiled, where cuobjdump is installed;
  3. every kernel against its plain PyTorch version on the card, bit-equal,
     at every shape the driven paths give it:
@@ -30,9 +30,16 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       every such n (its edge route up to n = 8, its vector route from n =
       16 on) and at shapes that are not square, not multiples of its
       tile, or not multiples of 4 on one side or both, each twice;
-    - the FRI fold (K4) at every half from 2^21 down to 128, and the fold
-      with alpha in device memory (K4-dyn) at (1, half) for the same halves
-      and at the batch paths' (B, half), B in {8, 32}, half 2^15 .. 2^7;
+    - the FRI fold (K4) at every half from 2^21 down to 128, and K4-dyn,
+      one round of the device chain (each row's root absorbed into its
+      sponge, the challenge drawn, the row folded: folded rows, alpha, the
+      root copy and the sponge after it held equal, q in {0, 16}, two
+      rounds) at (1, half) for the same halves, at (B, half) for B in {1,
+      3, 8, 32}, half 2^15 .. 2^7, and at halves 1, 3 and 7; the pair it
+      replaced (K9, then the fold with alpha in device memory, built here
+      from tools/tune_kernels.py) against the plain version too, then the
+      two in turn at (1, 2^21), (32, 2^15) and (8, 2^15) and over a
+      Fibonacci T=2^20 prove's 15 rounds, device time and CUDA events;
     - the row hash (K5/K6) for c = 1 at every N from 2 to 2^22 and for c in
       {2, 3, 5, 8} at N in {2, 1024, 2^18, 2^20}, one tree level (K7) at W
       in {2, 2048, 2^17 .. 2^22}, the subtree kernel (K8) at every W from 2
@@ -92,7 +99,9 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     bench.py proves it): witness -> StarkProver.prove(trace_cols=...) ->
     StarkVerifier.verify with the launch counts set to 0 just before and
     read just after (every kernel of the path > 0, the query gather and
-    the composition kernel exactly once, the eager compose never), K13 against its plain version on that prove's plan,
+    the composition kernel exactly once, the eager compose never, K9
+    twice and K4-dyn once a FRI round but the last), K13 against its
+    plain version on that prove's plan,
     the pinned sha256, which a prove from host rows must give too; the
     witness + prove and verify wall-time distributions, with Python's full
     garbage collections (gc.callbacks) that fell inside a prove; the
@@ -119,7 +128,8 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     16 device-witness traces at B=8): every proof's sha256 equal to the
     single prove's, verify_batch accepting them and rejecting a flipped
     byte, proofs/s over 20 calls, the device-to-host copies of a call (3 a
-    batch), the launches of a call (K11 once a batch), a profiled call.
+    batch), the launches of a call (K11 once and K9 twice a batch, K4-dyn
+    once a FRI round but the last), a profiled call.
 
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -282,8 +292,8 @@ OPS_FOLD_DYN = OPS_FOLD - 4 + 7
 
 
 #: The designs before each redesign (tools/tune_kernels.py), built in the
-#: build step: sponge, fib_expand, forest, floor (an empty kernel) and
-#: compose by (model, T).
+#: build step: sponge, fib_expand, forest, fold_dyn (the K9 + fold pair),
+#: floor (an empty kernel) and compose by (model, T).
 BEFORE: dict = {}
 
 
@@ -498,6 +508,8 @@ class _Results:
         kernel that updates its operands in place."""
         got, want = checked or (fn(*args_list[0]), plain_fn(*args_list[0]))
         _require_equal(f"{kernel.name} at {shape}", got, want)
+        # Read now: the timed calls below may write into ``got`` again.
+        max_err = _max_abs_err(got, want)
         bound_ms, bound_by = _bound(nbytes, ops)
 
         def timed(f, reps):
@@ -525,7 +537,7 @@ class _Results:
             "replaces": kernel.replaces,
             "shape": shape,
             "launches": 0,
-            "max_abs_err": _max_abs_err(got, want),
+            "max_abs_err": max_err,
             "ms": ms,
             "plain_ms": timed(plain_fn, max(reps // 10, 3)),
             "bound_ms": bound_ms,
@@ -669,25 +681,119 @@ def _check_fold(rng, dev, results: _Results) -> None:
           f"({entry['buffer_sets']} buffer sets) " + _line(entry)
           + ", device time per call", flush=True)
 
-    # K4-dyn: the single prove's (1, half) shapes and the batch paths'.
-    shapes = [(1, h) for h in FOLD_HALVES] + [(b, h) for b in BATCHES for h in BATCH_HALVES]
+    _check_fold_dyn(rng, dev, results)
+
+
+def _dyn_sponge(rng, dev, b: int, q: int):
+    """A K9 sponge of ``b`` lanes on ``dev`` after a prefix of 64 + q
+    bytes a lane, with a root, a root copy and an alpha buffer."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    sp = HB.Sponge(b, dev)
+    sp.absorb(torch.from_numpy(rng.integers(0, 256, (b, 64 + q), dtype=np.uint8)).to(dev))
+    return (sp, torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev),
+            torch.empty((b, 32), dtype=torch.uint8, device=dev),
+            torch.empty(b, dtype=torch.int32, device=dev))
+
+
+def _fold_dyn_checked(FOLD, what, cws, inv_x, sp, roots, copy, alpha, fn=None):
+    """One K4-dyn launch (or ``fn``, the same call of another design) held
+    against the plain version on the same inputs: the folded rows, the
+    challenges, the root copies and the sponge after the roots.  Returns
+    (folded, plain folded)."""
+    state, pending, want_alpha, want = FOLD.fold_dyn_round_plain(
+        cws, inv_x, sp.state, sp.pending, sp.q, roots)
+    got = (fn or FOLD.fold_dyn)(cws, inv_x, sp, roots, copy, alpha)
+    for part, g, w in (("folded", got, want), ("alpha", alpha, want_alpha.to(torch.int32)),
+                       ("copy", copy, roots), ("state", sp.state, state),
+                       ("pending", sp.pending, pending)):
+        _require_equal(f"{what} {part}", g, w)
+    return got, want
+
+
+def _check_fold_dyn(rng, dev, results: _Results) -> None:
+    """K4-dyn, one round of the device chain (each row's root absorbed
+    into its sponge, the challenge drawn, the row folded), against its
+    plain version at every (B, half) the paths give it and at halves that
+    are no multiple of 4, after a 0- and a 16-byte tail, two rounds each
+    (the second reads the sponge the first wrote); the pair it replaced
+    (K9, then the fold with alpha in device memory: BEFORE["fold_dyn"])
+    against plain too; then timed at (1, 2^21), (32, 2^15) and (8, 2^15),
+    in turn with the pair, and summed over a Fibonacci T=2^20 prove's 15
+    rounds, in turn with the pair."""
+    from stark_tpu_torch.ops import fold as FOLD
+
+    def rand(shape):
+        return _rand_field(rng, dev, shape)
+
+    before = BEFORE["fold_dyn"]
+    shapes = sorted({(1, h) for h in FOLD_HALVES}
+                    | {(b, h) for b in (1, 3) + BATCHES for h in BATCH_HALVES}
+                    | {(1, 1), (1, 3), (3, 7)})
     for b, half in shapes:
         cws, inv_x = rand((b, 2 * half)), rand((half,))
-        alpha = rand((b,))
-        _require_equal(f"fold_dyn ({b}, {half})", FOLD.fold_dyn(cws, inv_x, alpha),
-                       FOLD.fold_dyn_plain(cws, inv_x, alpha))
+        for q in (0, 16):
+            sp, _, copy, alpha = _dyn_sponge(rng, dev, b, q)
+            for r in range(2):
+                roots = torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev)
+                _fold_dyn_checked(FOLD, f"fold_dyn ({b}, {half}) q={q} round {r}",
+                                  cws, inv_x, sp, roots, copy, alpha)
+            _fold_dyn_checked(FOLD, f"fold_dyn before ({b}, {half}) q={q}", cws, inv_x,
+                              sp, roots, copy, alpha, fn=before)
+    launch_ms, clock = _empty_launch_ms(dev), _max_clock()
+    chain_ms = launch_ms + 10 * OPS_MIX * 2 / (clock * 1e3)
     timed = {}
     for b, half in ((1, FOLD_HALVES[0]), (32, BATCH_HALVES[0]), (8, BATCH_HALVES[0])):
-        cws, inv_x, alpha = rand((b, 2 * half)), rand((half,)), rand((b,))
-        timed[(b, half)] = (results if b == 1 else _Results()).add(
-            FOLD.FOLD_DYN, f"({b}, half=2^{half.bit_length() - 1})",
-            _clones(_copies(16 * b * half), cws, inv_x, alpha),
-            FOLD.fold_dyn, FOLD.fold_dyn_plain, 200 if b == 1 else 50,
-            nbytes=16 * b * half + 4 * b, ops=OPS_FOLD_DYN * b * half)
-    print(f"fold_dyn: kernel == plain at (1, half) for half 2^21 .. 2^7 and at (B, half) "
-          f"for B in {list(BATCHES)}, half 2^15 .. 2^7; "
-          + "; ".join(f"(B={b}, half=2^{h.bit_length() - 1}) " + _line(e)
-                      for (b, h), e in timed.items()) + ", device time per call",
+        sp, roots, copy, alpha = _dyn_sponge(rng, dev, b, 16)
+        cws, inv_x = rand((b, 2 * half)), rand((half,))
+        # the bytes the function must move: a and b of every row and x^-1
+        # once, the rows out; a row's sponge, root in, sponge, copy, alpha out
+        nbytes = 12 * b * half + 4 * half + b * (3 * 32 + 3 * 32 + 4)
+        sets = _clones(_copies(nbytes), cws, inv_x)
+        checked = _fold_dyn_checked(FOLD, f"fold_dyn ({b}, {half})", cws, inv_x, sp, roots,
+                                    copy, alpha)
+        entry = (results if b == 1 else _Results()).add(
+            FOLD.FOLD_DYN, f"({b}, half=2^{half.bit_length() - 1}), a root after a 16-byte tail",
+            sets, lambda c, x: FOLD.fold_dyn(c, x, sp, roots, copy, alpha),
+            lambda c, x: FOLD.fold_dyn_round_plain(c, x, sp.state, sp.pending, sp.q, roots)[3],
+            200 if b == 1 else 50, nbytes=nbytes,
+            ops=OPS_FOLD_DYN * b * half + b * (OPS_ABSORB_BYTE * (32 + 16) + OPS_MIX * 10),
+            checked=checked)
+        entry["latency_bound_ms"] = chain_ms
+        calls = (_cycled(lambda c, x: before(c, x, sp, roots, copy, alpha), sets),
+                 _cycled(lambda c, x: FOLD.fold_dyn(c, x, sp, roots, copy, alpha), sets))
+        entry["turns_ms"] = [_device_ms(calls[i], 50) for i in (0, 1, 1, 0)]
+        entry["turns_event_ms"] = [_event_ms(calls[i], 50) for i in (0, 1, 1, 0)]
+        timed[(b, half)] = entry
+    # A Fibonacci T=2^20 prove's 15 rounds (halves 2^21 .. 2^7), one after
+    # another, on two sets of buffers in turn (64 MiB each).
+    sp, roots, copy, alpha = _dyn_sponge(rng, dev, 1, 16)
+    chain = [[(rand((1, 2 * h)), rand((h,))) for h in FOLD_HALVES] for _ in range(2)]
+
+    def rounds(fn):
+        return _cycled(lambda bufs: [fn(c, x, sp, roots, copy, alpha) for c, x in bufs],
+                       [(bufs,) for bufs in chain])
+
+    calls = (rounds(before), rounds(FOLD.fold_dyn))
+    prove_turns = [_device_ms(calls[i], 20) for i in (0, 1, 1, 0)]
+    prove_events = [_event_ms(calls[i], 20) for i in (0, 1, 1, 0)]
+    prove_bound = sum(max(_bound(16 * h + 200, OPS_FOLD_DYN * h)[0], chain_ms)
+                      for h in FOLD_HALVES)
+    print(f"fold_dyn: kernel == plain (folded rows, alpha, root copy, sponge after the "
+          f"root; q in 0, 16; two rounds) at (B, half) for {len(shapes)} shapes: (1, 2^21 .. "
+          f"2^7), (B, 2^15 .. 2^7) for B in {[1, 3] + list(BATCHES)}, (1, 1), (1, 3), "
+          "(3, 7); the pair before (K9, then the fold with alpha in device memory) == plain "
+          "at each; " + "; ".join(
+              f"(B={b}, half=2^{h.bit_length() - 1}) " + _line(e)
+              + f", latency bound {e['latency_bound_ms']:.4f} (an empty launch + 10 mixes "
+              f"at {clock} MHz); in turn before, after, after, before: device "
+              f"{json.dumps([round(t * 1e3, 2) for t in e['turns_ms']])} us, events "
+              f"{json.dumps([round(t * 1e3, 2) for t in e['turns_event_ms']])} us"
+              for (b, h), e in timed.items())
+          + f"; a Fibonacci T=2^20 prove's 15 rounds in turn before, after, after, before: "
+          f"device {json.dumps([round(t * 1e3, 2) for t in prove_turns])} us, events "
+          f"{json.dumps([round(t * 1e3, 2) for t in prove_events])} us, bound "
+          f"{prove_bound * 1e3:.2f} us (each round the larger of its bytes and the chain)",
           flush=True)
 
 
@@ -1449,6 +1555,16 @@ def _prove_checked(name, prover, verifier, witness, want_sha, expect, cuda):
     return proof, counts, plans[0]
 
 
+def _check_chain(name, counts, rounds: int, batches: int = 1) -> None:
+    """The FRI commit chain's launches: K9 twice a batch (the transcript's
+    prefix, the last round's roots) and K4-dyn once a round but the last
+    (its root's absorb, the challenge and the fold in one launch)."""
+    want = {"sponge_absorb": 2 * batches, "fri_fold_dyn": (rounds - 1) * batches}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: chain launches {got}, not {want}")
+
+
 def _profiled_prove(name, prover, witness, counts, median_wall, cuda) -> dict:
     """Profile one witness + prove; every kernel it launched must show
     device time under its own name.  Prints that prove's device view and,
@@ -1510,11 +1626,20 @@ def _profiled(name, prove, counts, median_wall, cuda) -> dict:
 
 def _d2h_copies(run, phased: bool = True):
     """The device-to-host copies of one ``run(timer)``, from the profiler's
-    memcpy events, and each phase's: a phase is a record_function range,
-    and a copy counts as the phase's when its middle lies inside the range
-    (``phased``: the run times its phases with the timer, and a window
-    without them, or with a copy outside every phase, is taken again).
-    Returns ({phase: copies}, [copy events])."""
+    memcpy events, and each phase's: a phase is a record_function range on
+    the host, and a copy counts as the phase's when the host operation
+    that issued it (the profiler links each device activity to it) starts
+    inside the range: both times are the host's clock.  (The device's
+    timestamps can lie a millisecond or more from the host's: in one
+    window every copy's middle fell in the phase before its own.)
+    ``phased``: the run times its phases with the timer, and a window
+    without them, or with a copy that no host operation inside a phase
+    issued, is taken again.  So is a window the tracer kept only part of
+    (seen once: 5 of a batched call's 6 copies): the window opens and
+    closes with PAD_LAUNCHES uncounted erfinv launches (see _profile), and
+    it is whole when the closing ones all come after its last copy and it
+    holds a device memcpy for each memcpy the host issued.  Returns
+    ({phase: copies}, [copy events])."""
     from stark_tpu_torch.utils.profiling import PhaseTimer
 
     class Marked(PhaseTimer):
@@ -1523,16 +1648,21 @@ def _d2h_copies(run, phased: bool = True):
             with torch.profiler.record_function("phase:" + phase_name):
                 yield
 
-    def inside(e, ranges):
-        mid = (e.time_range.start + e.time_range.end) / 2
-        return any(r.start <= mid <= r.end for r in ranges)
+    def inside(t, ranges):
+        return any(r.start <= t <= r.end for r in ranges)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    pad = torch.zeros(8, device="cuda")
     for _ in range(PROFILE_ATTEMPTS):
         run(Marked())
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PAD_LAUNCHES):
+                pad.erfinv_()
+            torch.cuda.synchronize()
             run(Marked())
+            for _ in range(PAD_LAUNCHES):
+                pad.erfinv_()
             torch.cuda.synchronize()
         events = prof.events()
         phases = {}
@@ -1542,16 +1672,29 @@ def _d2h_copies(run, phased: bool = True):
             if e.name.startswith("phase:") and \
                     e.device_type == torch.autograd.DeviceType.CPU:
                 phases.setdefault(e.name[len("phase:"):], []).append(e.time_range)
-        copies = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "DtoH" in e.name]
-        by_phase = {k: sum(inside(e, r) for e in copies) for k, r in phases.items()}
-        # A window whose copies do not all fall inside a phase (the host's
-        # and the device's clocks drawn apart, seen once in a window of 3
-        # copies) is taken again; the counts are checked by the caller.
-        if copies and (not phased or ("fri_query" in phases
-                                      and sum(by_phase.values()) == len(copies))):
+        device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        copies = [e for e in device if "DtoH" in e.name]
+        last = max((e.time_range.end for e in copies), default=0)
+        closing = sum("erfinv" in e.name and e.time_range.start >= last for e in device)
+        issued_memcpy = sum(e.device_type == torch.autograd.DeviceType.CPU
+                            and e.name.startswith("cudaMemcpy") for e in events)
+        whole = (closing == PAD_LAUNCHES
+                 and sum(e.name.startswith("Memcpy") for e in device) >= issued_memcpy)
+        issued = [(e.time_range.start, sum("DtoH" in k.name for k in e.kernels))
+                  for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        by_phase = {k: sum(n for t, n in issued if n and inside(t, r))
+                    for k, r in phases.items()}
+        # A window with a copy that no host operation inside a phase issued
+        # (or that the profiler did not link to one) is taken again; the
+        # counts are checked by the caller.
+        if copies and whole and (not phased or (
+                "fri_query" in phases and sum(by_phase.values()) == len(copies))):
             break
         _retaken[0] += 1
+        print(f"copies window taken again: {len(copies)} device-to-host copies, "
+              f"{closing} of {PAD_LAUNCHES} closing launches after them, "
+              f"{sum(e.name.startswith('Memcpy') for e in device)} device memcpys for "
+              f"{issued_memcpy} issued", flush=True)
     else:
         raise AssertionError("no memcpy event or phase range recorded, or copies "
                              "outside every phase in every window")
@@ -1662,6 +1805,7 @@ def _drive(name, key, prover, verifier, witness, rows, want_sha, expect, runs, c
     proof, counts, plan = _prove_checked(name, prover, verifier, witness, want_sha,
                                          expect, cuda)
     launches[key] = counts
+    _check_chain(name, counts, prover.fri.num_rounds())
     peak = torch.cuda.max_memory_allocated() / 2**30
     if hashlib.sha256(prover.prove(rows)).hexdigest() != want_sha:
         raise AssertionError(f"{name}: the proof from host rows differs")
@@ -1729,6 +1873,7 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
     if missing or counts["fri_fold"] or counts["query_gather"] < batches or \
             counts["compose"] != batches:
         raise AssertionError(f"{cell}: launches {counts}")
+    _check_chain(cell, counts, prover.fri.num_rounds(), batches)
 
     walls = []
     for _ in range(BATCH_RUNS):
@@ -1791,7 +1936,8 @@ def main() -> int:
     # The designs before each redesign, built beside the port (nvcc each,
     # all at once), into BEFORE: timed in turn with the kernels in use.
     befores = {"sponge": TK.sponge_before, "fib_expand": TK.fib_expand_before,
-               "forest": TK.forest_before, "floor": TK.floor_kernel}
+               "forest": TK.forest_before, "fold_dyn": TK.fold_dyn_before,
+               "floor": TK.floor_kernel}
     timed_cases = {(model, T): blowup for model, T, blowup, _ in COMPOSE_CASES[:COMPOSE_TIMED]}
     with ThreadPoolExecutor(len(programs) + len(befores) + len(timed_cases) + 1) as pool:
         built = [pool.submit(cuda.library)] + [
@@ -1815,10 +1961,11 @@ def main() -> int:
     ptxas = TK.ptxas
 
     paths = {CO._source_file(p.source): m for m, p in programs.items()}
-    regs = ptxas(("witness.cu", "gather.cu", "hash.cu", *paths), by_source=True)
-    print("ptxas, K12, K13 and K9: " + json.dumps(
-        {k: v for src in ("witness.cu", "gather.cu", "hash.cu") for k, v in regs[src].items()
-         if "sponge" in k or src != "hash.cu"}), flush=True)
+    regs = ptxas(("witness.cu", "gather.cu", "hash.cu", "fold.cu", *paths), by_source=True)
+    print("ptxas, K12, K13, K9 and K4-dyn: " + json.dumps(
+        {k: v for src in ("witness.cu", "gather.cu", "hash.cu", "fold.cu")
+         for k, v in regs[src].items()
+         if "sponge" in k or "dyn" in k or src not in ("hash.cu", "fold.cu")}), flush=True)
     print("ptxas, K11 by AIR (each weight capacity): " + json.dumps(
         {paths[src]: sorted(set(regs[src].values())) for src in paths}), flush=True)
     _sass_mix(lib._name)
@@ -1888,6 +2035,7 @@ def main() -> int:
     _, counts, _ = _prove_checked(name, lazy_prover, verifier, fib_cols, MAIN_SHA256,
                                   every - strict_names - elsewhere - {"mds_expand"}, cuda)
     launches["fib_2^20_lazy"] = counts
+    _check_chain(name, counts, lazy_prover.fri.num_rounds())
     print(f"{name}: proved and verified, sha256 == pinned, launches {counts}",
           flush=True)
     _profiled_prove(name, lazy_prover, fib_cols, counts, median, cuda)

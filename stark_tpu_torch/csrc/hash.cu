@@ -76,9 +76,7 @@
 
 namespace {
 
-using stark::absorb_byte;
 using stark::absorb_value;
-using stark::absorb_word;
 using stark::pack4;
 using stark::hash_combine;
 using stark::hash_finish;
@@ -202,59 +200,6 @@ __device__ __forceinline__ void tail_walk(const uint4* src, uint4* out,
   }
 }
 
-// K9: word j of a lane's data (bytes 4j .. 4j + 3, little-endian), 0 for j
-// < 0 and past the m bytes.  ``vec``: the rows are 4-byte aligned, one
-// load a word; else four byte loads.
-__device__ __forceinline__ uint32_t sponge_data_word(const uint8_t* in, int m,
-                                                     bool vec, int j) {
-  if (j < 0 || 4 * j >= m) return 0u;
-  if (vec) return reinterpret_cast<const uint32_t*>(in)[j];
-  uint32_t w = 0;
-#pragma unroll
-  for (int x = 0; x < 4; ++x)
-    if (4 * j + x < m) w |= (uint32_t)in[4 * j + x] << (8 * x);
-  return w;
-}
-
-// K9: chunk t of a lane's stream pending (q bytes) || data, as 8
-// little-endian words, bytes past the stream 0.  q = 4 a + r is the same
-// for every lane.  Stream word u = 8 t + k is pending word u for u < a;
-// after that it is data bytes 4 u - q .. 4 u - q + 3: the last r bytes of
-// data word u - a - 1 and the first 4 - r of word u - a, one funnel shift
-// of the two (at u = a the first part is pending word a's r bytes).  No
-// branch on a byte: a chunk is 9 word loads (one trip to memory) and a
-// funnel shift a word.
-__device__ __forceinline__ void sponge_chunk(uint32_t (&w)[8],
-                                             const uint32_t (&pend)[8], int q,
-                                             const uint8_t* in, int m,
-                                             bool vec, int t) {
-  const int a = q >> 2;
-  const int shift = 32 - 8 * (q & 3);  // 32: the word is data word u - a
-  uint32_t d[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) d[k] = sponge_data_word(in, m, vec, 8 * t + k - a - 1);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int u = 8 * t + k;
-    const uint32_t lo = u == a ? __funnelshift_lc(0u, pend[k], shift) : d[k];
-    const uint32_t word = __funnelshift_rc(lo, d[k + 1], shift);
-    w[k] = u < a ? pend[k] : word;
-  }
-}
-
-// Absorb bytes kPos .. len - 1 of the chunk held in w (hash.rs:14-23):
-// every state index stays a compile-time constant.
-template <int kPos>
-__device__ __forceinline__ void absorb_prefix(uint32_t (&s)[32],
-                                              const uint32_t (&w)[8], int len) {
-  if constexpr (kPos < 32) {
-    if (kPos < len) {
-      absorb_byte<kPos>(s, w[kPos >> 2] >> (8 * (kPos & 3)));
-      absorb_prefix<kPos + 1>(s, w, len);
-    }
-  }
-}
-
 // The body of K8 and of its forest entry.  Block b builds the lg_sub levels
 // above nodes [b 2^lg_sub, (b + 1) 2^lg_sub).  With lg_top > 0 the blocks
 // come in trees of 2^lg_top (tree = b >> lg_top): the block of a tree that
@@ -365,34 +310,19 @@ __global__ void __launch_bounds__(kTailThreads)
 }
 
 // K9: per lane (one thread), the incremental transcript sponge of
-// stark_tpu/ops/hash_batch.py:831-919.  A lane's state is the hash state
-// after every full 32-byte chunk it has absorbed (32 bytes) and the
-// pending tail of q < 32 bytes after them.  One launch appends m bytes a
-// lane: the stream pending || data is cut into full chunks, each absorbed
-// and mixed into the state (hash.rs:13-24), and what is left, fewer than 32
-// bytes, becomes the new pending tail ((q + m) mod 32 bytes, then zeros).
-// With alpha, a copy of the state is finalized as a hash of every byte so
-// far would be (the pending tail absorbed as a partial chunk and mixed,
-// then the 8 closing mixes, hash.rs:25-27) and its first 8 digest bytes, a
-// little-endian u64, are written reduced mod p: the FRI challenge the host
-// transcript draws (fiat_shamir.rs:19-25), as the fold takes it.
+// stark_tpu/ops/hash_batch.py:831-919: one launch appends m bytes a lane
+// (hash.cuh sponge_lane says how, and what bounds it) and, with alpha,
+// writes each lane's FRI challenge mod p after them.
 //   state, pending: (lanes, 32) u8, 16-byte aligned rows, updated in
 //   place; fresh: start from the initial state (q must be 0); data:
 //   (lanes, m) u8; copy: where the data bytes are also written (or null);
 //   alpha: (lanes,) (or null).
-//
-// What bounds it: latency.  At B = 1 one thread runs the launch, so what it
-// costs is its chain: the launch, its trips to memory, the mixes one after
-// the other (a root's absorb and the 8 closing mixes, ~1.9 us on an H100).
 // On an H100 its design before this one took 6.8 us against 1.2 for an
 // empty launch and 4.9 with its mixes taken out (PERF.md): byte loads of
 // the state, the tail and the data, each chunk byte behind two compares on
-// q, byte loops for the new tail and the copy.  Now state, pending, the
-// new tail and (for rows of 16-byte words) the copy move as 16-byte words,
-// a chunk is assembled from data words by funnel shifts (sponge_chunk),
-// and the loads of the first chunk and of the tail are issued before any
-// arithmetic: for a root absorb (m = 32) that is every load of the launch,
-// one trip.
+// q, byte loops for the new tail and the copy.  K4-dyn (fold.cu) runs the
+// same step for the root of each FRI round but the last, in the launch
+// that folds with the challenge.
 __global__ void stark_sponge_absorb_kernel(uint4* state, uint4* pending, int q,
                                            int fresh,
                                            const uint8_t* __restrict__ data,
@@ -400,72 +330,14 @@ __global__ void stark_sponge_absorb_kernel(uint4* state, uint4* pending, int q,
                                            uint32_t* alpha, int lanes) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  const uint8_t* in = data + (long long)m * lane;
   const bool vec = ((reinterpret_cast<uintptr_t>(data) | (uintptr_t)m) & 3) == 0;
-  const uint4 p0 = pending[2 * lane], p1 = pending[2 * lane + 1];
-  const uint32_t pend[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-  uint4 s0 = make_uint4(0, 0, 0, 0), s1 = s0;
-  if (!fresh) {
-    s0 = state[2 * lane];
-    s1 = state[2 * lane + 1];
-  }
-  const int total = q + m;
-  const int full = total >> 5;
-  const int rest = total & 31;
-  uint32_t first[8], tail[8];
-  sponge_chunk(first, pend, q, in, m, vec, 0);
-  sponge_chunk(tail, pend, q, in, m, vec, full);
-  if (copy != nullptr) {
-    uint8_t* out = copy + (long long)m * lane;
-    if (((reinterpret_cast<uintptr_t>(data) | reinterpret_cast<uintptr_t>(copy) |
-          (uintptr_t)m) & 15) == 0) {
-      const uint4* src = reinterpret_cast<const uint4*>(in);
-      for (int j = 0; j < m / 16; ++j) reinterpret_cast<uint4*>(out)[j] = src[j];
-    } else {
-      for (int i = 0; i < m; ++i) out[i] = in[i];
-    }
-  }
-  uint32_t s[32];
-  if (fresh) {
-    hash_init(s);
-  } else {
-    const uint32_t st[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = st[i >> 2] >> (8 * (i & 3));  // byte i, low 8 bits
-  }
-  for (int t = 0; t < full; ++t) {
-    uint32_t w[8];
-    if (t == 0) {
-#pragma unroll
-      for (int k = 0; k < 8; ++k) w[k] = first[k];
-    } else {
-      sponge_chunk(w, pend, q, in, m, vec, t);
-    }
-    absorb_word<0>(s, w[0]);
-    absorb_word<4>(s, w[1]);
-    absorb_word<8>(s, w[2]);
-    absorb_word<12>(s, w[3]);
-    absorb_word<16>(s, w[4]);
-    absorb_word<20>(s, w[5]);
-    absorb_word<24>(s, w[6]);
-    absorb_word<28>(s, w[7]);
-    mix(s);
-  }
-  uint4 lo, hi;
-  pack_digest(s, lo, hi);
-  state[2 * lane] = lo;
-  state[2 * lane + 1] = hi;
-  pending[2 * lane] = make_uint4(tail[0], tail[1], tail[2], tail[3]);
-  pending[2 * lane + 1] = make_uint4(tail[4], tail[5], tail[6], tail[7]);
-  if (alpha == nullptr) return;
-  if (rest > 0) {
-    absorb_prefix<0>(s, tail, rest);
-    mix(s);
-  }
-  hash_finish<stark::Form::kOwed>(s);  // a lone thread: fewest instructions
-  const uint64_t v = (uint64_t)pack4(s[0], s[1], s[2], s[3]) |
-                     (uint64_t)pack4(s[4], s[5], s[6], s[7]) << 32;
-  alpha[lane] = (uint32_t)(v % stark::kP);
+  const bool copy_vec = ((reinterpret_cast<uintptr_t>(data) |
+                          reinterpret_cast<uintptr_t>(copy) | (uintptr_t)m) & 15) == 0;
+  const uint32_t a = stark::sponge_lane(
+      state + 2 * lane, pending + 2 * lane, state + 2 * lane, pending + 2 * lane, true,
+      q, fresh, data + (long long)m * lane, m, vec,
+      copy == nullptr ? nullptr : copy + (long long)m * lane, copy_vec, alpha != nullptr);
+  if (alpha != nullptr) alpha[lane] = a;
 }
 
 // K5/K6: (c, n) field values -> n digests.

@@ -25,6 +25,8 @@
 
 #include <stdint.h>
 
+#include "field.cuh"
+
 namespace stark {
 
 // The initial state: the first 16 primes, cycled (hash.rs:10-12).
@@ -444,6 +446,193 @@ __device__ __forceinline__ void pack_digest(const uint32_t (&s)[32], uint4& lo,
                   pack4(s[20], s[21], s[22], s[23]),
                   pack4(s[24], s[25], s[26], s[27]),
                   pack4(s[28], s[29], s[30], s[31]));
+}
+
+// ---------------------------------------------------------------------------
+// The Fiat-Shamir sponge of the device commit chain, one lane a thread: K9
+// (hash.cu stark_sponge_absorb) and K4-dyn (fold.cu, which draws each FRI
+// round's challenge itself) run sponge_lane.
+
+// Word j of a lane's data (bytes 4j .. 4j + 3, little-endian), 0 for j
+// < 0 and past the m bytes.  ``vec``: the rows are 4-byte aligned, one
+// load a word; else four byte loads.
+__device__ __forceinline__ uint32_t sponge_data_word(const uint8_t* in, int m,
+                                                     bool vec, int j) {
+  if (j < 0 || 4 * j >= m) return 0u;
+  if (vec) return reinterpret_cast<const uint32_t*>(in)[j];
+  uint32_t w = 0;
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+    if (4 * j + x < m) w |= (uint32_t)in[4 * j + x] << (8 * x);
+  return w;
+}
+
+// Chunk t of a lane's stream pending (q bytes) || data, as 8
+// little-endian words, bytes past the stream 0.  q = 4 a + r is the same
+// for every lane.  Stream word u = 8 t + k is pending word u for u < a;
+// after that it is data bytes 4 u - q .. 4 u - q + 3: the last r bytes of
+// data word u - a - 1 and the first 4 - r of word u - a, one funnel shift
+// of the two (at u = a the first part is pending word a's r bytes).  No
+// branch on a byte: a chunk is 9 word loads (one trip to memory) and a
+// funnel shift a word.
+__device__ __forceinline__ void sponge_chunk(uint32_t (&w)[8],
+                                             const uint32_t (&pend)[8], int q,
+                                             const uint8_t* in, int m,
+                                             bool vec, int t) {
+  const int a = q >> 2;
+  const int shift = 32 - 8 * (q & 3);  // 32: the word is data word u - a
+  uint32_t d[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) d[k] = sponge_data_word(in, m, vec, 8 * t + k - a - 1);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int u = 8 * t + k;
+    const uint32_t lo = u == a ? __funnelshift_lc(0u, pend[k], shift) : d[k];
+    const uint32_t word = __funnelshift_rc(lo, d[k + 1], shift);
+    w[k] = u < a ? pend[k] : word;
+  }
+}
+
+// Absorb bytes kPos .. len - 1 of the chunk held in w (hash.rs:14-23):
+// every state index stays a compile-time constant.
+template <int kPos>
+__device__ __forceinline__ void absorb_prefix(uint32_t (&s)[32],
+                                              const uint32_t (&w)[8], int len) {
+  if constexpr (kPos < 32) {
+    if (kPos < len) {
+      absorb_byte<kPos>(s, w[kPos >> 2] >> (8 * (kPos & 3)));
+      absorb_prefix<kPos + 1>(s, w, len);
+    }
+  }
+}
+
+// One lane's step (stark_tpu/ops/hash_batch.py:831-919): a lane's state is
+// the hash state after every full 32-byte chunk it has absorbed (32 bytes)
+// and the pending tail of q < 32 bytes after them (then zeros).  Append the
+// m bytes at `in`: the stream pending || data is cut into full chunks, each
+// absorbed and mixed into the state (hash.rs:13-24), and what is left,
+// fewer than 32 bytes, becomes the new pending tail.  The state and
+// pending rows (two 16-byte words each) are read at state, pending
+// (fresh: the initial state, state not read) and, with store, written at
+// state_out, pending_out (the same rows, or others); the data bytes are
+// also written at copy (where not null).  vec: the data rows are
+// 4-byte aligned (one load a word), copy_vec: data and copy rows are
+// 16-byte aligned (16-byte words); the launch decides both from its base
+// pointers, so that they are the same in every lane.  With alpha, a copy of
+// the state is then finalized as a hash of every byte so far would be (the
+// pending tail absorbed as a partial chunk and mixed, then the 8 closing
+// mixes, hash.rs:25-27) and its first 8 digest bytes, a little-endian u64,
+// are returned reduced mod p: the FRI challenge the host transcript draws
+// (fiat_shamir.rs:19-25); else 0.
+//
+// What bounds it: latency, the chain of one thread: its trips to memory,
+// then the mixes one after the other (a root's absorb and the 8 closing
+// mixes, ~1.9 us on an H100).  State, pending, the new tail and (for rows
+// of 16-byte words) the copy move as 16-byte words, a chunk is assembled
+// from data words by funnel shifts (sponge_chunk), and the loads of the
+// first chunk and of the tail are issued before any arithmetic: for a
+// root absorb (m = 32) that is every load of the step, one trip
+// (sponge_load; sponge_step is the rest, from those words).
+struct SpongeIn {
+  uint32_t pend[8];  // the pending tail's words
+  uint4 s0, s1;      // the state's
+  uint32_t first[8], tail[8];  // the stream's first chunk, its last (partial) one
+};
+
+__device__ __forceinline__ void sponge_load(SpongeIn& v, const uint4* state,
+                                            const uint4* pending, int q,
+                                            bool fresh,
+                                            const uint8_t* __restrict__ in,
+                                            int m, bool vec) {
+  const uint4 p0 = pending[0], p1 = pending[1];
+  const uint32_t pend[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v.pend[k] = pend[k];
+  v.s0 = make_uint4(0, 0, 0, 0);
+  v.s1 = v.s0;
+  if (!fresh) {
+    v.s0 = state[0];
+    v.s1 = state[1];
+  }
+  sponge_chunk(v.first, pend, q, in, m, vec, 0);
+  sponge_chunk(v.tail, pend, q, in, m, vec, (q + m) >> 5);
+}
+
+__device__ __forceinline__ uint32_t sponge_step(const SpongeIn& v,
+                                                uint4* state_out,
+                                                uint4* pending_out, bool store,
+                                                int q, bool fresh,
+                                                const uint8_t* __restrict__ in,
+                                                int m, bool vec, uint8_t* copy,
+                                                bool copy_vec, bool alpha) {
+  const uint32_t(&pend)[8] = v.pend;
+  const uint32_t(&first)[8] = v.first;
+  const uint32_t(&tail)[8] = v.tail;
+  const uint4 s0 = v.s0, s1 = v.s1;
+  const int total = q + m;
+  const int full = total >> 5;
+  const int rest = total & 31;
+  if (copy != nullptr) {
+    if (copy_vec) {
+      const uint4* src = reinterpret_cast<const uint4*>(in);
+      for (int j = 0; j < m / 16; ++j) reinterpret_cast<uint4*>(copy)[j] = src[j];
+    } else {
+      for (int i = 0; i < m; ++i) copy[i] = in[i];
+    }
+  }
+  uint32_t s[32];
+  if (fresh) {
+    hash_init(s);
+  } else {
+    const uint32_t st[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = st[i >> 2] >> (8 * (i & 3));  // byte i, low 8 bits
+  }
+  for (int t = 0; t < full; ++t) {
+    uint32_t w[8];
+    if (t == 0) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) w[k] = first[k];
+    } else {
+      sponge_chunk(w, pend, q, in, m, vec, t);
+    }
+    absorb_word<0>(s, w[0]);
+    absorb_word<4>(s, w[1]);
+    absorb_word<8>(s, w[2]);
+    absorb_word<12>(s, w[3]);
+    absorb_word<16>(s, w[4]);
+    absorb_word<20>(s, w[5]);
+    absorb_word<24>(s, w[6]);
+    absorb_word<28>(s, w[7]);
+    mix(s);
+  }
+  if (store) {
+    uint4 lo, hi;
+    pack_digest(s, lo, hi);
+    state_out[0] = lo;
+    state_out[1] = hi;
+    pending_out[0] = make_uint4(tail[0], tail[1], tail[2], tail[3]);
+    pending_out[1] = make_uint4(tail[4], tail[5], tail[6], tail[7]);
+  }
+  if (!alpha) return 0u;
+  if (rest > 0) {
+    absorb_prefix<0>(s, tail, rest);
+    mix(s);
+  }
+  hash_finish<Form::kOwed>(s);  // a lone thread: fewest instructions
+  const uint64_t digest = (uint64_t)pack4(s[0], s[1], s[2], s[3]) |
+                          (uint64_t)pack4(s[4], s[5], s[6], s[7]) << 32;
+  return (uint32_t)(digest % kP);
+}
+
+__device__ __forceinline__ uint32_t sponge_lane(
+    const uint4* state, const uint4* pending, uint4* state_out,
+    uint4* pending_out, bool store, int q, bool fresh, const uint8_t* __restrict__ in,
+    int m, bool vec, uint8_t* copy, bool copy_vec, bool alpha) {
+  SpongeIn v;
+  sponge_load(v, state, pending, q, fresh, in, m, vec);
+  return sponge_step(v, state_out, pending_out, store, q, fresh, in, m, vec, copy,
+                     copy_vec, alpha);
 }
 
 }  // namespace stark

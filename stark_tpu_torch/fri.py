@@ -3,9 +3,10 @@
 Protocol contract: reference src/fri.rs:29-525, reproduced transcript- and
 proof-byte-exactly.  Counterpart of stark_tpu/fri.py's commit as it runs by
 default, the device chain (``Fri.device_chain``): trees, roots, the
-Fiat-Shamir challenges (sponge, kernel K9) and the folds (K4-dyn) stay on
-the card, one fetch at the end, then the host replays the transcript and
-checks each challenge; the same for B proofs at once (``commit_batch``,
+Fiat-Shamir challenges and the folds (kernel K4-dyn, one launch a round
+for the root's absorb, the challenge and the fold; the sponge's other
+absorbs kernel K9) stay on the card, one fetch at the end, then the host
+replays the transcript and checks each challenge; the same for B proofs at once (``commit_batch``,
 ``prove_batch``, the batched prover's).  ``device_chain = False`` runs the
 host path: a root read, a host challenge and a fold with that challenge
 (K4) per round.  (The JAX package's single-fetch "mega" prove was built
@@ -181,14 +182,14 @@ class Fri:
         stark_tpu/batch.py:976-1062): ``codewords`` (B, n) on the card,
         one transcript and stream each.  The sponge (K9, B lanes) is seeded
         with each transcript so far; a round builds the B trees as one
-        forest (K5, K7, K8), K9 absorbs the roots straight from the
-        forest's stack and writes each alpha mod p to device memory, and
-        K4-dyn folds with it: nothing in the loop reads from the card.  One
-        fetch then brings back every root, every alpha and the last
-        codewords; the host pushes the roots, replays each transcript, and
-        raises if an alpha it draws differs from the card's.  Returns
-        (codewords, forests): per round the (B, n_r) codewords and their
-        :class:`~stark_tpu_torch.merkle.Forest`."""
+        forest (K5, K7, K8), and K4-dyn absorbs the roots straight from the
+        forest's stack, writes each alpha mod p to device memory and folds
+        with it, one launch (the last round's roots go to K9): nothing in
+        the loop reads from the card.  One fetch then brings back the last
+        codewords, every root and every alpha; the host pushes the roots,
+        replays each transcript, and raises if an alpha it draws differs
+        from the card's.  Returns (codewords, forests): per round the (B,
+        n_r) codewords and their :class:`~stark_tpu_torch.merkle.Forest`."""
         rounds = self.num_rounds()
         b, n = codewords.shape
         if rounds < 1 or self.domain_length != n:
@@ -203,14 +204,15 @@ class Fri:
         sponge = HB.Sponge(b, dev)
         prefix = np.frombuffer(b"".join(prefixes), dtype=np.uint8).reshape(b, -1)
         sponge.absorb(torch.from_numpy(prefix.copy()).to(dev))
-        # One buffer for the one fetch: roots | alphas | last codewords.
+        # One buffer for the one fetch: last codewords | roots | alphas (the
+        # last fold's output first, at the buffer's aligned start).
         n_last = n >> (rounds - 1)
-        sizes = (8 * rounds * b, (rounds - 1) * b, b * n_last)
+        sizes = (b * n_last, 8 * rounds * b, (rounds - 1) * b)
         buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-        roots_w, alphas, last = torch.split(buf, sizes)
+        last, roots_w, alphas = torch.split(buf, sizes)
+        last = last.view(b, n_last)
         roots = roots_w.view(torch.uint8).view(rounds, b, 32)
         alphas = alphas.view(rounds - 1, b)
-        last = last.view(b, n_last)
         cws, forests = [], []
         codeword = codewords
         for r in range(rounds):
@@ -220,16 +222,16 @@ class Fri:
             if r == rounds - 1:
                 sponge.absorb(forest.roots_dev(), copy=roots[r])
                 break
-            sponge.absorb(forest.roots_dev(), copy=roots[r], alpha=alphas[r])
-            codeword = FOLD.fold_dyn(codeword, self._plan.inv_x_mont(r, dev),
-                                     alphas[r], out=last if r == rounds - 2 else None)
+            codeword = FOLD.fold_dyn(codeword, self._plan.inv_x_mont(r, dev), sponge,
+                                     forest.roots_dev(), copy=roots[r], alpha=alphas[r],
+                                     out=last if r == rounds - 2 else None)
         if rounds == 1:
             last.copy_(codeword)
         cws[-1] = last
         host = G.to_host(buf)
-        roots_h = host[: sizes[0]].view(np.uint8).reshape(rounds, b, 32)
-        alphas_h = host[sizes[0] : sizes[0] + sizes[1]].reshape(rounds - 1, b)
-        last_h = host[sizes[0] + sizes[1] :].reshape(b, n_last)
+        last_h = host[: sizes[0]].reshape(b, n_last)
+        roots_h = host[sizes[0] : sizes[0] + sizes[1]].view(np.uint8).reshape(rounds, b, 32)
+        alphas_h = host[sizes[0] + sizes[1] :].reshape(rounds - 1, b)
         for j, (stream, fs) in enumerate(zip(proof_streams, fiat_shamirs)):
             for r in range(rounds):
                 root = Hash(roots_h[r, j].tobytes())

@@ -10,9 +10,12 @@ stark_tpu/fri.py:_fold_kernel (reference src/fri.rs:57-91 re-algorithmized):
 with x_i^-1 = (offset * omega^i)^-1 precomputed per round in Montgomery form
 (fri.FriPlan.inv_x_mont).  K4 (``fold``) takes the raw challenge ``alpha``
 as a Python int up to 2^64: it is reduced mod p before it reaches a tensor
-or the kernel.  K4-dyn (``fold_dyn``, stark_tpu/fri.py:_fold_kernel_dynamic)
-folds B codewords, each with its own alpha mod p read from device memory,
-where the device commit chain's sponge (K9) wrote it.
+or the kernel.  K4-dyn (``fold_dyn``) is one round of the device commit
+chain for B codewords in one launch: it absorbs each row's Merkle root into
+that row's Fiat-Shamir sponge (ops/hash_batch.Sponge), draws the challenge
+mod p and folds the row with it - stark_tpu/fri.py:_fold_kernel_dynamic
+with the root absorb and challenge of the JAX package's fused round
+(fri.py:_commit_round_fn, batch.py:_batch_round_fn).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
+from stark_tpu_torch.ops import hash_batch as HB
 from stark_tpu_torch.ops.fieldops import P
 
 INV2 = F.host_inv(2)
@@ -36,7 +40,8 @@ FOLD = cuda.Kernel(
 )
 FOLD_DYN = cuda.Kernel(
     "fri_fold_dyn", "stark_fri_fold_dyn",
-    [cuda.ptr] * 4 + [ctypes.c_longlong, cuda.i32] + [ctypes.c_uint] * 2,
+    [cuda.ptr] * 6 + [cuda.i32] * 2 + [cuda.ptr] * 4 + [ctypes.c_longlong] + [cuda.i32] * 2
+    + [ctypes.c_uint] * 2,
     source="stark_tpu_torch/csrc/fold.cu",
     replaces="stark_tpu/fri.py:85",
 )
@@ -91,28 +96,63 @@ def fold_dyn_plain(codewords: torch.Tensor, inv_x_mont: torch.Tensor,
     return ((s + t * d % P) % P * INV2 % P).to(torch.int32)
 
 
-def fold_dyn(codewords: torch.Tensor, inv_x_mont: torch.Tensor,
-             alpha: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, n) int32 codewords -> (B, n/2) int32, row b folded with the
-    reduced challenge ``alpha[b]`` ((B,) int32 on the codewords' device);
-    written into ``out`` when given."""
+def fold_dyn_round_plain(codewords: torch.Tensor, inv_x_mont: torch.Tensor,
+                         state: torch.Tensor, pending: torch.Tensor, q: int,
+                         roots: torch.Tensor, fresh: bool = False):
+    """K4-dyn's plain version: K9's plain absorb of each row's root
+    (hash_batch.sponge_absorb_plain), then fold_dyn_plain with the
+    challenge it draws.  Returns (state, pending, alpha, folded): the
+    sponges after the roots, the (B,) int64 challenges mod p, the (B, n/2)
+    int32 folded codewords."""
+    state, pending, alpha = HB.sponge_absorb_plain(state, pending, q, roots, fresh)
+    return state, pending, alpha, fold_dyn_plain(codewords, inv_x_mont, alpha)
+
+
+def fold_dyn(codewords: torch.Tensor, inv_x_mont: torch.Tensor, sponge: HB.Sponge,
+             roots: torch.Tensor, copy: torch.Tensor, alpha: torch.Tensor,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, n) int32 codewords -> (B, n/2) int32: row b's root (``roots``,
+    (B, 32) u8) absorbed into lane b of ``sponge``, the challenge drawn and
+    row b folded with it; written into ``out`` when given.  The root is
+    also written into ``copy`` ((B, 32) u8) and the challenge mod p into
+    ``alpha`` ((B,) int32), for the host's replay."""
     if codewords.dim() != 2 or codewords.shape[1] < 2 or codewords.shape[1] % 2:
         raise ValueError(f"expected (B, n) codewords, n even, got {tuple(codewords.shape)}")
     rows, half = codewords.shape[0], codewords.shape[1] // 2
+    dev = codewords.device
     if tuple(inv_x_mont.shape) != (half,):
         raise ValueError("inverse-x ladder must have length n/2")
-    if tuple(alpha.shape) != (rows,) or alpha.dtype != torch.int32:
-        raise ValueError(f"alpha must be ({rows},) int32, got {tuple(alpha.shape)} {alpha.dtype}")
+    if sponge.lanes != rows or sponge.state.device != dev:
+        raise ValueError(f"the sponge must have {rows} lanes on {dev}")
+    for t, name, shape, dtype in ((roots, "roots", (rows, 32), torch.uint8),
+                                  (copy, "copy", (rows, 32), torch.uint8),
+                                  (alpha, "alpha", (rows,), torch.int32),
+                                  (out, "out", (rows, half), torch.int32)):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != dtype
+                              or t.device != dev):
+            raise ValueError(f"{name} must be {shape} {dtype} on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if out is None:
-        out = torch.empty((rows, half), dtype=torch.int32, device=codewords.device)
-    elif tuple(out.shape) != (rows, half) or out.dtype != torch.int32:
-        raise ValueError(f"out must be ({rows}, {half}) int32")
-    if codewords.device.type == "cpu":
-        out.copy_(fold_dyn_plain(codewords, inv_x_mont, alpha))
-        return out
-    for t, name in ((codewords, "codewords"), (inv_x_mont, "inv_x_mont"),
-                    (alpha, "alpha"), (out, "out")):
-        cuda.check_operand(t, name)
-    FOLD_DYN.launch(codewords.device, codewords.data_ptr(), inv_x_mont.data_ptr(),
-                    alpha.data_ptr(), out.data_ptr(), half, rows, INV2, INV2_SHOUP)
+        out = torch.empty((rows, half), dtype=torch.int32, device=dev)
+    if dev.type == "cpu":
+        state, pending, got, folded = fold_dyn_round_plain(
+            codewords, inv_x_mont, sponge.state, sponge.pending, sponge.q, roots,
+            sponge.fresh)
+        sponge.next_state.copy_(state)
+        sponge.next_pending.copy_(pending)
+        out.copy_(folded)
+        copy.copy_(roots)
+        alpha.copy_(got)
+    else:
+        for t, name in ((codewords, "codewords"), (inv_x_mont, "inv_x_mont"),
+                        (roots, "roots"), (copy, "copy"), (alpha, "alpha"), (out, "out")):
+            cuda.check_operand(t, name, t.dtype)
+        FOLD_DYN.launch(
+            dev, codewords.data_ptr(), inv_x_mont.data_ptr(), sponge.state.data_ptr(),
+            sponge.pending.data_ptr(), sponge.next_state.data_ptr(),
+            sponge.next_pending.data_ptr(), sponge.q, int(sponge.fresh), roots.data_ptr(),
+            copy.data_ptr(), alpha.data_ptr(), out.data_ptr(), half, rows,
+            cuda.sm_count(dev), INV2, INV2_SHOUP,
+        )
+    sponge.swap(32)
     return out

@@ -29,7 +29,9 @@ in hashfn.py (reference src/hash.rs):
                          state_alpha :869, device_sponge_root_alpha :911):
                          B lanes, each the hash state after its full
                          32-byte chunks and a pending tail; a launch
-                         appends bytes and draws the challenge mod p.
+                         appends bytes and draws the challenge mod p
+                         (the FRI rounds' root absorbs but the last run
+                         in K4-dyn, ops/fold.fold_dyn).
 
 **Layout.**  Digests are node-major ``(N, 32)`` uint8 tensors: node j is
 the 32 contiguous bytes at 32 j.  (The JAX package keeps them byte-major,
@@ -576,11 +578,17 @@ class Sponge:
     state after each lane's full 32-byte chunks, and ``pending`` (B, 32)
     u8 whose first ``q`` bytes are the tail after them (the same q for
     every lane: the lanes absorb the same lengths).  Its launches go on the
-    tensors' device; on the CPU the plain version runs."""
+    tensors' device; on the CPU the plain version runs.  K4-dyn
+    (ops/fold.fold_dyn) does not update in place: it writes the next state
+    and pending into ``next_state`` and ``next_pending`` (a lane's other
+    blocks read the current ones meanwhile), and :meth:`swap` makes them
+    current."""
 
     def __init__(self, lanes: int, device):
         self.state = torch.empty((lanes, 32), dtype=torch.uint8, device=device)
         self.pending = torch.zeros((lanes, 32), dtype=torch.uint8, device=device)
+        self.next_state = torch.empty_like(self.state)
+        self.next_pending = torch.zeros_like(self.pending)
         self.q = 0
         self.fresh = True
 
@@ -592,6 +600,13 @@ class Sponge:
         """Account for ``m`` bytes absorbed."""
         self.q = (self.q + m) % 32
         self.fresh = False
+
+    def swap(self, m: int) -> None:
+        """Make ``next_state`` and ``next_pending`` current, after ``m``
+        bytes absorbed into them."""
+        self.state, self.next_state = self.next_state, self.state
+        self.pending, self.next_pending = self.next_pending, self.pending
+        self.advance(m)
 
     def absorb(self, data: torch.Tensor, copy: torch.Tensor | None = None,
                alpha: torch.Tensor | None = None) -> None:

@@ -2,12 +2,15 @@
 that fall inside each prove.
 
     python3 -m stark_tpu_torch.tools.prove_wall [--model fib|mds] [--log2-t N] [--runs N]
-        [--phase-runs N]
+        [--phase-runs N] [--batch B]
 
 Proves from host rows (``StarkProver.prove(rows)``, the entry every
-version of the port has) ``--runs`` times after two warm-up proves, each
-ending in ``torch.cuda.synchronize()``, and records every collection
-through ``gc.callbacks``.  Prints one JSON line: the card, the prove
+version of the port has; with ``--batch`` B > 1, a call is
+``BatchStarkProver.prove_batch`` of B copies of the rows, as
+``chip_smoke.py``'s ``batch8`` cell proves them) ``--runs`` times after
+two warm-up calls, each ending in ``torch.cuda.synchronize()``, and
+records every collection through ``gc.callbacks``.  Prints one JSON
+line: the card, the prove
 wall-time quantiles, the collections of each generation in the runs and
 inside a prove (count and ms), and every prove over twice the median with
 the collections inside it; then each phase's synchronised time
@@ -37,6 +40,7 @@ def main() -> None:
     parser.add_argument("--log2-t", type=int, default=20)
     parser.add_argument("--runs", type=int, default=100)
     parser.add_argument("--phase-runs", type=int, default=5)
+    parser.add_argument("--batch", type=int, default=1)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("prove_wall: no CUDA device visible")
@@ -44,15 +48,27 @@ def main() -> None:
     import stark_tpu_torch
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.models import get_model
-    from stark_tpu_torch.utils.profiling import PhaseTimer
+    from stark_tpu_torch.utils.profiling import NULL_TIMER, PhaseTimer
 
     T = 1 << args.log2_t
     air, trace_fn, _ = get_model(args.model)
-    prover = StarkProver(air, StarkConfig(trace_length=T, blowup=4,
-                                          num_colinearity_tests=16))
+    cfg = StarkConfig(trace_length=T, blowup=4, num_colinearity_tests=16)
     rows = trace_fn(T)
+    if args.batch > 1:
+        from stark_tpu_torch import BatchStarkProver
+
+        batch = BatchStarkProver(air, cfg, args.batch)
+
+        def prove(timer=NULL_TIMER):
+            batch.prove_batch([rows] * args.batch, timer=timer)
+    else:
+        single = StarkProver(air, cfg)
+
+        def prove(timer=NULL_TIMER):
+            single.prove(rows, timer=timer)
+
     for _ in range(2):
-        prover.prove(rows)
+        prove()
     torch.cuda.synchronize()
 
     events: list[tuple[str, int, float]] = []
@@ -65,7 +81,7 @@ def main() -> None:
     try:
         for _ in range(args.runs):
             t0 = time.perf_counter()
-            prover.prove(rows)
+            prove()
             torch.cuda.synchronize()
             windows.append((t0, time.perf_counter()))
     finally:
@@ -92,7 +108,7 @@ def main() -> None:
     phases: dict[str, list[float]] = {}
     for _ in range(args.phase_runs):
         timer = PhaseTimer(sync=torch.cuda.synchronize)
-        prover.prove(rows, timer=timer)
+        prove(timer)
         for phase, ms in timer.ms().items():
             phases.setdefault(phase, []).append(ms)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -101,9 +117,10 @@ def main() -> None:
     q = np.quantile(walls, [0, 0.25, 0.5, 0.75, 0.95, 1])
     print(json.dumps({
         "card": smi, "package": stark_tpu_torch.__file__, "model": args.model,
-        "T": T, "runs": args.runs,
+        "T": T, "batch": args.batch, "runs": args.runs,
         "prove_ms": dict(zip(("min", "q1", "median", "q3", "p95", "max"),
                              (round(float(v), 3) for v in q))),
+        "proofs_per_s_median": round(args.batch * 1e3 / median, 2),
         "collections": by_gen, "over_twice_median": slow,
         "phase_ms_median": {k: round(float(np.median(v)), 3) for k, v in phases.items()},
     }), flush=True)

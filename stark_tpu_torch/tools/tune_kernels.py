@@ -41,6 +41,9 @@ Prints, in this order:
   in the generated body) and the redesign tried and not kept (the coset
   computed in the kernel, ``compose_coset``), in turn and back (``--only
   compose``);
+* ``fold turns``: K4-dyn at every (B, half) of the device chain's rounds,
+  the K9 + fold pair before its redesign and the launch in use, in turn
+  and back (``--only fold``);
 * ``sponge split``: K9 as it was before its redesign, as an empty
   kernel with its parameters, with its mixes taken out and whole, then
   the kernel in use, in turn and back, for B in {1, 8, 32}: what its time
@@ -52,8 +55,9 @@ their sweeps in chip_smoke.py.)  ``fib_expand_before`` builds K12
 Montgomery products), ``sponge_before`` K9 as it was (byte loads and
 stores), ``forest_before`` K8 and K8-forest as they were (one lane a hash
 at every level), ``compose_before`` K11 as it was (every sum eager),
-``floor_kernel`` an empty kernel: chip_smoke.py times them beside the
-kernels in use.
+``fold_dyn_before`` the pair K9 + K4-dyn as it was (alpha through device
+memory, two launches a round), ``floor_kernel`` an empty kernel:
+chip_smoke.py times them beside the kernels in use.
 
 Times are device time per call (``device_us``); every call takes the next
 of several sets of buffers, at least 128 MiB apart, so the operands come
@@ -174,7 +178,8 @@ int fib_expand_before(const void* seeds, void* out, int nb, int lg_b,
 
 # K9 sponge_absorb before its redesign (as csrc/hash.cu had it): byte
 # loads of the state, the pending tail and the data, each chunk byte behind
-# two compares, byte loops for the new tail and the copy.  kMode 0 is the
+# two compares, byte loops for the new tail and the copy (its absorb of a
+# partial chunk, absorb_prefix, is hash.cuh's).  kMode 0 is the
 # kernel as it was, 1 the same with its mixes taken out (the chunk absorbs,
 # loads and stores stay), 2 an empty kernel with its parameters: the three
 # parts of its time.
@@ -194,16 +199,6 @@ __device__ __forceinline__ void sponge_chunk(uint32_t (&w)[8], const uint8_t* pe
     const int x = c + i;
     const uint32_t byte = x >= total ? 0u : x < q ? pend[x] : in[x - q];
     w[i >> 2] |= byte << (8 * (i & 3));
-  }
-}
-template <int kPos>
-__device__ __forceinline__ void absorb_prefix(uint32_t (&s)[32],
-                                              const uint32_t (&w)[8], int len) {
-  if constexpr (kPos < 32) {
-    if (kPos < len) {
-      absorb_byte<kPos>(s, w[kPos >> 2] >> (8 * (kPos & 3)));
-      absorb_prefix<kPos + 1>(s, w, len);
-    }
   }
 }
 template <int kMode>
@@ -263,6 +258,54 @@ extern "C" int sponge_before(int mode, void* state, void* pending, int q, int fr
       static_cast<uint8_t*>(state), static_cast<uint8_t*>(pending), q, fresh,
       static_cast<const uint8_t*>(data), m, static_cast<uint8_t*>(copy),
       static_cast<uint32_t*>(alpha), lanes);
+  return (int)cudaGetLastError();
+}
+"""
+# K4-dyn before its redesign (csrc/fold.cu as it was): the fold alone, one
+# alpha a row read from device memory, where K9 (Sponge.absorb with
+# alpha=) wrote it in a launch of its own; one thread an element, the grid
+# capped at 4,096 blocks of 256 threads.
+FOLD_DYN_BEFORE_SOURCE = """
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+using namespace stark;
+constexpr uint64_t kR1 = (1ull << 32) % kP;
+constexpr uint32_t kR2 = static_cast<uint32_t>(kR1 * kR1 % kP);
+constexpr int kFoldThreads = 256;
+__device__ __forceinline__ uint32_t fold_one(uint32_t av, uint32_t bv, uint32_t t,
+                                             uint32_t inv2, uint32_t inv2_s) {
+  const uint32_t u = mont_mul(t, sub_mod(av, bv));
+  return shoup_mul(add_mod(add_mod(av, bv), u), inv2, inv2_s);
+}
+__global__ void fold_dyn_before_kernel(const uint32_t* __restrict__ codewords,
+                                       const uint32_t* __restrict__ inv_x_mont,
+                                       const uint32_t* __restrict__ alpha,
+                                       uint32_t* __restrict__ out, long long half,
+                                       int rows, uint32_t inv2, uint32_t inv2_s) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (int r = blockIdx.y; r < rows; r += gridDim.y) {
+    const uint32_t am = mont_mul(alpha[r], kR2);
+    const uint32_t* a = codewords + 2 * half * r;
+    const uint32_t* b = a + half;
+    uint32_t* o = out + half * r;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < half; i += stride)
+      o[i] = fold_one(a[i], b[i], mont_mul(inv_x_mont[i], am), inv2, inv2_s);
+  }
+}
+extern "C" int fold_dyn_before(const void* codewords, const void* inv_x_mont,
+                               const void* alpha, void* out, long long half, int rows,
+                               unsigned inv2, unsigned inv2_s, void* stream) {
+  if (rows < 1 || rows > 65535) return (int)cudaErrorInvalidValue;
+  long long per_row = (half + kFoldThreads - 1) / kFoldThreads;
+  long long cap = 4096 / rows > 0 ? 4096 / rows : 1;
+  if (per_row > cap) per_row = cap;
+  fold_dyn_before_kernel<<<dim3((unsigned)per_row, (unsigned)rows), kFoldThreads, 0,
+                           (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(codewords), static_cast<const uint32_t*>(inv_x_mont),
+      static_cast<const uint32_t*>(alpha), static_cast<uint32_t*>(out), half, rows,
+      inv2, inv2_s);
   return (int)cudaGetLastError();
 }
 """
@@ -548,6 +591,33 @@ def sponge_before():
             raise RuntimeError("sponge_before failed")
         sp.advance(m)
         return alpha
+
+    return call
+
+
+def fold_dyn_before():
+    """A call ``(codewords, inv_x_mont, sponge, roots, copy, alpha) -> out``
+    that computes what ops.fold.fold_dyn
+    does by the pair of launches the device chain ran before K4-dyn's
+    redesign: K9 absorbs the roots and writes alpha (Sponge.absorb), then
+    K4-dyn as it was (FOLD_DYN_BEFORE_SOURCE, built here, not part of the
+    port) folds with alpha read from device memory."""
+    from stark_tpu_torch.ops import fold as FOLD
+
+    fn = build_temporary(FOLD_DYN_BEFORE_SOURCE, "fold_dyn_before").fold_dyn_before
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int] \
+        + [ctypes.c_uint] * 2 + [ctypes.c_void_p]
+
+    def call(codewords, inv_x_mont, sponge, roots, copy, alpha):
+        rows, half = codewords.shape[0], codewords.shape[1] // 2
+        dev = codewords.device
+        out = torch.empty((rows, half), dtype=torch.int32, device=dev)
+        sponge.absorb(roots, copy, alpha)
+        if fn(codewords.data_ptr(), inv_x_mont.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+              half, rows, FOLD.INV2, FOLD.INV2_SHOUP,
+              torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("fold_dyn_before failed")
+        return out
 
     return call
 
@@ -1326,6 +1396,127 @@ def sponge_split(rng, dev, lanes=(1, 8, 32)) -> dict:
     return table
 
 
+FOLD_STAGES = "constexpr int kFoldStages = 3;"
+FOLD_BOUNDS = "__launch_bounds__(kFoldThreads, 3)"
+FOLD_CHAIN = "const uint32_t al = stark::sponge_step("
+FOLD_FIRST = """    stark::sponge_load(sponge, state + 2 * r, pending + 2 * r, q, fresh, roots + 32 * r,
+                       32, roots_vec);
+  __syncthreads();"""
+
+
+def fold_variant(stages: int, min_blocks: int, chain: bool = True, first: bool = True):
+    """K4-dyn built from csrc/fold.cu with ``stages`` steps a thread in
+    flight and ``__launch_bounds__(256, min_blocks)`` in place of the
+    port's (into a temporary directory; the port's library is not
+    touched): a call with ops.fold.fold_dyn's arguments, and what ptxas
+    reports for the kernel.  Without ``chain``, the challenge is not drawn
+    (alpha = 1, nothing written but the folded rows): what the rest of
+    the kernel costs.  Without ``first``, the challenge's loads go out
+    with the block's, not before them (no barrier between)."""
+    from stark_tpu_torch.ops import fold as FOLD
+
+    with open(os.path.join(cuda.CSRC, "fold.cu")) as f:
+        source = f.read()
+    for old, new in ((FOLD_STAGES, f"constexpr int kFoldStages = {stages};"),
+                     (FOLD_BOUNDS, f"__launch_bounds__(kFoldThreads, {min_blocks})")):
+        if source.count(old) != 1:
+            raise RuntimeError(f"csrc/fold.cu has moved on: {old!r}")
+        source = source.replace(old, new)
+    if not chain:
+        source = source.replace(FOLD_CHAIN, "const uint32_t al = 1u; (void)(")
+    if not first:
+        if source.count(FOLD_FIRST) != 1:
+            raise RuntimeError("csrc/fold.cu has moved on: the challenge's loads")
+        source = source.replace(FOLD_FIRST, FOLD_FIRST.replace("__syncthreads();", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fold_variant.cu")
+        with open(path, "w") as f:
+            f.write(source)
+        regs = subprocess.run([cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                               "-std=c++17", "-O3", "-Xptxas", "-v", "-cubin", "-o",
+                               os.devnull, "-I", cuda.CSRC, path],
+                              capture_output=True, text=True, check=True).stderr
+    found = re.search(r"stark_fri_fold_dyn_kernel.*?Used (\d+) registers", regs, re.S)
+    fn = getattr(build_temporary(source, "fold_variant"), FOLD.FOLD_DYN.symbol)
+    fn.argtypes = [*FOLD.FOLD_DYN.argtypes, ctypes.c_void_p]
+
+    def call(codewords, inv_x_mont, sponge, roots, copy, alpha):
+        rows, half = codewords.shape[0], codewords.shape[1] // 2
+        dev = codewords.device
+        out = torch.empty((rows, half), dtype=torch.int32, device=dev)
+        if fn(codewords.data_ptr(), inv_x_mont.data_ptr(), sponge.state.data_ptr(),
+              sponge.pending.data_ptr(), sponge.next_state.data_ptr(),
+              sponge.next_pending.data_ptr(), sponge.q, int(sponge.fresh), roots.data_ptr(),
+              copy.data_ptr(), alpha.data_ptr(), out.data_ptr(), half, rows,
+              cuda.sm_count(dev), FOLD.INV2, FOLD.INV2_SHOUP,
+              torch.cuda.current_stream(dev).cuda_stream) != 0:
+            raise RuntimeError("fold_variant failed")
+        if chain:
+            sponge.swap(32)
+        return out
+
+    return call, f"{found.group(1) if found else '?'} regs"
+
+
+#: (steps in flight, least blocks an SM, challenge drawn, its loads first)
+#: of the K4-dyn variants timed.
+FOLD_VARIANTS = ((2, 3, True, True), (3, 2, True, True), (3, 3, True, False),
+                 (3, 3, False, True))
+FOLD_VARIANT_SHAPES = ((1, 1 << 21), (1, 1 << 18), (32, 1 << 15), (8, 1 << 15), (1, 1 << 10))
+
+
+def fold_turns(rng, dev) -> dict:
+    """K4-dyn at every (B, half) of the device chain's rounds (B = 1:
+    half 2^21 .. 2^7, the Fibonacci T=2^20 prove's; B in {8, 32}: 2^15 ..
+    2^7, the batched cells'), a root after a 16-byte tail: the pair before
+    its redesign (fold_dyn_before: K9, then the fold) and the launch in
+    use, each first held against the plain version, then in turn and back
+    (before, in use, in use, before); us per call.  A replay runs the calls
+    back to back, so a pair's step from its first launch to its second is
+    in its time.  At FOLD_VARIANT_SHAPES, each of FOLD_VARIANTS (fold_variant)
+    too, after the in-use turns."""
+    from stark_tpu_torch.ops import fold as FOLD
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    before = fold_dyn_before()
+    variants = {f"{st} stages, {m} blocks" + ("" if c else ", no challenge")
+                + ("" if f else ", its loads with the block's"): fold_variant(st, m, c, f)
+                for st, m, c, f in FOLD_VARIANTS}
+    table = {"variants": {k: v[1] for k, v in variants.items()}}
+    shapes = [(1, 1 << lg) for lg in range(21, 6, -1)] + [
+        (b, 1 << lg) for b in (8, 32) for lg in range(15, 6, -1)]
+    for b, half in shapes:
+        sp = HB.Sponge(b, dev)
+        sp.absorb(torch.from_numpy(rng.integers(0, 256, (b, 80), dtype=np.uint8)).to(dev))
+        roots = torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev)
+        copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+        alpha = torch.empty(b, dtype=torch.int32, device=dev)
+        args = sets(16 * b * half, *(
+            torch.from_numpy(rng.integers(0, 998244353, size=shape)).to(torch.int32).to(dev)
+            for shape in ((b, 2 * half), (half,))))
+        cw, inv_x = args[0]
+        calls = {"before": lambda c, x: before(c, x, sp, roots, copy, alpha),
+                 "in use": lambda c, x: FOLD.fold_dyn(c, x, sp, roots, copy, alpha)}
+        if (b, half) in FOLD_VARIANT_SHAPES:
+            calls.update({key: (lambda c, x, fn=fn: fn(c, x, sp, roots, copy, alpha))
+                          for key, (fn, _) in variants.items()})
+        for key, fn in calls.items():
+            want = FOLD.fold_dyn_round_plain(cw, inv_x, sp.state, sp.pending, sp.q, roots)
+            got = fn(cw, inv_x)
+            if "no challenge" in key:
+                ok = torch.equal(got, FOLD.fold_dyn_plain(cw, inv_x, torch.ones_like(alpha)))
+            else:
+                ok = (torch.equal(got, want[3]) and torch.equal(alpha.long(), want[2])
+                      and torch.equal(sp.state, want[0]))
+            if not ok:
+                raise AssertionError(f"fold_dyn {key} at ({b}, {half}) != plain")
+        times = {}
+        for key in ("before", "in use", "in use", "before", *list(calls)[2:]):
+            times.setdefault(key, []).append(round(device_us(cycled(calls[key], args), 20), 2))
+        table[f"({b}, 2^{half.bit_length() - 1})"] = times
+    return table
+
+
 def floor_kernel():
     """``floor_launch(blocks, threads, smem, stream)``: an empty kernel's
     launch (FLOOR_SOURCE, built here), returning its CUDA error code."""
@@ -1436,7 +1627,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("latency", "forest", "tail-in-prove", "compose",
-                                           "sponge", "floor", "parts", "ntt"),
+                                           "fold", "sponge", "floor", "parts", "ntt"),
                         help="run one sweep (after ptxas)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1463,6 +1654,10 @@ def main() -> int:
     if args.only in (None, "compose"):
         print("compose turns, us per call, each in turn and back (CUDA-graph replay): "
               + json.dumps(compose_turns(rng, dev)), flush=True)
+    if args.only in (None, "fold"):
+        print("fold turns, K4-dyn against the K9 + fold pair before it, us per call, "
+              "each in turn and back (CUDA-graph replay): "
+              + json.dumps(fold_turns(rng, dev)), flush=True)
     if args.only in (None, "sponge"):
         print("sponge split, us per call, each in turn and back (CUDA-graph replay): "
               + json.dumps(sponge_split(rng, dev)), flush=True)
