@@ -30,6 +30,11 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       every such n (its edge route up to n = 8, its vector route from n =
       16 on) and at shapes that are not square, not multiples of its
       tile, or not multiples of 4 on one side or both, each twice;
+    - the LDE's zero pad and coset scale (K14) at every (B c, T, N) of the
+      paths and pins ((1, 2^20, 2^22), (8, 2^16, 2^18), the batched cells'
+      (8, 32 and 64 rows, 2^14, 2^16), ...; T of 1 and 2 on its edge route)
+      and at T = N with the offset and its inverse, each call twice; timed
+      at the three paths' shapes beside its bound (no library call);
     - the FRI fold (K4) at every half from 2^21 down to 128, and K4-dyn,
       one round of the device chain (each row's root absorbed into its
       sponge, the challenge drawn, the row folded: folded rows, alpha, the
@@ -98,8 +103,8 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     proved from columns made on the card (fibonacci_trace_cols_device, as
     bench.py proves it): witness -> StarkProver.prove(trace_cols=...) ->
     StarkVerifier.verify with the launch counts set to 0 just before and
-    read just after (every kernel of the path > 0, the query gather and
-    the composition kernel exactly once, the eager compose never, K9
+    read just after (every kernel of the path > 0, the query gather, K14
+    and the composition kernel exactly once, the eager compose never, K9
     twice and K4-dyn once a FRI round but the last), K13 against its
     plain version on that prove's plan,
     the pinned sha256, which a prove from host rows must give too; the
@@ -113,7 +118,8 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     table encoding, launch, fetch wait, emission); K13 timed on that
     plan; one profiled prove
     (device time under every launched kernel's name > 0, device
-    activities, busy share), the bound of every K8 launch of a prove at
+    activities, busy share, the lde phase's device time split into K14
+    and K1-K3), the bound of every K8 launch of a prove at
     its own width summed beside the time measured for them, a flipped
     byte and a changed element of the device witness rejected; then the
     same prove with the lazy NTT kernels (counts, sha256, profile), and
@@ -128,8 +134,15 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     16 device-witness traces at B=8): every proof's sha256 equal to the
     single prove's, verify_batch accepting them and rejecting a flipped
     byte, proofs/s over 20 calls, the device-to-host copies of a call (3 a
-    batch), the launches of a call (K11 once and K9 twice a batch, K4-dyn
-    once a FRI round but the last), a profiled call.
+    batch), the launches of a call (K11 and K14 once and K9 twice a batch,
+    K4-dyn once a FRI round but the last), a profiled call;
+ 8. the API and the command line: a Polynomial product of two 2^15-
+    coefficient polynomials on the card (K1-K3 twice each) equal to the
+    same product on the CPU; then ``python -m stark_tpu_torch`` as
+    subprocesses, four at a time: prove Fibonacci T=2^20 and MDS T=2^16
+    (the pinned sha256 above), Fibonacci T=2^16 from the device witness
+    and with --host-witness (both stark_tpu's pin), then verify (ACCEPT,
+    exit 0), a tampered file (REJECT, exit 1) and inspect.
 
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -143,10 +156,12 @@ import contextlib
 import gc
 import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -222,6 +237,26 @@ COMPOSE_CASES = (("fib", MAIN_T, 4, 1), ("mds", MDS_T, 4, 1), ("fib", BATCH_T, 4
     (model, 1024, 8 if model == "cube" else 4, b)
     for model in ("fib", "fib2", "square", "cube", "mds", "wide") for b in (8, 32))
 COMPOSE_TIMED = 3
+# K14 against its plain version at every (rows, T, N) the driven paths and
+# the pinned proofs give it (rows = B c: the main path, the wide path, the
+# three batched cells; the pins; T of 1 and 2, its edge route), then at T = N
+# (coset_eval's and coset_interp's case) with the offset and its inverse;
+# timed at the first three, the JSON line keeping the main path's.
+PAD_SCALE_SHAPES = ((1, MAIN_T, 4 * MAIN_T), (WIDE_BATCH, MDS_T, 4 * MDS_T),
+                    (8, BATCH_T, 4 * BATCH_T), (32, BATCH_T, 4 * BATCH_T),
+                    (8 * WIDE_BATCH, BATCH_T, 4 * BATCH_T), (1, 64, 256),
+                    (1, 1024, 4096), (2, 1024, 4096), (1, 1024, 8192),
+                    (WIDE_BATCH, 1024, 4096), (WIDE_BATCH, 4096, 4 * 4096),
+                    (1, 1 << 16, 1 << 18), (3, 1, 4), (3, 2, 8))
+PAD_SCALE_SQUARE = ((1, 4 * MAIN_T), (WIDE_BATCH, 4 * MDS_T), (3, 1 << 10))
+PAD_SCALE_TIMED = 3
+# The Polynomial product driven on the card: two polynomials of this many
+# coefficients (the NTT path above the 64-coefficient crossover, n = 2^16).
+POLY_COEFFS = 1 << 15
+# The command line driven as subprocesses: (name, prove arguments, pinned
+# sha256); the last two prove the same proof from the device witness and
+# from host rows.
+CLI_T_SMALL = 1 << 16
 WIDE_REGISTERS = 65  # tests/test_torch_wide.py's AIR
 HASH_WIDTHS = (2, 3, 5, 8)
 HASH_LANES = (2, 1024, 1 << 18, 1 << 20)
@@ -289,6 +324,9 @@ OPS_MDS_STEP = 64 + 8 * (6 + 7 + 2)
 OPS_MDS_STEP_BEFORE = 64 * 4 + 64 * 2 + 8 * 2 * 7
 # K4-dyn: K4's count, the Shoup product by alpha a Montgomery one (7).
 OPS_FOLD_DYN = OPS_FOLD - 4 + 7
+# K14: a Shoup product an element below T (multiply low, multiply high,
+# multiply, subtract, add-and-minimum); the zeros above T take none.
+OPS_SHOUP = 5
 
 
 #: The designs before each redesign (tools/tune_kernels.py), built in the
@@ -657,6 +695,147 @@ def _check_ntt(rng, dev, results: _Results) -> None:
               "device time per call", flush=True)
         if (batch, n) != (1, 4 * MAIN_T):
             del results.entries[mark:]
+
+
+def _check_pad_scale(rng, dev, results: _Results) -> None:
+    """K14 against its plain version at every shape of PAD_SCALE_SHAPES
+    (the offset) and PAD_SCALE_SQUARE (T = N, the offset and its inverse),
+    each call twice; then timed at the three paths' shapes, operands cycled
+    as the other kernels' are.  Its bound counts the bytes the function
+    needs (4 (T + N) a row); the kernel also reads its (2, T) table of
+    powers, whose bound is printed beside."""
+    from stark_tpu_torch.ops import ntt as NTT
+    from stark_tpu_torch.ops.fieldops import GENERATOR, host_inv
+
+    inverse = host_inv(GENERATOR)
+    cases = [(rows, t, n, GENERATOR) for rows, t, n in PAD_SCALE_SHAPES]
+    cases += [(rows, n, n, s) for rows, n in PAD_SCALE_SQUARE for s in (GENERATOR, inverse)]
+    for rows, t, n, s in cases:
+        c = _rand_field(rng, dev, (rows, t))
+        want = NTT.pad_scale_plain(c, n, s)
+        for turn in (1, 2):
+            _require_equal(f"lde_pad_scale ({rows}, {t} -> {n}) s={s} call {turn}",
+                           NTT.pad_scale(c, n, s), want)
+    print(f"lde_pad_scale == plain, each call twice, at (rows, T, N) "
+          f"{[c[:3] for c in cases[:len(PAD_SCALE_SHAPES)]]} with s = {GENERATOR}, and at "
+          f"T = N {list(PAD_SCALE_SQUARE)} with s = {GENERATOR} and its inverse {inverse}",
+          flush=True)
+    for i, (rows, t, n) in enumerate(PAD_SCALE_SHAPES[:PAD_SCALE_TIMED]):
+        shape = f"rows={rows}, T=2^{t.bit_length() - 1} -> N=2^{n.bit_length() - 1}"
+        nbytes = 4 * rows * (t + n)
+        sets = _copies(nbytes)
+        cs = _clones(sets, _rand_field(rng, dev, (rows, t)))
+        entry = results.add(
+            NTT.PAD_SCALE, shape, cs, lambda c, n=n: NTT.pad_scale(c, n, GENERATOR),
+            lambda c, n=n: NTT.pad_scale_plain(c, n, GENERATOR), 50,
+            nbytes=nbytes, ops=OPS_SHOUP * rows * t)
+        with_table = _bound(nbytes + 8 * t, OPS_SHOUP * rows * t)[0]
+        print(f"lde_pad_scale {shape} ({sets} buffer sets): {_line(entry)}, "
+              f"{entry['bound_ms'] / entry['ms']:.1%} of its bound; bound with the "
+              f"table's 8 T bytes {with_table:.4f} ms; device time per call", flush=True)
+        if i:
+            results.entries.remove(entry)
+
+
+def _check_poly(rng, dev) -> None:
+    """A Polynomial product above the crossover on the card (K1-K3: the two
+    operands as one batch, then the inverse), equal to the same product
+    with device="cpu"."""
+    from stark_tpu_torch import Polynomial
+    from stark_tpu_torch.ops import cuda
+
+    ca, cb = (rng.integers(0, 998244353, size=POLY_COEFFS).tolist() for _ in range(2))
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    got = Polynomial(ca, device=dev) * Polynomial(cb, device=dev)
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in cuda.launch_counts().items() if v}
+    want = Polynomial(ca, device="cpu") * Polynomial(cb, device="cpu")
+    if got.coeffs != want.coeffs:
+        raise AssertionError("Polynomial product on the card != on the CPU")
+    if counts != {"ntt_pass1": 2, "ntt_transpose": 2, "ntt_pass2": 2}:
+        raise AssertionError(f"Polynomial product: launches {counts}")
+    print(f"Polynomial: product of two {POLY_COEFFS}-coefficient polynomials on the card "
+          f"== on the CPU ({len(got.coeffs)} coefficients), launches {json.dumps(counts)}, "
+          f"{wall * 1e3:.1f} ms host clock with the Python-int conversions", flush=True)
+
+
+def _cli(argument_lists: list) -> list:
+    """``python -m stark_tpu_torch`` once for each argument list, all at
+    once, from the repository's root; returns (exit code, stdout, stderr)
+    of each.  Every process is waited for or killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-m", "stark_tpu_torch", *args], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for args in argument_lists]
+    try:
+        done = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            done.append((p.returncode, out, err))
+        return done
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _drive_cli() -> None:
+    """The command line as a user runs it, on the card: proves of the main
+    path (Fibonacci T=2^20) and the wide path (MDS T=2^16) to their pinned
+    sha256, a Fibonacci T=2^16 prove from the device witness and with
+    --host-witness (the same bytes, stark_tpu's pin), then verify (ACCEPT,
+    exit 0), inspect, and a tampered file rejected (exit 1)."""
+    cfg = ["--blowup", "4", "--queries", "16"]
+    models = {"fib": (["--model", "fib", "--trace-length", str(MAIN_T), *cfg], MAIN_SHA256),
+              "mds": (["--model", "mds", "--trace-length", str(MDS_T), *cfg], MDS_SHA256)}
+    small = ["--model", "fib", "--trace-length", str(CLI_T_SMALL), *cfg]
+    small_sha = PINNED[("fib", CLI_T_SMALL, 4, 16)]
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: os.path.join(tmp, f"{k}.bin")
+                 for k in ("fib", "mds", "small", "small_host", "bad")}
+        t0 = time.perf_counter()
+        proves = _cli([["prove", *models["fib"][0], "--out", files["fib"]],
+                       ["prove", *models["mds"][0], "--out", files["mds"]],
+                       ["prove", *small, "--out", files["small"]],
+                       ["prove", *small, "--host-witness", "--out", files["small_host"]]])
+        t1 = time.perf_counter()
+        for rc, out, err in proves:
+            if rc != 0:
+                raise AssertionError(f"cli prove exit {rc}: {out}{err}")
+        shas = {}
+        for k in ("fib", "mds", "small", "small_host"):
+            with open(files[k], "rb") as f:
+                shas[k] = hashlib.sha256(f.read()).hexdigest()
+        want = {"fib": MAIN_SHA256, "mds": MDS_SHA256, "small": small_sha,
+                "small_host": small_sha}
+        if shas != want:
+            raise AssertionError(f"cli proof sha256 {shas} != pinned {want}")
+        with open(files["small"], "rb") as f:
+            bad = bytearray(f.read())
+        bad[100] ^= 1
+        with open(files["bad"], "wb") as f:
+            f.write(bytes(bad))
+        checks = _cli([["verify", files["fib"], *models["fib"][0]],
+                       ["verify", files["mds"], *models["mds"][0]],
+                       ["verify", files["small_host"], *small],
+                       ["verify", files["bad"], *small],
+                       ["inspect", files["fib"]]])
+        t2 = time.perf_counter()
+    codes = [rc for rc, _, _ in checks]
+    # The verdict line ends the output (a rejection's reason comes first).
+    verdicts = [out.strip().splitlines()[-1].split()[1] if out.strip() else ""
+                for _, out, _ in checks[:4]]
+    if codes != [0, 0, 0, 1, 0] or verdicts != ["ACCEPT"] * 3 + ["REJECT"] or \
+            "MerkleRoot" not in checks[4][1]:
+        raise AssertionError(f"cli verify/inspect: exit codes {codes}, verdicts {verdicts}, "
+                             f"{[err for _, _, err in checks]}")
+    print("cli: python -m stark_tpu_torch prove (fib T=2^20, mds T=2^16, fib T=2^16 from "
+          "the device witness and --host-witness, four processes at once) "
+          f"{t1 - t0:.1f} s: sha256 == the pins, host witness == device witness; "
+          f"verify ACCEPT x3 and a tampered file REJECT (exit 1), inspect, {t2 - t1:.1f} s; "
+          "the proves said: " + " | ".join(out.strip() for _, out, _ in proves), flush=True)
 
 
 def _check_fold(rng, dev, results: _Results) -> None:
@@ -1550,6 +1729,8 @@ def _prove_checked(name, prover, verifier, witness, want_sha, expect, cuda):
         raise AssertionError(f"{name}: kernels not launched: {missing}")
     if counts["query_gather"] != 1 or len(plans) != 1:
         raise AssertionError(f"{name}: {counts['query_gather']} query gathers in a prove")
+    if counts["lde_pad_scale"] != 1:
+        raise AssertionError(f"{name}: {counts['lde_pad_scale']} K14 launches in a prove")
     print(f"{name}: query_gather == plain on the prove's plan ("
           + _check_plans(name, plans) + ")", flush=True)
     return proof, counts, plans[0]
@@ -1592,6 +1773,10 @@ def _profiled_prove(name, prover, witness, counts, median_wall, cuda) -> dict:
         sum(_bound(32 * (2 * w - 1), (w - 1) * _hash_ops(64, mix_ops))[0]
             for w in widths)
         for mix_ops in (OPS_MIX, OPS_MIX_BEFORE))
+    ntt_ms = sum(ms for k, ms in kernel_ms.items() if k.startswith("ntt_"))
+    print(f"{name}: the lde phase on the device in the profiled prove: lde_pad_scale "
+          f"{kernel_ms['lde_pad_scale']:.4f} ms ({counts['lde_pad_scale']} launch), "
+          f"K1-K3 {ntt_ms:.4f} ms", flush=True)
     by_width = {f"2^{w.bit_length() - 1}": widths.count(w) for w in sorted(set(widths))}
     print(f"{name}: merkle_tail {len(widths)} launches in the profiled prove, "
           f"{kernel_ms['merkle_tail']:.4f} ms measured, {bound_ms:.4f} ms the sum of "
@@ -1871,7 +2056,7 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
     # A batch's gather is one plan, one output and one copy; a plan larger
     # than one launch's parameters goes out in several launches.
     if missing or counts["fri_fold"] or counts["query_gather"] < batches or \
-            counts["compose"] != batches:
+            counts["compose"] != batches or counts["lde_pad_scale"] != batches:
         raise AssertionError(f"{cell}: launches {counts}")
     _check_chain(cell, counts, prover.fri.num_rounds(), batches)
 
@@ -1890,7 +2075,7 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
     kernel_ms = _profiled(cell, call, counts, median, cuda)
     per_call = {k: counts[k] for k in ("sponge_absorb", "fri_fold_dyn", "merkle_forest",
                                        "merkle_level", "hash_rows", "query_gather",
-                                       "compose")}
+                                       "compose", "lde_pad_scale")}
     print(f"{cell} ({model}, T=2^{BATCH_T.bit_length() - 1}, B={batch}, "
           f"{'prove_many of %d, depth %d' % (count, depth) if count else 'prove_batch'}): "
           f"{proofs} proofs a call, each sha256 == the single prove's ({want[:16]}...), "
@@ -1973,8 +2158,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     results = _Results()
     marks = [time.perf_counter()]
-    for check in (_check_ntt, _check_fold, _check_forest, _check_sponge, _check_compose,
-                  _check_hash, _check_witness, _check_split_gather):
+    for check in (_check_ntt, _check_pad_scale, _check_fold, _check_forest, _check_sponge,
+                  _check_compose, _check_hash, _check_witness, _check_split_gather):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
@@ -2081,6 +2266,12 @@ def main() -> int:
     print("batched cells, proofs/s medians: "
           + json.dumps({c["cell"]: round(c["proofs_per_s_median"], 2) for c in cells}),
           flush=True)
+    marks.append(time.perf_counter())
+
+    # 8. the API and the command line: a Polynomial product on the card,
+    # then python -m stark_tpu_torch as a user runs it
+    _check_poly(rng, dev)
+    _drive_cli()
 
     # Each kernel's launches are those of the path that runs it.
     for r in results.entries:
@@ -2104,8 +2295,8 @@ def main() -> int:
 
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
-          "checks: ntt, fold, forest, sponge, compose, hash, witness, split gather, then the "
-          "proofs and paths: "
+          "checks: ntt, pad_scale, fold, forest, sponge, compose, hash, witness, split "
+          "gather, then the proofs and paths, then the API and the command line: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again; "
           f"timed with CUDA events instead: {_event_timed or 'none'}", flush=True)

@@ -109,6 +109,19 @@
 // columns that are multiples of 4; the padded 32 x 33 shared tile for the
 // rest.
 //
+// K14, after it, is the low-degree extension's zero pad and coset scale in
+// front of pass 1 (stark_tpu/ops/ntt.py lde's jnp.pad :189-195 and
+// _coset_scale_fwd :151-154, which XLA fuses into one elementwise pass on
+// the TPU): (rows, T) coefficients in, (rows, N) out, out[r, k] = c[r, k]
+// s^k mod p for k < T and 0 for T <= k < N.  One thread a 16-byte word of
+// the output: below T it reads the coefficients' word and the word of the
+// powers s^k and of their Shoup companions (a (2, T) table the wrapper
+// builds once per (T, s, card), read from L2 by every row after the
+// first), above T it writes zeros and reads nothing.  Bound by the bytes:
+// 4 (T + N) a row, 6.3 us at T = 2^20, N = 2^22 and 3.35 TB/s; a Shoup
+// product (5 integer instructions) an element is far below the issue rate.
+// A T under 4 takes the edge route, one element a thread.
+//
 // ptxas -v (sm_90a, CUDA 12, __launch_bounds__(1024); tools/tune_kernels.py
 // prints it): 64 registers for all four column kernels, 34 for the
 // transpose's vector route, 18 for its edge route; no spills, no stack.
@@ -360,6 +373,9 @@ constexpr int kVecTileRows = 32;
 constexpr int kVecTileCols = 128;
 constexpr int kVecThreads = 256;
 
+// K14's block.
+constexpr int kPadScaleThreads = 256;
+
 }  // namespace
 
 // The __global__ functions have C linkage so that a profile names them
@@ -497,6 +513,76 @@ int stark_ntt_transpose(const void* x, void* out, int batch, int rows,
   stark_ntt_transpose_kernel<<<grid, kVecThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), rows,
       cols);
+  return (int)cudaGetLastError();
+}
+
+// K14 (see the head of the file): one 16-byte word of the output a thread,
+// T a multiple of 4.  `pw` is the table's first row (s^k), `pws` its
+// second (the Shoup companions).
+__global__ void __launch_bounds__(kPadScaleThreads)
+    stark_lde_pad_scale_kernel(const uint32_t* __restrict__ x,
+                               uint32_t* __restrict__ out,
+                               const uint32_t* __restrict__ pw,
+                               const uint32_t* __restrict__ pws, int lg_t,
+                               int lg_n, size_t words) {
+  const size_t v = (size_t)blockIdx.x * kPadScaleThreads + threadIdx.x;
+  if (v >= words) return;
+  const size_t e = v << 2;
+  const uint32_t k = (uint32_t)(e & (((size_t)1 << lg_n) - 1));
+  uint4 y = make_uint4(0u, 0u, 0u, 0u);
+  if (k < (1u << lg_t)) {
+    const size_t src = ((e >> lg_n) << lg_t) + k;
+    const uint4 c = *reinterpret_cast<const uint4*>(x + src);
+    const uint4 w = *reinterpret_cast<const uint4*>(pw + k);
+    const uint4 ws = *reinterpret_cast<const uint4*>(pws + k);
+    y = make_uint4(stark::shoup_mul(c.x, w.x, ws.x),
+                   stark::shoup_mul(c.y, w.y, ws.y),
+                   stark::shoup_mul(c.z, w.z, ws.z),
+                   stark::shoup_mul(c.w, w.w, ws.w));
+  }
+  reinterpret_cast<uint4*>(out)[v] = y;
+}
+
+// K14's edge route: one element a thread, for T of 1 or 2.
+__global__ void stark_lde_pad_scale_kernel_edge(
+    const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+    const uint32_t* __restrict__ pw, const uint32_t* __restrict__ pws,
+    int lg_t, int lg_n, size_t total) {
+  const size_t e = (size_t)blockIdx.x * kPadScaleThreads + threadIdx.x;
+  if (e >= total) return;
+  const uint32_t k = (uint32_t)(e & (((size_t)1 << lg_n) - 1));
+  out[e] = k < (1u << lg_t)
+               ? stark::shoup_mul(x[((e >> lg_n) << lg_t) + k], pw[k], pws[k])
+               : 0u;
+}
+
+// K14: (rows, 2^lg_t) -> (rows, 2^lg_n) zero-padded and scaled by the powers
+// in `table`, a (2, 2^lg_t) array: s^k, then the Shoup companions.
+int stark_lde_pad_scale(const void* x, void* out, const void* table, int rows,
+                        int lg_t, int lg_n, void* stream) {
+  if (rows < 1 || lg_t < 0 || lg_t > lg_n || lg_n > 30)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t* pw = static_cast<const uint32_t*>(table);
+  const uint32_t* pws = pw + ((size_t)1 << lg_t);
+  const size_t total = (size_t)rows << lg_n;
+  if (lg_t < 2) {
+    stark_lde_pad_scale_kernel_edge<<<(unsigned)((total + kPadScaleThreads - 1) /
+                                                 kPadScaleThreads),
+                                      kPadScaleThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), pw, pws,
+        lg_t, lg_n, total);
+    return (int)cudaGetLastError();
+  }
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(pw) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  const size_t words = total >> 2;
+  stark_lde_pad_scale_kernel<<<(unsigned)((words + kPadScaleThreads - 1) /
+                                          kPadScaleThreads),
+                               kPadScaleThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), pw, pws,
+      lg_t, lg_n, words);
   return (int)cudaGetLastError();
 }
 

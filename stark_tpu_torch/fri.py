@@ -33,6 +33,8 @@ challenge value (fri.rs:272).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
@@ -55,6 +57,26 @@ from stark_tpu_torch.stream import (
     wire_merkle_paths,
 )
 from stark_tpu_torch.utils.profiling import NULL_TIMER, reason
+
+
+@dataclass
+class QueryData:
+    """API-parity struct (reference fri.rs:23-27, declared there but never
+    constructed; the proof artifact is the ProofStream)."""
+
+    indices: list
+    values: list
+    paths: list
+
+
+@dataclass
+class FriProof:
+    """API-parity struct (reference fri.rs:17-21, declared there but never
+    constructed; the proof artifact is the ProofStream)."""
+
+    commitments: list
+    queries: list
+    final_polynomial: object | None = None
 
 
 class FriPlan:
@@ -351,7 +373,9 @@ class Fri:
         """Commit, sample, query for B proofs of (B, n) codewords; returns
         each proof's top-level query indices.  The commit is the device
         chain (:meth:`commit_batch`) or, for one proof with ``device_chain``
-        False, the host path (:meth:`commit`).  The query phase is one K13
+        False, the host path (:meth:`commit`); with no FRI round (4 tests
+        or more a point of the last codeword) each stream gets its codeword
+        as the last codeword, and no tree.  The query phase is one K13
         gather and one fetch for every round of every proof: the indices
         are host ints, so each round's reduction is done here first.
         ``extra_dispatch(indices, plan) -> meta`` (``indices``: a list of
@@ -360,7 +384,15 @@ class Fri:
         rounds."""
         b = codewords.shape[0]
         with timer.phase("fri_commit"):
-            if self.device_chain and self.num_rounds() > 0:
+            if self.num_rounds() == 0:
+                # No round, no tree: each stream gets its codeword as the
+                # last codeword (stark_tpu/batch.py:_prove_batch_classic
+                # over zero rounds), the B of them in one read.
+                last = G.to_host(codewords.reshape(-1)).reshape(b, -1)
+                for stream, cw in zip(proof_streams, last):
+                    stream.push(FieldElements(tuple(int(v) for v in cw)))
+                cws, stacks = [codewords], [None]
+            elif self.device_chain:
                 cws, forests = self.commit_batch(codewords, proof_streams, fiat_shamirs)
                 stacks = [f.stack for f in forests]
             elif b == 1:

@@ -119,3 +119,6 @@ class Hash:
 
     def to_hex(self) -> str:
         return self.data.hex()
+
+
+Hash.ZERO = Hash(b"\x00" * 32)

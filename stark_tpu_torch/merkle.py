@@ -150,6 +150,14 @@ class MerkleTree:
     def root(self) -> Hash:
         return Hash(self._stack[-1].cpu().numpy().tobytes())
 
+    def leaf(self, index: int) -> Hash:
+        """Leaf ``index``'s digest (the stack's leaf level is in natural
+        order; a negative index counts from the end, as a list's does)."""
+        n = self.num_leaves
+        if not -n <= index < n:
+            raise IndexError(f"leaf {index} of {n}")
+        return Hash(self._stack[index % n].cpu().numpy().tobytes())
+
     @staticmethod
     def commit(leaves) -> Hash:
         """Root-only build (merkle.rs:44-65)."""

@@ -9,21 +9,76 @@ coset domains):
     coset_interp(vals)    == interpolate_domain(off * omega^i, vals)
 
 Every transform goes through the four-step kernels of ops/ntt_fused.py
-(their plain versions on a CPU tensor); the coset scalings are int64 torch
-ops.  ``lazy`` picks the kernels' [0, 2p) butterflies (bit-identical
-output); strict is the default, as in the JAX package.  The host numpy
-engine at the bottom serves the verifier's tiny last-codeword check
-(fri.rs:360-397 replacement), which never touches the device.
+(their plain versions on a CPU tensor); the LDE's zero pad and every coset
+scale are kernel K14 (csrc/ntt.cu ``stark_lde_pad_scale``, :func:`pad_scale`;
+its plain version :func:`pad_scale_plain` on a CPU tensor).  ``lazy`` picks
+the kernels' [0, 2p) butterflies (bit-identical output); strict is the
+default, as in the JAX package.  The host numpy engine at the bottom serves
+the verifier's tiny last-codeword check (fri.rs:360-397 replacement), which
+never touches the device.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
 from stark_tpu_torch.ops import ntt_fused as NTF
 from stark_tpu_torch.ops.fieldops import P
+
+PAD_SCALE = cuda.Kernel(
+    "lde_pad_scale", "stark_lde_pad_scale", [cuda.ptr] * 3 + [cuda.i32] * 3,
+    source="stark_tpu_torch/csrc/ntt.cu", replaces="stark_tpu/ops/ntt.py:151",
+)
+
+
+@functools.lru_cache(maxsize=32)
+def scale_table(t: int, s: int, device: torch.device) -> torch.Tensor:
+    """(2, t) int32 on ``device``: s^k mod p for k < t, then each power's
+    Shoup companion (K14's operand), built on the host once per (t, s,
+    device)."""
+    w = F.host_powers(s, t)
+    table = np.stack([w, F.shoup_precompute(w)]).view(np.int32)
+    return torch.from_numpy(table).to(device)
+
+
+def pad_scale_plain(c: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """(rows, t) int32 in [0, p) -> (rows, n) int32: zero-padded to n, then
+    entry k times s^k mod p (int64 torch ops)."""
+    padded = torch.nn.functional.pad(c, (0, n - c.shape[-1]))
+    return F.mulmod(padded, F.powers(s, n, device=c.device)).to(torch.int32)
+
+
+def pad_scale(c: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """K14 on a (rows, t) int32 tensor: the (rows, n) zero pad and scale of
+    :func:`pad_scale_plain`, which a CPU tensor takes instead.  t and n are
+    powers of two, t <= n."""
+    if c.dim() != 2:
+        raise ValueError(f"expected (rows, t), got {tuple(c.shape)}")
+    rows, t = c.shape
+    if t & (t - 1) or n & (n - 1) or not 1 <= t <= n:
+        raise ValueError(f"t = {t} and n = {n} must be powers of two, t <= n")
+    s %= P
+    if c.device.type == "cpu":
+        return pad_scale_plain(c, n, s)
+    cuda.check_operand(c, "c")
+    if c.data_ptr() % 16:  # a view into the middle of an allocation
+        c = c.clone()
+    out = torch.empty((rows, n), dtype=torch.int32, device=c.device)
+    PAD_SCALE.launch(c.device, c.data_ptr(), out.data_ptr(),
+                     scale_table(t, s, c.device).data_ptr(), rows,
+                     t.bit_length() - 1, n.bit_length() - 1)
+    return out
+
+
+def _pad_scaled(x: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """(..., t) -> (..., n) through K14, the leading axes as its rows."""
+    t = x.shape[-1]
+    return pad_scale(x.reshape(-1, t).contiguous(), n, s).reshape(x.shape[:-1] + (n,))
 
 
 def ntt(coeffs: torch.Tensor, lazy: bool = False) -> torch.Tensor:
@@ -43,8 +98,7 @@ def coset_eval(coeffs: torch.Tensor, offset: int,
     off = offset % P
     if off == 1:
         return ntt(coeffs, lazy)
-    scale = F.powers(off, coeffs.shape[-1], device=coeffs.device)
-    return ntt(F.mulmod(coeffs, scale).to(torch.int32), lazy)
+    return ntt(_pad_scaled(coeffs, coeffs.shape[-1], off), lazy)
 
 
 def coset_interp(values: torch.Tensor, offset: int,
@@ -55,18 +109,17 @@ def coset_interp(values: torch.Tensor, offset: int,
     off = offset % P
     if off == 1:
         return coeffs
-    scale = F.powers(F.host_inv(off), values.shape[-1], device=values.device)
-    return F.mulmod(coeffs, scale).to(torch.int32)
+    return _pad_scaled(coeffs, coeffs.shape[-1], F.host_inv(off))
 
 
 def lde(coeffs: torch.Tensor, blowup: int, offset: int,
         lazy: bool = False) -> torch.Tensor:
     """Low-degree extension: zero-pad coeffs (..., n) to n*blowup and
-    evaluate on the size-(n*blowup) coset {offset * Omega^i}."""
+    evaluate on the size-(n*blowup) coset {offset * Omega^i}: the pad and
+    the scale one K14 launch for all the leading axes' rows, then the NTT."""
     n = coeffs.shape[-1]
     assert blowup & (blowup - 1) == 0
-    padded = torch.nn.functional.pad(coeffs, (0, n * blowup - n))
-    return coset_eval(padded, offset, lazy)
+    return ntt(_pad_scaled(coeffs, n * blowup, offset), lazy)
 
 
 # ---------------------------------------------------------------------------

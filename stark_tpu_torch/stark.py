@@ -128,6 +128,17 @@ class _Domain:
 
     # -- scalar evaluation at one point (verifier spot checks) ----------------
 
+    def znum_at(self, x: int) -> int:
+        """x^T - 1, the numerator of the transition zerofier."""
+        return (pow(x, self.T, P) - 1) % P
+
+    def excluded_at(self, x: int) -> int:
+        """E(x), the product of (x - w^i) over the excluded rows."""
+        e = 1
+        for w in self.excluded:
+            e = (e * (x - w)) % P
+        return e
+
     def composition_value_at(
         self, idx: int, trace_rows: dict[int, list[int]], alphas, betas
     ) -> int:
@@ -136,12 +147,10 @@ class _Domain:
         x = (self.offset * pow(self.Omega, idx, P)) % P
         frame = {k: [v % P for v in trace_rows[k]] for k in self.air.frame_offsets}
         cons = self.air.transition_constraints(frame, ScalarOps)
-        znum = (pow(x, self.T, P) - 1) % P
+        znum = self.znum_at(x)
         assert znum != 0
         zinv = pow(znum, P - 2, P)
-        exc = 1
-        for w in self.excluded:
-            exc = (exc * (x - w)) % P
+        exc = self.excluded_at(x)
         total = 0
         ci = 0
         xs_t = pow(x, self.transition_shift, P)

@@ -2,10 +2,13 @@
 that fall inside each prove.
 
     python3 -m stark_tpu_torch.tools.prove_wall [--model fib|mds] [--log2-t N] [--runs N]
-        [--phase-runs N] [--batch B]
+        [--phase-runs N] [--batch B] [--device-witness]
 
 Proves from host rows (``StarkProver.prove(rows)``, the entry every
-version of the port has; with ``--batch`` B > 1, a call is
+version of the port has; with ``--device-witness``, from the columns
+``fibonacci_trace_cols_device`` / ``mds_square_trace_cols_device`` make on
+the card, each prove's witness made anew, as ``chip_smoke.py`` proves; with
+``--batch`` B > 1, a call is
 ``BatchStarkProver.prove_batch`` of B copies of the rows, as
 ``chip_smoke.py``'s ``batch8`` cell proves them) ``--runs`` times after
 two warm-up calls, each ending in ``torch.cuda.synchronize()``, and
@@ -41,6 +44,7 @@ def main() -> None:
     parser.add_argument("--runs", type=int, default=100)
     parser.add_argument("--phase-runs", type=int, default=5)
     parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--device-witness", action="store_true")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("prove_wall: no CUDA device visible")
@@ -61,6 +65,16 @@ def main() -> None:
 
         def prove(timer=NULL_TIMER):
             batch.prove_batch([rows] * args.batch, timer=timer)
+    elif args.device_witness:
+        from stark_tpu_torch.models.examples import mds_square_trace_cols_device
+        from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
+
+        witness = {"fib": fibonacci_trace_cols_device,
+                   "mds": mds_square_trace_cols_device}[args.model]
+        single = StarkProver(air, cfg)
+
+        def prove(timer=NULL_TIMER):
+            single.prove(trace_cols=witness(T), timer=timer)
     else:
         single = StarkProver(air, cfg)
 
@@ -117,7 +131,8 @@ def main() -> None:
     q = np.quantile(walls, [0, 0.25, 0.5, 0.75, 0.95, 1])
     print(json.dumps({
         "card": smi, "package": stark_tpu_torch.__file__, "model": args.model,
-        "T": T, "batch": args.batch, "runs": args.runs,
+        "T": T, "batch": args.batch, "device_witness": args.device_witness,
+        "runs": args.runs,
         "prove_ms": dict(zip(("min", "q1", "median", "q3", "p95", "max"),
                              (round(float(v), 3) for v in q))),
         "proofs_per_s_median": round(args.batch * 1e3 / median, 2),

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from stark_tpu_torch import BatchStarkProver, StarkConfig, StarkProver, StarkVerifier
-from stark_tpu_torch.models import FibonacciAir
+from stark_tpu_torch.models import FibonacciAir, fibonacci_trace_mod_p
 from stark_tpu_torch.models.air import BoundaryConstraint
 from stark_tpu_torch.models.examples import MdsSquareAir, mds_square_trace_cols_device
 from stark_tpu_torch.ops import cuda
@@ -232,3 +232,66 @@ def test_card_device_chain_off_launches_the_host_alpha_fold(cuda_device, monkeyp
     assert _single(VariantFibAir(), cfg, cuda_device).prove(trace) == chained
     counts = cuda.launch_counts()
     assert counts["fri_fold"] > 0 and counts["sponge_absorb"] == 0
+
+
+# -- zero FRI rounds: 4 tests or more a point of the last codeword -----------
+# FibonacciAir at T=8 / 8 tests and T=16 / 16 tests, blowup 4: N = 4 x tests,
+# so the FRI commit has no round and the proof carries the codeword itself.
+# The batch's traces are _traces(b, T): the first is the honest witness,
+# the others start from 2, 3 (their proofs differ; none verifies).
+
+ZERO_ROUND_CFGS = [dict(trace_length=8, blowup=4, num_colinearity_tests=8),
+                   dict(trace_length=16, blowup=4, num_colinearity_tests=16)]
+
+
+@pytest.fixture(scope="module")
+def zero_round_reference():
+    """stark_tpu's batch proofs at each zero-round config and B in {2, 3}."""
+    from stark_tpu import StarkConfig as JConfig
+    from stark_tpu.batch import BatchStarkProver as JBatch
+    from stark_tpu.models.fibonacci import FibonacciAir as JFib
+
+    return {(cfg["trace_length"], b): JBatch(JFib(), JConfig(**cfg), b).prove_batch(
+        _traces(b, cfg["trace_length"])) for cfg in ZERO_ROUND_CFGS for b in (2, 3)}
+
+
+@pytest.mark.parametrize("b", [2, 3])
+@pytest.mark.parametrize("cfg", ZERO_ROUND_CFGS, ids=["T8", "T16"])
+def test_zero_round_batch_equals_stark_tpu_and_single_proves(zero_round_reference, cfg, b):
+    t = cfg["trace_length"]
+    prover = BatchStarkProver(FibonacciAir(), StarkConfig(**cfg), b, device="cpu")
+    assert prover.fri.num_rounds() == 0
+    traces = _traces(b, t)
+    got = prover.prove_batch(traces)
+    assert got == zero_round_reference[(t, b)]
+    single = _single(FibonacciAir(), cfg)
+    assert got == [single.prove(trace) for trace in traces]
+    assert len(set(got)) == b
+
+
+@pytest.mark.parametrize("cfg", ZERO_ROUND_CFGS, ids=["T8", "T16"])
+def test_zero_round_proofs_are_rejected_by_both_verifiers(zero_round_reference, cfg):
+    # Reference behaviour, not a fault: a proof with no FRI root is
+    # rejected ("No FRI roots extracted") by stark_tpu and by the port.
+    from stark_tpu import StarkConfig as JConfig
+    from stark_tpu import StarkVerifier as JVerifier
+    from stark_tpu.models.fibonacci import FibonacciAir as JFib
+
+    proofs = zero_round_reference[(cfg["trace_length"], 2)]
+    assert proofs[0] == _single(FibonacciAir(), cfg).prove(
+        fibonacci_trace_mod_p(cfg["trace_length"]))  # the honest witness
+    ours = StarkVerifier(FibonacciAir(), StarkConfig(**cfg))
+    theirs = JVerifier(JFib(), JConfig(**cfg))
+    assert [theirs.verify(p) for p in proofs] == [False, False]
+    assert [ours.verify(p) for p in proofs] == [False, False]
+    assert ours.verify_batch(proofs) == [False, False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", ZERO_ROUND_CFGS, ids=["T8", "T16"])
+def test_card_zero_round_batch_equals_single_proves(cuda_device, cfg):
+    traces = _traces(3, cfg["trace_length"])
+    got = BatchStarkProver(FibonacciAir(), StarkConfig(**cfg), 3, cuda_device) \
+        .prove_batch(traces)
+    single = _single(FibonacciAir(), cfg)
+    assert got == [single.prove(trace) for trace in traces]
