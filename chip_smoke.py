@@ -136,7 +136,26 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     byte, proofs/s over 20 calls, the device-to-host copies of a call (3 a
     batch), the launches of a call (K11 and K14 once and K9 twice a batch,
     K4-dyn once a FRI round but the last), a profiled call;
- 8. the API and the command line: a Polynomial product of two 2^15-
+ 8. the sharded prover (stark_tpu_torch.parallel, driven by
+    stark_tpu_torch/tools/dist_prove.py), five worlds of ranks at once,
+    each rank a spawned process on the one card (the parent builds every
+    library first): an NCCL world of one rank (Fibonacci T=2^20 from the
+    device witness, the pinned sha256); D=4 gloo ranks, their exchanges
+    through the host (Fibonacci T=2^21, N=2^23, BASELINE config 5: every
+    rank's sha256 equal to a single-device card prove of the same witness
+    in this run, verified); D=2 gloo ranks (MDS T=2^16, the pinned
+    sha256); D=2 gloo ranks at batch8's shape (T=2^14, then
+    BatchStarkProver(mesh=) of 8, each proof the single prove's); D=2 gloo
+    ranks at T=2^14 on the FRI commit's host path (K4 on exchanged
+    halves).  Per rank: the launches of a counted prove (K1-K3, K14,
+    K5-K8, K9, K4-dyn or on the host path K4, K11 and K13 each above 0),
+    the mesh's collectives (three all-to-alls of n/D words a transform),
+    the walls of three witness + proves.  Before it, with the kernel
+    checks: K14 with a caller's table (the four-step's twiddle rows at n =
+    2^23, D = 4 and n = 2^22, D = 1; an LDE share that pads) and K11 on a
+    share with its halo (Fibonacci T=2^21 on D=4, MDS T=2^16 on D=2)
+    against their plain versions, timed;
+ 9. the API and the command line: a Polynomial product of two 2^15-
     coefficient polynomials on the card (K1-K3 twice each) equal to the
     same product on the CPU; then ``python -m stark_tpu_torch`` as
     subprocesses, four at a time: prove Fibonacci T=2^20 and MDS T=2^16
@@ -250,6 +269,18 @@ PAD_SCALE_SHAPES = ((1, MAIN_T, 4 * MAIN_T), (WIDE_BATCH, MDS_T, 4 * MDS_T),
                     (1, 1 << 16, 1 << 18), (3, 1, 4), (3, 2, 8))
 PAD_SCALE_SQUARE = ((1, 4 * MAIN_T), (WIDE_BATCH, 4 * MDS_T), (3, 1 << 10))
 PAD_SCALE_TIMED = 3
+# The distributed phase (parallel/): BASELINE config 5, the largest provable
+# instance (T=2^21, N=2^23, the field's 2-adicity cap) on D=4 gloo ranks
+# that share the card; MDS T=2^16 and batch8's shape on D=2; Fibonacci
+# T=2^20 in an NCCL world of one rank.
+DIST_T = 1 << 21
+DIST_D = 4
+DIST_MDS_D = 2
+DIST_RUNS = 3
+# K14 with the four-step's twiddle table at its (C/D, R) rows: (n, D).
+SCALE_TABLE_CASES = ((1 << 23, DIST_D), (1 << 22, 1))
+# K11 on the sharded paths' shares with their halos: (model, T, blowup, D).
+HALO_CASES = (("fib", DIST_T, 4, DIST_D), ("mds", MDS_T, 4, DIST_MDS_D))
 # The Polynomial product driven on the card: two polynomials of this many
 # coefficients (the NTT path above the 64-coefficient crossover, n = 2^16).
 POLY_COEFFS = 1 << 15
@@ -735,6 +766,151 @@ def _check_pad_scale(rng, dev, results: _Results) -> None:
               f"table's 8 T bytes {with_table:.4f} ms; device time per call", flush=True)
         if i:
             results.entries.remove(entry)
+
+
+def _check_sharded_forms(rng, dev, _results: _Results) -> None:
+    """K14 and K11 at the sharded prover's operands against their plain
+    versions, each call twice, then timed (printed; the kernels line keeps
+    the main path's entry of each): K14 with a caller's table (the
+    four-step's twiddle w^(j2 k1) over a rank's (C/D, R) rows at
+    SCALE_TABLE_CASES, and an LDE share's pad and scale with its offset
+    table), and K11 on a share with its halo at HALO_CASES (the last rank's:
+    its frame reads run into rank 0's head).  The table is an input here,
+    so the bound counts its bytes."""
+    from stark_tpu_torch import StarkConfig, StarkProver
+    from stark_tpu_torch.ops import compose as CO
+    from stark_tpu_torch.ops import ntt as NTT
+    from stark_tpu_torch.ops.fieldops import GENERATOR, host_powers
+    from stark_tpu_torch.parallel import pntt
+
+    lines, timed = [], _Results()
+    for n, d in SCALE_TABLE_CASES:
+        r_len, c_len = pntt._split(n)
+        t = c_len // d * r_len
+        table = pntt._twiddles(n, False, d, d - 1, 1, dev)[0]
+        c = _rand_field(rng, dev, (1, t))
+        want = NTT.pad_scale_by_plain(c, t, table)
+        for turn in (1, 2):
+            _require_equal(f"lde_pad_scale twiddle n=2^{n.bit_length() - 1} D={d} call "
+                           f"{turn}", NTT.pad_scale_by(c, t, table), want)
+        shape = (f"twiddle rows (C/D, R) = (2^{(c_len // d).bit_length() - 1}, "
+                 f"2^{r_len.bit_length() - 1}), n=2^{n.bit_length() - 1}, D={d}")
+        nbytes = 4 * t + 8 * t + 4 * t
+        # The table cycles with the operand: a table read from L2 would beat
+        # a bound that counts its bytes from device memory.
+        sets = _clones(_copies(nbytes), c, table)
+        entry = timed.add(
+            NTT.PAD_SCALE, shape, sets, lambda x, tab, t=t: NTT.pad_scale_by(x, t, tab),
+            lambda x, tab, t=t: NTT.pad_scale_by_plain(x, t, tab),
+            50, nbytes=nbytes, ops=OPS_SHOUP * t)
+        lines.append(f"lde_pad_scale {shape}: " + _line(entry)
+                     + f", {entry['bound_ms'] / entry['ms']:.1%} of its bound")
+    # An LDE share that pads: MDS T=2^16 on D=2, rank 0 (its 8 rows' 2^16
+    # coefficients into a share of 2^17 points).
+    t, share = MDS_T, 4 * MDS_T // DIST_MDS_D
+    table = NTT.table_of(host_powers(GENERATOR, t), dev)
+    c = _rand_field(rng, dev, (WIDE_BATCH, t))
+    want = NTT.pad_scale_by_plain(c, share, table)
+    for turn in (1, 2):
+        _require_equal(f"lde_pad_scale LDE share call {turn}",
+                       NTT.pad_scale_by(c, share, table), want)
+    flush = _L2Flush(dev)
+    for model, T, blowup, d in HALO_CASES:
+        air = _air(model)
+        prover = StarkProver(air, StarkConfig(trace_length=T, blowup=blowup))
+        prog, n = prover.program, prover.dom.N
+        m, reach = n // d, air.max_offset * blowup
+        tables = prover._tables(m * (d - 1), m)
+        lde = _rand_field(rng, dev, (air.num_registers, m + reach))
+        al = rng.integers(0, 998244353, size=prog.terms)
+        be = rng.integers(0, 998244353, size=prog.terms)
+
+        def kernel(x, a, w, prog=prog, tables=tables, blowup=blowup, m=m):
+            return CO.compose(prog, x, tables, a, w, blowup, points=m)
+
+        def plain(x, a, w, prog=prog, tables=tables, blowup=blowup, m=m):
+            return CO.compose_plain(prog, x, tables, a, w, blowup, points=m)
+
+        want = plain(lde, al, be)
+        for turn in (1, 2):
+            _require_equal(f"compose halo {model} T={T} D={d} call {turn}",
+                           kernel(lde, al, be), want)
+        shape = (f"{model} T=2^{T.bit_length() - 1}, D={d}: (c, share + halo) = "
+                 f"({air.num_registers}, 2^{m.bit_length() - 1} + {reach})")
+        entry = timed.add(
+            CO.COMPOSE, shape, [(lde, al, be)], kernel, plain, 50,
+            nbytes=4 * (prog.registers_read() * (m + reach) + m * (prog.table_loads() + 1)),
+            ops=m * prog.operations(), flush=flush)
+        lines.append(f"compose {shape}: " + _line(entry) + ", L2 flushed before each call")
+        del prover, lde, want, tables
+    print("K14 and K11 at the sharded operands == plain, each call twice, device time per "
+          "call: " + "; ".join(lines) + "; and K14 with a table at an LDE share that pads "
+          f"({WIDE_BATCH}, 2^16 -> 2^17)", flush=True)
+
+
+def _drive_distributed(smi: str, launches: dict) -> None:
+    """The distributed phase (stark_tpu_torch/tools/dist_prove.py): five
+    worlds at once, each rank a spawned process on the one card, every
+    library built first.  An NCCL world of one rank (Fibonacci T=2^20, the
+    pinned sha256); D=4 gloo ranks (Fibonacci T=2^21, N=2^23, against a
+    single-device card prove of the same witness made here, verified); D=2
+    gloo ranks (MDS T=2^16, the pinned sha256); D=2 gloo ranks at batch8's
+    shape (T=2^14: the sharded prove, then BatchStarkProver(mesh=) of 8,
+    every proof the single prove's); D=2 gloo ranks at T=2^14 on the FRI
+    commit's host path (K4 on the exchanged halves).  Each rank: a warm-up, DIST_RUNS
+    proves, the last counted (every kernel of its World.kernels above 0,
+    three all-to-alls of n/D words a transform)."""
+    from stark_tpu_torch import StarkConfig, StarkVerifier
+    from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.tools import dist_prove as DP
+
+    t_start = time.perf_counter()
+    sha = {T: hashlib.sha256(DP.single_proof("fib", T)).hexdigest() for T in (DIST_T, BATCH_T)}
+    torch.cuda.empty_cache()
+    worlds = [DP.World(1, "nccl", "fib", MAIN_T, MAIN_SHA256, runs=DIST_RUNS),
+              DP.World(DIST_D, "gloo", "fib", DIST_T, sha[DIST_T], runs=DIST_RUNS),
+              DP.World(DIST_MDS_D, "gloo", "mds", MDS_T, MDS_SHA256, runs=DIST_RUNS),
+              DP.World(DIST_MDS_D, "gloo", "fib", BATCH_T, sha[BATCH_T], batch=8,
+                       runs=DIST_RUNS),
+              DP.World(DIST_MDS_D, "gloo", "fib", BATCH_T, sha[BATCH_T], runs=DIST_RUNS,
+                       host_path=True)]
+    got = DP.run(worlds)
+    for w in worlds:
+        ranks = got[w.name]
+        DP.check(w, ranks)
+        air = get_model(w.model)[0]
+        verifier = StarkVerifier(air, StarkConfig(trace_length=w.trace_length, blowup=4,
+                                                  num_colinearity_tests=16))
+        proof = ranks[0]["proof"]
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        if not verifier.verify(proof) or verifier.verify(bytes(bad)):
+            raise AssertionError(f"{w.name}: the verifier did not accept the proof and "
+                                 "reject a flipped byte")
+        c = air.num_registers
+        print(f"distributed {w.name} ({smi}; every rank on "
+              f"{', '.join(sorted({o['device'] for o in ranks}))}): every rank's proofs' "
+              f"sha256 == {w.want[:16]}... ("
+              + ("the pin" if w.want in (MAIN_SHA256, MDS_SHA256) else
+                 "a single-device card prove of the same witness in this run")
+              + "), verified, a flipped byte rejected; launches of the last prove by rank "
+              + json.dumps({k: [o["counts"][k] for o in ranks] for k in w.kernels})
+              + f"; collectives of rank 0 {json.dumps(ranks[0]['collectives'])} (all-to-alls "
+              f"of {c} T/D then {c} N/D words, three a transform); wall s of witness + "
+              f"prove by rank {json.dumps([[round(x, 4) for x in o['wall_s']] for o in ranks])}",
+              flush=True)
+        if w.batch:
+            print(f"distributed {w.name}: BatchStarkProver(mesh=) of {w.batch} (B/D = "
+                  f"{w.batch // w.ranks} a rank, the batch cut): every proof == the single "
+                  "prove on every rank; launches by rank "
+                  + json.dumps({k: [o["batch"]["counts"][k] for o in ranks]
+                                for k in ("merkle_forest", "compose", "query_gather")})
+                  + "; wall s by rank "
+                  + json.dumps([round(o["batch"]["wall_s"], 4) for o in ranks]), flush=True)
+        launches[f"dist {w.name}"] = ranks[0]["counts"]
+    print(f"distributed phase: {time.perf_counter() - t_start:.1f} s, the worlds' processes "
+          "on the card at once (the walls above are no yardstick for the single-device "
+          "prover: gloo's exchanges cross the host)", flush=True)
 
 
 def _check_poly(rng, dev) -> None:
@@ -2159,7 +2335,8 @@ def main() -> int:
     results = _Results()
     marks = [time.perf_counter()]
     for check in (_check_ntt, _check_pad_scale, _check_fold, _check_forest, _check_sponge,
-                  _check_compose, _check_hash, _check_witness, _check_split_gather):
+                  _check_compose, _check_hash, _check_witness, _check_split_gather,
+                  _check_sharded_forms):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
@@ -2233,8 +2410,8 @@ def main() -> int:
     host_prover.prove(trace_cols=fib_cols())  # warm-up
     _, counts, _ = _prove_checked(
         name, host_prover, verifier, fib_cols, MAIN_SHA256,
-        every - lazy_names - {"mds_expand", "merkle_forest", "sponge_absorb",
-                              "fri_fold_dyn"}, cuda)
+        every - lazy_names - {"mds_expand", "merkle_forest", "sponge_absorb", "fri_fold_dyn"},
+        cuda)
     if counts["sponge_absorb"] or counts["fri_fold_dyn"]:
         raise AssertionError(f"{name}: the device chain ran: {counts}")
     launches["fib_2^20_host_alpha"] = counts
@@ -2268,7 +2445,11 @@ def main() -> int:
           flush=True)
     marks.append(time.perf_counter())
 
-    # 8. the API and the command line: a Polynomial product on the card,
+    # 8. the sharded prover (parallel/): worlds of ranks on the one card
+    _drive_distributed(smi, launches)
+    marks.append(time.perf_counter())
+
+    # 9. the API and the command line: a Polynomial product on the card,
     # then python -m stark_tpu_torch as a user runs it
     _check_poly(rng, dev)
     _drive_cli()
@@ -2296,7 +2477,8 @@ def main() -> int:
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
           "checks: ntt, pad_scale, fold, forest, sponge, compose, hash, witness, split "
-          "gather, then the proofs and paths, then the API and the command line: "
+          "gather, sharded forms, then the proofs and paths, then the distributed phase, "
+          "then the API and the command line: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again; "
           f"timed with CUDA events instead: {_event_timed or 'none'}", flush=True)

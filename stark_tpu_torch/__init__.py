@@ -13,7 +13,10 @@ at once, each byte-identical to its single prove) ->
 ``StarkVerifier.verify`` / ``verify_batch`` path for FibonacciAir and the
 example AIRs, with the API around it (``Polynomial``, ``Trace``, the
 parity structs ``FriProof`` / ``QueryData``) and the command line
-``python -m stark_tpu_torch demo|prove|verify|inspect``.  The TPU's Pallas
+``python -m stark_tpu_torch demo|prove|verify|inspect``, and the sharded
+prover over ``torch.distributed`` (``stark_tpu_torch.parallel``:
+``DistributedStarkProver``, ``BatchStarkProver(mesh=)``; one process per
+device, the same bytes at every rank count).  The TPU's Pallas
 kernels on that path, and the jnp functions that need a kernel of their
 own here, are hand-written CUDA (csrc/: the four-step NTT K1-K3, the FRI
 folds K4 and K4-dyn, the hash and Merkle kernels K5-K8 and K8's forest

@@ -17,7 +17,11 @@
 // then includes this header's STARK_COMPOSE_ENTRY(Air).  Built with nvcc it
 // is the kernel with its C entry stark_compose; built with a host C++
 // compiler (field.cuh's host branch) it is stark_compose_host, the same
-// per-point function in a loop over every point, for the CPU tests.
+// per-point function in a loop over every point, for the CPU tests.  Both
+// take the LDE's row stride `span`: span = n, the whole coset, its frame
+// reads wrapping modulo n; or span > n, a rank's share of the coset in the
+// sharded prover (parallel/pstark.py), each row its n points and then the
+// next share's first points (the halo), read without a wrap.
 //
 // At point i of proof b, with x the coset point, the codeword is
 //   sum_k C_k(frame) exz(x) (a_k xt(x) + b_k)
@@ -95,20 +99,23 @@ __device__ __forceinline__ uint32_t reduce64(uint64_t x) {
   return reduce_once((uint32_t)(y >> 32) + __umulhi(m, kP) + (lo != 0u ? 1u : 0u));
 }
 
-// The frame of one point: register r at offset k is row r of this proof's
-// (c, n) LDE at (i + k blowup) mod n.
+// The frame of one point: register r at offset k is element (i + k blowup)
+// & mask of row r of this proof's LDE, a row every `span` words: mask = n -
+// 1 on the whole coset (span = n, the wrap), all ones on a share with its
+// halo (span > n).
 struct Frame {
   const uint32_t* lde;
-  long long n;
+  long long span;
+  long long mask;
   long long i;
   int blowup;
   __device__ __forceinline__ uint32_t operator()(int offset, int reg) const {
-    return lde[reg * n + ((i + (long long)offset * blowup) & (n - 1))];
+    return lde[reg * span + ((i + (long long)offset * blowup) & mask)];
   }
 };
 
 struct ComposeArgs {
-  const uint32_t* lde;   // (B, c, n)
+  const uint32_t* lde;   // (B, c, span)
   const uint32_t* exz;   // (n,) excl * zinv
   const uint32_t* xt;    // (n,) x^s_t
   const uint32_t* xb;    // (n,) x^s_b
@@ -118,7 +125,20 @@ struct ComposeArgs {
   int c;
   int blowup;
   int proofs;
+  long long span;        // a row's words: n, or n and the halo
+  long long mask;        // n - 1 where span = n, else ~0 (no wrap)
 };
+
+// The mask of a row of `span` words holding n points (Frame).
+inline long long frame_mask(long long n, long long span) {
+  return span == n ? n - 1 : ~0ll;
+}
+
+// Whether (n, span) is a row K11 reads: the whole coset (n a power of two)
+// or a share with a halo behind it.
+inline bool frame_ok(long long n, long long span) {
+  return n >= 1 && (span == n ? (n & (n - 1)) == 0 : span > n);
+}
 
 // The codeword at point i of proof b; w: the proof's 4 kTerms weight words,
 // per term a R^2, its companion, b R, its companion.
@@ -126,7 +146,7 @@ template <class Air>
 __device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
                                                   const uint32_t* w, int b,
                                                   long long i) {
-  const Frame at{a.lde + (long long)b * a.c * a.n, a.n, i, a.blowup};
+  const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
   uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
   uint32_t v[Air::kBoundaries > 0 ? Air::kBoundaries : 1];
   Air::values(at, c, v);
@@ -199,22 +219,23 @@ int compose_launch(const ComposeArgs& a, const void* words, int nwords,
 
 }  // namespace stark
 
-// The C entry of one AIR's library: B = proofs proofs' (c, n) LDEs, n a
-// power of two, nwords = 4 kTerms B weight words (at most 8,000: the
-// launch's parameters hold 32 KB since CUDA 12.1).
+// The C entry of one AIR's library: B = proofs proofs' (c, span) LDEs of n
+// points each (frame_ok), nwords = 4 kTerms B weight words (at most 8,000:
+// the launch's parameters hold 32 KB since CUDA 12.1).
 #define STARK_COMPOSE_ENTRY(AIR)                                              \
   extern "C" int stark_compose(const void* lde, const void* exz,             \
                                const void* xt, const void* xb,               \
                                const void* dinv, void* out, long long n,     \
                                int c, int blowup, int proofs,                \
-                               const void* words, int nwords, void* stream) { \
+                               const void* words, int nwords, long long span,\
+                               void* stream) {                               \
     const stark::ComposeArgs a{                                               \
         static_cast<const uint32_t*>(lde), static_cast<const uint32_t*>(exz), \
         static_cast<const uint32_t*>(xt),  static_cast<const uint32_t*>(xb),  \
         static_cast<const uint32_t*>(dinv), static_cast<uint32_t*>(out),      \
-        n, c, blowup, proofs};                                                \
+        n, c, blowup, proofs, span, stark::frame_mask(n, span)};              \
     cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
-    if (n < 1 || (n & (n - 1)) || c != AIR::kRegisters || proofs < 1 ||       \
+    if (!stark::frame_ok(n, span) || c != AIR::kRegisters || proofs < 1 ||    \
         proofs > 65535 || nwords != 4 * AIR::kTerms * proofs)                 \
       return (int)cudaErrorInvalidValue;                                      \
     if (nwords <= 256) return stark::compose_launch<AIR, 256>(a, words, nwords, s); \
@@ -235,10 +256,11 @@ int compose_launch(const ComposeArgs& a, const void* words, int nwords,
                                     const uint32_t* xt, const uint32_t* xb,   \
                                     const uint32_t* dinv, uint32_t* out,      \
                                     long long n, int c, int blowup,           \
-                                    int proofs, const uint32_t* words) {      \
-    const stark::ComposeArgs a{lde, exz, xt, xb, dinv, out,                   \
-                               n, c, blowup, proofs};                         \
-    if (c != AIR::kRegisters) return 1;                                       \
+                                    int proofs, const uint32_t* words,        \
+                                    long long span) {                         \
+    const stark::ComposeArgs a{lde, exz, xt, xb, dinv, out, n, c, blowup,     \
+                               proofs, span, stark::frame_mask(n, span)};     \
+    if (c != AIR::kRegisters || !stark::frame_ok(n, span)) return 1;          \
     for (int b = 0; b < proofs; ++b)                                          \
       for (long long i = 0; i < n; ++i)                                       \
         out[(long long)b * n + i] = stark::compose_point<AIR>(                \

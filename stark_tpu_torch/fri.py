@@ -220,21 +220,7 @@ class Fri:
         if not len(proof_streams) == len(fiat_shamirs) == b:
             raise ValueError(f"{b} codewords need {b} streams and transcripts")
         dev = codewords.device
-        prefixes = [bytes(fs.transcript) for fs in fiat_shamirs]
-        if len({len(x) for x in prefixes}) != 1:
-            raise ValueError("the transcripts' prefixes differ in length")
-        sponge = HB.Sponge(b, dev)
-        prefix = np.frombuffer(b"".join(prefixes), dtype=np.uint8).reshape(b, -1)
-        sponge.absorb(torch.from_numpy(prefix.copy()).to(dev))
-        # One buffer for the one fetch: last codewords | roots | alphas (the
-        # last fold's output first, at the buffer's aligned start).
-        n_last = n >> (rounds - 1)
-        sizes = (b * n_last, 8 * rounds * b, (rounds - 1) * b)
-        buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
-        last, roots_w, alphas = torch.split(buf, sizes)
-        last = last.view(b, n_last)
-        roots = roots_w.view(torch.uint8).view(rounds, b, 32)
-        alphas = alphas.view(rounds - 1, b)
+        sponge, buf, last, roots, alphas = self._chain_start(dev, b, n, fiat_shamirs)
         cws, forests = [], []
         codeword = codewords
         for r in range(rounds):
@@ -250,7 +236,39 @@ class Fri:
         if rounds == 1:
             last.copy_(codeword)
         cws[-1] = last
-        host = G.to_host(buf)
+        self._chain_replay(G.to_host(buf), b, n, proof_streams, fiat_shamirs)
+        return cws, forests
+
+    def _chain_start(self, dev, b: int, n: int, fiat_shamirs: list):
+        """The device chain's state for B codewords of n points: the sponge
+        (K9, B lanes) seeded with each transcript so far, and one buffer for
+        the one fetch, last codewords | roots | alphas (the last fold's
+        output first, at the buffer's aligned start).  Returns (sponge,
+        buffer, last (B, n_last), roots (rounds, B, 32) u8, alphas
+        (rounds - 1, B))."""
+        rounds = self.num_rounds()
+        prefixes = [bytes(fs.transcript) for fs in fiat_shamirs]
+        if len({len(x) for x in prefixes}) != 1:
+            raise ValueError("the transcripts' prefixes differ in length")
+        sponge = HB.Sponge(b, dev)
+        prefix = np.frombuffer(b"".join(prefixes), dtype=np.uint8).reshape(b, -1)
+        sponge.absorb(torch.from_numpy(prefix.copy()).to(dev))
+        n_last = n >> (rounds - 1)
+        sizes = (b * n_last, 8 * rounds * b, (rounds - 1) * b)
+        buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+        last, roots_w, alphas = torch.split(buf, sizes)
+        return (sponge, buf, last.view(b, n_last), roots_w.view(torch.uint8).view(rounds, b, 32),
+                alphas.view(rounds - 1, b))
+
+    def _chain_replay(self, host: np.ndarray, b: int, n: int, proof_streams: list,
+                      fiat_shamirs: list) -> None:
+        """The host side of the chain's one fetch (``host``: the buffer of
+        :meth:`_chain_start`): push the roots, replay each transcript, raise
+        if an alpha it draws differs from the card's, push the last
+        codewords."""
+        rounds = self.num_rounds()
+        n_last = n >> (rounds - 1)
+        sizes = (b * n_last, 8 * rounds * b, (rounds - 1) * b)
         last_h = host[: sizes[0]].reshape(b, n_last)
         roots_h = host[sizes[0] : sizes[0] + sizes[1]].view(np.uint8).reshape(rounds, b, 32)
         alphas_h = host[sizes[0] + sizes[1] :].reshape(rounds - 1, b)
@@ -266,7 +284,6 @@ class Fri:
                         # transcript: not an assert, so that -O keeps it.
                         raise RuntimeError("device/host transcript divergence")
             stream.push(FieldElements(tuple(int(v) for v in last_h[j])))
-        return cws, forests
 
     # -- index sampling (fri.rs:168-213) ----------------------------------------
 
@@ -336,7 +353,7 @@ class Fri:
         slots = self._round_dispatch(current_codeword[None, :], next_codeword[None, :],
                                      [c_indices], current_tree._stack,
                                      next_tree._stack, plan)
-        self._round_emit(slots, G.fetch(plan), [proof_stream])
+        self._round_emit(slots, plan.fetch(), [proof_stream])
         half = int(current_codeword.shape[0]) // 2
         return list(c_indices) + [i + half for i in c_indices]
 
@@ -367,6 +384,35 @@ class Fri:
         return self.prove_batch(initial_codeword[None, :], [fiat_shamir],
                                 [proof_stream], timer, batch_dispatch, extra_emit)[0]
 
+    # -- the seams the sharded FRI (parallel/pstark.py) overrides -----------------
+
+    def _commit(self, codewords: torch.Tensor, proof_streams: list,
+                fiat_shamirs: list) -> tuple[list, list]:
+        """The commit phase of :meth:`prove_batch`: (codewords, stacks), per
+        round the (B, n) codewords and their forest's level stack (None
+        where no tree was built)."""
+        b = codewords.shape[0]
+        if self.num_rounds() == 0:
+            # No round, no tree: each stream gets its codeword as the
+            # last codeword (stark_tpu/batch.py:_prove_batch_classic
+            # over zero rounds), the B of them in one read.
+            last = G.to_host(codewords.reshape(-1)).reshape(b, -1)
+            for stream, cw in zip(proof_streams, last):
+                stream.push(FieldElements(tuple(int(v) for v in cw)))
+            return [codewords], [None]
+        if self.device_chain:
+            cws, forests = self.commit_batch(codewords, proof_streams, fiat_shamirs)
+            return cws, [f.stack for f in forests]
+        if b == 1:
+            cws, trees = self.commit(codewords[0], proof_streams[0], fiat_shamirs[0])
+            return ([cw[None, :] for cw in cws],
+                    [None if t is None else t._stack for t in trees])
+        raise ValueError("the host commit path proves one codeword at a time")
+
+    def _gather_plan(self) -> G.GatherPlan:
+        """The query phase's plan (one K13 gather, one fetch)."""
+        return G.GatherPlan()
+
     def prove_batch(self, codewords: torch.Tensor, fiat_shamirs: list,
                     proof_streams: list, timer=NULL_TIMER, extra_dispatch=None,
                     extra_emit=None) -> list[list[int]]:
@@ -384,23 +430,7 @@ class Fri:
         rounds."""
         b = codewords.shape[0]
         with timer.phase("fri_commit"):
-            if self.num_rounds() == 0:
-                # No round, no tree: each stream gets its codeword as the
-                # last codeword (stark_tpu/batch.py:_prove_batch_classic
-                # over zero rounds), the B of them in one read.
-                last = G.to_host(codewords.reshape(-1)).reshape(b, -1)
-                for stream, cw in zip(proof_streams, last):
-                    stream.push(FieldElements(tuple(int(v) for v in cw)))
-                cws, stacks = [codewords], [None]
-            elif self.device_chain:
-                cws, forests = self.commit_batch(codewords, proof_streams, fiat_shamirs)
-                stacks = [f.stack for f in forests]
-            elif b == 1:
-                cws, trees = self.commit(codewords[0], proof_streams[0], fiat_shamirs[0])
-                cws = [cw[None, :] for cw in cws]
-                stacks = [None if t is None else t._stack for t in trees]
-            else:
-                raise ValueError("the host commit path proves one codeword at a time")
+            cws, stacks = self._commit(codewords, proof_streams, fiat_shamirs)
 
         with timer.phase("fri_sample"):
             sample_size = int(cws[1].shape[1] if len(cws) > 1 else cws[0].shape[1])
@@ -413,7 +443,7 @@ class Fri:
                     self.num_colinearity_tests))
 
         with timer.phase("fri_query"):
-            plan = G.GatherPlan()
+            plan = self._gather_plan()
             rounds = []
             reduced = np.asarray(indices, dtype=np.int64).reshape(b, -1)
             for i in range(len(cws) - 1):
@@ -424,7 +454,7 @@ class Fri:
             if extra_dispatch is not None:
                 meta = extra_dispatch(indices, plan)
             if plan.requests:
-                fetched = G.fetch(plan)
+                fetched = plan.fetch()
                 for slots in rounds:
                     self._round_emit(slots, fetched, proof_streams)
                 if extra_emit is not None:

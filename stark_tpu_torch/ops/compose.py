@@ -40,7 +40,8 @@ from stark_tpu_torch.utils.build import BUILD_DIR, build_library
 
 COMPOSE = cuda.Kernel(
     "compose", "stark_compose",
-    [cuda.ptr] * 6 + [ctypes.c_longlong] + [cuda.i32] * 3 + [cuda.ptr, cuda.i32],
+    [cuda.ptr] * 6 + [ctypes.c_longlong] + [cuda.i32] * 3 + [cuda.ptr, cuda.i32,
+                                                             ctypes.c_longlong],
     source="stark_tpu_torch/csrc/compose.cuh",
     replaces="stark_tpu/stark.py:570", generated=True,
 )
@@ -346,7 +347,7 @@ def host_library(source: str) -> ctypes.CDLL:
                           "-I", cuda.CSRC])
     lib = ctypes.CDLL(path)
     lib.stark_compose_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong]
     lib.stark_compose_host.restype = ctypes.c_int
     return lib
 
@@ -363,45 +364,63 @@ class Tables:
     @classmethod
     def build(cls, *, n: int, trace_length: int, blowup: int, offset: int, omega_n: int,
               omega_t: int, excluded: list[int], shift_t: int, shift_b: int,
-              rows: list[int], device) -> "Tables":
+              rows: list[int], device, start: int = 0, count: int | None = None
+              ) -> "Tables":
         """The tables of a coset x_i = offset omega_n^i of n points (a
         trace domain of ``trace_length`` generated by omega_t), made once
         (in int64, stored int32): the transition zerofier's factor 1 /
         (x^T - 1) prod_e (x - excluded_e), the degree shifts x^shift_t and
-        x^shift_b, and 1 / (x - omega_t^r) for each boundary row r."""
-        x_dom = F.powers(omega_n, n, scale=offset, device=device)
+        x^shift_b, and 1 / (x - omega_t^r) for each boundary row r.  With
+        ``start`` and ``count``, only the points start .. start + count - 1
+        (a rank's share; both multiples of ``blowup``)."""
+        count = n - start if count is None else count
+        if start % blowup or count % blowup or not 0 < start + count <= n:
+            raise ValueError(f"points {start} .. +{count} of {n}, blowup {blowup}")
+        x_dom = F.powers(omega_n, count, scale=offset * pow(omega_n, start, P),
+                         device=device)
         rho = pow(omega_n, trace_length, P)                         # order = blowup
         zinv_cycle = [F.host_inv(pow(offset, trace_length, P) * pow(rho, j, P) - 1)
                       for j in range(blowup)]
         exz = torch.tensor(zinv_cycle, dtype=torch.int64, device=device).repeat(
-            n // blowup)
+            count // blowup)
         for w in excluded:
             exz = F.mulmod(exz, F.submod(x_dom, w))
-        xt, xb = (F.powers(pow(omega_n, s, P), n, scale=pow(offset, s, P), device=device)
+        xt, xb = (F.powers(pow(omega_n, s, P), count,
+                           scale=pow(offset, s, P) * pow(omega_n, s * start, P),
+                           device=device)
                   for s in (shift_t, shift_b))
         dinv = [F.invmod(F.submod(x_dom, pow(omega_t, row, P))) for row in rows]
-        dinv = torch.stack(dinv) if dinv else torch.zeros((1, n), dtype=torch.int64,
+        dinv = torch.stack(dinv) if dinv else torch.zeros((1, count), dtype=torch.int64,
                                                           device=device)
         return cls(*(t.to(torch.int32).contiguous() for t in (exz, xt, xb, dinv)))
 
 
 def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
-            betas, blowup: int) -> torch.Tensor:
+            betas, blowup: int, points: int | None = None) -> torch.Tensor:
     """(c, N) int32 LDE -> (N,) int32 codeword, or B proofs at once: (B, c,
     N) -> (B, N).  ``alphas``, ``betas``: (terms,) host ints, or (B, terms)
-    for B proofs.  On a card one K11 launch (or one per 8,000 weight
-    words); on the CPU the plain version."""
+    for B proofs.  ``points``: the halo form (a rank's share): each row
+    holds ``points`` points of the coset and then the frame's reach past
+    them (the next share's first points), read without a wrap; the tables
+    are the share's, the result (B, points).  On a card one K11 launch (or
+    one per 8,000 weight words); on the CPU the plain version."""
     if lde.device.type == "cpu":
-        return compose_plain(program, lde, tables, alphas, betas, blowup)
+        return compose_plain(program, lde, tables, alphas, betas, blowup, points)
     single = lde.dim() == 2
     lde3 = lde[None] if single else lde
-    b, c, n = lde3.shape
+    b, c, span = lde3.shape
+    n = span if points is None else points
     words = program.weights(alphas, betas)
     if words.shape[0] != b or c != program.air.num_registers:
         raise ValueError(f"{words.shape[0]} proofs' weights for {b} LDEs of "
                          f"{c} rows, the AIR has {program.air.num_registers}")
-    if n & (n - 1) or tuple(tables.exz.shape) != (n,):
+    if points is None and n & (n - 1):
+        raise ValueError(f"an LDE of {n} points, not a power of two")
+    if tuple(tables.exz.shape) != (n,):
         raise ValueError(f"an LDE of {n} points, tables of {tuple(tables.exz.shape)}")
+    if points is not None and span < n + program.air.max_offset * blowup:
+        raise ValueError(f"rows of {span} words hold no halo of "
+                         f"{program.air.max_offset * blowup} past {n} points")
     for t, name in ((lde3, "lde"), (tables.exz, "exz"), (tables.xt, "xt"),
                     (tables.xb, "xb"), (tables.dinv, "dinv")):
         cuda.check_operand(t, name)
@@ -415,15 +434,16 @@ def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
         COMPOSE.launch(
             lde3.device, lde3[j].data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
             tables.xb.data_ptr(), tables.dinv.data_ptr(), out[j].data_ptr(), n, c, blowup,
-            part.shape[0], part.ctypes.data, part.size, lib=lib,
+            part.shape[0], part.ctypes.data, part.size, span, lib=lib,
         )
     return out[0] if single else out
 
 
 def compose_plain(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
-                  betas, blowup: int) -> torch.Tensor:
+                  betas, blowup: int, points: int | None = None) -> torch.Tensor:
     """K11's plain version: elementwise int64 torch ops
-    (stark_tpu/stark.py:_compose_impl; vmapped for B proofs)."""
+    (stark_tpu/stark.py:_compose_impl; vmapped for B proofs); ``points``
+    the halo form, as in :func:`compose`."""
     from stark_tpu_torch.models.air import BatchOps
 
     air, dev = program.air, lde.device
@@ -437,14 +457,20 @@ def compose_plain(program: ComposeProgram, lde: torch.Tensor, tables: Tables, al
         weights = list(zip(torch.from_numpy(a.T.copy())[..., None].to(dev),
                            torch.from_numpy(bt.T.copy())[..., None].to(dev)))
     exz, xt, xb = tables.exz.long(), tables.xt.long(), tables.xb.long()
-    # ONE roll of the whole LDE per frame offset; the registers are its
-    # rows (dimension -2).
-    frame = {
-        k: list((x if k == 0 else torch.roll(x, -k * blowup, -1)).unbind(-2))
-        for k in air.frame_offsets
-    }
+    if points is None:
+        # ONE roll of the whole LDE per frame offset; the registers are its
+        # rows (dimension -2).
+        frame = {
+            k: list((x if k == 0 else torch.roll(x, -k * blowup, -1)).unbind(-2))
+            for k in air.frame_offsets
+        }
+    else:
+        # A share with its halo: offset k reads k blowup points further on.
+        frame = {k: list(x[..., k * blowup : k * blowup + points].unbind(-2))
+                 for k in air.frame_offsets}
+    n = x.shape[-1] if points is None else points
     cons = air.transition_constraints(frame, BatchOps)
-    total = torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=torch.int64, device=dev)
+    total = torch.zeros(x.shape[:-2] + (n,), dtype=torch.int64, device=dev)
     for ci, c in enumerate(cons):
         q = F.mulmod(c, exz)
         w = F.addmod(F.mulmod(xt, weights[ci][0]), weights[ci][1])

@@ -136,6 +136,10 @@ class GatherPlan:
         s = self._source(stack, PATHS, w, depth)
         return self._add(s, PATHS, indices, 8 * depth, w)
 
+    def fetch(self) -> np.ndarray:
+        """:func:`fetch` of this plan."""
+        return fetch(self)
+
     def encode(self, out_address: int) -> list[np.ndarray]:
         """The kernel's operands (csrc/gather.cu): one uint32 array per
         launch, each of one of the :data:`PARAM_BYTES` sizes, that writes

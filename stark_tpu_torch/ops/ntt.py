@@ -36,43 +36,69 @@ PAD_SCALE = cuda.Kernel(
 )
 
 
+def table_of(w: np.ndarray, device) -> torch.Tensor:
+    """(t,) field values (numpy, in [0, p)) -> the (2, t) int32 table K14
+    reads: the values, then their Shoup companions."""
+    w = np.asarray(w, dtype=np.uint32)
+    return torch.from_numpy(np.stack([w, F.shoup_precompute(w)]).view(np.int32)).to(device)
+
+
 @functools.lru_cache(maxsize=32)
 def scale_table(t: int, s: int, device: torch.device) -> torch.Tensor:
     """(2, t) int32 on ``device``: s^k mod p for k < t, then each power's
     Shoup companion (K14's operand), built on the host once per (t, s,
     device)."""
-    w = F.host_powers(s, t)
-    table = np.stack([w, F.shoup_precompute(w)]).view(np.int32)
-    return torch.from_numpy(table).to(device)
+    return table_of(F.host_powers(s, t), device)
 
 
-def pad_scale_plain(c: torch.Tensor, n: int, s: int) -> torch.Tensor:
-    """(rows, t) int32 in [0, p) -> (rows, n) int32: zero-padded to n, then
-    entry k times s^k mod p (int64 torch ops)."""
-    padded = torch.nn.functional.pad(c, (0, n - c.shape[-1]))
-    return F.mulmod(padded, F.powers(s, n, device=c.device)).to(torch.int32)
+def pad_scale_by_plain(c: torch.Tensor, n: int, table: torch.Tensor) -> torch.Tensor:
+    """(rows, t) int32 in [0, p) -> (rows, n) int32: entry k < t times
+    table[0, k] mod p, zeros from t on (int64 torch ops)."""
+    scaled = F.mulmod(c, table[0])
+    return torch.nn.functional.pad(scaled, (0, n - c.shape[-1])).to(torch.int32)
 
 
-def pad_scale(c: torch.Tensor, n: int, s: int) -> torch.Tensor:
-    """K14 on a (rows, t) int32 tensor: the (rows, n) zero pad and scale of
-    :func:`pad_scale_plain`, which a CPU tensor takes instead.  t and n are
-    powers of two, t <= n."""
+def pad_scale_by(c: torch.Tensor, n: int, table: torch.Tensor) -> torch.Tensor:
+    """K14 on a (rows, t) int32 tensor with a (2, t) ``table``
+    (:func:`table_of`): (rows, n), entry k < t times table[0, k], zeros
+    from t on; a CPU tensor takes :func:`pad_scale_by_plain`.  t and n are
+    powers of two, t <= n.  The table is the powers of one s for an LDE's
+    pad and coset scale (:func:`pad_scale`), or the sharded four-step's
+    twiddle w^(j2 k1) and a shard's coset scale (parallel/pntt.py)."""
     if c.dim() != 2:
         raise ValueError(f"expected (rows, t), got {tuple(c.shape)}")
     rows, t = c.shape
     if t & (t - 1) or n & (n - 1) or not 1 <= t <= n:
         raise ValueError(f"t = {t} and n = {n} must be powers of two, t <= n")
-    s %= P
+    if tuple(table.shape) != (2, t) or table.dtype != torch.int32 or table.device != c.device:
+        raise ValueError(f"the table must be (2, {t}) int32 on {c.device}, got "
+                         f"{tuple(table.shape)} {table.dtype} on {table.device}")
     if c.device.type == "cpu":
-        return pad_scale_plain(c, n, s)
+        return pad_scale_by_plain(c, n, table)
     cuda.check_operand(c, "c")
+    cuda.check_operand(table, "table")
     if c.data_ptr() % 16:  # a view into the middle of an allocation
         c = c.clone()
+    if table.data_ptr() % 16:
+        table = table.clone()
     out = torch.empty((rows, n), dtype=torch.int32, device=c.device)
-    PAD_SCALE.launch(c.device, c.data_ptr(), out.data_ptr(),
-                     scale_table(t, s, c.device).data_ptr(), rows,
+    PAD_SCALE.launch(c.device, c.data_ptr(), out.data_ptr(), table.data_ptr(), rows,
                      t.bit_length() - 1, n.bit_length() - 1)
     return out
+
+
+def pad_scale_plain(c: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """(rows, t) int32 in [0, p) -> (rows, n) int32: zero-padded to n, then
+    entry k times s^k mod p (int64 torch ops)."""
+    return pad_scale_by_plain(c, n, scale_table(c.shape[-1], s % P, c.device))
+
+
+def pad_scale(c: torch.Tensor, n: int, s: int) -> torch.Tensor:
+    """K14 on a (rows, t) int32 tensor: the (rows, n) zero pad and scale of
+    :func:`pad_scale_plain` (:func:`pad_scale_by` with the powers of s)."""
+    if c.dim() != 2:
+        raise ValueError(f"expected (rows, t), got {tuple(c.shape)}")
+    return pad_scale_by(c, n, scale_table(c.shape[-1], s % P, c.device))
 
 
 def _pad_scaled(x: torch.Tensor, n: int, s: int) -> torch.Tensor:

@@ -203,11 +203,21 @@ class StarkProver:
         # trace-independent (N,) tables: int32 canonical values on the
         # device, made once here and read once a point.
         self.program = CO.ComposeProgram(air, d.boundary)
-        self.tables = CO.Tables.build(
-            n=d.N, trace_length=d.T, blowup=cfg.blowup, offset=d.offset,
+        self.tables = self._tables(*self._points())
+
+    def _points(self) -> tuple[int, int]:
+        """(first, count): the coset points whose codeword values this
+        prover computes, all N of them (a rank's share when sharded)."""
+        return 0, self.dom.N
+
+    def _tables(self, start: int, count: int) -> CO.Tables:
+        """K11's tables at the points start .. start + count - 1."""
+        d = self.dom
+        return CO.Tables.build(
+            n=d.N, trace_length=d.T, blowup=self.cfg.blowup, offset=d.offset,
             omega_n=d.Omega, omega_t=d.omega, excluded=d.excluded,
             shift_t=d.transition_shift, shift_b=d.boundary_shift,
-            rows=self.program.rows, device=device)
+            rows=self.program.rows, device=self.device, start=start, count=count)
 
     def _compose(self, trace_lde: torch.Tensor, alphas, betas) -> torch.Tensor:
         """(c, N) int32 LDE -> (N,) int32 composition codeword, or B proofs
@@ -217,6 +227,25 @@ class StarkProver:
         terms' weights, (terms,) host ints for one proof, (B, terms) for B."""
         return CO.compose(self.program, trace_lde, self.tables, alphas, betas,
                           self.cfg.blowup)
+
+    # -- the seams the sharded prover (parallel/pstark.py) overrides ------------
+
+    def _lde_trace(self, cols: torch.Tensor) -> torch.Tensor:
+        """(B, c, T) witness columns -> (B, c, N) trace LDEs on the coset
+        (stark_tpu/stark.py:340): iNTT, then K14's pad and scale and the NTT."""
+        b, c, t = cols.shape
+        return NTT.lde(NTT.intt(cols.reshape(b * c, t), self.lazy_ntt), self.cfg.blowup,
+                       self.dom.offset, self.lazy_ntt).reshape(b, c, self.dom.N)
+
+    def _trace_tree(self, trace_lde: torch.Tensor) -> Forest:
+        """The B trace trees, one forest (row digests, every level)."""
+        return Forest.from_rows(trace_lde)
+
+    def _composition(self, trace_lde: torch.Tensor, alphas, betas) -> torch.Tensor:
+        """The (B, N) composition codewords of the (B, c, N) trace LDEs."""
+        b = int(trace_lde.shape[0])
+        return self._compose(trace_lde if b > 1 else trace_lde[0], alphas,
+                             betas).reshape(b, self.dom.N)
 
     def _witness(self, trace_rows, trace_cols) -> torch.Tensor:
         """The (c, T) int32 witness on the prover's device: host rows or
@@ -268,16 +297,12 @@ class StarkProver:
 
         # 1. trace columns -> coefficients -> LDE on the coset  [device]
         with timer.phase("lde"):
-            c, t = cols.shape[1:]
-            trace_lde = NTT.lde(
-                NTT.intt(cols.reshape(b * c, t), self.lazy_ntt), cfg.blowup,
-                d.offset, self.lazy_ntt,
-            ).reshape(b, c, d.N)
+            trace_lde = self._lde_trace(cols)
 
         # 2. commit the traces: row digests and every level of the B trees
         # (one forest), then the B roots in one read  [device]
         with timer.phase("trace_commit"):
-            trace_forest = Forest.from_rows(trace_lde)
+            trace_forest = self._trace_tree(trace_lde)
             roots = G.to_host(trace_forest.roots_dev().view(torch.int32))
             for j in range(b):
                 root = Hash(roots[j].tobytes())
@@ -294,8 +319,7 @@ class StarkProver:
 
         # 4. composition codewords  [device]
         with timer.phase("compose"):
-            composition = self._compose(trace_lde if b > 1 else trace_lde[0],
-                                        alphas, betas)
+            composition = self._composition(trace_lde, alphas, betas)
 
         # 5. FRI, with the trace openings (step 6) riding the query phase's
         # one gather and one fetch (stark_tpu/stark.py:446-548).
@@ -324,7 +348,7 @@ class StarkProver:
                      wire_merkle_paths(sib[j])], axis=1,
                 ).tobytes())
 
-        self.fri.prove_batch(composition.reshape(b, d.N), fss, streams, timer=timer,
+        self.fri.prove_batch(composition, fss, streams, timer=timer,
                              extra_dispatch=_open_dispatch, extra_emit=_open_emit)
         return [stream.serialize() for stream in streams]
 

@@ -1256,7 +1256,7 @@ def compose_before(program):
         out = torch.empty((b, n), dtype=torch.int32, device=lde.device)
         if fn(lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
               tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
-              words.ctypes.data, words.size,
+              words.ctypes.data, words.size, n,
               torch.cuda.current_stream(lde.device).cuda_stream) != 0:
             raise RuntimeError("compose_before failed")
         return out[0] if lde.dim() == 2 else out

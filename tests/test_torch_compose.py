@@ -129,19 +129,21 @@ def test_generated_source_same_bytes_per_air_and_distinct():
     assert len(set(sources.values())) == len(sources)
 
 
-def host_compose(prog, tables, lde: np.ndarray, alphas, betas, blowup: int) -> np.ndarray:
+def host_compose(prog, tables, lde: np.ndarray, alphas, betas, blowup: int,
+                 points: int | None = None) -> np.ndarray:
     """The generated per-point function built with the host C++ compiler
     (csrc/compose.cuh's host entry), run at every point of B = lde.shape[0]
-    proofs."""
+    proofs; ``points``: each row a share of that many points and its halo."""
     lib = CO.host_library(prog.source)
     arrs = [np.ascontiguousarray(t.numpy()) for t in
             (tables.exz, tables.xt, tables.xb, tables.dinv)]
     words = np.ascontiguousarray(prog.weights(alphas, betas))
     lde = np.ascontiguousarray(lde.astype(np.uint32))
-    b, c, n = lde.shape
+    b, c, span = lde.shape
+    n = span if points is None else points
     out = np.zeros((b, n), dtype=np.uint32)
     rc = lib.stark_compose_host(lde.ctypes.data, *(x.ctypes.data for x in arrs),
-                                out.ctypes.data, n, c, blowup, b, words.ctypes.data)
+                                out.ctypes.data, n, c, blowup, b, words.ctypes.data, span)
     assert rc == 0
     return out
 
@@ -152,6 +154,35 @@ def test_host_built_body_matches_eager(model):
     want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
     got = host_compose(prover.program, prover.tables, lde, alphas, betas, prover.cfg.blowup)
     np.testing.assert_array_equal(got, want.astype(np.uint32))
+
+
+def share_with_halo(prover, lde: np.ndarray, d: int, size: int):
+    """Rank d's share of a (B, c, N) LDE over ``size`` ranks with its halo
+    (the next share's first max offset x blowup points, rank 0's behind the
+    last share), its tables, and its points (parallel/pstark.py)."""
+    n, m = prover.dom.N, prover.dom.N // size
+    reach = prover.air.max_offset * prover.cfg.blowup
+    cols = (d * m + np.arange(m + reach)) % n
+    return (np.ascontiguousarray(lde[..., cols]), prover._tables(d * m, m),
+            slice(d * m, (d + 1) * m))
+
+
+@pytest.mark.parametrize("model", MODEL_NAMES)
+@pytest.mark.parametrize("size", [2, 4])
+def test_share_with_halo_matches_eager(model, size):
+    # Every rank's share, the last one's halo wrapping to rank 0: the plain
+    # version and the host-built body on a (B, c, share + halo) buffer.
+    prover, lde, alphas, betas = operands(model, 3, 60 + size)
+    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
+    for d in range(size):
+        share, tables, cut = share_with_halo(prover, lde, d, size)
+        m = cut.stop - cut.start
+        plain = CO.compose_plain(prover.program, torch.from_numpy(share.astype(np.int32)),
+                                 tables, alphas, betas, prover.cfg.blowup, points=m)
+        np.testing.assert_array_equal(plain.numpy(), want[:, cut])
+        got = host_compose(prover.program, tables, share, alphas, betas, prover.cfg.blowup,
+                           points=m)
+        np.testing.assert_array_equal(got, want[:, cut].astype(np.uint32))
 
 
 def blowups(model: str):
@@ -403,6 +434,19 @@ def test_kernel_at_the_paths_shapes_on_card(cuda_device, model, trace_length, b)
     alphas, betas = (rand_field(rng, (b, card.program.terms)) for _ in range(2))
     want = CO.compose_plain(card.program, lde, card.tables, alphas, betas, 4)
     assert torch.equal(card._compose(lde, alphas, betas), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", MODEL_NAMES)
+def test_kernel_on_a_share_with_halo_on_card(cuda_device, model):
+    prover, lde, alphas, betas = operands(model, 3, 70)
+    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas)
+    card = StarkProver(prover.air, prover.cfg, cuda_device)
+    share, _, cut = share_with_halo(prover, lde, 3, 4)
+    tables = card._tables(cut.start, cut.stop - cut.start)
+    got = CO.compose(card.program, torch.from_numpy(share.astype(np.int32)).to(cuda_device),
+                     tables, alphas, betas, prover.cfg.blowup, points=cut.stop - cut.start)
+    assert torch.equal(got.cpu(), want[:, cut])
 
 
 @pytest.mark.gpu

@@ -1,0 +1,481 @@
+"""The port's sharded prover (stark_tpu_torch.parallel) against stark_tpu.
+
+One module fixture spawns gloo worlds of D = 1, 2 and 4 ranks on the CPU
+(torch.multiprocessing, every world at once; D = 1 has no process group);
+each rank computes everything below and sends it back, and the tests hold
+every rank's results against stark_tpu's single-device functions:
+
+* sharded_ntt / intt / coset_eval / coset_interp / lde shares equal
+  stark_tpu.ops.ntt's values at every overlap in {1, 2, 4}; an overlap of
+  3 raises; a transform makes exactly three all-to-alls of n/D words a
+  rank (stark_tpu's tests/test_parallel.py:207);
+* sharded value and row trees equal stark_tpu.merkle's (root, levels,
+  paths) above and below the floor (pmerkle.MIN_LOCAL);
+* the sharded fold (the exchange of halves, then K4's and K4-dyn's plain
+  versions) equals stark_tpu.fri._fold_kernel;
+* DistributedStarkProver's proofs equal stark_tpu.StarkProver's, made in
+  a module fixture here, on every rank (FibonacciAir T=512 and 1024,
+  MdsSquareAir T=128, the two-register Fibonacci T=64: the configurations
+  that stark_tpu's own tests prove, so that their compiles are shared),
+  device chain and host path; the port's verifier accepts them and
+  rejects a flipped byte; the sha256 pins below are a second check of
+  stark_tpu's proofs; a share narrower than the frame's reach is refused;
+* BatchStarkProver(mesh=) equals stark_tpu's single proves at B = 4 (D |
+  B, the batch cut) and B = 3 (the domain cut where D does not divide B).
+
+Tolerance zero: field values and proofs are bytes.  On a card (marker
+``gpu``): a mesh of one rank through the kernels equals the CPU."""
+
+import hashlib
+import queue as queue_mod
+import socket
+import traceback
+from concurrent.futures import ProcessPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from stark_tpu_torch import BatchStarkProver, StarkConfig, StarkVerifier
+from stark_tpu_torch.models import FibonacciAir, get_model
+from stark_tpu_torch.models.air import BoundaryConstraint
+from stark_tpu_torch.ops import hash_batch as HB
+from stark_tpu_torch.ops.fieldops import P, primitive_nth_root
+from stark_tpu_torch.parallel import (
+    DistributedStarkProver,
+    DistributedStarkVerifier,
+    ShardedFri,
+    ShardedGather,
+    Shard,
+    initialize_distributed,
+    make_mesh,
+    sharded_coset_eval,
+    sharded_coset_interp,
+    sharded_intt,
+    sharded_lde,
+    sharded_ntt,
+    sharded_tree_from_rows,
+    sharded_tree_from_values,
+)
+from stark_tpu_torch.parallel import pmerkle
+from stark_tpu_torch.ops import fold as FOLD
+from torch_port_support import cuda_device, rand_field, to_torch  # noqa: F401
+
+SIZES = (1, 2, 4)
+NTT_N, OFFSET, BLOWUP = 256, 3, 4
+OVERLAPS = (1, 2, 4)
+KINDS = ("ntt", "intt", "coset_eval", "coset_interp", "lde")
+TREE_N = 64
+PATH_IDX = [0, 1, 5, 31, 32, 63]
+FOLD_N, FOLD_ALPHA = 128, (1 << 64) - 5
+#: stark_tpu.StarkProver's proofs at blowup 4: (model, T, tests) -> sha256.
+PINNED = {
+    ("fib", 512, 8): "7f3a6410010bf58c65e8557e5d5442b15453cb31bd48fa2a4e6bf91bdaf2300f",
+    ("fib", 1024, 4): "6e753f2093811e582a2d6f99ad4faf4ba85e66a7b6d43ef9edc69a40f37f68aa",
+    ("mds", 128, 8): "a77dea7f5bfc25fb6d626df54c277f35c2b0b72c486194310e25fec3c9e695f3",
+    ("fib2", 64, 8): "3e258a5e40fafe763c74c423ac28ad3bdda624da0f232b5be205f53ae3a57582",
+}
+#: A trace too short for four ranks: a share of 4 T / 4 = 4 points, the
+#: Fibonacci frame's reach 2 x 4 = 8.
+NARROW_T = 4
+BATCH_T, BATCHES = 64, (4, 3)
+TIMEOUT_S = 600
+
+
+class VariantFibAir(FibonacciAir):
+    """Fibonacci with only row 1 pinned (tests/test_torch_batch.py)."""
+
+    def boundary_constraints(self, trace_length: int):
+        return [BoundaryConstraint(row=1, register=0, value=1)]
+
+
+def _traces(count: int, length: int = BATCH_T) -> list:
+    out = []
+    for b in range(count):
+        a, c, rows = 1 + b, 1, []
+        for _ in range(length):
+            rows.append([a])
+            a, c = c, (a + c) % P
+        out.append(rows)
+    return out
+
+
+def _cfg(T: int, tests: int = 8) -> StarkConfig:
+    return StarkConfig(trace_length=T, blowup=BLOWUP, num_colinearity_tests=tests)
+
+
+def _ntt_input() -> np.ndarray:
+    return rand_field(np.random.default_rng(5), (3, NTT_N))
+
+
+def _tree_input(n: int, rows: bool) -> np.ndarray:
+    return rand_field(np.random.default_rng(n + rows), (3, n) if rows else n)
+
+
+def _fold_input() -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(9)
+    return rand_field(rng, (2, FOLD_N)), rng.integers(0, 256, size=(2, 32), dtype=np.uint8)
+
+
+def _fri(mesh=None):
+    kw = dict(omega=primitive_nth_root(FOLD_N), offset=OFFSET, domain_length=FOLD_N,
+              expansion_factor=4, num_colinearity_tests=4)
+    if mesh is None:
+        return kw
+    return ShardedFri(**kw, mesh=mesh)
+
+
+def _rank_results(mesh) -> dict:
+    """Everything the tests compare, from this rank (numpy and bytes)."""
+    size = mesh.size
+    out = {"ntt": {}, "trees": {}}
+    x = to_torch(_ntt_input())
+    lo, hi = mesh.bounds(NTT_N)
+    share = x[:, lo:hi]
+    for overlap in OVERLAPS:
+        out["ntt"][("ntt", overlap)] = sharded_ntt(share, mesh, overlap).numpy()
+        out["ntt"][("intt", overlap)] = sharded_intt(share, mesh, overlap).numpy()
+        out["ntt"][("coset_eval", overlap)] = sharded_coset_eval(
+            share, OFFSET, mesh, overlap).numpy()
+        out["ntt"][("coset_interp", overlap)] = sharded_coset_interp(
+            share, OFFSET, mesh, overlap).numpy()
+        out["ntt"][("lde", overlap)] = sharded_lde(share, BLOWUP, OFFSET, mesh,
+                                                   overlap).numpy()
+    counts = {}
+    for overlap in (1, 2):
+        mesh.reset_counts()
+        sharded_ntt(x[0, lo:hi], mesh, overlap)
+        counts[overlap] = list(mesh.log)
+    out["counts"] = counts
+    # Trees above the floor (TREE_N) and below it (2 leaves a rank).
+    for n in (TREE_N, 2 * size):
+        for rows in (False, True):
+            v = to_torch(_tree_input(n, rows))
+            tlo, thi = mesh.bounds(n)
+            tree = (sharded_tree_from_rows(v[:, tlo:thi], mesh) if rows
+                    else sharded_tree_from_values(v[tlo:thi], mesh))
+            whole = tree.tree(0)
+            plan = ShardedGather(mesh)
+            idx = [i % n for i in PATH_IDX]
+            slot = plan.paths(tree.stack, idx, tree.depth)
+            out["trees"][(n, rows)] = {
+                "sharded": isinstance(tree, pmerkle.ShardedForest),
+                "root": bytes(tree.roots_dev()[0].numpy().tobytes()),
+                "levels": whole.levels, "paths": slot.take(plan.fetch())}
+    # The fold of a cut codeword: host path (K4's plain version) and chain
+    # (K4-dyn's: the root absorbed, the challenge drawn, the fold).
+    cw, roots = _fold_input()
+    sf = _fri(mesh)
+    flo, fhi = mesh.bounds(FOLD_N)
+    shard = Shard(mesh, to_torch(cw)[:, flo:fhi], FOLD_N)
+    halves, ladder = sf._halves(shard, 0)
+    host = torch.stack([FOLD.fold(h, ladder, FOLD_ALPHA) for h in halves])
+    sponge = HB.Sponge(2, "cpu")
+    sponge.absorb(torch.from_numpy(roots.copy()))
+    alpha = torch.empty(2, dtype=torch.int32)
+    chain = FOLD.fold_dyn(halves, ladder, sponge, torch.from_numpy(roots.copy()),
+                          copy=torch.empty((2, 32), dtype=torch.uint8), alpha=alpha)
+    half = FOLD_N // 2
+    out["fold"] = {
+        "host": Shard(mesh, host, half).whole().numpy(),
+        "chain": Shard(mesh, chain, half).whole().numpy(), "alpha": alpha.numpy()}
+    # Proofs: the device chain with the NTT in chunks (overlap 2) and FRI
+    # rounds cut down to the trees' floor, the host path so cut, and the
+    # defaults (overlap 1; at these sizes every FRI round whole).
+    proofs = {}
+    for model, T, tests in PINNED:
+        air, trace_fn, _ = get_model(model)
+        prover = DistributedStarkProver(air, _cfg(T, tests), mesh, overlap=2)
+        prover.fri.min_share = pmerkle.MIN_LOCAL
+        proofs[(model, T, tests, "chain")] = prover.prove(trace_fn(T))
+    air, trace_fn, _ = get_model("fib")
+    host_path = DistributedStarkProver(air, _cfg(512), mesh)
+    host_path.fri.min_share = pmerkle.MIN_LOCAL
+    host_path.fri.device_chain = False
+    proofs[("fib", 512, 8, "host")] = host_path.prove(trace_fn(512))
+    proofs[("fib", 512, 8, "default")] = DistributedStarkProver(air, _cfg(512), mesh).prove(
+        trace_fn(512))
+    out["proofs"] = proofs
+    try:
+        DistributedStarkProver(air, _cfg(NARROW_T), mesh)
+        out["narrow"] = ""
+    except ValueError as e:
+        out["narrow"] = str(e)
+    out["batch"] = {b: BatchStarkProver(VariantFibAir(), _cfg(BATCH_T, 4), b, mesh=mesh)
+                    .prove_batch(_traces(b)) for b in BATCHES}
+    return out
+
+
+def _worker(rank: int, size: int, port: int, results) -> None:
+    """One rank of a world of ``size`` on the CPU (gloo; none for one)."""
+    try:
+        torch.set_num_threads(1)
+        if size > 1:
+            initialize_distributed(f"127.0.0.1:{port}", size, rank, backend="gloo")
+        mesh = make_mesh(device="cpu")
+        results.put((size, rank, _rank_results(mesh)))
+        mesh.barrier()
+        if size > 1:
+            torch.distributed.destroy_process_group()
+    except Exception:  # the parent reports it and stops the world
+        results.put((size, rank, traceback.format_exc()))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _stark_tpu_proofs(case) -> list[bytes]:
+    """stark_tpu's proofs of one case, in a process of its own: StarkProver
+    with its own models at a PINNED configuration, or ("batch",) with the
+    variant AIR, one proof of each batch trace."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from stark_tpu import StarkConfig as JConfig
+    from stark_tpu import StarkProver as JProver
+    from stark_tpu.models import get_model as j_get_model
+    from stark_tpu.models.air import BoundaryConstraint as JBoundary
+    from stark_tpu.models.fibonacci import FibonacciAir as JFib
+    from stark_tpu.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache(allow_cpu=True)
+
+    class JVariant(JFib):
+        def boundary_constraints(self, trace_length: int):
+            return [JBoundary(row=1, register=0, value=1)]
+
+    if case == ("batch",):
+        single = JProver(JVariant(), JConfig(trace_length=BATCH_T, blowup=BLOWUP,
+                                             num_colinearity_tests=4))
+        # _traces(b) is the first b of _traces(max(BATCHES)).
+        return [single.prove(t) for t in _traces(max(BATCHES))]
+    model, T, tests = case
+    air, trace_fn, _ = j_get_model(model)
+    cfg = JConfig(trace_length=T, blowup=BLOWUP, num_colinearity_tests=tests)
+    return [JProver(air, cfg).prove(trace_fn(T))]
+
+
+@pytest.fixture(scope="module")
+def reference_jobs():
+    """stark_tpu's proofs (:func:`_stark_tpu_proofs`), each case in a process
+    of its own, all started at once: XLA's compiles take the most of their
+    time, and they run beside the gloo worlds."""
+    cases = [*PINNED, ("batch",)]
+    with ProcessPoolExecutor(len(cases), mp_context=mp.get_context("spawn")) as pool:
+        yield {case: pool.submit(_stark_tpu_proofs, case) for case in cases}
+
+
+@pytest.fixture(scope="module")
+def reference(reference_jobs):
+    """({PINNED case: stark_tpu's proof}, stark_tpu's proofs of the batch
+    traces)."""
+    got = {case: job.result(timeout=TIMEOUT_S) for case, job in reference_jobs.items()}
+    return {case: got[case][0] for case in PINNED}, got[("batch",)]
+
+
+@pytest.fixture(scope="module")
+def worlds(reference_jobs):
+    """{D: [rank 0's results, ...]} for every D in SIZES, all worlds at
+    once (stark_tpu's proofs start first and run meanwhile)."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_worker, args=(rank, size, port, results), daemon=True)
+             for size, port in ((s, _free_port()) for s in SIZES) for rank in range(size)]
+    for p in procs:
+        p.start()
+    got: dict = {size: [None] * size for size in SIZES}
+    try:
+        for _ in procs:
+            size, rank, res = results.get(timeout=TIMEOUT_S)
+            if isinstance(res, str):
+                raise AssertionError(f"rank {rank} of {size} failed:\n{res}")
+            got[size][rank] = res
+    except queue_mod.Empty:
+        raise AssertionError(f"the gloo worlds gave no result in {TIMEOUT_S} s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    return got
+
+
+@pytest.fixture(scope="module")
+def ntt_reference():
+    """stark_tpu.ops.ntt's values of the transforms' input."""
+    import jax.numpy as jnp
+
+    from stark_tpu.ops import ntt as JNTT
+
+    x = jnp.asarray(_ntt_input())
+    return {"ntt": np.asarray(JNTT.ntt(x)), "intt": np.asarray(JNTT.intt(x)),
+            "coset_eval": np.asarray(JNTT.coset_eval(x, OFFSET)),
+            "coset_interp": np.asarray(JNTT.coset_interp(x, OFFSET)),
+            "lde": np.asarray(JNTT.lde(x, BLOWUP, OFFSET))}
+
+
+def _whole(shares: list) -> np.ndarray:
+    return np.concatenate(shares, axis=-1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("overlap", OVERLAPS)
+def test_sharded_transforms_match_stark_tpu(worlds, ntt_reference, size, kind, overlap):
+    shares = [r["ntt"][(kind, overlap)] for r in worlds[size]]
+    np.testing.assert_array_equal(_whole(shares), ntt_reference[kind])
+
+
+def test_overlap_not_a_power_of_two_raises():
+    mesh = make_mesh(device="cpu")
+    x = to_torch(_ntt_input())
+    with pytest.raises(ValueError, match="power of two"):
+        sharded_ntt(x, mesh, overlap=3)
+    with pytest.raises(ValueError, match="D\\^2"):
+        sharded_ntt(x[:, :8], mesh)
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_transform_makes_three_all_to_alls_of_n_over_d_words(worlds, size):
+    for r in worlds[size]:
+        assert r["counts"][1] == [("all_to_all", NTT_N // size)] * 3
+        # overlap 2: each exchange in two chunks of half the words
+        assert r["counts"][2] == [("all_to_all", NTT_N // size // 2)] * 6
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("where", ["above", "below"])
+@pytest.mark.parametrize("rows", [False, True], ids=["values", "rows"])
+def test_sharded_tree_matches_stark_tpu(worlds, size, where, rows):
+    from stark_tpu.hashfn import Hash as JHash
+    from stark_tpu.merkle import MerkleTree as JTree
+    from stark_tpu.ops import hash_batch as JHB
+
+    n = TREE_N if where == "above" else 2 * size
+    v = _tree_input(n, rows)
+    if rows:
+        jt = JTree.from_leaf_digests(JHB.digests_to_bytes(JHB.row_hash_core(np, v)))
+    else:
+        jt = JTree([JHash.from_field_elements([int(x)]) for x in v])
+    for r in worlds[size]:
+        got = r["trees"][(n, rows)]
+        assert got["sharded"] == (where == "above")
+        assert got["root"] == jt.root.data
+        assert len(got["levels"]) == len(jt.levels)
+        for a, b in zip(got["levels"], jt.levels):
+            np.testing.assert_array_equal(a, b)
+        for i, path in zip([i % n for i in PATH_IDX], got["paths"]):
+            assert [bytes(h.tobytes()) for h in path] == [h.data for h in jt.open(i)]
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("path", ["host", "chain"])
+def test_sharded_fold_matches_stark_tpu(worlds, size, path):
+    import jax.numpy as jnp
+
+    from stark_tpu.fri import _INV2, _INV2_SHOUP, Fri as JFri, _fold_kernel
+    from stark_tpu.ops.fieldops import shoup_precompute
+
+    cw, _ = _fold_input()
+    ladder = JFri(**_fri())._plan.inv_x_mont(0)
+    half = FOLD_N // 2
+    for r in worlds[size]:
+        got = r["fold"][path]
+        alphas = [FOLD_ALPHA] * 2 if path == "host" else [int(a) for a in r["fold"]["alpha"]]
+        for row, alpha in enumerate(alphas):
+            a = alpha % P
+            want = _fold_kernel(jnp.asarray(cw[row, :half]), jnp.asarray(cw[row, half:]),
+                                ladder, jnp.uint32(a), jnp.uint32(int(shoup_precompute(a))),
+                                jnp.uint32(_INV2), jnp.uint32(_INV2_SHOUP))
+            np.testing.assert_array_equal(got[row].astype(np.uint32), np.asarray(want))
+    # Every rank drew the same challenges from its replicated sponge.
+    assert len({r["fold"]["alpha"].tobytes() for r in worlds[size]}) == 1
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("case", [(*c, "chain") for c in PINNED]
+                         + [("fib", 512, 8, "host"), ("fib", 512, 8, "default")],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_distributed_proofs_match_stark_tpu(worlds, reference, size, case):
+    model, T, tests, _ = case
+    air = get_model(model)[0]
+    for rank, r in enumerate(worlds[size]):
+        assert r["proofs"][case] == reference[0][(model, T, tests)], f"rank {rank}"
+    proof = worlds[size][0]["proofs"][case]
+    verifier = DistributedStarkVerifier(air, _cfg(T, tests))
+    assert verifier.verify(proof)
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    assert not verifier.verify(bytes(bad))
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("batch", BATCHES)
+def test_batch_mesh_matches_single_proves(worlds, reference, size, batch):
+    want = reference[1][:batch]
+    for r in worlds[size]:
+        assert r["batch"][batch] == want
+    assert StarkVerifier(VariantFibAir(), _cfg(BATCH_T, 4)).verify_batch(want) == [True] * batch
+
+
+def test_pinned_proofs_are_the_single_prove(reference):
+    """The pins are stark_tpu's single-device proofs of this run: the
+    sharded proofs above meet both."""
+    for case, want in PINNED.items():
+        assert hashlib.sha256(reference[0][case]).hexdigest() == want, case
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_share_narrower_than_the_frame_reach_is_refused(worlds, size):
+    for r in worlds[size]:
+        if 4 * NARROW_T // size < 2 * 4:
+            assert "narrower than the frame's reach of 8 points" in r["narrow"]
+        else:
+            assert r["narrow"] == ""
+
+
+def test_initialize_distributed_partial_env_raises(monkeypatch):
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    for var in ("MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="partial distributed.*MASTER_PORT, WORLD_SIZE, RANK"):
+        initialize_distributed()
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="missing: MASTER_PORT, RANK"):
+        initialize_distributed()
+
+
+def test_initialize_distributed_absent_env_is_single_process(monkeypatch):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert initialize_distributed() is None
+    assert not torch.distributed.is_initialized()
+    mesh = make_mesh(device="cpu")
+    assert (mesh.rank, mesh.size, mesh.group) == (0, 1, None)
+
+
+def test_mesh_devices_are_explicit():
+    with pytest.raises(ValueError, match="devices"):
+        make_mesh(n_devices=2, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+
+
+@pytest.mark.gpu
+def test_mesh_of_one_on_card_matches_cpu(cuda_device):
+    mesh = make_mesh(device=cuda_device)
+    x = to_torch(_ntt_input())
+    for overlap in OVERLAPS:
+        got = sharded_lde(x.to(cuda_device), BLOWUP, OFFSET, mesh, overlap).cpu()
+        assert torch.equal(got, sharded_lde(x, BLOWUP, OFFSET, make_mesh(device="cpu"),
+                                            overlap))
+    air, trace_fn, _ = get_model("mds")
+    prover = DistributedStarkProver(air, _cfg(128), mesh)
+    prover.fri.min_share = pmerkle.MIN_LOCAL
+    proof = prover.prove(trace_fn(128))
+    assert hashlib.sha256(proof).hexdigest() == PINNED[("mds", 128, 8)]
