@@ -10,9 +10,9 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     stark_tpu_torch/_build/) and, side by side, the composition kernel K11
     of every AIR driven below, generated from the AIR (ops/compose.py):
     each generated source's sha256 and its nvcc time; nvcc's version (K13
-    and K11 carry their plans and weights in up to 32 KB of launch
-    parameters, which CUDA 12.1 and later allow); the registers ptxas
-    gives K12, K13, K9, K4-dyn and each AIR's K11; the instruction mix of the hash
+    carries its plan in up to 32 KB of launch parameters, which CUDA 12.1
+    and later allow); the registers ptxas gives K12, K13, K9, K15, K10,
+    K4-dyn and each AIR's K11; the instruction mix of the hash
     kernels as compiled, where cuobjdump is installed;
  3. every kernel against its plain PyTorch version on the card, bit-equal,
     at every shape the driven paths give it:
@@ -77,6 +77,16 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       design before the redesign (built here from tools/tune_kernels.py)
       against the plain version, then the two timed in turn, and the
       latency bound (an empty launch and the 10 mixes of one thread);
+    - the single-fetch prove's kernels: the constraint challenges (K15) at
+      (B, challenges) in {(1, 6), (1, 32), (8, 6), (32, 6), (8, 32)} (the
+      sponge after them, the challenge bytes, K11's weight words, the root
+      copy), the query indices (K10) at the main path's (1, 2^21, 128, 16
+      tests, 64 candidates), the wide path's, batch8's and pipe32x2's, at a
+      candidate pool too small (the count falls short) and at the largest
+      seen-mask, from sponges of pending tails 0, 8, 16 and 24, each call
+      twice; K11 fed K15's weights at the main, wide and batched shapes;
+      K15 and K10 timed beside their bound and their latency bound (an
+      empty launch and one lane's chain of mixes, as K9's);
     - the composition codeword (K11) against the eager compose, bit-equal,
       each call twice, at every AIR and shape the paths and pins use:
       Fibonacci T=2^20 and MDS T=2^16 at B = 1, the batched cells' (8, .,
@@ -98,24 +108,34 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     pinned below): FibonacciAir at T=64, 1024 and 2^16, strict and lazy
     NTT; the example AIRs (two-register Fibonacci, square, cube at blowup 8,
     MDS) at T=1024, MDS also at T=4096; each proof verified, and the query
-    gather (K13) held against its plain version on each prove's plan;
+    gather (K13's rule slots) held against its plain version on each
+    prove's plan, sources and device indices; then Fibonacci T=2^16 with
+    one sampling candidate a proof: the count falls short, the host's
+    indices go through the same gather (two K13 launches, two reads), the
+    pinned sha256 all the same;
  5. the main path, FibonacciAir at T=2^20, blowup 4, 16 tests (N = 2^22),
     proved from columns made on the card (fibonacci_trace_cols_device, as
-    bench.py proves it): witness -> StarkProver.prove(trace_cols=...) ->
-    StarkVerifier.verify with the launch counts set to 0 just before and
-    read just after (every kernel of the path > 0, the query gather, K14
-    and the composition kernel exactly once, the eager compose never, K9
-    twice and K4-dyn once a FRI round but the last), K13 against its
-    plain version on that prove's plan,
-    the pinned sha256, which a prove from host rows must give too; the
+    bench.py proves it) on the single-fetch path (the default): witness ->
+    StarkProver.prove(trace_cols=...) -> StarkVerifier.verify with the
+    launch counts set to 0 just before and read just after (every kernel
+    of the path > 0, the query gather, K14, K15, K10 and the composition
+    kernel exactly once, the eager compose never, K9 once and K4-dyn once
+    a FRI round but the last), K13 against its plain version on that
+    prove's rule plan, the reads from the card through ops.gather.to_host
+    (one; three on the same prover with Fri.fused_round False, whose
+    proof must be the same), the pinned sha256, which a prove from host
+    rows must give too; the
     witness + prove and verify wall-time distributions, with Python's full
     garbage collections (gc.callbacks) that fell inside a prove; the
     synchronised per-phase times (median of 5 proves; a compose phase
-    among them); the device-to-host
-    copies of one prove's fri_query phase from the profiler's memcpy
-    events (exactly one in fri_commit, the device chain's fetch, and one
-    in fri_query); the host time of fri_query's parts (plan build,
-    table encoding, launch, fetch wait, emission); K13 timed on that
+    among them); the device-to-host copies of one prove from the
+    profiler's memcpy events (exactly one, issued in fri_query); the
+    single-fetch path and the three reads in turn (single-fetch, three,
+    three, single-fetch; 10 synchronised proves a turn), their median
+    walls and one profiled prove of each: busy share and idle gaps (a
+    record, not a claim); K13's rule form timed on the prove's plan; on
+    the three-read path the host time of fri_query's parts (plan build,
+    table encoding, launch, fetch wait, emission) and K13 timed on its
     plan; one profiled prove
     (device time under every launched kernel's name > 0, device
     activities, busy share, the lde phase's device time split into K14
@@ -133,9 +153,13 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     traces at B=32, depth 2) and mds_pipe8x2 (MdsSquareAir, prove_many of
     16 device-witness traces at B=8): every proof's sha256 equal to the
     single prove's, verify_batch accepting them and rejecting a flipped
-    byte, proofs/s over 20 calls, the device-to-host copies of a call (3 a
-    batch), the launches of a call (K11 and K14 once and K9 twice a batch,
-    K4-dyn once a FRI round but the last), a profiled call;
+    byte, the reads from the card a call (one a batch; three a batch on
+    the three-read path, whose proofs must be the same), prove_many at
+    depth 1 and 2 (the same bytes), proofs/s over 20 calls, the
+    device-to-host copies of a call (one a batch), the launches of a call
+    (K11, K14, K15, K10 and K9 once a batch, K4-dyn once a FRI round but
+    the last), a profiled call, the two paths in turn (5 calls a turn)
+    with a profiled call of each;
  8. the sharded prover (stark_tpu_torch.parallel, driven by
     stark_tpu_torch/tools/dist_prove.py), five worlds of ranks at once,
     each rank a spawned process on the one card (the parent builds every
@@ -236,6 +260,20 @@ BATCH_CELLS = (("batch8", "fib", 8, 0, 2), ("pipe32x2", "fib", 32, 64, 2),
 BATCHES = (8, 32)
 BATCH_HALVES = tuple(1 << lg for lg in range(15, 6, -1))
 SPONGE_LANES = (1, 8, 32)
+# The single-fetch prove's kernels at the paths' shapes.  K15: (B,
+# challenges), 2 a constraint term: the main path's Fibonacci (3 terms) and
+# the wide path's MdsSquareAir (16) at B = 1, the batched cells' B = 8 and
+# 32.  K10: (B, size, reduced, tests, candidates): the main path (N = 2^22:
+# indices mod 2^21, a last codeword of 128), the wide path (N = 2^18), the
+# batched cells (N = 2^16), 2 tests + 32 candidates each (fri._SAMPLE_SLACK);
+# then candidates too few for 16 distinct indices mod 16 (the count falls
+# short), and the largest seen-mask, 2^14 bits.
+CHALLENGE_SHAPES = ((1, 6), (1, 32), (8, 6), (32, 6), (8, 32))
+SAMPLE_SHAPES = ((1, 1 << 21, 128, 16, 64), (1, 1 << 17, 128, 16, 64),
+                 (8, 1 << 15, 128, 16, 64), (32, 1 << 15, 128, 16, 64),
+                 (8, 1 << 15, 16, 16, 20), (4, 1 << 12, 1 << 14, 300, 632))
+# Synchronised calls a turn of the single-fetch path against three reads.
+TURN_RUNS = {"fib": 10, "mds": 10, "batch": 5}
 # K8-forest timed at the batch paths' widest launch (n = 2^16 / B).
 FOREST_TIMED = (32, 8)
 # Integer-pipe instructions of one combine hash in K8's walk, as csrc/
@@ -900,11 +938,17 @@ def _drive_distributed(smi: str, launches: dict) -> None:
               f"prove by rank {json.dumps([[round(x, 4) for x in o['wall_s']] for o in ranks])}",
               flush=True)
         if w.batch:
+            # The cut batch: each rank's share on the single-fetch path.
+            single = ("constraint_challenges", "sample_indices")
+            if any(o["batch"]["counts"][k] != 1 for o in ranks for k in single):
+                raise AssertionError(f"{w.name}: a rank's batch share did not take the "
+                                     "single-fetch path")
             print(f"distributed {w.name}: BatchStarkProver(mesh=) of {w.batch} (B/D = "
-                  f"{w.batch // w.ranks} a rank, the batch cut): every proof == the single "
-                  "prove on every rank; launches by rank "
+                  f"{w.batch // w.ranks} a rank, the batch cut, each share on the "
+                  "single-fetch path): every proof == the single prove on every rank; "
+                  "launches by rank "
                   + json.dumps({k: [o["batch"]["counts"][k] for o in ranks]
-                                for k in ("merkle_forest", "compose", "query_gather")})
+                                for k in ("merkle_forest", "compose", "query_gather") + single})
                   + "; wall s by rank "
                   + json.dumps([round(o["batch"]["wall_s"], 4) for o in ranks]), flush=True)
         launches[f"dist {w.name}"] = ranks[0]["counts"]
@@ -1524,6 +1568,145 @@ def _check_sponge(rng, dev, results: _Results) -> None:
           f"{json.dumps({b: round(x, 3) for b, x in latency.items()})}", flush=True)
 
 
+def _challenge_mixes(challenges: int) -> int:
+    """Mix rounds of one K15 lane, one after another: the root's chunk;
+    per challenge its finalisation (the pending tail's absorb and mix where
+    there is a tail, the 8 closing mixes); a mix a 32-byte chunk of
+    challenge bytes absorbed."""
+    return 1 + sum(8 + (1 if 8 * k % 32 else 0) for k in range(challenges)) \
+        + 8 * challenges // 32
+
+
+def _challenge_ops(challenges: int) -> int:
+    """Integer operations of one K15 lane: its mixes and absorbed bytes (the
+    root, the challenge bytes, each finalisation's tail again)."""
+    tails = sum(8 * k % 32 for k in range(challenges))
+    return OPS_MIX * _challenge_mixes(challenges) + OPS_ABSORB_BYTE * (
+        32 + 8 * challenges + tails)
+
+
+def _candidates_needed(HB, sp, size, reduced, number, m) -> list[int]:
+    """Per lane, the candidates K10 must hash for this run's data: up to the
+    number-th accepted one (all m where the count falls short); found by
+    bisection on the plain version's count."""
+    need = []
+    for b in range(sp.lanes):
+        state, pending = sp.state[b : b + 1], sp.pending[b : b + 1]
+        lo, hi = 0, m
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if int(HB.sample_indices_plain(state, pending, sp.q, size, reduced, number,
+                                           mid)[1][0]) >= number:
+                hi = mid
+            else:
+                lo = mid + 1
+        need.append(lo)
+    return need
+
+
+def _check_chained(rng, dev, results: _Results) -> None:
+    """The single-fetch prove's kernels against their plain versions, at
+    the paths' shapes: K15 (CHALLENGE_SHAPES: the sponge after it, the
+    challenge bytes, K11's weight words, the root copy), K10 (SAMPLE_SHAPES,
+    from sponges of every pending length the paths give: indices and
+    counts), K11 fed K15's weights at the main, wide and batched shapes;
+    the first of each timed beside its bound and its latency bound (an
+    empty launch and one lane's chain of mixes, counted as K9's is)."""
+    from stark_tpu_torch import StarkConfig, StarkProver
+    from stark_tpu_torch.ops import compose as CO
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    clock, empty = _max_clock(), _empty_launch_ms(dev)
+    mix_ms = OPS_MIX * 2 / (clock * 1e3)
+    lines = []
+    for i, (b, ch) in enumerate(CHALLENGE_SHAPES):
+        roots = torch.from_numpy(rng.integers(0, 256, size=(b, 32), dtype=np.uint8)).to(dev)
+        sp = HB.Sponge(b, dev)
+        copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+        digests = torch.empty((b, ch, 8), dtype=torch.uint8, device=dev)
+        weights = torch.empty((b, 2 * ch), dtype=torch.int32, device=dev)
+        for turn in (1, 2):
+            HB.constraint_challenges(roots, ch, sp, copy, digests, weights)
+            state, pending, digs, words = HB.constraint_challenges_plain(roots, ch)
+            for what, got, want in (("state", sp.state, state), ("digests", digests, digs),
+                                    ("pending", sp.pending[:, : sp.q], pending[:, : sp.q]),
+                                    ("weights", weights, words), ("copy", copy, roots)):
+                _require_equal(f"constraint_challenges B={b} {ch} {what} call {turn}", got, want)
+        if i == 0:
+            entry = results.add(
+                HB.CHALLENGES, f"B={b}, {ch} challenges (Fibonacci's 3 terms)",
+                [(roots, sp, copy, digests, weights)],
+                lambda r, s_, c, d, w: (HB.constraint_challenges(r, ch, s_, c, d, w), w)[1],
+                lambda r, *rest: HB.constraint_challenges_plain(r, ch)[3], 50,
+                nbytes=b * (32 + 64 + 32 + 16 * ch), ops=b * _challenge_ops(ch))
+            entry["latency_bound_ms"] = empty + _challenge_mixes(ch) * mix_ms
+            lines.append(_line(entry) + f", latency bound {entry['latency_bound_ms']:.4f} "
+                         f"({_challenge_mixes(ch)} mixes of one lane after an empty launch "
+                         f"of {empty:.4f} ms, {clock} MHz)")
+    print(f"constraint_challenges: kernel == plain at (B, challenges) {list(CHALLENGE_SHAPES)}"
+          ", each call twice; " + "; ".join(lines), flush=True)
+
+    lines = []
+    for i, (b, size, reduced, number, m) in enumerate(SAMPLE_SHAPES):
+        for q in (0, 8, 16, 24):
+            sp = HB.Sponge(b, dev)
+            sp.absorb(torch.from_numpy(rng.integers(0, 256, size=(b, 64 + q),
+                                                    dtype=np.uint8)).to(dev))
+            out = torch.empty((b, number), dtype=torch.int32, device=dev)
+            count = torch.empty(b, dtype=torch.int32, device=dev)
+            for turn in (1, 2):
+                HB.sample_indices(sp, size, reduced, number, m, out, count)
+                want, want_count = HB.sample_indices_plain(sp.state, sp.pending, sp.q, size,
+                                                           reduced, number, m)
+                _require_equal(f"sample_indices {b, size, reduced, number, m} q={q} call "
+                               f"{turn}", out, want)
+                _require_equal(f"sample_indices counts q={q}", count, want_count)
+            if m < 2 * number and int(count.min()) >= number:
+                raise AssertionError(f"sample_indices {b, reduced, number, m}: no shortfall")
+        if i == 0:
+            need = _candidates_needed(HB, sp, size, reduced, number, m)
+            groups = max(-(-n // 32) for n in need)
+            chain = (1 if sp.q else 0) + 8 + 9 + 10 * groups
+            entry = results.add(
+                HB.SAMPLE, f"B={b}, size 2^{size.bit_length() - 1}, reduced {reduced}, "
+                f"{number} tests, {m} candidates", [(sp, out, count)],
+                lambda s_, o, c: (HB.sample_indices(s_, size, reduced, number, m, o, c), o)[1],
+                lambda s_, o, c: HB.sample_indices_plain(s_.state, s_.pending, s_.q, size,
+                                                         reduced, number, m)[0], 50,
+                nbytes=b * (64 + 4 * number + 4),
+                ops=b * OPS_MIX * ((1 if sp.q else 0) + 17) + OPS_MIX * 10 * sum(need)
+                + OPS_ABSORB_BYTE * (b * (sp.q + 8) + 36 * sum(need)))
+            entry["latency_bound_ms"] = empty + chain * mix_ms
+            entry["candidates_hashed"] = need
+            lines.append(_line(entry) + f", latency bound {entry['latency_bound_ms']:.4f} "
+                         f"({chain} mixes of one lane: the seed's and {groups} group(s) of 32 "
+                         f"candidates; candidates this run needs {need})")
+    print(f"sample_indices: kernel == plain at (B, size, reduced, tests, candidates) "
+          f"{list(SAMPLE_SHAPES)}, pending tails 0, 8, 16, 24, each call twice (the short "
+          "candidate pool's counts below 16); " + "; ".join(lines), flush=True)
+
+    # K11 fed K15's weights (the single-fetch prove's form): the main,
+    # wide and batched shapes.
+    for model, T, b in (("fib", MAIN_T, 1), ("mds", MDS_T, 1), ("fib", BATCH_T, 8),
+                        ("mds", BATCH_T, 8)):
+        air = _air(model)
+        prover = StarkProver(air, StarkConfig(trace_length=T, blowup=4))
+        n, terms = prover.dom.N, prover.program.terms
+        lde = _rand_field(rng, dev, (b, air.num_registers, n))
+        roots = torch.from_numpy(rng.integers(0, 256, size=(b, 32), dtype=np.uint8)).to(dev)
+        weights = torch.empty((b, 4 * terms), dtype=torch.int32, device=dev)
+        HB.constraint_challenges(
+            roots, 2 * terms, HB.Sponge(b, dev), torch.empty_like(roots),
+            torch.empty((b, 2 * terms, 8), dtype=torch.uint8, device=dev), weights)
+        alphas, betas = prover.program.challenges(weights)
+        _require_equal(f"compose {model} T={T} B={b}, K15's weights",
+                       prover._compose(lde if b > 1 else lde[0], weights=weights).reshape(b, n),
+                       CO.compose_plain(prover.program, lde, prover.tables, alphas, betas, 4))
+        del prover, lde
+    print("compose: kernel fed K15's weights == plain at Fibonacci T=2^20 and MDS T=2^16 "
+          "(B = 1) and the batched cells' (8, ., 2^16)", flush=True)
+
+
 def _air(model: str):
     """An AIR by name: the registry's, or "wide", the 65-register AIR of
     tests/test_torch_wide.py (register i counts up by i + 1 a row from i)."""
@@ -1715,28 +1898,45 @@ def _check_witness(rng, dev, results: _Results) -> None:
 @contextlib.contextmanager
 def _recording_gathers(plans: list):
     """Every GatherPlan that ops.gather.gather is handed meanwhile is
-    appended to ``plans`` (the plan keeps its sources alive)."""
+    appended to ``plans`` (the plan keeps its sources alive), and every
+    RulePlan run (the single-fetch prove's) as (plan, its sources, a copy
+    of its index buffer)."""
     from stark_tpu_torch.ops import gather as G
 
-    launch = G.gather
+    launch, run = G.gather, G.RulePlan.run
 
     def recording(plan):
         plans.append(plan)
         return launch(plan)
 
-    G.gather = recording
+    def recording_run(plan, sources, idx, out):
+        got = run(plan, sources, idx, out)
+        plans.append((plan, list(sources), idx.clone()))
+        return got
+
+    G.gather, G.RulePlan.run = recording, recording_run
     try:
         yield
     finally:
-        G.gather = launch
+        G.gather, G.RulePlan.run = launch, run
 
 
 def _check_plans(what: str, plans: list) -> str:
-    """K13 against its plain version on every recorded plan; a summary."""
+    """K13 against its plain version on every recorded plan (a rule plan
+    on its sources and indices); a summary."""
     from stark_tpu_torch.ops import gather as G
 
     shapes = []
     for plan in plans:
+        if isinstance(plan, tuple):
+            rules, sources, idx = plan
+            out = torch.empty(rules.words, dtype=torch.int32, device=idx.device)
+            _require_equal(f"query_gather (rule slots) of {what}",
+                           rules.run(sources, idx, out), G.rules_plain(rules, sources, idx))
+            shapes.append(f"rule slots: {len(sources)} sources, "
+                          f"{sum(r.k for _, r, _ in rules.requests)} requests, "
+                          f"{rules.words} words")
+            continue
         _require_equal(f"query_gather of {what}", G.gather(plan), G.gather_plain(plan))
         n_req = sum(idx.size for _, idx, _ in plan.requests)
         shapes.append(f"{len(plan.sources)} sources, {n_req} requests, {plan.words} words")
@@ -1807,6 +2007,128 @@ def _time_gather(name, plan, results: _Results | None, dev) -> dict:
           f"request alone {one_ms:.4f} ms; device time per call, L2 flushed before each",
           flush=True)
     return entry
+
+
+def _time_rule_gather(name, record, results: _Results | None, dev) -> dict:
+    """K13's rule form timed on a single-fetch prove's own plan, sources and
+    device indices, the L2 flushed before each call; its bound the words
+    gathered, read once and written once, and the encoded table."""
+    from stark_tpu_torch.ops import gather as G
+
+    plan, sources, idx = record
+    out = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    params = plan.encode(sources, idx.data_ptr(), out.data_ptr())
+    table_bytes = sum(4 * (8 + 4 * int(p[0]) + 4 * int(p[1]) + int(p[2]) + int(p[3]))
+                      for p in params)
+    flush = _L2Flush(dev)
+    entry = (results or _Results()).add(
+        G.QUERY_GATHER, f"{name} (rule slots)", [(sources, idx, out)],
+        lambda s_, i, o: plan.run(s_, i, o), lambda s_, i, o: G.rules_plain(plan, s_, i), 50,
+        nbytes=8 * plan.words + table_bytes + idx.numel() * 4, ops=0, flush=flush)
+    print(f"query_gather, {name}, rule slots: {sum(r.k for _, r, _ in plan.requests)} "
+          f"requests, {4 * plan.words} bytes gathered, table {table_bytes} bytes as encoded "
+          f"(no index), launched as {[p.nbytes for p in params]} parameter bytes; "
+          + _line(entry) + "; device time per call, L2 flushed before each", flush=True)
+    return entry
+
+
+def _reads(call) -> int:
+    """Reads from the card (ops.gather.to_host calls) in one ``call()``."""
+    from stark_tpu_torch.ops import gather as G
+
+    count, to_host = [0], G.to_host
+
+    def counted(t, **kw):
+        count[0] += 1
+        return to_host(t, **kw)
+
+    G.to_host = counted
+    try:
+        call()
+    finally:
+        G.to_host = to_host
+    return count[0]
+
+
+def _three_reads(prover, call):
+    """``call`` run on ``prover``'s three-read path (Fri.fused_round False on
+    its FRI, for the call only)."""
+    def run():
+        prover.fri.fused_round = False
+        try:
+            return call()
+        finally:
+            del prover.fri.fused_round
+    return run
+
+
+def _idle_gaps(name, call, median_ms: float) -> dict:
+    """One profiled call's device timeline (after a warm-up call): the
+    device's busy time (the union of its activities' spans), its share of
+    ``median_ms`` (the unprofiled calls' median wall), and the idle gaps
+    between activities from the first's start to the last's end: how many
+    exceed 10 us, their sum, the five largest with the activities on either
+    side."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    call()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        if dev:
+            break
+        _retaken[0] += 1
+    else:
+        raise AssertionError(f"{name}: no device activity in a profiled call")
+    busy, gaps, end, last = 0.0, [], None, None
+    for e in dev:
+        start, stop = e.time_range.start, e.time_range.end
+        if end is not None and start > end:
+            gaps.append((start - end, last, e.name))
+        if end is None or stop > end:
+            busy += stop - max(start, end if end is not None else start)
+            end, last = stop, e.name
+    gaps.sort(key=lambda g: -g[0])
+    span = end - dev[0].time_range.start
+    big = [g for g in gaps if g[0] > 10]
+    out = {"busy_ms": busy / 1e3, "busy_share": busy / 1e3 / median_ms,
+           "span_ms": span / 1e3, "gaps_over_10us": len(big),
+           "idle_over_10us_ms": sum(g[0] for g in big) / 1e3,
+           "idle_ms": sum(g[0] for g in gaps) / 1e3}
+    print(f"{name}: one profiled call, {len(dev)} device activities over {span / 1e3:.4f} "
+          f"ms; busy {busy / 1e3:.4f} ms, share {out['busy_share']:.4f} of the median wall "
+          f"{median_ms:.4f} ms; idle {out['idle_ms']:.4f} ms in {len(gaps)} gaps, "
+          f"{len(big)} over 10 us summing {out['idle_over_10us_ms']:.4f} ms; largest: "
+          + "; ".join(f"{g / 1e3:.4f} ms after {a[:40]} before {b[:40]}"
+                      for g, a, b in gaps[:5]), flush=True)
+    return out
+
+
+def _in_turn(name, single_call, three_call, runs: int) -> dict:
+    """The single-fetch path and the three reads (fused_round False) on the
+    same prover and inputs, in turn (single-fetch, three reads, three
+    reads, single-fetch), ``runs`` synchronised calls a turn: each turn's
+    median wall (ms); then one profiled call of each, its busy share and
+    idle gaps (_idle_gaps).  A record of this run, not a claim."""
+    calls = {"single-fetch": single_call, "three reads": three_call}
+    turns = []
+    for key in ("single-fetch", "three reads", "three reads", "single-fetch"):
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            calls[key]()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        turns.append((key, float(np.median(walls))))
+    medians = {key: float(np.median([ms for k, ms in turns if k == key])) for key in calls}
+    print(f"{name}, in turn ({runs} synchronised calls a turn): median wall ms "
+          + json.dumps([[k, round(ms, 4)] for k, ms in turns]), flush=True)
+    gaps = {key: _idle_gaps(f"{name}, {key}", fn, medians[key]) for key, fn in calls.items()}
+    return {"turns_ms": turns, "gaps": gaps}
 
 
 def _query_split(name, prover, witness, runs: int = 5) -> None:
@@ -1912,11 +2234,17 @@ def _prove_checked(name, prover, verifier, witness, want_sha, expect, cuda):
     return proof, counts, plans[0]
 
 
-def _check_chain(name, counts, rounds: int, batches: int = 1) -> None:
-    """The FRI commit chain's launches: K9 twice a batch (the transcript's
-    prefix, the last round's roots) and K4-dyn once a round but the last
-    (its root's absorb, the challenge and the fold in one launch)."""
-    want = {"sponge_absorb": 2 * batches, "fri_fold_dyn": (rounds - 1) * batches}
+def _check_chain(name, counts, rounds: int, batches: int = 1, single: bool = True) -> None:
+    """The FRI commit chain's launches: K4-dyn once a round but the last
+    (its root's absorb, the challenge and the fold in one launch) and K9
+    for the last round's roots; on the single-fetch path (``single``) K15
+    (the constraint challenges, whose sponge the chain goes on from) and
+    K10 (the query indices) once a batch, on the three-read path K9 for the
+    transcript's prefix too."""
+    want = {"sponge_absorb": (1 if single else 2) * batches,
+            "fri_fold_dyn": (rounds - 1) * batches,
+            "constraint_challenges": batches if single else 0,
+            "sample_indices": batches if single else 0}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{name}: chain launches {got}, not {want}")
@@ -2062,10 +2390,13 @@ def _d2h_copies(run, phased: bool = True):
     return by_phase, copies
 
 
-def _query_copies(name, prover, witness, commit_copies: int | None = 1) -> None:
+def _query_copies(name, prover, witness, commit_copies: int | None = 1,
+                  total: int | None = None) -> None:
     """Device-to-host copies in one prove, by phase: the query phase must
     make exactly one, and the FRI commit ``commit_copies`` (one on the
-    device chain; None: not held to a count)."""
+    device chain's three-read path, none on the single-fetch path, whose
+    one copy the query phase issues; None: not held to a count); with
+    ``total``, the prove that many in all."""
     by_phase, copies = _d2h_copies(
         lambda timer: prover.prove(trace_cols=witness(), timer=timer))
     print(f"{name}: device-to-host copies by phase {json.dumps(by_phase)} of "
@@ -2073,9 +2404,11 @@ def _query_copies(name, prover, witness, commit_copies: int | None = 1) -> None:
     if by_phase["fri_query"] != 1:
         raise AssertionError(f"{name}: {by_phase['fri_query']} device-to-host copies "
                              "in fri_query")
-    if commit_copies is not None and by_phase["fri_commit"] != commit_copies:
-        raise AssertionError(f"{name}: {by_phase['fri_commit']} device-to-host copies "
-                             f"in fri_commit, not {commit_copies}")
+    if commit_copies is not None and by_phase.get("fri_commit", 0) != commit_copies:
+        raise AssertionError(f"{name}: {by_phase.get('fri_commit', 0)} device-to-host "
+                             f"copies in fri_commit, not {commit_copies}")
+    if total is not None and len(copies) != total:
+        raise AssertionError(f"{name}: {len(copies)} device-to-host copies, not {total}")
 
 
 def _wall(name, prover, verifier, witness, proof, runs) -> float:
@@ -2156,10 +2489,13 @@ def _rejects(name, prover, verifier, witness, proof) -> None:
 
 
 def _drive(name, key, prover, verifier, witness, rows, want_sha, expect, runs, cuda,
-           launches: dict) -> tuple:
-    """A path: warm-up, the counted prove (launches[key]), one prove from
-    host rows that must give the same bytes, wall times, phases, the query
-    phase's copies.  Returns (proof, counts, plan, median wall s)."""
+           launches: dict, turn_runs: int) -> tuple:
+    """A path on the single-fetch prove: warm-up, the counted prove
+    (launches[key]), its reads from the card (one), one prove from host
+    rows that must give the same bytes, wall times, phases, the copies (one,
+    issued in the query phase); then the three-read path (fused_round False)
+    on the same prover: its reads (three) and bytes, and the two in turn
+    (_in_turn).  Returns (proof, counts, rule plan record, median wall s)."""
     if not verifier.verify(prover.prove(trace_cols=witness())):  # warm-up
         raise AssertionError(f"{name}: warm-up proof rejected")
     torch.cuda.reset_peak_memory_stats()
@@ -2170,12 +2506,21 @@ def _drive(name, key, prover, verifier, witness, rows, want_sha, expect, runs, c
     peak = torch.cuda.max_memory_allocated() / 2**30
     if hashlib.sha256(prover.prove(rows)).hexdigest() != want_sha:
         raise AssertionError(f"{name}: the proof from host rows differs")
+    single = lambda: prover.prove(trace_cols=witness())  # noqa: E731
+    three = _three_reads(prover, single)
+    reads = {"single-fetch": _reads(single), "three reads": _reads(three)}
+    if reads != {"single-fetch": 1, "three reads": 3}:
+        raise AssertionError(f"{name}: reads from the card {reads}, not 1 and 3")
+    if hashlib.sha256(three()).hexdigest() != want_sha:
+        raise AssertionError(f"{name}: the three-read path's proof differs")
     print(f"{name}: proved from device columns and verified, {len(proof)} bytes, sha256 "
-          f"== pinned, and == the proof from host rows; launches {counts}, peak device "
+          f"== pinned, and == the proof from host rows and the three-read path's; reads "
+          f"from the card a prove {json.dumps(reads)}; launches {counts}, peak device "
           f"memory {peak:.3f} GiB", flush=True)
     median = _wall(name, prover, verifier, witness, proof, runs)
     _phases(name, prover, witness)
-    _query_copies(name, prover, witness)
+    _query_copies(name, prover, witness, commit_copies=0, total=1)
+    _in_turn(name, single, three, turn_runs)
     return proof, counts, plan, median
 
 
@@ -2228,13 +2573,27 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
         raise AssertionError(f"{cell}: verify_batch did not accept the proofs and "
                              "reject the flipped byte")
     missing = [k for k in ("merkle_forest", "sponge_absorb", "fri_fold_dyn", "hash_rows",
-                           "query_gather") if counts[k] == 0]
+                           "query_gather", "constraint_challenges", "sample_indices")
+               if counts[k] == 0]
     # A batch's gather is one plan, one output and one copy; a plan larger
     # than one launch's parameters goes out in several launches.
     if missing or counts["fri_fold"] or counts["query_gather"] < batches or \
             counts["compose"] != batches or counts["lde_pad_scale"] != batches:
         raise AssertionError(f"{cell}: launches {counts}")
     _check_chain(cell, counts, prover.fri.num_rounds(), batches)
+    three = _three_reads(prover, call)
+    reads = {"single-fetch": _reads(call), "three reads": _reads(three)}
+    if reads != {"single-fetch": batches, "three reads": 3 * batches}:
+        raise AssertionError(f"{cell}: reads from the card a call {reads}, not "
+                             f"{batches} and {3 * batches}")
+    if any(hashlib.sha256(p).hexdigest() != want for p in three()):
+        raise AssertionError(f"{cell}: a three-read batch proof differs")
+    if count:
+        # prove_many at depth 1 and 2 in turn: the same bytes.
+        for d in (1, 2):
+            got = prover.prove_many(**{key: [item] * count}, depth=d)
+            if [hashlib.sha256(p).hexdigest() for p in got] != [want] * count:
+                raise AssertionError(f"{cell}: prove_many at depth {d} differs")
 
     walls = []
     for _ in range(BATCH_RUNS):
@@ -2245,19 +2604,23 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
     rates = [proofs / w for w in walls]
     median = float(np.median(walls))
     _, copies = _d2h_copies(lambda timer: call(), phased=False)
-    if len(copies) != 3 * batches:
+    if len(copies) != batches:
         raise AssertionError(f"{cell}: {len(copies)} device-to-host copies in a call, "
-                             f"not {3 * batches}")
+                             f"not {batches}")
     kernel_ms = _profiled(cell, call, counts, median, cuda)
+    _in_turn(cell, call, three, TURN_RUNS["batch"])
     per_call = {k: counts[k] for k in ("sponge_absorb", "fri_fold_dyn", "merkle_forest",
                                        "merkle_level", "hash_rows", "query_gather",
-                                       "compose", "lde_pad_scale")}
+                                       "compose", "lde_pad_scale", "constraint_challenges",
+                                       "sample_indices")}
     print(f"{cell} ({model}, T=2^{BATCH_T.bit_length() - 1}, B={batch}, "
           f"{'prove_many of %d, depth %d' % (count, depth) if count else 'prove_batch'}): "
           f"{proofs} proofs a call, each sha256 == the single prove's ({want[:16]}...), "
           f"verify_batch accepts them and rejects a flipped byte; proofs/s over "
           f"{BATCH_RUNS} calls {json.dumps(_quantiles(rates))}; wall s "
           f"{json.dumps(_quantiles(walls))}; device-to-host copies a call {len(copies)}; "
+          f"reads from the card a call {json.dumps(reads)} (the three-read path's proofs "
+          f"equal{', prove_many at depth 1 and 2 equal' if count else ''}); "
           f"launches a call {json.dumps(per_call)}", flush=True)
     return {"cell": cell, "proofs_per_s_median": float(np.median(rates)),
             "kernel_ms": kernel_ms}
@@ -2323,11 +2686,12 @@ def main() -> int:
 
     paths = {CO._source_file(p.source): m for m, p in programs.items()}
     regs = ptxas(("witness.cu", "gather.cu", "hash.cu", "fold.cu", *paths), by_source=True)
-    print("ptxas, K12, K13, K9 and K4-dyn: " + json.dumps(
+    print("ptxas, K12, K13, K9, K15, K10 and K4-dyn: " + json.dumps(
         {k: v for src in ("witness.cu", "gather.cu", "hash.cu", "fold.cu")
          for k, v in regs[src].items()
-         if "sponge" in k or "dyn" in k or src not in ("hash.cu", "fold.cu")}), flush=True)
-    print("ptxas, K11 by AIR (each weight capacity): " + json.dumps(
+         if any(w in k for w in ("sponge", "dyn", "challenges", "sample"))
+         or src not in ("hash.cu", "fold.cu")}), flush=True)
+    print("ptxas, K11 by AIR: " + json.dumps(
         {paths[src]: sorted(set(regs[src].values())) for src in paths}), flush=True)
     _sass_mix(lib._name)
 
@@ -2335,8 +2699,8 @@ def main() -> int:
     results = _Results()
     marks = [time.perf_counter()]
     for check in (_check_ntt, _check_pad_scale, _check_fold, _check_forest, _check_sponge,
-                  _check_compose, _check_hash, _check_witness, _check_split_gather,
-                  _check_sharded_forms):
+                  _check_chained, _check_compose, _check_hash, _check_witness,
+                  _check_split_gather, _check_sharded_forms):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
@@ -2359,6 +2723,32 @@ def main() -> int:
               "verified, sha256 == stark_tpu's"
               + (" (strict and lazy NTT)" if model == "fib" else "")
               + f"; query_gather == plain ({shapes})", flush=True)
+
+    # The sampler's shortfall on the card: one candidate a proof, so every
+    # count falls short and the host's indices go through the same gather
+    # (a second K13 launch, a second read); the pinned bytes all the same.
+    from stark_tpu_torch import fri as FRI
+
+    air, trace_fn, _ = get_model("fib")
+    cfg = StarkConfig(trace_length=1 << 16, blowup=4, num_colinearity_tests=16)
+    short = StarkProver(air, cfg)
+    slack, FRI._SAMPLE_SLACK = FRI._SAMPLE_SLACK, 1 - 2 * 16
+    try:
+        cuda.reset_launches()
+        proofs = []
+        reads = _reads(lambda: proofs.append(short.prove(trace_fn(1 << 16))))
+        gathers = cuda.launch_counts()["query_gather"]
+    finally:
+        FRI._SAMPLE_SLACK = slack
+    want = PINNED[("fib", 1 << 16, 4, 16)]
+    if hashlib.sha256(proofs[0]).hexdigest() != want or reads != 2 or \
+            short.fri.shortfalls != 1 or gathers != 2:
+        raise AssertionError(f"sampler shortfall: reads {reads}, shortfalls "
+                             f"{short.fri.shortfalls}, K13 launches {gathers}")
+    print(f"sampler shortfall (1 candidate a proof), fib T=2^16: sha256 == pinned, "
+          f"{reads} reads, {gathers} K13 launches, shortfalls {short.fri.shortfalls}",
+          flush=True)
+    del short
 
     from stark_tpu_torch.models.examples import mds_square_trace_cols_device
     from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
@@ -2384,10 +2774,20 @@ def main() -> int:
 
     proof, counts, plan, median = _drive(
         name, "fib_2^20", prover, verifier, fib_cols, rows, MAIN_SHA256,
-        every - lazy_names - elsewhere - {"mds_expand"}, MAIN_RUNS, cuda, launches)
-    _query_split(name, prover, fib_cols)
-    _time_gather("fib T=2^20 prove", plan, results, dev)
+        every - lazy_names - elsewhere - {"mds_expand"}, MAIN_RUNS, cuda, launches,
+        TURN_RUNS["fib"])
+    _time_rule_gather("fib T=2^20 prove", plan, results, dev)
     del plan
+    # The three-read path's query phase (host indices): its host split and
+    # K13 on its plan, as a record beside the rule slots' time.
+    three = StarkProver(air, cfg)
+    three.fri.fused_round = False
+    _query_split(name + ", three reads", three, fib_cols)
+    host_plans: list = []
+    with _recording_gathers(host_plans):
+        three.prove(trace_cols=fib_cols())
+    _time_gather("fib T=2^20 prove, three reads", host_plans[0], None, dev)
+    del host_plans, three
     _profiled_prove(name, prover, fib_cols, counts, median, cuda)
     _rejects(name, prover, verifier, fib_cols, proof)
 
@@ -2410,9 +2810,10 @@ def main() -> int:
     host_prover.prove(trace_cols=fib_cols())  # warm-up
     _, counts, _ = _prove_checked(
         name, host_prover, verifier, fib_cols, MAIN_SHA256,
-        every - lazy_names - {"mds_expand", "merkle_forest", "sponge_absorb", "fri_fold_dyn"},
+        every - lazy_names - {"mds_expand", "merkle_forest", "sponge_absorb", "fri_fold_dyn",
+                              "constraint_challenges", "sample_indices"},
         cuda)
-    if counts["sponge_absorb"] or counts["fri_fold_dyn"]:
+    if counts["sponge_absorb"] or counts["fri_fold_dyn"] or counts["constraint_challenges"]:
         raise AssertionError(f"{name}: the device chain ran: {counts}")
     launches["fib_2^20_host_alpha"] = counts
     print(f"{name}: proved and verified, sha256 == pinned, launches {counts}", flush=True)
@@ -2432,8 +2833,9 @@ def main() -> int:
 
     proof, counts, plan, median = _drive(
         name, "mds_2^16", prover, verifier, mds_cols, trace_fn(MDS_T), MDS_SHA256,
-        every - lazy_names - elsewhere - {"fib_expand"}, MDS_RUNS, cuda, launches)
-    _time_gather("mds T=2^16 prove", plan, None, dev)
+        every - lazy_names - elsewhere - {"fib_expand"}, MDS_RUNS, cuda, launches,
+        TURN_RUNS["mds"])
+    _time_rule_gather("mds T=2^16 prove", plan, None, dev)
     del plan
     _profiled_prove(name, prover, mds_cols, counts, median, cuda)
     _rejects(name, prover, verifier, mds_cols, proof)
@@ -2476,8 +2878,9 @@ def main() -> int:
 
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
-          "checks: ntt, pad_scale, fold, forest, sponge, compose, hash, witness, split "
-          "gather, sharded forms, then the proofs and paths, then the distributed phase, "
+          "checks: ntt, pad_scale, fold, forest, sponge, chained (K15, K10, K11 fed "
+          "K15), compose, hash, witness, split gather, sharded forms, then the proofs and "
+          "paths, then the distributed phase, "
           "then the API and the command line: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again; "

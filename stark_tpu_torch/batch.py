@@ -1,37 +1,44 @@
 """Batched proving: B independent proofs through one device pipeline.
 
-Counterpart of stark_tpu/batch.py (``BatchStarkProver``, its classic path
-``_prove_batch_classic``, :941-1149).  B same-shape proofs lie side by side:
-the witness columns (B, c, T) go through the NTT as B c rows, the trace
-LDEs (B, c, N) and the composition codewords (B, N) are one tensor each,
-the B trace trees and each FRI round's B trees are one forest
-(merkle.Forest: K5/K6, K7, K8-forest), the FRI commit is one device chain
-with B sponge lanes (K9) and B folds a launch (K4-dyn), and the query phase
-of every proof is one gather (K13).  The host reads from the card three
-times for the whole batch: the B trace roots, the commit chain's one
-fetch, the query phase's one gather.
+Counterpart of stark_tpu/batch.py (``BatchStarkProver``: its single-fetch
+path ``_prove_batch_mega``, :596-940, and its classic path
+``_prove_batch_classic``, :941-1149).  B same-shape proofs lie side by
+side: the witness columns (B, c, T) go through the NTT as B c rows, the
+trace LDEs (B, c, N) and the composition codewords (B, N) are one tensor
+each, the B trace trees and each FRI round's B trees are one forest
+(merkle.Forest: K5/K6, K7, K8-forest), the constraint challenges are one
+launch with B lanes (K15), the FRI commit is one device chain with B
+sponge lanes (K9) and B folds a launch (K4-dyn), the query indices one
+launch (K10) and the query phase of every proof one gather (K13).  The
+host reads from the card once for the whole batch (with
+``Fri.fused_round`` False three times: the B trace roots, the commit
+chain's one fetch, the query phase's one gather).
 
 The output is **byte-identical** to B runs of StarkProver.prove: each
 proof keeps its own transcript, challenges, indices and stream (the host
-replays each one and checks the card's challenges against it).  The
-batched prove is StarkProver._prove_columns itself; a single prove is its
-B = 1 case.
+replays each one and checks the card's values against it).  The batched
+prove is StarkProver._prove_columns itself; a single prove is its B = 1
+case.
+
+``prove_many`` keeps up to ``depth`` batches in flight on the single-fetch
+path (stark_tpu's "production serving layout", :653-715): a batch's
+launches and its read are issued (StarkProver._dispatch), and it is
+finished (the read waited for, the transcripts replayed, the proofs
+emitted) only after later batches' launches have gone out, so that the
+host's replay of batch k overlaps the card's work on batch k + 1.
 
 With ``mesh=`` (parallel/mesh.py, one process per device; stark_tpu's
 :580-594 and :637-644): where D divides B the batch is cut, each rank
-proves its B/D proofs with the single-device pipeline and an all-gather of
-the proofs gives every rank all B; otherwise each proof is cut over the
+proves its B/D proofs with the single-device pipeline (the single-fetch
+path, as stark_tpu's batch-sharded mega path) and an all-gather of the
+proofs gives every rank all B; otherwise each proof is cut over the
 domain, the sharded prover's ``_prove_columns`` with the B axis leading.
 Either way every rank returns the same B proofs.
-
-Not ported: the single-fetch "mega" path of stark_tpu (``_batch_mega_fn``;
-its bytes are the same, and stark_tpu takes the classic path whenever its
-shapes do not admit the mega one), and a pipeline of ``depth`` batches in
-flight: ``prove_many`` proves its chunks one after another, as stark_tpu
-does when the mega path is off.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -105,27 +112,48 @@ class BatchStarkProver:
         """B proofs, each byte-identical to StarkProver.prove of its trace.
         ``traces``: B host row traces; or ``traces_cols``: B (c, T) column
         arrays or int32 tensors on the prover's device."""
+        return self._finish(self._dispatch(traces, traces_cols, timer))
+
+    def _dispatch(self, traces=None, traces_cols=None, timer=NULL_TIMER):
+        """A batch's launches and read, issued (stark_tpu's _mega_dispatch):
+        the state :meth:`_finish` takes."""
         lo, hi = self.mesh.bounds(self.B) if self._cut else (0, self.B)
         with timer.phase("lde"):
             cols = self._cols_stack(traces, traces_cols, lo, hi)
-        proofs = self._single._prove_columns(cols, timer)
+        return self._single._dispatch(cols, timer)
+
+    def _finish(self, finish) -> list[bytes]:
+        """A dispatched batch's proofs (stark_tpu's _mega_finish): the read
+        waited for, the transcripts replayed, the proofs emitted; on a cut
+        batch every rank's, all-gathered."""
+        proofs = finish()
         return self._gather_proofs(proofs) if self._cut else proofs
 
     def prove_many(self, traces=None, depth: int = 2, *,
                    traces_cols=None) -> list[bytes]:
-        """Any number of same-shape traces in batches of B, one after
-        another; a last partial batch is padded by repeating its last trace
-        and the pad proofs are dropped (stark_tpu/batch.py:653-715).
-        ``depth`` is taken for stark_tpu's signature: its pipeline of
-        batches in flight is not ported, so each batch runs to its end."""
-        del depth
+        """Any number of same-shape traces in batches of B, keeping up to
+        ``depth`` batches in flight (stark_tpu/batch.py:653-715): batch k is
+        finished only after batch k + depth's launches have gone out, so the
+        host's replay and emission of one batch overlap the card's work on
+        the next.  A last partial batch is padded by repeating its last
+        trace and the pad proofs are dropped.  The bytes equal sequential
+        :meth:`prove_batch` calls'.  Every batch in flight holds its device
+        state (trace LDEs, trees, codewords, the buffer it reads) until it
+        is finished."""
         use_cols = traces_cols is not None
         items = list(traces_cols if use_cols else traces)
         out: list[bytes] = []
+        inflight: collections.deque = collections.deque()
         for i in range(0, len(items), self.B):
             chunk = items[i : i + self.B]
             pad = self.B - len(chunk)
             chunk = chunk + [chunk[-1]] * pad
             kw = {"traces_cols": chunk} if use_cols else {"traces": chunk}
-            out.extend(self.prove_batch(**kw)[: self.B - pad])
+            inflight.append((pad, self._dispatch(**kw)))
+            if len(inflight) > max(1, depth):
+                pad0, finish = inflight.popleft()
+                out.extend(self._finish(finish)[: self.B - pad0])
+        while inflight:
+            pad0, finish = inflight.popleft()
+            out.extend(self._finish(finish)[: self.B - pad0])
         return out

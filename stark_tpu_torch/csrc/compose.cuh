@@ -31,18 +31,23 @@
 // canonical values made once per prover.  It is computed as
 //   exz (xt sum_k a_k C_k + sum_k b_k C_k)
 //   + sum_rows dinv_r (xb sum_{j on r} a_j d_j + sum_{j on r} b_j d_j):
-// per term two Shoup products by launch constants, per table one
-// Montgomery product.  The weights come premultiplied on the host (a R^2
-// and b R, R = 2^32 mod p, each with its Shoup companion), so that the
-// Montgomery products' factors R^-1 cancel and every value stays exact:
-// the result equals the eager version's bit for bit.
+// per term two Shoup products by the proof's weights, per table one
+// Montgomery product.  The weights come premultiplied (a R^2 and b R, R =
+// 2^32 mod p, each with its Shoup companion), so that the Montgomery
+// products' factors R^-1 cancel and every value stays exact: the result
+// equals the eager version's bit for bit.  They lie in device memory: on
+// the single-fetch prove K15 (hash.cu stark_constraint_challenges) writes
+// them there from the challenges it draws, so that no host step comes
+// between the trace root and the codeword; where the host draws the
+// challenges, ops/compose.py uploads the same words.
 //
 // What bounds it: bytes where the AIR is narrow (Fibonacci at N = 2^22:
 // one read of the LDE and of five tables, one write), operations where its
 // constraints are many (MdsSquareAir: 8 constraints of 8 products each).
 // One thread a point, loads coalesced along N, every load of a point
 // issued before its arithmetic (the generated body loads first), the
-// weights in the launch's parameters (no upload for a prove).  Where the
+// weights read by every thread of a block at the same addresses (one
+// load each, served to the block at once).  Where the
 // constraints sum products by constants, the generated body sums them
 // lazily in 64 bits (Lazy sums below; ops/compose.py generate_source): a
 // multiply-add a product, one reduction a sum.
@@ -56,7 +61,6 @@
 #pragma once
 
 #include <stdint.h>
-#include <string.h>
 
 #include "field.cuh"
 
@@ -140,11 +144,23 @@ inline bool frame_ok(long long n, long long span) {
   return n >= 1 && (span == n ? (n & (n - 1)) == 0 : span > n);
 }
 
-// The codeword at point i of proof b; w: the proof's 4 kTerms weight words,
-// per term a R^2, its companion, b R, its companion.
+// One term's weight words: a R^2, its companion, b R, its companion.  A
+// term is one 16-byte load on the card (the weights lie in device memory,
+// 16-byte aligned), where four 4-byte loads cost each thread four times
+// the instructions; a host compiler takes them as they come.
+#ifdef __CUDACC__
+#define STARK_WEIGHT_ALIGN alignas(16)
+#else
+#define STARK_WEIGHT_ALIGN
+#endif
+struct STARK_WEIGHT_ALIGN Weight {
+  uint32_t a, a_shoup, b, b_shoup;
+};
+
+// The codeword at point i of proof b; w: the proof's kTerms weights.
 template <class Air>
 __device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
-                                                  const uint32_t* w, int b,
+                                                  const Weight* w, int b,
                                                   long long i) {
   const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
   uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
@@ -155,8 +171,9 @@ __device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
     uint32_t sa = 0, sb = 0;
 #pragma unroll
     for (int k = 0; k < Air::kTransitions; ++k) {
-      sa = add_mod(sa, shoup_mul(c[k], w[4 * k], w[4 * k + 1]));
-      sb = add_mod(sb, shoup_mul(c[k], w[4 * k + 2], w[4 * k + 3]));
+      const Weight wk = w[k];
+      sa = add_mod(sa, shoup_mul(c[k], wk.a, wk.a_shoup));
+      sb = add_mod(sb, shoup_mul(c[k], wk.b, wk.b_shoup));
     }
     total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], sa), sb));
   }
@@ -169,9 +186,9 @@ __device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
       for (int j = 0; j < Air::kBoundaries; ++j) {
         if (Air::boundary_row(j) != r) continue;
         const uint32_t d = sub_open(v[j], Air::boundary_value(j));  // (0, 2p)
-        const uint32_t* wj = w + 4 * (Air::kTransitions + j);
-        sa = add_mod(sa, shoup_mul(d, wj[0], wj[1]));
-        sb = add_mod(sb, shoup_mul(d, wj[2], wj[3]));
+        const Weight wj = w[Air::kTransitions + j];
+        sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
+        sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
       }
       total = add_mod(total, mont_mul(a.dinv[r * a.n + i],
                                       add_mod(mont_mul(xb, sa), sb)));
@@ -189,39 +206,22 @@ namespace stark {
 
 constexpr int kComposeThreads = 256;
 
-// The weights of every proof of a launch, as launch parameters.
-template <int kWords>
-struct ComposeWords {
-  uint32_t w[kWords];
-};
-
-template <class Air, int kWords>
+// w: the weights of every proof of the launch, kTerms a proof.
+template <class Air>
 __global__ void __launch_bounds__(kComposeThreads)
     stark_compose_kernel(const __grid_constant__ ComposeArgs a,
-                         const __grid_constant__ ComposeWords<kWords> w) {
+                         const Weight* __restrict__ w) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
   const int b = blockIdx.y;
-  a.out[(long long)b * a.n + i] =
-      compose_point<Air>(a, w.w + 4 * Air::kTerms * b, b, i);
-}
-
-template <class Air, int kWords>
-int compose_launch(const ComposeArgs& a, const void* words, int nwords,
-                   cudaStream_t stream) {
-  ComposeWords<kWords> w;
-  memcpy(w.w, words, 4 * (size_t)nwords);
-  const dim3 grid((unsigned)((a.n + kComposeThreads - 1) / kComposeThreads),
-                  (unsigned)a.proofs);
-  stark_compose_kernel<Air, kWords><<<grid, kComposeThreads, 0, stream>>>(a, w);
-  return (int)cudaGetLastError();
+  a.out[(long long)b * a.n + i] = compose_point<Air>(a, w + Air::kTerms * b, b, i);
 }
 
 }  // namespace stark
 
 // The C entry of one AIR's library: B = proofs proofs' (c, span) LDEs of n
-// points each (frame_ok), nwords = 4 kTerms B weight words (at most 8,000:
-// the launch's parameters hold 32 KB since CUDA 12.1).
+// points each (frame_ok), and their nwords = 4 kTerms B weight words in
+// device memory at `words`, 16-byte aligned.
 #define STARK_COMPOSE_ENTRY(AIR)                                              \
   extern "C" int stark_compose(const void* lde, const void* exz,             \
                                const void* xt, const void* xb,               \
@@ -234,16 +234,18 @@ int compose_launch(const ComposeArgs& a, const void* words, int nwords,
         static_cast<const uint32_t*>(xt),  static_cast<const uint32_t*>(xb),  \
         static_cast<const uint32_t*>(dinv), static_cast<uint32_t*>(out),      \
         n, c, blowup, proofs, span, stark::frame_mask(n, span)};              \
-    cudaStream_t s = static_cast<cudaStream_t>(stream);                       \
     if (!stark::frame_ok(n, span) || c != AIR::kRegisters || proofs < 1 ||    \
         proofs > 65535 || nwords != 4 * AIR::kTerms * proofs)                 \
       return (int)cudaErrorInvalidValue;                                      \
-    if (nwords <= 256) return stark::compose_launch<AIR, 256>(a, words, nwords, s); \
-    if (nwords <= 2048)                                                       \
-      return stark::compose_launch<AIR, 2048>(a, words, nwords, s);           \
-    if (nwords <= 8000)                                                       \
-      return stark::compose_launch<AIR, 8000>(a, words, nwords, s);           \
-    return (int)cudaErrorInvalidValue;                                        \
+    if (reinterpret_cast<uintptr_t>(words) & 15)                              \
+      return (int)cudaErrorMisalignedAddress;                                 \
+    const dim3 grid((unsigned)((n + stark::kComposeThreads - 1) /             \
+                               stark::kComposeThreads),                       \
+                    (unsigned)proofs);                                        \
+    stark::stark_compose_kernel<AIR><<<grid, stark::kComposeThreads, 0,       \
+                                       static_cast<cudaStream_t>(stream)>>>(  \
+        a, static_cast<const stark::Weight*>(words));                         \
+    return (int)cudaGetLastError();                                           \
   }                                                                           \
   extern "C" const char* stark_cuda_error_string(int code) {                  \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                \
@@ -264,7 +266,8 @@ int compose_launch(const ComposeArgs& a, const void* words, int nwords,
     for (int b = 0; b < proofs; ++b)                                          \
       for (long long i = 0; i < n; ++i)                                       \
         out[(long long)b * n + i] = stark::compose_point<AIR>(                \
-            a, words + 4 * AIR::kTerms * b, b, i);                            \
+            a, reinterpret_cast<const stark::Weight*>(words) + AIR::kTerms * b, \
+            b, i);                                                            \
     return 0;                                                                 \
   }
 

@@ -10,20 +10,31 @@
 // Operands: the whole plan rides in the launch's parameter space, one
 // __grid_constant__ struct of 4, 16 or 32 KB (32,764 bytes of parameters
 // are allowed from CUDA 12.1 on, Volta and later), encoded on the host by
-// ops/gather.py:GatherPlan.encode, as 32-bit words:
-//   header (8 words): n_src, n_slot, n_task, n_index, out address (2), 0, 0
+// ops/gather.py:GatherPlan.encode and RulePlan.encode, as 32-bit words:
+//   header (8 words): n_src, n_slot, n_task, n_payload, out address (2),
+//     index buffer address (2; rule slots only)
 //   sources, 4 words each: address (2), a, kind << 31 | b
 //     kind 0, field values: a (c, n) int32 array; a = n, b = c;
 //     kind 1, a tree's level stack: a (2W - 1, 32) u8 array; a = W,
 //       b = depth = log2 W; or a forest's, B trees of width 2^b side by
 //       side, (2W - B, 32): leaf i of tree b is leaf b 2^b + i, and the
 //       formula below gives its path;
-//   slots, 4 words each: source, requests k, first output word, first index
-//     a request j < k of the slot writes its w words (values: c; paths:
-//     8 depth) from first + j w on;
+//   slots, 4 words each: source | rule << 31, requests k, first output
+//     word, its payload's first word; a request j < k of the slot writes
+//     its w words (values: c; paths: 8 depth) from first + j w on;
 //   tasks, 1 word each, a warp's: slot | first request j0 << 16
 //     a warp takes 32 / w requests of a slot where w <= 32, else one;
-//   indices, 1 word a request.
+//   payload: an index slot's indices, 1 word a request; a rule slot's rule
+//     (ops/gather.py:Rule), 6 + F words: j_start, number, h | F << 8 |
+//     order << 16, half - 1, wrap - 1 (all ones: no wrap), stride, then F
+//     offsets.  Request j of a rule slot (j_start + j of the whole rule)
+//     is j = ((row h + e) number + q) F + u (order 0) or ((row number + q)
+//     h + e) F + u (order 1), and reads index
+//       ((idx[row number + q] & (half - 1)) + e half + offset[u])
+//         & (wrap - 1) + row stride,
+//     idx the (rows, number) u32 index buffer at the header's address (the
+//     FRI query indices K10 writes on the card): the rule slots carry no
+//     index, so a prove's plan is the same for every prove of its shape.
 // A request's words: values, src[i * n + index] for i < c; paths, the
 // depth digests of index's authentication path, bottom-up: the sibling on
 // level l is stack row 2W - 2W / 2^l + ((index >> l) ^ 1) (merkle.py:
@@ -60,7 +71,8 @@ stark_query_gather_kernel(const __grid_constant__ GatherParams<kBytes> p) {
   const uint32_t t_word = p.w[tasks + task];
   const uint32_t slot = slots + 4 * (t_word & 0xffffu);
   const uint32_t j0 = t_word >> 16;
-  const uint32_t src = kHeaderWords + 4 * p.w[slot];
+  const bool rule = p.w[slot] >> 31;
+  const uint32_t src = kHeaderWords + 4 * (p.w[slot] & 0x7fffffffu);
   const uint32_t* base = reinterpret_cast<const uint32_t*>(
       (uint64_t)p.w[src] | (uint64_t)p.w[src + 1] << 32);
   const uint64_t a = p.w[src + 2];
@@ -70,11 +82,38 @@ stark_query_gather_kernel(const __grid_constant__ GatherParams<kBytes> p) {
   const uint32_t per_warp = width <= 32 ? 32 / width : 1;
   const uint32_t count = min(per_warp, p.w[slot + 1] - j0);
   uint32_t* dst = out + p.w[slot + 2] + (uint64_t)j0 * width;
-  const uint32_t index = tasks + n_task + p.w[slot + 3] + j0;
+  const uint32_t payload = tasks + n_task + p.w[slot + 3];
+  const uint32_t* idx = reinterpret_cast<const uint32_t*>(
+      (uint64_t)p.w[6] | (uint64_t)p.w[7] << 32);
   for (uint32_t t = threadIdx.x & 31; t < count * width; t += 32) {
     const uint32_t q = count == 1 ? 0 : t / width;
     const uint32_t word = t - q * width;
-    const uint64_t i = p.w[index + q];
+    uint64_t i;
+    if (rule) {
+      uint32_t j = p.w[payload] + j0 + q;
+      const uint32_t number = p.w[payload + 1], shape = p.w[payload + 2];
+      const uint32_t h = shape & 0xffu, f = (shape >> 8) & 0xffu;
+      const uint32_t u = j % f;
+      j /= f;
+      uint32_t e, k, row;
+      if (shape >> 16) {
+        e = j % h;
+        j /= h;
+        k = j % number;
+        row = j / number;
+      } else {
+        k = j % number;
+        j /= number;
+        e = j % h;
+        row = j / h;
+      }
+      const uint32_t mask = p.w[payload + 3];
+      const uint32_t x = ((idx[(uint64_t)row * number + k] & mask) + e * (mask + 1u) +
+                          p.w[payload + 6 + u]) & p.w[payload + 4];
+      i = x + (uint64_t)row * p.w[payload + 5];
+    } else {
+      i = p.w[payload + j0 + q];
+    }
     uint64_t at;
     if (path) {
       const int l = word >> 3;

@@ -1,6 +1,8 @@
 // Commitment hash and Merkle trees for Hopper: kernels K5/K6 (leaf and row
 // digests), K7 (one tree level), K8 (a whole subtree per block) with its
-// forest entry, and K9 (the Fiat-Shamir sponge of the device commit chain).
+// forest entry, K9 (the Fiat-Shamir sponge of the device commit chain), K15
+// (the STARK layer's constraint challenges) and K10 (the FRI query
+// indices).
 //
 // They replace functions of the JAX package that are XLA-fused jnp on the
 // TPU (Mosaic could not lower u8 vectors, stark_tpu/ops/pallas_kernels.py
@@ -15,7 +17,11 @@
 //                       root) and stark_tpu/batch.py's _forest_* (:53-138);
 //   stark_sponge_absorb the incremental transcript sponge (:831-919, K9):
 //                       sponge_from_bytes, sponge_absorb, sponge_state,
-//                       state_alpha, device_sponge_root_alpha.
+//                       state_alpha, device_sponge_root_alpha;
+//   stark_constraint_challenges  stark_tpu/stark.py:_device_challenges_fn
+//                       (:165, K15) over the same sponge;
+//   stark_sample_indices  sample_indices_core (:964, K10) with
+//                       seed_digest_rows_from_state (:951).
 //
 // Digests are node-major: node j is the 32 bytes at 32 * j, so a thread
 // reads a digest as two 16-byte words and a parent's input left || right is
@@ -340,6 +346,159 @@ __global__ void stark_sponge_absorb_kernel(uint4* state, uint4* pending, int q,
   if (alpha != nullptr) alpha[lane] = a;
 }
 
+// K15: the constraint challenges of the STARK layer, one thread a proof
+// (lane), counterpart of stark_tpu/stark.py::_device_challenges_fn (:165-
+// 197) over hash_batch.py's sponge_from_bytes, sponge_state and
+// state_alpha (:831-883).  Lane b starts a fresh sponge with its trace
+// root (roots: (lanes, 32) u8, read where the trace forest's stack keeps
+// them, as K4-dyn reads a round's root) and draws `challenges` challenges:
+// each the first 8 bytes of the digest of every byte so far, a
+// little-endian u64, which the transcript then absorbs (stark.py
+// _draw_constraint_challenges).  Written: the root at copy (lanes, 32) u8;
+// each challenge's 8 bytes at digests (lanes, challenges, 8) u8, for the
+// host's replay; the composition's weight words at weights (lanes, 2
+// challenges) u32, per pair (a, b) a R^2 mod p, its Shoup companion, b R
+// mod p, its companion, as ops/compose.py:ComposeProgram.weights lays them
+// out for K11; and the sponge after the last challenge's bytes, at state
+// and pending (lanes, 32) u8, 16-byte aligned: the FRI commit chain goes
+// on from it (q = 8 challenges mod 32).
+//
+// What bounds it: latency, one thread's chain of mixes: per challenge the
+// pending tail's absorb and the 9 mixes that finalize it, and a chunk's
+// mix every fourth challenge.  Each step is hash.cuh's sponge_step (K9's),
+// its state and tail passed on through memory that only this thread
+// touches, so that the step stays the one K9 and K4-dyn run.
+__global__ void stark_constraint_challenges_kernel(
+    const uint8_t* __restrict__ roots, uint4* state, uint4* pending,
+    uint8_t* copy, uint32_t* digests, uint32_t* weights, int challenges,
+    int lanes) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % stark::kP);
+  constexpr uint32_t kR2 = (uint32_t)((uint64_t)kR1 * kR1 % stark::kP);
+  const uint8_t* root = roots + 32LL * lane;
+  uint4* st = state + 2 * lane;
+  uint4* pd = pending + 2 * lane;
+  uint32_t* dig = digests + 2LL * challenges * lane;
+  uint32_t* w = weights + 2LL * challenges * lane;
+  const bool root_vec = (reinterpret_cast<uintptr_t>(roots) & 3) == 0;
+  const bool copy_vec = ((reinterpret_cast<uintptr_t>(roots) |
+                          reinterpret_cast<uintptr_t>(copy)) & 15) == 0;
+  stark::SpongeIn v;
+  uint64_t raw = 0;
+  // The root into a fresh sponge, and the first challenge after it.
+  stark::sponge_load(v, st, pd, 0, true, root, 32, root_vec);
+  stark::sponge_step(v, st, pd, true, 0, true, root, 32, root_vec,
+                     copy + 32LL * lane, copy_vec, challenges > 0, &raw);
+  int q = 0;
+  uint64_t first = 0;
+  for (int k = 0; k < challenges; ++k) {
+    dig[2 * k] = (uint32_t)raw;
+    dig[2 * k + 1] = (uint32_t)(raw >> 32);
+    const uint32_t red = (uint32_t)(raw % stark::kP);
+    if (k % 2 == 0) {
+      first = red;
+    } else {
+      const uint32_t wa = (uint32_t)(first * kR2 % stark::kP);
+      const uint32_t wb = (uint32_t)((uint64_t)red * kR1 % stark::kP);
+      w[2 * k - 2] = wa;
+      w[2 * k - 1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
+      w[2 * k] = wb;
+      w[2 * k + 1] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
+    }
+    // Absorb the challenge's 8 bytes, and draw the next one after them.
+    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(dig + 2 * k);
+    stark::sponge_load(v, st, pd, q, false, bytes, 8, true);
+    stark::sponge_step(v, st, pd, true, q, false, bytes, 8, true, nullptr,
+                       false, k + 1 < challenges, &raw);
+    q = (q + 8) & 31;
+  }
+}
+
+// K10: the FRI query indices, one warp a proof (lane), counterpart of
+// stark_tpu/ops/hash_batch.py::sample_indices_core (:964-1040), with
+// seed_digest_rows_from_state (:951), and of stark_tpu/batch.py::
+// _sample_indices_batched (:449), the reference's Fri::sample_indices
+// (fri.rs:168-213).  From lane b's sponge after the FRI commit's last root
+// (state, pending: (lanes, 32) u8, 16-byte aligned, a tail of q bytes):
+// the seed challenge's raw u64 (the first 8 bytes of the digest of every
+// byte so far) and the seed H(those 8 bytes); then candidate c < m hashes
+// to H(seed || c as a little-endian u32), index low32 mod size, reduced
+// index low32 mod reduced (low32: the digest's last four bytes, most
+// significant first; size and reduced powers of two).  Candidates are
+// taken in order: one is accepted when its reduced index has not been
+// seen, until `number` are.  Written: the accepted indices at out
+// (lanes, number) u32 (0 past the count) and the count, at most number,
+// at count (lanes,).  A count below number (m candidates gave fewer
+// distinct reduced indices) leaves the host to sample.
+//
+// The walk is sequential by definition; the warp takes it 32 candidates at
+// a time: each lane hashes one, __match_any_sync finds the lanes of the
+// group with its reduced index (the lowest of them is the first
+// occurrence), a bit of a seen-mask in shared memory (reduced bits, at
+// most kSampleMaxReduced) says whether an earlier group had it, and a
+// ballot's prefix gives each accepted lane its position: the reference's
+// order exactly.  The warp stops at the first group that completes the
+// count.  What bounds it: latency, the seed's two hashes (18 mixes) and a
+// candidate's 10 mixes a group, one thread's chain each.
+constexpr int kSampleMaxReduced = 1 << 14;
+
+__global__ void __launch_bounds__(32)
+    stark_sample_indices_kernel(const uint4* state, const uint4* pending,
+                                int q, uint32_t size_mask, uint32_t reduced,
+                                int number, int m, uint32_t* out,
+                                uint32_t* count) {
+  __shared__ uint32_t seen[kSampleMaxReduced / 32];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  for (uint32_t i = t; i < (reduced + 31) / 32; i += 32) seen[i] = 0u;
+  // The seed challenge (every lane the same chain) and the seed.
+  stark::SpongeIn v;
+  uint64_t raw = 0;
+  stark::sponge_load(v, state + 2 * b, pending + 2 * b, q, false, nullptr, 0,
+                     false);
+  stark::sponge_step(v, nullptr, nullptr, false, q, false, nullptr, 0, false,
+                     nullptr, false, true, &raw);
+  uint32_t s[32];
+  hash_init(s);
+  stark::absorb_word<0>(s, (uint32_t)raw);
+  stark::absorb_word<4>(s, (uint32_t)(raw >> 32));
+  mix(s);
+  hash_finish<stark::Form::kOwed>(s);
+  uint4 seed_lo, seed_hi;
+  pack_digest(s, seed_lo, seed_hi);
+  __syncwarp();
+  int found = 0;  // the same in every lane
+  uint32_t* row = out + (long long)b * number;
+  for (int base = 0; base < m && found < number; base += 32) {
+    const uint32_t c = (uint32_t)(base + t);
+    hash_init(s);
+    stark::absorb_digest(s, seed_lo, seed_hi);
+    mix(s);
+    stark::absorb_word<0>(s, c);
+    mix(s);
+    hash_finish<stark::Form::kOwed>(s);
+    const uint32_t low32 = (s[28] & 0xFFu) << 24 | (s[29] & 0xFFu) << 16 |
+                           (s[30] & 0xFFu) << 8 | (s[31] & 0xFFu);
+    const bool valid = (int)c < m;
+    const uint32_t red = low32 & (reduced - 1);
+    // Lanes past m match only one another (no reduced index is all ones).
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, valid ? red : 0xFFFFFFFFu);
+    const bool first = valid && (__ffs(same) - 1) == t;
+    const bool ok = first && !((seen[red >> 5] >> (red & 31)) & 1u);
+    const unsigned accepted = __ballot_sync(0xFFFFFFFFu, ok);
+    const int pos = found + __popc(accepted & ((1u << t) - 1u));
+    if (ok && pos < number) row[pos] = low32 & size_mask;
+    __syncwarp();
+    if (ok) atomicOr(&seen[red >> 5], 1u << (red & 31));
+    __syncwarp();
+    found += __popc(accepted);
+  }
+  if (found > number) found = number;
+  for (int i = found + t; i < number; i += 32) row[i] = 0u;
+  if (t == 0) count[b] = (uint32_t)found;
+}
+
 // K5/K6: (c, n) field values -> n digests.
 int stark_hash_rows(const void* values, void* out, int c, long long n,
                     void* stream) {
@@ -424,6 +583,45 @@ int stark_sponge_absorb(void* state, void* pending, int q, int fresh,
       static_cast<uint4*>(state), static_cast<uint4*>(pending), q, fresh,
       static_cast<const uint8_t*>(data), m, static_cast<uint8_t*>(copy),
       static_cast<uint32_t*>(alpha), lanes);
+  return (int)cudaGetLastError();
+}
+
+// K15: `challenges` constraint challenges for each of `lanes` proofs (see
+// the kernel).  state, pending, roots and copy: 16-byte aligned rows.
+int stark_constraint_challenges(const void* roots, void* state, void* pending,
+                                void* copy, void* digests, void* weights,
+                                int challenges, int lanes, void* stream) {
+  if (challenges < 0 || challenges % 2 || lanes < 1)
+    return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15) ||
+      ((reinterpret_cast<uintptr_t>(digests) | reinterpret_cast<uintptr_t>(weights)) & 3))
+    return (int)cudaErrorMisalignedAddress;
+  const int threads = lanes < 128 ? lanes : 128;
+  stark_constraint_challenges_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                                       (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(roots), static_cast<uint4*>(state),
+      static_cast<uint4*>(pending), static_cast<uint8_t*>(copy),
+      static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights), challenges,
+      lanes);
+  return (int)cudaGetLastError();
+}
+
+// K10: `number` query indices for each of `lanes` proofs from m candidates
+// (see the kernel); size and reduced powers of two, reduced at most
+// kSampleMaxReduced, number at most reduced.
+int stark_sample_indices(const void* state, const void* pending, int q,
+                         long long size, long long reduced, int number, int m,
+                         void* out, void* count, int lanes, void* stream) {
+  if (q < 0 || q > 31 || lanes < 1 || number < 1 || m < 0 || size < 1 ||
+      (size & (size - 1)) || size > (1LL << 31) || reduced < 1 ||
+      (reduced & (reduced - 1)) || reduced > kSampleMaxReduced || number > reduced)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  stark_sample_indices_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint4*>(state), static_cast<const uint4*>(pending), q,
+      (uint32_t)(size - 1), (uint32_t)reduced, number, m,
+      static_cast<uint32_t*>(out), static_cast<uint32_t*>(count));
   return (int)cudaGetLastError();
 }
 

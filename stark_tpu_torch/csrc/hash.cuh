@@ -523,7 +523,9 @@ __device__ __forceinline__ void absorb_prefix(uint32_t (&s)[32],
 // pending tail absorbed as a partial chunk and mixed, then the 8 closing
 // mixes, hash.rs:25-27) and its first 8 digest bytes, a little-endian u64,
 // are returned reduced mod p: the FRI challenge the host transcript draws
-// (fiat_shamir.rs:19-25); else 0.
+// (fiat_shamir.rs:19-25), and written unreduced at raw (where not null:
+// the u64 a transcript absorbs as its 8 bytes, K15, or the seed of the
+// index sampling, K10); else 0.
 //
 // What bounds it: latency, the chain of one thread: its trips to memory,
 // then the mixes one after the other (a root's absorb and the 8 closing
@@ -564,7 +566,8 @@ __device__ __forceinline__ uint32_t sponge_step(const SpongeIn& v,
                                                 int q, bool fresh,
                                                 const uint8_t* __restrict__ in,
                                                 int m, bool vec, uint8_t* copy,
-                                                bool copy_vec, bool alpha) {
+                                                bool copy_vec, bool alpha,
+                                                uint64_t* raw = nullptr) {
   const uint32_t(&pend)[8] = v.pend;
   const uint32_t(&first)[8] = v.first;
   const uint32_t(&tail)[8] = v.tail;
@@ -622,6 +625,7 @@ __device__ __forceinline__ uint32_t sponge_step(const SpongeIn& v,
   hash_finish<Form::kOwed>(s);  // a lone thread: fewest instructions
   const uint64_t digest = (uint64_t)pack4(s[0], s[1], s[2], s[3]) |
                           (uint64_t)pack4(s[4], s[5], s[6], s[7]) << 32;
+  if (raw != nullptr) *raw = digest;
   return (uint32_t)(digest % kP);
 }
 

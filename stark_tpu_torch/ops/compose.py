@@ -2,7 +2,10 @@
 and the plain version.
 
 Counterpart of stark_tpu/stark.py::StarkProver._compose_impl (:570-616)
-and of its vmap over a batch (stark_tpu/batch.py:554-559).  The AIR's
+and of its vmap over a batch (stark_tpu/batch.py:554-559).  The weights
+of the constraint terms come from device memory: kernel K15 writes them
+there on the single-fetch prove (ops/hash_batch.constraint_challenges);
+challenges drawn on the host go up first.  The AIR's
 transition constraints are user code, so the kernel is generated per AIR:
 ``models.air.record_constraints`` records them once as a straight-line
 tape, :func:`generate_source` writes it as a C++ function of one point
@@ -46,8 +49,6 @@ COMPOSE = cuda.Kernel(
     replaces="stark_tpu/stark.py:570", generated=True,
 )
 HEADERS = ("field.cuh", "compose.cuh")
-#: Weight words one launch's parameters hold (csrc/compose.cuh).
-MAX_WORDS = 8000
 R1 = (1 << 32) % P
 R2 = R1 * R1 % P
 #: Seconds each AIR library's build took in this process, by the sha256 of
@@ -152,6 +153,16 @@ class ComposeProgram:
         wa = (a.astype(np.uint64) * np.uint64(R2) % np.uint64(P)).astype(np.uint32)
         wb = (b.astype(np.uint64) * np.uint64(R1) % np.uint64(P)).astype(np.uint32)
         return np.stack([wa, shoup(wa), wb, shoup(wb)], axis=2).reshape(a.shape[0], -1)
+
+    def challenges(self, words: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """The inverse of :meth:`weights`: (B, 4 terms) int32 weight words
+        (K15's, on any device) -> ((B, terms), (B, terms)) int64 alphas and
+        betas mod p."""
+        w = words.cpu().numpy().view(np.uint32).astype(np.uint64).reshape(
+            words.shape[0], self.terms, 4)
+        inv_r1 = pow(R1, P - 2, P)
+        return ((w[..., 0] * np.uint64(inv_r1 * inv_r1 % P) % np.uint64(P)).astype(np.int64),
+                (w[..., 2] * np.uint64(inv_r1) % np.uint64(P)).astype(np.int64))
 
     def operations(self) -> int:
         """Integer operations per point (the bound's count): the generated
@@ -396,24 +407,41 @@ class Tables:
 
 
 def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
-            betas, blowup: int, points: int | None = None) -> torch.Tensor:
+            betas, blowup: int, points: int | None = None, *,
+            weights: torch.Tensor | None = None) -> torch.Tensor:
     """(c, N) int32 LDE -> (N,) int32 codeword, or B proofs at once: (B, c,
     N) -> (B, N).  ``alphas``, ``betas``: (terms,) host ints, or (B, terms)
-    for B proofs.  ``points``: the halo form (a rank's share): each row
-    holds ``points`` points of the coset and then the frame's reach past
-    them (the next share's first points), read without a wrap; the tables
-    are the share's, the result (B, points).  On a card one K11 launch (or
-    one per 8,000 weight words); on the CPU the plain version."""
-    if lde.device.type == "cpu":
-        return compose_plain(program, lde, tables, alphas, betas, blowup, points)
+    for B proofs; or, instead (both None), ``weights``: the (B, 4 terms)
+    int32 weight words on the LDE's device (K15's, ComposeProgram.weights'
+    layout).  ``points``: the halo form (a rank's share): each row holds
+    ``points`` points of the coset and then the frame's reach past them
+    (the next share's first points), read without a wrap; the tables are
+    the share's, the result (B, points).  On a card one K11 launch, reading
+    the weights from device memory (host weights go up from pinned memory
+    first); on the CPU the plain version."""
+    if (weights is None) == (alphas is None and betas is None):
+        raise ValueError("pass alphas and betas, or weights")
     single = lde.dim() == 2
+    if weights is not None and weights.device != lde.device:
+        raise ValueError(f"weights on {weights.device}, the LDE on {lde.device}")
+    if lde.device.type == "cpu":
+        if weights is not None:
+            alphas, betas = program.challenges(weights)
+            if single:
+                alphas, betas = alphas[0], betas[0]
+        return compose_plain(program, lde, tables, alphas, betas, blowup, points)
     lde3 = lde[None] if single else lde
     b, c, span = lde3.shape
     n = span if points is None else points
-    words = program.weights(alphas, betas)
-    if words.shape[0] != b or c != program.air.num_registers:
-        raise ValueError(f"{words.shape[0]} proofs' weights for {b} LDEs of "
-                         f"{c} rows, the AIR has {program.air.num_registers}")
+    if weights is None:
+        words = torch.from_numpy(program.weights(alphas, betas).view(np.int32))
+        weights = words.pin_memory().to(lde.device, non_blocking=True)
+    if tuple(weights.shape) != (b, 4 * program.terms) or c != program.air.num_registers:
+        raise ValueError(f"weights {tuple(weights.shape)} for {b} LDEs of {c} rows; the "
+                         f"AIR has {program.terms} terms and {program.air.num_registers} "
+                         "registers")
+    if b > 65535:
+        raise ValueError(f"{b} proofs in one launch, at most 65535")
     if points is None and n & (n - 1):
         raise ValueError(f"an LDE of {n} points, not a power of two")
     if tuple(tables.exz.shape) != (n,):
@@ -422,20 +450,17 @@ def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
         raise ValueError(f"rows of {span} words hold no halo of "
                          f"{program.air.max_offset * blowup} past {n} points")
     for t, name in ((lde3, "lde"), (tables.exz, "exz"), (tables.xt, "xt"),
-                    (tables.xb, "xb"), (tables.dinv, "dinv")):
+                    (tables.xb, "xb"), (tables.dinv, "dinv"), (weights, "weights")):
         cuda.check_operand(t, name)
-    per = MAX_WORDS // words.shape[1]
-    if per < 1:
-        raise ValueError(f"{program.terms} terms need more weight words than a launch holds")
+    if weights.data_ptr() % 16:
+        raise ValueError("weights must be 16-byte aligned (a term is one 16-byte load)")
     lib = library(program.source)
     out = torch.empty((b, n), dtype=torch.int32, device=lde3.device)
-    for j in range(0, b, per):
-        part = np.ascontiguousarray(words[j : j + per])
-        COMPOSE.launch(
-            lde3.device, lde3[j].data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
-            tables.xb.data_ptr(), tables.dinv.data_ptr(), out[j].data_ptr(), n, c, blowup,
-            part.shape[0], part.ctypes.data, part.size, span, lib=lib,
-        )
+    COMPOSE.launch(
+        lde3.device, lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
+        tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
+        weights.data_ptr(), weights.numel(), span, lib=lib,
+    )
     return out[0] if single else out
 
 

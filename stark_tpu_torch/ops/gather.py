@@ -19,6 +19,15 @@ card first; a plan too large for one launch's parameters takes several.
 On a CPU tensor :func:`gather` runs the plain version, torch indexing
 over the same list; on CUDA tensors it launches the kernel or raises.  Every source must stay alive and unchanged
 until the fetch has landed: the plan holds a reference to each.
+
+A :class:`RulePlan` is the same gather for indices that lie on the card:
+each request's index follows a :class:`Rule` from a (rows, number) index
+buffer (the FRI query indices kernel K10 writes), so the plan carries no
+index and depends only on the shapes: it is built once per shape and
+bound to a prove's tensors at each launch (the single-fetch prove,
+stark_tpu/fri.py:_prove_chained).  :class:`Packed` is the one buffer such
+a prove's kernels write into and :func:`to_host` brings back, at once or
+(``wait=False``) as a copy in flight.
 """
 
 from __future__ import annotations
@@ -150,63 +159,275 @@ class GatherPlan:
         else one) and an index per request.  A plan too large for one
         launch is cut into several; both proves' plans take one.  Raises
         where a field does not fit its bits."""
-        n_src = len(self.sources)
-        srcs = np.zeros((n_src, 4), dtype=np.uint64)
-        for i, (t, (kind, a, b)) in enumerate(zip(self.sources, self._meta)):
-            if not (0 < a < _U32 and 0 <= b < 1 << 31):
-                raise ValueError(f"gather source {i}: ({a}, {b}) does not fit 32 bits")
-            ptr = t.data_ptr()
-            srcs[i] = (ptr % _U32, ptr >> 32, a, kind << 31 | b)
-        fixed = HEADER_WORDS + 4 * n_src
-        if fixed + 6 > _MAX_WORDS:
-            raise ValueError(f"{n_src} gather sources: a launch holds at most "
-                             f"{(_MAX_WORDS - HEADER_WORDS - 6) // 4}")
+        srcs = _source_words(self.sources, self._meta)
         if self.words >= _U32:
             raise ValueError(f"{self.words} output words do not fit 32 bits")
-        launches, pieces, room = [], [], _MAX_WORDS - fixed
-        for s, idx, slot in self.requests:
-            if slot.width == 0 or idx.size == 0:
-                continue
-            per_warp = 32 // slot.width if slot.width <= 32 else 1
-            j = 0
-            while j < idx.size:
+        return _encode(srcs, self.requests, out_address)
+
+
+def _source_words(tensors, meta) -> np.ndarray:
+    """The sources' words (address, a, kind << 31 | b), one row each."""
+    srcs = np.zeros((len(meta), 4), dtype=np.uint64)
+    for i, (t, (kind, a, b)) in enumerate(zip(tensors, meta)):
+        if not (0 < a < _U32 and 0 <= b < 1 << 31):
+            raise ValueError(f"gather source {i}: ({a}, {b}) does not fit 32 bits")
+        ptr = 0 if t is None else t.data_ptr()
+        srcs[i] = (ptr % _U32, ptr >> 32, a, kind << 31 | b)
+    return srcs
+
+
+def _encode(srcs: np.ndarray, requests: list, out_address: int,
+            idx_address: int = 0) -> list[np.ndarray]:
+    """The launches' parameter words for ``requests`` ((source, indices or
+    :class:`Rule`, slot) each): GatherPlan.encode, with a rule slot's
+    payload its rule's words where an index slot's is its indices."""
+    n_src = len(srcs)
+    fixed = HEADER_WORDS + 4 * n_src
+    if fixed + 6 > _MAX_WORDS:
+        raise ValueError(f"{n_src} gather sources: a launch holds at most "
+                         f"{(_MAX_WORDS - HEADER_WORDS - 6) // 4}")
+    launches, pieces, room = [], [], _MAX_WORDS - fixed
+    for s, what, slot in requests:
+        rule = isinstance(what, Rule)
+        total = what.k if rule else what.size
+        if slot.width == 0 or total == 0:
+            continue
+        per_warp = 32 // slot.width if slot.width <= 32 else 1
+        j = 0
+        while j < total:
+            if rule:
+                # A piece of n requests takes 4 + its rule's words + ceil(n / per_warp).
+                n = min(total - j, max(room - 4 - what.payload_words, 0) * per_warp)
+            else:
                 # A piece of n requests takes 4 + n + ceil(n / per_warp) words.
-                n = min(idx.size - j, (room - 4) * per_warp // (per_warp + 1))
+                n = min(total - j, (room - 4) * per_warp // (per_warp + 1))
                 while n > 0 and 4 + n + -(-n // per_warp) > room:
                     n -= 1
-                if n < 1:
-                    launches.append(pieces)
-                    pieces, room = [], _MAX_WORDS - fixed
-                    continue
-                pieces.append((s, idx[j : j + n], slot.first + j * slot.width, per_warp))
-                room -= 4 + n + -(-n // per_warp)
-                j += n
-        if pieces or not launches:
-            launches.append(pieces)
-        return [_params(srcs, pieces, out_address) for pieces in launches]
+            n = min(n, 1 << 16)  # a task's first request has 16 bits
+            if n < 1:
+                launches.append(pieces)
+                pieces, room = [], _MAX_WORDS - fixed
+                continue
+            payload = what.words(j) if rule else what[j : j + n]
+            pieces.append((s | rule << 31, payload, slot.first + j * slot.width, per_warp, n))
+            room -= 4 + payload.size + -(-n // per_warp)
+            j += n
+    if pieces or not launches:
+        launches.append(pieces)
+    return [_params(srcs, pieces, out_address, idx_address) for pieces in launches]
 
 
-def _params(srcs: np.ndarray, pieces: list, out_address: int) -> np.ndarray:
+def _params(srcs: np.ndarray, pieces: list, out_address: int,
+            idx_address: int = 0) -> np.ndarray:
     """One launch's parameter words (GatherPlan.encode)."""
-    src, first, per_warp = (np.array([p[i] for p in pieces], dtype=np.int64).reshape(-1)
-                            for i in (0, 2, 3))
-    k = np.array([p[1].size for p in pieces], dtype=np.int64)
-    indices = np.concatenate([p[1] for p in pieces] + [np.zeros(0, dtype=np.int64)])
-    if indices.size and indices.max() >= _U32:
-        raise ValueError(f"gather index {indices.max()} does not fit 32 bits")
-    slots = np.stack([src, k, first, np.cumsum(k) - k], axis=1)
+    src, first, per_warp, k = (np.array([p[i] for p in pieces], dtype=np.int64).reshape(-1)
+                               for i in (0, 2, 3, 4))
+    size = np.array([p[1].size for p in pieces], dtype=np.int64)
+    payload = np.concatenate([p[1] for p in pieces] + [np.zeros(0, dtype=np.int64)])
+    if payload.size and payload.max() >= _U32:
+        raise ValueError(f"gather index {payload.max()} does not fit 32 bits")
+    slots = np.stack([src, k, first, np.cumsum(size) - size], axis=1)
     warps = -(-k // per_warp)
     start = np.repeat(np.cumsum(warps) - warps, warps)
     j0 = (np.arange(warps.sum()) - start) * np.repeat(per_warp, warps)
     tasks = np.repeat(np.arange(len(pieces)), warps) | j0 << 16
-    head = np.array([len(srcs), len(pieces), tasks.size, indices.size,
-                     out_address % _U32, out_address >> 32, 0, 0], dtype=np.uint64)
+    head = np.array([len(srcs), len(pieces), tasks.size, payload.size,
+                     out_address % _U32, out_address >> 32,
+                     idx_address % _U32, idx_address >> 32], dtype=np.uint64)
     words = np.concatenate([head, srcs.reshape(-1), slots.reshape(-1).astype(np.uint64),
-                            tasks.astype(np.uint64), indices.astype(np.uint64)])
+                            tasks.astype(np.uint64), payload.astype(np.uint64)])
     size = next(b for b in PARAM_BYTES if 4 * words.size <= b)
     out = np.zeros(size // 4, dtype=np.uint32)
     out[: words.size] = words
     return out
+
+
+def _pow2(n: int) -> bool:
+    return n > 0 and n & (n - 1) == 0
+
+
+@dataclass(frozen=True)
+class Rule:
+    """The indices of one request slot of a :class:`RulePlan`, from a
+    (rows, number) index buffer: request j of the slot, j = ((row h + e)
+    number + q) F + u (``order`` 0) or ((row number + q) h + e) F + u
+    (``order`` 1), F = len(offsets), reads index
+
+        ((idx[row, q] mod half) + e half + offsets[u]) mod wrap + row stride
+
+    (``wrap`` 0: no wrap).  ``half`` and ``wrap`` are powers of two.  The
+    FRI round of n points reads a = idx mod n/2 and a + n/2 (h = 2) of each
+    proof's (B, n) codeword, stride n, and a of the next round's; a trace
+    opening reads (q + k blowup) mod N for q in {a, a + N/2} (order 1),
+    stark_tpu/stark.py:_dev_cols_idx."""
+
+    rows: int
+    number: int
+    half: int
+    h: int = 1
+    offsets: tuple = (0,)
+    wrap: int = 0
+    stride: int = 0
+    order: int = 0
+
+    def __post_init__(self):
+        if not (self.rows >= 1 and self.number >= 1 and _pow2(self.half)
+                and (self.wrap == 0 or _pow2(self.wrap)) and 1 <= self.h < 256
+                and 1 <= len(self.offsets) < 256 and self.order in (0, 1)
+                and 0 <= self.stride < _U32 and self.half < _U32 and self.wrap <= _U32
+                and all(0 <= o < _U32 for o in self.offsets)):
+            raise ValueError(f"a rule out of range: {self}")
+
+    @property
+    def k(self) -> int:
+        """The slot's requests."""
+        return self.rows * self.number * self.h * len(self.offsets)
+
+    @property
+    def payload_words(self) -> int:
+        return 6 + len(self.offsets)
+
+    def words(self, j_start: int) -> np.ndarray:
+        """The rule's payload words (csrc/gather.cu) for a piece of the slot
+        from request ``j_start`` on."""
+        shape = self.h | len(self.offsets) << 8 | self.order << 16
+        wrap = self.wrap - 1 if self.wrap else _U32 - 1
+        return np.array([j_start, self.number, shape, self.half - 1, wrap, self.stride,
+                         *self.offsets], dtype=np.int64)
+
+    def expand(self, idx: torch.Tensor) -> torch.Tensor:
+        """(rows, number) indices -> the slot's (k,) int64 indices, in
+        order (torch ops on ``idx``'s device: the plain version's)."""
+        dev = idx.device
+        a = idx.long().reshape(self.rows, self.number) % self.half
+        e = torch.arange(self.h, dtype=torch.int64, device=dev) * self.half
+        off = torch.tensor(self.offsets, dtype=torch.int64, device=dev)
+        if self.order == 0:
+            x = a[:, None, :, None] + e[None, :, None, None] + off
+        else:
+            x = a[:, :, None, None] + e[None, None, :, None] + off
+        if self.wrap:
+            x = x % self.wrap
+        rows = torch.arange(self.rows, dtype=torch.int64, device=dev) * self.stride
+        return (x + rows[:, None, None, None]).reshape(-1)
+
+
+class RulePlan:
+    """A gather plan whose requests take their indices from an index buffer
+    through :class:`Rule` s: it depends only on shapes, so a prover builds it
+    once per shape.  :meth:`source` declares each source by its shape (a
+    (..., n) int32 array read as (c, n) rows, or a level stack of trees
+    of width 2^depth); :meth:`values` and :meth:`paths` add a slot each,
+    in the output's order; :meth:`run` binds tensors of those shapes and
+    gathers into a given buffer."""
+
+    def __init__(self):
+        self.specs: list[tuple[tuple, torch.dtype]] = []
+        self._meta: list[tuple[int, int, int]] = []
+        self.requests: list[tuple[int, Rule, Slot]] = []
+        self.words = 0
+        self._templates: list[np.ndarray] | None = None
+
+    def values_source(self, shape, n: int, c: int = 1) -> int:
+        """A source read as c rows of n int32 values (a request's index
+        may pass n: row r of element i is word r n + i); its id."""
+        self.specs.append((tuple(shape), torch.int32))
+        self._meta.append((VALUES, n, c))
+        return len(self.specs) - 1
+
+    def stack_source(self, width: int, depth: int) -> int:
+        """A level stack of width / 2^depth trees of 2^depth leaves (a
+        tree or a forest, merkle.py); its id."""
+        rows = 2 * width - (width >> depth)
+        self.specs.append(((rows, 32), torch.uint8))
+        self._meta.append((PATHS, width, depth))
+        return len(self.specs) - 1
+
+    def _add(self, src: int, kind: int, rule: Rule, width: int) -> Slot:
+        if self._meta[src][0] != kind:
+            raise ValueError(f"source {src} is not a {('values', 'paths')[kind]} source")
+        self._templates = None
+        slot = Slot(kind, self.words, rule.k, width)
+        self.requests.append((src, rule, slot))
+        self.words += slot.words
+        return slot
+
+    def values(self, src: int, rule: Rule) -> Slot:
+        """The values of source ``src`` at ``rule``'s indices: a (k, c) slot."""
+        return self._add(src, VALUES, rule, self._meta[src][2])
+
+    def paths(self, src: int, rule: Rule) -> Slot:
+        """The authentication paths of ``rule``'s leaves of stack ``src``: a
+        (k, depth, 32) slot."""
+        return self._add(src, PATHS, rule, 8 * self._meta[src][2])
+
+    def _check(self, sources: list, idx: torch.Tensor, out: torch.Tensor) -> None:
+        if len(sources) != len(self.specs):
+            raise ValueError(f"{len(self.specs)} sources declared, {len(sources)} bound")
+        for i, (t, (shape, dtype)) in enumerate(zip(sources, self.specs)):
+            if tuple(t.shape) != shape or t.dtype != dtype or t.device != out.device \
+                    or not t.is_contiguous():
+                raise ValueError(f"source {i}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+                                 f"declared {shape} {dtype} on {out.device}")
+        if idx.dtype != torch.int32 or idx.device != out.device or not idx.is_contiguous():
+            raise ValueError(f"indices: contiguous int32 on {out.device}")
+        if tuple(out.shape) != (self.words,) or out.dtype != torch.int32:
+            raise ValueError(f"out must be ({self.words},) int32, got {tuple(out.shape)}")
+        for _, rule, _ in self.requests:
+            if idx.numel() < rule.rows * rule.number:
+                raise ValueError(f"{idx.numel()} indices, a rule reads {rule.rows} rows "
+                                 f"of {rule.number}")
+
+    def encode(self, sources: list, idx_address: int, out_address: int) -> list[np.ndarray]:
+        """The launches' parameter words (csrc/gather.cu), as GatherPlan.encode:
+        the plan's structure is encoded once and only the addresses (the
+        output, the index buffer, each source's) are written at each call."""
+        if self._templates is None:
+            if self.words >= _U32:
+                raise ValueError(f"{self.words} output words do not fit 32 bits")
+            self._templates = _encode(_source_words([None] * len(self._meta), self._meta),
+                                      self.requests, 0)
+        srcs = _source_words(sources, self._meta)
+        out = []
+        for template in self._templates:
+            params = template.copy()
+            params[4:8] = (out_address % _U32, out_address >> 32,
+                           idx_address % _U32, idx_address >> 32)
+            params[HEADER_WORDS : HEADER_WORDS + srcs.size] = srcs.reshape(-1)
+            out.append(params)
+        return out
+
+    def run(self, sources: list, idx: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """Gather into ``out`` ((words,) int32): ``sources`` bound in the
+        order they were declared, ``idx`` the (rows, number) int32 index
+        buffer.  K13 launches on a card (the rule slots read ``idx`` there),
+        the plain version on the CPU."""
+        self._check(sources, idx, out)
+        if out.device.type == "cpu":
+            out.copy_(rules_plain(self, sources, idx))
+            return out
+        for t in (*sources, idx, out):
+            cuda.check_operand(t, "gather operand", t.dtype)
+        for params in self.encode(sources, idx.data_ptr(), out.data_ptr()):
+            QUERY_GATHER.launch(out.device, params.ctypes.data, params.nbytes)
+        return out
+
+
+def rules_plain(plan: RulePlan, sources: list, idx: torch.Tensor) -> torch.Tensor:
+    """A RulePlan's plain version: each rule expanded by torch ops on
+    ``idx``'s device, then torch indexing, concatenated: the (words,) int32
+    buffer the kernel writes."""
+    parts = [torch.empty(0, dtype=torch.int32, device=idx.device)]
+    for s, rule, _ in plan.requests:
+        src, (kind, a, b) = sources[s], plan._meta[s]
+        i = rule.expand(idx)
+        lv = torch.arange(b, dtype=torch.int64, device=idx.device)
+        if kind == VALUES:
+            parts.append(src.reshape(-1)[i[:, None] + a * lv].reshape(-1))
+        else:
+            rows = (2 * a - ((2 * a) >> lv)) + ((i[:, None] >> lv) ^ 1)
+            parts.append(src.view(torch.int32)[rows].reshape(-1))
+    return torch.cat(parts)
 
 
 def gather_plain(plan: GatherPlan) -> torch.Tensor:
@@ -248,17 +469,50 @@ def gather(plan: GatherPlan) -> torch.Tensor:
     return out
 
 
-def to_host(words: torch.Tensor) -> np.ndarray:
+class Pending:
+    """A copy to the host in flight (:func:`to_host` with ``wait=False``):
+    :meth:`wait` blocks until it has landed and returns the words."""
+
+    def __init__(self, host: torch.Tensor, landed):
+        self._host, self._landed = host, landed
+
+    def wait(self) -> np.ndarray:
+        if self._landed is not None:
+            self._landed.synchronize()
+        return self._host.numpy().view(np.uint32)
+
+
+def to_host(words: torch.Tensor, wait: bool = True):
     """A (words,) int32 tensor on the host as uint32: from a card, one copy
-    into pinned memory, waited for with an event."""
+    into pinned memory of its own, waited for with an event.  ``wait``
+    False: the copy is only issued, and a :class:`Pending` returned (the
+    prover's pipeline waits for it after it has launched more work)."""
     if words.device.type == "cpu":
-        return words.numpy().view(np.uint32)
-    host = torch.empty(words.shape, dtype=torch.int32, pin_memory=True)
-    host.copy_(words, non_blocking=True)
-    landed = torch.cuda.Event()
-    landed.record(torch.cuda.current_stream(words.device))
-    landed.synchronize()
-    return host.numpy().view(np.uint32)
+        pending = Pending(words, None)
+    else:
+        host = torch.empty(words.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(words, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record(torch.cuda.current_stream(words.device))
+        pending = Pending(host, landed)
+    return pending.wait() if wait else pending
+
+
+class Packed:
+    """One (words,) int32 buffer on a device, cut into named sections, for
+    one read: kernels write into the sections (:attr:`dev`, views of the
+    buffer), :func:`to_host` brings the whole buffer back in one copy, and
+    :meth:`host` cuts the words it returns the same way."""
+
+    def __init__(self, sizes: dict, device):
+        self.sizes = {k: int(v) for k, v in sizes.items()}
+        self.buf = torch.empty(sum(self.sizes.values()), dtype=torch.int32, device=device)
+        self.dev = dict(zip(self.sizes, torch.split(self.buf, list(self.sizes.values()))))
+
+    def host(self, words: np.ndarray) -> dict:
+        """The sections of the fetched (words,) uint32 buffer."""
+        ends = np.cumsum(list(self.sizes.values()))
+        return dict(zip(self.sizes, np.split(words, ends[:-1])))
 
 
 def fetch(plan: GatherPlan) -> np.ndarray:

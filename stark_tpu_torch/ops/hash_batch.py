@@ -31,7 +31,17 @@ in hashfn.py (reference src/hash.rs):
                          32-byte chunks and a pending tail; a launch
                          appends bytes and draws the challenge mod p
                          (the FRI rounds' root absorbs but the last run
-                         in K4-dyn, ops/fold.fold_dyn).
+                         in K4-dyn, ops/fold.fold_dyn);
+    constraint_challenges K15  the STARK layer's constraint challenges on
+                         the same sponge, seeded with each proof's trace
+                         root (stark_tpu/stark.py:_device_challenges_fn
+                         :165): the digests' bytes, K11's weight words and
+                         the sponge the FRI chain goes on from;
+    sample_indices K10   the FRI query indices from the sponge after the
+                         last root (sample_indices_core :964,
+                         seed_digest_rows_from_state :951): M candidate
+                         hashes, the first ``number`` distinct reduced
+                         indices in order, and how many were found.
 
 **Layout.**  Digests are node-major ``(N, 32)`` uint8 tensors: node j is
 the 32 contiguous bytes at 32 j.  (The JAX package keeps them byte-major,
@@ -102,6 +112,19 @@ SPONGE = cuda.Kernel(
     [cuda.ptr] * 2 + [cuda.i32] * 2 + [cuda.ptr, cuda.i32] + [cuda.ptr] * 2 + [cuda.i32],
     source=_SRC, replaces="stark_tpu/ops/hash_batch.py:911",
 )
+CHALLENGES = cuda.Kernel(
+    "constraint_challenges", "stark_constraint_challenges",
+    [cuda.ptr] * 6 + [cuda.i32] * 2,
+    source=_SRC, replaces="stark_tpu/stark.py:165",
+)
+SAMPLE = cuda.Kernel(
+    "sample_indices", "stark_sample_indices",
+    [cuda.ptr] * 2 + [cuda.i32, _I64, _I64, cuda.i32, cuda.i32] + [cuda.ptr] * 2 + [cuda.i32],
+    source=_SRC, replaces="stark_tpu/ops/hash_batch.py:964",
+)
+#: The largest reduced size K10 takes: its seen-mask, one bit a reduced
+#: index, lies in 2 KB of shared memory (csrc/hash.cu kSampleMaxReduced).
+SAMPLE_MAX_REDUCED = 1 << 14
 
 #: The subtree a K8 block owns leaves 2^TAIL_TOP_LG roots to the block that
 #: builds the top, but is never smaller than 2^TAIL_MIN_SUB_LG nodes: set
@@ -331,12 +354,11 @@ def sponge_state_plain(state: torch.Tensor, pending: torch.Tensor,
     return s.T.contiguous()
 
 
-def sponge_absorb_plain(state: torch.Tensor, pending: torch.Tensor, q: int,
-                        data: torch.Tensor, fresh: bool = False):
-    """K9's plain version: (B, 32) state and pending (q bytes), (B, m)
-    data -> (state, pending, alpha): the state after every full chunk of
-    pending || data, the new (B, 32) pending (its first (q + m) mod 32
-    bytes), and the (B,) int64 challenge mod p of all bytes so far."""
+def _sponge_append(state: torch.Tensor, pending: torch.Tensor, q: int,
+                   data: torch.Tensor, fresh: bool = False):
+    """(B, 32) state and pending (q bytes), (B, m) data -> (state, pending,
+    q): the state after every full chunk of pending || data and the new
+    (B, 32) pending, its first q = (q + m) mod 32 bytes."""
     b = data.shape[0]
     s = _init_state(b, data.device) if fresh else state.T.clone()
     stream = torch.cat([pending[:, :q], data], dim=1).T  # (q + m, B)
@@ -345,9 +367,78 @@ def sponge_absorb_plain(state: torch.Tensor, pending: torch.Tensor, q: int,
         s = _mix(_absorb(s, stream[c : c + 32]))
     new_pending = torch.zeros_like(pending)
     new_pending[:, : stream.shape[0] - full] = stream[full:].T
-    state = s.T.contiguous()
-    digest = sponge_state_plain(state, new_pending, stream.shape[0] - full)
+    return s.T.contiguous(), new_pending, stream.shape[0] - full
+
+
+def sponge_absorb_plain(state: torch.Tensor, pending: torch.Tensor, q: int,
+                        data: torch.Tensor, fresh: bool = False):
+    """K9's plain version: (B, 32) state and pending (q bytes), (B, m)
+    data -> (state, pending, alpha): the state after every full chunk of
+    pending || data, the new (B, 32) pending (its first (q + m) mod 32
+    bytes), and the (B,) int64 challenge mod p of all bytes so far."""
+    state, new_pending, q = _sponge_append(state, pending, q, data, fresh)
+    digest = sponge_state_plain(state, new_pending, q)
     return state, new_pending, _stream_alpha(digest.T)
+
+
+_R1 = (1 << 32) % _P
+_R2 = _R1 * _R1 % _P
+
+
+def _as_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensors holding their 32 bits."""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def constraint_challenges_plain(roots: torch.Tensor, challenges: int):
+    """K15's plain version: (B, 32) u8 trace roots -> (state, pending,
+    digests, weights): a fresh sponge absorbs each root, then draws
+    ``challenges`` challenges, each the first 8 bytes of the digest of
+    every byte so far, which it absorbs in turn (stark.py
+    _draw_constraint_challenges); the (B, 32) state and pending after them
+    (a tail of 8 challenges mod 32 bytes), the (B, challenges, 8) u8
+    challenge bytes, and the (B, 2 challenges) int32 weight words of K11,
+    per pair (a, b): a R^2 mod p, its Shoup companion, b R mod p, its
+    companion (ops/compose.py:ComposeProgram.weights)."""
+    b = roots.shape[0]
+    pending = torch.zeros((b, 32), dtype=torch.uint8, device=roots.device)
+    state, pending, q = _sponge_append(None, pending, 0, roots, fresh=True)
+    digests = torch.empty((b, challenges, 8), dtype=torch.uint8, device=roots.device)
+    for k in range(challenges):
+        digests[:, k] = sponge_state_plain(state, pending, q)[:, :8]
+        state, pending, q = _sponge_append(state, pending, q, digests[:, k])
+    red = _stream_alpha(digests.reshape(-1, 8).T).reshape(b, -1, 2)
+    wa, wb = red[..., 0] * _R2 % _P, red[..., 1] * _R1 % _P
+    words = torch.stack([wa, (wa << 32) // _P, wb, (wb << 32) // _P], dim=-1)
+    return state, pending, digests, _as_int32(words.reshape(b, 2 * challenges))
+
+
+def sample_indices_plain(state: torch.Tensor, pending: torch.Tensor, q: int,
+                         size: int, reduced: int, number: int, m: int):
+    """K10's plain version: (B, 32) sponge states with q pending bytes ->
+    ((B, number) int32 indices, (B,) int32 counts).  Per lane the seed
+    challenge's 8 bytes, the seed H(them), the m candidates H(seed || c as
+    LE u32), low32 their last four digest bytes most significant first;
+    the candidates whose low32 mod ``reduced`` is its first occurrence
+    among them are accepted in order, up to ``number`` of them, each
+    giving low32 mod ``size`` (0 past the count) (stark_tpu's
+    sample_indices_core)."""
+    b, dev = state.shape[0], state.device
+    challenge = sponge_state_plain(state, pending, q)[:, :8]
+    seed = _hash_chunks(challenge.T.contiguous())                     # (32, B)
+    c = torch.arange(m, dtype=torch.int64, device=dev)
+    ctr = torch.stack([(c >> s) & 0xFF for s in (0, 8, 16, 24)]).to(torch.uint8)
+    msg = torch.cat([seed[:, :, None].expand(32, b, m), ctr[:, None, :].expand(4, b, m)])
+    st = _hash_chunks(msg.reshape(36, b * m)).long().reshape(32, b, m)
+    low32 = st[28] << 24 | st[29] << 16 | st[30] << 8 | st[31]         # (B, M)
+    red = low32 % reduced
+    earlier = torch.ones((m, m), dtype=torch.bool, device=dev).tril(-1)
+    first = ~((red[:, :, None] == red[:, None, :]) & earlier).any(-1)
+    pos = torch.cumsum(first.long(), 1) - 1
+    take = first & (pos < number)
+    out = torch.zeros((b, number + 1), dtype=torch.int64, device=dev)
+    out.scatter_(1, torch.where(take, pos, number), torch.where(take, low32 % size, 0))
+    return out[:, :number].to(torch.int32), take.sum(1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +734,77 @@ class Sponge:
                 None if alpha is None else alpha.data_ptr(), b,
             )
         self.advance(m)
+
+
+def constraint_challenges(roots: torch.Tensor, challenges: int, sponge: "Sponge",
+                          copy: torch.Tensor, digests: torch.Tensor,
+                          weights: torch.Tensor) -> None:
+    """K15: each lane's trace root ((B, 32) u8, the trace forest's roots)
+    into a fresh ``sponge`` of B lanes, then ``challenges`` challenges drawn
+    and absorbed; writes the roots into ``copy`` ((B, 32) u8), the
+    challenges' bytes into ``digests`` ((B, challenges, 8) u8), K11's
+    weight words into ``weights`` ((B, 2 challenges) int32), and leaves the
+    sponge after the last challenge's bytes (constraint_challenges_plain
+    on the CPU)."""
+    b = sponge.lanes
+    if challenges < 0 or challenges % 2:
+        raise ValueError(f"challenges come in pairs, got {challenges}")
+    for t, name, shape, dtype in ((roots, "roots", (b, 32), torch.uint8),
+                                  (copy, "copy", (b, 32), torch.uint8),
+                                  (digests, "digests", (b, challenges, 8), torch.uint8),
+                                  (weights, "weights", (b, 2 * challenges), torch.int32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != sponge.state.device:
+            raise ValueError(f"{name} must be {shape} {dtype} on {sponge.state.device}, "
+                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if sponge.state.device.type == "cpu":
+        state, pending, digs, words = constraint_challenges_plain(roots, challenges)
+        sponge.state.copy_(state)
+        sponge.pending.copy_(pending)
+        copy.copy_(roots)
+        digests.copy_(digs)
+        weights.copy_(words)
+    else:
+        for t, name in ((roots, "roots"), (copy, "copy"), (digests, "digests"),
+                        (weights, "weights")):
+            cuda.check_operand(t, name, t.dtype)
+        CHALLENGES.launch(
+            sponge.state.device, roots.data_ptr(), sponge.state.data_ptr(),
+            sponge.pending.data_ptr(), copy.data_ptr(), digests.data_ptr(),
+            weights.data_ptr(), challenges, b,
+        )
+    sponge.q = 8 * challenges % 32
+    sponge.fresh = False
+
+
+def sample_indices(sponge: "Sponge", size: int, reduced: int, number: int, m: int,
+                   out: torch.Tensor, count: torch.Tensor) -> None:
+    """K10: ``number`` FRI query indices a lane from the sponge after the
+    last root, out of ``m`` candidates, into ``out`` ((B, number) int32),
+    and how many were found into ``count`` ((B,) int32): fewer than
+    ``number`` where the candidates give fewer distinct indices mod
+    ``reduced`` (sample_indices_plain on the CPU).  ``size`` and
+    ``reduced`` are powers of two, reduced at most SAMPLE_MAX_REDUCED."""
+    b = sponge.lanes
+    if sponge.fresh:
+        raise ValueError("the sponge has absorbed nothing")
+    if not (_pow2(size) and _pow2(reduced) and reduced <= SAMPLE_MAX_REDUCED
+            and 1 <= number <= reduced and m >= 0 and size < 1 << 31):
+        raise ValueError(f"sampling {number} of {m} candidates, size {size}, reduced "
+                         f"{reduced}: out of range")
+    for t, name, shape in ((out, "out", (b, number)), (count, "count", (b,))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32 or \
+                t.device != sponge.state.device:
+            raise ValueError(f"{name} must be {shape} int32 on {sponge.state.device}")
+    if sponge.state.device.type == "cpu":
+        idx, cnt = sample_indices_plain(sponge.state, sponge.pending, sponge.q, size,
+                                        reduced, number, m)
+        out.copy_(idx)
+        count.copy_(cnt)
+        return
+    cuda.check_operand(out, "out")
+    cuda.check_operand(count, "count")
+    SAMPLE.launch(sponge.state.device, sponge.state.data_ptr(), sponge.pending.data_ptr(),
+                  sponge.q, size, reduced, number, m, out.data_ptr(), count.data_ptr(), b)
 
 
 def level_offset(num_leaves: int, level: int) -> int:

@@ -54,7 +54,13 @@ class ShardedFri(Fri):
     """FRI whose trees, folds and query gather run over a mesh; the same
     protocol and bytes as :class:`~stark_tpu_torch.fri.Fri`.  Both commit
     paths are sharded: the device chain (``device_chain``, K4-dyn) and the
-    host path (K4, one proof at a time)."""
+    host path (K4, one proof at a time).  It keeps the flow of three reads
+    (``fused_round`` False): the trace roots, the chain's fetch and the
+    query gather with host indices, whose reads a rank's share of a tree
+    answers.  stark_tpu's mesh prover runs the single-fetch prove
+    (stark_tpu/parallel/pstark.py:64-87); that path is not ported yet."""
+
+    fused_round = False
 
     #: A round's codeword stays cut while a rank's share holds at least this
     #: many points.  Below it a cut round's two collectives cost more than
@@ -105,9 +111,12 @@ class ShardedFri(Fri):
             x = swap_blocks(got.reshape(2, b, m), 1, 2, b, m).reshape(b, 2 * m)
         return x, self._ladder(r, d * m, m)
 
-    def _commit(self, codewords: Shard, proof_streams: list, fiat_shamirs: list):
+    def _commit(self, codewords: Shard, proof_streams: list, fiat_shamirs: list,
+                upstream=None):
         """The commit over the mesh: per round the (B, n) codeword as a
         Shard and its forest's stack (a ShardedForest while cut)."""
+        if upstream is not None:
+            raise ValueError("the sharded FRI takes no device transcript")
         mesh = self.mesh
         if self.num_rounds() == 0:
             cws, stacks = super()._commit(codewords.whole(), proof_streams, fiat_shamirs)
@@ -121,8 +130,8 @@ class ShardedFri(Fri):
         rounds = self.num_rounds()
         chain = self.device_chain
         if chain:
-            sponge, buf, last, roots, alphas = self._chain_start(mesh.device, b, n,
-                                                                 fiat_shamirs)
+            sponge, packed = self._chain_start(mesh.device, b, fiat_shamirs)
+            last, roots, alphas = self._chain_views(packed, b)
         cws, stacks = [], []
         cw = codewords
         for r in range(rounds):
@@ -156,7 +165,7 @@ class ShardedFri(Fri):
         if cws[-1].local.data_ptr() != last.data_ptr():
             last.copy_(cws[-1].local)
             cws[-1] = replicated(mesh, last)
-        self._chain_replay(G.to_host(buf), b, n, proof_streams, fiat_shamirs)
+        self._chain_replay(packed.host(G.to_host(packed.buf)), b, proof_streams, fiat_shamirs)
         return cws, stacks
 
 

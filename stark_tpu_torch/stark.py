@@ -1,7 +1,14 @@
 """STARK composer: AIR -> composition polynomial -> FRI.
 
-Counterpart of stark_tpu/stark.py, classic flow: host Fiat-Shamir
-challenges, device data path.  Protocol (prover):
+Counterpart of stark_tpu/stark.py.  By default its single-fetch prove
+(chain_upstream, :398-444): the trace root never crosses to the host
+before the end; kernel K15 draws the constraint challenges from it on the
+card and writes the composition's weights, and the FRI chain, the index
+sampling and the query gather go on from there (fri.Fri.prove_chained):
+one read from the card a prove, or a batch, after which the host replays
+every transcript and checks the card's values.  With ``Fri.fused_round``
+False, the classic flow: the trace roots read first, the challenges drawn
+on the host, three reads.  Protocol (prover):
 
  1. Interpolate each trace register over the trace domain {w^i} (iNTT)
     and low-degree-extend onto the evaluation coset {g * W^j},
@@ -10,11 +17,13 @@ challenges, device data path.  Protocol (prover):
     root.                                                   [device]
  3. Draw two Fiat-Shamir challenges (alpha_k, beta_k) per constraint; the
     transcript absorbs each challenge's 8 LE bytes (challenge() is pure).
+                                           [device: K15; or host]
  4. Evaluate transition constraints pointwise on the coset, divide by the
     transition zerofier Z(x) = (x^T - 1) / prod_{tail}(x - w^i), add
     boundary quotients, degree-adjust each term with alpha_k * x^shift +
     beta_k, and sum: the composition codeword.              [device]
- 5. FRI-prove the composition codeword (fri.py; folds are kernel K4).
+ 5. FRI-prove the composition codeword (fri.py; folds are kernel K4-dyn,
+    the query indices kernel K10).
  6. Open the trace Merkle tree at every FRI round-0 query point and its
     frame-shifted companions: these reads join FRI's query phase, one
     gather (kernel K13) and one fetch for the whole of it.
@@ -33,13 +42,14 @@ import torch
 
 from stark_tpu_torch.convert import witness_to_device
 from stark_tpu_torch.field import FiniteField
-from stark_tpu_torch.fri import Fri, _verify_paths_batch
+from stark_tpu_torch.fri import Fri, Upstream, _verify_paths_batch
 from stark_tpu_torch.hashfn import Hash
 from stark_tpu_torch.merkle import Forest
 from stark_tpu_torch.models.air import Air, BoundaryConstraint, ScalarOps
 from stark_tpu_torch.ops import compose as CO
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import gather as G
+from stark_tpu_torch.ops import hash_batch as HB
 from stark_tpu_torch.ops import ntt as NTT
 from stark_tpu_torch.ops.fieldops import GENERATOR, P, primitive_nth_root
 from stark_tpu_torch.stream import (
@@ -204,6 +214,9 @@ class StarkProver:
         # device, made once here and read once a point.
         self.program = CO.ComposeProgram(air, d.boundary)
         self.tables = self._tables(*self._points())
+        # The single-fetch prove's gather plan, by batch size (its structure
+        # depends on the shapes only).
+        self._rule_plans: dict[int, tuple] = {}
 
     def _points(self) -> tuple[int, int]:
         """(first, count): the coset points whose codeword values this
@@ -219,14 +232,16 @@ class StarkProver:
             shift_t=d.transition_shift, shift_b=d.boundary_shift,
             rows=self.program.rows, device=self.device, start=start, count=count)
 
-    def _compose(self, trace_lde: torch.Tensor, alphas, betas) -> torch.Tensor:
+    def _compose(self, trace_lde: torch.Tensor, alphas=None, betas=None, *,
+                 weights: torch.Tensor | None = None) -> torch.Tensor:
         """(c, N) int32 LDE -> (N,) int32 composition codeword, or B proofs
         at once: (B, c, N) -> (B, N) (stark_tpu/stark.py:_compose_impl,
         which stark_tpu/batch.py vmaps): kernel K11 on a card, its plain
         version on the CPU (ops/compose.py).  ``alphas``, ``betas``: the
-        terms' weights, (terms,) host ints for one proof, (B, terms) for B."""
+        terms' weights, (terms,) host ints for one proof, (B, terms) for B;
+        or ``weights``, K15's (B, 4 terms) weight words on the device."""
         return CO.compose(self.program, trace_lde, self.tables, alphas, betas,
-                          self.cfg.blowup)
+                          self.cfg.blowup, weights=weights)
 
     # -- the seams the sharded prover (parallel/pstark.py) overrides ------------
 
@@ -241,11 +256,12 @@ class StarkProver:
         """The B trace trees, one forest (row digests, every level)."""
         return Forest.from_rows(trace_lde)
 
-    def _composition(self, trace_lde: torch.Tensor, alphas, betas) -> torch.Tensor:
+    def _composition(self, trace_lde: torch.Tensor, alphas=None, betas=None, *,
+                     weights: torch.Tensor | None = None) -> torch.Tensor:
         """The (B, N) composition codewords of the (B, c, N) trace LDEs."""
         b = int(trace_lde.shape[0])
-        return self._compose(trace_lde if b > 1 else trace_lde[0], alphas,
-                             betas).reshape(b, self.dom.N)
+        return self._compose(trace_lde if b > 1 else trace_lde[0], alphas, betas,
+                             weights=weights).reshape(b, self.dom.N)
 
     def _witness(self, trace_rows, trace_cols) -> torch.Tensor:
         """The (c, T) int32 witness on the prover's device: host rows or
@@ -286,10 +302,165 @@ class StarkProver:
     def _prove_columns(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
         """B proofs of (B, c, T) int32 witness columns on the prover's device,
         each byte-identical to its own prove (stark_tpu/stark.py:364-568;
-        for B > 1 stark_tpu/batch.py:_prove_batch_classic, :941-1149).
-        Three reads from the card for the batch: the B trace roots, the
-        FRI chain's one fetch, the query phase's one gather."""
+        for B > 1 stark_tpu/batch.py:_prove_batch_mega, :716-940, and
+        _prove_batch_classic, :941-1149): :meth:`_dispatch`, then its
+        finish."""
+        return self._dispatch(cols, timer)()
+
+    def _dispatch(self, cols: torch.Tensor, timer=NULL_TIMER):
+        """Start B proofs of (B, c, T) witness columns; returns ``finish()``
+        -> the B proofs.  The single-fetch prove (the device chain with
+        ``fused_round``, where the FRI is ``_chainable``) launches every
+        kernel here and issues its one read, and ``finish`` waits for it
+        (stark_tpu/batch.py:_mega_dispatch, _mega_finish): a caller may
+        start the next batch between the two.  The other paths run to
+        their end here: two reads with the challenges still on the card
+        (the FRI not chainable: the trace roots and the challenges' bytes
+        ride the chain's fetch, then the query gather), three with
+        ``fused_round`` False (:meth:`_prove_three_reads`)."""
+        fri = self.fri
+        if not (fri.device_chain and fri.fused_round):
+            proofs = self._prove_three_reads(cols, timer)
+            return lambda: proofs
         d, cfg = self.dom, self.cfg
+        field = FiniteField()
+        b = int(cols.shape[0])
+        fss = [FiatShamir() for _ in range(b)]
+        streams = [ProofStream() for _ in range(b)]
+        n_terms = d.num_transition + len(d.boundary)
+        chained = fri._chainable()
+
+        # 1. trace columns -> coefficients -> LDE on the coset  [device]
+        with timer.phase("lde"):
+            trace_lde = self._lde_trace(cols)
+
+        # 2. commit the traces: row digests and every level of the B trees
+        # (one forest); the roots stay on the card  [device]
+        with timer.phase("trace_commit"):
+            trace_forest = self._trace_tree(trace_lde)
+            prefix = {"trace_roots": 8 * b, "digests": 4 * n_terms * b}
+            if chained:
+                plan, round_slots, open_slots = self._rule_plan(b)
+                packed = G.Packed(fri.packed_sections(b, prefix, plan.words), self.device)
+            else:
+                packed = G.Packed(fri.packed_sections(b, prefix), self.device)
+
+        # 3. constraint-combination challenges from the trace roots, and
+        # the composition's weights: K15, into the one buffer  [device]
+        with timer.phase("challenges"):
+            sponge = HB.Sponge(b, self.device)
+            weights = torch.empty((b, 4 * n_terms), dtype=torch.int32, device=self.device)
+            HB.constraint_challenges(
+                trace_forest.roots_dev(), 2 * n_terms, sponge,
+                packed.dev["trace_roots"].view(torch.uint8).view(b, 32),
+                packed.dev["digests"].view(torch.uint8).view(b, 2 * n_terms, 8), weights)
+
+        # 4. composition codewords  [device]
+        with timer.phase("compose"):
+            composition = self._composition(trace_lde, weights=weights)
+
+        def prefix_replay(host: dict) -> None:
+            """The host's replay of the trace roots and the challenge draws
+            from the fetched buffer (stark_tpu/stark.py:426-444); raises on a
+            device/host divergence."""
+            roots = host["trace_roots"].view(np.uint8).reshape(b, 32)
+            digests = host["digests"].view(np.uint8).reshape(b, 2 * n_terms, 8)
+            for j in range(b):
+                root = Hash(roots[j].tobytes())
+                streams[j].push(MerkleRoot(root))
+                fss[j].absorb(root.data)
+                for i in range(2 * n_terms):
+                    raw = fss[j].challenge(field).value.to_bytes(8, "little")
+                    if raw != digests[j, i].tobytes():
+                        raise RuntimeError("device/host transcript divergence "
+                                           "(constraint challenges)")
+                    fss[j].absorb(raw)
+
+        upstream = Upstream(sponge, packed, prefix_replay)
+        # 5. FRI, with the trace openings (step 6) in the same query gather
+        if chained:
+            fri_finish = fri.prove_chained(
+                composition, fss, streams, upstream, plan, round_slots,
+                [trace_lde, trace_forest.stack],
+                lambda fetched: self._open_emit(open_slots, fetched, streams), timer)
+
+            def finish() -> list[bytes]:
+                fri_finish()
+                return [stream.serialize() for stream in streams]
+
+            return finish
+        fri.prove_batch(composition, fss, streams, timer=timer,
+                        extra_dispatch=self._open_dispatch(trace_lde, trace_forest),
+                        extra_emit=lambda slots, fetched: self._open_emit(
+                            slots, fetched, streams),
+                        upstream=upstream)
+        proofs = [stream.serialize() for stream in streams]
+        return lambda: proofs
+
+    def _rule_plan(self, b: int) -> tuple:
+        """The single-fetch prove's query gather for B proofs, made once per
+        B: (plan, each FRI round's slots, the openings' slots).  Its sources
+        are bound as the FRI rounds' codewords and forests, then the (B, c,
+        N) trace LDE and the trace forest's stack."""
+        got = self._rule_plans.get(b)
+        if got is None:
+            d, cfg = self.dom, self.cfg
+            c, k = self.air.num_registers, cfg.num_colinearity_tests
+            plan = G.RulePlan()
+            round_slots = self.fri.query_rules(plan, b)
+            lde = plan.values_source((b, c, d.N), d.N, c)
+            stack = plan.stack_source(b * d.N, d.N.bit_length() - 1)
+            # The FRI round-0 points (a, a + N/2) of each index, each frame
+            # offset's row (stark_tpu/stark.py:_dev_cols_idx).
+            offs = tuple(o * cfg.blowup for o in self.air.frame_offsets)
+            rule = dict(rows=b, number=k, half=d.N // 2, h=2, offsets=offs, wrap=d.N,
+                        order=1)
+            open_slots = ([plan.values(lde, G.Rule(stride=c * d.N, **rule))],
+                          plan.paths(stack, G.Rule(stride=d.N, **rule)))
+            got = self._rule_plans[b] = (plan, round_slots, open_slots)
+        return got
+
+    def _open_dispatch(self, trace_lde: torch.Tensor, trace_forest: Forest):
+        """The openings' reads with host indices: ``dispatch(indices, plan)``
+        adds, per FRI round-0 query point (a, a + half) of each sampled
+        index, each frame offset's row: per proof its values, and every
+        proof's paths in one request."""
+        d, cfg = self.dom, self.cfg
+        b = int(trace_lde.shape[0])
+        offs = np.asarray([k * cfg.blowup for k in self.air.frame_offsets])
+        half = d.N // 2
+
+        def dispatch(indices, plan):
+            a = np.asarray(indices, dtype=np.int64).reshape(b, -1) % half
+            qp = np.stack([a, a + half], axis=2).reshape(b, -1, 1)
+            cols_idx = ((qp + offs[None, None, :]) % d.N).reshape(b, -1)
+            return ([plan.values(trace_lde[j], cols_idx[j]) for j in range(b)],
+                    plan.paths(trace_forest.stack, trace_forest.global_index(cols_idx),
+                               trace_forest.depth))
+
+        return dispatch
+
+    def _open_emit(self, slots, fetched: np.ndarray, streams: list) -> None:
+        """Per opening its values, then its path (raw wire segments), a
+        segment a proof.  ``slots``: the values' slots (one a proof, or one
+        for all) and the paths' slot."""
+        vals, sib = slots
+        b = len(streams)
+        vals = np.concatenate([s.take(fetched) for s in vals]).reshape(
+            b, -1, self.air.num_registers)
+        sib = sib.take(fetched)
+        sib = sib.reshape((b, -1) + sib.shape[1:])
+        for j in range(b):
+            streams[j].push_raw(np.concatenate(
+                [wire_field_elements(vals[j]), wire_merkle_paths(sib[j])], axis=1,
+            ).tobytes())
+
+    def _prove_three_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
+        """B proofs with the challenges drawn on the host (the classic flow,
+        ``Fri.fused_round`` False; stark_tpu's chain_upstream False): three
+        reads from the card for the batch: the B trace roots, the FRI
+        chain's one fetch, the query phase's one gather."""
+        d = self.dom
         field = FiniteField()
         b = int(cols.shape[0])
         fss = [FiatShamir() for _ in range(b)]
@@ -323,33 +494,10 @@ class StarkProver:
 
         # 5. FRI, with the trace openings (step 6) riding the query phase's
         # one gather and one fetch (stark_tpu/stark.py:446-548).
-        offs = np.asarray([k * cfg.blowup for k in self.air.frame_offsets])
-        half = d.N // 2
-
-        def _open_dispatch(indices, plan):
-            """The openings: per FRI round-0 query point (a, a + half) of
-            each sampled index, each frame offset's row; per proof its
-            values, and every proof's paths in one request."""
-            a = np.asarray(indices, dtype=np.int64).reshape(b, -1) % half
-            qp = np.stack([a, a + half], axis=2).reshape(b, -1, 1)
-            cols_idx = ((qp + offs[None, None, :]) % d.N).reshape(b, -1)
-            return ([plan.values(trace_lde[j], cols_idx[j]) for j in range(b)],
-                    plan.paths(trace_forest.stack, trace_forest.global_index(cols_idx),
-                               trace_forest.depth))
-
-        def _open_emit(slots, fetched):
-            """Per opening its values, then its path (raw wire segments)."""
-            vals, sib = slots
-            sib = sib.take(fetched)
-            sib = sib.reshape((b, -1) + sib.shape[1:])
-            for j in range(b):
-                streams[j].push_raw(np.concatenate(
-                    [wire_field_elements(vals[j].take(fetched)),
-                     wire_merkle_paths(sib[j])], axis=1,
-                ).tobytes())
-
         self.fri.prove_batch(composition, fss, streams, timer=timer,
-                             extra_dispatch=_open_dispatch, extra_emit=_open_emit)
+                             extra_dispatch=self._open_dispatch(trace_lde, trace_forest),
+                             extra_emit=lambda slots, fetched: self._open_emit(
+                                 slots, fetched, streams))
         return [stream.serialize() for stream in streams]
 
 

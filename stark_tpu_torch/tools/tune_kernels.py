@@ -1252,11 +1252,11 @@ def compose_before(program):
     def call(lde, tables, alphas, betas, blowup):
         lde3 = lde[None] if lde.dim() == 2 else lde
         b, c, n = lde3.shape
-        words = np.ascontiguousarray(program.weights(alphas, betas))
+        words = torch.from_numpy(program.weights(alphas, betas).view(np.int32)).to(lde.device)
         out = torch.empty((b, n), dtype=torch.int32, device=lde.device)
         if fn(lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
               tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
-              words.ctypes.data, words.size, n,
+              words.data_ptr(), words.numel(), n,
               torch.cuda.current_stream(lde.device).cuda_stream) != 0:
             raise RuntimeError("compose_before failed")
         return out[0] if lde.dim() == 2 else out

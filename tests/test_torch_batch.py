@@ -8,8 +8,9 @@ batch prove, in a module fixture: it takes over a minute here) and the
 port's single proves (Fibonacci from host rows, MdsSquareAir from column
 tensors, prove_many with a padded last batch); the single prove gives the
 same bytes with and without the device chain; a sponge that draws a wrong
-challenge makes the replay raise; a prove reads from the device three
-times, one proof or a batch.  On a card (marker ``gpu``): the same proofs
+challenge makes the replay raise; a prove reads from the device once on
+the single-fetch path (twice where the FRI is not chainable) and three
+times with ``Fri.fused_round`` False, one proof or a batch.  On a card (marker ``gpu``): the same proofs
 through the kernels.  Tolerance zero: proofs are bytes."""
 
 import hashlib
@@ -162,20 +163,41 @@ def test_a_diverging_challenge_raises(monkeypatch):
             .prove_batch(_traces(B))
 
 
+@pytest.mark.parametrize("fused_round", [False, True])
 @pytest.mark.parametrize("count", [1, B])
-def test_three_reads_from_the_device_per_prove(monkeypatch, count):
-    # The trace roots, the FRI chain's one fetch, the query phase's one
-    # gather: the same three for one proof and for a batch.
+def test_three_reads_from_the_device_per_prove(monkeypatch, count, fused_round):
+    # fused_round False: the trace roots, the FRI chain's one fetch, the
+    # query phase's one gather, the same three for one proof and for a
+    # batch.  True (the default): the single-fetch prove's one read, its
+    # words the chain's, the trace roots and challenge bytes, the indices
+    # and counts and the gather's; two where the FRI is not chainable (a
+    # config with no FRI round: the codewords' read, then the gather).
+    from stark_tpu_torch.fri import Fri
+
     reads = []
     to_host = G.to_host
-    monkeypatch.setattr(G, "to_host", lambda t: reads.append(t.numel()) or to_host(t))
+    monkeypatch.setattr(G, "to_host",
+                        lambda t, **kw: reads.append(t.numel()) or to_host(t, **kw))
+    monkeypatch.setattr(Fri, "fused_round", fused_round)
     prover = BatchStarkProver(VariantFibAir(), StarkConfig(**CFG), count, device="cpu")
     prover.prove_batch(_traces(count))
-    assert len(reads) == 3
     rounds = prover.fri.num_rounds()
     n_last = 4 * T >> (rounds - 1)
-    assert reads[0] == 8 * count                                    # the roots
-    assert reads[1] == count * (8 * rounds + rounds - 1 + n_last)   # the chain
+    chain = count * (8 * rounds + rounds - 1 + n_last)
+    if not fused_round:
+        assert len(reads) == 3
+        assert reads[0] == 8 * count                                # the roots
+        assert reads[1] == chain                                    # the chain
+        return
+    terms = prover._single.program.terms
+    tests = CFG["num_colinearity_tests"]
+    plan = prover._single._rule_plan(count)[0]
+    assert reads == [chain + count * (8 + 4 * terms + tests + 1) + plan.words]
+    reads.clear()
+    zero = StarkConfig(**ZERO_ROUND_CFGS[0])
+    BatchStarkProver(VariantFibAir(), zero, count, device="cpu").prove_batch(
+        _traces(count, zero.trace_length))
+    assert len(reads) == 2
 
 
 def test_batch_input_is_checked():

@@ -451,11 +451,13 @@ def test_kernel_on_a_share_with_halo_on_card(cuda_device, model):
 
 @pytest.mark.gpu
 def test_kernel_splits_weights_over_launches_on_card(cuda_device):
-    # 130 MDS proofs' weights (64 words each) outgrow one launch's 8,000.
+    # 130 MDS proofs' weights (64 words each), more than the 8,000 words a
+    # launch's parameters held when the weights rode there: read from
+    # device memory now, one launch takes them all.
     prover, lde, alphas, betas = operands("mds", 130, 50)
     want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas)
     card = StarkProver(prover.air, prover.cfg, cuda_device)
     before = cuda.launch_counts()["compose"]
     got = card._compose(torch.from_numpy(lde.astype(np.int32)).to(cuda_device), alphas, betas)
     assert torch.equal(got.cpu(), want)
-    assert cuda.launch_counts()["compose"] == before + 2
+    assert cuda.launch_counts()["compose"] == before + 1

@@ -148,31 +148,51 @@ def test_gather_plan_rejects_bad_requests():
 def decode_launch(params: np.ndarray, memory: dict, out: np.ndarray) -> None:
     """One launch of csrc/gather.cu's kernel in numpy: every warp (task) and
     lane, addressing exactly as the kernel does.  ``memory``: source address
-    -> that tensor's storage as a flat uint32 array; ``out``: the output
-    words, at the address in the header."""
+    -> that tensor's storage as a flat uint32 array (and the index buffer's,
+    for rule slots); ``out``: the output words, at the address in the
+    header."""
     w = params.astype(np.uint64)
     assert params.nbytes in G.PARAM_BYTES
     n_src, n_slot, n_task = (int(v) for v in w[:3])
     slots = G.HEADER_WORDS + 4 * n_src
     tasks = slots + 4 * n_slot
-    assert int(w[3]) == int(w[slots + 3 : tasks : 4][-1] + w[slots + 1 : tasks : 4][-1])
+    if not int(w[tasks - 4]) >> 31:  # the last slot an index slot: its indices end the table
+        assert int(w[3]) == int(w[slots + 3 : tasks : 4][-1] + w[slots + 1 : tasks : 4][-1])
+    idx = memory.get(int(w[6]) | int(w[7]) << 32)
     for task in range(n_task):
         t_word = int(w[tasks + task])
         slot = slots + 4 * (t_word & 0xFFFF)
         j0 = t_word >> 16
-        src = G.HEADER_WORDS + 4 * int(w[slot])
+        rule = int(w[slot]) >> 31
+        src = G.HEADER_WORDS + 4 * (int(w[slot]) & 0x7FFFFFFF)
         base = memory[int(w[src]) | int(w[src + 1]) << 32]
         a, path, b = int(w[src + 2]), int(w[src + 3]) >> 31, int(w[src + 3]) & 0x7FFFFFFF
         width = 8 * b if path else b
         per_warp = 32 // width if width <= 32 else 1
         count = min(per_warp, int(w[slot + 1]) - j0)
         dst = int(w[slot + 2]) + j0 * width
-        index = tasks + n_task + int(w[slot + 3]) + j0
+        payload = tasks + n_task + int(w[slot + 3])
         for lane in range(32):
             for t in range(lane, count * width, 32):
                 q = 0 if count == 1 else t // width
                 word = t - q * width
-                i = int(w[index + q])
+                if rule:
+                    j = int(w[payload]) + j0 + q
+                    number, shape = int(w[payload + 1]), int(w[payload + 2])
+                    h, f = shape & 0xFF, (shape >> 8) & 0xFF
+                    u, j = j % f, j // f
+                    if shape >> 16:
+                        e, j = j % h, j // h
+                        k, row = j % number, j // number
+                    else:
+                        k, j = j % number, j // number
+                        e, row = j % h, j // h
+                    mask = int(w[payload + 3])
+                    x = ((int(idx[row * number + k]) & mask) + e * (mask + 1)
+                         + int(w[payload + 6 + u])) & int(w[payload + 4])
+                    i = x + row * int(w[payload + 5])
+                else:
+                    i = int(w[payload + j0 + q])
                 if path:
                     lv = word >> 3
                     at = 8 * ((2 * a - ((2 * a) >> lv)) + ((i >> lv) ^ 1)) + (word & 7)
@@ -206,12 +226,31 @@ def recorded_plans(monkeypatch):
 
 
 @pytest.mark.parametrize("cfg", [CFG_256, CFG_1024], ids=["T=256", "T=1024"])
-def test_encoding_decodes_to_plain_gather_on_prove_plans(recorded_plans, cfg):
+def test_encoding_decodes_to_plain_gather_on_prove_plans(recorded_plans, cfg, monkeypatch):
+    # The three-read path's plan (host indices; Fri.fused_round False), then
+    # the single-fetch path's rule plan on its sources and device indices.
+    from stark_tpu_torch.fri import Fri
+
+    monkeypatch.setattr(Fri, "fused_round", False)
     _prover(cfg).prove(fibonacci_trace_mod_p(cfg["trace_length"]))
     (plan,) = recorded_plans
     got, launches = decode_plan(plan)
     assert launches == 1
     np.testing.assert_array_equal(got, G.gather_plain(plan).numpy().view(np.uint32))
+
+    monkeypatch.setattr(Fri, "fused_round", True)
+    runs, run = [], G.RulePlan.run
+    monkeypatch.setattr(G.RulePlan, "run", lambda self, src, idx, out: (
+        runs.append((self, list(src), idx.clone())), run(self, src, idx, out))[1])
+    _prover(cfg).prove(fibonacci_trace_mod_p(cfg["trace_length"]))
+    ((rules, sources, idx),) = runs
+    memory = {t.data_ptr(): t.numpy().view(np.uint32).reshape(-1) for t in sources + [idx]}
+    got = np.full(rules.words, 0xDEADBEEF, dtype=np.uint32)
+    launches = rules.encode(sources, idx.data_ptr(), (1 << 40) + 12)
+    for params in launches:
+        decode_launch(params, memory, got)
+    assert len(launches) == 1 and not recorded_plans[1:]
+    np.testing.assert_array_equal(got, G.rules_plain(rules, sources, idx).numpy().view(np.uint32))
 
 
 def _synthetic_plan(rng, k: int, device="cpu") -> G.GatherPlan:
@@ -238,6 +277,35 @@ def test_encoding_decodes_to_plain_gather_when_split(k, launches):
     got, made = decode_plan(plan)
     assert made == launches
     np.testing.assert_array_equal(got, G.gather_plain(plan).numpy().view(np.uint32))
+
+
+def test_rule_encoding_decodes_to_plain_gather_when_split():
+    # A rule plan whose tasks outgrow one launch: each piece of a slot
+    # carries its rule with the piece's first request.
+    rng = np.random.default_rng(3)
+    rows, number, n, depth = 48, 64, 1 << 10, 4
+    plan = G.RulePlan()
+    vals = plan.values_source((rows, 3, n), n, 3)
+    stack = plan.stack_source(rows << depth, depth)
+    rule = G.Rule(rows, number, 1 << (depth - 1), h=2, offsets=(0, 3, 5), wrap=1 << depth,
+                  stride=1 << depth, order=1)
+    plan.values(vals, G.Rule(rows, number, n // 2, h=2, stride=3 * n))
+    plan.paths(stack, rule)
+    plan.values(vals, G.Rule(rows, number, n // 2, offsets=(1, 2), wrap=n, stride=3 * n))
+    sources = [to_torch(rand_field(rng, (rows, 3, n))),
+               torch.from_numpy(rng.integers(0, 256, size=plan.specs[1][0], dtype=np.uint8))]
+    idx = torch.from_numpy(rng.integers(0, 1 << 30, size=(rows, number)).astype(np.int32))
+    memory = {t.data_ptr(): t.numpy().view(np.uint32).reshape(-1) for t in sources + [idx]}
+    got = np.full(plan.words, 0xDEADBEEF, dtype=np.uint32)
+    launches = plan.encode(sources, idx.data_ptr(), 0)
+    for params in launches:
+        decode_launch(params, memory, got)
+    assert len(launches) >= 2
+    np.testing.assert_array_equal(got, G.rules_plain(plan, sources, idx).numpy().view(np.uint32))
+    # The same structure, other tensors: only the addresses change.
+    again = plan.encode([t.clone() for t in sources], 4, 8)
+    assert all((a[G.HEADER_WORDS + 4 * 2:] == b[G.HEADER_WORDS + 4 * 2:]).all()
+               for a, b in zip(launches, again))
 
 
 def test_encoding_sizes_and_bounds():
