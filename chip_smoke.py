@@ -171,14 +171,23 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     sha256); D=2 gloo ranks at batch8's shape (T=2^14, then
     BatchStarkProver(mesh=) of 8, each proof the single prove's); D=2 gloo
     ranks at T=2^14 on the FRI commit's host path (K4 on exchanged
-    halves).  Per rank: the launches of a counted prove (K1-K3, K14,
-    K5-K8, K9, K4-dyn or on the host path K4, K11 and K13 each above 0),
-    the mesh's collectives (three all-to-alls of n/D words a transform),
-    the walls of three witness + proves.  Before it, with the kernel
-    checks: K14 with a caller's table (the four-step's twiddle rows at n =
-    2^23, D = 4 and n = 2^22, D = 1; an LDE share that pads) and K11 on a
-    share with its halo (Fibonacci T=2^21 on D=4, MDS T=2^16 on D=2)
-    against their plain versions, timed;
+    halves); all but the last on the single-fetch prove; then the D=4
+    world alone on each path in turn (single fetch, three reads with
+    ``fused_round`` off, three reads, single fetch).  Per rank: the reads from the
+    card of a counted prove (one on the single-fetch path, three on the
+    three-read one), its launches (K1-K3, K14, K5-K8, K9, K4-dyn or on
+    the host path K4, K11 and K13 each above 0; K15 and K10 once on the
+    single-fetch path), the mesh's collectives (three all-to-alls of n/D
+    words a transform; the query gather's combine, one all_reduce, and
+    its words), the walls of three witness + proves.  Before it (after
+    the profiled paths): K14 with a caller's table (the four-step's twiddle
+    rows at n = 2^23, D = 4 and n = 2^22, D = 1; an LDE share that pads)
+    and K11 on a share with its halo (Fibonacci T=2^21 on D=4, MDS T=2^16
+    on D=2) against their plain versions, timed; K13's windowed form (a
+    rank's share of the single-fetch plan, zeros where another rank
+    serves a request) against its plain version at every world's plan on
+    every rank, the ranks' own words summing to the plan's, timed at
+    every rank of the Fibonacci T=2^21, D=4 plan;
  9. the API and the command line: a Polynomial product of two 2^15-
     coefficient polynomials on the card (K1-K3 twice each) equal to the
     same product on the CPU; then ``python -m stark_tpu_torch`` as
@@ -319,6 +328,12 @@ DIST_RUNS = 3
 SCALE_TABLE_CASES = ((1 << 23, DIST_D), (1 << 22, 1))
 # K11 on the sharded paths' shares with their halos: (model, T, blowup, D).
 HALO_CASES = (("fib", DIST_T, 4, DIST_D), ("mds", MDS_T, 4, DIST_MDS_D))
+# K13's windowed form (a rank's share of the single-fetch plan) at every
+# distributed world's plan, (model, T, D): every rank held against the
+# plain version, the first (Fibonacci T=2^21 on D=4: cut and whole rounds)
+# timed at every rank.
+WINDOW_CASES = (("fib", DIST_T, DIST_D), ("mds", MDS_T, DIST_MDS_D), ("fib", MAIN_T, 1),
+                ("fib", BATCH_T, DIST_MDS_D))
 # The Polynomial product driven on the card: two polynomials of this many
 # coefficients (the NTT path above the 64-coefficient crossover, n = 2^16).
 POLY_COEFFS = 1 << 15
@@ -498,32 +513,52 @@ def _event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int, skip: tuple = ()) -> float:
+def _flushed_event_ms(flush, call, reps: int) -> float:
+    """Device time per call of ``call`` from a pair of CUDA events around
+    each of ``reps`` calls, each after a ``flush`` that the pair leaves
+    out; all enqueued while a sleep kernel holds the stream, so that no
+    host time lies inside a pair."""
+    call()
+    torch.cuda.synchronize()
+    pairs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+             for _ in range(reps)]
+    torch.cuda._sleep(40_000_000)  # ~20 ms at 1980 MHz
+    for start, end in pairs:
+        flush()
+        start.record()
+        call()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
+
+
+def _device_ms(fn, reps: int, skip: tuple = (), events=None) -> float:
     """Device time per call of ``fn``: every kernel and copy it runs but
     those named in ``skip`` (see _profile).  The
     tracer now and then drops a window, or part of one: a profile without
     device activity, or in which some activity does not occur once or more
     for each of the ``reps`` equal calls, is taken again,
-    ``PROFILE_ATTEMPTS`` times at most."""
+    ``PROFILE_ATTEMPTS`` times at most; then the calls are timed with CUDA
+    events (``events()`` where ``skip`` leaves a flush out)."""
     held = []
     for _ in range(PROFILE_ATTEMPTS):
-        events = _profile(fn, reps, skip)
-        total = sum(_device_us(e) for e in events)
-        if total > 0 and all(e.count % reps == 0 for e in events):
+        profiled = _profile(fn, reps, skip)
+        total = sum(_device_us(e) for e in profiled)
+        if total > 0 and all(e.count % reps == 0 for e in profiled):
             return total / 1e3 / reps
         _retaken[0] += 1
-        seen = {e.key[:40]: e.count for e in events}
+        seen = {e.key[:40]: e.count for e in profiled}
         print(f"profile of {reps} calls taken again; it held {seen}", flush=True)
         held.append(seen)
         if len(held) >= 3 and held[-1] == held[-2] == held[-3]:
             break  # the same window three times: no use in a fourth
-    if skip:  # the flush's kernel would count: no event timing for it
+    if skip and events is None:  # the flush's kernel would count
         raise AssertionError("torch.profiler recorded no complete window")
-    seen = ", ".join(sorted({e.key[:40] for e in events})) or "nothing"
+    seen = ", ".join(sorted({e.key[:40] for e in profiled})) or "nothing"
     _event_timed.append(seen)
     print(f"profile of {reps} calls: no complete window in {PROFILE_ATTEMPTS}; timed "
           f"with CUDA events instead ({seen})", flush=True)
-    return _event_ms(fn, reps)
+    return _event_ms(fn, reps) if events is None else events()
 
 
 def _copies(nbytes: float) -> int:
@@ -623,7 +658,8 @@ class _Results:
             call = _cycled(f, args_list)
             if flush is None:
                 return _device_ms(call, reps)
-            return _device_ms(lambda: (flush(), call()), reps, skip=flush.skip)
+            return _device_ms(lambda: (flush(), call()), reps, skip=flush.skip,
+                              events=lambda: _flushed_event_ms(flush, call, reps))
 
         ms = timed(fn, reps)
         for _ in range(2):
@@ -884,6 +920,100 @@ def _check_sharded_forms(rng, dev, _results: _Results) -> None:
     print("K14 and K11 at the sharded operands == plain, each call twice, device time per "
           "call: " + "; ".join(lines) + "; and K14 with a table at an LDE share that pads "
           f"({WIDE_BATCH}, 2^16 -> 2^17)", flush=True)
+    _check_windowed_gather(rng, dev)
+
+
+def _seat(rank: int, size: int, dev):
+    """Rank ``rank`` of a mesh of ``size`` as its plans see it: a Mesh of
+    this process with that rank and size and no process group (shapes
+    only: nothing here calls a collective)."""
+    from stark_tpu_torch.parallel.mesh import Mesh
+
+    seat = Mesh(None, 0, 1, dev)
+    seat.rank, seat.size = rank, size
+    return seat
+
+
+def _window_sources(plan, gen, dev) -> list:
+    """Seeded tensors of a rule plan's declared shapes, bound as its run
+    binds them (a split stack as its pair)."""
+    from stark_tpu_torch.ops import gather as G
+
+    def rand(i):
+        shape, dtype = plan.specs[i]
+        hi = 998244353 if dtype == torch.int32 else 256
+        return torch.randint(0, hi, shape, dtype=dtype, device=dev, generator=gen)
+
+    return [(rand(spec), rand(spec + 1)) if kind == G.PATHS and split else rand(spec)
+            for kind, _, split, spec in plan._decl]
+
+
+def _owned_words(plan, idx) -> int:
+    """The words of ``plan`` that its rank serves (reads from a source)."""
+    return sum(int(rule.owned(rule.point_rows(idx)[0]).sum()) * slot.width
+               for _, rule, slot in plan.requests)
+
+
+def _check_windowed_gather(rng, dev) -> None:
+    """K13's windowed form (a rank's share of the sharded single-fetch
+    plan, pmerkle.ShardedRulePlan without its combine) against its plain
+    version at WINDOW_CASES, every rank, each call twice; timed at the
+    first case on every rank, the L2 flushed before each call.  Its bound:
+    every word written, the words the rank serves read once, the encoded
+    table and the index buffer.  Printed with the launches each plan
+    takes (the kernels line keeps the main path's K13 entry)."""
+    from stark_tpu_torch import StarkConfig
+    from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.ops import gather as G
+    from stark_tpu_torch.parallel import DistributedStarkProver
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    flush, lines = _L2Flush(dev), []
+    for case, (model, T, d) in enumerate(WINDOW_CASES):
+        air = get_model(model)[0]
+        cfg = StarkConfig(trace_length=T, blowup=4, num_colinearity_tests=16)
+        per_rank, owned = [], 0
+        # The same indices on every rank, as K10 gives them.
+        idx = torch.randint(0, 4 * T // 2, (1, cfg.num_colinearity_tests),
+                            dtype=torch.int32, device=dev, generator=gen)
+        for rank in range(d):
+            prover = DistributedStarkProver(air, cfg, _seat(rank, d, dev))
+            plan = prover._rule_plan(1)[0]
+            sources = _window_sources(plan, gen, dev)
+            out = torch.empty(plan.words, dtype=torch.int32, device=dev)
+            owned += _owned_words(plan, idx)
+            want = G.rules_plain(plan, sources, idx)
+            for turn in (1, 2):
+                out.fill_(-1)
+                _require_equal(f"query_gather windowed {model} T={T} D={d} rank {rank} call "
+                               f"{turn}", G.RulePlan.run(plan, sources, idx, out), want)
+            params = plan.encode(sources, idx.data_ptr(), out.data_ptr())
+            cut = sum(split for _, _, split, _ in plan._decl)
+            note = (f"rank {rank}: {len(plan._decl)} sources ({cut} cut), "
+                    f"{len(plan.requests)} rule slots, {plan.words} words, "
+                    f"{_owned_words(plan, idx)} its own, {len(params)} launch(es) of "
+                    f"{[p.nbytes for p in params]} parameter bytes")
+            if case == 0:
+                table = sum(4 * (8 + 4 * int(p[0]) + 4 * int(p[1]) + int(p[2]) + int(p[3]))
+                            for p in params)
+                entry = _Results().add(
+                    G.QUERY_GATHER, f"windowed {model} T=2^{T.bit_length() - 1} D={d} "
+                    f"rank {rank}", [(sources, idx, out)],
+                    lambda s_, i, o, plan=plan: G.RulePlan.run(plan, s_, i, o),
+                    lambda s_, i, o, plan=plan: G.rules_plain(plan, s_, i), 50,
+                    nbytes=4 * (plan.words + _owned_words(plan, idx) + idx.numel()) + table,
+                    ops=0, flush=flush)
+                note += ", " + _line(entry)
+            per_rank.append(note)
+            del prover, sources, out, want
+        if owned != plan.words:
+            raise AssertionError(f"windowed {model} T={T} D={d}: the ranks serve {owned} "
+                                 f"words of {plan.words}")
+        lines.append(f"{model} T=2^{T.bit_length() - 1} D={d}: " + "; ".join(per_rank))
+    print("query_gather windowed (K13's rule slots over a rank's share, zeros where "
+          "another rank serves a request) == plain on every rank, each call twice; device "
+          "time per call, L2 flushed before each: " + " | ".join(lines), flush=True)
 
 
 def _drive_distributed(smi: str, launches: dict) -> None:
@@ -895,9 +1025,13 @@ def _drive_distributed(smi: str, launches: dict) -> None:
     gloo ranks (MDS T=2^16, the pinned sha256); D=2 gloo ranks at batch8's
     shape (T=2^14: the sharded prove, then BatchStarkProver(mesh=) of 8,
     every proof the single prove's); D=2 gloo ranks at T=2^14 on the FRI
-    commit's host path (K4 on the exchanged halves).  Each rank: a warm-up, DIST_RUNS
-    proves, the last counted (every kernel of its World.kernels above 0,
-    three all-to-alls of n/D words a transform)."""
+    commit's host path (K4 on the exchanged halves).  All but the last on
+    the single-fetch prove; then the D=4 world alone on each path in turn
+    (single fetch, three reads, three reads, single fetch).  Each rank: a warm-up, DIST_RUNS proves, the last
+    counted (every kernel of its World.kernels above 0, on the
+    single-fetch path K15 and K10 once, one read and one combine; three
+    reads on the three-read path; three all-to-alls of n/D words a
+    transform)."""
     from stark_tpu_torch import StarkConfig, StarkVerifier
     from stark_tpu_torch.models import get_model
     from stark_tpu_torch.tools import dist_prove as DP
@@ -913,6 +1047,24 @@ def _drive_distributed(smi: str, launches: dict) -> None:
               DP.World(DIST_MDS_D, "gloo", "fib", BATCH_T, sha[BATCH_T], runs=DIST_RUNS,
                        host_path=True)]
     got = DP.run(worlds)
+    # The D=4 world alone on each path in turn: single fetch, three reads,
+    # three reads, single fetch.
+    paths = [DP.World(DIST_D, "gloo", "fib", DIST_T, sha[DIST_T], runs=DIST_RUNS,
+                      three_reads=three) for three in (False, True)]
+    turns = []
+    for w in (paths[0], paths[1], paths[1], paths[0]):
+        turns.append(DP.run([w])[w.name])
+        DP.check(w, turns[-1])
+    worlds.append(paths[1])
+    got[paths[1].name] = turns[1]
+    print(f"distributed {paths[0].name} in turn with {paths[1].name} (single fetch, three "
+          f"reads, three reads, single fetch), each world alone on the card ({smi}): wall "
+          "s of witness + prove by rank "
+          + " / ".join(json.dumps([[round(x, 4) for x in o["wall_s"]] for o in turn])
+                       for turn in turns)
+          + "; phases ms of rank 0's last prove by turn "
+          + " / ".join(json.dumps({k: round(v, 3) for k, v in turn[0]["phases_ms"][-1].items()})
+                       for turn in turns), flush=True)
     for w in worlds:
         ranks = got[w.name]
         DP.check(w, ranks)
@@ -931,8 +1083,10 @@ def _drive_distributed(smi: str, launches: dict) -> None:
               f"sha256 == {w.want[:16]}... ("
               + ("the pin" if w.want in (MAIN_SHA256, MDS_SHA256) else
                  "a single-device card prove of the same witness in this run")
-              + "), verified, a flipped byte rejected; launches of the last prove by rank "
-              + json.dumps({k: [o["counts"][k] for o in ranks] for k in w.kernels})
+              + "), verified, a flipped byte rejected; reads from the card of the last "
+              f"prove by rank {json.dumps([o['reads'] for o in ranks])}; launches of it by rank "
+              + json.dumps({k: [o["counts"][k] for o in ranks]
+                            for k in w.kernels + DP.SINGLE_KERNELS})
               + f"; collectives of rank 0 {json.dumps(ranks[0]['collectives'])} (all-to-alls "
               f"of {c} T/D then {c} N/D words, three a transform); wall s of witness + "
               f"prove by rank {json.dumps([[round(x, 4) for x in o['wall_s']] for o in ranks])}",
@@ -2700,7 +2854,7 @@ def main() -> int:
     marks = [time.perf_counter()]
     for check in (_check_ntt, _check_pad_scale, _check_fold, _check_forest, _check_sponge,
                   _check_chained, _check_compose, _check_hash, _check_witness,
-                  _check_split_gather, _check_sharded_forms):
+                  _check_split_gather):
         check(rng, dev, results)
         marks.append(time.perf_counter())
 
@@ -2847,7 +3001,11 @@ def main() -> int:
           flush=True)
     marks.append(time.perf_counter())
 
-    # 8. the sharded prover (parallel/): worlds of ranks on the one card
+    # 8. the sharded prover (parallel/): its kernels' sharded forms against
+    # their plain versions (here, after the profiled paths: K13's windowed
+    # form's plain version runs thousands of torch ops under the profiler),
+    # then worlds of ranks on the one card
+    _check_sharded_forms(rng, dev, results)
     _drive_distributed(smi, launches)
     marks.append(time.perf_counter())
 
@@ -2879,8 +3037,8 @@ def main() -> int:
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
           "checks: ntt, pad_scale, fold, forest, sponge, chained (K15, K10, K11 fed "
-          "K15), compose, hash, witness, split gather, sharded forms, then the proofs and "
-          "paths, then the distributed phase, "
+          "K15), compose, hash, witness, split gather, then the proofs and paths, then the "
+          "sharded forms and the distributed phase, "
           "then the API and the command line: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "
           f"{_retaken[0]} profile(s) came back empty or short and were taken again; "

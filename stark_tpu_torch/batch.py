@@ -32,8 +32,11 @@ With ``mesh=`` (parallel/mesh.py, one process per device; stark_tpu's
 proves its B/D proofs with the single-device pipeline (the single-fetch
 path, as stark_tpu's batch-sharded mega path) and an all-gather of the
 proofs gives every rank all B; otherwise each proof is cut over the
-domain, the sharded prover's ``_prove_columns`` with the B axis leading.
-Either way every rank returns the same B proofs.
+domain, the sharded prover's dispatch with the B axis leading, which is
+the single-fetch path too (one read a batch on every rank), so
+``prove_many`` keeps such batches in flight as well (stark_tpu runs its
+classic path there, :596-605: the same bytes).  Either way every rank
+returns the same B proofs.
 """
 
 from __future__ import annotations

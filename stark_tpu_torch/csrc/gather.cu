@@ -25,16 +25,23 @@
 //   tasks, 1 word each, a warp's: slot | first request j0 << 16
 //     a warp takes 32 / w requests of a slot where w <= 32, else one;
 //   payload: an index slot's indices, 1 word a request; a rule slot's rule
-//     (ops/gather.py:Rule), 6 + F words: j_start, number, h | F << 8 |
-//     order << 16, half - 1, wrap - 1 (all ones: no wrap), stride, then F
-//     offsets.  Request j of a rule slot (j_start + j of the whole rule)
-//     is j = ((row h + e) number + q) F + u (order 0) or ((row number + q)
-//     h + e) F + u (order 1), and reads index
-//       ((idx[row number + q] & (half - 1)) + e half + offset[u])
-//         & (wrap - 1) + row stride,
-//     idx the (rows, number) u32 index buffer at the header's address (the
-//     FRI query indices K10 writes on the card): the rule slots carry no
-//     index, so a prove's plan is the same for every prove of its shape.
+//     (ops/gather.py:Rule), 9 + F words: j_start, number, h | F << 8 |
+//     order << 16, half - 1, wrap - 1 (all ones: no wrap), stride, own =
+//     rank | log2 D << 8 | log2 points << 16 | shift << 24, lo, the output
+//     stride between requests, then F offsets.  Request j of a rule slot
+//     (j_start + j of the whole rule) is j = ((row h + e) number + q) F + u
+//     (order 0) or ((row number + q) h + e) F + u (order 1), at the point
+//       x = ((idx[row number + q] & (half - 1)) + e half + offset[u])
+//         & (wrap - 1)
+//     of its row, idx the (rows, number) u32 index buffer at the header's
+//     address (the FRI query indices K10 writes on the card): the rule
+//     slots carry no index, so a prove's plan is the same for every prove
+//     of its shape.  The request is this rank's where (x << log2 D) >>
+//     log2 points == rank (a single device: D = 1, points 2^32): it reads
+//     index ((x - lo) >> shift) + row stride; on every other rank of a
+//     mesh its words are zeros, so that the ranks' outputs sum to the
+//     whole (parallel/pmerkle.py:ShardedRulePlan).  Its words lie from
+//     first + j * (output stride) on.
 // A request's words: values, src[i * n + index] for i < c; paths, the
 // depth digests of index's authentication path, bottom-up: the sibling on
 // level l is stack row 2W - 2W / 2^l + ((index >> l) ^ 1) (merkle.py:
@@ -81,14 +88,16 @@ stark_query_gather_kernel(const __grid_constant__ GatherParams<kBytes> p) {
   const uint32_t width = path ? 8 * b : b;
   const uint32_t per_warp = width <= 32 ? 32 / width : 1;
   const uint32_t count = min(per_warp, p.w[slot + 1] - j0);
-  uint32_t* dst = out + p.w[slot + 2] + (uint64_t)j0 * width;
   const uint32_t payload = tasks + n_task + p.w[slot + 3];
+  const uint32_t step = rule ? p.w[payload + 8] : width;
+  uint32_t* dst = out + p.w[slot + 2];
   const uint32_t* idx = reinterpret_cast<const uint32_t*>(
       (uint64_t)p.w[6] | (uint64_t)p.w[7] << 32);
   for (uint32_t t = threadIdx.x & 31; t < count * width; t += 32) {
     const uint32_t q = count == 1 ? 0 : t / width;
     const uint32_t word = t - q * width;
     uint64_t i;
+    bool mine = true;
     if (rule) {
       uint32_t j = p.w[payload] + j0 + q;
       const uint32_t number = p.w[payload + 1], shape = p.w[payload + 2];
@@ -109,8 +118,10 @@ stark_query_gather_kernel(const __grid_constant__ GatherParams<kBytes> p) {
       }
       const uint32_t mask = p.w[payload + 3];
       const uint32_t x = ((idx[(uint64_t)row * number + k] & mask) + e * (mask + 1u) +
-                          p.w[payload + 6 + u]) & p.w[payload + 4];
-      i = x + (uint64_t)row * p.w[payload + 5];
+                          p.w[payload + 9 + u]) & p.w[payload + 4];
+      const uint32_t own = p.w[payload + 6];
+      mine = (((uint64_t)x << ((own >> 8) & 0xffu)) >> ((own >> 16) & 0xffu)) == (own & 0xffu);
+      i = (uint64_t)((x - p.w[payload + 7]) >> (own >> 24)) + (uint64_t)row * p.w[payload + 5];
     } else {
       i = p.w[payload + j0 + q];
     }
@@ -121,7 +132,7 @@ stark_query_gather_kernel(const __grid_constant__ GatherParams<kBytes> p) {
     } else {
       at = word * a + i;
     }
-    dst[t] = base[at];
+    dst[(uint64_t)(j0 + q) * step + word] = mine ? base[at] : 0u;
   }
 }
 

@@ -206,7 +206,8 @@ class Fri:
     #: :meth:`_chainable`; else the challenges' bytes ride the chain's
     #: fetch and the query phase is a second read.  False: three reads (the
     #: trace roots, the chain's fetch, the query gather), the challenges
-    #: and the sampling on the host.  The sharded FRI sets it False.
+    #: and the sampling on the host.  The sharded FRI runs both
+    #: (parallel/pstark.py).
     fused_round = True
 
     def _chainable(self) -> bool:
@@ -563,18 +564,29 @@ class Fri:
 
     # -- the single-fetch prove (stark_tpu/fri.py:_prove_chained) ---------------------
 
+    def rule_plan(self) -> G.RulePlan:
+        """A new plan for the single-fetch prove's query gather (the sharded
+        FRI's gathers a rank's share and combines)."""
+        return G.RulePlan()
+
+    def _round_cut(self, r: int) -> tuple[bool, bool]:
+        """Whether round r's codeword and its forest are cut over a mesh
+        (the sharded FRI's layout; here neither)."""
+        return False, False
+
     def query_rules(self, plan: G.RulePlan, b: int) -> list:
         """Declare every round's (B, n) codewords and forest as sources of
-        ``plan`` (bound in that order: codeword, stack, round by round) and
-        add each round's reads as rule slots, in :meth:`_round_dispatch`'s
-        order (stark_tpu/fri.py:_query_gather_fn): per round the slots
-        :meth:`_round_emit` takes."""
+        ``plan`` (bound in that order: codeword, stack, round by round; each
+        cut or whole as :meth:`_round_cut` says) and add each round's reads
+        as rule slots, in :meth:`_round_dispatch`'s order (stark_tpu/fri.py:
+        _query_gather_fn): per round the slots :meth:`_round_emit` takes."""
         k, rounds = self.num_colinearity_tests, self.num_rounds()
         src = []
         for i in range(rounds):
             n = self.domain_length >> i
-            src.append((plan.values_source((b, n), b * n),
-                        plan.stack_source(b * n, n.bit_length() - 1)))
+            cut, tree_cut = self._round_cut(i)
+            src.append((plan.values_source((b, n), b * n, split=cut),
+                        plan.stack_source(b * n, n.bit_length() - 1, split=tree_cut)))
         slots = []
         for i in range(rounds - 1):
             n = self.domain_length >> i

@@ -32,7 +32,7 @@ a prove's kernels write into and :func:`to_host` brings back, at once or
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -208,8 +208,9 @@ def _encode(srcs: np.ndarray, requests: list, out_address: int,
                 launches.append(pieces)
                 pieces, room = [], _MAX_WORDS - fixed
                 continue
-            payload = what.words(j) if rule else what[j : j + n]
-            pieces.append((s | rule << 31, payload, slot.first + j * slot.width, per_warp, n))
+            payload = what.words(j, slot.width) if rule else what[j : j + n]
+            step = (what.out_stride or slot.width) if rule else slot.width
+            pieces.append((s | rule << 31, payload, slot.first + j * step, per_warp, n))
             room -= 4 + payload.size + -(-n // per_warp)
             j += n
     if pieces or not launches:
@@ -251,15 +252,26 @@ class Rule:
     """The indices of one request slot of a :class:`RulePlan`, from a
     (rows, number) index buffer: request j of the slot, j = ((row h + e)
     number + q) F + u (``order`` 0) or ((row number + q) h + e) F + u
-    (``order`` 1), F = len(offsets), reads index
+    (``order`` 1), F = len(offsets), is at the point
 
-        ((idx[row, q] mod half) + e half + offsets[u]) mod wrap + row stride
+        x = ((idx[row, q] mod half) + e half + offsets[u]) mod wrap
 
-    (``wrap`` 0: no wrap).  ``half`` and ``wrap`` are powers of two.  The
-    FRI round of n points reads a = idx mod n/2 and a + n/2 (h = 2) of each
-    proof's (B, n) codeword, stride n, and a of the next round's; a trace
-    opening reads (q + k blowup) mod N for q in {a, a + N/2} (order 1),
-    stark_tpu/stark.py:_dev_cols_idx."""
+    of its row (``wrap`` 0: no wrap) and reads index
+
+        ((x - lo) >> shift) + row stride.
+
+    ``half`` and ``wrap`` are powers of two.  The FRI round of n points
+    reads a = idx mod n/2 and a + n/2 (h = 2) of each proof's (B, n)
+    codeword, stride n, and a of the next round's; a trace opening reads
+    (q + k blowup) mod N for q in {a, a + N/2} (order 1),
+    stark_tpu/stark.py:_dev_cols_idx.
+
+    The rest is a rank's share (:class:`RulePlan` fills it in): of an axis
+    of ``points`` points over ``ranks`` ranks, the request is served by the
+    rank (x ranks) >> log2 points (parallel/mesh.Shard.locate's rule) and
+    every other rank writes zeros in its words; ``lo`` and ``shift`` take x
+    to the share's own index, and a request's words lie ``out_stride``
+    words apart in the output (0: the width of a request's words)."""
 
     rows: int
     number: int
@@ -269,13 +281,23 @@ class Rule:
     wrap: int = 0
     stride: int = 0
     order: int = 0
+    rank: int = 0
+    ranks: int = 1
+    points: int = _U32
+    lo: int = 0
+    shift: int = 0
+    out_stride: int = 0
 
     def __post_init__(self):
         if not (self.rows >= 1 and self.number >= 1 and _pow2(self.half)
                 and (self.wrap == 0 or _pow2(self.wrap)) and 1 <= self.h < 256
                 and 1 <= len(self.offsets) < 256 and self.order in (0, 1)
                 and 0 <= self.stride < _U32 and self.half < _U32 and self.wrap <= _U32
-                and all(0 <= o < _U32 for o in self.offsets)):
+                and all(0 <= o < _U32 for o in self.offsets)
+                and _pow2(self.ranks) and self.ranks <= 128 and 0 <= self.rank < self.ranks
+                and _pow2(self.points) and self.points <= _U32
+                and 0 <= self.lo < _U32 and 0 <= self.shift < 32
+                and 0 <= self.out_stride < _U32):
             raise ValueError(f"a rule out of range: {self}")
 
     @property
@@ -285,86 +307,161 @@ class Rule:
 
     @property
     def payload_words(self) -> int:
-        return 6 + len(self.offsets)
+        return 9 + len(self.offsets)
 
-    def words(self, j_start: int) -> np.ndarray:
+    def words(self, j_start: int, width: int) -> np.ndarray:
         """The rule's payload words (csrc/gather.cu) for a piece of the slot
-        from request ``j_start`` on."""
+        from request ``j_start`` on, whose requests are ``width`` words."""
         shape = self.h | len(self.offsets) << 8 | self.order << 16
         wrap = self.wrap - 1 if self.wrap else _U32 - 1
+        own = (self.rank | (self.ranks.bit_length() - 1) << 8
+               | (self.points.bit_length() - 1) << 16 | self.shift << 24)
         return np.array([j_start, self.number, shape, self.half - 1, wrap, self.stride,
-                         *self.offsets], dtype=np.int64)
+                         own, self.lo, self.out_stride or width, *self.offsets],
+                        dtype=np.int64)
 
-    def expand(self, idx: torch.Tensor) -> torch.Tensor:
-        """(rows, number) indices -> the slot's (k,) int64 indices, in
-        order (torch ops on ``idx``'s device: the plain version's)."""
+    def point_rows(self, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(rows, number) indices -> each request's (x, row), (k,) int64
+        each, in order (torch ops on ``idx``'s device: the plain
+        version's)."""
         dev = idx.device
         a = idx.long().reshape(self.rows, self.number) % self.half
         e = torch.arange(self.h, dtype=torch.int64, device=dev) * self.half
         off = torch.tensor(self.offsets, dtype=torch.int64, device=dev)
+        rows = torch.arange(self.rows, dtype=torch.int64, device=dev)
         if self.order == 0:
             x = a[:, None, :, None] + e[None, :, None, None] + off
         else:
             x = a[:, :, None, None] + e[None, None, :, None] + off
         if self.wrap:
             x = x % self.wrap
-        rows = torch.arange(self.rows, dtype=torch.int64, device=dev) * self.stride
-        return (x + rows[:, None, None, None]).reshape(-1)
+        return x.reshape(-1), rows[:, None, None, None].expand(x.shape).reshape(-1)
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """Whether this rank serves the requests at points ``x``."""
+        return (x * self.ranks) // self.points == self.rank
 
 
 class RulePlan:
     """A gather plan whose requests take their indices from an index buffer
     through :class:`Rule` s: it depends only on shapes, so a prover builds it
-    once per shape.  :meth:`source` declares each source by its shape (a
-    (..., n) int32 array read as (c, n) rows, or a level stack of trees
-    of width 2^depth); :meth:`values` and :meth:`paths` add a slot each,
-    in the output's order; :meth:`run` binds tensors of those shapes and
-    gathers into a given buffer."""
+    once per shape.  :meth:`values_source` and :meth:`stack_source` declare
+    each source by its shape (a (..., n) int32 array read as (c, n) rows,
+    or a level stack of trees of width 2^depth); :meth:`values` and
+    :meth:`paths` add a slot each, in the output's order; :meth:`run` binds
+    tensors of those shapes and gathers into a given buffer.
 
-    def __init__(self):
+    A plan of rank ``rank`` of a mesh of ``size`` (parallel/pmerkle.
+    ShardedRulePlan) gathers that rank's share: a source is declared whole
+    (every rank holds it) or ``split``, the rank holding the points [rank
+    m, (rank + 1) m), m = points / size, of each row (parallel/mesh.Shard);
+    a split stack is a tree cut so (parallel/pmerkle.ShardedForest), bound
+    as the pair (the rank's forest of its shares, the top forest over the
+    shares' roots), and a path through it is its owner's local levels, then
+    the top.  Each request is served by one rank (:class:`Rule`), the
+    others write zeros, so the sum of the ranks' outputs is the whole."""
+
+    def __init__(self, rank: int = 0, size: int = 1):
+        if not (_pow2(size) and 0 <= rank < size):
+            raise ValueError(f"rank {rank} of a mesh of {size}")
+        self.rank, self.size = rank, size
         self.specs: list[tuple[tuple, torch.dtype]] = []
         self._meta: list[tuple[int, int, int]] = []
+        # Per declared source: (kind, points a row or tree, split, first spec).
+        self._decl: list[tuple[int, int, bool, int]] = []
         self.requests: list[tuple[int, Rule, Slot]] = []
         self.words = 0
         self._templates: list[np.ndarray] | None = None
 
-    def values_source(self, shape, n: int, c: int = 1) -> int:
+    def _spec(self, shape, dtype, meta) -> None:
+        self.specs.append((tuple(shape), dtype))
+        self._meta.append(meta)
+
+    def _share(self, points: int) -> int:
+        if points % self.size:
+            raise ValueError(f"an axis of {points} points does not split over {self.size} ranks")
+        return points // self.size
+
+    def values_source(self, shape, n: int, c: int = 1, split: bool = False) -> int:
         """A source read as c rows of n int32 values (a request's index
-        may pass n: row r of element i is word r n + i); its id."""
-        self.specs.append((tuple(shape), torch.int32))
-        self._meta.append((VALUES, n, c))
-        return len(self.specs) - 1
+        may pass n: row r of element i is word r n + i), whose points run
+        along the last axis of ``shape``; ``split``: this rank's share of
+        that axis.  Its id."""
+        shape, points = tuple(shape), int(shape[-1])
+        if split:
+            m = self._share(points)
+            shape, n = shape[:-1] + (m,), n // self.size
+        self._decl.append((VALUES, points, split, len(self.specs)))
+        self._spec(shape, torch.int32, (VALUES, n, c))
+        return len(self._decl) - 1
 
-    def stack_source(self, width: int, depth: int) -> int:
+    def stack_source(self, width: int, depth: int, split: bool = False) -> int:
         """A level stack of width / 2^depth trees of 2^depth leaves (a
-        tree or a forest, merkle.py); its id."""
-        rows = 2 * width - (width >> depth)
-        self.specs.append(((rows, 32), torch.uint8))
-        self._meta.append((PATHS, width, depth))
-        return len(self.specs) - 1
+        tree or a forest, merkle.py); ``split``: cut over the mesh, this
+        rank's forest of its shares of the trees and the top forest.  Its
+        id."""
+        trees, points = width >> depth, 1 << depth
+        self._decl.append((PATHS, points, split, len(self.specs)))
+        if not split:
+            self._spec((2 * width - trees, 32), torch.uint8, (PATHS, width, depth))
+        else:
+            m = self._share(points)
+            top = trees * self.size
+            self._spec((2 * trees * m - trees, 32), torch.uint8,
+                       (PATHS, trees * m, m.bit_length() - 1))
+            self._spec((2 * top - trees, 32), torch.uint8,
+                       (PATHS, top, self.size.bit_length() - 1))
+        return len(self._decl) - 1
 
-    def _add(self, src: int, kind: int, rule: Rule, width: int) -> Slot:
-        if self._meta[src][0] != kind:
+    def _add(self, src: int, kind: int, rule: Rule) -> Slot:
+        d_kind, points, split, spec = self._decl[src]
+        if d_kind != kind:
             raise ValueError(f"source {src} is not a {('values', 'paths')[kind]} source")
         self._templates = None
-        slot = Slot(kind, self.words, rule.k, width)
-        self.requests.append((src, rule, slot))
+        mine = dict(rank=self.rank, ranks=self.size, points=points)
+        m = self._share(points) if split else points
+        if split and rule.stride % self.size:
+            raise ValueError(f"a row stride of {rule.stride} over {self.size} ranks")
+        local = replace(rule, **mine, lo=self.rank * m, stride=rule.stride // self.size) \
+            if split else replace(rule, **mine)
+        if kind == VALUES or not split:
+            slot = Slot(kind, self.words, rule.k, (1, 8)[kind] * self._meta[spec][2])
+            self.requests.append((spec, local, slot))
+        else:
+            # The owner's local levels, then the top's: leaf x >> log2 m of
+            # its row's trees there.
+            dl, dt = self._meta[spec][2], self._meta[spec + 1][2]
+            slot = Slot(kind, self.words, rule.k, 8 * (dl + dt))
+            self.requests += [
+                (spec, replace(local, out_stride=slot.width),
+                 Slot(kind, slot.first, rule.k, 8 * dl)),
+                (spec + 1, replace(rule, **mine, shift=dl, stride=rule.stride // m,
+                                   out_stride=slot.width),
+                 Slot(kind, slot.first + 8 * dl, rule.k, 8 * dt))]
         self.words += slot.words
         return slot
 
     def values(self, src: int, rule: Rule) -> Slot:
         """The values of source ``src`` at ``rule``'s indices: a (k, c) slot."""
-        return self._add(src, VALUES, rule, self._meta[src][2])
+        return self._add(src, VALUES, rule)
 
     def paths(self, src: int, rule: Rule) -> Slot:
         """The authentication paths of ``rule``'s leaves of stack ``src``: a
         (k, depth, 32) slot."""
-        return self._add(src, PATHS, rule, 8 * self._meta[src][2])
+        return self._add(src, PATHS, rule)
 
-    def _check(self, sources: list, idx: torch.Tensor, out: torch.Tensor) -> None:
-        if len(sources) != len(self.specs):
-            raise ValueError(f"{len(self.specs)} sources declared, {len(sources)} bound")
-        for i, (t, (shape, dtype)) in enumerate(zip(sources, self.specs)):
+    def bind(self, sources: list) -> list:
+        """The tensors of ``sources`` (bound in the order declared; a split
+        stack as its pair), one a spec."""
+        if len(sources) != len(self._decl):
+            raise ValueError(f"{len(self._decl)} sources declared, {len(sources)} bound")
+        out = []
+        for t, (kind, _, split, _) in zip(sources, self._decl):
+            out += list(t) if kind == PATHS and split else [t]
+        return out
+
+    def _check(self, tensors: list, idx: torch.Tensor, out: torch.Tensor) -> None:
+        for i, (t, (shape, dtype)) in enumerate(zip(tensors, self.specs)):
             if tuple(t.shape) != shape or t.dtype != dtype or t.device != out.device \
                     or not t.is_contiguous():
                 raise ValueError(f"source {i}: {tuple(t.shape)} {t.dtype} on {t.device}, "
@@ -381,13 +478,14 @@ class RulePlan:
     def encode(self, sources: list, idx_address: int, out_address: int) -> list[np.ndarray]:
         """The launches' parameter words (csrc/gather.cu), as GatherPlan.encode:
         the plan's structure is encoded once and only the addresses (the
-        output, the index buffer, each source's) are written at each call."""
+        output, the index buffer, each source's) are written at each call.
+        ``sources``: as :meth:`run` binds them."""
         if self._templates is None:
             if self.words >= _U32:
                 raise ValueError(f"{self.words} output words do not fit 32 bits")
             self._templates = _encode(_source_words([None] * len(self._meta), self._meta),
                                       self.requests, 0)
-        srcs = _source_words(sources, self._meta)
+        srcs = _source_words(self.bind(sources), self._meta)
         out = []
         for template in self._templates:
             params = template.copy()
@@ -402,11 +500,12 @@ class RulePlan:
         order they were declared, ``idx`` the (rows, number) int32 index
         buffer.  K13 launches on a card (the rule slots read ``idx`` there),
         the plain version on the CPU."""
-        self._check(sources, idx, out)
+        tensors = self.bind(sources)
+        self._check(tensors, idx, out)
         if out.device.type == "cpu":
             out.copy_(rules_plain(self, sources, idx))
             return out
-        for t in (*sources, idx, out):
+        for t in (*tensors, idx, out):
             cuda.check_operand(t, "gather operand", t.dtype)
         for params in self.encode(sources, idx.data_ptr(), out.data_ptr()):
             QUERY_GATHER.launch(out.device, params.ctypes.data, params.nbytes)
@@ -415,19 +514,29 @@ class RulePlan:
 
 def rules_plain(plan: RulePlan, sources: list, idx: torch.Tensor) -> torch.Tensor:
     """A RulePlan's plain version: each rule expanded by torch ops on
-    ``idx``'s device, then torch indexing, concatenated: the (words,) int32
-    buffer the kernel writes."""
-    parts = [torch.empty(0, dtype=torch.int32, device=idx.device)]
-    for s, rule, _ in plan.requests:
-        src, (kind, a, b) = sources[s], plan._meta[s]
-        i = rule.expand(idx)
+    ``idx``'s device, then torch indexing, zeros where another rank serves
+    the request: the (words,) int32 buffer the kernel writes."""
+    tensors = plan.bind(sources)
+    out = torch.zeros(plan.words, dtype=torch.int32, device=idx.device)
+    for s, rule, slot in plan.requests:
+        src, (kind, a, b) = tensors[s], plan._meta[s]
+        if slot.width == 0:
+            continue
+        x, row = rule.point_rows(idx)
+        mine = rule.owned(x)
+        i = torch.where(mine, ((x - rule.lo) >> rule.shift) + row * rule.stride, 0)
         lv = torch.arange(b, dtype=torch.int64, device=idx.device)
         if kind == VALUES:
-            parts.append(src.reshape(-1)[i[:, None] + a * lv].reshape(-1))
+            got = src.reshape(-1)[i[:, None] + a * lv]
         else:
             rows = (2 * a - ((2 * a) >> lv)) + ((i[:, None] >> lv) ^ 1)
-            parts.append(src.view(torch.int32)[rows].reshape(-1))
-    return torch.cat(parts)
+            got = src.view(torch.int32)[rows].reshape(slot.k, slot.width)
+        got = torch.where(mine[:, None], got, 0)
+        step = rule.out_stride or slot.width
+        at = (slot.first + step * torch.arange(slot.k, device=idx.device)[:, None]
+              + torch.arange(slot.width, device=idx.device))
+        out[at.reshape(-1)] = got.reshape(-1)
+    return out
 
 
 def gather_plain(plan: GatherPlan) -> torch.Tensor:

@@ -10,8 +10,9 @@ length n, rank d holds ``[d n/D, (d+1) n/D)`` (:meth:`Mesh.bounds`).
 
 A :class:`Mesh` holds the process group, the rank, the size and the rank's
 device, and the few collectives the sharded prover needs: an all-to-all of
-equal chunks, an all-gather, and an exchange of chunks of any size between
-pairs of ranks (an all-to-all of uneven splits).  Each raises the mesh's
+equal chunks, an all-gather, an exchange of chunks of any size between
+pairs of ranks (an all-to-all of uneven splits), and a sum of int32 words
+(the query gather's combine).  Each raises the mesh's
 counters (:attr:`Mesh.counts`: calls and words by collective, and a log of
 each call's words), so that tests can count them.
 
@@ -22,9 +23,9 @@ Backends are explicit and never chosen on failure: ``nccl`` for CUDA
 tensors, ``gloo`` for CPU tensors, and gloo with CUDA tensors only when the
 caller names both (several ranks sharing one card, where NCCL refuses):
 the kernels run on the card, and gloo carries the exchanges through host
-memory itself (its all_to_all_single, even, uneven and async, and its
-all_gather take CUDA tensors on torch 2.11.0+cu128), so the mesh hands it
-the tensors as they are.
+memory itself (its all_to_all_single, even, uneven and async, its
+all_gather and its all_reduce take CUDA tensors on torch 2.11.0+cu128),
+so the mesh hands it the tensors as they are.
 """
 
 from __future__ import annotations
@@ -119,6 +120,17 @@ class Mesh:
         dist.all_gather(list(out.unbind(0)), x.contiguous(), group=self.group)
         return out
 
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of ``x`` (int32), in place, on every rank.
+        Exact where at most one rank's word is non-zero (the windowed
+        query gather's combine, pmerkle.ShardedRulePlan)."""
+        if x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"all_reduce sums contiguous int32, got {x.dtype}")
+        self._count("all_reduce", x.numel())
+        if self.group is not None:
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
     def exchange(self, x: torch.Tensor, send: list[int], recv: list[int]) -> torch.Tensor:
         """Chunks of any size between pairs of ranks: ``x`` (sum(send), ...)
         holds, in rank order, ``send[e]`` rows for each rank e; the result
@@ -188,6 +200,10 @@ class Shard:
     def m(self) -> int:
         """The length of a rank's share of the cut axis."""
         return self.n // self.mesh.size if self.split else self.n
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
 
     @property
     def shape(self) -> tuple:

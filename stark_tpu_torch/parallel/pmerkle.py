@@ -16,11 +16,19 @@ narrower tree is built whole on every rank from the gathered values (a
 layout change: the same bytes).  (stark_tpu's floor, 2 * 128 * D, is a TPU
 lane-tile fact.)
 
-:class:`ShardedGather` is the query phase's gather over such data: the
-same requests as ops/gather.GatherPlan, on sharded arrays
-(parallel/mesh.Shard) and sharded forests; each rank runs K13 over the
-requests whose indices it serves, and one all-gather of the packed
-results, read from the card once, gives every rank the whole.
+The query phase's gather over such data takes one of two forms.
+:class:`ShardedRulePlan` is the single-fetch prove's (stark_tpu's mesh
+prover, stark_tpu/parallel/pstark.py:64-87): an ops/gather.RulePlan of
+this rank's share, its sources a round's cut or whole codeword and its
+ShardedForest or whole forest, its indices the card's (K10's); K13 runs
+every request on every rank, the rank that serves it reading its share and
+the others writing zeros, and one sum over the ranks (Mesh.all_reduce)
+leaves the whole gather, identical on every rank, in the prove's one
+buffer.  :class:`ShardedGather` is the same requests with host indices
+(ops/gather.GatherPlan on sharded arrays, the two- and three-read paths):
+each rank runs K13 over the requests whose indices it serves, and one
+all-gather of the packed results, read from the card once, gives every
+rank the whole.
 """
 
 from __future__ import annotations
@@ -112,6 +120,36 @@ def sharded_tree_from_rows(rows: torch.Tensor, mesh: Mesh) -> ShardedForest | Fo
     commitment: ``rows`` is this rank's (c, n/D) share."""
     n = rows.shape[-1] * mesh.size
     return sharded_forest(Shard(mesh, rows[None], n))
+
+
+class ShardedRulePlan(G.RulePlan):
+    """ops/gather.RulePlan of this rank's share of ``mesh``: a source is
+    declared whole or ``split`` (a :class:`~stark_tpu_torch.parallel.mesh.
+    Shard`'s share, a :class:`ShardedForest`), and bound as the Shard or
+    the ShardedForest itself (or a whole forest's stack, a tensor);
+    :meth:`run` is K13 over every request (zeros where another rank serves
+    it), then one :meth:`Mesh.all_reduce` that sums the ranks' outputs into
+    the whole gather on every rank."""
+
+    def __init__(self, mesh: Mesh):
+        super().__init__(mesh.rank, mesh.size)
+        self.mesh = mesh
+
+    def bind(self, sources: list) -> list:
+        tensors = []
+        for s in sources:
+            if isinstance(s, Shard):
+                s = s.local
+            elif isinstance(s, ShardedForest):
+                s = (s.local.stack, s.top.stack)
+            tensors.append(s)
+        return super().bind(tensors)
+
+    def run(self, sources: list, idx: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the gather into ``out``, then the combine:
+        ``out`` holds the whole on every rank."""
+        super().run(sources, idx, out)
+        return self.mesh.all_reduce(out)
 
 
 class ShardedGather:

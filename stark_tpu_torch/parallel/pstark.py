@@ -19,9 +19,19 @@ Counterpart of stark_tpu/parallel/pstark.py, one process per device
                                  two halves, K4-dyn (device chain) or K4
                                  (host path) folds them with its slice of
                                  the inverse-x ladder
-* query phase                 -> K13 on each rank over the indices it
-                                 serves, one all-gather, one read
-                                 (pmerkle.ShardedGather)
+* constraint challenges       -> K15 on every rank from the replicated
+                                 trace roots (the forests' tops)
+* query indices               -> K10 on every rank from its sponge, the
+                                 same on every rank: no broadcast
+* query phase                 -> K13 on every rank over the card's indices,
+                                 each request read by the rank that serves
+                                 it and zeros elsewhere, then one sum over
+                                 the ranks into the prove's one buffer
+                                 (pmerkle.ShardedRulePlan): one read a
+                                 prove on every rank.  With host indices
+                                 (``fused_round`` False: three reads) K13
+                                 over the indices a rank serves, one
+                                 all-gather (pmerkle.ShardedGather)
 * transcript, challenges, IO  -> the replicated host control plane: every
                                  rank replays the same transcripts and
                                  emits the same bytes
@@ -36,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from stark_tpu_torch.fri import Fri
+from stark_tpu_torch.fri import Fri, Upstream
 from stark_tpu_torch.hashfn import Hash
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import compose as CO
@@ -52,15 +62,17 @@ from stark_tpu_torch.stream import FieldElements, MerkleRoot
 
 class ShardedFri(Fri):
     """FRI whose trees, folds and query gather run over a mesh; the same
-    protocol and bytes as :class:`~stark_tpu_torch.fri.Fri`.  Both commit
-    paths are sharded: the device chain (``device_chain``, K4-dyn) and the
-    host path (K4, one proof at a time).  It keeps the flow of three reads
-    (``fused_round`` False): the trace roots, the chain's fetch and the
-    query gather with host indices, whose reads a rank's share of a tree
-    answers.  stark_tpu's mesh prover runs the single-fetch prove
-    (stark_tpu/parallel/pstark.py:64-87); that path is not ported yet."""
-
-    fused_round = False
+    protocol and bytes as :class:`~stark_tpu_torch.fri.Fri`, on the same
+    paths: by default the single-fetch prove (stark_tpu/parallel/
+    pstark.py:64-87): the device chain over the mesh (:meth:`_chain`, K4-dyn
+    on the exchanged halves, K9 the last root) goes on from the STARK
+    layer's sponge, K10 samples the indices on every rank from that rank's
+    sponge (the same on every rank: every root it absorbs is replicated),
+    and the query gather is this rank's share of the rule plan (K13) and one
+    sum over the ranks (pmerkle.ShardedRulePlan), into the one buffer read
+    once.  ``fused_round`` False or not ``_chainable``: the chain's fetch,
+    then the query gather with host indices (pmerkle.ShardedGather); the
+    host commit path (``device_chain`` False: K4, one proof at a time)."""
 
     #: A round's codeword stays cut while a rank's share holds at least this
     #: many points.  Below it a cut round's two collectives cost more than
@@ -77,6 +89,18 @@ class ShardedFri(Fri):
 
     def _gather_plan(self) -> pmerkle.ShardedGather:
         return pmerkle.ShardedGather(self.mesh)
+
+    def rule_plan(self) -> pmerkle.ShardedRulePlan:
+        return pmerkle.ShardedRulePlan(self.mesh)
+
+    def _round_cut(self, r: int) -> tuple[bool, bool]:
+        """Round r's codeword stays cut while a rank's share holds
+        ``min_share`` points, but for the last round's; its forest is cut
+        where the codeword is and the share holds pmerkle.MIN_LOCAL leaves
+        (pmerkle.sharded_forest's floor)."""
+        m = (self.domain_length >> r) // self.mesh.size
+        cut = r < self.num_rounds() - 1 and m >= self.min_share
+        return cut, cut and m >= pmerkle.MIN_LOCAL
 
     def _ladder(self, r: int, start: int, count: int) -> torch.Tensor:
         """Round r's inverse-x ladder (fri.FriPlan.inv_x_mont) at points
@@ -111,61 +135,84 @@ class ShardedFri(Fri):
             x = swap_blocks(got.reshape(2, b, m), 1, 2, b, m).reshape(b, 2 * m)
         return x, self._ladder(r, d * m, m)
 
+    def _chain(self, codewords: Shard, sponge, packed: G.Packed):
+        """The device chain over the mesh, writing ``packed``'s last, roots
+        and alphas as the single-device chain does (fri.Fri._chain): per
+        round the forest (a ShardedForest while cut), K4-dyn on this rank's
+        exchanged halves, K9 the last root; a codeword is gathered whole
+        where :meth:`_round_cut` says.  Returns (codewords, forests): per
+        round the (B, n) codeword as a Shard and its forest."""
+        mesh, rounds = self.mesh, self.num_rounds()
+        b = codewords.shape[0]
+        last, roots, alphas = self._chain_views(packed, b)
+        cws, forests = [], []
+        cw = codewords
+        for r in range(rounds):
+            cut, tree_cut = self._round_cut(r)
+            if cw.split and not cut:
+                cw = replicated(mesh, cw.whole())
+            forest = pmerkle.sharded_forest(Shard(mesh, cw.local[:, None, :], cw.n, cw.split))
+            got = (cw.split, isinstance(forest, pmerkle.ShardedForest))
+            if got != (cut, tree_cut):
+                raise ValueError(f"round {r}: codeword and forest cut {got}, the layout "
+                                 f"says {(cut, tree_cut)}")
+            cws.append(cw)
+            forests.append(forest)
+            if r == rounds - 1:
+                sponge.absorb(forest.roots_dev(), copy=roots[r])
+                break
+            halves, ladder = self._halves(cw, r)
+            out = last if r == rounds - 2 and not cw.split else None
+            nxt = FOLD.fold_dyn(halves, ladder, sponge, forest.roots_dev(),
+                                copy=roots[r], alpha=alphas[r], out=out)
+            cw = Shard(mesh, nxt, cw.n // 2, cw.split)
+        if cws[-1].local.data_ptr() != last.data_ptr():
+            last.copy_(cws[-1].local)
+            cws[-1] = replicated(mesh, last)
+        return cws, forests
+
     def _commit(self, codewords: Shard, proof_streams: list, fiat_shamirs: list,
-                upstream=None):
+                upstream: Upstream | None = None):
         """The commit over the mesh: per round the (B, n) codeword as a
-        Shard and its forest's stack (a ShardedForest while cut)."""
-        if upstream is not None:
-            raise ValueError("the sharded FRI takes no device transcript")
+        Shard and its forest's stack (a ShardedForest while cut).  The
+        device chain is the single device's (commit_batch over
+        :meth:`_chain`: one read, ``upstream``'s sections riding it); the
+        host path reads a root a round."""
         mesh = self.mesh
         if self.num_rounds() == 0:
-            cws, stacks = super()._commit(codewords.whole(), proof_streams, fiat_shamirs)
+            cws, stacks = super()._commit(codewords.whole(), proof_streams, fiat_shamirs,
+                                          upstream)
             return [replicated(mesh, cw) for cw in cws], stacks
+        if self.device_chain:
+            return super()._commit(codewords, proof_streams, fiat_shamirs, upstream)
         b, n = codewords.shape
         if self.domain_length != n or not len(proof_streams) == len(fiat_shamirs) == b:
             raise ValueError(f"{b} codewords of {self.domain_length} need as many streams "
                              f"and transcripts, got {codewords.shape}")
-        if not self.device_chain and b != 1:
+        if upstream is not None:
+            raise ValueError("the host commit path takes no device transcript")
+        if b != 1:
             raise ValueError("the host commit path proves one codeword at a time")
         rounds = self.num_rounds()
-        chain = self.device_chain
-        if chain:
-            sponge, packed = self._chain_start(mesh.device, b, fiat_shamirs)
-            last, roots, alphas = self._chain_views(packed, b)
         cws, stacks = [], []
         cw = codewords
         for r in range(rounds):
-            if cw.split and (r == rounds - 1 or cw.m < self.min_share):
+            if cw.split and not self._round_cut(r)[0]:
                 cw = replicated(mesh, cw.whole())
             forest = pmerkle.sharded_forest(Shard(mesh, cw.local[:, None, :], cw.n, cw.split))
             cws.append(cw)
             stacks.append(forest.stack)
-            if chain and r == rounds - 1:
-                sponge.absorb(forest.roots_dev(), copy=roots[r])
+            root = Hash(G.to_host(forest.roots_dev().reshape(-1).view(torch.int32)).tobytes())
+            proof_streams[0].push(MerkleRoot(root))
+            fiat_shamirs[0].absorb(root.data)
+            if r == rounds - 1:
                 break
-            if not chain:
-                root = Hash(G.to_host(forest.roots_dev().reshape(-1).view(torch.int32)).tobytes())
-                proof_streams[0].push(MerkleRoot(root))
-                fiat_shamirs[0].absorb(root.data)
-                if r == rounds - 1:
-                    break
             halves, ladder = self._halves(cw, r)
-            if chain:
-                out = last if r == rounds - 2 and not cw.split else None
-                nxt = FOLD.fold_dyn(halves, ladder, sponge, forest.roots_dev(),
-                                    copy=roots[r], alpha=alphas[r], out=out)
-            else:
-                alpha = fiat_shamirs[0].challenge(self.field)  # pure; unreduced u64
-                nxt = FOLD.fold(halves[0], ladder, alpha.value)[None]
-            cw = Shard(mesh, nxt, cw.n // 2, cw.split)
-        if not chain:
-            proof_streams[0].push(FieldElements(
-                tuple(int(v) for v in G.to_host(cws[-1].local.reshape(-1)))))
-            return cws, stacks
-        if cws[-1].local.data_ptr() != last.data_ptr():
-            last.copy_(cws[-1].local)
-            cws[-1] = replicated(mesh, last)
-        self._chain_replay(packed.host(G.to_host(packed.buf)), b, proof_streams, fiat_shamirs)
+            alpha = fiat_shamirs[0].challenge(self.field)  # pure; unreduced u64
+            cw = Shard(mesh, FOLD.fold(halves[0], ladder, alpha.value)[None], cw.n // 2,
+                       cw.split)
+        proof_streams[0].push(FieldElements(
+            tuple(int(v) for v in G.to_host(cws[-1].local.reshape(-1)))))
         return cws, stacks
 
 
@@ -221,10 +268,22 @@ class DistributedStarkProver(StarkProver):
     def _trace_tree(self, trace_lde: Shard):
         return pmerkle.sharded_forest(trace_lde)
 
-    def _composition(self, trace_lde: Shard, alphas, betas) -> Shard:
+    def _trace_sources(self, plan: pmerkle.ShardedRulePlan, b: int) -> tuple[int, int]:
+        """The trace LDE as this rank's share, and its forest cut as
+        pmerkle.sharded_forest cuts it (whole below pmerkle.MIN_LOCAL leaves
+        a share)."""
+        d, c = self.dom, self.air.num_registers
+        return (plan.values_source((b, c, d.N), d.N, c, split=True),
+                plan.stack_source(b * d.N, d.N.bit_length() - 1,
+                                  split=d.N // self.mesh.size >= pmerkle.MIN_LOCAL))
+
+    def _composition(self, trace_lde: Shard, alphas=None, betas=None, *,
+                     weights: torch.Tensor | None = None) -> Shard:
         """K11 on this rank's share and its halo: the frame's reach past the
         share (max offset x blowup points of each row) comes from the next
-        rank, the last rank's from rank 0 (one exchange)."""
+        rank, the last rank's from rank 0 (one exchange).  The weights are
+        host ints (``alphas``, ``betas``) or K15's words on the card
+        (``weights``)."""
         mesh, d = self.mesh, self.dom
         x = trace_lde.local
         b, c, m = x.shape
@@ -236,7 +295,7 @@ class DistributedStarkProver(StarkProver):
                              [words if s == frm else 0 for s in range(mesh.size)])
         lde = torch.cat([x, halo.reshape(b, c, reach)], dim=-1)
         out = CO.compose(self.program, lde if b > 1 else lde[0], self.tables, alphas,
-                         betas, self.cfg.blowup, points=m)
+                         betas, self.cfg.blowup, points=m, weights=weights)
         return Shard(mesh, out.reshape(b, m), d.N)
 
 

@@ -256,6 +256,13 @@ class StarkProver:
         """The B trace trees, one forest (row digests, every level)."""
         return Forest.from_rows(trace_lde)
 
+    def _trace_sources(self, plan: G.RulePlan, b: int) -> tuple[int, int]:
+        """Declare the (B, c, N) trace LDE and the trace forest's stack as
+        sources of the single-fetch prove's ``plan``: (their ids)."""
+        d, c = self.dom, self.air.num_registers
+        return (plan.values_source((b, c, d.N), d.N, c),
+                plan.stack_source(b * d.N, d.N.bit_length() - 1))
+
     def _composition(self, trace_lde: torch.Tensor, alphas=None, betas=None, *,
                      weights: torch.Tensor | None = None) -> torch.Tensor:
         """The (B, N) composition codewords of the (B, c, N) trace LDEs."""
@@ -401,15 +408,15 @@ class StarkProver:
         """The single-fetch prove's query gather for B proofs, made once per
         B: (plan, each FRI round's slots, the openings' slots).  Its sources
         are bound as the FRI rounds' codewords and forests, then the (B, c,
-        N) trace LDE and the trace forest's stack."""
+        N) trace LDE and the trace forest's stack (:meth:`_trace_sources`;
+        the sharded prover's: a rank's share of each, Fri.rule_plan)."""
         got = self._rule_plans.get(b)
         if got is None:
             d, cfg = self.dom, self.cfg
             c, k = self.air.num_registers, cfg.num_colinearity_tests
-            plan = G.RulePlan()
+            plan = self.fri.rule_plan()
             round_slots = self.fri.query_rules(plan, b)
-            lde = plan.values_source((b, c, d.N), d.N, c)
-            stack = plan.stack_source(b * d.N, d.N.bit_length() - 1)
+            lde, stack = self._trace_sources(plan, b)
             # The FRI round-0 points (a, a + N/2) of each index, each frame
             # offset's row (stark_tpu/stark.py:_dev_cols_idx).
             offs = tuple(o * cfg.blowup for o in self.air.frame_offsets)

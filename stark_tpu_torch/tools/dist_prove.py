@@ -2,6 +2,7 @@
 
     python3 -m stark_tpu_torch.tools.dist_prove [--ranks D] [--backend nccl|gloo]
         [--model fib|mds] [--trace-length T] [--batch B] [--runs N] [--host-path]
+        [--three-reads]
 
 Spawns D processes (torch.multiprocessing, ``spawn``), one rank each, in a
 process group on localhost: with ``nccl`` rank d computes on ``cuda:d`` (D
@@ -10,17 +11,23 @@ gloo carries the exchanges through the host).  Each rank makes the model's
 witness on its card and proves it with DistributedStarkProver (blowup 4,
 16 tests): a warm-up, then ``runs`` proves, each with its phases timed
 (utils/profiling.PhaseTimer, the card synchronized at the end of each),
-with the launch counts and the mesh's collectives set to 0 just before the
-last and read just after it; with ``--batch B``, then
-BatchStarkProver(mesh=) of B copies of the witness.  ``--host-path``: the
-FRI commit's host path (device_chain off: a root read and a host challenge
-a round, K4 on the exchanged halves) in place of the device chain.  The
-parent proves the same witness on one card first, builds every kernel
-library the ranks load, and exits 1 unless every rank's proofs equal that
-prove, every rank launched every kernel of its world (:data:`KERNELS`, or
-on the host path K4 in place of K9 and K4-dyn), and each sharded transform
-made its three all-to-alls of n/D words.  It prints one JSON line a rank
-and a summary line.
+with the launch counts, the mesh's collectives and the reads from the card
+(ops.gather.to_host calls) set to 0 just before the last and read just
+after it; with ``--batch B``, then BatchStarkProver(mesh=) of B copies of
+the witness.  By default the single-fetch prove: K15 and K10 on every
+rank, the query gather a rank's share of the rule plan and one sum over
+the ranks, one read a prove.  ``--three-reads``: ``fused_round`` off (the
+trace roots, the chain's fetch and the query gather with host indices).
+``--host-path``: the FRI commit's host path (device_chain off: a root read
+and a host challenge a round, K4 on the exchanged halves) in place of the
+device chain.  The parent proves the same witness on one card first,
+builds every kernel library the ranks load, and exits 1 unless every
+rank's proofs equal that prove, every rank launched every kernel of its
+world (:data:`KERNELS`, on the single-fetch path K15 and K10 exactly once
+a prove; on the host path K4 in place of K9 and K4-dyn), read from the
+card once a prove on the single-fetch path and three times on the
+three-read one, and each sharded transform made its three all-to-alls of
+n/D words.  It prints one JSON line a rank and a summary line.
 """
 
 from __future__ import annotations
@@ -38,12 +45,14 @@ from dataclasses import asdict, dataclass
 import torch
 
 #: The kernels every rank of a sharded prove launches (K1-K3, K14, K5/K6,
-#: K7, K8, K9, K4-dyn, K11, K13).
+#: K7, K8, K9, K4-dyn, K11, K13; on the single-fetch path K15 and K10).
 KERNELS = ("ntt_pass1", "ntt_transpose", "ntt_pass2", "lde_pad_scale", "hash_rows",
            "merkle_level", "merkle_tail", "sponge_absorb", "fri_fold_dyn", "compose",
            "query_gather")
 #: The device chain's kernels, and K4, which the host path runs in their place.
 CHAIN_KERNELS, HOST_KERNELS = ("sponge_absorb", "fri_fold_dyn"), ("fri_fold",)
+#: The single-fetch prove's own kernels (K15, K10): once a prove on every rank.
+SINGLE_KERNELS = ("constraint_challenges", "sample_indices")
 BLOWUP, TESTS = 4, 16
 TIMEOUT_S = 600
 
@@ -61,19 +70,25 @@ class World:
     batch: int = 0
     runs: int = 1
     host_path: bool = False
+    three_reads: bool = False
 
     @property
     def name(self) -> str:
         return (f"{self.backend} {self.model} T=2^{self.trace_length.bit_length() - 1} "
                 f"D={self.ranks}" + (f" B={self.batch}" if self.batch else "")
-                + (" host path" if self.host_path else ""))
+                + (" host path" if self.host_path else "")
+                + (" three reads" if self.three_reads else ""))
+
+    @property
+    def single_fetch(self) -> bool:
+        return not (self.host_path or self.three_reads)
 
     @property
     def kernels(self) -> tuple:
         """The kernels each rank of this world launches."""
-        if not self.host_path:
-            return KERNELS
-        return tuple(k for k in KERNELS if k not in CHAIN_KERNELS) + HOST_KERNELS
+        if self.host_path:
+            return tuple(k for k in KERNELS if k not in CHAIN_KERNELS) + HOST_KERNELS
+        return KERNELS + (SINGLE_KERNELS if self.single_fetch else ())
 
 
 def _witness(model: str, length: int, device):
@@ -112,9 +127,14 @@ def _rank(world: dict, rank: int, port: int, results) -> None:
         from stark_tpu_torch import BatchStarkProver
         from stark_tpu_torch.models import get_model
         from stark_tpu_torch.ops import cuda
+        from stark_tpu_torch.ops import gather as G
         from stark_tpu_torch.parallel import (DistributedStarkProver,
                                               initialize_distributed, make_mesh)
         from stark_tpu_torch.utils.profiling import PhaseTimer
+
+        # Every read from the card goes through ops.gather.to_host: count them.
+        reads, to_host = [], G.to_host
+        G.to_host = lambda t, **kw: reads.append(1) or to_host(t, **kw)
 
         device = torch.device("cuda", rank if w.backend == "nccl" else 0)
         torch.cuda.set_device(device)
@@ -123,6 +143,7 @@ def _rank(world: dict, rank: int, port: int, results) -> None:
         air = get_model(w.model)[0]
         prover = DistributedStarkProver(air, _config(w.trace_length), mesh)
         prover.fri.device_chain = not w.host_path
+        prover.fri.fused_round = not w.three_reads
         prover.prove(trace_cols=_witness(w.model, w.trace_length, device))  # warm-up
         walls, shas, phases = [], [], []
         for run in range(w.runs):
@@ -131,6 +152,7 @@ def _rank(world: dict, rank: int, port: int, results) -> None:
             if run == w.runs - 1:
                 mesh.reset_counts()
                 cuda.reset_launches()
+                reads.clear()
             timer = PhaseTimer(sync=lambda: torch.cuda.synchronize(device))
             t0 = time.perf_counter()
             proof = prover.prove(trace_cols=_witness(w.model, w.trace_length, device),
@@ -140,8 +162,9 @@ def _rank(world: dict, rank: int, port: int, results) -> None:
             shas.append(hashlib.sha256(proof).hexdigest())
             phases.append(timer.ms())
         out = {"shas": shas, "counts": cuda.launch_counts(), "collectives": dict(mesh.counts),
-               "log": list(mesh.log), "wall_s": walls, "phases_ms": phases,
-               "device": str(device), "proof": proof if rank == 0 else None}
+               "log": list(mesh.log), "reads": len(reads), "wall_s": walls,
+               "phases_ms": phases, "device": str(device),
+               "proof": proof if rank == 0 else None}
         if w.batch:
             batch = BatchStarkProver(air, _config(w.trace_length), w.batch, mesh=mesh)
             cols = [_witness(w.model, w.trace_length, device)] * w.batch
@@ -149,11 +172,12 @@ def _rank(world: dict, rank: int, port: int, results) -> None:
             torch.cuda.synchronize(device)
             mesh.barrier()
             cuda.reset_launches()
+            reads.clear()
             t0 = time.perf_counter()
             proofs = batch.prove_batch(traces_cols=cols)
             torch.cuda.synchronize(device)
             out["batch"] = {"shas": [hashlib.sha256(p).hexdigest() for p in proofs],
-                            "counts": cuda.launch_counts(),
+                            "counts": cuda.launch_counts(), "reads": len(reads),
                             "wall_s": time.perf_counter() - t0}
         mesh.barrier()
         torch.distributed.destroy_process_group()
@@ -213,9 +237,11 @@ def run(worlds: list[World]) -> dict[str, list[dict]]:
 def check(world: World, ranks: list[dict]) -> None:
     """Raises unless every rank's proofs equal ``world.want``, every rank
     launched every kernel of ``world.kernels`` (K7 where a share of the trace LDE is
-    wider than hash_batch.TAIL_CUTOVER: narrower trees are K8's alone), and
-    the prove's all-to-alls were three of c T/D words (the trace's iNTT),
-    then three of c N/D (its LDE)."""
+    wider than hash_batch.TAIL_CUTOVER: narrower trees are K8's alone), on
+    the single-fetch path K15 and K10 exactly once and read from the card
+    once with one combine of the query gather (three reads with
+    ``three_reads``), and the prove's all-to-alls were three of c T/D words
+    (the trace's iNTT), then three of c N/D (its LDE)."""
     from stark_tpu_torch.models import get_model
     from stark_tpu_torch.ops import hash_batch as HB
 
@@ -229,6 +255,16 @@ def check(world: World, ranks: list[dict]) -> None:
         missing = [k for k in kernels if out["counts"][k] == 0]
         if missing:
             raise AssertionError(f"{world.name} rank {rank}: kernels not launched: {missing}")
+        single = world.single_fetch
+        got = ([out["counts"][k] for k in SINGLE_KERNELS], out["reads"],
+               out["collectives"].get("all_reduce", 0))
+        want = ([int(single)] * 2, 1 if single else 3, int(single))
+        if not world.host_path and got != want:
+            raise AssertionError(f"{world.name} rank {rank}: K15, K10 launches, reads and "
+                                 f"combines {got}, not {want}")
+        if world.batch and out["batch"]["reads"] != 1:
+            raise AssertionError(f"{world.name} rank {rank}: {out['batch']['reads']} reads "
+                                 "a batch")
         a2a = [words for op, words in out["log"] if op == "all_to_all"]
         if a2a != [c * t] * 3 + [c * n] * 3:
             raise AssertionError(f"{world.name} rank {rank}: all-to-alls of {a2a} words, not "
@@ -244,6 +280,7 @@ def main(argv=None) -> int:
     parser.add_argument("--batch", type=int, default=0)
     parser.add_argument("--runs", type=int, default=1)
     parser.add_argument("--host-path", action="store_true")
+    parser.add_argument("--three-reads", action="store_true")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("dist_prove: no CUDA device visible", file=sys.stderr)
@@ -256,7 +293,7 @@ def main(argv=None) -> int:
     want = hashlib.sha256(single_proof(args.model, args.trace_length)).hexdigest()
     torch.cuda.empty_cache()
     world = World(args.ranks, args.backend, args.model, args.trace_length, want,
-                  args.batch, args.runs, args.host_path)
+                  args.batch, args.runs, args.host_path, args.three_reads)
     ranks = run([world])[world.name]
     for rank, out in enumerate(ranks):
         print(json.dumps({"rank": rank, **{k: v for k, v in out.items() if k != "proof"}}))

@@ -16,15 +16,31 @@ every rank's results against stark_tpu's single-device functions:
 * DistributedStarkProver's proofs equal stark_tpu.StarkProver's, made in
   a module fixture here, on every rank (FibonacciAir T=512 and 1024,
   MdsSquareAir T=128, the two-register Fibonacci T=64: the configurations
-  that stark_tpu's own tests prove, so that their compiles are shared),
-  device chain and host path; the port's verifier accepts them and
-  rejects a flipped byte; the sha256 pins below are a second check of
-  stark_tpu's proofs; a share narrower than the frame's reach is refused;
+  that stark_tpu's own tests prove, so that their compiles are shared):
+  on the single-fetch path (the default, with FRI rounds cut down to the
+  trees' floor, so that cut codewords and ShardedForest paths go through
+  the windowed gather), on the three-read path (``fused_round`` False),
+  on the host path, with a forced sampler shortfall and where the FRI is
+  not chainable; the port's verifier accepts them and rejects a flipped
+  byte; the sha256 pins below are a second check of stark_tpu's proofs; a
+  share narrower than the frame's reach is refused;
+* the reads from the card a prove on every rank (ops.gather.to_host): one
+  on the single-fetch path, with one combine (Mesh.all_reduce) and no
+  host-index gather (pmerkle.ShardedGather); two on a shortfall and where
+  the FRI is not chainable; three with ``fused_round`` False; every
+  rank's fetched words the same;
+* the windowed rule plan (pmerkle.ShardedRulePlan, K13's plain version
+  and the combine) gathers what ShardedGather gathers with host indices
+  on the same sources: a cut and a whole codeword, a ShardedForest's and
+  a whole forest's paths, trace openings whose frame offset crosses a
+  share's end and wraps mod N;
 * BatchStarkProver(mesh=) equals stark_tpu's single proves at B = 4 (D |
-  B, the batch cut) and B = 3 (the domain cut where D does not divide B).
+  B, the batch cut) and B = 3 (the domain cut where D does not divide B),
+  one read a batch, and prove_many at B = 3 with two batches in flight.
 
 Tolerance zero: field values and proofs are bytes.  On a card (marker
-``gpu``): a mesh of one rank through the kernels equals the CPU."""
+``gpu``): a mesh of one rank through the kernels equals the CPU, on the
+single-fetch path (one read) and the three-read path."""
 
 import hashlib
 import queue as queue_mod
@@ -58,8 +74,12 @@ from stark_tpu_torch.parallel import (
     sharded_tree_from_rows,
     sharded_tree_from_values,
 )
-from stark_tpu_torch.parallel import pmerkle
+from stark_tpu_torch import fri as FRI
+from stark_tpu_torch.merkle import Forest
 from stark_tpu_torch.ops import fold as FOLD
+from stark_tpu_torch.ops import gather as G
+from stark_tpu_torch.parallel import pmerkle
+from stark_tpu_torch.parallel.mesh import replicated
 from torch_port_support import cuda_device, rand_field, to_torch  # noqa: F401
 
 SIZES = (1, 2, 4)
@@ -81,6 +101,23 @@ PINNED = {
 NARROW_T = 4
 BATCH_T, BATCHES = 64, (4, 3)
 TIMEOUT_S = 600
+#: The proves whose reads a prove and fetched words every rank records:
+#: (case, reads from the card, combines, host-index gathers, shortfalls).
+#: "chain": the single-fetch path (the default) with FRI rounds cut down
+#: to the trees' floor; "three": fused_round False; "short": one sampler
+#: candidate a proof, the host's indices through the same rule plan;
+#: "unchained": a last codeword too wide for K10's seen-mask.
+READS = {**{(*c, "chain"): (1, 1, 0, 0) for c in PINNED},
+         **{(*c, "three"): (3, 0, 1, 0) for c in PINNED},
+         ("fib", 512, 8, "default"): (1, 1, 0, 0),
+         ("fib2", 64, 8, "short"): (2, 2, 0, 1),
+         ("fib2", 64, 8, "unchained"): (2, 0, 1, 0)}
+PROOF_CASES = [*READS, ("fib", 512, 8, "host")]
+#: The windowed gather's sources: B codewords of n points and B trace LDEs
+#: of c registers, k indices each, the frame offsets of the openings.
+WIN_B, WIN_N, WIN_C, WIN_K, WIN_OFFS = 2, 64, 3, 5, (0, 4, 12)
+WINDOW_KINDS = ("cut values", "whole values", "cut paths", "whole paths",
+                "opening values", "opening paths")
 
 
 class VariantFibAir(FibonacciAir):
@@ -124,6 +161,98 @@ def _fri(mesh=None):
     if mesh is None:
         return kw
     return ShardedFri(**kw, mesh=mesh)
+
+
+def _counted_prove(mesh, prove) -> tuple:
+    """(``prove()``'s result, what it read: the reads from the card
+    (ops.gather.to_host calls), the sha256 of the words they fetched, the
+    combines (Mesh.all_reduce) and the host-index gathers
+    (pmerkle.ShardedGather.fetch))."""
+    reads, fetches = [], []
+    to_host, fetch = G.to_host, pmerkle.ShardedGather.fetch
+
+    def counted(t, **kw):
+        got = to_host(t, **kw)
+        reads.append(got)
+        return got
+
+    G.to_host = counted
+    pmerkle.ShardedGather.fetch = lambda self: fetches.append(1) or fetch(self)
+    mesh.reset_counts()
+    try:
+        proof = prove()
+    finally:
+        G.to_host, pmerkle.ShardedGather.fetch = to_host, fetch
+    words = [r.wait() if isinstance(r, G.Pending) else r for r in reads]
+    return proof, {"reads": len(reads),
+                   "fetched": hashlib.sha256(b"".join(w.tobytes() for w in words)).hexdigest(),
+                   "combines": mesh.counts.get("all_reduce", 0), "host_plans": len(fetches)}
+
+
+def _window_inputs() -> tuple:
+    """The windowed gather's whole sources and indices, from a seed: (B, n)
+    codewords, (B, c, N) trace LDEs (N = n), (B, k) indices among which
+    some put an opening's frame across a share's end or past N."""
+    rng = np.random.default_rng(11)
+    cw = rand_field(rng, (WIN_B, WIN_N))
+    lde = rand_field(rng, (WIN_B, WIN_C, WIN_N))
+    idx = rng.integers(0, 1 << 30, size=(WIN_B, WIN_K)).astype(np.int64)
+    idx[0, :3] = (WIN_N // 4 - 2, WIN_N // 2 - 1, WIN_N // 8 - 5)
+    idx[1, :2] = (WIN_N // 2 - 3, 3 * WIN_N // 8 - 1)
+    return cw, lde, idx
+
+
+def _window(mesh) -> dict:
+    """{kind: (the rule plan's words after the combine, ShardedGather's
+    words of the same reads with host indices)}: the same sources, cut
+    over the mesh (the trees at MIN_LOCAL leaves a share and more) and
+    whole."""
+    cw_np, lde_np, idx_np = _window_inputs()
+    b, n, c, k = WIN_B, WIN_N, WIN_C, WIN_K
+    lo, hi = mesh.bounds(n)
+    cut = Shard(mesh, to_torch(cw_np)[:, lo:hi].contiguous(), n)
+    whole = replicated(mesh, to_torch(cw_np))
+    lde = Shard(mesh, to_torch(lde_np)[..., lo:hi].contiguous(), n)
+    cut_tree = pmerkle.sharded_forest(Shard(mesh, cut.local[:, None, :], n))
+    whole_tree = Forest.from_values(whole.local)
+    lde_tree = pmerkle.sharded_forest(lde)
+    depth = n.bit_length() - 1
+    ab = G.Rule(b, k, n // 2, h=2, stride=n)
+    opening = dict(rows=b, number=k, half=n // 2, h=2, offsets=WIN_OFFS, wrap=n, order=1)
+    plan = pmerkle.ShardedRulePlan(mesh)
+    src = [plan.values_source((b, n), b * n, split=True),
+           plan.values_source((b, n), b * n),
+           plan.stack_source(b * n, depth, split=True),
+           plan.stack_source(b * n, depth),
+           plan.values_source((b, c, n), n, c, split=True),
+           plan.stack_source(b * n, depth, split=True)]
+    slots = [plan.values(src[0], ab), plan.values(src[1], ab), plan.paths(src[2], ab),
+             plan.paths(src[3], ab), plan.values(src[4], G.Rule(stride=c * n, **opening)),
+             plan.paths(src[5], G.Rule(stride=n, **opening))]
+    idx = torch.from_numpy(idx_np.astype(np.int32))
+    out = torch.empty(plan.words, dtype=torch.int32)
+    words = plan.run([cut, whole, cut_tree, whole_tree.stack, lde, lde_tree], idx, out).numpy()
+    # The same reads with host indices.
+    rows = np.arange(b, dtype=np.int64)[:, None]
+    a = idx_np % (n // 2)
+    flat = np.concatenate([a, a + n // 2], axis=1) + n * rows
+    q = np.stack([a, a + n // 2], axis=2).reshape(b, -1, 1)
+    cols = ((q + np.asarray(WIN_OFFS)) % n).reshape(b, -1)
+    host = ShardedGather(mesh)
+    hslots = [host.values(cut.reshape(-1), flat), host.values(whole.reshape(-1), flat),
+              host.paths(cut_tree.stack, flat), host.paths(whole_tree.stack, flat, depth),
+              [host.values(lde[j], cols[j]) for j in range(b)],
+              host.paths(lde_tree.stack, lde_tree.global_index(cols), depth)]
+    fetched = host.fetch()
+    out_words = words.view(np.uint32)
+    got = {}
+    for kind, slot, hslot in zip(WINDOW_KINDS, slots, hslots):
+        want = (np.concatenate([s.take(fetched) for s in hslot]) if isinstance(hslot, list)
+                else hslot.take(fetched))
+        got[kind] = (slot.take(out_words), want,
+                     isinstance(lde_tree if "opening" in kind else cut_tree,
+                                pmerkle.ShardedForest))
+    return got
 
 
 def _rank_results(mesh) -> dict:
@@ -180,30 +309,46 @@ def _rank_results(mesh) -> dict:
     out["fold"] = {
         "host": Shard(mesh, host, half).whole().numpy(),
         "chain": Shard(mesh, chain, half).whole().numpy(), "alpha": alpha.numpy()}
-    # Proofs: the device chain with the NTT in chunks (overlap 2) and FRI
-    # rounds cut down to the trees' floor, the host path so cut, and the
-    # defaults (overlap 1; at these sizes every FRI round whole).
-    proofs = {}
-    for model, T, tests in PINNED:
+    # Proofs: the single-fetch and the three-read paths with the NTT in
+    # chunks (overlap 2) and FRI rounds cut down to the trees' floor, the
+    # host path so cut, the defaults (overlap 1; at these sizes every FRI
+    # round whole), a forced shortfall and a FRI that is not chainable;
+    # each prove's reads.
+    proofs, reads = {}, {}
+    for case in PROOF_CASES:
+        model, T, tests, path = case
         air, trace_fn, _ = get_model(model)
-        prover = DistributedStarkProver(air, _cfg(T, tests), mesh, overlap=2)
-        prover.fri.min_share = pmerkle.MIN_LOCAL
-        proofs[(model, T, tests, "chain")] = prover.prove(trace_fn(T))
-    air, trace_fn, _ = get_model("fib")
-    host_path = DistributedStarkProver(air, _cfg(512), mesh)
-    host_path.fri.min_share = pmerkle.MIN_LOCAL
-    host_path.fri.device_chain = False
-    proofs[("fib", 512, 8, "host")] = host_path.prove(trace_fn(512))
-    proofs[("fib", 512, 8, "default")] = DistributedStarkProver(air, _cfg(512), mesh).prove(
-        trace_fn(512))
-    out["proofs"] = proofs
+        prover = DistributedStarkProver(air, _cfg(T, tests), mesh,
+                                        overlap=2 if path in ("chain", "three") else 1)
+        if path != "default":
+            prover.fri.min_share = pmerkle.MIN_LOCAL
+        prover.fri.fused_round = path != "three"
+        prover.fri.device_chain = path != "host"
+        slack, reduced = FRI._SAMPLE_SLACK, FRI._SAMPLE_MAX_REDUCED
+        if path == "short":
+            FRI._SAMPLE_SLACK = 1 - 2 * tests  # one candidate a proof
+        if path == "unchained":
+            FRI._SAMPLE_MAX_REDUCED = 0
+        try:
+            proofs[case], reads[case] = _counted_prove(mesh, lambda: prover.prove(trace_fn(T)))
+            reads[case]["chainable"] = prover.fri._chainable()
+        finally:
+            FRI._SAMPLE_SLACK, FRI._SAMPLE_MAX_REDUCED = slack, reduced
+        reads[case]["shortfalls"] = prover.fri.shortfalls
+    out["proofs"], out["reads"] = proofs, reads
+    out["window"] = _window(mesh)
     try:
         DistributedStarkProver(air, _cfg(NARROW_T), mesh)
         out["narrow"] = ""
     except ValueError as e:
         out["narrow"] = str(e)
-    out["batch"] = {b: BatchStarkProver(VariantFibAir(), _cfg(BATCH_T, 4), b, mesh=mesh)
-                    .prove_batch(_traces(b)) for b in BATCHES}
+    out["batch"], out["batch_reads"] = {}, {}
+    for b in BATCHES:
+        prover = BatchStarkProver(VariantFibAir(), _cfg(BATCH_T, 4), b, mesh=mesh)
+        out["batch"][b], got = _counted_prove(mesh, lambda: prover.prove_batch(_traces(b)))
+        out["batch_reads"][b] = got["reads"]
+    # Batches in flight: two batches of 3 (the last padded), depth 2.
+    out["many"] = prover.prove_many(_traces(max(BATCHES)), depth=2)
     return out
 
 
@@ -397,9 +542,7 @@ def test_sharded_fold_matches_stark_tpu(worlds, size, path):
 
 
 @pytest.mark.parametrize("size", SIZES)
-@pytest.mark.parametrize("case", [(*c, "chain") for c in PINNED]
-                         + [("fib", 512, 8, "host"), ("fib", 512, 8, "default")],
-                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", PROOF_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_distributed_proofs_match_stark_tpu(worlds, reference, size, case):
     model, T, tests, _ = case
     air = get_model(model)[0]
@@ -414,12 +557,51 @@ def test_distributed_proofs_match_stark_tpu(worlds, reference, size, case):
 
 
 @pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("case", list(READS), ids=lambda c: "-".join(map(str, c)))
+def test_reads_from_the_card_a_sharded_prove(worlds, size, case):
+    reads, combines, host_plans, shortfalls = READS[case]
+    for rank, r in enumerate(worlds[size]):
+        got = r["reads"][case]
+        assert (got["reads"], got["combines"], got["host_plans"], got["shortfalls"]) == (
+            reads, combines, host_plans, shortfalls), f"rank {rank}: {got}"
+        assert got["chainable"] == (case[3] in ("chain", "default", "short"))
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("case", list(READS), ids=lambda c: "-".join(map(str, c)))
+def test_every_rank_fetches_the_same_words(worlds, size, case):
+    assert len({r["reads"][case]["fetched"] for r in worlds[size]}) == 1
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_windowed_rule_plan_equals_host_index_gather(worlds, size, kind):
+    for rank, r in enumerate(worlds[size]):
+        got, want, sharded_tree = r["window"][kind]
+        np.testing.assert_array_equal(got, want, err_msg=f"rank {rank}")
+        # The trees are ShardedForests: their paths take the two parts.
+        assert sharded_tree
+    if "values" in kind:
+        cw, lde, _ = _window_inputs()
+        # Values of every rank's share among them: not zeros of the combine.
+        assert got.size and np.isin(got, (lde if "opening" in kind else cw)).all()
+
+
+@pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("batch", BATCHES)
 def test_batch_mesh_matches_single_proves(worlds, reference, size, batch):
     want = reference[1][:batch]
     for r in worlds[size]:
         assert r["batch"][batch] == want
+        assert r["batch_reads"][batch] == 1
     assert StarkVerifier(VariantFibAir(), _cfg(BATCH_T, 4)).verify_batch(want) == [True] * batch
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_batch_mesh_prove_many_keeps_batches_in_flight(worlds, reference, size):
+    assert BATCHES[-1] == 3
+    for r in worlds[size]:
+        assert r["many"] == reference[1]
 
 
 def test_pinned_proofs_are_the_single_prove(reference):
@@ -479,3 +661,25 @@ def test_mesh_of_one_on_card_matches_cpu(cuda_device):
     prover.fri.min_share = pmerkle.MIN_LOCAL
     proof = prover.prove(trace_fn(128))
     assert hashlib.sha256(proof).hexdigest() == PINNED[("mds", 128, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["chain", "three"])
+def test_mesh_of_one_single_fetch_on_card(cuda_device, path):
+    from stark_tpu_torch.ops import cuda
+
+    mesh = make_mesh(device=cuda_device)
+    air, trace_fn, _ = get_model("fib")
+    prover = DistributedStarkProver(air, _cfg(1024, 4), mesh)
+    prover.fri.min_share = pmerkle.MIN_LOCAL
+    prover.fri.fused_round = path == "chain"
+    cuda.reset_launches()
+    proof, got = _counted_prove(mesh, lambda: prover.prove(trace_fn(1024)))
+    counts = cuda.launch_counts()
+    assert hashlib.sha256(proof).hexdigest() == PINNED[("fib", 1024, 4)]
+    single = path == "chain"
+    assert got["reads"] == (1 if single else 3)
+    assert got["combines"] == int(single) and got["host_plans"] == int(not single)
+    for k in ("constraint_challenges", "sample_indices"):
+        assert counts[k] == int(single), k
+    assert counts["query_gather"] == 1

@@ -170,12 +170,13 @@ def decode_launch(params: np.ndarray, memory: dict, out: np.ndarray) -> None:
         width = 8 * b if path else b
         per_warp = 32 // width if width <= 32 else 1
         count = min(per_warp, int(w[slot + 1]) - j0)
-        dst = int(w[slot + 2]) + j0 * width
         payload = tasks + n_task + int(w[slot + 3])
+        step = int(w[payload + 8]) if rule else width
         for lane in range(32):
             for t in range(lane, count * width, 32):
                 q = 0 if count == 1 else t // width
                 word = t - q * width
+                mine = True
                 if rule:
                     j = int(w[payload]) + j0 + q
                     number, shape = int(w[payload + 1]), int(w[payload + 2])
@@ -189,8 +190,11 @@ def decode_launch(params: np.ndarray, memory: dict, out: np.ndarray) -> None:
                         e, row = j % h, j // h
                     mask = int(w[payload + 3])
                     x = ((int(idx[row * number + k]) & mask) + e * (mask + 1)
-                         + int(w[payload + 6 + u])) & int(w[payload + 4])
-                    i = x + row * int(w[payload + 5])
+                         + int(w[payload + 9 + u])) & int(w[payload + 4])
+                    own = int(w[payload + 6])
+                    mine = (x << ((own >> 8) & 0xFF)) >> ((own >> 16) & 0xFF) == own & 0xFF
+                    i = ((x - int(w[payload + 7])) % (1 << 32) >> (own >> 24)) \
+                        + row * int(w[payload + 5])
                 else:
                     i = int(w[payload + j0 + q])
                 if path:
@@ -198,7 +202,7 @@ def decode_launch(params: np.ndarray, memory: dict, out: np.ndarray) -> None:
                     at = 8 * ((2 * a - ((2 * a) >> lv)) + ((i >> lv) ^ 1)) + (word & 7)
                 else:
                     at = word * a + i
-                out[dst + t] = base[at]
+                out[int(w[slot + 2]) + (j0 + q) * step + word] = base[at] if mine else 0
 
 
 def decode_plan(plan: G.GatherPlan) -> tuple[np.ndarray, int]:
