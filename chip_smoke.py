@@ -78,15 +78,24 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       against the plain version, then the two timed in turn, and the
       latency bound (an empty launch and the 10 mixes of one thread);
     - the single-fetch prove's kernels: the constraint challenges (K15) at
-      (B, challenges) in {(1, 6), (1, 32), (8, 6), (32, 6), (8, 32)} (the
-      sponge after them, the challenge bytes, K11's weight words, the root
-      copy), the query indices (K10) at the main path's (1, 2^21, 128, 16
+      (B, challenges) in {(1, 6), (1, 32), (8, 6), (32, 6), (8, 32), (3,
+      6), (5, 64)} (the sponge after them, the challenge bytes, K11's
+      weight words, the root copy; B = 3 and 5 leave groups of a warp
+      idle), the query indices (K10) at the main path's (1, 2^21, 128, 16
       tests, 64 candidates), the wide path's, batch8's and pipe32x2's, at a
       candidate pool too small (the count falls short) and at the largest
       seen-mask, from sponges of pending tails 0, 8, 16 and 24, each call
       twice; K11 fed K15's weights at the main, wide and batched shapes;
-      K15 and K10 timed beside their bound and their latency bound (an
-      empty launch and one lane's chain of mixes, as K9's);
+      K15 at (1, 6) and K10 at the main shape timed beside their bound,
+      their latency bound (an empty launch and the chain of one 8-lane
+      group's integer-pipe instructions, counted as K8's split hash is)
+      and the one-lane latency bound of the design before; at the start
+      of phase 8 (after the profiled paths, whose copies windows need
+      the profiler whole), both kernels' designs before their redesign
+      (one thread's chain, one lane a hash; built here from
+      tools/tune_kernels.py) against the plain version at the same
+      shapes, then K15 at (1, 6), (1, 32) and (8, 6) and K10 at the main
+      shape timed in turn with them (before, after, after, before);
     - the composition codeword (K11) against the eager compose, bit-equal,
       each call twice, at every AIR and shape the paths and pins use:
       Fibonacci T=2^20 and MDS T=2^16 at B = 1, the batched cells' (8, .,
@@ -160,7 +169,8 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     (K11, K14, K15, K10 and K9 once a batch, K4-dyn once a FRI round but
     the last), a profiled call, the two paths in turn (5 calls a turn)
     with a profiled call of each;
- 8. the sharded prover (stark_tpu_torch.parallel, driven by
+ 8. K15 and K10 beside their designs before (phase 3 says what), then
+    the sharded prover (stark_tpu_torch.parallel, driven by
     stark_tpu_torch/tools/dist_prove.py), five worlds of ranks at once,
     each rank a spawned process on the one card (the parent builds every
     library first): an NCCL world of one rank (Fibonacci T=2^20 from the
@@ -277,7 +287,9 @@ SPONGE_LANES = (1, 8, 32)
 # batched cells (N = 2^16), 2 tests + 32 candidates each (fri._SAMPLE_SLACK);
 # then candidates too few for 16 distinct indices mod 16 (the count falls
 # short), and the largest seen-mask, 2^14 bits.
-CHALLENGE_SHAPES = ((1, 6), (1, 32), (8, 6), (32, 6), (8, 32))
+CHALLENGE_SHAPES = ((1, 6), (1, 32), (8, 6), (32, 6), (8, 32), (3, 6), (5, 64))
+# K15 timed in turn with its design before: Fibonacci's, MDS's, batch8's.
+CHALLENGE_TIMED = ((1, 6), (1, 32), (8, 6))
 SAMPLE_SHAPES = ((1, 1 << 21, 128, 16, 64), (1, 1 << 17, 128, 16, 64),
                  (8, 1 << 15, 128, 16, 64), (32, 1 << 15, 128, 16, 64),
                  (8, 1 << 15, 16, 16, 20), (4, 1 << 12, 1 << 14, 300, 632))
@@ -293,6 +305,15 @@ FOREST_TIMED = (32, 8)
 # each absorbed byte 5 times (the 5 waves of split_absorb).
 INT_PIPE_HASH = 10 * 144 + 64 * 5
 INT_PIPE_SPLIT_BYTE = 10 * 4.5 + 2 * 5 * 5
+# The sponge chains of K15 and K10 over 8 lanes (csrc/hash.cuh's sponge over
+# 8 lanes), counted the same way: a lane's integer-pipe instructions, 2
+# clocks each, shuffles left out: a mix round 4.5 a state byte of its 4; a
+# wave of a chunk's split absorb 5 a byte of its 4; a short absorb (a
+# draw's 8 bytes, a candidate's 4) 5 a byte absorbed, every lane computing
+# them all.
+INT_PIPE_SPLIT_MIX = 4.5 * 4
+INT_PIPE_SPLIT_WAVE = 5 * 4
+INT_PIPE_SHORT_BYTE = 5
 # K11 against its plain version at every (model, T, blowup, B) the driven
 # paths and the pinned proofs give it; the first three also timed.
 COMPOSE_CASES = (("fib", MAIN_T, 4, 1), ("mds", MDS_T, 4, 1), ("fib", BATCH_T, 4, 8),
@@ -415,8 +436,12 @@ OPS_SHOUP = 5
 
 #: The designs before each redesign (tools/tune_kernels.py), built in the
 #: build step: sponge, fib_expand, forest, fold_dyn (the K9 + fold pair),
-#: floor (an empty kernel) and compose by (model, T).
+#: challenges (K15), sample (K10), floor (an empty kernel) and compose by
+#: (model, T).
 BEFORE: dict = {}
+#: ptxas -v of the port's kernels, {kernel: "N regs, ..."}, read in the
+#: build step.
+PTXAS: dict = {}
 
 
 def _hash_ops(length: int, mix_ops: int = OPS_MIX) -> int:
@@ -619,13 +644,18 @@ def _sass_mix(library_path: str) -> None:
         found = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z][A-Z0-9_]*)", line)
         if found and current in ("stark_hash_rows_kernel",
                                  "stark_merkle_level_kernel",
-                                 "stark_merkle_tail_kernel"):
+                                 "stark_merkle_tail_kernel",
+                                 "stark_constraint_challenges_kernel",
+                                 "stark_sample_indices_kernel"):
             ops = counts.setdefault(current, {})
             ops[found.group(1)] = ops.get(found.group(1), 0) + 1
     for name, ops in counts.items():
         top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+        # A shuffle the compiler could not prove convergent gets a
+        # warp-synchronous fallback (WARPSYNC): the split hashes have none.
         print(f"sass {name}: {sum(ops.values())} instructions, "
-              + ", ".join(f"{k} {v}" for k, v in top), flush=True)
+              + ", ".join(f"{k} {v}" for k, v in top)
+              + f"; WARPSYNC {ops.get('WARPSYNC', 0)}, SHFL {ops.get('SHFL', 0)}", flush=True)
 
 
 def _rand_field(rng, dev, shape) -> torch.Tensor:
@@ -1723,10 +1753,10 @@ def _check_sponge(rng, dev, results: _Results) -> None:
 
 
 def _challenge_mixes(challenges: int) -> int:
-    """Mix rounds of one K15 lane, one after another: the root's chunk;
-    per challenge its finalisation (the pending tail's absorb and mix where
-    there is a tail, the 8 closing mixes); a mix a 32-byte chunk of
-    challenge bytes absorbed."""
+    """Mix rounds of one K15 chain, one after another: the root's chunk;
+    per challenge its finalisation (the pending tail's mix where there is
+    a tail, the 8 closing mixes); a mix a 32-byte chunk of challenge bytes
+    absorbed."""
     return 1 + sum(8 + (1 if 8 * k % 32 else 0) for k in range(challenges)) \
         + 8 * challenges // 32
 
@@ -1737,6 +1767,32 @@ def _challenge_ops(challenges: int) -> int:
     tails = sum(8 * k % 32 for k in range(challenges))
     return OPS_MIX * _challenge_mixes(challenges) + OPS_ABSORB_BYTE * (
         32 + 8 * challenges + tails)
+
+
+def _challenge_chain(challenges: int) -> float:
+    """Integer-pipe instructions of one lane of K15's 8-lane chain: its
+    mixes, the root's chunk absorbed in 5 waves, each draw's 8 bytes."""
+    return (INT_PIPE_SPLIT_MIX * _challenge_mixes(challenges) + 5 * INT_PIPE_SPLIT_WAVE
+            + INT_PIPE_SHORT_BYTE * 8 * challenges)
+
+
+def _sample_pass(number: int, m: int) -> int:
+    """Candidates a pass of K10, as csrc/hash.cu's stark_sample_indices
+    sizes its block: the tests rounded up to 32, at most 128 and m, in
+    whole warps of 8-lane groups."""
+    want = min(-(-number // 32) * 32, 128, m)
+    return max(-(-8 * want // 32) * 32, 32) // 8
+
+
+def _sample_chain(q: int, passes: int) -> float:
+    """Integer-pipe instructions of one lane of K10's 8-lane chain: the seed
+    challenge (the q-byte tail's waves, its 8 or 9 mixes), the seed (8
+    bytes, 9 mixes), the candidates' first chunk (5 waves, a mix), then a
+    candidate's counter (4 bytes) and 9 mixes a pass (the walk left out)."""
+    seed = (-(-q // 7) * INT_PIPE_SPLIT_WAVE + (9 if q else 8) * INT_PIPE_SPLIT_MIX
+            + 8 * INT_PIPE_SHORT_BYTE + 9 * INT_PIPE_SPLIT_MIX
+            + 5 * INT_PIPE_SPLIT_WAVE + INT_PIPE_SPLIT_MIX)
+    return seed + passes * (4 * INT_PIPE_SHORT_BYTE + 9 * INT_PIPE_SPLIT_MIX)
 
 
 def _candidates_needed(HB, sp, size, reduced, number, m) -> list[int]:
@@ -1758,86 +1814,166 @@ def _candidates_needed(HB, sp, size, reduced, number, m) -> list[int]:
     return need
 
 
+def _turns(calls, reps: int) -> list[float]:
+    """ms per call of (before, after), in turn: before, after, after,
+    before; CUDA events around back-to-back calls (_event_ms: each call's
+    device time and the card's step to the next), which spares the
+    profiler windows that the copies windows after it need whole."""
+    return [_event_ms(calls[i], reps) for i in (0, 1, 1, 0)]
+
+
+def _chain_bounds(entry: dict, empty: float, clock: int, split_ops: float,
+                  lane_mixes: int) -> str:
+    """Add K15's or K10's latency bounds to ``entry`` (ms): the 8-lane
+    chain's integer-pipe instructions (2 clocks each) after an empty launch,
+    and the design before's, one lane's mixes of OPS_MIX instructions; and
+    the roofline share (its bound over its time).  Returns their text."""
+    entry["latency_bound_ms"] = empty + split_ops * 2 / (clock * 1e3)
+    entry["latency_bound_before_ms"] = empty + lane_mixes * OPS_MIX * 2 / (clock * 1e3)
+    entry["roofline_share"] = entry["bound_ms"] / entry["ms"]
+    entry["latency_share"] = entry["latency_bound_ms"] / entry["ms"]
+    return (f"latency bound {entry['latency_bound_ms']:.5f} ({split_ops:.0f} integer-pipe "
+            f"instructions of an 8-lane group after an empty launch of {empty:.5f} ms, "
+            f"{clock} MHz; share {entry['latency_share']:.3f}), one lane (before) "
+            f"{entry['latency_bound_before_ms']:.5f} ({lane_mixes} mixes), roofline share "
+            f"{entry['roofline_share']:.6f}")
+
+
+def _challenge_inputs(rng, dev, b: int, ch: int) -> tuple:
+    """K15's operands at (B, challenges): seeded roots, a sponge, copy,
+    digests and weights buffers."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    roots = torch.from_numpy(rng.integers(0, 256, size=(b, 32), dtype=np.uint8)).to(dev)
+    return (roots, HB.Sponge(b, dev), torch.empty((b, 32), dtype=torch.uint8, device=dev),
+            torch.empty((b, ch, 8), dtype=torch.uint8, device=dev),
+            torch.empty((b, 2 * ch), dtype=torch.int32, device=dev))
+
+
+def _sample_inputs(rng, dev, b: int, q: int, number: int) -> tuple:
+    """K10's operands: a sponge of B lanes after 64 + q seeded bytes, out and
+    count buffers."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    sp = HB.Sponge(b, dev)
+    sp.absorb(torch.from_numpy(rng.integers(0, 256, size=(b, 64 + q), dtype=np.uint8)).to(dev))
+    return (sp, torch.empty((b, number), dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.int32, device=dev))
+
+
+def _timed_challenges(results: _Results, b: int, ch: int, ops: tuple, what: str) -> dict:
+    """K15 timed at (B, challenges) on ``ops`` beside its plain version and
+    its bound (_Results.add)."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    return results.add(
+        HB.CHALLENGES, f"B={b}, {ch} challenges{what}", [ops],
+        lambda r, s_, c, d, w: (HB.constraint_challenges(r, ch, s_, c, d, w), w)[1],
+        lambda r, *rest: HB.constraint_challenges_plain(r, ch)[3], 50,
+        nbytes=b * (32 + 64 + 32 + 16 * ch), ops=b * _challenge_ops(ch))
+
+
+def _challenges_checked(fn, what: str, b: int, ch: int, ops: tuple) -> None:
+    """``fn`` (constraint_challenges' signature) on zeroed outputs, held
+    against the plain version: state, pending, digests, weights, copy."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    roots, sp, copy, digests, weights = ops
+    for t in (sp.state, sp.pending, copy, digests, weights):
+        t.zero_()
+    fn(roots, ch, sp, copy, digests, weights)
+    state, pending, digs, words = HB.constraint_challenges_plain(roots, ch)
+    for name, got, want in (("state", sp.state, state), ("digests", digests, digs),
+                            ("pending", sp.pending[:, : sp.q], pending[:, : sp.q]),
+                            ("weights", weights, words), ("copy", copy, roots)):
+        _require_equal(f"constraint_challenges B={b} {ch} {name} {what}", got, want)
+
+
+def _sample_checked(fn, what: str, shape: tuple, ops: tuple) -> torch.Tensor:
+    """``fn`` (sample_indices' signature) on poisoned outputs, held against
+    the plain version: indices and counts.  Returns the counts."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    b, size, reduced, number, m = shape
+    sp, out, count = ops
+    out.fill_(-1)
+    count.fill_(-1)
+    fn(sp, size, reduced, number, m, out, count)
+    want, want_count = HB.sample_indices_plain(sp.state, sp.pending, sp.q, size, reduced,
+                                               number, m)
+    _require_equal(f"sample_indices {shape} q={sp.q} {what}", out, want)
+    _require_equal(f"sample_indices counts {shape} q={sp.q} {what}", count, want_count)
+    return count
+
+
 def _check_chained(rng, dev, results: _Results) -> None:
     """The single-fetch prove's kernels against their plain versions, at
     the paths' shapes: K15 (CHALLENGE_SHAPES: the sponge after it, the
     challenge bytes, K11's weight words, the root copy), K10 (SAMPLE_SHAPES,
     from sponges of every pending length the paths give: indices and
     counts), K11 fed K15's weights at the main, wide and batched shapes;
-    the first of each timed beside its bound and its latency bound (an
-    empty launch and one lane's chain of mixes, counted as K9's is)."""
+    the first of K15's and K10's shapes timed beside their bound and their
+    latency bounds (_chain_bounds).  The designs before (and K15's other
+    timed shapes) come later, in _check_chained_before: after the profiled
+    paths, whose copies windows lost a memcpy record in every attempt when
+    they ran here."""
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.ops import compose as CO
     from stark_tpu_torch.ops import hash_batch as HB
 
     clock, empty = _max_clock(), _empty_launch_ms(dev)
-    mix_ms = OPS_MIX * 2 / (clock * 1e3)
     lines = []
-    for i, (b, ch) in enumerate(CHALLENGE_SHAPES):
-        roots = torch.from_numpy(rng.integers(0, 256, size=(b, 32), dtype=np.uint8)).to(dev)
-        sp = HB.Sponge(b, dev)
-        copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
-        digests = torch.empty((b, ch, 8), dtype=torch.uint8, device=dev)
-        weights = torch.empty((b, 2 * ch), dtype=torch.int32, device=dev)
+    for b, ch in CHALLENGE_SHAPES:
+        ops = _challenge_inputs(rng, dev, b, ch)
         for turn in (1, 2):
-            HB.constraint_challenges(roots, ch, sp, copy, digests, weights)
-            state, pending, digs, words = HB.constraint_challenges_plain(roots, ch)
-            for what, got, want in (("state", sp.state, state), ("digests", digests, digs),
-                                    ("pending", sp.pending[:, : sp.q], pending[:, : sp.q]),
-                                    ("weights", weights, words), ("copy", copy, roots)):
-                _require_equal(f"constraint_challenges B={b} {ch} {what} call {turn}", got, want)
-        if i == 0:
-            entry = results.add(
-                HB.CHALLENGES, f"B={b}, {ch} challenges (Fibonacci's 3 terms)",
-                [(roots, sp, copy, digests, weights)],
-                lambda r, s_, c, d, w: (HB.constraint_challenges(r, ch, s_, c, d, w), w)[1],
-                lambda r, *rest: HB.constraint_challenges_plain(r, ch)[3], 50,
-                nbytes=b * (32 + 64 + 32 + 16 * ch), ops=b * _challenge_ops(ch))
-            entry["latency_bound_ms"] = empty + _challenge_mixes(ch) * mix_ms
-            lines.append(_line(entry) + f", latency bound {entry['latency_bound_ms']:.4f} "
-                         f"({_challenge_mixes(ch)} mixes of one lane after an empty launch "
-                         f"of {empty:.4f} ms, {clock} MHz)")
+            _challenges_checked(HB.constraint_challenges, f"call {turn}", b, ch, ops)
+        if (b, ch) != CHALLENGE_TIMED[0]:
+            continue
+        entry = _timed_challenges(results, b, ch, ops, " (Fibonacci's 3 terms)")
+        entry["ptxas"] = PTXAS.get("stark_constraint_challenges_kernel")
+        entry["turns_ms"] = []  # _check_chained_before
+        lines.append(_line(entry) + ", " + _chain_bounds(
+            entry, empty, clock, _challenge_chain(ch), _challenge_mixes(ch)))
     print(f"constraint_challenges: kernel == plain at (B, challenges) {list(CHALLENGE_SHAPES)}"
-          ", each call twice; " + "; ".join(lines), flush=True)
+          ", each call twice; ptxas "
+          f"{PTXAS.get('stark_constraint_challenges_kernel')}; " + "; ".join(lines), flush=True)
 
     lines = []
-    for i, (b, size, reduced, number, m) in enumerate(SAMPLE_SHAPES):
+    for i, shape in enumerate(SAMPLE_SHAPES):
+        b, size, reduced, number, m = shape
         for q in (0, 8, 16, 24):
-            sp = HB.Sponge(b, dev)
-            sp.absorb(torch.from_numpy(rng.integers(0, 256, size=(b, 64 + q),
-                                                    dtype=np.uint8)).to(dev))
-            out = torch.empty((b, number), dtype=torch.int32, device=dev)
-            count = torch.empty(b, dtype=torch.int32, device=dev)
+            ops = _sample_inputs(rng, dev, b, q, number)
             for turn in (1, 2):
-                HB.sample_indices(sp, size, reduced, number, m, out, count)
-                want, want_count = HB.sample_indices_plain(sp.state, sp.pending, sp.q, size,
-                                                           reduced, number, m)
-                _require_equal(f"sample_indices {b, size, reduced, number, m} q={q} call "
-                               f"{turn}", out, want)
-                _require_equal(f"sample_indices counts q={q}", count, want_count)
+                count = _sample_checked(HB.sample_indices, f"call {turn}", shape, ops)
             if m < 2 * number and int(count.min()) >= number:
                 raise AssertionError(f"sample_indices {b, reduced, number, m}: no shortfall")
         if i == 0:
+            sp, out, count = ops
             need = _candidates_needed(HB, sp, size, reduced, number, m)
+            per = _sample_pass(number, m)
+            passes = max(max(-(-n // per) for n in need), 1)
             groups = max(-(-n // 32) for n in need)
-            chain = (1 if sp.q else 0) + 8 + 9 + 10 * groups
             entry = results.add(
                 HB.SAMPLE, f"B={b}, size 2^{size.bit_length() - 1}, reduced {reduced}, "
-                f"{number} tests, {m} candidates", [(sp, out, count)],
+                f"{number} tests, {m} candidates", [ops],
                 lambda s_, o, c: (HB.sample_indices(s_, size, reduced, number, m, o, c), o)[1],
                 lambda s_, o, c: HB.sample_indices_plain(s_.state, s_.pending, s_.q, size,
                                                          reduced, number, m)[0], 50,
                 nbytes=b * (64 + 4 * number + 4),
                 ops=b * OPS_MIX * ((1 if sp.q else 0) + 17) + OPS_MIX * 10 * sum(need)
                 + OPS_ABSORB_BYTE * (b * (sp.q + 8) + 36 * sum(need)))
-            entry["latency_bound_ms"] = empty + chain * mix_ms
             entry["candidates_hashed"] = need
-            lines.append(_line(entry) + f", latency bound {entry['latency_bound_ms']:.4f} "
-                         f"({chain} mixes of one lane: the seed's and {groups} group(s) of 32 "
-                         f"candidates; candidates this run needs {need})")
+            entry["ptxas"] = PTXAS.get("stark_sample_indices_kernel")
+            entry["turns_ms"] = []  # _check_chained_before
+            lines.append(_line(entry) + ", " + _chain_bounds(
+                entry, empty, clock, _sample_chain(sp.q, passes),
+                (1 if sp.q else 0) + 8 + 9 + 10 * groups)
+                + f" (q={sp.q}; {passes} pass(es) of {per} candidates, before {groups} "
+                f"group(s) of 32; candidates this run needs {need})")
     print(f"sample_indices: kernel == plain at (B, size, reduced, tests, candidates) "
           f"{list(SAMPLE_SHAPES)}, pending tails 0, 8, 16, 24, each call twice (the short "
-          "candidate pool's counts below 16); " + "; ".join(lines), flush=True)
+          "candidate pool's counts below 16); ptxas "
+          f"{PTXAS.get('stark_sample_indices_kernel')}; " + "; ".join(lines), flush=True)
 
     # K11 fed K15's weights (the single-fetch prove's form): the main,
     # wide and batched shapes.
@@ -1859,6 +1995,62 @@ def _check_chained(rng, dev, results: _Results) -> None:
         del prover, lde
     print("compose: kernel fed K15's weights == plain at Fibonacci T=2^20 and MDS T=2^16 "
           "(B = 1) and the batched cells' (8, ., 2^16)", flush=True)
+
+
+def _check_chained_before(rng, dev, results: _Results) -> None:
+    """K15 and K10 beside their designs before the redesign (one thread's
+    chain through memory; one lane a hash: tools/tune_kernels.py), after
+    the profiled paths: the designs before against the plain versions at
+    every CHALLENGE_SHAPES and SAMPLE_SHAPES shape (K10 at pending tails
+    0, 8, 16, 24), K15 at CHALLENGE_TIMED beyond the first timed beside its
+    bounds, then both designs in turn (before, after, after, before; CUDA
+    events) at CHALLENGE_TIMED and K10's main shape; the turns go into the
+    kernels line's entries."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    clock, empty = _max_clock(), _empty_launch_ms(dev)
+    entries = {e["name"]: e for e in results.entries}
+    before = BEFORE["challenges"]
+    lines = []
+    for b, ch in CHALLENGE_SHAPES:
+        ops = _challenge_inputs(rng, dev, b, ch)
+        _challenges_checked(before, "before", b, ch, ops)
+        if (b, ch) not in CHALLENGE_TIMED:
+            continue
+        if (b, ch) == CHALLENGE_TIMED[0]:
+            entry = entries["constraint_challenges"]
+        else:
+            entry = _timed_challenges(_Results(), b, ch, ops, "")
+            _chain_bounds(entry, empty, clock, _challenge_chain(ch), _challenge_mixes(ch))
+        entry["turns_ms"] = _turns(
+            (lambda: before(*ops[:1], ch, *ops[1:]),
+             lambda: HB.constraint_challenges(*ops[:1], ch, *ops[1:])), 50)
+        lines.append(f"B={b}, {ch} challenges: {entry['ms']:.5f} ms (profiler), latency bound "
+                     f"{entry['latency_bound_ms']:.5f} (one lane, before: "
+                     f"{entry['latency_bound_before_ms']:.5f}), bound {entry['bound_ms']:.7f} "
+                     f"(roofline share {entry['roofline_share']:.6f}); in turn before, after, "
+                     f"after, before {json.dumps([round(t, 5) for t in entry['turns_ms']])}")
+    print("constraint_challenges: the design before == plain at (B, challenges) "
+          f"{list(CHALLENGE_SHAPES)}; " + "; ".join(lines)
+          + " (ms a call; the turns from CUDA events around back-to-back calls)", flush=True)
+
+    before = BEFORE["sample"]
+    for i, shape in enumerate(SAMPLE_SHAPES):
+        for q in (0, 8, 16, 24):
+            ops = _sample_inputs(rng, dev, shape[0], q, shape[3])
+            _sample_checked(before, "before", shape, ops)
+            if i == 0 and q == 24:
+                _, size, reduced, number, m = shape
+                entry = entries["sample_indices"]
+                entry["turns_ms"] = _turns(
+                    (lambda: before(*ops[:1], size, reduced, number, m, *ops[1:]),
+                     lambda: HB.sample_indices(*ops[:1], size, reduced, number, m, *ops[1:])),
+                    50)
+    print(f"sample_indices: the design before == plain at {list(SAMPLE_SHAPES)}, pending "
+          f"tails 0, 8, 16, 24; at {SAMPLE_SHAPES[0]} (q=24) {entry['ms']:.5f} ms (profiler), "
+          f"latency bound {entry['latency_bound_ms']:.5f} (one lane, before: "
+          f"{entry['latency_bound_before_ms']:.5f}); in turn before, after, after, before "
+          f"{json.dumps([round(t, 5) for t in entry['turns_ms']])}", flush=True)
 
 
 def _air(model: str):
@@ -2815,6 +3007,7 @@ def main() -> int:
     # all at once), into BEFORE: timed in turn with the kernels in use.
     befores = {"sponge": TK.sponge_before, "fib_expand": TK.fib_expand_before,
                "forest": TK.forest_before, "fold_dyn": TK.fold_dyn_before,
+               "challenges": TK.challenges_before, "sample": TK.sample_before,
                "floor": TK.floor_kernel}
     timed_cases = {(model, T): blowup for model, T, blowup, _ in COMPOSE_CASES[:COMPOSE_TIMED]}
     with ThreadPoolExecutor(len(programs) + len(befores) + len(timed_cases) + 1) as pool:
@@ -2840,6 +3033,7 @@ def main() -> int:
 
     paths = {CO._source_file(p.source): m for m, p in programs.items()}
     regs = ptxas(("witness.cu", "gather.cu", "hash.cu", "fold.cu", *paths), by_source=True)
+    PTXAS.update(regs["hash.cu"])
     print("ptxas, K12, K13, K9, K15, K10 and K4-dyn: " + json.dumps(
         {k: v for src in ("witness.cu", "gather.cu", "hash.cu", "fold.cu")
          for k, v in regs[src].items()
@@ -3001,10 +3195,12 @@ def main() -> int:
           flush=True)
     marks.append(time.perf_counter())
 
-    # 8. the sharded prover (parallel/): its kernels' sharded forms against
-    # their plain versions (here, after the profiled paths: K13's windowed
-    # form's plain version runs thousands of torch ops under the profiler),
-    # then worlds of ranks on the one card
+    # 8. K15 and K10 beside their designs before; the sharded prover
+    # (parallel/): its kernels' sharded forms against their plain versions
+    # (here, after the profiled paths: K13's windowed form's plain version
+    # runs thousands of torch ops under the profiler), then worlds of ranks
+    # on the one card
+    _check_chained_before(rng, dev, results)
     _check_sharded_forms(rng, dev, results)
     _drive_distributed(smi, launches)
     marks.append(time.perf_counter())

@@ -73,7 +73,8 @@
 // not a lack of independent work.
 // ptxas -v (sm_90a, CUDA 12; tools/tune_kernels.py prints it): K5/K6 48
 // registers, K7 48, K8 and K8-forest 64 and 24,577 bytes of shared
-// memory, K9 80; no spills, no stack.
+// memory, K9 80, K15 52 (and 32 bytes a challenge of dynamic shared
+// memory), K10 40 and 2,608 bytes of shared memory; no spills, no stack.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -346,76 +347,131 @@ __global__ void stark_sponge_absorb_kernel(uint4* state, uint4* pending, int q,
   if (alpha != nullptr) alpha[lane] = a;
 }
 
-// K15: the constraint challenges of the STARK layer, one thread a proof
-// (lane), counterpart of stark_tpu/stark.py::_device_challenges_fn (:165-
-// 197) over hash_batch.py's sponge_from_bytes, sponge_state and
-// state_alpha (:831-883).  Lane b starts a fresh sponge with its trace
-// root (roots: (lanes, 32) u8, read where the trace forest's stack keeps
-// them, as K4-dyn reads a round's root) and draws `challenges` challenges:
-// each the first 8 bytes of the digest of every byte so far, a
-// little-endian u64, which the transcript then absorbs (stark.py
-// _draw_constraint_challenges).  Written: the root at copy (lanes, 32) u8;
-// each challenge's 8 bytes at digests (lanes, challenges, 8) u8, for the
-// host's replay; the composition's weight words at weights (lanes, 2
-// challenges) u32, per pair (a, b) a R^2 mod p, its Shoup companion, b R
-// mod p, its companion, as ops/compose.py:ComposeProgram.weights lays them
-// out for K11; and the sponge after the last challenge's bytes, at state
-// and pending (lanes, 32) u8, 16-byte aligned: the FRI commit chain goes
-// on from it (q = 8 challenges mod 32).
+// K15: the constraint challenges of the STARK layer, counterpart of
+// stark_tpu/stark.py::_device_challenges_fn (:165-197) over hash_batch.py's
+// sponge_from_bytes, sponge_state and state_alpha (:831-883).  Proof b
+// starts a fresh sponge with its trace root (roots: (lanes, 32) u8, read
+// where the trace forest's stack keeps them, as K4-dyn reads a round's
+// root) and draws `challenges` challenges: each the first 8 bytes of the
+// digest of every byte so far, a little-endian u64, which the transcript
+// then absorbs (stark.py _draw_constraint_challenges).  Written: the root
+// at copy (lanes, 32) u8; each challenge's 8 bytes at digests (lanes,
+// challenges, 8) u8, for the host's replay; the composition's weight words
+// at weights (lanes, 2 challenges) u32, per pair (a, b) a R^2 mod p, its
+// Shoup companion, b R mod p, its companion, as
+// ops/compose.py:ComposeProgram.weights lays them out for K11; and the
+// sponge after the last challenge's bytes, at state and pending (lanes, 32)
+// u8, 16-byte aligned: the FRI commit chain goes on from it (q = 8
+// challenges mod 32).
 //
-// What bounds it: latency, one thread's chain of mixes: per challenge the
-// pending tail's absorb and the 9 mixes that finalize it, and a chunk's
-// mix every fourth challenge.  Each step is hash.cuh's sponge_step (K9's),
-// its state and tail passed on through memory that only this thread
-// touches, so that the step stays the one K9 and K4-dyn run.
-__global__ void stark_constraint_challenges_kernel(
-    const uint8_t* __restrict__ roots, uint4* state, uint4* pending,
-    uint8_t* copy, uint32_t* digests, uint32_t* weights, int challenges,
-    int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+// What bounds it: latency, the chain of draws, each of which needs the
+// bytes of the one before.  A group of 8 lanes serves a proof (hash.cuh's
+// sponge over 8 lanes; a warp, the block, holds 4 proofs; the lanes past
+// the last proof hash zeros and store nothing), and the sponge stays in its
+// registers from draw to draw: `s`, the state after the last full chunk,
+// and `a`, the state with every byte so far absorbed, those since that
+// chunk not yet mixed.  A chunk's absorb goes byte by byte, so absorbing a
+// draw's 8 bytes into `a` as they come continues the pending tail's partial
+// absorb (hash.rs:25-27), and every fourth draw's completes the chunk's,
+// which is then mixed into `a` and becomes `s`.  A draw is a copy of `a`
+// and its mixes (the tail's and the 8 closing ones; 8 in all where no tail
+// is pending, `a` being mixed already), then the digest's first 8 bytes,
+// from lanes 0 and 1 to every lane, absorbed into `a` by every lane itself
+// from the state's words at their positions, fetched before the mixes.
+// Nothing goes through memory between draws.  The reductions and the
+// digests' stores are not on the chain: each draw's raw u64 goes to shared
+// memory, and after the last draw lane r writes the digests of pairs r, r
+// + 8, ... and reduces them (raw mod p, a R^2 and b R mod p, their
+// companions: 64-bit divisions by the constant p).
+constexpr int kChallengeProofs = 4;  // proofs a block: one warp, 8 lanes each
+// The raw u64s of a block's draws in shared memory: 32 bytes a challenge,
+// at most the card's 227 KB a block.
+constexpr int kChallengesMax = (227 << 10) / (8 * kChallengeProofs);
+
+__global__ void __launch_bounds__(8 * kChallengeProofs)
+    stark_constraint_challenges_kernel(const uint8_t* __restrict__ roots,
+                                       uint32_t* state, uint32_t* pending, uint8_t* copy,
+                                       uint32_t* digests, uint32_t* weights,
+                                       int challenges, int lanes) {
+  extern __shared__ uint32_t raws[];  // [group][challenge][2]: low word, high word
+  const int group = threadIdx.x >> 3;
+  const long long lane = (long long)blockIdx.x * kChallengeProofs + group;
+  const bool mine = lane < lanes;
+  const stark::SpongeLanes ln(threadIdx.x & 7);
+  uint32_t* raw = raws + 2 * challenges * group;
+  // Lanes 0 and 1 hold a draw's words: each keeps its own, one predicated
+  // store a draw, no branch on the chain.
+  uint32_t* kept = raw + (ln.r & 1);
+  const bool keeps = ln.r < 2;
+  // The root's word r (byte loads: a root row need not be aligned).
+  uint32_t root = 0;
+  if (mine) {
+    const uint8_t* at = roots + 32 * lane + 4 * ln.r;
+    uint8_t* to = copy + 32 * lane + 4 * ln.r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint8_t byte = at[i];
+      to[i] = byte;
+      root |= (uint32_t)byte << (8 * i);
+    }
+  }
+  uint32_t a[4], s[4];
+  stark::split_init<8>(a, ln);
+  const uint32_t chunk[1] = {root};
+  stark::split_absorb<8>(a, chunk, ln);
+  stark::split_mix<8, stark::Form::kBytes, stark::Form::kBytes>(a, ln);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = a[j];
+  uint32_t pend = 0;  // the lane's word of the pending tail
+  for (int k = 0; k < challenges; ++k) {
+    const int q = (8 * k) & 31;  // the tail's length, where this draw's bytes go
+    const uint32_t word = stark::split_word(a);
+    const uint32_t at0 = __shfl_sync(ln.mask, word, q >> 2, 8);
+    const uint32_t at1 = __shfl_sync(ln.mask, word, (q >> 2) + 1, 8);
+    uint32_t c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = a[j];
+    stark::split_close(c, ln, q ? 9 : 8);
+    const uint32_t dig = stark::split_word(c);
+    const uint32_t d0 = __shfl_sync(ln.mask, dig, 0, 8);
+    const uint32_t d1 = __shfl_sync(ln.mask, dig, 1, 8);
+    if (keeps) kept[2 * k] = dig;
+    stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);
+    const uint32_t delta = (uint32_t)(ln.r - (q >> 2)) & 7u;
+    pend = stark::select_bits(0u - (uint32_t)(delta == 0), d0,
+                              stark::select_bits(0u - (uint32_t)(delta == 1), d1, pend));
+    if (q == 24) {  // a full chunk: mixed, the new state, no tail
+      stark::split_mix<8, stark::Form::kBytes, stark::Form::kBytes>(a, ln);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = a[j];
+      pend = 0;
+    }
+  }
+  if (mine) {
+    state[8 * lane + ln.r] = stark::split_word(s);
+    pending[8 * lane + ln.r] = pend;
+  }
+  __syncwarp();
+  if (!mine) return;
   constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % stark::kP);
   constexpr uint32_t kR2 = (uint32_t)((uint64_t)kR1 * kR1 % stark::kP);
-  const uint8_t* root = roots + 32LL * lane;
-  uint4* st = state + 2 * lane;
-  uint4* pd = pending + 2 * lane;
-  uint32_t* dig = digests + 2LL * challenges * lane;
-  uint32_t* w = weights + 2LL * challenges * lane;
-  const bool root_vec = (reinterpret_cast<uintptr_t>(roots) & 3) == 0;
-  const bool copy_vec = ((reinterpret_cast<uintptr_t>(roots) |
-                          reinterpret_cast<uintptr_t>(copy)) & 15) == 0;
-  stark::SpongeIn v;
-  uint64_t raw = 0;
-  // The root into a fresh sponge, and the first challenge after it.
-  stark::sponge_load(v, st, pd, 0, true, root, 32, root_vec);
-  stark::sponge_step(v, st, pd, true, 0, true, root, 32, root_vec,
-                     copy + 32LL * lane, copy_vec, challenges > 0, &raw);
-  int q = 0;
-  uint64_t first = 0;
-  for (int k = 0; k < challenges; ++k) {
-    dig[2 * k] = (uint32_t)raw;
-    dig[2 * k + 1] = (uint32_t)(raw >> 32);
-    const uint32_t red = (uint32_t)(raw % stark::kP);
-    if (k % 2 == 0) {
-      first = red;
-    } else {
-      const uint32_t wa = (uint32_t)(first * kR2 % stark::kP);
-      const uint32_t wb = (uint32_t)((uint64_t)red * kR1 % stark::kP);
-      w[2 * k - 2] = wa;
-      w[2 * k - 1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
-      w[2 * k] = wb;
-      w[2 * k + 1] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
-    }
-    // Absorb the challenge's 8 bytes, and draw the next one after them.
-    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(dig + 2 * k);
-    stark::sponge_load(v, st, pd, q, false, bytes, 8, true);
-    stark::sponge_step(v, st, pd, true, q, false, bytes, 8, true, nullptr,
-                       false, k + 1 < challenges, &raw);
-    q = (q + 8) & 31;
+  for (int j = ln.r; 2 * j < challenges; j += 8) {
+    const uint64_t x0 = raw[4 * j] | (uint64_t)raw[4 * j + 1] << 32;
+    const uint64_t x1 = raw[4 * j + 2] | (uint64_t)raw[4 * j + 3] << 32;
+    const uint32_t wa = (uint32_t)(x0 % stark::kP * kR2 % stark::kP);
+    const uint32_t wb = (uint32_t)(x1 % stark::kP * kR1 % stark::kP);
+    uint32_t* d = digests + 2 * challenges * lane + 4 * j;
+    uint32_t* w = weights + 2 * challenges * lane + 4 * j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] = raw[4 * j + i];
+    w[0] = wa;
+    w[1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
+    w[2] = wb;
+    w[3] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
   }
 }
 
-// K10: the FRI query indices, one warp a proof (lane), counterpart of
+// K10: the FRI query indices, one block a proof (lane), counterpart of
 // stark_tpu/ops/hash_batch.py::sample_indices_core (:964-1040), with
 // seed_digest_rows_from_state (:951), and of stark_tpu/batch.py::
 // _sample_indices_batched (:449), the reference's Fri::sample_indices
@@ -432,70 +488,102 @@ __global__ void stark_constraint_challenges_kernel(
 // at count (lanes,).  A count below number (m candidates gave fewer
 // distinct reduced indices) leaves the host to sample.
 //
-// The walk is sequential by definition; the warp takes it 32 candidates at
-// a time: each lane hashes one, __match_any_sync finds the lanes of the
-// group with its reduced index (the lowest of them is the first
-// occurrence), a bit of a seen-mask in shared memory (reduced bits, at
-// most kSampleMaxReduced) says whether an earlier group had it, and a
-// ballot's prefix gives each accepted lane its position: the reference's
-// order exactly.  The warp stops at the first group that completes the
-// count.  What bounds it: latency, the seed's two hashes (18 mixes) and a
-// candidate's 10 mixes a group, one thread's chain each.
+// Every hash runs over 8 lanes (hash.cuh's sponge over 8 lanes).  The
+// block's first warp draws the seed challenge, hashes the seed, and absorbs
+// and mixes the seed as the candidates' first chunk, which is the same for
+// every candidate, and leaves that state in shared memory; then each group
+// of 8 lanes of the block hashes a candidate from it: its counter absorbed
+// at positions 0 .. 3 (which reach 7 .. 10 and chain no further) and its 9
+// mixes.  A pass hashes as many candidates as the block has groups (at
+// most kSampleMaxPass; fewer where the tests or the candidates are fewer,
+// so that a pass that suffices is no wider than it must be), their low32
+// to shared memory, then the first warp walks them in order, 32 at a time:
+// __match_any_sync finds the lanes of a group with its reduced index (the
+// lowest of them is the first occurrence), a bit of a seen-mask in shared
+// memory (reduced bits, at most kSampleMaxReduced) says whether an earlier
+// group had it, and a ballot's prefix gives each accepted lane its
+// position: the reference's order exactly.  The block stops after the pass
+// that completes the count, or when it has hashed all m candidates.  What
+// bounds it: latency, the seed's chain (the challenge's 8 or 9 mixes, the
+// seed's 9, the first chunk's 1) and a candidate's 9 mixes a pass.
 constexpr int kSampleMaxReduced = 1 << 14;
+constexpr int kSampleMaxPass = 128;  // candidates a pass: 1,024 threads
 
-__global__ void __launch_bounds__(32)
-    stark_sample_indices_kernel(const uint4* state, const uint4* pending,
+__global__ void __launch_bounds__(8 * kSampleMaxPass)
+    stark_sample_indices_kernel(const uint32_t* state, const uint32_t* pending,
                                 int q, uint32_t size_mask, uint32_t reduced,
                                 int number, int m, uint32_t* out,
                                 uint32_t* count) {
   __shared__ uint32_t seen[kSampleMaxReduced / 32];
+  __shared__ uint32_t low[kSampleMaxPass];
+  __shared__ uint32_t first[8];  // the candidates' first chunk, absorbed and mixed
+  __shared__ int found_all;
   const int b = blockIdx.x;
   const int t = threadIdx.x;
-  for (uint32_t i = t; i < (reduced + 31) / 32; i += 32) seen[i] = 0u;
-  // The seed challenge (every lane the same chain) and the seed.
-  stark::SpongeIn v;
-  uint64_t raw = 0;
-  stark::sponge_load(v, state + 2 * b, pending + 2 * b, q, false, nullptr, 0,
-                     false);
-  stark::sponge_step(v, nullptr, nullptr, false, q, false, nullptr, 0, false,
-                     nullptr, false, true, &raw);
-  uint32_t s[32];
-  hash_init(s);
-  stark::absorb_word<0>(s, (uint32_t)raw);
-  stark::absorb_word<4>(s, (uint32_t)(raw >> 32));
-  mix(s);
-  hash_finish<stark::Form::kOwed>(s);
-  uint4 seed_lo, seed_hi;
-  pack_digest(s, seed_lo, seed_hi);
-  __syncwarp();
-  int found = 0;  // the same in every lane
+  const int pass = blockDim.x >> 3;
+  const stark::SpongeLanes ln(t & 7);
+  for (uint32_t i = t; i < (reduced + 31) / 32; i += blockDim.x) seen[i] = 0u;
+  // The first warp (a vote: its result is the same in every lane of a warp,
+  // which the compiler can see, so the shuffles below need no fallback).
+  const bool lead = __any_sync(0xFFFFFFFFu, t < 32);
+  if (lead) {
+    uint32_t s[4];
+    const uint32_t word = state[8 * b + ln.r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = stark::byte_of(word, j);
+    stark::split_absorb_prefix(s, pending[8 * b + ln.r], q, ln);
+    stark::split_close(s, ln, q ? 9 : 8);
+    const uint32_t dig = stark::split_word(s);
+    const uint32_t d0 = __shfl_sync(ln.mask, dig, 0, 8);
+    const uint32_t d1 = __shfl_sync(ln.mask, dig, 1, 8);
+    stark::split_init<8>(s, ln);
+    stark::split_absorb_short<8>(s, stark::kPrime0, stark::kPrime1, d0, d1, 0, ln);
+    stark::split_close(s, ln, 9);
+    const uint32_t seed[1] = {stark::split_word(s)};
+    stark::split_init<8>(s, ln);
+    stark::split_absorb<8>(s, seed, ln);
+    stark::split_mix<8, stark::Form::kBytes, stark::Form::kBytes>(s, ln);
+    if (t < 8) first[t] = stark::split_word(s);
+  }
+  __syncthreads();
+  const uint32_t h0 = first[0], mine = first[ln.r];
+  const int g = t >> 3;
+  int found = 0;  // the same in every thread
   uint32_t* row = out + (long long)b * number;
-  for (int base = 0; base < m && found < number; base += 32) {
-    const uint32_t c = (uint32_t)(base + t);
-    hash_init(s);
-    stark::absorb_digest(s, seed_lo, seed_hi);
-    mix(s);
-    stark::absorb_word<0>(s, c);
-    mix(s);
-    hash_finish<stark::Form::kOwed>(s);
-    const uint32_t low32 = (s[28] & 0xFFu) << 24 | (s[29] & 0xFFu) << 16 |
-                           (s[30] & 0xFFu) << 8 | (s[31] & 0xFFu);
-    const bool valid = (int)c < m;
-    const uint32_t red = low32 & (reduced - 1);
-    // Lanes past m match only one another (no reduced index is all ones).
-    const unsigned same = __match_any_sync(0xFFFFFFFFu, valid ? red : 0xFFFFFFFFu);
-    const bool first = valid && (__ffs(same) - 1) == t;
-    const bool ok = first && !((seen[red >> 5] >> (red & 31)) & 1u);
-    const unsigned accepted = __ballot_sync(0xFFFFFFFFu, ok);
-    const int pos = found + __popc(accepted & ((1u << t) - 1u));
-    if (ok && pos < number) row[pos] = low32 & size_mask;
-    __syncwarp();
-    if (ok) atomicOr(&seen[red >> 5], 1u << (red & 31));
-    __syncwarp();
-    found += __popc(accepted);
+  for (int base = 0; base < m && found < number; base += pass) {
+    uint32_t s[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j] = stark::byte_of(mine, j);
+    stark::split_absorb_short<4>(s, h0, 0u, (uint32_t)(base + g), 0u, 0, ln);
+    stark::split_close(s, ln, 9);
+    if (ln.r == 7) low[g] = __byte_perm(stark::split_word(s), 0, 0x0123);
+    __syncthreads();
+    if (lead) {
+      for (int sub = 0; sub < pass && found < number; sub += 32) {
+        const int i = sub + t;
+        const bool valid = i < pass && base + i < m;
+        const uint32_t low32 = valid ? low[i] : 0u;
+        const uint32_t red = low32 & (reduced - 1);
+        // Lanes past the candidates match only one another (no reduced
+        // index is all ones).
+        const unsigned same = __match_any_sync(0xFFFFFFFFu, valid ? red : 0xFFFFFFFFu);
+        const bool first_seen = valid && (__ffs(same) - 1) == t;
+        const bool ok = first_seen && !((seen[red >> 5] >> (red & 31)) & 1u);
+        const unsigned accepted = __ballot_sync(0xFFFFFFFFu, ok);
+        const int pos = found + __popc(accepted & ((1u << t) - 1u));
+        if (ok && pos < number) row[pos] = low32 & size_mask;
+        __syncwarp();
+        if (ok) atomicOr(&seen[red >> 5], 1u << (red & 31));
+        __syncwarp();
+        found += __popc(accepted);
+      }
+      if (t == 0) found_all = found;
+    }
+    __syncthreads();
+    found = found_all;
   }
   if (found > number) found = number;
-  for (int i = found + t; i < number; i += 32) row[i] = 0u;
+  for (int i = found + t; i < number; i += blockDim.x) row[i] = 0u;
   if (t == 0) count[b] = (uint32_t)found;
 }
 
@@ -587,20 +675,26 @@ int stark_sponge_absorb(void* state, void* pending, int q, int fresh,
 }
 
 // K15: `challenges` constraint challenges for each of `lanes` proofs (see
-// the kernel).  state, pending, roots and copy: 16-byte aligned rows.
+// the kernel), at most kChallengesMax.  state, pending: 16-byte aligned
+// rows; digests, weights: 4-byte aligned.
 int stark_constraint_challenges(const void* roots, void* state, void* pending,
                                 void* copy, void* digests, void* weights,
                                 int challenges, int lanes, void* stream) {
-  if (challenges < 0 || challenges % 2 || lanes < 1)
+  if (challenges < 0 || challenges % 2 || challenges > kChallengesMax || lanes < 1)
     return (int)cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15) ||
       ((reinterpret_cast<uintptr_t>(digests) | reinterpret_cast<uintptr_t>(weights)) & 3))
     return (int)cudaErrorMisalignedAddress;
-  const int threads = lanes < 128 ? lanes : 128;
-  stark_constraint_challenges_kernel<<<(lanes + threads - 1) / threads, threads, 0,
-                                       (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(roots), static_cast<uint4*>(state),
-      static_cast<uint4*>(pending), static_cast<uint8_t*>(copy),
+  const int smem = 8 * kChallengeProofs * challenges;
+  if (smem > (48 << 10)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        stark_constraint_challenges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  stark_constraint_challenges_kernel<<<(lanes + kChallengeProofs - 1) / kChallengeProofs,
+                                       8 * kChallengeProofs, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(roots), static_cast<uint32_t*>(state),
+      static_cast<uint32_t*>(pending), static_cast<uint8_t*>(copy),
       static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights), challenges,
       lanes);
   return (int)cudaGetLastError();
@@ -618,8 +712,15 @@ int stark_sample_indices(const void* state, const void* pending, int q,
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15)
     return (int)cudaErrorMisalignedAddress;
-  stark_sample_indices_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
-      static_cast<const uint4*>(state), static_cast<const uint4*>(pending), q,
+  // Candidates a pass: no more than the tests (rounded up to a warp's
+  // walk), the candidates, or kSampleMaxPass; whole warps of 8-lane groups.
+  int pass = (number + 31) / 32 * 32;
+  if (pass > kSampleMaxPass) pass = kSampleMaxPass;
+  if (pass > m) pass = m;
+  const int threads = (8 * pass + 31) / 32 * 32;
+  stark_sample_indices_kernel<<<lanes, threads < 32 ? 32 : threads, 0,
+                                (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(state), static_cast<const uint32_t*>(pending), q,
       (uint32_t)(size - 1), (uint32_t)reduced, number, m,
       static_cast<uint32_t*>(out), static_cast<uint32_t*>(count));
   return (int)cudaGetLastError();

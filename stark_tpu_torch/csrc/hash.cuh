@@ -639,4 +639,103 @@ __device__ __forceinline__ uint32_t sponge_lane(
                      copy_vec, alpha);
 }
 
+// ---------------------------------------------------------------------------
+// The Fiat-Shamir sponge over 8 lanes, its state in registers from one draw
+// to the next: K15 (hash.cu stark_constraint_challenges) and K10
+// (stark_sample_indices).  A group of 8 consecutive lanes holds one sponge
+// as the split hash above lays it out (lane r: state bytes 4r .. 4r + 3, one
+// a register), so each of the chain's mix rounds costs a lane a quarter of
+// a state byte's share of a lane-a-hash round.  What a draw needs besides
+// its mixes comes to one shuffle: the 8 bytes it appends go to every lane
+// of the group (two shuffles issued together), and every lane computes
+// their whole absorb itself from them and from the state's words at the
+// bytes' positions, fetched before the draw's mixes began.
+using SpongeLanes = SplitLane<8>;
+
+// Byte j of a little-endian word, in the low 8 bits (the bits above them
+// are not defined, as everywhere in the hash).
+__device__ __forceinline__ uint32_t byte_of(uint32_t word, int j) { return word >> (8 * j); }
+
+// The four state bytes a lane holds as one little-endian word.
+__device__ __forceinline__ uint32_t split_word(const uint32_t (&s)[4]) {
+  return pack4(s[0], s[1], s[2], s[3]);
+}
+
+// The `mixes` rounds that finalize a split state (kBytes in and out): the
+// tail's mix, where there is a tail, and the 8 closing mixes (hash.rs:
+// 25-27), kOwed between rounds (fewest instructions where a warp is alone on
+// its scheduler, as in K8).
+__device__ __forceinline__ void split_close(uint32_t (&s)[4], const SpongeLanes& ln,
+                                            int mixes) {
+  split_mix<8, Form::kBytes, Form::kOwed>(s, ln);
+#pragma unroll 1
+  for (int i = 2; i < mixes; ++i) split_mix<8, Form::kOwed, Form::kOwed>(s, ln);
+  split_mix<8, Form::kOwed, Form::kBytes>(s, ln);
+}
+
+// Absorb kN <= 8 bytes at chunk positions q .. q + kN - 1 (q a multiple of
+// 4, q + kN <= 32) into a split state in kBytes form.  at0, at1: the state's
+// words q / 4 and q / 4 + 1 (the bytes at those positions before the
+// absorb); d0, d1: the data's words.  Every lane of the group computes the
+// kN absorbed bytes v (hash.rs:14-23: only byte 7 chains, from byte 0), then
+// keeps its own: a position q + o takes v[o] where o < kN, and its own byte
+// XOR v[o - 7] where the absorb of byte o - 7 reached it (o is 4 ((r - q /
+// 4) mod 8) + j; with q = 24 the bytes 25 .. 31 reach positions 0 .. 6, as
+// in a whole chunk).  Lane-dependent choices are masks: no branch.
+template <int kN>
+__device__ __forceinline__ void split_absorb_short(uint32_t (&s)[4], uint32_t at0,
+                                                   uint32_t at1, uint32_t d0, uint32_t d1,
+                                                   int q, const SpongeLanes& ln) {
+  static_assert(kN >= 1 && kN <= 8, "at most 8 bytes");
+  uint32_t v[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const uint32_t a = byte_of(i < 4 ? at0 : at1, i & 3);
+    const uint32_t t = (i >= 7 ? a ^ v[i >= 7 ? i - 7 : 0] : a) + byte_of(i < 4 ? d0 : d1, i & 3);
+    v[i] = select_bits(0xF8u, t << 3, t >> 5);
+  }
+  const uint32_t delta = (uint32_t)(ln.r - (q >> 2)) & 7u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t out = s[j];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const int o = 4 * d + j;
+      const uint32_t here = 0u - (uint32_t)(delta == (uint32_t)d);
+      if (o < kN)
+        out = select_bits(here, v[o < kN ? o : 0], out);
+      else if (o >= 7 && o - 7 < kN)
+        out = select_bits(here, s[j] ^ v[o - 7 < kN ? o - 7 : 0], out);
+    }
+    s[j] = out;
+  }
+}
+
+// Absorb bytes 0 .. n - 1 of a chunk (0 <= n <= 32; the lane's word d of
+// it) into a split state: split_absorb's waves, as many as the chain p ->
+// p + 7 of n bytes is deep (ceil(n / 7)), the positions past n left out of
+// the absorb and only taking the XOR of the byte 7 before them.
+__device__ __forceinline__ void split_absorb_prefix(uint32_t (&s)[4], uint32_t d, int n,
+                                                    const SpongeLanes& ln) {
+  uint32_t v[4], x[4], in[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    in[j] = 0u - (uint32_t)(4 * ln.r + j < n);
+    x[j] = 0u;
+    v[j] = 0u;
+  }
+  const int waves = (n + 6) / 7;
+#pragma unroll 1
+  for (int wave = 0; wave < waves; ++wave) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t t = (s[j] ^ (x[j] & ~ln.low(j))) + byte_of(d, j);
+      v[j] = select_bits(0xF8u, t << 3, t >> 5) & in[j];
+    }
+    split_fetch7<8>(x, v, ln);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = select_bits(in[j], v[j] ^ (x[j] & ln.low(j)), s[j] ^ x[j]);
+}
+
 }  // namespace stark

@@ -47,7 +47,13 @@ Prints, in this order:
 * ``sponge split``: K9 as it was before its redesign, as an empty
   kernel with its parameters, with its mixes taken out and whole, then
   the kernel in use, in turn and back, for B in {1, 8, 32}: what its time
-  is made of (``--only sponge`` runs that alone).
+  is made of (``--only sponge`` runs that alone);
+* ``chain split``: K15 (the constraint challenges) at (1, 32), MdsSquareAir's
+  32 challenges, whole and with its mixes, the absorbs of its draws' bytes
+  or its reductions taken out (a patched copy of csrc/hash.cu in a
+  temporary directory), beside the design before its redesign and an
+  empty launch, in turn and back: what bounds the kernel (``--only
+  chain``).
 
 (K8's subtree size, ``hash_batch.tail_sub_lg``, and ``TAIL_CUTOVER`` have
 their sweeps in chip_smoke.py.)  ``fib_expand_before`` builds K12
@@ -56,7 +62,9 @@ Montgomery products), ``sponge_before`` K9 as it was (byte loads and
 stores), ``forest_before`` K8 and K8-forest as they were (one lane a hash
 at every level), ``compose_before`` K11 as it was (every sum eager),
 ``fold_dyn_before`` the pair K9 + K4-dyn as it was (alpha through device
-memory, two launches a round), ``floor_kernel`` an empty kernel:
+memory, two launches a round), ``challenges_before`` and
+``sample_before`` K15 and K10 as they were (one thread's sponge chain
+through memory; one lane a hash), ``floor_kernel`` an empty kernel:
 chip_smoke.py times them beside the kernels in use.
 
 Times are device time per call (``device_us``); every call takes the next
@@ -133,6 +141,197 @@ extern "C" int floor_launch(int blocks, int threads, int smem, void* stream) {
   return (int)cudaGetLastError();
 }
 """
+
+
+# K15 and K10 before their redesign, as csrc/hash.cu had them: K15 one
+# thread a proof, each draw hash.cuh's one-lane sponge_load / sponge_step
+# (the state and the tail through memory from one draw to the next, the
+# reductions on the chain); K10 one warp a proof, the seed's chain repeated
+# in every lane, every candidate's whole hash at one lane.  The entries
+# take the port's arguments (hash.cu's stark_constraint_challenges and
+# stark_sample_indices).
+CHAIN_BEFORE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+#include "hash.cuh"
+using stark::hash_finish;
+using stark::hash_init;
+using stark::mix;
+using stark::pack_digest;
+extern "C" {
+__global__ void challenges_before_kernel(
+    const uint8_t* __restrict__ roots, uint4* state, uint4* pending,
+    uint8_t* copy, uint32_t* digests, uint32_t* weights, int challenges,
+    int lanes) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % stark::kP);
+  constexpr uint32_t kR2 = (uint32_t)((uint64_t)kR1 * kR1 % stark::kP);
+  const uint8_t* root = roots + 32LL * lane;
+  uint4* st = state + 2 * lane;
+  uint4* pd = pending + 2 * lane;
+  uint32_t* dig = digests + 2LL * challenges * lane;
+  uint32_t* w = weights + 2LL * challenges * lane;
+  const bool root_vec = (reinterpret_cast<uintptr_t>(roots) & 3) == 0;
+  const bool copy_vec = ((reinterpret_cast<uintptr_t>(roots) |
+                          reinterpret_cast<uintptr_t>(copy)) & 15) == 0;
+  stark::SpongeIn v;
+  uint64_t raw = 0;
+  // The root into a fresh sponge, and the first challenge after it.
+  stark::sponge_load(v, st, pd, 0, true, root, 32, root_vec);
+  stark::sponge_step(v, st, pd, true, 0, true, root, 32, root_vec,
+                     copy + 32LL * lane, copy_vec, challenges > 0, &raw);
+  int q = 0;
+  uint64_t first = 0;
+  for (int k = 0; k < challenges; ++k) {
+    dig[2 * k] = (uint32_t)raw;
+    dig[2 * k + 1] = (uint32_t)(raw >> 32);
+    const uint32_t red = (uint32_t)(raw % stark::kP);
+    if (k % 2 == 0) {
+      first = red;
+    } else {
+      const uint32_t wa = (uint32_t)(first * kR2 % stark::kP);
+      const uint32_t wb = (uint32_t)((uint64_t)red * kR1 % stark::kP);
+      w[2 * k - 2] = wa;
+      w[2 * k - 1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
+      w[2 * k] = wb;
+      w[2 * k + 1] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
+    }
+    // Absorb the challenge's 8 bytes, and draw the next one after them.
+    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(dig + 2 * k);
+    stark::sponge_load(v, st, pd, q, false, bytes, 8, true);
+    stark::sponge_step(v, st, pd, true, q, false, bytes, 8, true, nullptr,
+                       false, k + 1 < challenges, &raw);
+    q = (q + 8) & 31;
+  }
+}
+
+
+constexpr int kSampleMaxReduced = 1 << 14;
+
+__global__ void __launch_bounds__(32)
+    sample_before_kernel(const uint4* state, const uint4* pending,
+                                int q, uint32_t size_mask, uint32_t reduced,
+                                int number, int m, uint32_t* out,
+                                uint32_t* count) {
+  __shared__ uint32_t seen[kSampleMaxReduced / 32];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  for (uint32_t i = t; i < (reduced + 31) / 32; i += 32) seen[i] = 0u;
+  // The seed challenge (every lane the same chain) and the seed.
+  stark::SpongeIn v;
+  uint64_t raw = 0;
+  stark::sponge_load(v, state + 2 * b, pending + 2 * b, q, false, nullptr, 0,
+                     false);
+  stark::sponge_step(v, nullptr, nullptr, false, q, false, nullptr, 0, false,
+                     nullptr, false, true, &raw);
+  uint32_t s[32];
+  hash_init(s);
+  stark::absorb_word<0>(s, (uint32_t)raw);
+  stark::absorb_word<4>(s, (uint32_t)(raw >> 32));
+  mix(s);
+  hash_finish<stark::Form::kOwed>(s);
+  uint4 seed_lo, seed_hi;
+  pack_digest(s, seed_lo, seed_hi);
+  __syncwarp();
+  int found = 0;  // the same in every lane
+  uint32_t* row = out + (long long)b * number;
+  for (int base = 0; base < m && found < number; base += 32) {
+    const uint32_t c = (uint32_t)(base + t);
+    hash_init(s);
+    stark::absorb_digest(s, seed_lo, seed_hi);
+    mix(s);
+    stark::absorb_word<0>(s, c);
+    mix(s);
+    hash_finish<stark::Form::kOwed>(s);
+    const uint32_t low32 = (s[28] & 0xFFu) << 24 | (s[29] & 0xFFu) << 16 |
+                           (s[30] & 0xFFu) << 8 | (s[31] & 0xFFu);
+    const bool valid = (int)c < m;
+    const uint32_t red = low32 & (reduced - 1);
+    // Lanes past m match only one another (no reduced index is all ones).
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, valid ? red : 0xFFFFFFFFu);
+    const bool first = valid && (__ffs(same) - 1) == t;
+    const bool ok = first && !((seen[red >> 5] >> (red & 31)) & 1u);
+    const unsigned accepted = __ballot_sync(0xFFFFFFFFu, ok);
+    const int pos = found + __popc(accepted & ((1u << t) - 1u));
+    if (ok && pos < number) row[pos] = low32 & size_mask;
+    __syncwarp();
+    if (ok) atomicOr(&seen[red >> 5], 1u << (red & 31));
+    __syncwarp();
+    found += __popc(accepted);
+  }
+  if (found > number) found = number;
+  for (int i = found + t; i < number; i += 32) row[i] = 0u;
+  if (t == 0) count[b] = (uint32_t)found;
+}
+
+int challenges_before(const void* roots, void* state, void* pending,
+                                void* copy, void* digests, void* weights,
+                                int challenges, int lanes, void* stream) {
+  if (challenges < 0 || challenges % 2 || lanes < 1)
+    return (int)cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15) ||
+      ((reinterpret_cast<uintptr_t>(digests) | reinterpret_cast<uintptr_t>(weights)) & 3))
+    return (int)cudaErrorMisalignedAddress;
+  const int threads = lanes < 128 ? lanes : 128;
+  challenges_before_kernel<<<(lanes + threads - 1) / threads, threads, 0,
+                                       (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(roots), static_cast<uint4*>(state),
+      static_cast<uint4*>(pending), static_cast<uint8_t*>(copy),
+      static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights), challenges,
+      lanes);
+  return (int)cudaGetLastError();
+}
+
+int sample_before(const void* state, const void* pending, int q,
+                         long long size, long long reduced, int number, int m,
+                         void* out, void* count, int lanes, void* stream) {
+  if (q < 0 || q > 31 || lanes < 1 || number < 1 || m < 0 || size < 1 ||
+      (size & (size - 1)) || size > (1LL << 31) || reduced < 1 ||
+      (reduced & (reduced - 1)) || reduced > kSampleMaxReduced || number > reduced)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  sample_before_kernel<<<lanes, 32, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint4*>(state), static_cast<const uint4*>(pending), q,
+      (uint32_t)(size - 1), (uint32_t)reduced, number, m,
+      static_cast<uint32_t*>(out), static_cast<uint32_t*>(count));
+  return (int)cudaGetLastError();
+}
+}
+"""
+
+# K15 with parts of its work taken out (``chain_split``): csrc/hash.cu with
+# these patches, each (text, replacement) occurring exactly once; the mode
+# rides in the top bits of ``challenges``: 1 no mixes (neither a draw's nor
+# a chunk's), 2 no absorb of a draw's bytes (one XOR keeps the draws a
+# chain), 4 no reductions.
+CHAIN_PATCHES = (
+    ("constexpr int kChallengeProofs = 4;",
+     "constexpr int kChallengeProofs = 4;\nint g_chain_mode = 0;"),
+    ("    int challenges, int lanes) {\n  extern __shared__",
+     "    int challenges_mode, int lanes) {\n  const int mode = challenges_mode >> 24;\n"
+     "  const int challenges = challenges_mode & 0xFFFFFF;\n  extern __shared__"),
+    ("    stark::split_close(c, ln, q ? 9 : 8);",
+     "    if (!(mode & 1)) stark::split_close(c, ln, q ? 9 : 8);"),
+    ("    stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);",
+     "    if (!(mode & 2)) stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);\n"
+     "    else a[0] ^= d0 ^ d1 ^ at0 ^ at1;"),
+    ("    if (q == 24) {  // a full chunk",
+     "    if (q == 24 && !(mode & 1)) {  // a full chunk"),
+    ("  for (int j = ln.r; 2 * j < challenges; j += 8) {",
+     "  for (int j = ln.r; !(mode & 4) && 2 * j < challenges; j += 8) {"),
+    ("      static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights), challenges,\n"
+     "      lanes);",
+     "      static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights),\n"
+     "      challenges | g_chain_mode << 24, lanes);"),
+    ("}  // extern \"C\"",
+     "void stark_set_chain_mode(int mode) { g_chain_mode = mode; }\n}  // extern \"C\""),
+)
+#: chain_split's modes: what each leaves in.
+CHAIN_PARTS = {"whole": 0, "no reductions": 4, "no mixes": 1, "no absorbs": 2,
+               "mixes alone": 2 | 4, "neither (loads, shuffles, stores)": 1 | 2 | 4}
 
 
 # K12 fib_expand before its redesign: one thread an element, the grid
@@ -620,6 +819,101 @@ def fold_dyn_before():
         return out
 
     return call
+
+
+def challenges_before():
+    """A call ``(roots, challenges, sponge, copy, digests, weights)`` that
+    does what ops.hash_batch.constraint_challenges does, through K15 as it
+    was before its redesign (CHAIN_BEFORE_SOURCE, built here, not part of
+    the port): the yardstick of the redesign."""
+    fn = build_temporary(CHAIN_BEFORE_SOURCE, "challenges_before").challenges_before
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+    def call(roots, challenges, sponge, copy, digests, weights):
+        if fn(roots.data_ptr(), sponge.state.data_ptr(), sponge.pending.data_ptr(),
+              copy.data_ptr(), digests.data_ptr(), weights.data_ptr(), challenges,
+              sponge.lanes, torch.cuda.current_stream(roots.device).cuda_stream) != 0:
+            raise RuntimeError("challenges_before failed")
+        sponge.q = 8 * challenges % 32
+        sponge.fresh = False
+
+    return call
+
+
+def sample_before():
+    """A call ``(sponge, size, reduced, number, m, out, count)`` that does
+    what ops.hash_batch.sample_indices does, through K10 as it was before
+    its redesign (CHAIN_BEFORE_SOURCE, built here, not part of the port)."""
+    fn = build_temporary(CHAIN_BEFORE_SOURCE, "sample_before").sample_before
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int, ctypes.c_void_p]
+
+    def call(sponge, size, reduced, number, m, out, count):
+        if fn(sponge.state.data_ptr(), sponge.pending.data_ptr(), sponge.q, size, reduced,
+              number, m, out.data_ptr(), count.data_ptr(), sponge.lanes,
+              torch.cuda.current_stream(out.device).cuda_stream) != 0:
+            raise RuntimeError("sample_before failed")
+
+    return call
+
+
+def chain_split(rng, dev, b: int = 1, challenges: int = 32) -> dict:
+    """K15's time at (B, challenges) split into its parts: the kernel built
+    from csrc/hash.cu with CHAIN_PATCHES (a temporary library, the port's
+    untouched), run whole and with the mixes, the absorbs of the draws'
+    bytes or the reductions taken out (CHAIN_PARTS), beside the design
+    before and an empty launch, each in turn and back; us per call."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    with open(os.path.join(cuda.CSRC, "hash.cu")) as f:
+        source = f.read()
+    for old, new in CHAIN_PATCHES:
+        if source.count(old) != 1:
+            raise RuntimeError(f"csrc/hash.cu has moved on: {old!r} occurs "
+                               f"{source.count(old)} times")
+        source = source.replace(old, new)
+    lib = build_temporary(source, "hash_chain")
+    fn = lib.stark_constraint_challenges
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.stark_set_chain_mode.argtypes = [ctypes.c_int]
+    lib.stark_set_chain_mode.restype = None
+    before, floor = challenges_before(), floor_kernel()
+    roots = torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev)
+    sp = HB.Sponge(b, dev)
+    copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+    digests = torch.empty((b, challenges, 8), dtype=torch.uint8, device=dev)
+    weights = torch.empty((b, 2 * challenges), dtype=torch.int32, device=dev)
+    want = HB.constraint_challenges_plain(roots.cpu(), challenges)[3]
+
+    def stream():  # a graph captures the launches on its own stream
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def part(mode):
+        def call():
+            lib.stark_set_chain_mode(mode)
+            if fn(roots.data_ptr(), sp.state.data_ptr(), sp.pending.data_ptr(),
+                  copy.data_ptr(), digests.data_ptr(), weights.data_ptr(), challenges, b,
+                  stream()) != 0:
+                raise RuntimeError("the patched K15 failed")
+        return call
+
+    part(0)()
+    torch.cuda.synchronize()
+    if not torch.equal(weights.cpu(), want):
+        raise AssertionError("the patched K15, whole, != plain")
+    calls = {name: part(mode) for name, mode in CHAIN_PARTS.items()}
+    calls["before"] = lambda: before(roots, challenges, sp, copy, digests, weights)
+    calls["empty launch"] = lambda: floor(-(-b // 4), 32, 8 * 4 * challenges, stream())
+    times: dict = {}
+    for key in list(calls) + list(reversed(calls)):
+        times.setdefault(key, []).append(round(device_us(calls[key], 50), 3))
+    whole = sum(times["whole"]) / 2
+    split = {f"{what}, us": round(whole - sum(times[key]) / 2, 3)
+             for what, key in (("mixes", "no mixes"), ("absorbs", "no absorbs"),
+                               ("reductions", "no reductions"))}
+    return {"shape": [b, challenges], "us per call, in turn and back": times,
+            "whole less each part's absence": split}
 
 
 # One warp hashing a chain of combines, d <- combine(d, d), with L lanes a
@@ -1627,7 +1921,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("latency", "forest", "tail-in-prove", "compose",
-                                           "fold", "sponge", "floor", "parts", "ntt"),
+                                           "fold", "sponge", "chain", "floor", "parts",
+                                           "ntt"),
                         help="run one sweep (after ptxas)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -1661,6 +1956,9 @@ def main() -> int:
     if args.only in (None, "sponge"):
         print("sponge split, us per call, each in turn and back (CUDA-graph replay): "
               + json.dumps(sponge_split(rng, dev)), flush=True)
+    if args.only in (None, "chain"):
+        print("chain split, K15 (constraint challenges), us per call, each in turn and back "
+              "(CUDA-graph replay): " + json.dumps(chain_split(rng, dev)), flush=True)
     if args.only in (None, "floor"):
         tune_floor(dev)
     if args.only in (None, "parts"):

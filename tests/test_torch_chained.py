@@ -351,7 +351,8 @@ def test_prove_many_equals_sequential_batches(depth, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b, challenges", [(1, 6), (8, 6), (32, 6), (1, 32), (3, 0)])
+@pytest.mark.parametrize("b, challenges", [(1, 6), (8, 6), (32, 6), (1, 32), (3, 0), (3, 6),
+                                           (5, 6), (5, 64), (1, 64)])
 def test_card_challenges_equal_plain(cuda_device, b, challenges):
     roots = torch.from_numpy(_rand_bytes(b + challenges, (b, 32)))
     sp = HB.Sponge(b, cuda_device)
@@ -370,7 +371,7 @@ def test_card_challenges_equal_plain(cuda_device, b, challenges):
 @pytest.mark.parametrize("b", [1, 8, 32])
 @pytest.mark.parametrize("size, reduced, number, m",
                          [(1 << 21, 128, 16, 64), (1 << 15, 128, 16, 64), (1 << 10, 16, 16, 20),
-                          (1 << 12, 1 << 14, 200, 432)])
+                          (1 << 12, 1 << 14, 200, 432), (1 << 12, 1 << 14, 300, 632)])
 def test_card_sampler_equals_plain(cuda_device, b, size, reduced, number, m):
     prefix = _rand_bytes(b + m, (b, 70))
     sp = HB.Sponge(b, cuda_device)
