@@ -92,10 +92,14 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       and the one-lane latency bound of the design before; at the start
       of phase 8 (after the profiled paths, whose copies windows need
       the profiler whole), both kernels' designs before their redesign
-      (one thread's chain, one lane a hash; built here from
-      tools/tune_kernels.py) against the plain version at the same
-      shapes, then K15 at (1, 6), (1, 32) and (8, 6) and K10 at the main
-      shape timed in turn with them (before, after, after, before);
+      (K15's whole chain of raw draws in shared memory, at most 7,264
+      challenges; K10 one lane a hash; built here from
+      tools/tune_kernels.py) against the plain version at the same shapes
+      (K15's up to 7,264), then K15 at (1, 6), (1, 32) and (8, 6) and K10
+      at the main shape timed in turn with them (before, after, after,
+      before); then K15 past one window of raw draws, at (1, 7266), (5,
+      7266) and (3, 2054) against the plain version, each call twice, and
+      alone at (1, 7266) beside its latency bound;
     - the composition codeword (K11) against the eager compose, bit-equal,
       each call twice, at every AIR and shape the paths and pins use:
       Fibonacci T=2^20 and MDS T=2^16 at B = 1, the batched cells' (8, .,
@@ -169,8 +173,10 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     (K11, K14, K15, K10 and K9 once a batch, K4-dyn once a FRI round but
     the last), a profiled call, the two paths in turn (5 calls a turn)
     with a profiled call of each;
- 8. K15 and K10 beside their designs before (phase 3 says what), then
-    the sharded prover (stark_tpu_torch.parallel, driven by
+ 8. K15 and K10 beside their designs before and K15 past one window
+    (phase 3 says what; run before the profiled paths, the long shapes
+    and the 3,633-term prove below made the main path's copies window
+    lose a memcpy record in every attempt); then the sharded prover (stark_tpu_torch.parallel, driven by
     stark_tpu_torch/tools/dist_prove.py), five worlds of ranks at once,
     each rank a spawned process on the one card (the parent builds every
     library first): an NCCL world of one rank (Fibonacci T=2^20 from the
@@ -204,7 +210,13 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     subprocesses, four at a time: prove Fibonacci T=2^20 and MDS T=2^16
     (the pinned sha256 above), Fibonacci T=2^16 from the device witness
     and with --host-witness (both stark_tpu's pin), then verify (ACCEPT,
-    exit 0), a tampered file (REJECT, exit 1) and inspect.
+    exit 0), a tampered file (REJECT, exit 1) and inspect; then
+    ``python -m stark_tpu_torch bench --quick`` alone (exit 0, a last line
+    with bench.py's metric and a positive value, printed); last, an AIR of
+    3,633 constraint terms (tests/test_torch_many_terms.py's: 7,266
+    challenges, past the 7,264 K15 drew before its window) at T=64 on the
+    single-fetch path, its K11 source generated and built in phase 2:
+    stark_tpu's sha256, verified, one read, K15 and K11 once.
 
 Then a JSON line of per-kernel results, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a result when no
@@ -229,6 +241,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+# The timers that the port's benchmark uses too: CUDA events around
+# back-to-back calls behind a sleep kernel, a call cycling through operand
+# sets, the quantiles of a run.
+from stark_tpu_torch.bench import cycled as _cycled
+from stark_tpu_torch.bench import event_ms as _event_ms
+from stark_tpu_torch.bench import quantiles as _quantiles
 
 # sha256 of stark_tpu's proof bytes, 16 colinearity tests unless noted
 # (derived on the CPU with stark_tpu.StarkProver; CHANGES.md has the
@@ -282,14 +301,33 @@ SPONGE_LANES = (1, 8, 32)
 # The single-fetch prove's kernels at the paths' shapes.  K15: (B,
 # challenges), 2 a constraint term: the main path's Fibonacci (3 terms) and
 # the wide path's MdsSquareAir (16) at B = 1, the batched cells' B = 8 and
-# 32.  K10: (B, size, reduced, tests, candidates): the main path (N = 2^22:
+# 32; then the 3,633-term AIR (7,266) at B = 1 and 5 and two windows and
+# three pairs of raw draws (2 x 1,024 + 6, hash_batch.CHALLENGE_WINDOW) at B
+# = 3: past the 7,264 of the design before.  K10: (B, size, reduced, tests,
+# candidates): the main path (N = 2^22:
 # indices mod 2^21, a last codeword of 128), the wide path (N = 2^18), the
 # batched cells (N = 2^16), 2 tests + 32 candidates each (fri._SAMPLE_SLACK);
 # then candidates too few for 16 distinct indices mod 16 (the count falls
 # short), and the largest seen-mask, 2^14 bits.
 CHALLENGE_SHAPES = ((1, 6), (1, 32), (8, 6), (32, 6), (8, 32), (3, 6), (5, 64))
-# K15 timed in turn with its design before: Fibonacci's, MDS's, batch8's.
+# Past one window (in phase 8: run before the profiled paths, these and the
+# 3,633-term prove made the main path's copies window lose a memcpy record
+# in every attempt).
+CHALLENGE_LONG_SHAPES = ((1, 7266), (5, 7266), (3, 2 * 1024 + 6))
+# K15 timed in turn with its design before: Fibonacci's, MDS's, batch8's;
+# then alone at the 3,633-term AIR's count, beside its latency bound.
 CHALLENGE_TIMED = ((1, 6), (1, 32), (8, 6))
+CHALLENGE_MANY = (1, 7266)
+# The AIR of tests/test_torch_many_terms.py: one register counting up by
+# one from MANY_START, MANY_TRANSITIONS transition constraints (its step
+# times 1, 2, .., MANY_TRANSITIONS: a distinct linear form each, K11 in
+# its table form) and one boundary constraint: 3,633 terms, 7,266
+# constraint challenges.  Its proof at T=64, blowup 4, 4 tests; the sha256
+# is stark_tpu's (host-drawn challenges; CHANGES.md has the command).
+MANY_TRANSITIONS = 3632
+MANY_START = 5
+MANY_CFG = dict(trace_length=64, blowup=4, num_colinearity_tests=4)
+MANY_SHA256 = "2f632b074ddaa6339b87a83fb45ed7e0f9fa501aacedbb1cf1ba551188575e61"
 SAMPLE_SHAPES = ((1, 1 << 21, 128, 16, 64), (1, 1 << 17, 128, 16, 64),
                  (8, 1 << 15, 128, 16, 64), (32, 1 << 15, 128, 16, 64),
                  (8, 1 << 15, 16, 16, 20), (4, 1 << 12, 1 << 14, 300, 632))
@@ -519,25 +557,6 @@ _retaken = [0]  # profiles taken again, reported at the end of the run
 _event_timed: list[str] = []  # what _device_ms timed with events instead
 
 
-def _event_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn`` from two CUDA events around ``reps``
-    calls, enqueued while a sleep kernel holds the stream, so that the
-    calls run back to back on the card and no host time lies between the
-    events (the kernels' own time, and the card's step from one to the
-    next; for a call that spends longer on the host than on the card, as
-    the plain versions do, the host's time too)."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(40_000_000)  # ~20 ms at 1980 MHz
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _flushed_event_ms(flush, call, reps: int) -> float:
     """Device time per call of ``call`` from a pair of CUDA events around
     each of ``reps`` calls, each after a ``flush`` that the pair leaves
@@ -593,26 +612,6 @@ def _copies(nbytes: float) -> int:
 
 def _clones(count: int, *tensors) -> list[tuple]:
     return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(count - 1)]
-
-
-def _cycled(fn, args_list: list[tuple]):
-    """A call without arguments that gives ``fn`` the next set of
-    ``args_list`` each time and keeps every set's last result alive, so the
-    allocator cannot hand the same output block to consecutive calls."""
-    keep = [None] * len(args_list)
-    calls = [0]
-
-    def call():
-        j = calls[0] % len(args_list)
-        calls[0] += 1
-        keep[j] = fn(*args_list[j])
-
-    return call
-
-
-def _quantiles(xs: list[float]) -> dict[str, float]:
-    q = np.quantile(np.asarray(xs), [0.0, 0.25, 0.5, 0.75, 1.0])
-    return dict(zip(("min", "q1", "median", "q3", "max"), (float(v) for v in q)))
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -1873,20 +1872,24 @@ def _timed_challenges(results: _Results, b: int, ch: int, ops: tuple, what: str)
         nbytes=b * (32 + 64 + 32 + 16 * ch), ops=b * _challenge_ops(ch))
 
 
-def _challenges_checked(fn, what: str, b: int, ch: int, ops: tuple) -> None:
+def _challenges_checked(fn, what: str, b: int, ch: int, ops: tuple, want=None) -> tuple:
     """``fn`` (constraint_challenges' signature) on zeroed outputs, held
-    against the plain version: state, pending, digests, weights, copy."""
+    against the plain version (``want``, or computed here): state, pending,
+    digests, weights, copy.  Returns the plain version's outputs."""
     from stark_tpu_torch.ops import hash_batch as HB
 
     roots, sp, copy, digests, weights = ops
     for t in (sp.state, sp.pending, copy, digests, weights):
         t.zero_()
     fn(roots, ch, sp, copy, digests, weights)
-    state, pending, digs, words = HB.constraint_challenges_plain(roots, ch)
+    if want is None:
+        want = HB.constraint_challenges_plain(roots, ch)
+    state, pending, digs, words = want
     for name, got, want in (("state", sp.state, state), ("digests", digests, digs),
                             ("pending", sp.pending[:, : sp.q], pending[:, : sp.q]),
                             ("weights", weights, words), ("copy", copy, roots)):
         _require_equal(f"constraint_challenges B={b} {ch} {name} {what}", got, want)
+    return state, pending, digs, words
 
 
 def _sample_checked(fn, what: str, shape: tuple, ops: tuple) -> torch.Tensor:
@@ -1925,8 +1928,10 @@ def _check_chained(rng, dev, results: _Results) -> None:
     lines = []
     for b, ch in CHALLENGE_SHAPES:
         ops = _challenge_inputs(rng, dev, b, ch)
+        want = None
         for turn in (1, 2):
-            _challenges_checked(HB.constraint_challenges, f"call {turn}", b, ch, ops)
+            want = _challenges_checked(HB.constraint_challenges, f"call {turn}", b, ch, ops,
+                                       want)
         if (b, ch) != CHALLENGE_TIMED[0]:
             continue
         entry = _timed_challenges(results, b, ch, ops, " (Fibonacci's 3 terms)")
@@ -1998,14 +2003,16 @@ def _check_chained(rng, dev, results: _Results) -> None:
 
 
 def _check_chained_before(rng, dev, results: _Results) -> None:
-    """K15 and K10 beside their designs before the redesign (one thread's
-    chain through memory; one lane a hash: tools/tune_kernels.py), after
+    """K15 and K10 beside their designs before (K15 with the whole chain's
+    raw draws in shared memory, at most 7,264 challenges; K10 one lane a
+    hash: tools/tune_kernels.py), after
     the profiled paths: the designs before against the plain versions at
     every CHALLENGE_SHAPES and SAMPLE_SHAPES shape (K10 at pending tails
     0, 8, 16, 24), K15 at CHALLENGE_TIMED beyond the first timed beside its
     bounds, then both designs in turn (before, after, after, before; CUDA
     events) at CHALLENGE_TIMED and K10's main shape; the turns go into the
-    kernels line's entries."""
+    kernels line's entries.  Then K15 at CHALLENGE_LONG_SHAPES against the
+    plain version, and at CHALLENGE_MANY timed beside its latency bound."""
     from stark_tpu_torch.ops import hash_batch as HB
 
     clock, empty = _max_clock(), _empty_launch_ms(dev)
@@ -2033,6 +2040,31 @@ def _check_chained_before(rng, dev, results: _Results) -> None:
     print("constraint_challenges: the design before == plain at (B, challenges) "
           f"{list(CHALLENGE_SHAPES)}; " + "; ".join(lines)
           + " (ms a call; the turns from CUDA events around back-to-back calls)", flush=True)
+    # Past one window and past the design before: the kernel against the
+    # plain version (on the host: thousands of draws of small torch ops run
+    # faster there), then the 3,633-term AIR's count timed alone.
+    for b, ch in CHALLENGE_LONG_SHAPES:
+        ops = _challenge_inputs(rng, dev, b, ch)
+        want = tuple(t.to(dev) for t in HB.constraint_challenges_plain(ops[0].cpu(), ch))
+        for turn in (1, 2):
+            _challenges_checked(HB.constraint_challenges, f"call {turn}", b, ch, ops, want)
+    print(f"constraint_challenges: kernel == plain at (B, challenges) "
+          f"{list(CHALLENGE_LONG_SHAPES)}, each call twice", flush=True)
+    b, ch = CHALLENGE_MANY
+    ops = _challenge_inputs(rng, dev, b, ch)
+    ms = _event_ms(lambda: HB.constraint_challenges(*ops[:1], ch, *ops[1:]), 20)
+    bound, by = _bound(b * (32 + 64 + 32 + 16 * ch), b * _challenge_ops(ch))
+    latency = empty + _challenge_chain(ch) * 2 / (clock * 1e3)
+    many = {"shape": [b, ch], "ms": ms, "bound_ms": bound, "bound_by": by,
+            "latency_bound_ms": latency, "latency_share": latency / ms,
+            "windows": -(-ch // HB.CHALLENGE_WINDOW)}
+    entries["constraint_challenges"]["many_terms"] = many
+    print(f"constraint_challenges at B={b}, {ch} challenges (3,633 terms, "
+          f"{many['windows']} windows of {HB.CHALLENGE_WINDOW} draws): {ms:.5f} ms (CUDA "
+          f"events, 20 back-to-back calls), latency bound {latency:.5f} "
+          f"({_challenge_chain(ch):.0f} integer-pipe instructions of an 8-lane group after "
+          f"an empty launch of {empty:.5f} ms, {clock} MHz; share {latency / ms:.3f}), "
+          f"bound {bound:.7f} by {by}", flush=True)
 
     before = BEFORE["sample"]
     for i, shape in enumerate(SAMPLE_SHAPES):
@@ -2059,6 +2091,8 @@ def _air(model: str):
     from stark_tpu_torch.models import get_model
     from stark_tpu_torch.models.air import Air, BoundaryConstraint
 
+    if model == "many":
+        return _many_terms_air()
     if model != "wide":
         return get_model(model)[0]
 
@@ -2076,6 +2110,90 @@ def _air(model: str):
                     for i in range(WIDE_REGISTERS)]
 
     return WideCounterAir()
+
+
+def _many_terms_air():
+    """tests/test_torch_many_terms.py's AIR (MANY_TRANSITIONS above)."""
+    from stark_tpu_torch.models.air import Air, BoundaryConstraint
+
+    class ManyTermsAir(Air):
+        num_registers = 1
+        frame_offsets = (0, 1)
+        constraint_degree = 1
+
+        def transition_constraints(self, frame, ops):
+            x0, x1 = frame[0][0], frame[1][0]
+            step = ops.sub(ops.sub(x1, x0), ops.const(1, x0))
+            return [ops.mul(ops.const(i + 1, x0), step) for i in range(MANY_TRANSITIONS)]
+
+        def boundary_constraints(self, trace_length):
+            return [BoundaryConstraint(row=0, register=0, value=MANY_START)]
+
+    return ManyTermsAir()
+
+
+def _drive_many_terms() -> dict:
+    """The 3,633-term AIR on the single-fetch path: K15 draws 7,266
+    challenges in windows, K11 (its own generated source, the table form)
+    reads their weight words; first K11 against its plain version at the
+    prove's shape and B = 2, each call twice; the proof's sha256 equal to
+    stark_tpu's, verified, one read from the card, K15 and K11 launched
+    once (the counts set to 0 just before the prove and read just after);
+    returns the counts."""
+    from stark_tpu_torch import StarkConfig, StarkProver, StarkVerifier
+    from stark_tpu_torch.ops import compose as CO
+    from stark_tpu_torch.ops import cuda
+
+    air = _many_terms_air()
+    cfg = StarkConfig(**MANY_CFG)
+    prover = StarkProver(air, cfg)
+    prog = prover.program
+    if not prog.table:
+        raise AssertionError(f"3,633 terms: the straight-line form ({prog.lines} lines)")
+    rng = np.random.default_rng(MANY_TRANSITIONS)
+    lde = _rand_field(rng, prover.device, (2, 1, prover.dom.N))
+    al, be = (rng.integers(0, 998244353, size=(2, prog.terms)) for _ in range(2))
+    want = CO.compose_plain(prog, lde, prover.tables, al, be, cfg.blowup)
+    for turn in (1, 2):
+        _require_equal(f"compose (table form) many T=64 B=2 call {turn}",
+                       prover._compose(lde, al, be), want)
+    t = MANY_CFG["trace_length"]
+    trace = ((MANY_START + np.arange(t, dtype=np.uint64)) % 998244353)[:, None]
+    walls = []
+    for _ in range(3):
+        cuda.reset_launches()
+        proofs = []
+        t0 = time.perf_counter()
+        reads = _reads(lambda: proofs.append(prover.prove(trace)))
+        walls.append(time.perf_counter() - t0)
+        counts = cuda.launch_counts()
+    got = hashlib.sha256(proofs[0]).hexdigest()
+    if got != MANY_SHA256 or reads != 1 or counts["constraint_challenges"] != 1 or \
+            counts["compose"] != 1 or counts["sample_indices"] != 1:
+        raise AssertionError(f"3,633 terms: sha256 {got}, reads {reads}, launches {counts}")
+    if not StarkVerifier(air, cfg).verify(proofs[0]):
+        raise AssertionError("3,633 terms: proof rejected")
+    print(f"3,633 terms (7,266 constraint challenges), T={t}: K11 (table form) == plain "
+          f"at B = 2, each call twice; sha256 == stark_tpu's, verified, 1 read, launches "
+          f"{json.dumps(counts)}; K11 source {len(prog.source)} bytes, the table form of "
+          f"{prog.lines} straight-line lines ({prog.sha256}; nvcc "
+          f"{CO.BUILD_SECONDS[prog.sha256]:.1f} s in phase 2); prove walls s "
+          f"{json.dumps([round(w, 4) for w in walls])} (the host's replay of 7,266 draws, "
+          "each over the whole transcript, among them)", flush=True)
+    return counts
+
+
+def _drive_bench() -> None:
+    """``python -m stark_tpu_torch bench --quick`` as a user runs it, alone
+    on the card: exit 0 and a last line with bench.py's metric and a
+    positive value, printed here."""
+    (rc, out, err), = _cli([["bench", "--quick"]])
+    lines = out.strip().splitlines()
+    line = json.loads(lines[-1]) if rc == 0 and lines else {}
+    if rc != 0 or line.get("metric") != "NTT points/s/chip at 2^22" or \
+            not line.get("value", 0) > 0:
+        raise AssertionError(f"bench --quick: exit {rc}, {out}{err}")
+    print("bench --quick: " + lines[-1], flush=True)
 
 
 def _compose_program(model: str, T: int, blowup: int):
@@ -3001,6 +3119,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     programs = _compose_programs()
+    programs["many"] = _compose_program("many", MANY_CFG["trace_length"], MANY_CFG["blowup"])
     from stark_tpu_torch.tools import tune_kernels as TK
 
     # The designs before each redesign, built beside the port (nvcc each,
@@ -3195,7 +3314,8 @@ def main() -> int:
           flush=True)
     marks.append(time.perf_counter())
 
-    # 8. K15 and K10 beside their designs before; the sharded prover
+    # 8. K15 and K10 beside their designs before, K15 past one window; the
+    # sharded prover
     # (parallel/): its kernels' sharded forms against their plain versions
     # (here, after the profiled paths: K13's windowed form's plain version
     # runs thousands of torch ops under the profiler), then worlds of ranks
@@ -3206,9 +3326,13 @@ def main() -> int:
     marks.append(time.perf_counter())
 
     # 9. the API and the command line: a Polynomial product on the card,
-    # then python -m stark_tpu_torch as a user runs it
+    # then python -m stark_tpu_torch as a user runs it, and its bench; last,
+    # the 3,633-term AIR's prove (its K11's 14.5 KB stack a thread: nothing
+    # profiled runs after it)
     _check_poly(rng, dev)
     _drive_cli()
+    _drive_bench()
+    launches["many_terms"] = _drive_many_terms()
 
     # Each kernel's launches are those of the path that runs it.
     for r in results.entries:

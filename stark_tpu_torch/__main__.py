@@ -3,11 +3,14 @@
 Counterpart of stark_tpu/__main__.py.  ``demo`` reproduces the reference
 binary's behavior (reference src/main.rs:8-14: construct the field, an 8th
 primitive root, an empty polynomial, print them); ``prove`` / ``verify`` /
-``inspect`` expose the full pipeline.  ``prove`` runs on ``--device``
-(default ``cuda``): without a card it exits with code 2 and says so, unless
+``inspect`` expose the full pipeline; ``bench`` prints the benchmark's JSON
+line (``stark_tpu_torch/bench.py``, the counterpart of the repo-root
+``bench.py``).  ``prove`` and ``bench`` run on ``--device`` (default
+``cuda``): without a card they exit with code 2 and say so, unless
 ``--device cpu`` asks for the kernels' plain versions.  ``verify`` and
-``inspect`` are host work.  Exit codes: 0 done or ACCEPT, 1 REJECT, 2 a
-usage error (a blowup below the model's minimum, no card).
+``inspect`` are host work.  Exit codes: 0 done or ACCEPT, 1 REJECT (or a
+proof ``bench`` made was rejected), 2 a usage error (a blowup below the
+model's minimum, no card).
 """
 
 from __future__ import annotations
@@ -170,12 +173,18 @@ def main(argv=None) -> int:
     pi.add_argument("proof")
     pi.add_argument("--limit", type=int, default=12)
 
+    from stark_tpu_torch import bench
+
+    pb = sub.add_parser("bench", help="the benchmark: one JSON line (bench.py's schema)")
+    bench.add_arguments(pb)
+
     args = p.parse_args(argv)
     return {
         "demo": _demo,
         "prove": _prove,
         "verify": _verify,
         "inspect": _inspect,
+        "bench": bench.run,
     }[args.cmd](args)
 
 

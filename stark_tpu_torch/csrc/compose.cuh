@@ -7,13 +7,16 @@
 // op namespace (models/air.py); ops/compose.py records them as a
 // straight-line tape and generates, per AIR, a source that defines
 //   struct Air {
-//     kTransitions, kBoundaries, kRows, kTerms,
+//     kTransitions, kBoundaries, kRows, kTerms, kTable = false,
 //     boundary_row(j) (the index of boundary j's row among the distinct
 //     rows), boundary_value(j),
 //     values(at, c, v): the transition constraints c[k] at one point from
 //       the frame loads at(offset, register), and v[j] the register that
 //       boundary j reads, at offset 0;
 //   };
+// (the straight-line form), or, for an AIR too large for that, the same
+// constants, kTable = true and the tables that compose_point_table's loops
+// read (the table form, Step below);
 // then includes this header's STARK_COMPOSE_ENTRY(Air).  Built with nvcc it
 // is the kernel with its C entry stark_compose; built with a host C++
 // compiler (field.cuh's host branch) it is stark_compose_host, the same
@@ -157,36 +160,75 @@ struct STARK_WEIGHT_ALIGN Weight {
   uint32_t a, a_shoup, b, b_shoup;
 };
 
-// The codeword at point i of proof b; w: the proof's kTerms weights.
+// An AIR in the table form (ops/compose.py generate_table_source; the
+// straight-line form of a large AIR takes nvcc minutes): its tape as
+// steps, slot q of a point holding step q's value, which a loop computes
+// from the frame, a constant or earlier slots; each transition
+// constraint's slot; the boundary constraints by row.
+enum StepOp : uint32_t { kStepIn, kStepConst, kStepAdd, kStepSub, kStepNeg, kStepMulConst,
+                         kStepMul };
+struct Step {
+  uint32_t op;
+  uint32_t a, b;     // slots read; an input's offset (two's complement) and register
+  uint32_t k, k_shoup;  // a constant, its Shoup companion
+};
+// Boundary constraint `term` (among the boundaries): register `reg` at
+// offset 0 minus `value`.
+struct BoundaryTerm {
+  uint32_t term, reg, value;
+};
+
+// The codeword at point i of proof b, the table form: the same values and
+// sums as the straight-line form, in rolled loops, the slots in local
+// memory.
 template <class Air>
-__device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
-                                                  const Weight* w, int b,
-                                                  long long i) {
+__device__ __forceinline__ uint32_t compose_point_table(const ComposeArgs& a,
+                                                        const Weight* w, int b,
+                                                        long long i) {
   const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
-  uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
-  uint32_t v[Air::kBoundaries > 0 ? Air::kBoundaries : 1];
-  Air::values(at, c, v);
   uint32_t total = 0;
-  if (Air::kTransitions > 0) {
+  if constexpr (Air::kTransitions > 0) {
+    uint32_t s[Air::kSlots];
+    const Step* steps = Air::steps();
+#pragma unroll 1
+    for (int q = 0; q < Air::kSlots; ++q) {
+      const Step t = steps[q];
+      uint32_t x;
+      switch (t.op) {
+        case kStepIn: x = at((int)t.a, (int)t.b); break;
+        case kStepConst: x = t.k; break;
+        case kStepAdd: x = add_mod(s[t.a], s[t.b]); break;
+        case kStepSub: x = sub_mod(s[t.a], s[t.b]); break;
+        case kStepNeg: x = sub_mod(0u, s[t.a]); break;
+        case kStepMulConst: x = shoup_mul(s[t.a], t.k, t.k_shoup); break;
+        default: x = mul_mod(s[t.a], s[t.b]); break;
+      }
+      s[q] = x;
+    }
+    const int* out = Air::outputs();
     uint32_t sa = 0, sb = 0;
-#pragma unroll
+#pragma unroll 1
     for (int k = 0; k < Air::kTransitions; ++k) {
+      const uint32_t ck = s[out[k]];
       const Weight wk = w[k];
-      sa = add_mod(sa, shoup_mul(c[k], wk.a, wk.a_shoup));
-      sb = add_mod(sb, shoup_mul(c[k], wk.b, wk.b_shoup));
+      sa = add_mod(sa, shoup_mul(ck, wk.a, wk.a_shoup));
+      sb = add_mod(sb, shoup_mul(ck, wk.b, wk.b_shoup));
     }
     total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], sa), sb));
   }
-  if (Air::kBoundaries > 0) {
+  if constexpr (Air::kBoundaries > 0) {
     const uint32_t xb = a.xb[i];
-#pragma unroll
+    const BoundaryTerm* terms = Air::boundaries();
+    const int* ends = Air::row_ends();
+    int j = 0;
+#pragma unroll 1
     for (int r = 0; r < Air::kRows; ++r) {
       uint32_t sa = 0, sb = 0;
-#pragma unroll
-      for (int j = 0; j < Air::kBoundaries; ++j) {
-        if (Air::boundary_row(j) != r) continue;
-        const uint32_t d = sub_open(v[j], Air::boundary_value(j));  // (0, 2p)
-        const Weight wj = w[Air::kTransitions + j];
+#pragma unroll 1
+      for (; j < ends[r]; ++j) {
+        const BoundaryTerm t = terms[j];
+        const uint32_t d = sub_open(at(0, (int)t.reg), t.value);  // (0, 2p)
+        const Weight wj = w[Air::kTransitions + t.term];
         sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
         sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
       }
@@ -195,6 +237,50 @@ __device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
     }
   }
   return total;
+}
+
+// The codeword at point i of proof b; w: the proof's kTerms weights.
+template <class Air>
+__device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
+                                                  const Weight* w, int b,
+                                                  long long i) {
+  if constexpr (Air::kTable) {
+    return compose_point_table<Air>(a, w, b, i);
+  } else {
+    const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
+    uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
+    uint32_t v[Air::kBoundaries > 0 ? Air::kBoundaries : 1];
+    Air::values(at, c, v);
+    uint32_t total = 0;
+    if (Air::kTransitions > 0) {
+      uint32_t sa = 0, sb = 0;
+#pragma unroll
+      for (int k = 0; k < Air::kTransitions; ++k) {
+        const Weight wk = w[k];
+        sa = add_mod(sa, shoup_mul(c[k], wk.a, wk.a_shoup));
+        sb = add_mod(sb, shoup_mul(c[k], wk.b, wk.b_shoup));
+      }
+      total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], sa), sb));
+    }
+    if (Air::kBoundaries > 0) {
+      const uint32_t xb = a.xb[i];
+#pragma unroll
+      for (int r = 0; r < Air::kRows; ++r) {
+        uint32_t sa = 0, sb = 0;
+#pragma unroll
+        for (int j = 0; j < Air::kBoundaries; ++j) {
+          if (Air::boundary_row(j) != r) continue;
+          const uint32_t d = sub_open(v[j], Air::boundary_value(j));  // (0, 2p)
+          const Weight wj = w[Air::kTransitions + j];
+          sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
+          sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
+        }
+        total = add_mod(total, mont_mul(a.dinv[r * a.n + i],
+                                        add_mod(mont_mul(xb, sa), sb)));
+      }
+    }
+    return total;
+  }
 }
 
 }  // namespace stark

@@ -380,25 +380,54 @@ __global__ void stark_sponge_absorb_kernel(uint4* state, uint4* pending, int q,
 // from the state's words at their positions, fetched before the mixes.
 // Nothing goes through memory between draws.  The reductions and the
 // digests' stores are not on the chain: each draw's raw u64 goes to shared
-// memory, and after the last draw lane r writes the digests of pairs r, r
-// + 8, ... and reduces them (raw mod p, a R^2 and b R mod p, their
-// companions: 64-bit divisions by the constant p).
+// memory, a window of kChallengeWindow draws at a time, and after a
+// window's last draw lane r writes the digests of its pairs r, r + 8, ...
+// and reduces them (raw mod p, a R^2 and b R mod p, their companions:
+// 64-bit divisions by the constant p); the next window's draws reuse the
+// buffer, the sponge staying in registers across.  A chain of at most a
+// window (every AIR the paths prove) draws and stores as if there were no
+// window; the count has no upper bound.
 constexpr int kChallengeProofs = 4;  // proofs a block: one warp, 8 lanes each
-// The raw u64s of a block's draws in shared memory: 32 bytes a challenge,
-// at most the card's 227 KB a block.
-constexpr int kChallengesMax = (227 << 10) / (8 * kChallengeProofs);
+// Draws a group keeps in shared memory: 8 bytes each, 32 KB a block of 4
+// groups, under the 48 KB a launch takes without the opt-in attribute.
+constexpr int kChallengeWindow = 1024;
+
+// K15's stores of `draws` draws (an even count) from their raw words in
+// shared memory: lane r of a group writes the digests of pairs r, r + 8,
+// ... and K11's weight words from them (see the kernel).
+__device__ __forceinline__ void challenge_words(const uint32_t* raw, int draws,
+                                                uint32_t* digests, uint32_t* weights,
+                                                int r) {
+  constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % stark::kP);
+  constexpr uint32_t kR2 = (uint32_t)((uint64_t)kR1 * kR1 % stark::kP);
+  for (int j = r; 2 * j < draws; j += 8) {
+    const uint64_t x0 = raw[4 * j] | (uint64_t)raw[4 * j + 1] << 32;
+    const uint64_t x1 = raw[4 * j + 2] | (uint64_t)raw[4 * j + 3] << 32;
+    const uint32_t wa = (uint32_t)(x0 % stark::kP * kR2 % stark::kP);
+    const uint32_t wb = (uint32_t)(x1 % stark::kP * kR1 % stark::kP);
+    uint32_t* d = digests + 4 * j;
+    uint32_t* w = weights + 4 * j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] = raw[4 * j + i];
+    w[0] = wa;
+    w[1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
+    w[2] = wb;
+    w[3] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
+  }
+}
 
 __global__ void __launch_bounds__(8 * kChallengeProofs)
     stark_constraint_challenges_kernel(const uint8_t* __restrict__ roots,
                                        uint32_t* state, uint32_t* pending, uint8_t* copy,
                                        uint32_t* digests, uint32_t* weights,
                                        int challenges, int lanes) {
-  extern __shared__ uint32_t raws[];  // [group][challenge][2]: low word, high word
+  extern __shared__ uint32_t raws[];  // [group][draw of the window][2]: low, high word
   const int group = threadIdx.x >> 3;
   const long long lane = (long long)blockIdx.x * kChallengeProofs + group;
   const bool mine = lane < lanes;
   const stark::SpongeLanes ln(threadIdx.x & 7);
-  uint32_t* raw = raws + 2 * challenges * group;
+  const int window = challenges < kChallengeWindow ? challenges : kChallengeWindow;
+  uint32_t* raw = raws + 2 * window * group;
   // Lanes 0 and 1 hold a draw's words: each keeps its own, one predicated
   // store a draw, no branch on the chain.
   uint32_t* kept = raw + (ln.r & 1);
@@ -423,51 +452,44 @@ __global__ void __launch_bounds__(8 * kChallengeProofs)
 #pragma unroll
   for (int j = 0; j < 4; ++j) s[j] = a[j];
   uint32_t pend = 0;  // the lane's word of the pending tail
-  for (int k = 0; k < challenges; ++k) {
-    const int q = (8 * k) & 31;  // the tail's length, where this draw's bytes go
-    const uint32_t word = stark::split_word(a);
-    const uint32_t at0 = __shfl_sync(ln.mask, word, q >> 2, 8);
-    const uint32_t at1 = __shfl_sync(ln.mask, word, (q >> 2) + 1, 8);
-    uint32_t c[4];
+  for (int base = 0; base < challenges; base += window) {
+    const int end = challenges - base < window ? challenges : base + window;
+    for (int k = base; k < end; ++k) {
+      const int q = (8 * k) & 31;  // the tail's length, where this draw's bytes go
+      const uint32_t word = stark::split_word(a);
+      const uint32_t at0 = __shfl_sync(ln.mask, word, q >> 2, 8);
+      const uint32_t at1 = __shfl_sync(ln.mask, word, (q >> 2) + 1, 8);
+      uint32_t c[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = a[j];
-    stark::split_close(c, ln, q ? 9 : 8);
-    const uint32_t dig = stark::split_word(c);
-    const uint32_t d0 = __shfl_sync(ln.mask, dig, 0, 8);
-    const uint32_t d1 = __shfl_sync(ln.mask, dig, 1, 8);
-    if (keeps) kept[2 * k] = dig;
-    stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);
-    const uint32_t delta = (uint32_t)(ln.r - (q >> 2)) & 7u;
-    pend = stark::select_bits(0u - (uint32_t)(delta == 0), d0,
-                              stark::select_bits(0u - (uint32_t)(delta == 1), d1, pend));
-    if (q == 24) {  // a full chunk: mixed, the new state, no tail
-      stark::split_mix<8, stark::Form::kBytes, stark::Form::kBytes>(a, ln);
+      for (int j = 0; j < 4; ++j) c[j] = a[j];
+      stark::split_close(c, ln, q ? 9 : 8);
+      const uint32_t dig = stark::split_word(c);
+      const uint32_t d0 = __shfl_sync(ln.mask, dig, 0, 8);
+      const uint32_t d1 = __shfl_sync(ln.mask, dig, 1, 8);
+      if (keeps) kept[2 * (k - base)] = dig;
+      stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);
+      const uint32_t delta = (uint32_t)(ln.r - (q >> 2)) & 7u;
+      pend = stark::select_bits(0u - (uint32_t)(delta == 0), d0,
+                                stark::select_bits(0u - (uint32_t)(delta == 1), d1, pend));
+      if (q == 24) {  // a full chunk: mixed, the new state, no tail
+        stark::split_mix<8, stark::Form::kBytes, stark::Form::kBytes>(a, ln);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[j] = a[j];
-      pend = 0;
+        for (int j = 0; j < 4; ++j) s[j] = a[j];
+        pend = 0;
+      }
     }
+    // The window's draws: lanes 0 and 1 stored them, every lane reads them.
+    __syncwarp();
+    if (mine) {
+      const long long at = 2 * ((long long)challenges * lane + base);
+      challenge_words(raw, end - base, digests + at, weights + at, ln.r);
+    }
+    // Read before the next window's draws overwrite them.
+    if (end < challenges) __syncwarp();
   }
   if (mine) {
     state[8 * lane + ln.r] = stark::split_word(s);
     pending[8 * lane + ln.r] = pend;
-  }
-  __syncwarp();
-  if (!mine) return;
-  constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % stark::kP);
-  constexpr uint32_t kR2 = (uint32_t)((uint64_t)kR1 * kR1 % stark::kP);
-  for (int j = ln.r; 2 * j < challenges; j += 8) {
-    const uint64_t x0 = raw[4 * j] | (uint64_t)raw[4 * j + 1] << 32;
-    const uint64_t x1 = raw[4 * j + 2] | (uint64_t)raw[4 * j + 3] << 32;
-    const uint32_t wa = (uint32_t)(x0 % stark::kP * kR2 % stark::kP);
-    const uint32_t wb = (uint32_t)(x1 % stark::kP * kR1 % stark::kP);
-    uint32_t* d = digests + 2 * challenges * lane + 4 * j;
-    uint32_t* w = weights + 2 * challenges * lane + 4 * j;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d[i] = raw[4 * j + i];
-    w[0] = wa;
-    w[1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
-    w[2] = wb;
-    w[3] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
   }
 }
 
@@ -675,22 +697,18 @@ int stark_sponge_absorb(void* state, void* pending, int q, int fresh,
 }
 
 // K15: `challenges` constraint challenges for each of `lanes` proofs (see
-// the kernel), at most kChallengesMax.  state, pending: 16-byte aligned
-// rows; digests, weights: 4-byte aligned.
+// the kernel).  state, pending: 16-byte aligned rows; digests, weights:
+// 4-byte aligned.
 int stark_constraint_challenges(const void* roots, void* state, void* pending,
                                 void* copy, void* digests, void* weights,
                                 int challenges, int lanes, void* stream) {
-  if (challenges < 0 || challenges % 2 || challenges > kChallengesMax || lanes < 1)
+  if (challenges < 0 || challenges % 2 || lanes < 1)
     return (int)cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15) ||
       ((reinterpret_cast<uintptr_t>(digests) | reinterpret_cast<uintptr_t>(weights)) & 3))
     return (int)cudaErrorMisalignedAddress;
-  const int smem = 8 * kChallengeProofs * challenges;
-  if (smem > (48 << 10)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stark_constraint_challenges_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int smem =
+      8 * kChallengeProofs * (challenges < kChallengeWindow ? challenges : kChallengeWindow);
   stark_constraint_challenges_kernel<<<(lanes + kChallengeProofs - 1) / kChallengeProofs,
                                        8 * kChallengeProofs, smem, (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(roots), static_cast<uint32_t*>(state),

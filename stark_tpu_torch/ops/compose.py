@@ -12,7 +12,9 @@ tape, :func:`generate_source` writes it as a C++ function of one point
 (every node a local ``uint32_t``, canonical in [0, p); a sum with products
 by constants one lazy 64-bit sum of its linear form, reduced once; any
 other product by a constant a Shoup product with its companion computed
-here), and
+here; an AIR whose straight-line body would run past :data:`TABLE_LINES`
+lines, which nvcc takes minutes over, is written instead as tables that a
+loop in csrc/compose.cuh runs: the table form, a step a node), and
 csrc/compose.cuh adds what no AIR changes: the frame loads, the zerofier
 factor, the boundary quotients, the weights and the sum, over a (B, c, N)
 grid.  The generated source goes into ``stark_tpu_torch/_build/`` and is
@@ -65,6 +67,17 @@ LAZY_TERMS, FOLD_TERMS = 16, 2
 # add, add-and-minimum).
 OPS_MONT, OPS_SHOUP, OPS_ADD, OPS_MUL = 7, 4, 2, 11
 OPS_WIDE, OPS_FOLD, OPS_REDUCE = 1, 1, 6
+#: The most lines the straight-line form's body and its sums (a line a
+#: term, compose.cuh unrolls them whole) may take: a larger AIR is
+#: generated in the table form.  On an H100 80GB HBM3 (700 W; PERF.md, PR
+#: 16: tools/tune_kernels.py ``compose builds`` and ``compose turns``)
+#: nvcc took 2.6, 6.5, 20.1 and 103.8 s over 387, 1,539, 3,075 and 6,147
+#: straight-line lines, and 2.6-3.1 s over the table form at any size,
+#: whose kernel ran 2.1-9.3 times slower at the paths' AIRs: the limit
+#: keeps a straight-line build near 10 s.
+TABLE_LINES = 2048
+#: csrc/compose.cuh's Step ops, in its order.
+STEP_OPS = ("in", "const", "add", "sub", "neg", "mulc", "mul")
 
 
 def shoup(w: np.ndarray) -> np.ndarray:
@@ -130,9 +143,12 @@ class ComposeProgram:
     ``boundary`` is the domain's list of BoundaryConstraint (rows may
     depend on the trace length); ``rows`` the distinct boundary rows in
     order of first use, one ``dinv`` table each; ``groups[j]`` boundary
-    j's index among them."""
+    j's index among them.  ``table``: the form of the generated source,
+    the table form (True), the straight-line form (False), or (None) the
+    straight-line form unless its lines pass :data:`TABLE_LINES`."""
 
-    def __init__(self, air: Air, boundary: list[BoundaryConstraint]):
+    def __init__(self, air: Air, boundary: list[BoundaryConstraint],
+                 table: bool | None = None):
         self.air = air
         self.tape = record_constraints(air)
         self.boundary = list(boundary)
@@ -140,7 +156,10 @@ class ComposeProgram:
         self.groups = [self.rows.index(int(bc.row)) for bc in self.boundary]
         self.transitions = len(self.tape.outputs)
         self.terms = self.transitions + len(self.boundary)
-        self.source, self.body_operations = generate_source(self)
+        self.source, self.body_operations, self.lines = generate_source(self)
+        self.table = self.lines > TABLE_LINES if table is None else table
+        if self.table:
+            self.source, self.body_operations = generate_table_source(self)
         self.sha256 = hashlib.sha256(self.source.encode()).hexdigest()
 
     def weights(self, alphas, betas) -> np.ndarray:
@@ -188,10 +207,11 @@ class ComposeProgram:
         return len(regs | {int(bc.register) for bc in self.boundary})
 
 
-def generate_source(program: ComposeProgram) -> tuple[str, int]:
-    """The AIR's C++ source, ``struct Air`` (csrc/compose.cuh) and its
-    entry, and the operations per point of its body.  The same bytes for
-    the same AIR and boundary list.
+def generate_source(program: ComposeProgram) -> tuple[str, int, int]:
+    """The AIR's C++ source in the straight-line form, ``struct Air``
+    (csrc/compose.cuh) and its entry, the operations per point of its body,
+    and its lines (the body's, and a line a term of compose.cuh's unrolled
+    sums).  The same bytes for the same AIR and boundary list.
 
     A node the constraints need as a value (an output, an operand of a
     product of two variables) that is a sum with products by constants
@@ -291,6 +311,7 @@ def generate_source(program: ComposeProgram) -> tuple[str, int]:
         f"  static constexpr int kBoundaries = {nb};",
         f"  static constexpr int kRows = {len(program.rows)};",
         f"  static constexpr int kTerms = {program.terms};",
+        "  static constexpr bool kTable = false;",
         "  // Boundary j's row (its index among the distinct rows) and value;",
         "  // arrays local to a function, which device code may index.",
         "  __device__ __forceinline__ static int boundary_row(int j) {",
@@ -307,6 +328,96 @@ def generate_source(program: ComposeProgram) -> tuple[str, int]:
         f"      uint32_t (&v)[{max(nb, 1)}]) {{",
         *loads, *body, *outs, *bounds,
         "  }",
+        "};",
+        "",
+        "}  // namespace stark_air",
+        "",
+        "STARK_COMPOSE_ENTRY(stark_air::Air)",
+        "",
+    ])
+    lines = len(loads) + len(body) + len(outs) + len(bounds) + program.terms
+    return source, ops, lines
+
+
+def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
+    """The AIR's C++ source in the table form, and the operations per
+    point of its steps: a step a live node of the tape that needs a value
+    (csrc/compose.cuh Step; a constant only where an addition, subtraction
+    or output reads it, a product by a constant one step with the constant
+    and its Shoup companion), the slot of each transition constraint, and
+    the boundary constraints by row, as arrays in device memory that
+    compose.cuh's loops read.  The same values as the straight-line form."""
+    tape, air = program.tape, program.air
+    live = tape.live()
+    read = set(tape.outputs)
+    for j in live:
+        node = tape.nodes[j]
+        if node[0] in ("add", "sub"):
+            read.update(node[1:])
+    slot, steps, ops = {}, [], 0
+    for j in live:
+        node = tape.nodes[j]
+        op = node[0]
+        c = tape.const_value(j)
+        if c is not None:
+            if j not in read:
+                continue
+            step = ("const", 0, 0, c)
+        elif op == "in":
+            step = ("in", node[1], node[2], 0)
+        elif op == "neg":
+            step, ops = ("neg", slot[node[1]], 0, 0), ops + OPS_ADD
+        elif op in ("add", "sub"):
+            step, ops = (op, slot[node[1]], slot[node[2]], 0), ops + OPS_ADD
+        else:
+            ca, cb = tape.const_value(node[1]), tape.const_value(node[2])
+            if ca is not None or cb is not None:
+                x, w = (node[2], ca) if ca is not None else (node[1], cb)
+                step, ops = ("mulc", slot[x], 0, w), ops + OPS_SHOUP
+            else:
+                step, ops = ("mul", slot[node[1]], slot[node[2]], 0), ops + OPS_MUL
+        slot[j] = len(steps)
+        steps.append(step)
+    by_row = sorted(range(len(program.boundary)), key=lambda j: program.groups[j])
+    ends = np.cumsum(np.bincount(np.asarray(program.groups, dtype=np.int64),
+                                 minlength=len(program.rows)))
+
+    def array(ctype: str, name: str, items: list[str]) -> list[str]:
+        rows = [", ".join(items[k:k + 8]) for k in range(0, len(items), 8)] or ["{}"]
+        return [f"__device__ const {ctype} {name}[{max(len(items), 1)}] = {{",
+                *(f"    {r}," for r in rows), "};"]
+
+    step_items = [f"{{{STEP_OPS.index(op)}u, {a % (1 << 32)}u, {b}u, {k}u, {int(shoup(k))}u}}"
+                  for op, a, b, k in steps]
+    bound_items = [f"{{{j}u, {int(program.boundary[j].register)}u, "
+                   f"{int(program.boundary[j].value) % P}u}}" for j in by_row]
+    source = "\n".join([
+        f"// Kernel K11 for the AIR {type(air).__name__}, generated by",
+        "// stark_tpu_torch/ops/compose.py from its transition constraints",
+        "// (the table form).",
+        '#include "compose.cuh"',
+        "",
+        "namespace stark_air {",
+        "",
+        *array("stark::Step", "kSteps", step_items),
+        *array("int", "kOutputs", [str(slot[j]) for j in tape.outputs]),
+        *array("stark::BoundaryTerm", "kBoundaryTerms", bound_items),
+        *array("int", "kRowEnds", [str(int(e)) for e in ends]),
+        "",
+        "struct Air {",
+        f"  static constexpr int kRegisters = {air.num_registers};",
+        f"  static constexpr int kTransitions = {program.transitions};",
+        f"  static constexpr int kBoundaries = {len(program.boundary)};",
+        f"  static constexpr int kRows = {len(program.rows)};",
+        f"  static constexpr int kTerms = {program.terms};",
+        "  static constexpr bool kTable = true;",
+        f"  static constexpr int kSlots = {len(steps)};",
+        "  __device__ __forceinline__ static const stark::Step* steps() { return kSteps; }",
+        "  __device__ __forceinline__ static const int* outputs() { return kOutputs; }",
+        "  __device__ __forceinline__ static const stark::BoundaryTerm* boundaries() {",
+        "    return kBoundaryTerms;",
+        "  }",
+        "  __device__ __forceinline__ static const int* row_ends() { return kRowEnds; }",
         "};",
         "",
         "}  // namespace stark_air",

@@ -125,10 +125,10 @@ SAMPLE = cuda.Kernel(
 #: The largest reduced size K10 takes: its seen-mask, one bit a reduced
 #: index, lies in 2 KB of shared memory (csrc/hash.cu kSampleMaxReduced).
 SAMPLE_MAX_REDUCED = 1 << 14
-#: The most challenges K15 draws on a card: a block keeps its 4 proofs'
-#: raw draws, 32 bytes a challenge, in at most 227 KB of shared memory
-#: (csrc/hash.cu kChallengesMax).
-CHALLENGES_MAX = (227 << 10) // 32
+#: Draws of a K15 chain that a group keeps in shared memory before it
+#: writes their digests and weight words (csrc/hash.cu kChallengeWindow):
+#: a chain past it goes on in windows, and the count has no bound.
+CHALLENGE_WINDOW = 1024
 
 #: The subtree a K8 block owns leaves 2^TAIL_TOP_LG roots to the block that
 #: builds the top, but is never smaller than 2^TAIL_MIN_SUB_LG nodes: set
@@ -749,12 +749,10 @@ def constraint_challenges(roots: torch.Tensor, challenges: int, sponge: "Sponge"
     challenges' bytes into ``digests`` ((B, challenges, 8) u8), K11's
     weight words into ``weights`` ((B, 2 challenges) int32), and leaves the
     sponge after the last challenge's bytes (constraint_challenges_plain
-    on the CPU; at most CHALLENGES_MAX on a card)."""
+    on the CPU)."""
     b = sponge.lanes
     if challenges < 0 or challenges % 2:
         raise ValueError(f"challenges come in pairs, got {challenges}")
-    if challenges > CHALLENGES_MAX and sponge.state.device.type != "cpu":
-        raise ValueError(f"{challenges} challenges: at most {CHALLENGES_MAX} on a card")
     for t, name, shape, dtype in ((roots, "roots", (b, 32), torch.uint8),
                                   (copy, "copy", (b, 32), torch.uint8),
                                   (digests, "digests", (b, challenges, 8), torch.uint8),

@@ -38,9 +38,11 @@ Prints, in this order:
   another checkout first on ``PYTHONPATH`` it measures that checkout);
 * ``compose turns``: K11 at Fibonacci T=2^20, MDS T=2^16 and batch8's (8,
   1, 2^16), the design before (eager sums), the design in use (lazy sums
-  in the generated body) and the redesign tried and not kept (the coset
-  computed in the kernel, ``compose_coset``), in turn and back (``--only
-  compose``);
+  in the generated body), the same AIR in the table form and the redesign
+  tried and not kept (the coset computed in the kernel,
+  ``compose_coset``), in turn and back; then ``compose builds``: nvcc's
+  seconds for K11's source of ``distinct_air`` at several sizes, in the
+  straight-line and the table form (``--only compose``);
 * ``fold turns``: K4-dyn at every (B, half) of the device chain's rounds,
   the K9 + fold pair before its redesign and the launch in use, in turn
   and back (``--only fold``);
@@ -52,8 +54,10 @@ Prints, in this order:
   32 challenges, whole and with its mixes, the absorbs of its draws' bytes
   or its reductions taken out (a patched copy of csrc/hash.cu in a
   temporary directory), beside the design before its redesign and an
-  empty launch, in turn and back: what bounds the kernel (``--only
-  chain``).
+  empty launch, in turn and back: what bounds the kernel; then ``chain
+  turns``: K15 at (1, 6), (1, 32), (8, 6) and (1, 7,266), the design
+  before (the whole chain's raw draws in shared memory) and the window in
+  use, in turn and back (``--only chain``).
 
 (K8's subtree size, ``hash_batch.tail_sub_lg``, and ``TAIL_CUTOVER`` have
 their sweeps in chip_smoke.py.)  ``fib_expand_before`` builds K12
@@ -62,9 +66,10 @@ Montgomery products), ``sponge_before`` K9 as it was (byte loads and
 stores), ``forest_before`` K8 and K8-forest as they were (one lane a hash
 at every level), ``compose_before`` K11 as it was (every sum eager),
 ``fold_dyn_before`` the pair K9 + K4-dyn as it was (alpha through device
-memory, two launches a round), ``challenges_before`` and
-``sample_before`` K15 and K10 as they were (one thread's sponge chain
-through memory; one lane a hash), ``floor_kernel`` an empty kernel:
+memory, two launches a round), ``challenges_before`` K15 as it was
+before its window (the whole chain's raw draws in shared memory, at most
+7,264 challenges), ``sample_before`` K10 as it was (one lane a hash),
+``floor_kernel`` an empty kernel:
 chip_smoke.py times them beside the kernels in use.
 
 Times are device time per call (``device_us``); every call takes the next
@@ -82,6 +87,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -143,13 +149,12 @@ extern "C" int floor_launch(int blocks, int threads, int smem, void* stream) {
 """
 
 
-# K15 and K10 before their redesign, as csrc/hash.cu had them: K15 one
-# thread a proof, each draw hash.cuh's one-lane sponge_load / sponge_step
-# (the state and the tail through memory from one draw to the next, the
-# reductions on the chain); K10 one warp a proof, the seed's chain repeated
-# in every lane, every candidate's whole hash at one lane.  The entries
-# take the port's arguments (hash.cu's stark_constraint_challenges and
-# stark_sample_indices).
+# K15 and K10 before their latest redesigns, as csrc/hash.cu had them: K15
+# with the sponge over 8 lanes but the whole chain's raw draws in shared
+# memory (at most 7,264 challenges), before the window; K10 one warp a
+# proof, the seed's chain repeated in every lane, every candidate's whole
+# hash at one lane.  The entries take the port's arguments (hash.cu's
+# stark_constraint_challenges and stark_sample_indices).
 CHAIN_BEFORE_SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -160,50 +165,90 @@ using stark::hash_init;
 using stark::mix;
 using stark::pack_digest;
 extern "C" {
-__global__ void challenges_before_kernel(
-    const uint8_t* __restrict__ roots, uint4* state, uint4* pending,
-    uint8_t* copy, uint32_t* digests, uint32_t* weights, int challenges,
-    int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+// K15 before its window: a block keeps its 4 proofs' raw draws, the whole
+// chain's, in dynamic shared memory (32 bytes a challenge, at most the
+// card's 227 KB: 7,264 challenges), and writes the digests and weight
+// words after the last draw.
+constexpr int kChallengeProofs = 4;
+constexpr int kChallengesMax = (227 << 10) / (8 * kChallengeProofs);
+
+__global__ void __launch_bounds__(8 * kChallengeProofs)
+    challenges_before_kernel(const uint8_t* __restrict__ roots,
+                             uint32_t* state, uint32_t* pending, uint8_t* copy,
+                             uint32_t* digests, uint32_t* weights,
+                             int challenges, int lanes) {
+  extern __shared__ uint32_t raws[];  // [group][challenge][2]: low word, high word
+  const int group = threadIdx.x >> 3;
+  const long long lane = (long long)blockIdx.x * kChallengeProofs + group;
+  const bool mine = lane < lanes;
+  const stark::SpongeLanes ln(threadIdx.x & 7);
+  uint32_t* raw = raws + 2 * challenges * group;
+  uint32_t* kept = raw + (ln.r & 1);
+  const bool keeps = ln.r < 2;
+  uint32_t root = 0;
+  if (mine) {
+    const uint8_t* at = roots + 32 * lane + 4 * ln.r;
+    uint8_t* to = copy + 32 * lane + 4 * ln.r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint8_t byte = at[i];
+      to[i] = byte;
+      root |= (uint32_t)byte << (8 * i);
+    }
+  }
+  uint32_t a[4], s[4];
+  stark::split_init<8>(a, ln);
+  const uint32_t chunk[1] = {root};
+  stark::split_absorb<8>(a, chunk, ln);
+  stark::split_mix<8, stark::Form::kBytes, stark::Form::kBytes>(a, ln);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = a[j];
+  uint32_t pend = 0;
+  for (int k = 0; k < challenges; ++k) {
+    const int q = (8 * k) & 31;
+    const uint32_t word = stark::split_word(a);
+    const uint32_t at0 = __shfl_sync(ln.mask, word, q >> 2, 8);
+    const uint32_t at1 = __shfl_sync(ln.mask, word, (q >> 2) + 1, 8);
+    uint32_t c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = a[j];
+    stark::split_close(c, ln, q ? 9 : 8);
+    const uint32_t dig = stark::split_word(c);
+    const uint32_t d0 = __shfl_sync(ln.mask, dig, 0, 8);
+    const uint32_t d1 = __shfl_sync(ln.mask, dig, 1, 8);
+    if (keeps) kept[2 * k] = dig;
+    stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);
+    const uint32_t delta = (uint32_t)(ln.r - (q >> 2)) & 7u;
+    pend = stark::select_bits(0u - (uint32_t)(delta == 0), d0,
+                              stark::select_bits(0u - (uint32_t)(delta == 1), d1, pend));
+    if (q == 24) {
+      stark::split_mix<8, stark::Form::kBytes, stark::Form::kBytes>(a, ln);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j] = a[j];
+      pend = 0;
+    }
+  }
+  if (mine) {
+    state[8 * lane + ln.r] = stark::split_word(s);
+    pending[8 * lane + ln.r] = pend;
+  }
+  __syncwarp();
+  if (!mine) return;
   constexpr uint32_t kR1 = (uint32_t)((1ull << 32) % stark::kP);
   constexpr uint32_t kR2 = (uint32_t)((uint64_t)kR1 * kR1 % stark::kP);
-  const uint8_t* root = roots + 32LL * lane;
-  uint4* st = state + 2 * lane;
-  uint4* pd = pending + 2 * lane;
-  uint32_t* dig = digests + 2LL * challenges * lane;
-  uint32_t* w = weights + 2LL * challenges * lane;
-  const bool root_vec = (reinterpret_cast<uintptr_t>(roots) & 3) == 0;
-  const bool copy_vec = ((reinterpret_cast<uintptr_t>(roots) |
-                          reinterpret_cast<uintptr_t>(copy)) & 15) == 0;
-  stark::SpongeIn v;
-  uint64_t raw = 0;
-  // The root into a fresh sponge, and the first challenge after it.
-  stark::sponge_load(v, st, pd, 0, true, root, 32, root_vec);
-  stark::sponge_step(v, st, pd, true, 0, true, root, 32, root_vec,
-                     copy + 32LL * lane, copy_vec, challenges > 0, &raw);
-  int q = 0;
-  uint64_t first = 0;
-  for (int k = 0; k < challenges; ++k) {
-    dig[2 * k] = (uint32_t)raw;
-    dig[2 * k + 1] = (uint32_t)(raw >> 32);
-    const uint32_t red = (uint32_t)(raw % stark::kP);
-    if (k % 2 == 0) {
-      first = red;
-    } else {
-      const uint32_t wa = (uint32_t)(first * kR2 % stark::kP);
-      const uint32_t wb = (uint32_t)((uint64_t)red * kR1 % stark::kP);
-      w[2 * k - 2] = wa;
-      w[2 * k - 1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
-      w[2 * k] = wb;
-      w[2 * k + 1] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
-    }
-    // Absorb the challenge's 8 bytes, and draw the next one after them.
-    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(dig + 2 * k);
-    stark::sponge_load(v, st, pd, q, false, bytes, 8, true);
-    stark::sponge_step(v, st, pd, true, q, false, bytes, 8, true, nullptr,
-                       false, k + 1 < challenges, &raw);
-    q = (q + 8) & 31;
+  for (int j = ln.r; 2 * j < challenges; j += 8) {
+    const uint64_t x0 = raw[4 * j] | (uint64_t)raw[4 * j + 1] << 32;
+    const uint64_t x1 = raw[4 * j + 2] | (uint64_t)raw[4 * j + 3] << 32;
+    const uint32_t wa = (uint32_t)(x0 % stark::kP * kR2 % stark::kP);
+    const uint32_t wb = (uint32_t)(x1 % stark::kP * kR1 % stark::kP);
+    uint32_t* d = digests + 2 * challenges * lane + 4 * j;
+    uint32_t* w = weights + 2 * challenges * lane + 4 * j;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] = raw[4 * j + i];
+    w[0] = wa;
+    w[1] = (uint32_t)(((uint64_t)wa << 32) / stark::kP);
+    w[2] = wb;
+    w[3] = (uint32_t)(((uint64_t)wb << 32) / stark::kP);
   }
 }
 
@@ -269,16 +314,21 @@ __global__ void __launch_bounds__(32)
 int challenges_before(const void* roots, void* state, void* pending,
                                 void* copy, void* digests, void* weights,
                                 int challenges, int lanes, void* stream) {
-  if (challenges < 0 || challenges % 2 || lanes < 1)
+  if (challenges < 0 || challenges % 2 || challenges > kChallengesMax || lanes < 1)
     return (int)cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(state) | reinterpret_cast<uintptr_t>(pending)) & 15) ||
       ((reinterpret_cast<uintptr_t>(digests) | reinterpret_cast<uintptr_t>(weights)) & 3))
     return (int)cudaErrorMisalignedAddress;
-  const int threads = lanes < 128 ? lanes : 128;
-  challenges_before_kernel<<<(lanes + threads - 1) / threads, threads, 0,
-                                       (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(roots), static_cast<uint4*>(state),
-      static_cast<uint4*>(pending), static_cast<uint8_t*>(copy),
+  const int smem = 8 * kChallengeProofs * challenges;
+  if (smem > (48 << 10)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        challenges_before_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  challenges_before_kernel<<<(lanes + kChallengeProofs - 1) / kChallengeProofs,
+                             8 * kChallengeProofs, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(roots), static_cast<uint32_t*>(state),
+      static_cast<uint32_t*>(pending), static_cast<uint8_t*>(copy),
       static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights), challenges,
       lanes);
   return (int)cudaGetLastError();
@@ -313,15 +363,15 @@ CHAIN_PATCHES = (
     ("    int challenges, int lanes) {\n  extern __shared__",
      "    int challenges_mode, int lanes) {\n  const int mode = challenges_mode >> 24;\n"
      "  const int challenges = challenges_mode & 0xFFFFFF;\n  extern __shared__"),
-    ("    stark::split_close(c, ln, q ? 9 : 8);",
-     "    if (!(mode & 1)) stark::split_close(c, ln, q ? 9 : 8);"),
-    ("    stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);",
-     "    if (!(mode & 2)) stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);\n"
-     "    else a[0] ^= d0 ^ d1 ^ at0 ^ at1;"),
-    ("    if (q == 24) {  // a full chunk",
-     "    if (q == 24 && !(mode & 1)) {  // a full chunk"),
-    ("  for (int j = ln.r; 2 * j < challenges; j += 8) {",
-     "  for (int j = ln.r; !(mode & 4) && 2 * j < challenges; j += 8) {"),
+    ("      stark::split_close(c, ln, q ? 9 : 8);",
+     "      if (!(mode & 1)) stark::split_close(c, ln, q ? 9 : 8);"),
+    ("      stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);",
+     "      if (!(mode & 2)) stark::split_absorb_short<8>(a, at0, at1, d0, d1, q, ln);\n"
+     "      else a[0] ^= d0 ^ d1 ^ at0 ^ at1;"),
+    ("      if (q == 24) {  // a full chunk",
+     "      if (q == 24 && !(mode & 1)) {  // a full chunk"),
+    ("    if (mine) {\n      const long long at",
+     "    if (mine && !(mode & 4)) {\n      const long long at"),
     ("      static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights), challenges,\n"
      "      lanes);",
      "      static_cast<uint32_t*>(digests), static_cast<uint32_t*>(weights),\n"
@@ -824,8 +874,9 @@ def fold_dyn_before():
 def challenges_before():
     """A call ``(roots, challenges, sponge, copy, digests, weights)`` that
     does what ops.hash_batch.constraint_challenges does, through K15 as it
-    was before its redesign (CHAIN_BEFORE_SOURCE, built here, not part of
-    the port): the yardstick of the redesign."""
+    was before its window (CHAIN_BEFORE_SOURCE, built here, not part of
+    the port; at most BEFORE_CHALLENGES_MAX challenges): the yardstick of
+    the window."""
     fn = build_temporary(CHAIN_BEFORE_SOURCE, "challenges_before").challenges_before
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
@@ -858,6 +909,66 @@ def sample_before():
     return call
 
 
+def _patched_hash(patches, name: str) -> ctypes.CDLL:
+    """csrc/hash.cu with ``patches`` applied (each (text, replacement)
+    occurring exactly once), built into a temporary library; its K15 entry
+    typed."""
+    with open(os.path.join(cuda.CSRC, "hash.cu")) as f:
+        source = f.read()
+    for old, new in patches:
+        if source.count(old) != 1:
+            raise RuntimeError(f"csrc/hash.cu has moved on: {old!r} occurs "
+                               f"{source.count(old)} times")
+        source = source.replace(old, new)
+    lib = build_temporary(source, name)
+    lib.stark_constraint_challenges.argtypes = \
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return lib
+
+
+#: K15's shapes in chain_turns: Fibonacci's, MdsSquareAir's and a batch's,
+#: then 3,633 terms (past what the design before takes).
+CHAIN_TURN_SHAPES = ((1, 6), (1, 32), (8, 6), (1, 7266))
+#: The most challenges the design before draws: its block keeps 4 proofs'
+#: whole chains, 32 bytes a challenge, in at most 227 KB of shared memory.
+BEFORE_CHALLENGES_MAX = (227 << 10) // 32
+
+
+def chain_turns(rng, dev, shapes=CHAIN_TURN_SHAPES, reps: int = 50) -> dict:
+    """K15 at each (B, challenges) of ``shapes``: the design before (the
+    whole chain in shared memory, where the count allows it) and the
+    kernel in use (a window), each first held against the plain version,
+    then timed in turn and back (before, window, window, before;
+    CUDA-graph replay); us a call."""
+    from stark_tpu_torch.ops import hash_batch as HB
+
+    designs = {"before": challenges_before(), "window": HB.constraint_challenges}
+    out = {}
+    for b, ch in shapes:
+        roots = torch.from_numpy(rng.integers(0, 256, (b, 32), dtype=np.uint8)).to(dev)
+        sp = HB.Sponge(b, dev)
+        copy = torch.empty((b, 32), dtype=torch.uint8, device=dev)
+        digests = torch.empty((b, ch, 8), dtype=torch.uint8, device=dev)
+        weights = torch.empty((b, 2 * ch), dtype=torch.int32, device=dev)
+        want = HB.constraint_challenges_plain(roots.cpu(), ch)
+        names = [k for k in designs if k != "before" or ch <= BEFORE_CHALLENGES_MAX]
+        for key in names:
+            for t in (sp.state, sp.pending, digests, weights):
+                t.zero_()
+            designs[key](roots, ch, sp, copy, digests, weights)
+            got = (sp.state.cpu(), sp.pending.cpu(), digests.cpu(), weights.cpu())
+            q = sp.q
+            if not all(torch.equal(g[:, :q] if i == 1 else g, w[:, :q] if i == 1 else w)
+                       for i, (g, w) in enumerate(zip(got, want))):
+                raise AssertionError(f"K15 {key} at ({b}, {ch}) != plain")
+        times: dict = {}
+        for key in names + names[::-1]:
+            call = (lambda key=key: designs[key](roots, ch, sp, copy, digests, weights))
+            times.setdefault(key, []).append(round(device_us(call, reps), 3))
+        out[f"({b}, {ch})"] = times
+    return out
+
+
 def chain_split(rng, dev, b: int = 1, challenges: int = 32) -> dict:
     """K15's time at (B, challenges) split into its parts: the kernel built
     from csrc/hash.cu with CHAIN_PATCHES (a temporary library, the port's
@@ -866,16 +977,8 @@ def chain_split(rng, dev, b: int = 1, challenges: int = 32) -> dict:
     before and an empty launch, each in turn and back; us per call."""
     from stark_tpu_torch.ops import hash_batch as HB
 
-    with open(os.path.join(cuda.CSRC, "hash.cu")) as f:
-        source = f.read()
-    for old, new in CHAIN_PATCHES:
-        if source.count(old) != 1:
-            raise RuntimeError(f"csrc/hash.cu has moved on: {old!r} occurs "
-                               f"{source.count(old)} times")
-        source = source.replace(old, new)
-    lib = build_temporary(source, "hash_chain")
+    lib = _patched_hash(CHAIN_PATCHES, "hash_chain")
     fn = lib.stark_constraint_challenges
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.stark_set_chain_mode.argtypes = [ctypes.c_int]
     lib.stark_set_chain_mode.restype = None
     before, floor = challenges_before(), floor_kernel()
@@ -1137,6 +1240,7 @@ def compose_before_source(program) -> str:
         f"  static constexpr int kBoundaries = {nb};",
         f"  static constexpr int kRows = {len(program.rows)};",
         f"  static constexpr int kTerms = {program.terms};",
+        "  static constexpr bool kTable = false;",
         "  __device__ __forceinline__ static int boundary_row(int j) {",
         f"    constexpr int k[{max(nb, 1)}] = {{{rows}}};",
         "    return k[j];",
@@ -1534,19 +1638,22 @@ def compose_coset(prover):
 
 
 def compose_before(program):
-    """A call ``(lde, tables, alphas, betas, blowup) -> codeword`` of K11
-    for ``program``'s AIR as it was before lazy sums, built here (not part
-    of the port): every sum of its body eager; the same operands, weights
-    and launch as ops.compose.compose."""
+    """A call ``(lde, tables, alphas, betas, blowup, words=None) ->
+    codeword`` of K11 for ``program``'s AIR as it was before lazy sums,
+    built here (not part of the port): every sum of its body eager; the
+    same operands, weights (``words``: already on the card) and launch as
+    ops.compose.compose."""
     from stark_tpu_torch.ops.compose import COMPOSE
 
     fn = build_temporary(compose_before_source(program), "compose_before").stark_compose
     fn.argtypes = [*COMPOSE.argtypes, ctypes.c_void_p]
 
-    def call(lde, tables, alphas, betas, blowup):
+    def call(lde, tables, alphas, betas, blowup, words=None):
         lde3 = lde[None] if lde.dim() == 2 else lde
         b, c, n = lde3.shape
-        words = torch.from_numpy(program.weights(alphas, betas).view(np.int32)).to(lde.device)
+        if words is None:
+            words = torch.from_numpy(program.weights(alphas, betas).view(np.int32)).to(
+                lde.device)
         out = torch.empty((b, n), dtype=torch.int32, device=lde.device)
         if fn(lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
               tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
@@ -1591,24 +1698,33 @@ def forest_turns(rng, dev) -> dict:
 
 def compose_turns(rng, dev) -> dict:
     """K11 at Fibonacci T=2^20, MDS T=2^16 and batch8's (8, 1, 2^16): the
-    design before, the design in use and the redesign tried and not kept
+    design before, the design in use (the straight-line form), the same
+    AIR in the table form (the form of an AIR past
+    ops.compose.TABLE_LINES) and the redesign tried and not kept
     (compose_coset), each held against the kernel in use, then timed in
     turn and back; us per call."""
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.ops import compose as CO
 
     table = {}
     for model, t, b in (("fib", 1 << 20, 1), ("mds", 1 << 16, 1), ("fib", 1 << 14, 8)):
         air = get_model(model)[0]
         prover = StarkProver(air, StarkConfig(trace_length=t, blowup=4), dev)
         old, coset = compose_before(prover.program), compose_coset(prover)
+        rolled = CO.ComposeProgram(air, prover.program.boundary, table=True)
         lde = torch.from_numpy(rng.integers(0, 998244353, size=(b, air.num_registers,
                                                                 prover.dom.N))).to(
             torch.int32).to(dev)
         al, be = (rng.integers(0, 998244353, size=(b, prover.program.terms)) for _ in range(2))
         want = prover._compose(lde, al, be)
-        calls = {"before": lambda x: old(x, prover.tables, al, be, 4),
-                 "in use": lambda x: prover._compose(x, al, be),
+        # The weight words on the card, as K15 leaves them: no copy is timed.
+        words = torch.from_numpy(prover.program.weights(al, be).view(np.int32)).to(dev)
+        calls = {"before": lambda x: old(x, prover.tables, al, be, 4, words=words),
+                 "in use": lambda x: CO.compose(prover.program, x, prover.tables, None, None,
+                                                4, weights=words),
+                 "table form": lambda x: CO.compose(rolled, x, prover.tables, None, None, 4,
+                                                    weights=words),
                  "coset redesign": lambda x: coset(x, al, be)}
         for key, fn in calls.items():
             if not torch.equal(fn(lde), want):
@@ -1619,6 +1735,69 @@ def compose_turns(rng, dev) -> dict:
             times.setdefault(key, []).append(round(device_us(cycled(calls[key], args), 20), 2))
         table[f"{model} T=2^{t.bit_length() - 1} B={b}"] = times
     return table
+
+
+def distinct_air(transitions: int):
+    """A counter (x' = x + 1 from 5) with ``transitions`` constraints, the
+    step times 1, 2, .., transitions (a distinct linear form each), and one
+    boundary constraint: tests/test_torch_many_terms.py's AIR at any size."""
+    from stark_tpu_torch.models.air import Air, BoundaryConstraint
+
+    class DistinctAir(Air):
+        num_registers = 1
+        frame_offsets = (0, 1)
+        constraint_degree = 1
+
+        def transition_constraints(self, frame, ops):
+            x0, x1 = frame[0][0], frame[1][0]
+            step = ops.sub(ops.sub(x1, x0), ops.const(1, x0))
+            return [ops.mul(ops.const(i + 1, x0), step) for i in range(transitions)]
+
+        def boundary_constraints(self, trace_length):
+            return [BoundaryConstraint(row=0, register=0, value=5)]
+
+    return DistinctAir()
+
+
+#: (transitions, form) of compose_builds: the straight-line form up to a
+#: size nvcc still finishes, the table form up to the 3,632 of
+#: tests/test_torch_many_terms.py.
+BUILD_SIZES = ((64, False), (256, False), (512, False), (1024, False), (64, True),
+               (1024, True), (3632, True))
+
+
+def compose_builds(sizes=BUILD_SIZES, limit: int = 420) -> dict:
+    """nvcc's seconds for distinct_air's K11 source by (transitions, form),
+    one build at a time (the port's flags, a temporary directory), with
+    the source's lines (ops.compose ComposeProgram.lines, the measure
+    TABLE_LINES bounds) and bytes; a build past ``limit`` seconds is cut
+    and reported so."""
+    from stark_tpu_torch.ops import compose as CO
+    from stark_tpu_torch.stark import StarkConfig, _Domain
+
+    out = {}
+    for transitions, form in sizes:
+        air = distinct_air(transitions)
+        prog = CO.ComposeProgram(air, _Domain(StarkConfig(trace_length=64, blowup=4),
+                                              air).boundary, table=form)
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "compose.cu")
+            with open(src, "w") as f:
+                f.write(prog.source)
+            t0 = time.perf_counter()
+            try:
+                rc = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", cuda.CSRC, "-o",
+                                     os.path.join(tmp, "compose.so"), src],
+                                    timeout=limit).returncode
+                seconds = round(time.perf_counter() - t0, 2)
+            except subprocess.TimeoutExpired:
+                rc, seconds = None, f"> {limit}"
+        out[f"{transitions} {'table' if form else 'straight-line'}"] = {
+            "lines": prog.lines, "bytes": len(prog.source), "nvcc_s": seconds, "rc": rc}
+        print(f"  compose build {transitions} {'table' if form else 'straight-line'}: "
+              + json.dumps(out[f"{transitions} {'table' if form else 'straight-line'}"]),
+              flush=True)
+    return out
 
 
 def tail_in_prove(dev, proves: int = 3) -> list:
@@ -1949,6 +2128,8 @@ def main() -> int:
     if args.only in (None, "compose"):
         print("compose turns, us per call, each in turn and back (CUDA-graph replay): "
               + json.dumps(compose_turns(rng, dev)), flush=True)
+        print("compose builds, nvcc s of the distinct-form AIR by (transitions, form): "
+              + json.dumps(compose_builds()), flush=True)
     if args.only in (None, "fold"):
         print("fold turns, K4-dyn against the K9 + fold pair before it, us per call, "
               "each in turn and back (CUDA-graph replay): "
@@ -1959,6 +2140,9 @@ def main() -> int:
     if args.only in (None, "chain"):
         print("chain split, K15 (constraint challenges), us per call, each in turn and back "
               "(CUDA-graph replay): " + json.dumps(chain_split(rng, dev)), flush=True)
+        print("chain turns, K15 by (B, challenges): the design before, the window in use, "
+              "us per call in turn and back (CUDA-graph replay): "
+              + json.dumps(chain_turns(rng, dev)), flush=True)
     if args.only in (None, "floor"):
         tune_floor(dev)
     if args.only in (None, "parts"):

@@ -352,8 +352,11 @@ def test_prove_many_equals_sequential_batches(depth, monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b, challenges", [(1, 6), (8, 6), (32, 6), (1, 32), (3, 0), (3, 6),
-                                           (5, 6), (5, 64), (1, 64)])
+                                           (5, 6), (5, 64), (1, 64), (1, 7266), (5, 7266),
+                                           (3, 2 * HB.CHALLENGE_WINDOW + 6)])
 def test_card_challenges_equal_plain(cuda_device, b, challenges):
+    # Past one window of raw draws too (3,633 terms; two windows and three
+    # pairs).
     roots = torch.from_numpy(_rand_bytes(b + challenges, (b, 32)))
     sp = HB.Sponge(b, cuda_device)
     copy = torch.empty((b, 32), dtype=torch.uint8, device=cuda_device)

@@ -5,8 +5,8 @@ at T=64 byte-equal to the one ``stark_tpu.__main__.main`` writes (fib and
 fib2 here, square and cube in tests/test_torch_cli_models.py, mds in
 tests/test_torch_cli_mds.py: each stark_tpu prove compiles its own XLA
 graphs on the CPU, ~20-35 s); the host witness giving the device witness's
-bytes; and ``prove`` without a card and without ``--device cpu`` exiting
-non-zero."""
+bytes; and ``prove`` and ``bench`` without a card and without ``--device
+cpu`` exiting non-zero."""
 
 import hashlib
 
@@ -55,7 +55,7 @@ def test_unknown_command_rejected():
     with pytest.raises(SystemExit):
         main(["frobnicate"])
     with pytest.raises(SystemExit):
-        main(["bench"])  # comes with the port's benchmark, not yet
+        main(["bench", "--trace-length", "64"])  # bench shows --quick and --device alone
 
 
 def test_cli_model_selection(tmp_path, capsys):
@@ -79,6 +79,16 @@ def test_prove_without_a_card_exits_nonzero(tmp_path, capsys):
     assert main(["prove", *ARGS, "--out", str(out)]) == 2
     assert "no CUDA device" in capsys.readouterr().err
     assert not out.exists()
+
+
+def test_bench_without_a_card_exits_nonzero(capsys):
+    # ``bench`` runs on the card unless --device cpu asks otherwise: no
+    # quiet fall-back, no JSON line.
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert main(["bench", "--quick", "--device", "cuda"]) == 2
+    got = capsys.readouterr()
+    assert "no CUDA device" in got.err and got.out == ""
 
 
 def _model_args(model):

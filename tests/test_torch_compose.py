@@ -8,7 +8,8 @@ that the kernel is generated from (``models.air.TapeOps``) against
 ``ScalarOps`` at seeded frames, for every example AIR and the 65-register
 AIR of test_torch_wide.py; the generated source's bytes; and the generated
 per-point function built with the host C++ compiler (csrc/compose.cuh's
-host entry) against the eager compose at every point.  On a card only
+host entry) against the eager compose at every point, in both of the
+forms the generator writes (straight-line and table).  On a card only
 (marker ``gpu``): the kernel against the eager compose.  Tolerance zero:
 field values are exact.
 """
@@ -153,6 +154,75 @@ def test_host_built_body_matches_eager(model):
     prover, lde, alphas, betas = operands(model, 3, 30)
     want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
     got = host_compose(prover.program, prover.tables, lde, alphas, betas, prover.cfg.blowup)
+    np.testing.assert_array_equal(got, want.astype(np.uint32))
+
+
+def test_generated_form_follows_the_lines():
+    # Every AIR here writes its straight-line form (well inside
+    # TABLE_LINES); either form on request, the table form's bytes fixed.
+    for name, air in every_air():
+        d = StarkProver(air, StarkConfig(trace_length=T, blowup=8), device="cpu").dom
+        prog = CO.ComposeProgram(air, d.boundary)
+        assert not prog.table and prog.lines <= CO.TABLE_LINES, name
+        assert "kTable = false" in prog.source
+        table = CO.ComposeProgram(air, d.boundary, table=True)
+        assert table.table and "kTable = true" in table.source
+        assert table.source == CO.ComposeProgram(air, d.boundary, table=True).source
+        assert table.lines == prog.lines and table.terms == prog.terms
+    air = get_model("mds")[0]
+    bound = StarkProver(air, config("mds"), device="cpu").dom.boundary
+    assert CO.ComposeProgram(air, bound, table=False).source == CO.ComposeProgram(
+        air, bound).source
+
+
+def table_program(prover):
+    """The table form of ``prover``'s AIR and boundary list."""
+    return CO.ComposeProgram(prover.air, prover.program.boundary, table=True)
+
+
+@pytest.mark.parametrize("model", MODEL_NAMES)
+def test_host_built_table_form_matches_eager(model):
+    # compose.cuh's compose_point_table: B = 3 over the whole coset, and
+    # on each share of 2 with its halo.
+    prover, lde, alphas, betas = operands(model, 3, 80)
+    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
+    prog = table_program(prover)
+    got = host_compose(prog, prover.tables, lde, alphas, betas, prover.cfg.blowup)
+    np.testing.assert_array_equal(got, want.astype(np.uint32))
+    for d in range(2):
+        share, tables, cut = share_with_halo(prover, lde, d, 2)
+        got = host_compose(prog, tables, share, alphas, betas, prover.cfg.blowup,
+                           points=cut.stop - cut.start)
+        np.testing.assert_array_equal(got, want[:, cut].astype(np.uint32))
+
+
+def test_table_form_steps_and_boundaries_by_row():
+    # The wide AIR: 65 transitions, 65 boundaries on row 0; a step a live
+    # node that needs a value (no slot for a constant that is only a
+    # product's factor), the boundary terms in row order with their ends.
+    import re
+
+    def slots(air, blowup):
+        d = StarkProver(air, StarkConfig(trace_length=T, blowup=blowup), device="cpu").dom
+        prog = CO.ComposeProgram(air, d.boundary, table=True)
+        live = prog.tape.live()
+        consts = sum(1 for j in live if prog.tape.nodes[j][0] == "const")
+        return prog, int(re.search(r"kSlots = (\d+);", prog.source)[1]), len(live), consts
+
+    # MDS: 49 constants, 8 of them read by a sum, the rest only factors.
+    _, got, live, consts = slots(get_model("mds")[0], 8)
+    assert (live, consts, got) == (202, 49, 161)
+    # wide: every constant is read by a subtraction.
+    air = wide_air(Air, BoundaryConstraint)
+    prog, got, live, _ = slots(air, 4)
+    assert got == live
+    assert "kRowEnds[1] = {\n    65,\n};" in prog.source
+    rng = np.random.default_rng(66)
+    prover = StarkProver(air, StarkConfig(trace_length=T, blowup=4), device="cpu")
+    lde = rand_field(rng, (2, air.num_registers, prover.dom.N))
+    alphas, betas = (rand_field(rng, (2, prog.terms)) for _ in range(2))
+    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
+    got = host_compose(prog, prover.tables, lde, alphas, betas, 4)
     np.testing.assert_array_equal(got, want.astype(np.uint32))
 
 
@@ -406,6 +476,25 @@ def test_kernel_matches_eager_on_card(cuda_device, model, b):
     single = card._compose(x[0], alphas[0], betas[0])
     assert torch.equal(single.cpu(), want[0])
     assert cuda.launch_counts()["compose"] == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", MODEL_NAMES)
+def test_table_form_kernel_matches_eager_on_card(cuda_device, model):
+    # The table form built with nvcc: B = 3 on the whole coset and on the
+    # last of 4 shares with its halo.
+    prover, lde, alphas, betas = operands(model, 3, 90)
+    want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas)
+    card = StarkProver(prover.air, prover.cfg, cuda_device)
+    prog = table_program(card)
+    x = torch.from_numpy(lde.astype(np.int32)).to(cuda_device)
+    got = CO.compose(prog, x, card.tables, alphas, betas, prover.cfg.blowup)
+    assert torch.equal(got.cpu(), want)
+    share, _, cut = share_with_halo(prover, lde, 3, 4)
+    got = CO.compose(prog, torch.from_numpy(share.astype(np.int32)).to(cuda_device),
+                     card._tables(cut.start, cut.stop - cut.start), alphas, betas,
+                     prover.cfg.blowup, points=cut.stop - cut.start)
+    assert torch.equal(got.cpu(), want[:, cut])
 
 
 @pytest.mark.gpu

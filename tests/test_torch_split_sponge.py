@@ -6,14 +6,16 @@ byte's low 8 left as they fall), each cross-lane read the shuffle the
 kernel makes: lane r holds state bytes 4r .. 4r + 3 and the pending tail's
 word r; a draw's 8 digest bytes come from lanes 0 and 1 to every lane,
 which absorbs them itself from the state's words at their positions; a
-full chunk every fourth draw; the reductions after the chain.  K10's
-model hashes the candidates' first chunk (the seed, absorbed and mixed)
-once, then a candidate's counter and its 9 mixes, in passes of the
+full chunk every fourth draw; the reductions after each window of draws.
+K10's model hashes the candidates' first chunk (the seed, absorbed and
+mixed) once, then a candidate's counter and its 9 mixes, in passes of the
 block's groups, walked 32 at a time.
 
 Held against stark_tpu's sponge_from_bytes, sponge_absorb, sponge_state,
 state_alpha and _device_challenges_fn (K15 at 0, 2, 6, 32 and 40
-challenges), seed_digest_rows_from_state and sample_indices_core (K10 at
+challenges; with the window of raw draws a group keeps, at a window less
+a pair, one window, a pair past it and two windows and three pairs, draw
+by draw through the sponge functions), seed_digest_rows_from_state and sample_indices_core (K10 at
 every pending length a prove gives, a shortfall, no candidates, and a
 candidate count that is no multiple of a pass), and against the port's
 plain versions.  Tolerance zero: bytes and integers."""
@@ -106,35 +108,53 @@ def _absorb_prefix(s: np.ndarray, d: np.ndarray, n: int) -> np.ndarray:
     return np.where(inside, v ^ np.where(LOW, x, _u32(0)), s ^ x)
 
 
-def challenges_model(roots: np.ndarray, challenges: int):
+def _pair_words(raws: np.ndarray) -> np.ndarray:
+    """(N, 2 k, 2) raw draw words -> (N, k, 4) K11 weight words a pair: a
+    R^2 mod p, its Shoup companion, b R mod p, its companion."""
+    n = raws.shape[0]
+    raw = raws[..., 0].astype(np.uint64) | raws[..., 1].astype(np.uint64) << np.uint64(32)
+    red = (raw % np.uint64(P)).reshape(n, -1, 2)
+    wa, wb = red[..., 0] * np.uint64(R2) % np.uint64(P), red[..., 1] * np.uint64(R1) % np.uint64(P)
+    return np.stack([wa, (wa << np.uint64(32)) // np.uint64(P),
+                     wb, (wb << np.uint64(32)) // np.uint64(P)], axis=-1).astype(np.uint32)
+
+
+def challenges_model(roots: np.ndarray, challenges: int, window: int = HB.CHALLENGE_WINDOW):
     """K15 as its 8-lane groups compute it: (N, 32) u8 roots -> (state,
-    pending, digests, weights) as constraint_challenges_plain gives them."""
+    pending, digests, weights) as constraint_challenges_plain gives them.
+    A group keeps ``window`` draws' raw words (hash.cu kChallengeWindow);
+    after a window's last draw lane r stores its pairs r, r + 8, ..., and
+    the next window's draws take the buffer again."""
     n = roots.shape[0]
     a = _split_absorb(_init(n), roots.reshape(n, 8, 4).astype(np.uint32), 8)
     a = _split_mix(a, 8, "bytes", "bytes")
     s, pend = a.copy(), np.zeros((n, 8), np.uint32)
-    raws = np.zeros((n, challenges, 2), np.uint32)
+    kept = np.zeros((n, min(challenges, window), 2), np.uint32)  # the group's buffer
+    raws = np.zeros((n, challenges, 2), np.uint32)  # digests, as stored
+    words = np.zeros((n, challenges // 2, 4), np.uint32)
     delta = np.arange(8)
-    for k in range(challenges):
-        q = 8 * k % 32
-        word = _words(a)
-        at0, at1 = word[:, q // 4], word[:, q // 4 + 1]  # fetched before the mixes
-        dig = _words(_close(a.copy(), 9 if q else 8))
-        d0, d1 = dig[:, 0], dig[:, 1]  # from lanes 0 and 1, to every lane
-        raws[:, k] = np.stack([d0, d1], axis=1)
-        a = _absorb_short(a, at0, at1, d0, d1, q, 8)
-        lane = (delta - q // 4) & 7
-        pend = np.where(lane == 0, d0[:, None], np.where(lane == 1, d1[:, None], pend))
-        if q == 24:
-            a = _split_mix(a, 8, "bytes", "bytes")
-            s, pend = a.copy(), np.zeros_like(pend)
-    raw = raws[..., 0].astype(np.uint64) | raws[..., 1].astype(np.uint64) << np.uint64(32)
-    red = (raw % np.uint64(P)).reshape(n, -1, 2)
-    wa, wb = red[..., 0] * np.uint64(R2) % np.uint64(P), red[..., 1] * np.uint64(R1) % np.uint64(P)
-    words = np.stack([wa, (wa << np.uint64(32)) // np.uint64(P),
-                      wb, (wb << np.uint64(32)) // np.uint64(P)], axis=-1)
+    for base in range(0, challenges, window):
+        end = min(base + window, challenges)
+        for k in range(base, end):
+            q = 8 * k % 32
+            word = _words(a)
+            at0, at1 = word[:, q // 4], word[:, q // 4 + 1]  # fetched before the mixes
+            dig = _words(_close(a.copy(), 9 if q else 8))
+            d0, d1 = dig[:, 0], dig[:, 1]  # from lanes 0 and 1, to every lane
+            kept[:, k - base] = np.stack([d0, d1], axis=1)
+            a = _absorb_short(a, at0, at1, d0, d1, q, 8)
+            lane = (delta - q // 4) & 7
+            pend = np.where(lane == 0, d0[:, None], np.where(lane == 1, d1[:, None], pend))
+            if q == 24:
+                a = _split_mix(a, 8, "bytes", "bytes")
+                s, pend = a.copy(), np.zeros_like(pend)
+        pairs = kept[:, : end - base].reshape(n, -1, 2, 2)  # the window's pairs
+        for r in range(8):  # lane r: pairs r, r + 8, ... of the window
+            at = base // 2 + r
+            raws.reshape(n, -1, 2, 2)[:, at : end // 2 : 8] = pairs[:, r::8]
+            words[:, at : end // 2 : 8] = _pair_words(pairs[:, r::8].reshape(n, -1, 2))
     return (_bytes(_words(s)), _bytes(pend), _bytes(raws.reshape(n, -1)).reshape(n, -1, 8),
-            words.reshape(n, -1).astype(np.uint32))
+            words.reshape(n, -1))
 
 
 def sample_model(state, pending, q, size, reduced, number, m):
@@ -289,14 +309,89 @@ def test_sample_pass(number, m, want):
     assert sample_pass(number, m) == want
 
 
-def test_challenges_past_the_card_limit_are_refused():
-    # A block keeps its proofs' raw draws in shared memory: a count past
-    # what it holds is refused before any launch (a meta tensor stands in
-    # for a card that is not there).
-    dev, b, ch = torch.device("meta"), 1, HB.CHALLENGES_MAX + 2
-    with pytest.raises(ValueError, match="at most"):
-        HB.constraint_challenges(
-            torch.empty((b, 32), dtype=torch.uint8, device=dev), ch, HB.Sponge(b, dev),
-            torch.empty((b, 32), dtype=torch.uint8, device=dev),
-            torch.empty((b, ch, 8), dtype=torch.uint8, device=dev),
-            torch.empty((b, 2 * ch), dtype=torch.int32, device=dev))
+@pytest.mark.parametrize("challenges", [7266, 3 * HB.CHALLENGE_WINDOW + 6])
+def test_challenges_past_a_window_reach_the_launch(monkeypatch, challenges):
+    # No count is refused: past 7,264 (what a block's shared memory held
+    # when it kept a whole chain) and past several windows, the wrapper
+    # hands the count to the launch (a meta tensor stands in for a card
+    # that is not there; the launch and the operand check record instead).
+    dev, b = torch.device("meta"), 5
+    launched = []
+    monkeypatch.setattr(HB.cuda, "check_operand", lambda t, name, dtype=None: None)
+    monkeypatch.setattr(HB.CHALLENGES, "launch", lambda *args: launched.append(args))
+    sp = HB.Sponge(b, dev)
+    HB.constraint_challenges(
+        torch.empty((b, 32), dtype=torch.uint8, device=dev), challenges, sp,
+        torch.empty((b, 32), dtype=torch.uint8, device=dev),
+        torch.empty((b, challenges, 8), dtype=torch.uint8, device=dev),
+        torch.empty((b, 2 * challenges), dtype=torch.int32, device=dev))
+    assert len(launched) == 1 and launched[0][0] == dev
+    assert launched[0][-2:] == (challenges, b)
+    assert (sp.q, sp.fresh) == (8 * challenges % 32, False)
+
+
+def test_the_window_is_the_kernels():
+    # hash_batch.CHALLENGE_WINDOW names csrc/hash.cu's kChallengeWindow, the
+    # window the model and the card shapes are chosen around.
+    import os
+    import re
+
+    from stark_tpu_torch.ops import cuda
+
+    with open(os.path.join(cuda.CSRC, "hash.cu")) as f:
+        got = re.findall(r"constexpr int kChallengeWindow = (\d+);", f.read())
+    assert got == [str(HB.CHALLENGE_WINDOW)]
+
+
+def _stark_tpu_draws(root: np.ndarray, counts: tuple) -> dict:
+    """stark_tpu's sponge draw by draw from a fresh sponge holding ``root``
+    (sponge_from_bytes, then sponge_state and sponge_absorb a draw, each
+    jitted once for every pending length): count -> (the digests so far,
+    state, pending) at each of ``counts``."""
+    import jax
+    import jax.numpy as jnp
+    from stark_tpu.ops import hash_batch as JHB
+
+    @jax.jit
+    def draw(state, pending):
+        digest8 = JHB.sponge_state(state, pending)[:8]
+        return (digest8,) + tuple(JHB.sponge_absorb(state, pending, digest8))
+
+    state, pending = JHB.sponge_from_bytes(jnp.asarray(root))
+    digests, at = [], {}
+    for k in range(max(counts)):
+        digest8, state, pending = draw(state, pending)
+        digests.append(np.asarray(digest8).reshape(8))
+        if k + 1 in counts:
+            at[k + 1] = (np.stack(digests), np.asarray(state).reshape(32),
+                         np.asarray(pending).reshape(-1))
+    return at
+
+
+W = HB.CHALLENGE_WINDOW
+WINDOW_COUNTS = (W - 2, W, W + 2, 2 * W + 6)
+
+
+@pytest.fixture(scope="module")
+def window_reference():
+    roots = _rand_bytes(W, (2, 32))
+    return roots, _stark_tpu_draws(roots[1], WINDOW_COUNTS)
+
+
+@pytest.mark.parametrize("challenges", WINDOW_COUNTS)
+def test_windowed_model_equals_stark_tpu(window_reference, challenges):
+    # Short of a window, one window, one pair past it, two windows and
+    # three pairs: the draws a window's flush stores and the weight words
+    # it reduces are stark_tpu's, the sponge after them too.
+    roots, ref = window_reference
+    state, pending, digests, words = challenges_model(roots, challenges)
+    want_digests, want_state, want_pending = ref[challenges]
+    q = 8 * challenges % 32
+    np.testing.assert_array_equal(digests[1], want_digests)
+    np.testing.assert_array_equal(state[1], want_state)
+    np.testing.assert_array_equal(pending[1, :q], want_pending)
+    assert not pending[:, q:].any()
+    raws = want_digests.view("<u4").reshape(1, -1, 2)
+    np.testing.assert_array_equal(words[1], _pair_words(raws).reshape(-1))
+    # Row 0 gets its own chain: the groups of a block do not share windows.
+    assert not np.array_equal(digests[0], digests[1])
