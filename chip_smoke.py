@@ -362,6 +362,13 @@ COMPOSE_CASES = (("fib", MAIN_T, 4, 1), ("mds", MDS_T, 4, 1), ("fib", BATCH_T, 4
     (model, 1024, 8 if model == "cube" else 4, b)
     for model in ("fib", "fib2", "square", "cube", "mds", "wide") for b in (8, 32))
 COMPOSE_TIMED = 3
+# K11's table form (an AIR past ops/compose.TABLE_LINES) at the shapes
+# tools/tune_kernels.py times it, (model, T, B) at blowup 4: the paths' AIRs
+# forced into it (Fibonacci T=2^20, MDS T=2^16, batch8's), then the
+# distinct counter (tools/tune_kernels.distinct_air) at 1,024 and 3,632
+# constraints; each in turn with the table form before its redesign.
+TABLE_CASES = (("fib", MAIN_T, 1), ("mds", MDS_T, 1), ("fib", BATCH_T, 8),
+               ("distinct1024", 1 << 16, 1), ("distinct3632", 1 << 16, 1))
 # K14 against its plain version at every (rows, T, N) the driven paths and
 # the pinned proofs give it (rows = B c: the main path, the wide path, the
 # three batched cells; the pins; T of 1 and 2, its edge route), then at T = N
@@ -375,6 +382,14 @@ PAD_SCALE_SHAPES = ((1, MAIN_T, 4 * MAIN_T), (WIDE_BATCH, MDS_T, 4 * MDS_T),
                     (1, 1 << 16, 1 << 18), (3, 1, 4), (3, 2, 8))
 PAD_SCALE_SQUARE = ((1, 4 * MAIN_T), (WIDE_BATCH, 4 * MDS_T), (3, 1 << 10))
 PAD_SCALE_TIMED = 3
+# K1 of an LDE (the pad and coset scale in pass 1's first round; the LDE of
+# a prove or batch) against its plain version at every (B c, T, N) of
+# PAD_SCALE_SHAPES, then at T < n2, blowups 1, 2 and 8-32, T of 1 and 2,
+# and a batch entry of 2^22 coefficients; timed at the first three of
+# PAD_SCALE_SHAPES, in turn with K14 then K1 (the design before).
+LDE_ODD_SHAPES = ((3, 4, 64), (2, 16, 1024), (1, 1, 4), (3, 2, 8), (3, 1, 32),
+                  (2, 1 << 10, 1 << 10), (3, 1 << 12, 1 << 13), (5, 1 << 11, 1 << 15),
+                  (2, 1 << 9, 1 << 14), (1, 1 << 22, 1 << 22))
 # The distributed phase (parallel/): BASELINE config 5, the largest provable
 # instance (T=2^21, N=2^23, the field's 2-adicity cap) on D=4 gloo ranks
 # that share the card; MDS T=2^16 and batch8's shape on D=2; Fibonacci
@@ -869,6 +884,60 @@ def _check_pad_scale(rng, dev, results: _Results) -> None:
               f"table's 8 T bytes {with_table:.4f} ms; device time per call", flush=True)
         if i:
             results.entries.remove(entry)
+
+
+def _check_lde_pass1(rng, dev, results: _Results) -> None:
+    """K1 of an LDE against its plain version, strict and lazy, each call
+    twice, at PAD_SCALE_SHAPES and LDE_ODD_SHAPES; then timed at the
+    paths' three shapes, operands cycled, with its bound (the coefficients
+    read, its two scale tables, wm, the output written; or its butterflies,
+    REDCs and two Shoup products a coefficient), and in turn with K14 then
+    K1 (before, after, after, before)."""
+    from stark_tpu_torch.ops import ntt as NTT
+    from stark_tpu_torch.ops import ntt_fused as NTF
+    from stark_tpu_torch.ops.fieldops import GENERATOR
+
+    s = GENERATOR
+    for rows, t, n in PAD_SCALE_SHAPES + LDE_ODD_SHAPES:
+        plan = NTF.get_plan(n, False, dev)
+        c = _rand_field(rng, dev, (rows, t))
+        for lazy in (False, True):
+            want = NTF.pass1_lde_plain(c, plan, s, lazy)
+            for turn in (1, 2):
+                _require_equal(f"ntt_pass1_lde ({rows}, {t} -> {n}) lazy={lazy} call {turn}",
+                               NTF.ntt_pass1_lde(c, plan, s, lazy), want)
+    print(f"ntt_pass1_lde == plain, strict and lazy, each call twice, at (rows, T, N) "
+          f"{list(PAD_SCALE_SHAPES + LDE_ODD_SHAPES)} with s = {s}", flush=True)
+    for i, (rows, t, n) in enumerate(PAD_SCALE_SHAPES[:PAD_SCALE_TIMED]):
+        plan = NTF.get_plan(n, False, dev)
+        shape = f"rows={rows}, T=2^{t.bit_length() - 1} -> N=2^{n.bit_length() - 1}"
+        nbytes = 4 * rows * t + 8 * (plan.n1 + plan.n2) + 4 * n + 4 * rows * n
+        cs = _clones(_copies(4 * rows * (t + n)), _rand_field(rng, dev, (rows, t)))
+        mark = len(results.entries)
+        for lazy in (False, True):
+            entry = results.add(
+                NTF.PASS1_LDE_LAZY if lazy else NTF.PASS1_LDE, shape, cs,
+                lambda c, lazy=lazy: NTF.ntt_pass1_lde(c, plan, s, lazy),
+                lambda c, lazy=lazy: NTF.pass1_lde_plain(c, plan, s, lazy), 50,
+                nbytes=nbytes,
+                ops=rows * n // 2 * plan.lg1 * OPS_BUTTERFLY[lazy] + rows * n * OPS_MONT
+                + 2 * OPS_SHOUP * rows * t)
+
+            def before(c, lazy=lazy):
+                x3 = NTT.pad_scale(c, n, s).reshape(rows, plan.n1, plan.n2)
+                return NTF.ntt_pass1(x3, plan, lazy)
+
+            _require_equal(f"K14 + K1 {shape} lazy={lazy}", before(cs[0][0]),
+                           NTF.pass1_lde_plain(cs[0][0], plan, s, lazy))
+            calls = (_cycled(before, cs),
+                     _cycled(lambda c, lazy=lazy: NTF.ntt_pass1_lde(c, plan, s, lazy), cs))
+            entry["turns_ms"] = [_device_ms(calls[k], 50) for k in (0, 1, 1, 0)]
+        print(f"ntt_pass1_lde {shape} ({len(cs)} buffer sets): " + "; ".join(
+            f"{_line(e)}, {e['bound_ms'] / e['ms']:.1%} of its bound, in turn with K14 + K1 "
+            f"(before, after, after, before) {json.dumps([round(x, 5) for x in e['turns_ms']])}"
+            for e in results.entries[mark:]) + "; device time per call", flush=True)
+        if i:
+            del results.entries[mark:]
 
 
 def _check_sharded_forms(rng, dev, _results: _Results) -> None:
@@ -2093,6 +2162,10 @@ def _air(model: str):
 
     if model == "many":
         return _many_terms_air()
+    if model.startswith("distinct"):
+        from stark_tpu_torch.tools.tune_kernels import distinct_air
+
+        return distinct_air(int(model[len("distinct"):]))
     if model != "wide":
         return get_model(model)[0]
 
@@ -2196,13 +2269,13 @@ def _drive_bench() -> None:
     print("bench --quick: " + lines[-1], flush=True)
 
 
-def _compose_program(model: str, T: int, blowup: int):
+def _compose_program(model: str, T: int, blowup: int, table: bool | None = None):
     from stark_tpu_torch.ops import compose as CO
     from stark_tpu_torch.stark import StarkConfig, _Domain
 
     air = _air(model)
     return CO.ComposeProgram(air, _Domain(StarkConfig(trace_length=T, blowup=blowup),
-                                          air).boundary)
+                                          air).boundary, table=table)
 
 
 def _compose_programs() -> dict:
@@ -2260,6 +2333,43 @@ def _check_compose(rng, dev, results: _Results) -> None:
                                  for i in (0, 1, 1, 0)]
             timed.append(entry)
         del prover, lde, want
+    # The table form at TABLE_CASES, in turn with the design before it.
+    entry = next(e for e in results.entries if e["name"] == CO.COMPOSE.name)
+    entry["table_form"] = {}
+    for model, T, b in TABLE_CASES:
+        air = _air(model)
+        prover = StarkProver(air, StarkConfig(trace_length=T, blowup=4))
+        prog, tables, n = _compose_program(model, T, 4, table=True), prover.tables, prover.dom.N
+        lde = _rand_field(rng, dev, (b, air.num_registers, n))
+        al, be = (rng.integers(0, 998244353, size=(b, prog.terms)) for _ in range(2))
+        words = torch.from_numpy(prog.weights(al, be).view(np.int32)).to(dev)
+        want = CO.compose_plain(prog, lde, tables, al, be, 4)
+
+        def table_call(prog=prog, lde=lde, tables=tables, words=words):
+            return CO.compose(prog, lde, tables, None, None, 4, weights=words)
+
+        for turn in (1, 2):
+            _require_equal(f"compose table form {model} T={T} B={b} call {turn}", table_call(),
+                           want)
+        old = BEFORE["table"][(model, T)]
+        _require_equal(f"compose table form before {model} T={T} B={b}",
+                       old(lde, tables, words, 4), want)
+        calls = (lambda: (flush(), old(lde, tables, words, 4)), lambda: (flush(), table_call()))
+        nbytes = 4 * n * (b * prog.registers_read() + prog.table_loads() + b)
+        shape = f"{model} T=2^{T.bit_length() - 1}, (B, c, N) = ({b}, {air.num_registers}, " \
+                f"2^{n.bit_length() - 1})"
+        entry["table_form"][shape] = {
+            "turns_ms": [_device_ms(calls[i], 20, skip=flush.skip) for i in (0, 1, 1, 0)],
+            "bound_ms": _bound(nbytes, b * n * min(prog.operations(),
+                                                   prover.program.operations()))[0],
+            "steps": len(prog.form.steps) - CO.SPARE_STEPS, "slots": prog.form.slots,
+            "threads": prog.form.threads}
+        del prover, lde, want
+    print("compose, the table form: kernel == plain, each call twice, L2 flushed before each "
+          "timed call, in turn with the table form before its redesign (before, after, after, "
+          "before) ms: "
+          + json.dumps({k: {**v, "turns_ms": [round(t, 5) for t in v["turns_ms"]]}
+                        for k, v in entry["table_form"].items()}), flush=True)
     print(f"compose: kernel == plain (the eager compose on the card), each call twice, at "
           f"(model, T, blowup, B) {[c for c in COMPOSE_CASES]}; L2 flushed before each "
           "timed call: " + "; ".join(
@@ -2691,8 +2801,10 @@ def _prove_checked(name, prover, verifier, witness, want_sha, expect, cuda):
         raise AssertionError(f"{name}: kernels not launched: {missing}")
     if counts["query_gather"] != 1 or len(plans) != 1:
         raise AssertionError(f"{name}: {counts['query_gather']} query gathers in a prove")
-    if counts["lde_pad_scale"] != 1:
-        raise AssertionError(f"{name}: {counts['lde_pad_scale']} K14 launches in a prove")
+    lde = "ntt_pass1_lde_lazy" if prover.lazy_ntt else "ntt_pass1_lde"
+    if counts["lde_pad_scale"] != 0 or counts[lde] != 1:
+        raise AssertionError(f"{name}: {counts['lde_pad_scale']} K14 and {counts[lde]} "
+                             f"{lde} launches in a prove, not 0 and 1")
     print(f"{name}: query_gather == plain on the prove's plan ("
           + _check_plans(name, plans) + ")", flush=True)
     return proof, counts, plans[0]
@@ -2741,10 +2853,12 @@ def _profiled_prove(name, prover, witness, counts, median_wall, cuda) -> dict:
         sum(_bound(32 * (2 * w - 1), (w - 1) * _hash_ops(64, mix_ops))[0]
             for w in widths)
         for mix_ops in (OPS_MIX, OPS_MIX_BEFORE))
-    ntt_ms = sum(ms for k, ms in kernel_ms.items() if k.startswith("ntt_"))
-    print(f"{name}: the lde phase on the device in the profiled prove: lde_pad_scale "
-          f"{kernel_ms['lde_pad_scale']:.4f} ms ({counts['lde_pad_scale']} launch), "
-          f"K1-K3 {ntt_ms:.4f} ms", flush=True)
+    lde = "ntt_pass1_lde_lazy" if prover.lazy_ntt else "ntt_pass1_lde"
+    ntt_ms = sum(ms for k, ms in kernel_ms.items() if k.startswith("ntt_") and k != lde)
+    print(f"{name}: the lde phase on the device in the profiled prove: {lde} (the pad, the "
+          f"scale and pass 1) {kernel_ms[lde]:.4f} ms ({counts[lde]} launch), lde_pad_scale "
+          f"{counts['lde_pad_scale']} launches, the other K1-K3 (the iNTT's, the LDE's K3 and "
+          f"K2) {ntt_ms:.4f} ms", flush=True)
     by_width = {f"2^{w.bit_length() - 1}": widths.count(w) for w in sorted(set(widths))}
     print(f"{name}: merkle_tail {len(widths)} launches in the profiled prove, "
           f"{kernel_ms['merkle_tail']:.4f} ms measured, {bound_ms:.4f} ms the sum of "
@@ -3042,7 +3156,8 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
     # A batch's gather is one plan, one output and one copy; a plan larger
     # than one launch's parameters goes out in several launches.
     if missing or counts["fri_fold"] or counts["query_gather"] < batches or \
-            counts["compose"] != batches or counts["lde_pad_scale"] != batches:
+            counts["compose"] != batches or counts["lde_pad_scale"] or \
+            counts["ntt_pass1_lde"] != batches:
         raise AssertionError(f"{cell}: launches {counts}")
     _check_chain(cell, counts, prover.fri.num_rounds(), batches)
     three = _three_reads(prover, call)
@@ -3075,7 +3190,8 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
     _in_turn(cell, call, three, TURN_RUNS["batch"])
     per_call = {k: counts[k] for k in ("sponge_absorb", "fri_fold_dyn", "merkle_forest",
                                        "merkle_level", "hash_rows", "query_gather",
-                                       "compose", "lde_pad_scale", "constraint_challenges",
+                                       "compose", "ntt_pass1_lde", "lde_pad_scale",
+                                       "constraint_challenges",
                                        "sample_indices")}
     print(f"{cell} ({model}, T=2^{BATCH_T.bit_length() - 1}, B={batch}, "
           f"{'prove_many of %d, depth %d' % (count, depth) if count else 'prove_batch'}): "
@@ -3129,17 +3245,23 @@ def main() -> int:
                "challenges": TK.challenges_before, "sample": TK.sample_before,
                "floor": TK.floor_kernel}
     timed_cases = {(model, T): blowup for model, T, blowup, _ in COMPOSE_CASES[:COMPOSE_TIMED]}
-    with ThreadPoolExecutor(len(programs) + len(befores) + len(timed_cases) + 1) as pool:
+    with ThreadPoolExecutor(len(programs) + len(befores) + len(timed_cases) + 1
+                            + 2 * len(TABLE_CASES)) as pool:
         built = [pool.submit(cuda.library)] + [
             pool.submit(CO.library, prog.source) for prog in programs.values()]
         jobs = {key: pool.submit(fn) for key, fn in befores.items()}
         composes = {case: pool.submit(lambda case=case: TK.compose_before(
             _compose_program(*case, timed_cases[case]))) for case in timed_cases}
+        table_forms = [_compose_program(model, T, 4, table=True) for model, T, _ in TABLE_CASES]
+        built += [pool.submit(CO.library, prog.source) for prog in table_forms]
+        tables_before = {case[:2]: pool.submit(TK.table_before, prog)
+                         for case, prog in zip(TABLE_CASES, table_forms)}
         lib = built[0].result()
         for job in built[1:]:
             job.result()
         BEFORE.update({key: job.result() for key, job in jobs.items()})
         BEFORE["compose"] = {case: job.result() for case, job in composes.items()}
+        BEFORE["table"] = {case: job.result() for case, job in tables_before.items()}
     print(f"build: CUDA kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           "(the port's library, each AIR's compose library and the designs before the "
           "redesigns side by side); compose sources generated (sha256, nvcc s): "
@@ -3151,7 +3273,15 @@ def main() -> int:
     ptxas = TK.ptxas
 
     paths = {CO._source_file(p.source): m for m, p in programs.items()}
-    regs = ptxas(("witness.cu", "gather.cu", "hash.cu", "fold.cu", *paths), by_source=True)
+    paths.update({CO._source_file(p.source): f"{case[0]} T={case[1]} table form"
+                  for case, p in zip(TABLE_CASES, table_forms)})
+    regs = ptxas(("witness.cu", "gather.cu", "hash.cu", "fold.cu", "ntt.cu", *paths),
+                 by_source=True)
+    print("ptxas, the column kernels (K1, K1 of an LDE, K2): " + json.dumps(
+        {k: v for k, v in regs["ntt.cu"].items() if "_pass" in k}), flush=True)
+    spills = [k for src in regs for k, v in regs[src].items() if "spill 0/0 B" not in v]
+    if spills:
+        raise AssertionError(f"ptxas: spills in {spills}")
     PTXAS.update(regs["hash.cu"])
     print("ptxas, K12, K13, K9, K15, K10 and K4-dyn: " + json.dumps(
         {k: v for src in ("witness.cu", "gather.cu", "hash.cu", "fold.cu")
@@ -3165,8 +3295,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     results = _Results()
     marks = [time.perf_counter()]
-    for check in (_check_ntt, _check_pad_scale, _check_fold, _check_forest, _check_sponge,
-                  _check_chained, _check_compose, _check_hash, _check_witness,
+    for check in (_check_ntt, _check_pad_scale, _check_lde_pass1, _check_fold, _check_forest,
+                  _check_sponge, _check_chained, _check_compose, _check_hash, _check_witness,
                   _check_split_gather):
         check(rng, dev, results)
         marks.append(time.perf_counter())
@@ -3220,11 +3350,13 @@ def main() -> int:
     from stark_tpu_torch.models.examples import mds_square_trace_cols_device
     from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
 
-    lazy_names = {"ntt_pass1_lazy", "ntt_pass2_lazy"}
-    strict_names = {"ntt_pass1", "ntt_pass2"}
+    lazy_names = {"ntt_pass1_lazy", "ntt_pass2_lazy", "ntt_pass1_lde_lazy"}
+    strict_names = {"ntt_pass1", "ntt_pass2", "ntt_pass1_lde"}
     # K4 runs on the host commit path (device_chain off), K8-forest only in
-    # batches of more than one proof.
-    elsewhere = {"fri_fold", "merkle_forest"}
+    # batches of more than one proof, K14 on the sharded path (and in
+    # coset_eval / coset_interp): the LDE's pad and scale ride in its pass 1.
+    elsewhere = {"fri_fold", "merkle_forest", "lde_pad_scale"}
+    sharded = f"dist gloo fib T=2^{DIST_T.bit_length() - 1} D={DIST_D}"
     every = set(cuda.KERNELS)
     launches: dict[str, dict[str, int]] = {}
 
@@ -3277,7 +3409,8 @@ def main() -> int:
     host_prover.prove(trace_cols=fib_cols())  # warm-up
     _, counts, _ = _prove_checked(
         name, host_prover, verifier, fib_cols, MAIN_SHA256,
-        every - lazy_names - {"mds_expand", "merkle_forest", "sponge_absorb", "fri_fold_dyn",
+        every - lazy_names - {"mds_expand", "merkle_forest", "lde_pad_scale", "sponge_absorb",
+                              "fri_fold_dyn",
                               "constraint_challenges", "sample_indices"},
         cuda)
     if counts["sponge_absorb"] or counts["fri_fold_dyn"] or counts["constraint_challenges"]:
@@ -3344,6 +3477,8 @@ def main() -> int:
             path = "fib_2^20_host_alpha"
         elif r["name"] == "merkle_forest":
             path = "batch8"
+        elif r["name"] == "lde_pad_scale":
+            path = sharded
         else:
             path = "fib_2^20"
         r["launches"] = launches[path][r["name"]]
@@ -3356,8 +3491,8 @@ def main() -> int:
 
     marks.append(time.perf_counter())
     print(f"chip_smoke: all phases passed in {marks[-1] - t_start:.1f} s (kernel "
-          "checks: ntt, pad_scale, fold, forest, sponge, chained (K15, K10, K11 fed "
-          "K15), compose, hash, witness, split gather, then the proofs and paths, then the "
+          "checks: ntt, pad_scale, lde pass 1, fold, forest, sponge, chained (K15, K10, K11 "
+          "fed K15), compose, hash, witness, split gather, then the proofs and paths, then the "
           "sharded forms and the distributed phase, "
           "then the API and the command line: "
           f"{[round(b - a, 1) for a, b in zip(marks, marks[1:])]} s); "

@@ -15,8 +15,8 @@
 //       boundary j reads, at offset 0;
 //   };
 // (the straight-line form), or, for an AIR too large for that, the same
-// constants, kTable = true and the tables that compose_point_table's loops
-// read (the table form, Step below);
+// constants, kTable = true, kSteps, kSlots, kThreads and the tables that
+// compose_points_table runs (the table form, Step below);
 // then includes this header's STARK_COMPOSE_ENTRY(Air).  Built with nvcc it
 // is the kernel with its C entry stark_compose; built with a host C++
 // compiler (field.cuh's host branch) it is stark_compose_host, the same
@@ -54,6 +54,16 @@
 // constraints sum products by constants, the generated body sums them
 // lazily in 64 bits (Lazy sums below; ops/compose.py generate_source): a
 // multiply-add a product, one reduction a sum.
+// The table form (an AIR whose straight-line body nvcc would take minutes
+// over) is bound by its steps: each costs a warp its decode, a dispatch
+// and its slot traffic besides the arithmetic of its 4 points, and a
+// small grid (N = 2^18: 1,024 blocks of 64) gives each scheduler few warps
+// to hide that latency with (PERF.md §6: 0.4 of its operations bound
+// at 1,024 and 3,632 distinct constraints on an H100 80GB HBM3 at 700 W).
+// Timed against it and not kept (tools/tune_kernels.py compose turns):
+// the form before (a slot a step in local memory, 3.2 times slower there)
+// and the straight-line form cut into __noinline__ pieces (1.4-1.5 times
+// slower there, and 80 s of nvcc at 3,632).
 // Tried on an H100 and not kept (PERF.md; tools/tune_kernels.py
 // compose_coset rebuilds it): exz, x^s_t and x^s_b computed in the kernel
 // from small tables and stepped from point to point, so that only the LDE
@@ -147,30 +157,55 @@ inline bool frame_ok(long long n, long long span) {
   return n >= 1 && (span == n ? (n & (n - 1)) == 0 : span > n);
 }
 
+// Alignment of a struct that the card loads in one access; a host compiler
+// takes the structs as they come.
+#ifdef __CUDACC__
+#define STARK_ALIGN(n) alignas(n)
+#else
+#define STARK_ALIGN(n)
+#endif
+
 // One term's weight words: a R^2, its companion, b R, its companion.  A
 // term is one 16-byte load on the card (the weights lie in device memory,
 // 16-byte aligned), where four 4-byte loads cost each thread four times
-// the instructions; a host compiler takes them as they come.
-#ifdef __CUDACC__
-#define STARK_WEIGHT_ALIGN alignas(16)
-#else
-#define STARK_WEIGHT_ALIGN
-#endif
-struct STARK_WEIGHT_ALIGN Weight {
+// the instructions.
+struct STARK_ALIGN(16) Weight {
   uint32_t a, a_shoup, b, b_shoup;
 };
 
 // An AIR in the table form (ops/compose.py generate_table_source; the
-// straight-line form of a large AIR takes nvcc minutes): its tape as
-// steps, slot q of a point holding step q's value, which a loop computes
-// from the frame, a constant or earlier slots; each transition
-// constraint's slot; the boundary constraints by row.
-enum StepOp : uint32_t { kStepIn, kStepConst, kStepAdd, kStepSub, kStepNeg, kStepMulConst,
-                         kStepMul };
-struct Step {
-  uint32_t op;
-  uint32_t a, b;     // slots read; an input's offset (two's complement) and register
-  uint32_t k, k_shoup;  // a constant, its Shoup companion
+// straight-line form of a large AIR takes nvcc minutes): a compact
+// interpreter.  Its tape is a stream of 8-byte steps that a rolled loop
+// runs for kTablePoints points a thread at once, so that one decode of a
+// step serves the arithmetic of every point.  A step reads at most two
+// slots and writes one, or, flagged kStepOut, adds its value as transition
+// term `dst` into the weighted sums at once (no constraint stays live).
+// The generator gives slots out by liveness, a slot freed after its last
+// reader, so a point needs the width of the tape's live set, not its
+// length; the slots lie in shared memory, slot q of thread t at q
+// kThreads + t, a 16-byte word of the thread's points: a warp's access is
+// 512 consecutive bytes, no two lanes on one bank.  The stream and its
+// constants are device memory that every thread of a block reads at the
+// same address (one load a warp), the next step loaded while this one
+// computes.
+enum StepOp : uint32_t {
+  kStepIn,     // dst = the frame at offset a (int16), register b
+  kStepConst,  // dst = constant b
+  kStepAdd,    // dst = a + b
+  kStepSub,    // dst = a - b
+  kStepNeg,    // dst = -a
+  kStepMulC,   // dst = a times constant b (a Shoup product)
+  kStepMul,    // dst = a b
+  kStepCopy,   // dst = a (with kStepOut: slot a is transition term dst)
+  kStepOut = 8,
+};
+// op | dst << 16 and a | b << 16: one 8-byte load.
+struct STARK_ALIGN(8) Step {
+  uint32_t op_dst, a_b;
+};
+// A constant and its Shoup companion.
+struct STARK_ALIGN(8) Constant {
+  uint32_t k, k_shoup;
 };
 // Boundary constraint `term` (among the boundaries): register `reg` at
 // offset 0 minus `value`.
@@ -178,57 +213,186 @@ struct BoundaryTerm {
   uint32_t term, reg, value;
 };
 
-// The codeword at point i of proof b, the table form: the same values and
-// sums as the straight-line form, in rolled loops, the slots in local
-// memory.
+constexpr int kTablePoints = 4;
+// A slot of one thread: its points' values, one 16-byte access.
+struct STARK_ALIGN(16) Lanes {
+  uint32_t v[kTablePoints];
+};
+
+// The codeword at points i[0..kTablePoints) of proof b, the table form:
+// the same values and sums as the straight-line form.  `s`: this thread's
+// slot 0, slot q at s[q stride].  Points past n (a block's ragged end)
+// compute point 0's values; the caller drops them.
 template <class Air>
-__device__ __forceinline__ uint32_t compose_point_table(const ComposeArgs& a,
-                                                        const Weight* w, int b,
-                                                        long long i) {
-  const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
-  uint32_t total = 0;
+__device__ __forceinline__ void compose_points_table(const ComposeArgs& a,
+                                                     const Weight* w, int b,
+                                                     const long long (&i)[kTablePoints],
+                                                     Lanes* s, int stride,
+                                                     uint32_t (&total)[kTablePoints]) {
+  constexpr int kP = kTablePoints;
+  const uint32_t* lde = a.lde + (long long)b * a.c * a.span;
+  // The frame value at `offset` of register `reg` for point j.
+  auto frame = [&](int j, int offset, int reg) {
+    return lde[reg * a.span + ((i[j] + (long long)offset * a.blowup) & a.mask)];
+  };
+#pragma unroll
+  for (int j = 0; j < kP; ++j) total[j] = 0;
   if constexpr (Air::kTransitions > 0) {
-    uint32_t s[Air::kSlots];
+    // The weighted sums, lazy in 64 bits: a term's value times its weight
+    // word (a R^2 or b R) added whole, folded every kLazyTerms terms;
+    // reduce64 takes R once, shoup_mul by R puts it back (below).
+    uint64_t sa[kP], sb[kP];
+    int terms = 0;
+#pragma unroll
+    for (int j = 0; j < kP; ++j) sa[j] = sb[j] = 0;
     const Step* steps = Air::steps();
+    const Constant* consts = Air::constants();
+    Step next = steps[0];  // the stream ends with a spare step
 #pragma unroll 1
-    for (int q = 0; q < Air::kSlots; ++q) {
-      const Step t = steps[q];
-      uint32_t x;
-      switch (t.op) {
-        case kStepIn: x = at((int)t.a, (int)t.b); break;
-        case kStepConst: x = t.k; break;
-        case kStepAdd: x = add_mod(s[t.a], s[t.b]); break;
-        case kStepSub: x = sub_mod(s[t.a], s[t.b]); break;
-        case kStepNeg: x = sub_mod(0u, s[t.a]); break;
-        case kStepMulConst: x = shoup_mul(s[t.a], t.k, t.k_shoup); break;
-        default: x = mul_mod(s[t.a], s[t.b]); break;
+    for (int q = 0; q < Air::kSteps; ++q) {
+      const Step t = next;
+      next = steps[q + 1];
+      const uint32_t op = t.op_dst & 0xffffu, dst = t.op_dst >> 16;
+      const uint32_t ia = t.a_b & 0xffffu, ib = t.a_b >> 16;
+      // The step's constant and weight words, loaded before its operands
+      // are decoded and computed, so that their latency overlaps it.
+      Constant kc{0u, 0u};
+      if ((op & (kStepOut - 1)) == kStepMulC || (op & (kStepOut - 1)) == kStepConst)
+        kc = consts[ib];
+      uint32_t wa = 0u, wb = 0u;
+      if (op & kStepOut) {
+        wa = w[dst].a;
+        wb = w[dst].b;
       }
-      s[q] = x;
+      Lanes x;
+      switch (op & (kStepOut - 1)) {
+        case kStepIn:
+#pragma unroll
+          for (int j = 0; j < kP; ++j) x.v[j] = frame(j, (int16_t)ia, (int)ib);
+          break;
+        case kStepConst: {
+#pragma unroll
+          for (int j = 0; j < kP; ++j) x.v[j] = kc.k;
+          break;
+        }
+        case kStepAdd: {
+          const Lanes u = s[ia * stride], v = s[ib * stride];
+#pragma unroll
+          for (int j = 0; j < kP; ++j) x.v[j] = add_mod(u.v[j], v.v[j]);
+          break;
+        }
+        case kStepSub: {
+          const Lanes u = s[ia * stride], v = s[ib * stride];
+#pragma unroll
+          for (int j = 0; j < kP; ++j) x.v[j] = sub_mod(u.v[j], v.v[j]);
+          break;
+        }
+        case kStepNeg: {
+          const Lanes u = s[ia * stride];
+#pragma unroll
+          for (int j = 0; j < kP; ++j) x.v[j] = sub_mod(0u, u.v[j]);
+          break;
+        }
+        case kStepMulC: {
+          const Lanes u = s[ia * stride];
+#pragma unroll
+          for (int j = 0; j < kP; ++j) x.v[j] = shoup_mul(u.v[j], kc.k, kc.k_shoup);
+          break;
+        }
+        case kStepMul: {
+          const Lanes u = s[ia * stride], v = s[ib * stride];
+#pragma unroll
+          for (int j = 0; j < kP; ++j) x.v[j] = mul_mod(u.v[j], v.v[j]);
+          break;
+        }
+        default:
+          x = s[ia * stride];
+      }
+      if (op & kStepOut) {
+        if (terms == kLazyTerms) {
+#pragma unroll
+          for (int j = 0; j < kP; ++j) {
+            sa[j] = fold64(sa[j]);
+            sb[j] = fold64(sb[j]);
+          }
+          terms = kFoldTerms;
+        }
+#pragma unroll
+        for (int j = 0; j < kP; ++j) {
+          sa[j] += (uint64_t)x.v[j] * wa;
+          sb[j] += (uint64_t)x.v[j] * wb;
+        }
+        ++terms;
+      } else {
+        s[dst * stride] = x;
+      }
     }
-    const int* out = Air::outputs();
-    uint32_t sa = 0, sb = 0;
+#pragma unroll
+    for (int j = 0; j < kP; ++j) {
+      const uint32_t ra = shoup_mul(reduce64(sa[j]), kR1, kR1Shoup);
+      const uint32_t rb = shoup_mul(reduce64(sb[j]), kR1, kR1Shoup);
+      total[j] = mont_mul(a.exz[i[j]], add_mod(mont_mul(a.xt[i[j]], ra), rb));
+    }
+  }
+  if constexpr (Air::kBoundaries > 0) {
+    const BoundaryTerm* terms = Air::boundaries();
+    const int* ends = Air::row_ends();
+    int jt = 0;
 #pragma unroll 1
+    for (int r = 0; r < Air::kRows; ++r) {
+      uint32_t sa[kP], sb[kP];
+#pragma unroll
+      for (int j = 0; j < kP; ++j) sa[j] = sb[j] = 0;
+#pragma unroll 1
+      for (; jt < ends[r]; ++jt) {
+        const BoundaryTerm t = terms[jt];
+        const Weight wt = w[Air::kTransitions + t.term];
+#pragma unroll
+        for (int j = 0; j < kP; ++j) {
+          const uint32_t d = sub_open(frame(j, 0, (int)t.reg), t.value);  // (0, 2p)
+          sa[j] = add_mod(sa[j], shoup_mul(d, wt.a, wt.a_shoup));
+          sb[j] = add_mod(sb[j], shoup_mul(d, wt.b, wt.b_shoup));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kP; ++j)
+        total[j] = add_mod(total[j], mont_mul(a.dinv[r * a.n + i[j]],
+                                              add_mod(mont_mul(a.xb[i[j]], sa[j]), sb[j])));
+    }
+  }
+}
+
+// The codeword at point i of proof b, the straight-line form; w: the
+// proof's kTerms weights.
+template <class Air>
+__device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
+                                                  const Weight* w, int b,
+                                                  long long i) {
+  const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
+  uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
+  uint32_t v[Air::kBoundaries > 0 ? Air::kBoundaries : 1];
+  Air::values(at, c, v);
+  uint32_t total = 0;
+  if (Air::kTransitions > 0) {
+    uint32_t sa = 0, sb = 0;
+#pragma unroll
     for (int k = 0; k < Air::kTransitions; ++k) {
-      const uint32_t ck = s[out[k]];
       const Weight wk = w[k];
-      sa = add_mod(sa, shoup_mul(ck, wk.a, wk.a_shoup));
-      sb = add_mod(sb, shoup_mul(ck, wk.b, wk.b_shoup));
+      sa = add_mod(sa, shoup_mul(c[k], wk.a, wk.a_shoup));
+      sb = add_mod(sb, shoup_mul(c[k], wk.b, wk.b_shoup));
     }
     total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], sa), sb));
   }
-  if constexpr (Air::kBoundaries > 0) {
+  if (Air::kBoundaries > 0) {
     const uint32_t xb = a.xb[i];
-    const BoundaryTerm* terms = Air::boundaries();
-    const int* ends = Air::row_ends();
-    int j = 0;
-#pragma unroll 1
+#pragma unroll
     for (int r = 0; r < Air::kRows; ++r) {
       uint32_t sa = 0, sb = 0;
-#pragma unroll 1
-      for (; j < ends[r]; ++j) {
-        const BoundaryTerm t = terms[j];
-        const uint32_t d = sub_open(at(0, (int)t.reg), t.value);  // (0, 2p)
-        const Weight wj = w[Air::kTransitions + t.term];
+#pragma unroll
+      for (int j = 0; j < Air::kBoundaries; ++j) {
+        if (Air::boundary_row(j) != r) continue;
+        const uint32_t d = sub_open(v[j], Air::boundary_value(j));  // (0, 2p)
+        const Weight wj = w[Air::kTransitions + j];
         sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
         sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
       }
@@ -239,47 +403,30 @@ __device__ __forceinline__ uint32_t compose_point_table(const ComposeArgs& a,
   return total;
 }
 
-// The codeword at point i of proof b; w: the proof's kTerms weights.
+// A block's threads and a thread's points: the straight-line form one
+// point a thread, the table form kTablePoints (its threads chosen by the
+// generator, so that the block's slots fit its shared memory).
+template <class Air, bool = Air::kTable>
+struct ComposeShape {
+  static constexpr int kThreads = 256, kPoints = 1;
+};
 template <class Air>
-__device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
-                                                  const Weight* w, int b,
-                                                  long long i) {
-  if constexpr (Air::kTable) {
-    return compose_point_table<Air>(a, w, b, i);
-  } else {
-    const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
-    uint32_t c[Air::kTransitions > 0 ? Air::kTransitions : 1];
-    uint32_t v[Air::kBoundaries > 0 ? Air::kBoundaries : 1];
-    Air::values(at, c, v);
-    uint32_t total = 0;
-    if (Air::kTransitions > 0) {
-      uint32_t sa = 0, sb = 0;
+struct ComposeShape<Air, true> {
+  static constexpr int kThreads = Air::kThreads, kPoints = kTablePoints;
+};
+
+// The table form's points of thread t of block x: x kThreads kPoints + t +
+// j kThreads, coalesced along N for each j; a point past n is computed as
+// point 0 (`inside` false) and not stored.
+template <class Air>
+__device__ __forceinline__ void table_points(long long first, long long n, int t,
+                                             long long (&i)[kTablePoints],
+                                             bool (&inside)[kTablePoints]) {
 #pragma unroll
-      for (int k = 0; k < Air::kTransitions; ++k) {
-        const Weight wk = w[k];
-        sa = add_mod(sa, shoup_mul(c[k], wk.a, wk.a_shoup));
-        sb = add_mod(sb, shoup_mul(c[k], wk.b, wk.b_shoup));
-      }
-      total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], sa), sb));
-    }
-    if (Air::kBoundaries > 0) {
-      const uint32_t xb = a.xb[i];
-#pragma unroll
-      for (int r = 0; r < Air::kRows; ++r) {
-        uint32_t sa = 0, sb = 0;
-#pragma unroll
-        for (int j = 0; j < Air::kBoundaries; ++j) {
-          if (Air::boundary_row(j) != r) continue;
-          const uint32_t d = sub_open(v[j], Air::boundary_value(j));  // (0, 2p)
-          const Weight wj = w[Air::kTransitions + j];
-          sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
-          sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
-        }
-        total = add_mod(total, mont_mul(a.dinv[r * a.n + i],
-                                        add_mod(mont_mul(xb, sa), sb)));
-      }
-    }
-    return total;
+  for (int j = 0; j < kTablePoints; ++j) {
+    const long long p = first + t + (long long)j * Air::kThreads;
+    inside[j] = p < n;
+    i[j] = inside[j] ? p : 0;
   }
 }
 
@@ -290,17 +437,57 @@ __device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
 
 namespace stark {
 
-constexpr int kComposeThreads = 256;
-
-// w: the weights of every proof of the launch, kTerms a proof.
+// w: the weights of every proof of the launch, kTerms a proof.  The table
+// form's slots: dynamic shared memory, kSlots kThreads Lanes.
 template <class Air>
-__global__ void __launch_bounds__(kComposeThreads)
+__global__ void __launch_bounds__(ComposeShape<Air>::kThreads)
     stark_compose_kernel(const __grid_constant__ ComposeArgs a,
                          const Weight* __restrict__ w) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
   const int b = blockIdx.y;
-  a.out[(long long)b * a.n + i] = compose_point<Air>(a, w + Air::kTerms * b, b, i);
+  if constexpr (Air::kTable) {
+    extern __shared__ uint4 smem[];
+    long long i[kTablePoints];
+    bool inside[kTablePoints];
+    table_points<Air>((long long)blockIdx.x * Air::kThreads * kTablePoints, a.n,
+                      threadIdx.x, i, inside);
+    uint32_t total[kTablePoints];
+    compose_points_table<Air>(a, w + Air::kTerms * b, b, i,
+                              reinterpret_cast<Lanes*>(smem) + threadIdx.x,
+                              Air::kThreads, total);
+#pragma unroll
+    for (int j = 0; j < kTablePoints; ++j)
+      if (inside[j]) a.out[(long long)b * a.n + i[j]] = total[j];
+  } else {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= a.n) return;
+    a.out[(long long)b * a.n + i] = compose_point<Air>(a, w + Air::kTerms * b, b, i);
+  }
+}
+
+// Launch K11 for AIR: its grid, and the table form's shared memory (past
+// 48 KB after the opt-in attribute, set once a device).
+template <class Air>
+int launch_compose(const ComposeArgs& a, const Weight* w, cudaStream_t stream) {
+  using Shape = ComposeShape<Air>;
+  const long long per_block = (long long)Shape::kThreads * Shape::kPoints;
+  const dim3 grid((unsigned)((a.n + per_block - 1) / per_block), (unsigned)a.proofs);
+  int smem = 0;
+  if constexpr (Air::kTable) {
+    smem = Air::kSlots * Air::kThreads * (int)sizeof(Lanes);
+    if (smem > 48 * 1024) {
+      static int ready = -1;  // the device the attribute was set for
+      int device = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess && device != ready) {
+        err = cudaFuncSetAttribute(stark_compose_kernel<Air>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err == cudaSuccess) ready = device;
+      }
+      if (err != cudaSuccess) return (int)err;
+    }
+  }
+  stark_compose_kernel<Air><<<grid, Shape::kThreads, smem, stream>>>(a, w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace stark
@@ -325,19 +512,45 @@ __global__ void __launch_bounds__(kComposeThreads)
       return (int)cudaErrorInvalidValue;                                      \
     if (reinterpret_cast<uintptr_t>(words) & 15)                              \
       return (int)cudaErrorMisalignedAddress;                                 \
-    const dim3 grid((unsigned)((n + stark::kComposeThreads - 1) /             \
-                               stark::kComposeThreads),                       \
-                    (unsigned)proofs);                                        \
-    stark::stark_compose_kernel<AIR><<<grid, stark::kComposeThreads, 0,       \
-                                       static_cast<cudaStream_t>(stream)>>>(  \
-        a, static_cast<const stark::Weight*>(words));                         \
-    return (int)cudaGetLastError();                                           \
+    return stark::launch_compose<AIR>(a, static_cast<const stark::Weight*>(words), \
+                                      static_cast<cudaStream_t>(stream));     \
   }                                                                           \
   extern "C" const char* stark_cuda_error_string(int code) {                  \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                \
   }
 
 #else  // a host compiler
+
+namespace stark {
+
+// The per-point function at every point of every proof, as the kernel
+// computes it: the table form kTablePoints points at a time, as one
+// thread of one block does, its slots in an array of its own.
+template <class Air>
+void compose_host(const ComposeArgs& a, const Weight* w) {
+  for (int b = 0; b < a.proofs; ++b) {
+    if constexpr (Air::kTable) {
+      static Lanes s[Air::kSlots > 0 ? Air::kSlots : 1];
+      for (long long first = 0; first < a.n;
+           first += (long long)Air::kThreads * kTablePoints) {
+        for (int t = 0; t < Air::kThreads; ++t) {
+          long long i[kTablePoints];
+          bool inside[kTablePoints];
+          table_points<Air>(first, a.n, t, i, inside);
+          uint32_t total[kTablePoints];
+          compose_points_table<Air>(a, w + Air::kTerms * b, b, i, s, 1, total);
+          for (int j = 0; j < kTablePoints; ++j)
+            if (inside[j]) a.out[(long long)b * a.n + i[j]] = total[j];
+        }
+      }
+    } else {
+      for (long long i = 0; i < a.n; ++i)
+        a.out[(long long)b * a.n + i] = compose_point<Air>(a, w + Air::kTerms * b, b, i);
+    }
+  }
+}
+
+}  // namespace stark
 
 #define STARK_COMPOSE_ENTRY(AIR)                                              \
   extern "C" int stark_compose_host(const uint32_t* lde, const uint32_t* exz, \
@@ -349,11 +562,7 @@ __global__ void __launch_bounds__(kComposeThreads)
     const stark::ComposeArgs a{lde, exz, xt, xb, dinv, out, n, c, blowup,     \
                                proofs, span, stark::frame_mask(n, span)};     \
     if (c != AIR::kRegisters || !stark::frame_ok(n, span)) return 1;          \
-    for (int b = 0; b < proofs; ++b)                                          \
-      for (long long i = 0; i < n; ++i)                                       \
-        out[(long long)b * n + i] = stark::compose_point<AIR>(                \
-            a, reinterpret_cast<const stark::Weight*>(words) + AIR::kTerms * b, \
-            b, i);                                                            \
+    stark::compose_host<AIR>(a, reinterpret_cast<const stark::Weight*>(words)); \
     return 0;                                                                 \
   }
 

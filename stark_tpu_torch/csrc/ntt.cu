@@ -109,10 +109,22 @@
 // columns that are multiples of 4; the padded 32 x 33 shared tile for the
 // rest.
 //
-// K14, after it, is the low-degree extension's zero pad and coset scale in
-// front of pass 1 (stark_tpu/ops/ntt.py lde's jnp.pad :189-195 and
-// _coset_scale_fwd :151-154, which XLA fuses into one elementwise pass on
-// the TPU): (rows, T) coefficients in, (rows, N) out, out[r, k] = c[r, k]
+// K1 of an LDE (stark_ntt_pass1_lde) is pass 1 with the low-degree
+// extension's zero pad and coset scale (stark_tpu/ops/ntt.py lde's jnp.pad
+// :189-195 and _coset_scale_fwd :151-154, which XLA fuses into one
+// elementwise pass on the TPU) in its first round: it reads an entry's T
+// coefficients as they stand (stride T), loads element e = i1 n2 + i2 of
+// the (n1, n2) view only where e < T and multiplies it by s^e = s^(n2 i1)
+// s^i2, two Shoup products by entries of two short tables (LdeInput); the
+// rest is zero and nothing is loaded.  At blowup 4 a quarter of the first
+// round's loads remain, and the (rows, N) padded array is neither written
+// nor read: one launch and 8 N bytes a row less than K14 then K1.  Its
+// registers are the column kernels' (below).
+//
+// K14, after it, is the same pad and scale as a kernel of its own, for the
+// other coset scales (ops/ntt.py coset_eval, coset_interp; the sharded
+// four-step's twiddles and shares, parallel/pntt.py):
+// (rows, T) coefficients in, (rows, N) out, out[r, k] = c[r, k]
 // s^k mod p for k < T and 0 for T <= k < N.  One thread a 16-byte word of
 // the output: below T it reads the coefficients' word and the word of the
 // powers s^k and of their Shoup companions (a (2, T) table the wrapper
@@ -123,8 +135,9 @@
 // A T under 4 takes the edge route, one element a thread.
 //
 // ptxas -v (sm_90a, CUDA 12, __launch_bounds__(1024); tools/tune_kernels.py
-// prints it): 64 registers for all four column kernels, 34 for the
-// transpose's vector route, 18 for its edge route; no spills, no stack.
+// prints it): 64 registers for all six column kernels (K1 of an LDE's two
+// among them), 34 for the transpose's vector route, 18 for its edge route;
+// no spills, no stack.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -176,6 +189,28 @@ __host__ __device__ inline int tile_word(int e, int pad_shift, int lg_tc) {
   return e + ((e >> pad_shift) << lg_tc);
 }
 
+// The LDE's input to pass 1 (stark_ntt_pass1_lde): an entry's T
+// coefficients, element e = row n2 + col of the (n1, n2) view read only
+// where e < T and scaled by s^e = s^(n2 row) s^col, the two powers from the
+// short tables rows (n1 pairs) and cols (n2 pairs), each a value and its
+// Shoup companion.  c0: the block's first column; limit = T - c0, the
+// bound of e - c0.
+struct LdeInput {
+  const uint2* rows;
+  const uint2* cols;
+  int c0;
+  int limit;
+};
+
+// y s^e for element e at (row, col): two Shoup products, s^(n2 row) then
+// s^col (tools/tune_kernels.py builds the design with one (T, 2) table of
+// s^e in place of the two, and times the two in turn).
+__device__ __forceinline__ uint32_t lde_scaled(uint32_t y, const LdeInput& lde,
+                                               int row, int col, int e) {
+  const uint2 r = lde.rows[row], k = lde.cols[col];
+  return shoup_mul(shoup_mul(y, r.x, r.y), k.x, k.y);
+}
+
 // One round of Q stages, the stages s0 .. s0 + Q - 1 of the column NTT, on
 // the block's tile.  With b_lo = lg_r - s0 - Q, a unit is the 2^Q rows
 // (hi << (b_lo + Q)) | (m << b_lo) | lo, m < 2^Q, of one column; unit u of
@@ -183,22 +218,24 @@ __host__ __device__ inline int tile_word(int e, int pad_shift, int lg_tc) {
 // rest.  Stage s0 + t pairs m with m + 2^(Q-1-t) and multiplies the
 // difference by tw[j << (s0 + t)], j the row's offset in its half block:
 // j = ((m mod 2^(Q-1-t)) << b_lo) | lo.
-// `first`: the elements come from x, and the block fills its twiddle pairs
-// twd from tw/tws while the first unit's loads are on their way; else they
-// come from the tile.  `last` (b_lo is 0 then): they go to out, row r at
-// r's bit-reversed place, through the pass's closing step, else back to the
-// tile.  x, out and wm point at the tile's first column of its batch entry.
+// `first`: the elements come from x (kLde: the LDE's coefficients, lde),
+// and the block fills its twiddle pairs twd from tw/tws while the first
+// unit's loads are on their way; else they come from the tile.  `last`
+// (b_lo is 0 then): they go to out, row r at r's bit-reversed place,
+// through the pass's closing step, else back to the tile.  x, out and wm
+// point at the tile's first column of its batch entry.
 // Every address is a base that the thread computes once for its unit plus
 // m times a pitch that is the same for the whole block: in the tile
 // because a unit's elements lie whole runs of padding apart (or, in the
 // last round, inside one run), in device memory because they lie whole
 // rows apart.
-template <int Q, bool kTwiddle, bool kLazy>
+template <int Q, bool kTwiddle, bool kLazy, bool kLde>
 __device__ __forceinline__ void ntt_round(
     const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     const uint32_t* __restrict__ wm, const uint32_t* __restrict__ tw,
     const uint32_t* __restrict__ tws, uint2* twd, uint32_t* tile, int lg_r,
-    int cols, int lg_tc, int pad_shift, int s0, bool first, bool last) {
+    int cols, int lg_tc, int pad_shift, int s0, bool first, bool last,
+    const LdeInput& lde) {
   constexpr int kM = 1 << Q;
   const int b_lo = lg_r - s0 - Q;
   const int units = 1 << (lg_r - Q + lg_tc);
@@ -222,7 +259,18 @@ __device__ __forceinline__ void ntt_round(
     uint32_t* cell = tile + tile_word((row0 << lg_tc) + c, pad_shift, lg_tc);
     uint32_t v[kM];
     if (mine) {
-      if (first) {
+      if (first && kLde) {
+        // Element e = c0 + src + m x_pitch of the coefficients, loaded
+        // only where e < T (lde.limit = T - c0) and scaled by s^e.
+        const uint32_t src = (uint32_t)row0 * cols + c;
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          const int e = (int)(src + m * x_pitch);
+          v[m] = e < lde.limit
+                     ? lde_scaled(x[e], lde, row0 + (m << b_lo), lde.c0 + c, lde.c0 + e)
+                     : 0u;
+        }
+      } else if (first) {
         const uint32_t src = (uint32_t)row0 * cols + c;
 #pragma unroll
         for (int m = 0; m < kM; ++m) v[m] = x[src + m * x_pitch];
@@ -285,19 +333,30 @@ __device__ __forceinline__ void ntt_round(
 // the 2^(lg_r - 1) powers of the column root and their Shoup companions.
 // wm: (2^lg_r, cols), read only when kTwiddle.  smem: the twiddle pairs,
 // then the tile.
-template <bool kTwiddle, bool kLazy>
+// kLde (pass 1 of an LDE): x is (batch, T) coefficients, T = 2^lg_t, with
+// the scale tables rows/cols (LdeInput).
+template <bool kTwiddle, bool kLazy, bool kLde = false>
 __device__ __forceinline__ void col_ntt(const uint32_t* __restrict__ x,
                                         uint32_t* __restrict__ out,
                                         const uint32_t* __restrict__ tw,
                                         const uint32_t* __restrict__ tws,
                                         const uint32_t* __restrict__ wm,
                                         int lg_r, int cols, int lg_tc,
-                                        int pad_shift, uint32_t* smem) {
+                                        int pad_shift, uint32_t* smem,
+                                        const uint2* __restrict__ rows = nullptr,
+                                        const uint2* __restrict__ scols = nullptr,
+                                        int lg_t = 0) {
   uint2* twd = reinterpret_cast<uint2*>(smem);
   uint32_t* tile = smem + (1 << lg_r);  // after the 2^(lg_r - 1) pairs
   const size_t c0 = (size_t)blockIdx.x << lg_tc;
   const size_t base = (size_t)blockIdx.y * ((size_t)cols << lg_r) + c0;
-  x += base;
+  LdeInput lde{rows, scols, (int)c0, 0};
+  if (kLde) {
+    x += ((size_t)blockIdx.y << lg_t) + c0;
+    lde.limit = (1 << lg_t) - (int)c0;
+  } else {
+    x += base;
+  }
   out += base;
   if (kTwiddle) wm += c0;
 
@@ -309,20 +368,20 @@ __device__ __forceinline__ void col_ntt(const uint32_t* __restrict__ x,
     const bool last = r == rounds.count - 1;
     switch (q) {
       case 1:
-        ntt_round<1, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
-                                      cols, lg_tc, pad_shift, s0, first, last);
+        ntt_round<1, kTwiddle, kLazy, kLde>(x, out, wm, tw, tws, twd, tile, lg_r, cols,
+                                            lg_tc, pad_shift, s0, first, last, lde);
         break;
       case 2:
-        ntt_round<2, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
-                                      cols, lg_tc, pad_shift, s0, first, last);
+        ntt_round<2, kTwiddle, kLazy, kLde>(x, out, wm, tw, tws, twd, tile, lg_r, cols,
+                                            lg_tc, pad_shift, s0, first, last, lde);
         break;
       case 3:
-        ntt_round<3, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
-                                      cols, lg_tc, pad_shift, s0, first, last);
+        ntt_round<3, kTwiddle, kLazy, kLde>(x, out, wm, tw, tws, twd, tile, lg_r, cols,
+                                            lg_tc, pad_shift, s0, first, last, lde);
         break;
       default:
-        ntt_round<4, kTwiddle, kLazy>(x, out, wm, tw, tws, twd, tile, lg_r,
-                                      cols, lg_tc, pad_shift, s0, first, last);
+        ntt_round<4, kTwiddle, kLazy, kLde>(x, out, wm, tw, tws, twd, tile, lg_r, cols,
+                                            lg_tc, pad_shift, s0, first, last, lde);
     }
     s0 += q;
     if (!last) __syncthreads();
@@ -337,6 +396,30 @@ int pad_shift_of(int lg_r, int lg_tc) {
              : kNoPad;
 }
 
+// A column pass's grid and shared memory (its tile, padded, after the
+// twiddle pairs), the attribute set past 48 KB; or an error code.
+template <class Kernel>
+int col_ntt_shape(Kernel kernel, int batch, int lg_r, int cols, int lg_tc,
+                  int threads, dim3* grid, int* smem, int* pad_shift) {
+  if (lg_r < 1 || lg_r > kMaxLgR || lg_tc < 0 || lg_r + lg_tc > 20 ||
+      batch < 1 || cols < 1 || cols > (1 << (31 - lg_r)) ||
+      (cols & ((1 << lg_tc) - 1)) || threads < 32 ||
+      threads > kMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  *pad_shift = pad_shift_of(lg_r, lg_tc);
+  const long long words =
+      (1LL << lg_r) + tile_word(1 << (lg_r + lg_tc), *pad_shift, lg_tc);
+  if (words * 4 > kSmemMax) return (int)cudaErrorInvalidValue;
+  *smem = (int)words * 4;
+  if (*smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *grid = dim3((unsigned)(cols >> lg_tc), (unsigned)batch);
+  return 0;
+}
+
 using ColNttKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
                               const uint32_t*, const uint32_t*, int, int, int,
                               int);
@@ -344,26 +427,41 @@ using ColNttKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
 int launch_col_ntt(ColNttKernel kernel, const void* x, void* out,
                    const void* tw, const void* tws, const void* wm, int batch,
                    int lg_r, int cols, int lg_tc, int threads, void* stream) {
-  if (lg_r < 1 || lg_r > kMaxLgR || lg_tc < 0 || lg_r + lg_tc > 20 ||
-      batch < 1 || cols < 1 || cols > (1 << (31 - lg_r)) ||
-      (cols & ((1 << lg_tc) - 1)) || threads < 32 ||
-      threads > kMaxThreads || threads % 32)
-    return (int)cudaErrorInvalidValue;
-  const int pad_shift = pad_shift_of(lg_r, lg_tc);
-  const long long words =
-      (1LL << lg_r) + tile_word(1 << (lg_r + lg_tc), pad_shift, lg_tc);
-  if (words * 4 > kSmemMax) return (int)cudaErrorInvalidValue;
-  const int smem = (int)words * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((unsigned)(cols >> lg_tc), (unsigned)batch);
+  dim3 grid;
+  int smem = 0, pad_shift = 0;
+  const int err = col_ntt_shape(kernel, batch, lg_r, cols, lg_tc, threads,
+                                &grid, &smem, &pad_shift);
+  if (err) return err;
   kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
       static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(tws),
       static_cast<const uint32_t*>(wm), lg_r, cols, lg_tc, pad_shift);
+  return (int)cudaGetLastError();
+}
+
+using LdePassKernel = void (*)(const uint32_t*, uint32_t*, const uint32_t*,
+                               const uint32_t*, const uint32_t*, const uint2*,
+                               const uint2*, int, int, int, int, int);
+
+// Pass 1 of an LDE: x (batch, 2^lg_t) coefficients, scale the (2^lg_r +
+// cols) pairs of LdeInput's rows then cols.
+int launch_lde_pass1(LdePassKernel kernel, const void* x, void* out,
+                     const void* tw, const void* tws, const void* wm,
+                     const void* scale, int batch, int lg_r, int cols,
+                     int lg_tc, int threads, int lg_t, void* stream) {
+  if (lg_t < 0 || (1LL << lg_t) > ((long long)cols << lg_r))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid;
+  int smem = 0, pad_shift = 0;
+  const int err = col_ntt_shape(kernel, batch, lg_r, cols, lg_tc, threads,
+                                &grid, &smem, &pad_shift);
+  if (err) return err;
+  const uint2* rows = static_cast<const uint2*>(scale);
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
+      static_cast<const uint32_t*>(tw), static_cast<const uint32_t*>(tws),
+      static_cast<const uint32_t*>(wm), rows, rows + (1 << lg_r), lg_r, cols,
+      lg_tc, pad_shift, lg_t);
   return (int)cudaGetLastError();
 }
 
@@ -399,6 +497,25 @@ STARK_COL_NTT_KERNEL(stark_ntt_pass2_kernel, false, false)
 STARK_COL_NTT_KERNEL(stark_ntt_pass2_lazy_kernel, false, true)
 
 #undef STARK_COL_NTT_KERNEL
+
+// Pass 1 of an LDE (K1 with K14's pad and scale in its first round).
+#define STARK_LDE_PASS1_KERNEL(NAME, LAZY)                                     \
+  __global__ void __launch_bounds__(kMaxThreads)                              \
+      NAME(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,        \
+           const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tws, \
+           const uint32_t* __restrict__ wm, const uint2* __restrict__ rows,   \
+           const uint2* __restrict__ scols, int lg_r, int cols, int lg_tc,    \
+           int pad_shift, int lg_t) {                                         \
+    extern __shared__ uint4 smem[];                                           \
+    col_ntt<true, LAZY, true>(x, out, tw, tws, wm, lg_r, cols, lg_tc,          \
+                              pad_shift, reinterpret_cast<uint32_t*>(smem),   \
+                              rows, scols, lg_t);                             \
+  }
+
+STARK_LDE_PASS1_KERNEL(stark_ntt_pass1_lde_kernel, false)
+STARK_LDE_PASS1_KERNEL(stark_ntt_pass1_lde_lazy_kernel, true)
+
+#undef STARK_LDE_PASS1_KERNEL
 
 // K3, the vector route: (batch, rows, cols) -> (batch, cols, rows) with rows
 // and cols multiples of 4 and x, out 16-byte aligned.  A thread reads a 4 x
@@ -471,6 +588,28 @@ int stark_ntt_pass1_lazy(const void* x, void* out, const void* tw,
                          int cols, int lg_tc, int threads, void* stream) {
   return launch_col_ntt(stark_ntt_pass1_lazy_kernel, x, out, tw, tws, wm,
                         batch, lg_r, cols, lg_tc, threads, stream);
+}
+
+// K1 of an LDE: the column NTTs of (batch, 2^lg_r, cols) rows whose first
+// T = 2^lg_t elements are an entry's coefficients x (batch, T) times s^e,
+// the rest zeros, times wm; `scale`: LdeInput's tables, 2^lg_r + cols pairs.
+int stark_ntt_pass1_lde(const void* x, void* out, const void* tw,
+                        const void* tws, const void* wm, const void* scale,
+                        int batch, int lg_r, int cols, int lg_tc, int threads,
+                        int lg_t, void* stream) {
+  return launch_lde_pass1(stark_ntt_pass1_lde_kernel, x, out, tw, tws, wm,
+                          scale, batch, lg_r, cols, lg_tc, threads, lg_t,
+                          stream);
+}
+
+// The same, lazy butterflies: the same function, bit for bit.
+int stark_ntt_pass1_lde_lazy(const void* x, void* out, const void* tw,
+                             const void* tws, const void* wm,
+                             const void* scale, int batch, int lg_r, int cols,
+                             int lg_tc, int threads, int lg_t, void* stream) {
+  return launch_lde_pass1(stark_ntt_pass1_lde_lazy_kernel, x, out, tw, tws,
+                          wm, scale, batch, lg_r, cols, lg_tc, threads, lg_t,
+                          stream);
 }
 
 // K2: (batch, 2^lg_r, cols) column NTTs.

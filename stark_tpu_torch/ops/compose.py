@@ -13,8 +13,10 @@ tape, :func:`generate_source` writes it as a C++ function of one point
 by constants one lazy 64-bit sum of its linear form, reduced once; any
 other product by a constant a Shoup product with its companion computed
 here; an AIR whose straight-line body would run past :data:`TABLE_LINES`
-lines, which nvcc takes minutes over, is written instead as tables that a
-loop in csrc/compose.cuh runs: the table form, a step a node), and
+lines, which nvcc takes minutes over, is written instead as a stream of
+8-byte steps that a compact interpreter in csrc/compose.cuh runs, 4 points
+a thread, its slots given out by liveness (:class:`TableForm`: the table
+form), and
 csrc/compose.cuh adds what no AIR changes: the frame loads, the zerofier
 factor, the boundary quotients, the weights and the sum, over a (B, c, N)
 grid.  The generated source goes into ``stark_tpu_torch/_build/`` and is
@@ -31,7 +33,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import heapq
 import os
+import threading
 import time
 
 import numpy as np
@@ -76,8 +80,18 @@ OPS_WIDE, OPS_FOLD, OPS_REDUCE = 1, 1, 6
 #: whose kernel ran 2.1-9.3 times slower at the paths' AIRs: the limit
 #: keeps a straight-line build near 10 s.
 TABLE_LINES = 2048
-#: csrc/compose.cuh's Step ops, in its order.
-STEP_OPS = ("in", "const", "add", "sub", "neg", "mulc", "mul")
+#: csrc/compose.cuh's Step ops, in its order, and the flag of a step whose
+#: value is a transition term.
+STEP_OPS = ("in", "const", "add", "sub", "neg", "mulc", "mul", "copy")
+STEP_OUT = 8
+#: Spare steps after a stream's last (csrc/compose.cuh loads one ahead).
+SPARE_STEPS = 1
+#: A table-form block's threads, the first of these whose slots (16 bytes
+#: a thread a slot: csrc/compose.cuh kTablePoints points) fit TABLE_SMEM,
+#: the shared memory a block may take (PERF.md §6: tools/tune_kernels.py
+#: compose turns times 128 and 256 beside it).
+TABLE_THREADS = (64, 32)
+TABLE_SMEM = 227 * 1024
 
 
 def shoup(w: np.ndarray) -> np.ndarray:
@@ -158,6 +172,8 @@ class ComposeProgram:
         self.terms = self.transitions + len(self.boundary)
         self.source, self.body_operations, self.lines = generate_source(self)
         self.table = self.lines > TABLE_LINES if table is None else table
+        #: The table form's step stream (:class:`TableForm`), or None.
+        self.form = TableForm(self.tape) if self.table else None
         if self.table:
             self.source, self.body_operations = generate_table_source(self)
         self.sha256 = hashlib.sha256(self.source.encode()).hexdigest()
@@ -339,45 +355,137 @@ def generate_source(program: ComposeProgram) -> tuple[str, int, int]:
     return source, ops, lines
 
 
+class TableForm:
+    """The table form's step stream (csrc/compose.cuh Step), as the
+    generator writes it and the kernel runs it: ``steps`` (S + SPARE_STEPS,
+    4) int64 rows (op, dst, a, b) in order (:data:`STEP_OPS`; an output's
+    op or'ed with :data:`STEP_OUT`, its dst then the transition term's
+    index), then a spare step that the kernel's prefetch reads and never
+    runs; ``constants`` the values that steps name by index; ``slots`` the
+    slots a point needs (the live set's widest point); ``threads`` a
+    block's threads, the first of :data:`TABLE_THREADS` whose slots fit
+    :data:`TABLE_SMEM`; ``operations`` the steps' per point."""
+
+    def __init__(self, tape):
+        order = _table_order(tape)
+        index: dict[int, int] = {}        # constant value -> its index
+        constants: list[int] = []
+
+        def const(v: int) -> int:
+            if v not in index:
+                index[v] = len(constants)
+                constants.append(v)
+            return index[v]
+
+        # Each value's last reader; then the slots by a linear scan: a
+        # step's operands whose last reader it is are freed before its own
+        # value takes the lowest free slot.
+        reads = [[j] if copy else _operands(tape, j) for j, _, copy in order]
+        last = {x: q for q, rd in enumerate(reads) for x in rd}
+        free: list[int] = []
+        slot: dict[int, int] = {}
+        rows, ops = [], 0
+        for q, (j, term, copy) in enumerate(order):
+            operand = [slot[x] for x in reads[q]]
+            for x in set(reads[q]):
+                if last[x] == q:
+                    heapq.heappush(free, slot.pop(x))
+            node, a, b = tape.nodes[j], 0, 0
+            op = node[0]
+            if copy:
+                op, a = "copy", operand[0]
+            elif op == "const":
+                b = const(node[1])
+            elif op == "in":
+                a, b = node[1] & 0xFFFF, node[2]
+            elif op in ("add", "sub", "neg"):
+                a, b = operand[0], operand[-1]
+                ops += OPS_ADD
+            else:
+                factor = [tape.const_value(x) for x in node[1:]
+                          if tape.const_value(x) is not None]
+                if factor:                              # a product by a constant
+                    op, a, b = "mulc", operand[0], const(factor[0])
+                    ops += OPS_SHOUP
+                else:
+                    a, b = operand[0], operand[-1]
+                    ops += OPS_MUL
+            if term is not None:
+                rows.append((STEP_OPS.index(op) | STEP_OUT, term, a, b))
+            else:
+                slot[j] = heapq.heappop(free) if free else len(slot) + len(free)
+                rows.append((STEP_OPS.index(op), slot[j], a, b))
+        if len(tape.outputs) >= 1 << 16 or len(constants) >= 1 << 16:
+            raise ValueError(f"{len(tape.outputs)} transitions, {len(constants)} constants: "
+                             "a step names at most 65,535")
+        self.steps = np.asarray(rows + [(STEP_OPS.index("copy"), 0, 0, 0)] * SPARE_STEPS,
+                                dtype=np.int64)
+        self.constants = constants
+        self.slots = max((r[1] + 1 for r in rows if not r[0] & STEP_OUT), default=0)
+        self.operations = ops
+        fits = [t for t in TABLE_THREADS if self.slots * t * 16 <= TABLE_SMEM]
+        if not fits:
+            raise ValueError(f"the table form's point holds {self.slots} live values, at "
+                             f"most {TABLE_SMEM // (16 * TABLE_THREADS[-1])}")
+        self.threads = fits[0]
+
+
+def _operands(tape, j: int) -> list[int]:
+    """The nodes whose values node j's step reads from slots: an addition's,
+    subtraction's or negation's operands, a product's but a constant
+    factor (a square's one operand once)."""
+    node = tape.nodes[j]
+    if node[0] in ("add", "sub", "neg"):
+        return list(node[1:])
+    if node[0] == "mul":
+        return [x for x in dict.fromkeys(node[1:]) if tape.const_value(x) is None]
+    return []
+
+
+def _table_order(tape) -> list[tuple[int, int | None, bool]]:
+    """The table form's steps in order, as (node, term, copy): the live
+    nodes that need a value in tape order, each frame input and constant
+    (a constant only where a step reads it from a slot or it is an output:
+    a product by a constant names it) just before its first reader.  A
+    node that is one output and read by no step carries it (term its
+    index); any other output's node keeps a slot, and a copy step (copy
+    True) right after it adds each of its terms."""
+    terms: dict[int, list[int]] = {}
+    for k, j in enumerate(tape.outputs):
+        terms.setdefault(j, []).append(k)
+    readers: dict[int, int] = {}
+    for j in tape.live():
+        for x in _operands(tape, j):
+            readers[x] = readers.get(x, 0) + 1
+    order: list = []
+    placed: set = set()
+
+    def place(j):
+        if j in placed:
+            return
+        placed.add(j)
+        for x in _operands(tape, j):
+            place(x)
+        ks = terms.get(j, [])
+        if len(ks) == 1 and not readers.get(j):
+            order.append((j, ks[0], False))
+        else:
+            order.append((j, None, False))
+            order.extend((j, k, True) for k in ks)
+
+    for j in tape.live():
+        if tape.nodes[j][0] not in ("in", "const") or j in terms:
+            place(j)
+    return order
+
+
 def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
     """The AIR's C++ source in the table form, and the operations per
-    point of its steps: a step a live node of the tape that needs a value
-    (csrc/compose.cuh Step; a constant only where an addition, subtraction
-    or output reads it, a product by a constant one step with the constant
-    and its Shoup companion), the slot of each transition constraint, and
-    the boundary constraints by row, as arrays in device memory that
-    compose.cuh's loops read.  The same values as the straight-line form."""
-    tape, air = program.tape, program.air
-    live = tape.live()
-    read = set(tape.outputs)
-    for j in live:
-        node = tape.nodes[j]
-        if node[0] in ("add", "sub"):
-            read.update(node[1:])
-    slot, steps, ops = {}, [], 0
-    for j in live:
-        node = tape.nodes[j]
-        op = node[0]
-        c = tape.const_value(j)
-        if c is not None:
-            if j not in read:
-                continue
-            step = ("const", 0, 0, c)
-        elif op == "in":
-            step = ("in", node[1], node[2], 0)
-        elif op == "neg":
-            step, ops = ("neg", slot[node[1]], 0, 0), ops + OPS_ADD
-        elif op in ("add", "sub"):
-            step, ops = (op, slot[node[1]], slot[node[2]], 0), ops + OPS_ADD
-        else:
-            ca, cb = tape.const_value(node[1]), tape.const_value(node[2])
-            if ca is not None or cb is not None:
-                x, w = (node[2], ca) if ca is not None else (node[1], cb)
-                step, ops = ("mulc", slot[x], 0, w), ops + OPS_SHOUP
-            else:
-                step, ops = ("mul", slot[node[1]], slot[node[2]], 0), ops + OPS_MUL
-        slot[j] = len(steps)
-        steps.append(step)
+    point of its steps: the step stream of :class:`TableForm`, its
+    constants, and the boundary constraints by row, as arrays in device
+    memory that compose.cuh's loops read.  The same values as the
+    straight-line form."""
+    air, form = program.air, program.form
     by_row = sorted(range(len(program.boundary)), key=lambda j: program.groups[j])
     ends = np.cumsum(np.bincount(np.asarray(program.groups, dtype=np.int64),
                                  minlength=len(program.rows)))
@@ -387,8 +495,9 @@ def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
         return [f"__device__ const {ctype} {name}[{max(len(items), 1)}] = {{",
                 *(f"    {r}," for r in rows), "};"]
 
-    step_items = [f"{{{STEP_OPS.index(op)}u, {a % (1 << 32)}u, {b}u, {k}u, {int(shoup(k))}u}}"
-                  for op, a, b, k in steps]
+    step_items = [f"{{{op | dst << 16}u, {a | b << 16}u}}" for op, dst, a, b in
+                  form.steps.tolist()]
+    const_items = [f"{{{k}u, {int(shoup(k))}u}}" for k in form.constants]
     bound_items = [f"{{{j}u, {int(program.boundary[j].register)}u, "
                    f"{int(program.boundary[j].value) % P}u}}" for j in by_row]
     source = "\n".join([
@@ -399,8 +508,8 @@ def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
         "",
         "namespace stark_air {",
         "",
-        *array("stark::Step", "kSteps", step_items),
-        *array("int", "kOutputs", [str(slot[j]) for j in tape.outputs]),
+        *array("stark::Step", "kStream", step_items),
+        *array("stark::Constant", "kConstants", const_items),
         *array("stark::BoundaryTerm", "kBoundaryTerms", bound_items),
         *array("int", "kRowEnds", [str(int(e)) for e in ends]),
         "",
@@ -411,9 +520,13 @@ def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
         f"  static constexpr int kRows = {len(program.rows)};",
         f"  static constexpr int kTerms = {program.terms};",
         "  static constexpr bool kTable = true;",
-        f"  static constexpr int kSlots = {len(steps)};",
-        "  __device__ __forceinline__ static const stark::Step* steps() { return kSteps; }",
-        "  __device__ __forceinline__ static const int* outputs() { return kOutputs; }",
+        f"  static constexpr int kSteps = {len(form.steps) - SPARE_STEPS};",
+        f"  static constexpr int kSlots = {form.slots};",
+        f"  static constexpr int kThreads = {form.threads};",
+        "  __device__ __forceinline__ static const stark::Step* steps() { return kStream; }",
+        "  __device__ __forceinline__ static const stark::Constant* constants() {",
+        "    return kConstants;",
+        "  }",
         "  __device__ __forceinline__ static const stark::BoundaryTerm* boundaries() {",
         "    return kBoundaryTerms;",
         "  }",
@@ -425,15 +538,17 @@ def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
         "STARK_COMPOSE_ENTRY(stark_air::Air)",
         "",
     ])
-    return source, ops
+    return source, form.operations
 
 
 def _source_file(source: str) -> str:
-    """The generated source, written once into the build directory."""
+    """The generated source, written once into the build directory (a
+    private temporary name for each process and thread: two AIRs can
+    generate one source, and threads build side by side)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"compose-{hashlib.sha256(source.encode()).hexdigest()[:16]}.cu")
     if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         with open(tmp, "w") as f:
             f.write(source)
         os.replace(tmp, path)

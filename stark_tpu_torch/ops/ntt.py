@@ -9,9 +9,10 @@ coset domains):
     coset_interp(vals)    == interpolate_domain(off * omega^i, vals)
 
 Every transform goes through the four-step kernels of ops/ntt_fused.py
-(their plain versions on a CPU tensor); the LDE's zero pad and every coset
-scale are kernel K14 (csrc/ntt.cu ``stark_lde_pad_scale``, :func:`pad_scale`;
-its plain version :func:`pad_scale_plain` on a CPU tensor).  ``lazy`` picks
+(their plain versions on a CPU tensor); the LDE's zero pad and coset scale
+ride in its pass 1 (ntt_fused.fused_lde), and every other coset scale is
+kernel K14 (csrc/ntt.cu ``stark_lde_pad_scale``, :func:`pad_scale`; its
+plain version :func:`pad_scale_plain` on a CPU tensor).  ``lazy`` picks
 the kernels' [0, 2p) butterflies (bit-identical output); strict is the
 default, as in the JAX package.  The host numpy engine at the bottom serves
 the verifier's tiny last-codeword check (fri.rs:360-397 replacement), which
@@ -142,10 +143,11 @@ def lde(coeffs: torch.Tensor, blowup: int, offset: int,
         lazy: bool = False) -> torch.Tensor:
     """Low-degree extension: zero-pad coeffs (..., n) to n*blowup and
     evaluate on the size-(n*blowup) coset {offset * Omega^i}: the pad and
-    the scale one K14 launch for all the leading axes' rows, then the NTT."""
+    the scale in the first round of K1 of an LDE (ntt_fused.fused_lde),
+    for all the leading axes' rows at once, then K3 and K2."""
     n = coeffs.shape[-1]
     assert blowup & (blowup - 1) == 0
-    return ntt(_pad_scaled(coeffs, n * blowup, offset), lazy)
+    return NTF.fused_lde(coeffs, n * blowup, offset % P, lazy)
 
 
 # ---------------------------------------------------------------------------

@@ -99,6 +99,17 @@ PASS2_LAZY = cuda.Kernel(
     "ntt_pass2_lazy", "stark_ntt_pass2_lazy", PASS2.argtypes,
     source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:409",
 )
+#: K1 of a low-degree extension: the zero pad and coset scale of
+#: stark_tpu/ops/ntt.py lde (:189-195, _coset_scale_fwd :151) in pass 1's
+#: first round.
+PASS1_LDE = cuda.Kernel(
+    "ntt_pass1_lde", "stark_ntt_pass1_lde", [cuda.ptr] * 6 + [cuda.i32] * 6,
+    source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:383",
+)
+PASS1_LDE_LAZY = cuda.Kernel(
+    "ntt_pass1_lde_lazy", "stark_ntt_pass1_lde_lazy", PASS1_LDE.argtypes,
+    source=_SRC, replaces="stark_tpu/ops/ntt_fused.py:383",
+)
 
 
 def _root(n: int, inverse: bool) -> int:
@@ -342,6 +353,40 @@ def pass1_plain(x3: torch.Tensor, plan: FusedNTTPlan,
     return _mont_mul_plain(y, plan.wm.long()).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=32)
+def lde_scale(n: int, s: int, device: torch.device) -> torch.Tensor:
+    """(n1 + n2, 2) int32 on ``device``, for an LDE onto n points with the
+    scale s: s^(n2 r) for r < n1, then s^col for col < n2, each beside its
+    Shoup companion (csrc/ntt.cu LdeInput: s^e = s^(n2 r) s^col for
+    element e = r n2 + col), built on the host once per (n, s, device)."""
+    n1 = 1 << (n.bit_length() - 1) // 2                       # FusedNTTPlan's split
+    n2 = n // n1
+    w = np.concatenate([F.host_powers(pow(s, n2, P), n1), F.host_powers(s, n2)])
+    return torch.from_numpy(np.stack([w, F.shoup_precompute(w)], axis=1).view(
+        np.int32)).to(device)
+
+
+def lde_input_plain(c: torch.Tensor, plan: FusedNTTPlan, s: int) -> torch.Tensor:
+    """(B, T) coefficients in [0, p) -> (B, n1, n2) int64: pass 1's input
+    as the LDE's first round loads it: element e = i1 n2 + i2 is c[e] s^(n2
+    i1) s^i2 where e < T (two products by the scale tables' entries), 0
+    elsewhere."""
+    b, t = c.shape
+    table = lde_scale(plan.n, s % P, c.device).long()
+    rows, cols = table[: plan.n1, 0], table[plan.n1 :, 0]
+    e = (torch.arange(plan.n1, device=c.device)[:, None] * plan.n2
+         + torch.arange(plan.n2, device=c.device))
+    inside = e < t
+    y = c.long()[:, e.clamp(max=t - 1)] * rows[:, None] % P * cols % P
+    return torch.where(inside, y, torch.zeros_like(y))
+
+
+def pass1_lde_plain(c: torch.Tensor, plan: FusedNTTPlan, s: int,
+                    lazy: bool = False) -> torch.Tensor:
+    """K1 of an LDE, plain: its first round's input, then pass 1."""
+    return pass1_plain(lde_input_plain(c, plan, s), plan, lazy)
+
+
 def transpose_plain(y3: torch.Tensor) -> torch.Tensor:
     return y3.transpose(1, 2).contiguous()
 
@@ -407,6 +452,29 @@ def ntt_pass1(x3: torch.Tensor, plan: FusedNTTPlan,
     return out
 
 
+def ntt_pass1_lde(c: torch.Tensor, plan: FusedNTTPlan, s: int,
+                  lazy: bool = False) -> torch.Tensor:
+    """K1 of an LDE on (B, T) int32 coefficients, T a power of two <=
+    plan.n: the (B, n1, n2) pass 1 of their zero pad to n, each entry e < T
+    times s^e."""
+    if c.dim() != 2:
+        raise ValueError(f"expected (B, T), got {tuple(c.shape)}")
+    b, t = c.shape
+    if t & (t - 1) or not 1 <= t <= plan.n or plan.inverse:
+        raise ValueError(f"T = {t} coefficients into a forward plan of {plan.n}")
+    if c.device.type == "cpu":
+        return pass1_lde_plain(c, plan, s, lazy)
+    cuda.check_operand(c, "c")
+    scale = lde_scale(plan.n, s % P, c.device)
+    out = torch.empty((b, plan.n1, plan.n2), dtype=torch.int32, device=c.device)
+    (PASS1_LDE_LAZY if lazy else PASS1_LDE).launch(
+        c.device, c.data_ptr(), out.data_ptr(), plan.tw1.data_ptr(),
+        plan.tw1_shoup.data_ptr(), plan.wm.data_ptr(), scale.data_ptr(), b, plan.lg1,
+        plan.n2, *_launch_shape(plan.lg1, plan.n2, b), t.bit_length() - 1,
+    )
+    return out
+
+
 def ntt_transpose(y3: torch.Tensor) -> torch.Tensor:
     """K3: (B, r, c) int32 -> (B, c, r)."""
     if y3.dim() != 3:
@@ -451,3 +519,17 @@ def fused_ntt(x: torch.Tensor, inverse: bool = False,
     x3 = x.reshape(-1, plan.n1, plan.n2).contiguous()
     z = ntt_pass2(ntt_transpose(ntt_pass1(x3, plan, lazy)), plan, lazy)
     return z.reshape(x.shape)
+
+
+def fused_lde(x: torch.Tensor, n: int, s: int, lazy: bool = False) -> torch.Tensor:
+    """(..., T) int32 coefficients in [0, p) -> (..., n) int32: the NTT of
+    their zero pad to n, entry k scaled by s^k (the evaluations on the
+    coset s omega_n^i), through K1 of an LDE -> K3 -> K2 (their plain
+    versions on the CPU): the pad and the scale ride in pass 1's first
+    round, which loads only the T coefficients."""
+    if x.dtype != torch.int32:
+        raise ValueError(f"expected int32 field values, got {x.dtype}")
+    plan = get_plan(n, False, x.device)
+    c = x.reshape(-1, x.shape[-1]).contiguous()
+    z = ntt_pass2(ntt_transpose(ntt_pass1_lde(c, plan, s, lazy)), plan, lazy)
+    return z.reshape(x.shape[:-1] + (n,))

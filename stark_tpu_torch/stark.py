@@ -247,7 +247,8 @@ class StarkProver:
 
     def _lde_trace(self, cols: torch.Tensor) -> torch.Tensor:
         """(B, c, T) witness columns -> (B, c, N) trace LDEs on the coset
-        (stark_tpu/stark.py:340): iNTT, then K14's pad and scale and the NTT."""
+        (stark_tpu/stark.py:340): iNTT, then the LDE (the pad and scale in
+        its pass 1's first round) over the B c rows at once."""
         b, c, t = cols.shape
         return NTT.lde(NTT.intt(cols.reshape(b * c, t), self.lazy_ntt), self.cfg.blowup,
                        self.dom.offset, self.lazy_ntt).reshape(b, c, self.dom.N)

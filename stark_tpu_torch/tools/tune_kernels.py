@@ -38,11 +38,22 @@ Prints, in this order:
   another checkout first on ``PYTHONPATH`` it measures that checkout);
 * ``compose turns``: K11 at Fibonacci T=2^20, MDS T=2^16 and batch8's (8,
   1, 2^16), the design before (eager sums), the design in use (lazy sums
-  in the generated body), the same AIR in the table form and the redesign
+  in the generated body), the same AIR in the table form, the table form
+  before its redesign (``table_before``), the straight-line form in
+  ``__noinline__`` pieces (``compose_pieces``, not kept) and the redesign
   tried and not kept (the coset computed in the kernel,
-  ``compose_coset``), in turn and back; then ``compose builds``: nvcc's
-  seconds for K11's source of ``distinct_air`` at several sizes, in the
-  straight-line and the table form (``--only compose``);
+  ``compose_coset``), then ``distinct_air`` at 1,024 and 3,632
+  constraints in the table form, the one before and the pieces, each in turn and
+  back with its bound; then ``compose builds``: nvcc's seconds for K11's
+  source of ``distinct_air`` at several sizes, in the table form, the
+  pieces and the straight-line form (``--only compose``);
+* ``lde turns``: pass 1 of the LDE at Fibonacci T=2^20's, MDS T=2^16's
+  and batch8's shapes, strict and lazy: K14 then K1 (the design before),
+  K1 of an LDE in use (s^e from two short tables) and with one (T, 2)
+  table (``lde_one_table``, a patched copy of csrc/ntt.cu), in turn and
+  back with the bound; then ``lde phase turns``: a Fibonacci T=2^20
+  prove's lde phase (the iNTT, then the LDE) with each design in turn
+  (``--only lde``);
 * ``fold turns``: K4-dyn at every (B, half) of the device chain's rounds,
   the K9 + fold pair before its redesign and the launch in use, in turn
   and back (``--only fold``);
@@ -66,7 +77,8 @@ Montgomery products), ``sponge_before`` K9 as it was (byte loads and
 stores), ``forest_before`` K8 and K8-forest as they were (one lane a hash
 at every level), ``compose_before`` K11 as it was (every sum eager),
 ``fold_dyn_before`` the pair K9 + K4-dyn as it was (alpha through device
-memory, two launches a round), ``challenges_before`` K15 as it was
+memory, two launches a round), ``table_before`` K11's table form as it
+was (a slot a step in local memory), ``challenges_before`` K15 as it was
 before its window (the whole chain's raw draws in shared memory, at most
 7,264 challenges), ``sample_before`` K10 as it was (one lane a hash),
 ``floor_kernel`` an empty kernel:
@@ -1637,6 +1649,426 @@ def compose_coset(prover):
     return call
 
 
+# K11's table form as it was before its redesign (the design before): a
+# slot a step in local memory (kSlots of them a point), a 20-byte step
+# loaded from device memory and a switch a step, each transition output
+# read back from its slot by a second loop.  table_before_source writes an
+# AIR's tables for it as the generator did then; this header holds its loop,
+# its kernel (one point a thread, 256 a block) and its C entry, with the
+# port's compose.cuh for the rest.
+TABLE_BEFORE_HEADER = r"""
+#pragma once
+#include <cuda_runtime.h>
+#include "compose.cuh"
+
+namespace table_before {
+
+struct Step {
+  uint32_t op;
+  uint32_t a, b;
+  uint32_t k, k_shoup;
+};
+
+template <class Air>
+__device__ __forceinline__ uint32_t point(const stark::ComposeArgs& a,
+                                          const stark::Weight* w, int b, long long i) {
+  using namespace stark;
+  const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
+  uint32_t total = 0;
+  if constexpr (Air::kTransitions > 0) {
+    uint32_t s[Air::kSlots];
+    const Step* steps = Air::steps();
+#pragma unroll 1
+    for (int q = 0; q < Air::kSlots; ++q) {
+      const Step t = steps[q];
+      uint32_t x;
+      switch (t.op) {
+        case 0: x = at((int)t.a, (int)t.b); break;
+        case 1: x = t.k; break;
+        case 2: x = add_mod(s[t.a], s[t.b]); break;
+        case 3: x = sub_mod(s[t.a], s[t.b]); break;
+        case 4: x = sub_mod(0u, s[t.a]); break;
+        case 5: x = shoup_mul(s[t.a], t.k, t.k_shoup); break;
+        default: x = mul_mod(s[t.a], s[t.b]); break;
+      }
+      s[q] = x;
+    }
+    const int* out = Air::outputs();
+    uint32_t sa = 0, sb = 0;
+#pragma unroll 1
+    for (int k = 0; k < Air::kTransitions; ++k) {
+      const uint32_t ck = s[out[k]];
+      const Weight wk = w[k];
+      sa = add_mod(sa, shoup_mul(ck, wk.a, wk.a_shoup));
+      sb = add_mod(sb, shoup_mul(ck, wk.b, wk.b_shoup));
+    }
+    total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], sa), sb));
+  }
+  if constexpr (Air::kBoundaries > 0) {
+    const uint32_t xb = a.xb[i];
+    const BoundaryTerm* terms = Air::boundaries();
+    const int* ends = Air::row_ends();
+    int j = 0;
+#pragma unroll 1
+    for (int r = 0; r < Air::kRows; ++r) {
+      uint32_t sa = 0, sb = 0;
+#pragma unroll 1
+      for (; j < ends[r]; ++j) {
+        const BoundaryTerm t = terms[j];
+        const uint32_t d = sub_open(at(0, (int)t.reg), t.value);
+        const Weight wj = w[Air::kTransitions + t.term];
+        sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
+        sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
+      }
+      total = add_mod(total, mont_mul(a.dinv[r * a.n + i], add_mod(mont_mul(xb, sa), sb)));
+    }
+  }
+  return total;
+}
+
+template <class Air>
+__global__ void __launch_bounds__(256) table_before_kernel(
+    const __grid_constant__ stark::ComposeArgs a, const stark::Weight* __restrict__ w) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const int b = blockIdx.y;
+  a.out[(long long)b * a.n + i] = point<Air>(a, w + Air::kTerms * b, b, i);
+}
+
+}  // namespace table_before
+
+#define STARK_TABLE_BEFORE_ENTRY(AIR)                                         \
+  extern "C" int stark_compose(const void* lde, const void* exz, const void* xt, \
+                               const void* xb, const void* dinv, void* out,    \
+                               long long n, int c, int blowup, int proofs,     \
+                               const void* words, int nwords, long long span,  \
+                               void* stream) {                                 \
+    const stark::ComposeArgs a{                                                \
+        static_cast<const uint32_t*>(lde), static_cast<const uint32_t*>(exz),  \
+        static_cast<const uint32_t*>(xt), static_cast<const uint32_t*>(xb),    \
+        static_cast<const uint32_t*>(dinv), static_cast<uint32_t*>(out), n, c, \
+        blowup, proofs, span, stark::frame_mask(n, span)};                     \
+    if (nwords != 4 * AIR::kTerms * proofs) return (int)cudaErrorInvalidValue; \
+    const dim3 grid((unsigned)((n + 255) / 256), (unsigned)proofs);            \
+    table_before::table_before_kernel<AIR><<<grid, 256, 0,                     \
+                                             static_cast<cudaStream_t>(stream)>>>( \
+        a, static_cast<const stark::Weight*>(words));                          \
+    return (int)cudaGetLastError();                                            \
+  }
+"""
+
+
+def table_before_source(program) -> str:
+    """``program``'s AIR in K11's table form as the generator wrote it
+    before its redesign (TABLE_BEFORE_HEADER): a step a live node that
+    needs a value, its slot the step's own, each output's slot, the
+    boundary terms by row."""
+    from stark_tpu_torch.ops.compose import shoup
+
+    tape, air = program.tape, program.air
+    live = tape.live()
+    read = set(tape.outputs)
+    for j in live:
+        if tape.nodes[j][0] in ("add", "sub"):
+            read.update(tape.nodes[j][1:])
+    ops = ("in", "const", "add", "sub", "neg", "mulc", "mul")
+    slot, steps = {}, []
+    for j in live:
+        node = tape.nodes[j]
+        c = tape.const_value(j)
+        if c is not None:
+            if j not in read:
+                continue
+            step = ("const", 0, 0, c)
+        elif node[0] == "in":
+            step = ("in", node[1], node[2], 0)
+        elif node[0] == "neg":
+            step = ("neg", slot[node[1]], 0, 0)
+        elif node[0] in ("add", "sub"):
+            step = (node[0], slot[node[1]], slot[node[2]], 0)
+        else:
+            ca, cb = tape.const_value(node[1]), tape.const_value(node[2])
+            if ca is not None or cb is not None:
+                x, w = (node[2], ca) if ca is not None else (node[1], cb)
+                step = ("mulc", slot[x], 0, w)
+            else:
+                step = ("mul", slot[node[1]], slot[node[2]], 0)
+        slot[j] = len(steps)
+        steps.append(step)
+    by_row = sorted(range(len(program.boundary)), key=lambda j: program.groups[j])
+    ends = np.cumsum(np.bincount(np.asarray(program.groups, dtype=np.int64),
+                                 minlength=len(program.rows)))
+
+    def array(ctype, name, items):
+        rows = [", ".join(items[k:k + 8]) for k in range(0, len(items), 8)] or ["{}"]
+        return [f"__device__ const {ctype} {name}[{max(len(items), 1)}] = {{",
+                *(f"    {r}," for r in rows), "};"]
+
+    return "\n".join([
+        '#include "table_before.cuh"',
+        *array("table_before::Step", "kSteps",
+               [f"{{{ops.index(op)}u, {a % (1 << 32)}u, {b}u, {k}u, {int(shoup(k))}u}}"
+                for op, a, b, k in steps]),
+        *array("int", "kOutputs", [str(slot[j]) for j in tape.outputs]),
+        *array("stark::BoundaryTerm", "kBoundaryTerms",
+               [f"{{{j}u, {int(program.boundary[j].register)}u, "
+                f"{int(program.boundary[j].value) % 998244353}u}}" for j in by_row]),
+        *array("int", "kRowEnds", [str(int(e)) for e in ends]),
+        "struct Air {",
+        f"  static constexpr int kRegisters = {air.num_registers};",
+        f"  static constexpr int kTransitions = {program.transitions};",
+        f"  static constexpr int kBoundaries = {len(program.boundary)};",
+        f"  static constexpr int kRows = {len(program.rows)};",
+        f"  static constexpr int kTerms = {program.terms};",
+        f"  static constexpr int kSlots = {len(steps)};",
+        "  __device__ __forceinline__ static const table_before::Step* steps() { return kSteps; }",
+        "  __device__ __forceinline__ static const int* outputs() { return kOutputs; }",
+        "  __device__ __forceinline__ static const stark::BoundaryTerm* boundaries() {",
+        "    return kBoundaryTerms;",
+        "  }",
+        "  __device__ __forceinline__ static const int* row_ends() { return kRowEnds; }",
+        "};",
+        "STARK_TABLE_BEFORE_ENTRY(Air)",
+        "",
+    ])
+
+
+# K11's straight-line form cut into pieces, the design the table form's
+# redesign was timed against and not kept (PERF.md §6): the AIR's
+# transition outputs in groups whose straight-line lines (as
+# ops/compose.py generate_source writes them: the group's frame loads, its
+# nodes, lazy sums included, and two lines a term) stay within
+# PIECE_LINES, each group a __noinline__ device function that adds its
+# terms into (sa, sb) from the frame; the boundaries as the straight-line
+# form has them.
+PIECE_LINES = 256
+PIECES_HEADER = r"""
+#pragma once
+#include <cuda_runtime.h>
+#include "compose.cuh"
+
+namespace pieces {
+
+template <class Air>
+__global__ void __launch_bounds__(256) pieces_kernel(
+    const __grid_constant__ stark::ComposeArgs a, const stark::Weight* __restrict__ w) {
+  using namespace stark;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const int b = blockIdx.y;
+  const Weight* wb = w + Air::kTerms * b;
+  const Frame at{a.lde + (long long)b * a.c * a.span, a.span, a.mask, i, a.blowup};
+  uint32_t total = 0;
+  if constexpr (Air::kTransitions > 0) {
+    const uint2 s = Air::transitions(at, wb);
+    total = mont_mul(a.exz[i], add_mod(mont_mul(a.xt[i], s.x), s.y));
+  }
+  if constexpr (Air::kBoundaries > 0) {
+    const uint32_t xb = a.xb[i];
+#pragma unroll
+    for (int r = 0; r < Air::kRows; ++r) {
+      uint32_t sa = 0, sb = 0;
+#pragma unroll
+      for (int j = 0; j < Air::kBoundaries; ++j) {
+        if (Air::boundary_row(j) != r) continue;
+        const uint32_t d = sub_open(at(0, Air::boundary_reg(j)), Air::boundary_value(j));
+        const Weight wj = wb[Air::kTransitions + j];
+        sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
+        sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
+      }
+      total = add_mod(total, mont_mul(a.dinv[r * a.n + i], add_mod(mont_mul(xb, sa), sb)));
+    }
+  }
+  a.out[(long long)b * a.n + i] = total;
+}
+
+}  // namespace pieces
+
+#define STARK_PIECES_ENTRY(AIR)                                               \
+  extern "C" int stark_compose(const void* lde, const void* exz, const void* xt, \
+                               const void* xb, const void* dinv, void* out,    \
+                               long long n, int c, int blowup, int proofs,     \
+                               const void* words, int nwords, long long span,  \
+                               void* stream) {                                 \
+    const stark::ComposeArgs a{                                                \
+        static_cast<const uint32_t*>(lde), static_cast<const uint32_t*>(exz),  \
+        static_cast<const uint32_t*>(xt), static_cast<const uint32_t*>(xb),    \
+        static_cast<const uint32_t*>(dinv), static_cast<uint32_t*>(out), n, c, \
+        blowup, proofs, span, stark::frame_mask(n, span)};                     \
+    if (nwords != 4 * AIR::kTerms * proofs) return (int)cudaErrorInvalidValue; \
+    const dim3 grid((unsigned)((n + 255) / 256), (unsigned)proofs);            \
+    pieces::pieces_kernel<AIR><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>( \
+        a, static_cast<const stark::Weight*>(words));                          \
+    return (int)cudaGetLastError();                                            \
+  }
+"""
+
+
+def _straight_lines(program, outputs: list[int]) -> tuple[list[str], list[str]]:
+    """(frame loads, body lines) of the straight-line form for the nodes
+    ``outputs`` need, as ops/compose.py generate_source writes them."""
+    from stark_tpu_torch.ops import compose as CO
+
+    tape = program.tape
+    forms = program._forms
+
+    def ref(j):
+        c = tape.const_value(j)
+        return f"{c}u" if c is not None else f"n{j}"
+
+    def lazy(j):
+        d = forms.get(j, ({}, 0))[0]
+        return len(d) >= 2 and any(v not in (1, CO.P - 1) for v in d.values())
+
+    need = set(outputs)
+    for j in sorted(program._live, reverse=True):
+        if j not in need:
+            continue
+        node = tape.nodes[j]
+        if lazy(j):
+            need.update(forms[j][0])
+        elif node[0] != "in":
+            need.update(x for x in node[1:] if tape.const_value(x) is None)
+    loads, body = [], []
+    for j in sorted(need):
+        node = tape.nodes[j]
+        op = node[0]
+        if op == "in":
+            loads.append(f"  const uint32_t n{j} = at({node[1]}, {node[2]});")
+        elif lazy(j):
+            d, k = forms[j]
+            terms = [f"(uint64_t)n{x} * {c * CO.R1 % CO.P}u" for x, c in sorted(d.items())]
+            if k:
+                terms.append(f"{k * CO.R1 % CO.P}ull")
+            body.append(f"  uint64_t s{j} = {terms[0]};")
+            count = 1
+            for t in terms[1:]:
+                if count == CO.LAZY_TERMS:
+                    body.append(f"  s{j} = stark::fold64(s{j});")
+                    count = CO.FOLD_TERMS
+                body.append(f"  s{j} += {t};")
+                count += 1
+            body.append(f"  const uint32_t n{j} = stark::reduce64(s{j});")
+        elif op == "neg":
+            body.append(f"  const uint32_t n{j} = stark::sub_mod(0u, {ref(node[1])});")
+        elif op in ("add", "sub"):
+            body.append(f"  const uint32_t n{j} = stark::{op}_mod({ref(node[1])}, "
+                        f"{ref(node[2])});")
+        elif op == "mul":
+            a, b = node[1], node[2]
+            ca, cb = tape.const_value(a), tape.const_value(b)
+            if ca is not None or cb is not None:
+                x, w = (b, ca) if ca is not None else (a, cb)
+                body.append(f"  const uint32_t n{j} = stark::shoup_mul(n{x}, {w}u, "
+                            f"{int(CO.shoup(w))}u);")
+            else:
+                body.append(f"  const uint32_t n{j} = stark::mul_mod(n{a}, n{b});")
+    return loads, body
+
+
+def pieces_source(program, piece_lines: int = PIECE_LINES) -> str:
+    """``program``'s AIR as K11's straight-line form in __noinline__ pieces
+    (PIECES_HEADER): the transition outputs grouped in order while a
+    group's lines stay within ``piece_lines``."""
+    from stark_tpu_torch.ops import compose as CO
+
+    tape, air = program.tape, program.air
+    program._forms, program._live = CO._linear_forms(tape), tape.live()
+    groups, current = [], []
+    for k in range(len(tape.outputs)):
+        loads, body = _straight_lines(program, [tape.outputs[x] for x in current + [k]])
+        if current and len(loads) + len(body) + 2 * (len(current) + 1) > piece_lines:
+            groups.append(current)
+            current = []
+        current.append(k)
+    if current:
+        groups.append(current)
+    out = ['#include "compose_pieces.cuh"', "namespace stark_air {"]
+    for p, ks in enumerate(groups):
+        loads, body = _straight_lines(program, [tape.outputs[k] for k in ks])
+        out += [f"__device__ __noinline__ uint2 piece{p}(const stark::Frame at, "
+                "const stark::Weight* w, uint2 s) {", *loads, *body]
+        for k in ks:
+            j = tape.outputs[k]
+            v = f"{tape.const_value(j)}u" if tape.const_value(j) is not None else f"n{j}"
+            out += [f"  s.{f} = stark::add_mod(s.{f}, stark::shoup_mul({v}, w[{k}].{c}, "
+                    f"w[{k}].{c}_shoup));" for f, c in (("x", "a"), ("y", "b"))]
+        out += ["  return s;", "}"]
+    nb = len(program.boundary)
+    rows = ", ".join(str(g) for g in program.groups) or "0"
+    values = ", ".join(f"{int(bc.value) % CO.P}u" for bc in program.boundary) or "0u"
+    regs = ", ".join(str(int(bc.register)) for bc in program.boundary) or "0"
+    out += [
+        "struct Air {",
+        f"  static constexpr int kRegisters = {air.num_registers};",
+        f"  static constexpr int kTransitions = {program.transitions};",
+        f"  static constexpr int kBoundaries = {nb};",
+        f"  static constexpr int kRows = {len(program.rows)};",
+        f"  static constexpr int kTerms = {program.terms};",
+        "  __device__ __forceinline__ static int boundary_row(int j) {",
+        f"    constexpr int k[{max(nb, 1)}] = {{{rows}}};",
+        "    return k[j];",
+        "  }",
+        "  __device__ __forceinline__ static int boundary_reg(int j) {",
+        f"    constexpr int k[{max(nb, 1)}] = {{{regs}}};",
+        "    return k[j];",
+        "  }",
+        "  __device__ __forceinline__ static uint32_t boundary_value(int j) {",
+        f"    constexpr uint32_t k[{max(nb, 1)}] = {{{values}}};",
+        "    return k[j];",
+        "  }",
+        "  __device__ __forceinline__ static uint2 transitions(const stark::Frame& at,",
+        "                                                     const stark::Weight* w) {",
+        "    uint2 s = make_uint2(0u, 0u);",
+        *[f"    s = piece{p}(at, w, s);" for p in range(len(groups))],
+        "    return s;",
+        "  }",
+        "};",
+        "}  // namespace stark_air",
+        "STARK_PIECES_ENTRY(stark_air::Air)",
+        "",
+    ]
+    return "\n".join(out)
+
+
+def _compose_call(lib):
+    """``lib``'s stark_compose (ops.compose.compose's entry and operands)
+    as a call ``(lde, tables, words, blowup) -> codeword``."""
+    from stark_tpu_torch.ops.compose import COMPOSE
+
+    fn = lib.stark_compose
+    fn.argtypes = [*COMPOSE.argtypes, ctypes.c_void_p]
+
+    def call(lde, tables, words, blowup):
+        lde3 = lde[None] if lde.dim() == 2 else lde
+        b, c, n = lde3.shape
+        out = torch.empty((b, n), dtype=torch.int32, device=lde.device)
+        if fn(lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
+              tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
+              words.data_ptr(), words.numel(), n,
+              torch.cuda.current_stream(lde.device).cuda_stream) != 0:
+            raise RuntimeError("stark_compose failed")
+        return out[0] if lde.dim() == 2 else out
+
+    return call
+
+
+def table_before(program):
+    """K11's table form as it was before its redesign, for ``program``'s
+    AIR: a call ``(lde, tables, words, blowup) -> codeword`` (not part of
+    the port)."""
+    return _compose_call(build_temporary(table_before_source(program), "table_before",
+                                         {"table_before.cuh": TABLE_BEFORE_HEADER}))
+
+
+def compose_pieces(program):
+    """K11's straight-line form in pieces (PIECES_HEADER), for
+    ``program``'s AIR: a call ``(lde, tables, words, blowup) -> codeword``
+    (not part of the port)."""
+    return _compose_call(build_temporary(pieces_source(program), "compose_pieces",
+                                         {"compose_pieces.cuh": PIECES_HEADER}))
+
+
 def compose_before(program):
     """A call ``(lde, tables, alphas, betas, blowup, words=None) ->
     codeword`` of K11 for ``program``'s AIR as it was before lazy sums,
@@ -1696,45 +2128,98 @@ def forest_turns(rng, dev) -> dict:
     return table
 
 
-def compose_turns(rng, dev) -> dict:
-    """K11 at Fibonacci T=2^20, MDS T=2^16 and batch8's (8, 1, 2^16): the
-    design before, the design in use (the straight-line form), the same
-    AIR in the table form (the form of an AIR past
-    ops.compose.TABLE_LINES) and the redesign tried and not kept
-    (compose_coset), each held against the kernel in use, then timed in
-    turn and back; us per call."""
+#: compose_turns' shapes (AIR, T, B) at blowup 4: Fibonacci T=2^20, MDS
+#: T=2^16, batch8's (8, 1, 2^16), then the distinct counter (distinct_air)
+#: at 1,024 and 3,632 constraints.
+COMPOSE_TURN_SHAPES = (("fib", 1 << 20, 1), ("mds", 1 << 16, 1), ("fib", 1 << 14, 8),
+                       ("distinct1024", 1 << 16, 1), ("distinct3632", 1 << 16, 1))
+
+
+#: Threads a block of the table form timed beside the generator's choice
+#: (ops/compose.py TABLE_THREADS).
+TABLE_THREADS_TRIED = (128, 256)
+
+
+def compose_turns(rng, dev, shapes=COMPOSE_TURN_SHAPES) -> dict:
+    """K11 at ``shapes``: at the paths' AIRs the design before lazy sums,
+    the straight-line form in use, the table form, the table form before
+    its redesign (table_before), the straight-line form in pieces
+    (compose_pieces, not kept) and the coset redesign (compose_coset, not
+    kept); at the distinct counters (the table form in use) the table
+    form, the one before and the pieces; the table form also at
+    TABLE_THREADS_TRIED threads a block.  Every library built first, side by
+    side; each call held against the eager compose, then all timed in
+    turn and back, with K11's bound (the bytes, or the operations of the
+    form that needs the fewest at 33.5e12 a second); us per call."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.models import get_model
     from stark_tpu_torch.ops import compose as CO
 
-    table = {}
-    for model, t, b in (("fib", 1 << 20, 1), ("mds", 1 << 16, 1), ("fib", 1 << 14, 8)):
-        air = get_model(model)[0]
+    cases = []
+    for model, t, b in shapes:
+        air = (distinct_air(int(model[len("distinct"):])) if model.startswith("distinct")
+               else get_model(model)[0])
         prover = StarkProver(air, StarkConfig(trace_length=t, blowup=4), dev)
-        old, coset = compose_before(prover.program), compose_coset(prover)
-        rolled = CO.ComposeProgram(air, prover.program.boundary, table=True)
-        lde = torch.from_numpy(rng.integers(0, 998244353, size=(b, air.num_registers,
-                                                                prover.dom.N))).to(
+        table = CO.ComposeProgram(air, prover.program.boundary, table=True)
+        cases.append((model, t, b, air, prover, table))
+    with ThreadPoolExecutor(4 * len(cases)) as pool:
+        jobs = []
+        for model, t, b, air, prover, table in cases:
+            path = not model.startswith("distinct")
+            builds = {"table form": lambda table=table: CO.library(table.source),
+                      "table before": lambda table=table: table_before(table),
+                      "pieces": lambda prover=prover: compose_pieces(prover.program)}
+            for threads in TABLE_THREADS_TRIED:
+                builds[f"table form, {threads} threads"] = lambda table=table, t=threads: \
+                    _compose_call(build_temporary(re.sub(
+                        r"kThreads = \d+;", f"kThreads = {t};", table.source), "table_threads"))
+            if path:
+                builds.update({"before": lambda prover=prover: compose_before(prover.program),
+                               "coset redesign": lambda prover=prover: compose_coset(prover),
+                               "in use": lambda prover=prover: CO.library(prover.program.source)})
+            jobs.append({k: pool.submit(f) for k, f in builds.items()})
+        built = [{k: job.result() for k, job in j.items()} for j in jobs]
+    out = {}
+    for (model, t, b, air, prover, table), libs in zip(cases, built):
+        n = prover.dom.N
+        lde = torch.from_numpy(rng.integers(0, 998244353, size=(b, air.num_registers, n))).to(
             torch.int32).to(dev)
         al, be = (rng.integers(0, 998244353, size=(b, prover.program.terms)) for _ in range(2))
-        want = prover._compose(lde, al, be)
+        want = CO.compose_plain(prover.program, lde, prover.tables, al, be, 4)
         # The weight words on the card, as K15 leaves them: no copy is timed.
         words = torch.from_numpy(prover.program.weights(al, be).view(np.int32)).to(dev)
-        calls = {"before": lambda x: old(x, prover.tables, al, be, 4, words=words),
-                 "in use": lambda x: CO.compose(prover.program, x, prover.tables, None, None,
-                                                4, weights=words),
-                 "table form": lambda x: CO.compose(rolled, x, prover.tables, None, None, 4,
+        calls = {"table form": lambda x: CO.compose(table, x, prover.tables, None, None, 4,
                                                     weights=words),
-                 "coset redesign": lambda x: coset(x, al, be)}
+                 **{k: lambda x, k=k: libs[k](x, prover.tables, words, 4)
+                    for k in libs if k.startswith("table form,")},
+                 "table before": lambda x: libs["table before"](x, prover.tables, words, 4),
+                 "pieces": lambda x: libs["pieces"](x, prover.tables, words, 4)}
+        if "before" in libs:
+            coset = libs["coset redesign"]
+            calls = {"before": lambda x: libs["before"](x, prover.tables, al, be, 4, words=words),
+                     "in use": lambda x: CO.compose(prover.program, x, prover.tables, None,
+                                                    None, 4, weights=words),
+                     **calls, "coset redesign": lambda x: coset(x, al, be)}
         for key, fn in calls.items():
             if not torch.equal(fn(lde), want):
-                raise AssertionError(f"compose {key} {model} != the kernel in use")
+                raise AssertionError(f"compose {key} {model} != the eager compose")
         args = sets(4 * lde.numel(), lde)
         times = {}
         for key in list(calls) + list(reversed(calls)):
             times.setdefault(key, []).append(round(device_us(cycled(calls[key], args), 20), 2))
-        table[f"{model} T=2^{t.bit_length() - 1} B={b}"] = times
-    return table
+        ops = min(prover.program.operations(), table.operations(),
+                  CO.ComposeProgram(air, prover.program.boundary, table=False).operations())
+        nbytes = 4 * n * (b * prover.program.registers_read() + prover.program.table_loads() + b)
+        times["bound_us"] = round(max(nbytes / 3.35e12, b * n * ops / 33.5e12) * 1e6, 3)
+        times["bound_by"] = "bytes" if nbytes / 3.35e12 >= b * n * ops / 33.5e12 else \
+            "operations"
+        times["slots"], times["threads"] = table.form.slots, table.form.threads
+        out[f"{model} T=2^{t.bit_length() - 1} B={b}"] = times
+        print(f"  compose turns {model} T=2^{t.bit_length() - 1} B={b}: " + json.dumps(times),
+              flush=True)
+    return out
 
 
 def distinct_air(transitions: int):
@@ -1759,11 +2244,11 @@ def distinct_air(transitions: int):
     return DistinctAir()
 
 
-#: (transitions, form) of compose_builds: the straight-line form up to a
-#: size nvcc still finishes, the table form up to the 3,632 of
-#: tests/test_torch_many_terms.py.
-BUILD_SIZES = ((64, False), (256, False), (512, False), (1024, False), (64, True),
-               (1024, True), (3632, True))
+#: (transitions, form) of compose_builds: the table form and the pieces
+#: at 1,024 and 3,632 constraints, the straight-line form at 64 and 512
+#: (timed before up to 1,024: 103.8 s, PERF.md §6).
+BUILD_SIZES = ((1024, "table"), (3632, "table"), (1024, "pieces"), (3632, "pieces"),
+               (64, "straight-line"), (512, "straight-line"))
 
 
 def compose_builds(sizes=BUILD_SIZES, limit: int = 420) -> dict:
@@ -1779,25 +2264,151 @@ def compose_builds(sizes=BUILD_SIZES, limit: int = 420) -> dict:
     for transitions, form in sizes:
         air = distinct_air(transitions)
         prog = CO.ComposeProgram(air, _Domain(StarkConfig(trace_length=64, blowup=4),
-                                              air).boundary, table=form)
+                                              air).boundary, table=form == "table")
+        source, headers = prog.source, {}
+        if form == "pieces":
+            source, headers = pieces_source(prog), {"compose_pieces.cuh": PIECES_HEADER}
         with tempfile.TemporaryDirectory() as tmp:
             src = os.path.join(tmp, "compose.cu")
-            with open(src, "w") as f:
-                f.write(prog.source)
+            for file, text in {**headers, "compose.cu": source}.items():
+                with open(os.path.join(tmp, file), "w") as f:
+                    f.write(text)
             t0 = time.perf_counter()
             try:
-                rc = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", cuda.CSRC, "-o",
-                                     os.path.join(tmp, "compose.so"), src],
+                rc = subprocess.run([cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", tmp, "-I", cuda.CSRC,
+                                     "-o", os.path.join(tmp, "compose.so"), src],
                                     timeout=limit).returncode
                 seconds = round(time.perf_counter() - t0, 2)
             except subprocess.TimeoutExpired:
                 rc, seconds = None, f"> {limit}"
-        out[f"{transitions} {'table' if form else 'straight-line'}"] = {
-            "lines": prog.lines, "bytes": len(prog.source), "nvcc_s": seconds, "rc": rc}
-        print(f"  compose build {transitions} {'table' if form else 'straight-line'}: "
-              + json.dumps(out[f"{transitions} {'table' if form else 'straight-line'}"]),
-              flush=True)
+        key = f"{transitions} {form}"
+        out[key] = {"lines": prog.lines, "bytes": len(source), "nvcc_s": seconds, "rc": rc}
+        print(f"  compose build {key}: " + json.dumps(out[key]), flush=True)
     return out
+
+
+#: K1 of an LDE timed at (B, T, N): Fibonacci T=2^20, MDS T=2^16's 8 rows,
+#: batch8's 8 rows (blowup 4).
+LDE_SHAPES = ((1, 1 << 20, 1 << 22), (8, 1 << 16, 1 << 18), (8, 1 << 14, 1 << 16))
+#: csrc/ntt.cu lde_scaled with one (T, 2) table of s^e (its rows pointer)
+#: in place of the two short tables: the design timed against the kept one.
+LDE_TABLE_PATCH = ("  const uint2 r = lde.rows[row], k = lde.cols[col];\n"
+                   "  return shoup_mul(shoup_mul(y, r.x, r.y), k.x, k.y);",
+                   "  const uint2 k = lde.rows[e];\n"
+                   "  return shoup_mul(y, k.x, k.y);")
+
+
+def lde_one_table():
+    """K1 of an LDE reading s^e from one (T, 2) table (LDE_TABLE_PATCH, a
+    patched copy of csrc/ntt.cu built in a temporary directory; not part
+    of the port): a call ``(c, plan, s, lazy) -> (B, n1, n2)``."""
+    from stark_tpu_torch.ops import ntt_fused as NTF
+    from stark_tpu_torch.ops.fieldops import host_powers, shoup_precompute
+
+    with open(os.path.join(cuda.CSRC, "ntt.cu")) as f:
+        source = f.read()
+    if LDE_TABLE_PATCH[0] not in source:
+        raise RuntimeError("csrc/ntt.cu lde_scaled no longer matches LDE_TABLE_PATCH")
+    lib = build_temporary(source.replace(*LDE_TABLE_PATCH), "ntt_lde_table")
+    fns = {lazy: getattr(lib, "stark_ntt_pass1_lde_lazy" if lazy else "stark_ntt_pass1_lde")
+           for lazy in (False, True)}
+    for fn in fns.values():
+        fn.argtypes = [*NTF.PASS1_LDE.argtypes, ctypes.c_void_p]
+    tables = {}
+
+    def call(c, plan, s, lazy=False):
+        b, t = c.shape
+        if (t, s) not in tables:
+            w = host_powers(s, t).astype(np.uint32)
+            tables[(t, s)] = torch.from_numpy(np.stack([w, shoup_precompute(w)], axis=1).view(
+                np.int32)).to(c.device)
+        out = torch.empty((b, plan.n1, plan.n2), dtype=torch.int32, device=c.device)
+        rc = fns[lazy](c.data_ptr(), out.data_ptr(), plan.tw1.data_ptr(),
+                       plan.tw1_shoup.data_ptr(), plan.wm.data_ptr(), tables[(t, s)].data_ptr(),
+                       b, plan.lg1, plan.n2, *NTF._launch_shape(plan.lg1, plan.n2, b),
+                       t.bit_length() - 1, torch.cuda.current_stream(c.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the one-table LDE pass 1 failed: {rc}")
+        return out
+
+    return call
+
+
+def lde_turns(rng, dev, shapes=LDE_SHAPES) -> dict:
+    """The LDE's pad, scale and pass 1 at ``shapes``, strict and lazy: K14
+    then K1 (the design before), K1 of an LDE in use (s^e from two short
+    tables) and with one (T, 2) table (lde_one_table), each held against
+    the plain version, then in turn and back; with the bound of the bytes
+    the function moves (the coefficients read, the scale tables, wm, the
+    output written); us per call."""
+    from stark_tpu_torch.ops import ntt as NTT
+    from stark_tpu_torch.ops import ntt_fused as NTF
+    from stark_tpu_torch.ops.fieldops import GENERATOR
+
+    one = lde_one_table()
+    s = GENERATOR
+    out = {}
+    for b, t, n in shapes:
+        plan = NTF.get_plan(n, False, dev)
+        c = torch.from_numpy(rng.integers(0, 998244353, size=(b, t))).to(torch.int32).to(dev)
+        args = sets(4 * b * (t + n), c)
+        for lazy in (False, True):
+            want = NTF.pass1_lde_plain(c, plan, s, lazy)
+            calls = {"K14 + K1": lambda x: NTF.ntt_pass1(
+                         NTT.pad_scale(x, n, s).reshape(b, plan.n1, plan.n2), plan, lazy),
+                     "in use": lambda x: NTF.ntt_pass1_lde(x, plan, s, lazy),
+                     "one table": lambda x: one(x, plan, s, lazy)}
+            for key, fn in calls.items():
+                if not torch.equal(fn(c), want):
+                    raise AssertionError(f"lde pass 1 {key} ({b}, {t}, {n}) != plain")
+            times = {}
+            for key in list(calls) + list(reversed(calls)):
+                times.setdefault(key, []).append(round(device_us(cycled(calls[key], args), 20), 3))
+            split = 4 * b * t + 8 * (plan.n1 + plan.n2) + 4 * n + 4 * b * n
+            times["bound_us"] = round(split / 3.35e12 * 1e6, 3)
+            times["bound_one_table_us"] = round((split + 8 * t - 8 * (plan.n1 + plan.n2))
+                                                / 3.35e12 * 1e6, 3)
+            key = f"B={b} T=2^{t.bit_length() - 1} N=2^{n.bit_length() - 1}" + (
+                " lazy" if lazy else "")
+            out[key] = times
+            print(f"  lde turns {key}: " + json.dumps(times), flush=True)
+    return out
+
+
+def lde_phase_turns(dev, reps: int = 10) -> dict:
+    """The lde phase of a Fibonacci T=2^20 prove (StarkProver._lde_trace on
+    its device witness: the iNTT, then the LDE) with the LDE through K14,
+    then K1-K3 (the design before: ops.ntt.lde swapped for it), and
+    through K1 of an LDE, K3 and K2 (in use), in turn and back; device us
+    per phase (CUDA-graph replay)."""
+    from stark_tpu_torch import StarkConfig, StarkProver
+    from stark_tpu_torch.models import get_model
+    from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
+    from stark_tpu_torch.ops import ntt as NTT
+
+    t = 1 << 20
+    prover = StarkProver(get_model("fib")[0], StarkConfig(trace_length=t, blowup=4), dev)
+    cols = fibonacci_trace_cols_device(t)[None]
+    in_use = NTT.lde
+
+    def before(coeffs, blowup, offset, lazy=False):
+        n = coeffs.shape[-1] * blowup
+        return NTT.ntt(NTT._pad_scaled(coeffs, n, offset), lazy)
+
+    want = prover._lde_trace(cols)
+    times = {}
+    try:
+        for key, fn in (("K14 + K1", before), ("in use", in_use), ("in use", in_use),
+                        ("K14 + K1", before)):
+            NTT.lde = fn
+            if not torch.equal(prover._lde_trace(cols), want):
+                raise AssertionError(f"lde phase {key} differs")
+            times.setdefault(key, []).append(round(device_us(
+                lambda: prover._lde_trace(cols), reps), 2))
+    finally:
+        NTT.lde = in_use
+    print("  lde phase turns (Fibonacci T=2^20): " + json.dumps(times), flush=True)
+    return times
 
 
 def tail_in_prove(dev, proves: int = 3) -> list:
@@ -2100,8 +2711,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("latency", "forest", "tail-in-prove", "compose",
-                                           "fold", "sponge", "chain", "floor", "parts",
-                                           "ntt"),
+                                           "lde", "fold", "sponge", "chain", "floor",
+                                           "parts", "ntt"),
                         help="run one sweep (after ptxas)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2130,6 +2741,11 @@ def main() -> int:
               + json.dumps(compose_turns(rng, dev)), flush=True)
         print("compose builds, nvcc s of the distinct-form AIR by (transitions, form): "
               + json.dumps(compose_builds()), flush=True)
+    if args.only in (None, "lde"):
+        print("lde turns, pass 1 of the LDE: K14 + K1 before, in use, one table, us per call "
+              "in turn and back (CUDA-graph replay): " + json.dumps(lde_turns(rng, dev)),
+              flush=True)
+        print("lde phase turns, us per phase: " + json.dumps(lde_phase_turns(dev)), flush=True)
     if args.only in (None, "fold"):
         print("fold turns, K4-dyn against the K9 + fold pair before it, us per call, "
               "each in turn and back (CUDA-graph replay): "

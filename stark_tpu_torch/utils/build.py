@@ -3,9 +3,9 @@
 The output lands in ``stark_tpu_torch/_build/`` (listed in .gitignore)
 under a name keyed by the sources' bytes, the command line and the host
 machine type, so an edited source or a checkout copied to another machine
-never loads a stale library.  Concurrent builds (test workers) each
-compile to a private temporary name and ``os.replace`` it into place, so
-no lock is needed.
+never loads a stale library.  Concurrent builds (test workers, or threads
+of one process building the same source) each compile to a private
+temporary name and ``os.replace`` it into place, so no lock is needed.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import hashlib
 import os
 import platform
 import subprocess
+import threading
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
@@ -36,7 +37,7 @@ def build_library(
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run(
         command + ["-o", tmp] + list(sources),
         capture_output=True,

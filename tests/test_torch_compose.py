@@ -182,7 +182,7 @@ def table_program(prover):
 
 @pytest.mark.parametrize("model", MODEL_NAMES)
 def test_host_built_table_form_matches_eager(model):
-    # compose.cuh's compose_point_table: B = 3 over the whole coset, and
+    # compose.cuh's compose_points_table: B = 3 over the whole coset, and
     # on each share of 2 with its halo.
     prover, lde, alphas, betas = operands(model, 3, 80)
     want = prover._compose(torch.from_numpy(lde.astype(np.int32)), alphas, betas).numpy()
@@ -198,24 +198,28 @@ def test_host_built_table_form_matches_eager(model):
 
 def test_table_form_steps_and_boundaries_by_row():
     # The wide AIR: 65 transitions, 65 boundaries on row 0; a step a live
-    # node that needs a value (no slot for a constant that is only a
-    # product's factor), the boundary terms in row order with their ends.
+    # node that needs a value (no step for a constant that is only a
+    # product's factor), its slots by liveness, the boundary terms in row
+    # order with their ends.
     import re
 
-    def slots(air, blowup):
+    def steps(air, blowup):
         d = StarkProver(air, StarkConfig(trace_length=T, blowup=blowup), device="cpu").dom
         prog = CO.ComposeProgram(air, d.boundary, table=True)
         live = prog.tape.live()
         consts = sum(1 for j in live if prog.tape.nodes[j][0] == "const")
-        return prog, int(re.search(r"kSlots = (\d+);", prog.source)[1]), len(live), consts
+        got = [int(re.search(rf"{k} = (\d+);", prog.source)[1]) for k in ("kSteps", "kSlots")]
+        return prog, got, len(live), consts
 
-    # MDS: 49 constants, 8 of them read by a sum, the rest only factors.
-    _, got, live, consts = slots(get_model("mds")[0], 8)
-    assert (live, consts, got) == (202, 49, 161)
-    # wide: every constant is read by a subtraction.
+    # MDS: 49 constants, 8 of them read by a sum, the rest only factors;
+    # its live set at most 10 values wide.
+    _, got, live, consts = steps(get_model("mds")[0], 8)
+    assert (live, consts, got) == (202, 49, [161, 10])
+    # wide: every constant is read by a subtraction; each constraint's
+    # value is its term at once.
     air = wide_air(Air, BoundaryConstraint)
-    prog, got, live, _ = slots(air, 4)
-    assert got == live
+    prog, got, live, _ = steps(air, 4)
+    assert got[0] == live and got[1] < live
     assert "kRowEnds[1] = {\n    65,\n};" in prog.source
     rng = np.random.default_rng(66)
     prover = StarkProver(air, StarkConfig(trace_length=T, blowup=4), device="cpu")

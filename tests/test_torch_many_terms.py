@@ -92,9 +92,10 @@ def test_the_air_takes_the_table_form():
     prog = StarkProver(many_terms_air(Air, BoundaryConstraint), StarkConfig(**CFG),
                        device="cpu").program
     assert prog.table and prog.lines > CO.TABLE_LINES and "kTable = true" in prog.source
-    # A slot a step: the two inputs, the constant 1, the step's two
-    # subtractions and one product a constraint (its factor in the step).
-    assert f"kSlots = {5 + TRANSITIONS};" in prog.source
+    # A step each: the two inputs, the constant 1, the step's two
+    # subtractions and one product a constraint (its factor a constant of
+    # the step), added as its term at once: two slots a point.
+    assert f"kSteps = {5 + TRANSITIONS};" in prog.source and "kSlots = 2;" in prog.source
 
 
 def test_many_terms_proof_equals_stark_tpu(cpu_proof):
@@ -113,8 +114,8 @@ def test_many_terms_proof_verifies_in_both_packages(cpu_proof):
 
 
 def test_host_built_body_with_rolled_sums_matches_eager():
-    # The table form (compose.cuh compose_point_table: its steps and sums
-    # in rolled loops) built with the host C++ compiler: the per-point
+    # The table form (compose.cuh compose_points_table: its step stream in
+    # a rolled loop) built with the host C++ compiler: the per-point
     # function equals the eager compose at every point, B = 2.
     import torch
     from test_torch_compose import host_compose

@@ -135,7 +135,8 @@ def test_card_proof_bytes(cuda_device, T, tests, want, lazy):
     launched = {"ntt_transpose", "fri_fold_dyn", "sponge_absorb", "hash_rows", "merkle_tail",
                 *passes}
     assert all(counts[k] > 0 for k in launched)
-    assert counts["compose"] == 1 and counts["lde_pad_scale"] == 1
+    lde = "ntt_pass1_lde_lazy" if lazy else "ntt_pass1_lde"
+    assert counts["compose"] == 1 and counts[lde] == 1 and counts["lde_pad_scale"] == 0
     assert hashlib.sha256(proof).hexdigest() == want
     assert _verify(cfg, proof)
     assert not _verify(cfg, _prove(cfg, _cheat(fibonacci_trace_mod_p(T), 3), cuda_device))
