@@ -123,33 +123,46 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     MDS) at T=1024, MDS also at T=4096; each proof verified, and the query
     gather (K13's rule slots) held against its plain version on each
     prove's plan, sources and device indices; then Fibonacci T=2^16 with
-    one sampling candidate a proof: the count falls short, the host's
-    indices go through the same gather (two K13 launches, two reads), the
+    one sampling candidate a proof, twice on one prover (the body eagerly,
+    then the slot's graph): the count falls short, the host's indices go
+    through the same gather (two K13 launches, two reads a prove), the
     pinned sha256 all the same;
  5. the main path, FibonacciAir at T=2^20, blowup 4, 16 tests (N = 2^22),
     proved from columns made on the card (fibonacci_trace_cols_device, as
-    bench.py proves it) on the single-fetch path (the default): witness ->
-    StarkProver.prove(trace_cols=...) -> StarkVerifier.verify with the
-    launch counts set to 0 just before and read just after (every kernel
-    of the path > 0, the query gather, K14, K15, K10 and the composition
-    kernel exactly once, the eager compose never, K9 once and K4-dyn once
-    a FRI round but the last), K13 against its plain version on that
-    prove's rule plan, the reads from the card through ops.gather.to_host
+    bench.py proves it) on the single-fetch path (the default: a prove
+    copies the witness into its slot and replays the slot's CUDA graph,
+    captured at the slot's second prove; StarkProver._dispatch): witness
+    -> StarkProver.prove(trace_cols=...) -> StarkVerifier.verify with the
+    launch counts set to 0 just before and read just after, once on the
+    body launched eagerly (StarkProver._eager: K13 held against its plain
+    version on that prove's rule plan, the eager compose never run) and
+    once on the graph path (the capture and a replay: the same counts,
+    every kernel of the path > 0, K14 never, the query gather, K1 of the
+    LDE, K15, K10 and the composition kernel exactly once, K9 once and
+    K4-dyn once a FRI round but the last), the reads from the card through
+    ops.gather.to_host
     (one; three on the same prover with Fri.fused_round False, whose
     proof must be the same), the pinned sha256, which a prove from host
     rows must give too; the
     witness + prove and verify wall-time distributions, with Python's full
     garbage collections (gc.callbacks) that fell inside a prove; the
-    synchronised per-phase times (median of 5 proves; a compose phase
-    among them); the device-to-host copies of one prove from the
-    profiler's memcpy events (exactly one, issued in fri_query); the
-    single-fetch path and the three reads in turn (single-fetch, three,
-    three, single-fetch; 10 synchronised proves a turn), their median
-    walls and one profiled prove of each: busy share and idle gaps (a
-    record, not a claim); K13's rule form timed on the prove's plan; on
-    the three-read path the host time of fri_query's parts (plan build,
-    table encoding, launch, fetch wait, emission) and K13 timed on its
-    plan; one profiled prove
+    synchronised per-phase times (median of 5 proves) and the
+    device-to-host copies of one prove from the profiler's memcpy events
+    (exactly one), on the graph path (a dispatch phase, which issues the
+    copy) and on the eager body (a compose phase, the copy issued in
+    fri_query); the single-fetch path and the three reads in turn
+    (single-fetch, three, three, single-fetch; 10 synchronised proves a
+    turn), their median walls and one profiled prove of each: busy share
+    and idle gaps (a record, not a claim); the graph phase: the graph
+    path and the eager body in turn (graph, eager, eager, graph; 10
+    proves a turn, every proof the pin), one capture a slot, the
+    launches inside the graph (counted at capture, equal to one eager
+    body's), the capture's time, the replay's device time from CUDA
+    events beside the eager body's, the memory the slots hold, and which
+    of the graph's kernels torch.profiler shows; K13's rule form timed on
+    the prove's plan; on the three-read path the host time of fri_query's
+    parts (plan build, table encoding, launch, fetch wait, emission) and
+    K13 timed on its plan; one profiled prove of the eager body
     (device time under every launched kernel's name > 0, device
     activities, busy share, the lde phase's device time split into K14
     and K1-K3), the bound of every K8 launch of a prove at
@@ -171,8 +184,10 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
     depth 1 and 2 (the same bytes), proofs/s over 20 calls, the
     device-to-host copies of a call (one a batch), the launches of a call
     (K11, K14, K15, K10 and K9 once a batch, K4-dyn once a FRI round but
-    the last), a profiled call, the two paths in turn (5 calls a turn)
-    with a profiled call of each;
+    the last; the call that captures each slot's graph and replays it), a
+    profiled call of the eager body, the two paths in turn (5 calls a
+    turn) with a profiled call of each, and the graph phase (5 calls a
+    turn, every slot of the cell's ring);
  8. K15 and K10 beside their designs before and K15 past one window
     (phase 3 says what; run before the profiled paths, the long shapes
     and the 3,633-term prove below made the main path's copies window
@@ -2891,7 +2906,7 @@ def _profiled(name, prove, counts, median_wall, cuda) -> dict:
     return kernel_ms
 
 
-def _d2h_copies(run, phased: bool = True):
+def _d2h_copies(run, phased: bool = True, phase: str = "fri_query"):
     """The device-to-host copies of one ``run(timer)``, from the profiler's
     memcpy events, and each phase's: a phase is a record_function range on
     the host, and a copy counts as the phase's when the host operation
@@ -2955,7 +2970,7 @@ def _d2h_copies(run, phased: bool = True):
         # (or that the profiler did not link to one) is taken again; the
         # counts are checked by the caller.
         if copies and whole and (not phased or (
-                "fri_query" in phases and sum(by_phase.values()) == len(copies))):
+                phase in phases and sum(by_phase.values()) == len(copies))):
             break
         _retaken[0] += 1
         print(f"copies window taken again: {len(copies)} device-to-host copies, "
@@ -2969,19 +2984,19 @@ def _d2h_copies(run, phased: bool = True):
 
 
 def _query_copies(name, prover, witness, commit_copies: int | None = 1,
-                  total: int | None = None) -> None:
-    """Device-to-host copies in one prove, by phase: the query phase must
-    make exactly one, and the FRI commit ``commit_copies`` (one on the
-    device chain's three-read path, none on the single-fetch path, whose
-    one copy the query phase issues; None: not held to a count); with
-    ``total``, the prove that many in all."""
+                  total: int | None = None, phase: str = "fri_query") -> None:
+    """Device-to-host copies in one prove, by phase: the query phase (or
+    ``phase``: ``dispatch`` on the graph path, where the copy is issued
+    behind the replay) must make exactly one, and the FRI commit
+    ``commit_copies`` (one on the device chain's three-read path, none on
+    the single-fetch path, whose one copy the query phase issues; None: not
+    held to a count); with ``total``, the prove that many in all."""
     by_phase, copies = _d2h_copies(
-        lambda timer: prover.prove(trace_cols=witness(), timer=timer))
+        lambda timer: prover.prove(trace_cols=witness(), timer=timer), phase=phase)
     print(f"{name}: device-to-host copies by phase {json.dumps(by_phase)} of "
           f"{len(copies)} in the prove", flush=True)
-    if by_phase["fri_query"] != 1:
-        raise AssertionError(f"{name}: {by_phase['fri_query']} device-to-host copies "
-                             "in fri_query")
+    if by_phase[phase] != 1:
+        raise AssertionError(f"{name}: {by_phase[phase]} device-to-host copies in {phase}")
     if commit_copies is not None and by_phase.get("fri_commit", 0) != commit_copies:
         raise AssertionError(f"{name}: {by_phase.get('fri_commit', 0)} device-to-host "
                              f"copies in fri_commit, not {commit_copies}")
@@ -3032,10 +3047,12 @@ def _wall(name, prover, verifier, witness, proof, runs) -> float:
     return median
 
 
-def _phases(name, prover, witness, runs: int = 5) -> None:
+def _phases(name, prover, witness, runs: int = 5, want: str = "compose") -> None:
     """Synchronised per-phase times, the median of ``runs`` proves (a
     single prove may catch one of Python's full garbage collections); the
-    witness is a phase of its own, before the prove's."""
+    witness is a phase of its own, before the prove's.  ``want``: a phase
+    the prove must show (``dispatch`` on the graph path: the witness's copy
+    in, the replay and the issued copy out)."""
     from stark_tpu_torch.utils.profiling import PhaseTimer
 
     samples: dict[str, list[float]] = {}
@@ -3046,8 +3063,8 @@ def _phases(name, prover, witness, runs: int = 5) -> None:
         prover.prove(trace_cols=cols, timer=timer)
         for phase, ms in timer.ms().items():
             samples.setdefault(phase, []).append(ms)
-    if "compose" not in samples:
-        raise AssertionError(f"{name}: no compose phase in {sorted(samples)}")
+    if want not in samples:
+        raise AssertionError(f"{name}: no {want} phase in {sorted(samples)}")
     print(f"{name} prove phases (ms, synchronised, median and max of {runs} proves): "
           + json.dumps({k: [round(float(np.median(v)), 3), round(max(v), 3)]
                         for k, v in samples.items()}), flush=True)
@@ -3066,19 +3083,143 @@ def _rejects(name, prover, verifier, witness, proof) -> None:
     print(f"{name}: flipped byte and changed device witness element rejected", flush=True)
 
 
+#: Every CUDA graph the run captures (ops/cuda.Graph, counted by
+#: _count_captures): the graph phase holds each (B, slot) to one capture.
+_CAPTURES: list = []
+
+
+def _count_captures(cuda) -> None:
+    graph = cuda.Graph
+
+    def counted(*args):
+        _CAPTURES.append(graph(*args))
+        return _CAPTURES[-1]
+
+    cuda.Graph = counted
+
+
+def _graph_counted(name, prover, witness, want_sha, eager_counts, cuda) -> dict:
+    """One witness -> prove on the graph path (the slot warm: its capture,
+    then its replay), the launch counts set to 0 just before and read just
+    after: each replay adds the launches its graph holds, so they must
+    equal the eager body's prove's, and the proof its sha256.  Returns the
+    counts."""
+    cuda.reset_launches()
+    proof = prover.prove(trace_cols=witness())
+    counts = cuda.launch_counts()
+    if hashlib.sha256(proof).hexdigest() != want_sha or counts != eager_counts:
+        raise AssertionError(f"{name}: the graph path's prove differs from the eager "
+                             f"body's: launches {counts}, eager {eager_counts}")
+    slot = prover._slots[1][0]
+    print(f"{name}, graph path: proved from a captured graph's replay, sha256 == pinned; "
+          f"launches equal to the eager body's prove; capture {slot.graph.seconds:.4f} s, "
+          f"{sum(slot.graph.launches.values())} launches inside the graph", flush=True)
+    return counts
+
+
+def _graph_phase(name, single, call, want: list, runs: int, captured_before: int,
+                 reps: int = 20) -> dict:
+    """The graph path against its eager body (StarkProver._eager) on the
+    same prover and inputs: ``call()`` gives the proofs (each sha256 as
+    ``want``), in turn graph, eager, eager, graph, ``runs`` synchronised
+    calls a turn; each turn's median wall.  Then each of ``single``'s slots
+    (by B): one capture (none during the turns; the run's captures since
+    the prover was made, ``captured_before``, one a slot), the launches its
+    graph holds (counted at capture: one eager run of the body on the slot
+    must count the same), the capture's host time, the replay's time from
+    CUDA events around it beside the eager body's on the same slot (its
+    launches from Python, the gaps between them inside), ``reps`` of each,
+    medians; the memory the slots hold; and the kernels a profiled call on
+    the graph path shows under their names.  A record of this run, not a
+    claim."""
+    from stark_tpu_torch.ops import cuda
+
+    graphs = {id(s.graph) for slots in single._slots.values() for s in slots}
+    before = len(_CAPTURES)
+    turns = []
+    for form in ("graph", "eager", "eager", "graph"):
+        with single._eager() if form == "eager" else contextlib.nullcontext():
+            walls = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                got = call()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if [hashlib.sha256(p).hexdigest() for p in got] != want:
+                    raise AssertionError(f"{name}: a {form} call's proof differs")
+        turns.append((form, float(np.median(walls))))
+    slots = [s for b in sorted(single._slots) for s in single._slots[b]]
+    if len(_CAPTURES) != before or {id(s.graph) for s in slots} != graphs \
+            or any(s.graph is None for s in slots) \
+            or len(_CAPTURES) - captured_before != len(slots):
+        raise AssertionError(f"{name}: {len(_CAPTURES) - captured_before} captures for "
+                             f"{len(slots)} slots ({len(_CAPTURES) - before} in the turns)")
+    per_slot = []
+    for slot in slots:
+        cuda.reset_launches()
+        with single._eager():
+            single._body(slot)
+        eager = {k: n for k, n in cuda.launch_counts().items() if n}
+        if eager != slot.graph.launches:
+            raise AssertionError(f"{name}: the graph of B={slot.b} holds {slot.graph.launches}, "
+                                 f"the eager body launches {eager}")
+        ms = {}
+        for form, run in (("replay", slot.graph.replay),
+                          ("eager", lambda: single._body(slot))):
+            with single._eager():
+                run()
+                pairs = [tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                         for _ in range(reps)]
+                for start, end in pairs:
+                    start.record()
+                    run()
+                    end.record()
+                torch.cuda.synchronize()
+            ms[form] = float(np.median([a.elapsed_time(b) for a, b in pairs]))
+        per_slot.append({"B": slot.b, "launches": sum(slot.graph.launches.values()),
+                         "capture_s": slot.graph.seconds, "replay_ms": ms["replay"],
+                         "eager_body_ms": ms["eager"], **slot.nbytes()})
+    held = {k: sum(p[k] for p in per_slot) for k in ("device", "pool", "host")}
+    inside = {k for s in slots for k in s.graph.launches}
+    symbols = {cuda.KERNELS[k].kernel_symbol: k for k in inside}
+    seen = {symbols[sym] for e in _profile(call, 1) for sym in symbols if sym in e.key}
+    medians = {f: float(np.median([ms for g, ms in turns if g == f])) for f in ("graph", "eager")}
+    print(f"{name}, graph phase: in turn ({runs} synchronised calls a turn, each proof's "
+          f"sha256 == pinned on both forms) median wall ms "
+          + json.dumps([[f, round(ms, 4)] for f, ms in turns])
+          + f"; one capture a slot ({len(slots)} slots, none in the turns); per slot "
+          + json.dumps([{k: (round(v, 4) if isinstance(v, float) else v)
+                         for k, v in p.items()} for p in per_slot])
+          + f" (replay and eager body: CUDA events around {reps} runs each, medians; "
+          f"launches inside the graph equal to one eager body's); memory held by the "
+          f"slots: {held['device'] / 2**30:.4f} GiB of their own buffers, "
+          f"{held['pool'] / 2**30:.4f} GiB reserved by the graphs' pools, "
+          f"{held['host'] / 2**20:.3f} MiB pinned; torch.profiler shows {len(seen)} of the "
+          f"{len(inside)} kernels inside the graph under their names"
+          + (f" (not {sorted(inside - seen)})" if inside - seen else ""), flush=True)
+    return {"turns_ms": turns, "medians_ms": medians, "slots": per_slot, "held": held,
+            "profiler_sees": sorted(seen)}
+
+
 def _drive(name, key, prover, verifier, witness, rows, want_sha, expect, runs, cuda,
            launches: dict, turn_runs: int) -> tuple:
-    """A path on the single-fetch prove: warm-up, the counted prove
-    (launches[key]), its reads from the card (one), one prove from host
-    rows that must give the same bytes, wall times, phases, the copies (one,
-    issued in the query phase); then the three-read path (fused_round False)
-    on the same prover: its reads (three) and bytes, and the two in turn
-    (_in_turn).  Returns (proof, counts, rule plan record, median wall s)."""
+    """A path on the single-fetch prove: warm-up, the counted prove on the
+    eager body (StarkProver._eager: _prove_checked's records follow each
+    launch from Python), then the counted prove on the graph path
+    (launches[key], _graph_counted), its reads from the card (one), one
+    prove from host rows that must give the same bytes, wall times, phases
+    and the copies (one, issued in the dispatch phase) of the graph path
+    and (in the query phase) of the eager body; then the three-read path
+    (fused_round False) on the same prover: its reads (three) and bytes,
+    and the two in turn (_in_turn).  Returns (proof, counts, rule plan
+    record, median wall s)."""
     if not verifier.verify(prover.prove(trace_cols=witness())):  # warm-up
         raise AssertionError(f"{name}: warm-up proof rejected")
     torch.cuda.reset_peak_memory_stats()
-    proof, counts, plan = _prove_checked(name, prover, verifier, witness, want_sha,
-                                         expect, cuda)
+    with prover._eager():
+        proof, counts, plan = _prove_checked(name, prover, verifier, witness, want_sha,
+                                             expect, cuda)
+    counts = _graph_counted(name, prover, witness, want_sha, counts, cuda)
     launches[key] = counts
     _check_chain(name, counts, prover.fri.num_rounds())
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3096,8 +3237,12 @@ def _drive(name, key, prover, verifier, witness, rows, want_sha, expect, runs, c
           f"from the card a prove {json.dumps(reads)}; launches {counts}, peak device "
           f"memory {peak:.3f} GiB", flush=True)
     median = _wall(name, prover, verifier, witness, proof, runs)
-    _phases(name, prover, witness)
-    _query_copies(name, prover, witness, commit_copies=0, total=1)
+    _phases(name + ", graph", prover, witness, want="dispatch")
+    _query_copies(name + ", graph", prover, witness, commit_copies=0, total=1,
+                  phase="dispatch")
+    with prover._eager():
+        _phases(name + ", eager body", prover, witness)
+        _query_copies(name + ", eager body", prover, witness, commit_copies=0, total=1)
     _in_turn(name, single, three, turn_runs)
     return proof, counts, plan, median
 
@@ -3126,6 +3271,7 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
         single = StarkProver(air, cfg).prove(item)
         key = "traces"
     want = hashlib.sha256(single).hexdigest()
+    captured_before = len(_CAPTURES)
     prover = BatchStarkProver(air, cfg, batch)
     verifier = StarkVerifier(air, cfg)
     proofs = count or batch
@@ -3137,9 +3283,9 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
         def call():
             return prover.prove_batch(**{key: [item] * batch})
 
-    call()  # warm-up
+    call()  # warm-up: the first call on each slot runs its body eagerly
     cuda.reset_launches()
-    out = call()
+    out = call()  # each slot's capture, then its replay
     counts = cuda.launch_counts()
     launches[cell] = counts
     if len(out) != proofs or any(hashlib.sha256(p).hexdigest() != want for p in out):
@@ -3186,8 +3332,11 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
     if len(copies) != batches:
         raise AssertionError(f"{cell}: {len(copies)} device-to-host copies in a call, "
                              f"not {batches}")
-    kernel_ms = _profiled(cell, call, counts, median, cuda)
+    with prover._single._eager():
+        kernel_ms = _profiled(cell + ", eager body", call, counts, median, cuda)
     _in_turn(cell, call, three, TURN_RUNS["batch"])
+    graph = _graph_phase(cell, prover._single, call, [want] * proofs, TURN_RUNS["batch"],
+                         captured_before)
     per_call = {k: counts[k] for k in ("sponge_absorb", "fri_fold_dyn", "merkle_forest",
                                        "merkle_level", "hash_rows", "query_gather",
                                        "compose", "ntt_pass1_lde", "lde_pad_scale",
@@ -3203,7 +3352,7 @@ def _drive_batch(cell, model, batch, count, depth, cuda, launches) -> dict:
           f"equal{', prove_many at depth 1 and 2 equal' if count else ''}); "
           f"launches a call {json.dumps(per_call)}", flush=True)
     return {"cell": cell, "proofs_per_s_median": float(np.median(rates)),
-            "kernel_ms": kernel_ms}
+            "kernel_ms": kernel_ms, "graph": graph}
 
 
 def main() -> int:
@@ -3221,6 +3370,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    _count_captures(cuda)
 
     # 1. the card
     smi = subprocess.run(
@@ -3333,18 +3483,21 @@ def main() -> int:
     try:
         cuda.reset_launches()
         proofs = []
-        reads = _reads(lambda: proofs.append(short.prove(trace_fn(1 << 16))))
+        # The first prove runs the body eagerly, the second replays the
+        # slot's graph; each re-runs the gather eagerly after its read.
+        reads = _reads(lambda: proofs.extend(short.prove(trace_fn(1 << 16))
+                                             for _ in range(2)))
         gathers = cuda.launch_counts()["query_gather"]
     finally:
         FRI._SAMPLE_SLACK = slack
     want = PINNED[("fib", 1 << 16, 4, 16)]
-    if hashlib.sha256(proofs[0]).hexdigest() != want or reads != 2 or \
-            short.fri.shortfalls != 1 or gathers != 2:
+    if [hashlib.sha256(p).hexdigest() for p in proofs] != [want] * 2 or reads != 4 or \
+            short.fri.shortfalls != 2 or gathers != 4 or short._slots[1][0].graph is None:
         raise AssertionError(f"sampler shortfall: reads {reads}, shortfalls "
                              f"{short.fri.shortfalls}, K13 launches {gathers}")
-    print(f"sampler shortfall (1 candidate a proof), fib T=2^16: sha256 == pinned, "
-          f"{reads} reads, {gathers} K13 launches, shortfalls {short.fri.shortfalls}",
-          flush=True)
+    print(f"sampler shortfall (1 candidate a proof), fib T=2^16, eager body then graph "
+          f"replay: sha256 == pinned, {reads} reads, {gathers} K13 launches, shortfalls "
+          f"{short.fri.shortfalls}", flush=True)
     del short
 
     from stark_tpu_torch.models.examples import mds_square_trace_cols_device
@@ -3365,6 +3518,7 @@ def main() -> int:
     air, trace_fn, _ = get_model("fib")
     cfg = StarkConfig(trace_length=MAIN_T, blowup=4, num_colinearity_tests=16)
     rows = trace_fn(MAIN_T)
+    captured_before = len(_CAPTURES)
     prover = StarkProver(air, cfg)
     verifier = StarkVerifier(air, cfg)
 
@@ -3375,6 +3529,9 @@ def main() -> int:
         name, "fib_2^20", prover, verifier, fib_cols, rows, MAIN_SHA256,
         every - lazy_names - elsewhere - {"mds_expand"}, MAIN_RUNS, cuda, launches,
         TURN_RUNS["fib"])
+    graphs = {"fib_2^20": _graph_phase(
+        name, prover, lambda: [prover.prove(trace_cols=fib_cols())], [MAIN_SHA256],
+        TURN_RUNS["fib"], captured_before)}
     _time_rule_gather("fib T=2^20 prove", plan, results, dev)
     del plan
     # The three-read path's query phase (host indices): its host split and
@@ -3387,19 +3544,24 @@ def main() -> int:
         three.prove(trace_cols=fib_cols())
     _time_gather("fib T=2^20 prove, three reads", host_plans[0], None, dev)
     del host_plans, three
-    _profiled_prove(name, prover, fib_cols, counts, median, cuda)
+    with prover._eager():
+        _profiled_prove(name + ", eager body", prover, fib_cols, counts, median, cuda)
     _rejects(name, prover, verifier, fib_cols, proof)
 
     name = "main path fib T=2^20, lazy NTT"
     lazy_prover = StarkProver(air, cfg, lazy_ntt=True)
     lazy_prover.prove(trace_cols=fib_cols())  # warm-up
-    _, counts, _ = _prove_checked(name, lazy_prover, verifier, fib_cols, MAIN_SHA256,
-                                  every - strict_names - elsewhere - {"mds_expand"}, cuda)
+    with lazy_prover._eager():
+        _, counts, _ = _prove_checked(name, lazy_prover, verifier, fib_cols, MAIN_SHA256,
+                                      every - strict_names - elsewhere - {"mds_expand"},
+                                      cuda)
+    counts = _graph_counted(name, lazy_prover, fib_cols, MAIN_SHA256, counts, cuda)
     launches["fib_2^20_lazy"] = counts
     _check_chain(name, counts, lazy_prover.fri.num_rounds())
     print(f"{name}: proved and verified, sha256 == pinned, launches {counts}",
           flush=True)
-    _profiled_prove(name, lazy_prover, fib_cols, counts, median, cuda)
+    with lazy_prover._eager():
+        _profiled_prove(name + ", eager body", lazy_prover, fib_cols, counts, median, cuda)
 
     # The host commit path (device_chain off): a root read and a host
     # challenge a round, the fold K4 with a host alpha; the same bytes.
@@ -3425,6 +3587,7 @@ def main() -> int:
     name = "wide path mds T=2^16"
     air, trace_fn, _ = get_model("mds")
     cfg = StarkConfig(trace_length=MDS_T, blowup=4, num_colinearity_tests=16)
+    captured_before = len(_CAPTURES)
     prover = StarkProver(air, cfg)
     verifier = StarkVerifier(air, cfg)
 
@@ -3435,16 +3598,30 @@ def main() -> int:
         name, "mds_2^16", prover, verifier, mds_cols, trace_fn(MDS_T), MDS_SHA256,
         every - lazy_names - elsewhere - {"fib_expand"}, MDS_RUNS, cuda, launches,
         TURN_RUNS["mds"])
+    graphs["mds_2^16"] = _graph_phase(
+        name, prover, lambda: [prover.prove(trace_cols=mds_cols())], [MDS_SHA256],
+        TURN_RUNS["mds"], captured_before)
     _time_rule_gather("mds T=2^16 prove", plan, None, dev)
     del plan
-    _profiled_prove(name, prover, mds_cols, counts, median, cuda)
+    with prover._eager():
+        _profiled_prove(name + ", eager body", prover, mds_cols, counts, median, cuda)
     _rejects(name, prover, verifier, mds_cols, proof)
 
     # 7. the batched paths (bench.py's batch8, pipe32x2, mds_pipe8x2)
     cells = [_drive_batch(*cell, cuda=cuda, launches=launches) for cell in BATCH_CELLS]
+    graphs.update({c["cell"]: c["graph"] for c in cells})
     print("batched cells, proofs/s medians: "
           + json.dumps({c["cell"]: round(c["proofs_per_s_median"], 2) for c in cells}),
           flush=True)
+    print("graph phase, the five cells: median wall ms by form, replay and eager body ms "
+          "(CUDA events) and launches inside the graph by slot, slot memory GiB: "
+          + json.dumps({cell: {"wall_ms": {f: round(v, 4) for f, v in g["medians_ms"].items()},
+                               "slots": [[p["B"], round(p["replay_ms"], 4),
+                                          round(p["eager_body_ms"], 4), p["launches"]]
+                                         for p in g["slots"]],
+                               "held_gib": round((g["held"]["device"] + g["held"]["pool"])
+                                                 / 2**30, 4)}
+                        for cell, g in graphs.items()}), flush=True)
     marks.append(time.perf_counter())
 
     # 8. K15 and K10 beside their designs before, K15 past one window; the

@@ -22,10 +22,11 @@ case.
 
 ``prove_many`` keeps up to ``depth`` batches in flight on the single-fetch
 path (stark_tpu's "production serving layout", :653-715): a batch's
-launches and its read are issued (StarkProver._dispatch), and it is
-finished (the read waited for, the transcripts replayed, the proofs
-emitted) only after later batches' launches have gone out, so that the
-host's replay of batch k overlaps the card's work on batch k + 1.
+launches and its read are issued (StarkProver._dispatch; on a card one
+replay of the batch's slot's CUDA graph), and it is finished (the read
+waited for, the transcripts replayed, the proofs emitted) only after later
+batches' launches have gone out, so that the host's replay of batch k
+overlaps the card's work on batch k + 1.
 
 With ``mesh=`` (parallel/mesh.py, one process per device; stark_tpu's
 :580-594 and :637-644): where D divides B the batch is cut, each rank
@@ -117,13 +118,14 @@ class BatchStarkProver:
         arrays or int32 tensors on the prover's device."""
         return self._finish(self._dispatch(traces, traces_cols, timer))
 
-    def _dispatch(self, traces=None, traces_cols=None, timer=NULL_TIMER):
-        """A batch's launches and read, issued (stark_tpu's _mega_dispatch):
-        the state :meth:`_finish` takes."""
+    def _dispatch(self, traces=None, traces_cols=None, timer=NULL_TIMER, ring: int = 1):
+        """A batch's launches and read, issued (stark_tpu's _mega_dispatch)
+        on one of ``ring`` slots (StarkProver._dispatch): the state
+        :meth:`_finish` takes."""
         lo, hi = self.mesh.bounds(self.B) if self._cut else (0, self.B)
         with timer.phase("lde"):
             cols = self._cols_stack(traces, traces_cols, lo, hi)
-        return self._single._dispatch(cols, timer)
+        return self._single._dispatch(cols, timer, ring)
 
     def _finish(self, finish) -> list[bytes]:
         """A dispatched batch's proofs (stark_tpu's _mega_finish): the read
@@ -142,7 +144,8 @@ class BatchStarkProver:
         trace and the pad proofs are dropped.  The bytes equal sequential
         :meth:`prove_batch` calls'.  Every batch in flight holds its device
         state (trace LDEs, trees, codewords, the buffer it reads) until it
-        is finished."""
+        is finished: a ring of ``max(1, depth) + 1`` slots of B proofs, each
+        its own CUDA graph on a card (StarkProver._dispatch)."""
         use_cols = traces_cols is not None
         items = list(traces_cols if use_cols else traces)
         out: list[bytes] = []
@@ -152,7 +155,7 @@ class BatchStarkProver:
             pad = self.B - len(chunk)
             chunk = chunk + [chunk[-1]] * pad
             kw = {"traces_cols": chunk} if use_cols else {"traces": chunk}
-            inflight.append((pad, self._dispatch(**kw)))
+            inflight.append((pad, self._dispatch(**kw, ring=max(1, depth) + 1)))
             if len(inflight) > max(1, depth):
                 pad0, finish = inflight.popleft()
                 out.extend(self._finish(finish)[: self.B - pad0])

@@ -2,17 +2,18 @@
 
 Protocol contract: reference src/fri.rs:29-525, reproduced transcript- and
 proof-byte-exactly.  Counterpart of stark_tpu/fri.py as it runs by
-default: the single-fetch prove (``Fri.prove_chained``, stark_tpu's
-_prove_chained), where the device chain (``Fri.device_chain``: trees,
-roots, the Fiat-Shamir challenges and the folds, kernel K4-dyn one launch
-a round for the root's absorb, the challenge and the fold; the last
-root's absorb kernel K9) goes on from the STARK layer's sponge, the query
-indices are sampled on the card (K10) and every query read follows them
-there (K13's rule slots), one fetch at the end, then the host replays the
-transcript and the sampling and checks the card's values; B proofs at
-once as one.  With ``fused_round = False`` (or where the prove is not
-``_chainable``) the chain's fetch is one read and the query phase with
-host indices another (``commit_batch``, ``prove_batch``).
+default: the single-fetch prove (stark_tpu's _prove_chained: the launches
+``Fri.chain_launches``, the host's side ``Fri.chained_replay``), where the
+device chain (``Fri.device_chain``: trees, roots, the Fiat-Shamir
+challenges and the folds, kernel K4-dyn one launch a round for the root's
+absorb, the challenge and the fold; the last root's absorb kernel K9) goes
+on from the STARK layer's sponge, the query indices are sampled on the card
+(K10) and every query read follows them there (K13's rule slots), one fetch
+at the end, then the host replays the transcript and the sampling and
+checks the card's values; B proofs at once as one.  With ``fused_round =
+False`` (or where the prove is not ``_chainable``) the chain's fetch is one
+read and the query phase with host indices another (``commit_batch``,
+``prove_batch``).
 ``device_chain = False`` runs the host path: a root read, a host challenge
 and a fold with that challenge (K4) per round.
 
@@ -202,7 +203,7 @@ class Fri:
     #: :739-1035, its default): the STARK layer's constraint challenges
     #: (K15) feed the chain, the query indices are sampled on the card (K10)
     #: and the query gather reads them there (K13's rule slots), and one
-    #: read brings back the whole prove (:meth:`prove_chained`), where
+    #: read brings back the whole prove (:meth:`chain_launches`), where
     #: :meth:`_chainable`; else the challenges' bytes ride the chain's
     #: fetch and the query phase is a second read.  False: three reads (the
     #: trace roots, the chain's fetch, the query gather), the challenges
@@ -528,7 +529,7 @@ class Fri:
         rounds.  ``upstream``: the STARK layer's device transcript, whose
         sections ride the commit's read (stark_tpu's
         commit(transcript_dev_prefix=)); the query phase is a read of its
-        own.  :meth:`prove_chained` is the single-fetch form."""
+        own.  :meth:`chain_launches` is the single-fetch form."""
         b = codewords.shape[0]
         with timer.phase("fri_commit"):
             cws, stacks = self._commit(codewords, proof_streams, fiat_shamirs, upstream)
@@ -596,76 +597,75 @@ class Fri:
                           plan.paths(src[i][1], ab), plan.paths(src[i + 1][1], c)))
         return slots
 
-    def prove_chained(self, codewords: torch.Tensor, fiat_shamirs: list,
-                      proof_streams: list, upstream: Upstream, plan: G.RulePlan,
-                      round_slots: list, extra_sources: list, extra_emit=None,
-                      timer=NULL_TIMER) -> Callable[[], list[list[int]]]:
-        """The single-fetch prove of B (B, n) codewords (stark_tpu/fri.py:
-        _prove_chained, :739-1035; stark_tpu/batch.py:_mega_dispatch):
-        the device chain goes on from ``upstream``'s sponge, K10 samples
-        each proof's indices from the sponge after the last root, and K13
-        gathers ``plan`` (:meth:`query_rules`' slots, ``round_slots``, then
-        the caller's, whose sources are ``extra_sources``) from the card's
-        indices, all into ``upstream``'s buffer, which one copy brings to
-        the host.  Nothing here waits for the card: returns ``finish()``,
-        which waits for that copy, replays ``upstream``'s part of the
-        transcripts, the chain's and the sampling (native.sample_indices),
-        raises RuntimeError where a card's value differs from the replay,
-        emits every round's reads and then calls ``extra_emit(fetched)``,
-        and returns each proof's indices.  Where a proof's candidates gave
-        fewer than ``tests`` distinct indices, the host's indices go through
-        the same plan on the card and a second read (stark_tpu's
-        idx_override re-run; counted in :attr:`shortfalls`)."""
+    def chain_launches(self, codewords: torch.Tensor, sponge: HB.Sponge, packed: G.Packed,
+                       plan: G.RulePlan, extra_sources: list, timer=NULL_TIMER) -> list:
+        """The single-fetch prove's launches for B (B, n) codewords
+        (stark_tpu/fri.py:_prove_chained, :739-1035, and _mega_prove_fn,
+        :154-304; stark_tpu/batch.py:_batch_mega_fn): the device chain goes
+        on from ``sponge`` (K15's), K10 samples each proof's indices from the
+        sponge after the last root, and K13 gathers ``plan`` (:meth:`query_rules`'
+        slots, then the caller's, whose sources are ``extra_sources``) from
+        the card's indices, all into ``packed``.  Nothing here reads from the
+        card: a CUDA graph can hold it (stark.py).  Returns the gather's
+        sources, as :meth:`chained_replay` takes them."""
         b, n = codewords.shape
         k, rounds = self.num_colinearity_tests, self.num_rounds()
         if not self._chainable() or self.domain_length != n:
             raise ValueError("the single-fetch prove needs a chainable FRI and codewords "
                              f"of {self.domain_length}, got {tuple(codewords.shape)}")
-        packed = upstream.packed
-        size, reduced = n // 2, n >> (rounds - 1)
         with timer.phase("fri_commit"):
-            cws, forests = self._chain(codewords, upstream.sponge, packed)
+            cws, forests = self._chain(codewords, sponge, packed)
         indices_dev = packed.dev["indices"].view(b, k)
         with timer.phase("fri_sample"):
-            HB.sample_indices(upstream.sponge, size, reduced, k, 2 * k + _SAMPLE_SLACK,
+            HB.sample_indices(sponge, n // 2, n >> (rounds - 1), k, 2 * k + _SAMPLE_SLACK,
                               indices_dev, packed.dev["counts"])
         sources = [t for cw, f in zip(cws, forests) for t in (cw, f.stack)]
         sources += list(extra_sources)
         with timer.phase("fri_query"):
             plan.run(sources, indices_dev, packed.dev["gather"])
-            pending = G.to_host(packed.buf, wait=False)
+        return sources
 
-        def finish() -> list[list[int]]:
-            with timer.phase("fri_fetch"):
-                host = packed.host(pending.wait())
-            with timer.phase("fri_emit"):
-                upstream.replay(host)
-                self._chain_replay(host, b, proof_streams, fiat_shamirs)
-                got, counts = host["indices"].reshape(b, k), host["counts"]
-                indices, short = [], False
-                for j, fs in enumerate(fiat_shamirs):
-                    # Seed from the RAW (unreduced) challenge value (fri.rs:272).
-                    seed = Hash.from_u64(fs.challenge(self.field).value).data
-                    want = self.sample_indices(seed, size, reduced, k)
-                    indices.append(want)
-                    if int(counts[j]) < k:
-                        short = True
-                    elif [int(v) for v in got[j]] != want:
-                        raise RuntimeError("device/host transcript divergence (query indices)")
-                fetched = host["gather"]
-                if short:
-                    self.shortfalls += 1
-                    dev = codewords.device
-                    out = torch.empty(plan.words, dtype=torch.int32, device=dev)
-                    plan.run(sources, torch.tensor(indices, dtype=torch.int32).to(dev), out)
-                    fetched = G.to_host(out)
-                for slots in round_slots:
-                    self._round_emit(slots, fetched, proof_streams)
-                if extra_emit is not None:
-                    extra_emit(fetched)
-            return indices
-
-        return finish
+    def chained_replay(self, host: dict, fiat_shamirs: list, proof_streams: list,
+                       plan: G.RulePlan, round_slots: list, sources: list,
+                       extra_emit=None) -> list[list[int]]:
+        """The host side of the single-fetch prove, from the fetched sections
+        of :meth:`chain_launches`' buffer (``host``; the STARK layer's part
+        of each transcript replayed first): the chain's replay, then the
+        sampling's (native.sample_indices); raises RuntimeError where a
+        card's value differs from the replay; emits every round's reads and
+        then calls ``extra_emit(fetched)``; returns each proof's indices.
+        Where a proof's candidates gave fewer than ``tests`` distinct
+        indices, the host's indices go through ``plan`` over ``sources`` on
+        the card and a second read (stark_tpu's idx_override re-run; counted
+        in :attr:`shortfalls`): the sources must still hold this prove's
+        values."""
+        b = len(fiat_shamirs)
+        k, rounds = self.num_colinearity_tests, self.num_rounds()
+        size, reduced = self.domain_length // 2, self.domain_length >> (rounds - 1)
+        self._chain_replay(host, b, proof_streams, fiat_shamirs)
+        got, counts = host["indices"].reshape(b, k), host["counts"]
+        indices, short = [], False
+        for j, fs in enumerate(fiat_shamirs):
+            # Seed from the RAW (unreduced) challenge value (fri.rs:272).
+            seed = Hash.from_u64(fs.challenge(self.field).value).data
+            want = self.sample_indices(seed, size, reduced, k)
+            indices.append(want)
+            if int(counts[j]) < k:
+                short = True
+            elif [int(v) for v in got[j]] != want:
+                raise RuntimeError("device/host transcript divergence (query indices)")
+        fetched = host["gather"]
+        if short:
+            self.shortfalls += 1
+            dev = sources[0].device
+            out = torch.empty(plan.words, dtype=torch.int32, device=dev)
+            plan.run(sources, torch.tensor(indices, dtype=torch.int32).to(dev), out)
+            fetched = G.to_host(out)
+        for slots in round_slots:
+            self._round_emit(slots, fetched, proof_streams)
+        if extra_emit is not None:
+            extra_emit(fetched)
+        return indices
 
     # -- verify (fri.rs:313-504) -------------------------------------------------------
 

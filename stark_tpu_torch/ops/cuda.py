@@ -10,15 +10,19 @@ raises on a non-zero code.  Kernels allocate nothing: wrappers pass
 
 Every entry point is a :class:`Kernel` in :data:`KERNELS`, with a launch
 count that its wrapper raises by one per launch and nowhere else, so a run
-can show which kernels the main path went through.
+can show which kernels the main path went through.  A :class:`Graph` holds
+launches captured once as a CUDA graph and replays them; each replay adds
+the launches it holds to their kernels' counts.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import os
 import shutil
+import time
 
 import torch
 
@@ -111,6 +115,50 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+class Graph:
+    """The kernel launches of ``body()``, captured once on ``device`` as a
+    CUDA graph (``torch.cuda.graph``, global capture mode) and replayed on
+    the current stream: the port's form of one jit (stark_tpu/batch.py:
+    _batch_mega_fn).  Every kernel the body launches must have launched
+    before (a module's first launch under lazy loading cannot be
+    captured), and the body may neither read from the card nor allocate
+    pinned memory.  Tensors it allocates come from the graph's own memory
+    pool and keep their addresses for as long as the graph lives; what the
+    body returns (:attr:`result`) is what the caller keeps of them.  A
+    failed capture or replay raises.
+
+    Nothing runs at capture, so the launches the body makes are taken back
+    from their kernels' counts and held in :attr:`launches`; each
+    :meth:`replay` adds them again.  :attr:`seconds`: the capture's host
+    time; :attr:`pool_bytes`: the device memory the graph's pool reserved."""
+
+    def __init__(self, body, device: torch.device):
+        # What torch.cuda.graph does on entry, done first here so that the
+        # memory reserved before the capture is read after it.
+        torch.cuda.synchronize(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(self.graph):
+                self.result = body()
+        finally:
+            after = launch_counts()
+            self.launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
+            for k, n in self.launches.items():
+                KERNELS[k].launches -= n
+        self.seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            KERNELS[k].launches += n
 
 
 def check_operand(t: torch.Tensor, name: str,

@@ -591,15 +591,24 @@ class Pending:
         return self._host.numpy().view(np.uint32)
 
 
-def to_host(words: torch.Tensor, wait: bool = True):
+def to_host(words: torch.Tensor, wait: bool = True, into: torch.Tensor | None = None):
     """A (words,) int32 tensor on the host as uint32: from a card, one copy
-    into pinned memory of its own, waited for with an event.  ``wait``
-    False: the copy is only issued, and a :class:`Pending` returned (the
-    prover's pipeline waits for it after it has launched more work)."""
+    into pinned memory of its own (or ``into``, a host tensor of the same
+    shape: pinned, for a card's copy to run behind the host), waited for
+    with an event.  ``wait`` False: the copy is only issued, and a
+    :class:`Pending` returned (the prover's pipeline waits for it after it
+    has launched more work).  The words returned are views of the host
+    buffer."""
+    if into is not None and (into.shape != words.shape or into.dtype != torch.int32
+                             or into.device.type != "cpu"):
+        raise ValueError(f"into must be a host {tuple(words.shape)} int32 tensor")
     if words.device.type == "cpu":
+        if into is not None:
+            words = into.copy_(words)
         pending = Pending(words, None)
     else:
-        host = torch.empty(words.shape, dtype=torch.int32, pin_memory=True)
+        host = into if into is not None else torch.empty(words.shape, dtype=torch.int32,
+                                                         pin_memory=True)
         host.copy_(words, non_blocking=True)
         landed = torch.cuda.Event()
         landed.record(torch.cuda.current_stream(words.device))

@@ -77,6 +77,7 @@ comparisons:
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -527,10 +528,31 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
     """K8's ticket counter for the launches on one stream of ``device``
     (``stream`` is its handle): one zeroed word, which every launch leaves
     at zero again.  Launches on one stream follow one another, so they can
-    share it; launches on two streams may overlap and get a word each.  (A
-    captured graph holds the word of the stream it was captured on: two
-    such graphs must not be replayed at the same time.)"""
+    share it; launches on two streams may overlap and get a word each.  A
+    captured graph takes words of its own instead (:func:`own_tickets`)."""
     return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+#: The ticket words that K8 and K8-forest take in place of their stream's,
+#: innermost last (:func:`own_tickets`).
+_OWN_TICKETS: list[torch.Tensor] = []
+
+
+@contextlib.contextmanager
+def own_tickets(words: torch.Tensor):
+    """Within the block, K8 and K8-forest take their ticket counters from
+    ``words`` ((FOREST_MAX_TREES,) int32 zeros on the launches' device,
+    K8 its first word) in place of their stream's: the words of one CUDA
+    graph (stark.py's slots), which it holds at their addresses for as long
+    as it lives, and which no other graph's replay can touch.  The
+    launches leave them at zero."""
+    if tuple(words.shape) != (FOREST_MAX_TREES,) or words.dtype != torch.int32:
+        raise ValueError(f"ticket words must be ({FOREST_MAX_TREES},) int32")
+    _OWN_TICKETS.append(words)
+    try:
+        yield
+    finally:
+        _OWN_TICKETS.pop()
 
 
 def _check_lanes(lanes: int | None) -> int:
@@ -562,7 +584,7 @@ def merkle_tail(nodes: torch.Tensor, out: torch.Tensor | None = None,
     _check_card_digests(nodes, "nodes")
     _check_card_digests(out, "out")
     stream = torch.cuda.current_stream(nodes.device).cuda_stream
-    ticket = _ticket(nodes.device, stream)
+    ticket = _OWN_TICKETS[-1][:1] if _OWN_TICKETS else _ticket(nodes.device, stream)
     src, pos = nodes, 0
     for sub, top in tail_launches(w.bit_length() - 1, lg_sub):
         try:
@@ -618,7 +640,7 @@ def merkle_forest(nodes: torch.Tensor, trees: int,
     _check_card_digests(nodes, "nodes")
     _check_card_digests(out, "out")
     stream = torch.cuda.current_stream(nodes.device).cuda_stream
-    tickets = _tickets(nodes.device, stream)
+    tickets = _OWN_TICKETS[-1] if _OWN_TICKETS else _tickets(nodes.device, stream)
     src, pos = nodes, 0
     for sub, top in tail_launches(w.bit_length() - 1, lg_sub, n.bit_length() - 1):
         try:

@@ -212,8 +212,11 @@ class FusedNTTPlan:
         self.wm = wm.to(torch.int32).contiguous()
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def get_plan(n: int, inverse: bool, device: torch.device) -> FusedNTTPlan:
+    """The plan of (n, inverse) on ``device``, made once and never dropped:
+    a captured graph (stark.py's slots) reads its tables by address for as
+    long as it lives."""
     return FusedNTTPlan(n, inverse, device)
 
 
@@ -353,12 +356,13 @@ def pass1_plain(x3: torch.Tensor, plan: FusedNTTPlan,
     return _mont_mul_plain(y, plan.wm.long()).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def lde_scale(n: int, s: int, device: torch.device) -> torch.Tensor:
     """(n1 + n2, 2) int32 on ``device``, for an LDE onto n points with the
     scale s: s^(n2 r) for r < n1, then s^col for col < n2, each beside its
     Shoup companion (csrc/ntt.cu LdeInput: s^e = s^(n2 r) s^col for
-    element e = r n2 + col), built on the host once per (n, s, device)."""
+    element e = r n2 + col), built on the host once per (n, s, device) and
+    never dropped (as :func:`get_plan`)."""
     n1 = 1 << (n.bit_length() - 1) // 2                       # FusedNTTPlan's split
     n2 = n // n1
     w = np.concatenate([F.host_powers(pow(s, n2, P), n1), F.host_powers(s, n2)])

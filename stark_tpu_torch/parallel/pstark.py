@@ -224,6 +224,9 @@ class DistributedStarkProver(StarkProver):
     points must hold the frame's reach (max offset x blowup points), which
     the composition reads from the next share."""
 
+    #: The body holds collectives (gloo's cannot be captured): eager.
+    _graphs = False
+
     def __init__(self, air, cfg: StarkConfig, mesh: Mesh, lazy_ntt: bool = False,
                  overlap: int = 1):
         self.mesh = mesh

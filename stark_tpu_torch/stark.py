@@ -4,9 +4,12 @@ Counterpart of stark_tpu/stark.py.  By default its single-fetch prove
 (chain_upstream, :398-444): the trace root never crosses to the host
 before the end; kernel K15 draws the constraint challenges from it on the
 card and writes the composition's weights, and the FRI chain, the index
-sampling and the query gather go on from there (fri.Fri.prove_chained):
+sampling and the query gather go on from there (fri.Fri.chain_launches):
 one read from the card a prove, or a batch, after which the host replays
-every transcript and checks the card's values.  With ``Fri.fused_round``
+every transcript and checks the card's values.  On a card that device
+work, from the witness columns to the buffer read, is one CUDA graph a
+batch size and slot, captured once and replayed (StarkProver._dispatch;
+stark_tpu's one jit, batch.py:_batch_mega_fn).  With ``Fri.fused_round``
 False, the classic flow: the trace roots read first, the challenges drawn
 on the host, three reads.  Protocol (prover):
 
@@ -35,6 +38,7 @@ recomputed from the opened trace values.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -194,6 +198,43 @@ def _draw_constraint_challenges(fs: FiatShamir, field: FiniteField, count: int):
     return alphas, betas
 
 
+class _Slot:
+    """One batch's device state for the single-fetch prove, at addresses that
+    stay (the buffers of stark_tpu/batch.py:_batch_mega_fn): the (B, c, T)
+    columns the body starts from, K15's sponge and K11's weight words, the
+    one buffer the body writes (``packed``), the host buffer its read
+    lands in (pinned on a card), and K8's and K8-forest's ticket words;
+    on a card its CUDA graph (``graph``, ops/cuda.Graph), whose result is
+    the gather's sources it writes: the trace LDE, the trace forest's
+    stack, every round's codewords and forest stacks, tensors of the
+    graph's own memory pool.  ``warm``: the body has run eagerly on it
+    (a capture's warm-up); ``busy``: from a dispatch to its finish()."""
+
+    def __init__(self, shape: tuple, n_terms: int, sections: dict, device):
+        b = shape[0]
+        self.b = b
+        self.cols = torch.empty(shape, dtype=torch.int32, device=device)
+        self.sponge = HB.Sponge(b, device)
+        self.weights = torch.empty((b, 4 * n_terms), dtype=torch.int32, device=device)
+        self.packed = G.Packed(sections, device)
+        self.host = torch.empty(self.packed.buf.shape, dtype=torch.int32,
+                                pin_memory=torch.device(device).type == "cuda")
+        self.tickets = torch.zeros(HB.FOREST_MAX_TREES, dtype=torch.int32, device=device)
+        self.graph: cuda.Graph | None = None
+        self.warm = False
+        self.busy = False
+
+    def nbytes(self) -> dict:
+        """Bytes held: ``device`` by the slot's own buffers, ``pool`` by its
+        graph's memory pool (0 before the capture), ``host`` pinned."""
+        sponge = self.sponge
+        own = (self.cols, sponge.state, sponge.pending, sponge.next_state,
+               sponge.next_pending, self.weights, self.packed.buf, self.tickets)
+        return {"device": sum(t.numel() * t.element_size() for t in own),
+                "pool": 0 if self.graph is None else self.graph.pool_bytes,
+                "host": self.host.numel() * self.host.element_size()}
+
+
 class StarkProver:
     """Proves on ``device`` (default ``cuda``; the CPU runs every kernel's
     plain version).  ``lazy_ntt`` takes the NTT kernels' [0, 2p)
@@ -214,9 +255,11 @@ class StarkProver:
         # device, made once here and read once a point.
         self.program = CO.ComposeProgram(air, d.boundary)
         self.tables = self._tables(*self._points())
-        # The single-fetch prove's gather plan, by batch size (its structure
-        # depends on the shapes only).
+        # The single-fetch prove's gather plan and slots, by batch size (the
+        # plan's structure depends on the shapes only).
         self._rule_plans: dict[int, tuple] = {}
+        self._slots: dict[int, list[_Slot]] = {}
+        self._eager_depth = 0
 
     def _points(self) -> tuple[int, int]:
         """(first, count): the coset points whose codeword values this
@@ -315,29 +358,131 @@ class StarkProver:
         finish."""
         return self._dispatch(cols, timer)()
 
-    def _dispatch(self, cols: torch.Tensor, timer=NULL_TIMER):
+    def _dispatch(self, cols: torch.Tensor, timer=NULL_TIMER, ring: int = 1):
         """Start B proofs of (B, c, T) witness columns; returns ``finish()``
         -> the B proofs.  The single-fetch prove (the device chain with
-        ``fused_round``, where the FRI is ``_chainable``) launches every
-        kernel here and issues its one read, and ``finish`` waits for it
-        (stark_tpu/batch.py:_mega_dispatch, _mega_finish): a caller may
-        start the next batch between the two.  The other paths run to
-        their end here: two reads with the challenges still on the card
-        (the FRI not chainable: the trace roots and the challenges' bytes
-        ride the chain's fetch, then the query gather), three with
-        ``fused_round`` False (:meth:`_prove_three_reads`)."""
+        ``fused_round``, where the FRI is ``_chainable``) runs on one of
+        ``ring`` slots of B (:class:`_Slot`): the columns copied into it, its
+        device work (:meth:`_body`) issued and its one read issued, and
+        ``finish`` waits for the read (stark_tpu/batch.py:_mega_dispatch,
+        _mega_finish): a caller may start the next batch, on another slot,
+        between the two.  On a card the body is one CUDA graph a slot,
+        captured at the slot's second prove (its first runs the body eagerly,
+        the warm-up the capture needs) and replayed from then on; on the CPU,
+        in :meth:`_eager` and on the sharded prover it runs eagerly.  The
+        other paths run to their end here: two reads with the challenges
+        still on the card (the FRI not chainable: :meth:`_prove_two_reads`),
+        three with ``fused_round`` False (:meth:`_prove_three_reads`)."""
         fri = self.fri
         if not (fri.device_chain and fri.fused_round):
             proofs = self._prove_three_reads(cols, timer)
             return lambda: proofs
-        d, cfg = self.dom, self.cfg
-        field = FiniteField()
+        if not fri._chainable():
+            proofs = self._prove_two_reads(cols, timer)
+            return lambda: proofs
         b = int(cols.shape[0])
         fss = [FiatShamir() for _ in range(b)]
         streams = [ProofStream() for _ in range(b)]
-        n_terms = d.num_transition + len(d.boundary)
-        chained = fri._chainable()
+        plan, round_slots, open_slots = self._rule_plan(b)
+        slot = self._slot(b, ring)
+        slot.busy = True
+        try:
+            if slot.warm and self._graphs and not self._eager_depth \
+                    and self.device.type == "cuda":
+                with timer.phase("dispatch"):
+                    slot.cols.copy_(cols)
+                    if slot.graph is None:
+                        slot.graph = cuda.Graph(lambda: self._body(slot), self.device)
+                    slot.graph.replay()
+                    pending = G.to_host(slot.packed.buf, wait=False, into=slot.host)
+                sources = slot.graph.result
+            else:
+                with timer.phase("lde"):
+                    slot.cols.copy_(cols)
+                sources = self._body(slot, timer)
+                with timer.phase("fri_query"):
+                    pending = G.to_host(slot.packed.buf, wait=False, into=slot.host)
+                slot.warm = True
+        except BaseException:
+            slot.busy = False
+            raise
 
+        def finish() -> list[bytes]:
+            try:
+                with timer.phase("fri_fetch"):
+                    # A copy: the slot's next prove lands in the same buffer.
+                    host = slot.packed.host(pending.wait().copy())
+                with timer.phase("fri_emit"):
+                    self._prefix_replay(host, fss, streams)
+                    fri.chained_replay(host, fss, streams, plan, round_slots, sources,
+                                       lambda fetched: self._open_emit(open_slots, fetched,
+                                                                       streams))
+            finally:
+                slot.busy = False
+            return [stream.serialize() for stream in streams]
+
+        return finish
+
+    #: Whether the single-fetch prove's body is captured as a CUDA graph on a
+    #: card (the sharded prover's body holds collectives: it runs eagerly).
+    _graphs = True
+
+    @contextlib.contextmanager
+    def _eager(self):
+        """Within the block the single-fetch prove's body runs eagerly on a
+        card too, every kernel launched from Python as on the CPU: the
+        yardstick that the graph path is held against (chip_smoke.py,
+        tools/prove_wall.py).  The slots and their graphs stay."""
+        self._eager_depth += 1
+        try:
+            yield
+        finally:
+            self._eager_depth -= 1
+
+    def _slot(self, b: int, ring: int) -> "_Slot":
+        """A free slot of B proofs among the first ``ring`` (made when
+        fewer exist); raises RuntimeError when all ``ring`` hold a prove
+        whose finish() has not run: a slot is never overwritten."""
+        slots = self._slots.setdefault(b, [])
+        for slot in slots[:ring]:
+            if not slot.busy:
+                return slot
+        if len(slots) >= ring:
+            raise RuntimeError(f"every one of the {ring} slot(s) of B = {b} holds a prove "
+                               "whose finish() has not run")
+        d = self.dom
+        sections = self.fri.packed_sections(b, self._prefix(b), self._rule_plan(b)[0].words)
+        slot = _Slot((b, self.air.num_registers, d.T), d.num_transition + len(d.boundary),
+                     sections, self.device)
+        slots.append(slot)
+        return slot
+
+    def _body(self, slot: "_Slot", timer=NULL_TIMER) -> list:
+        """The single-fetch prove's device work on ``slot`` (stark_tpu/batch.py:
+        _batch_mega_fn, its LDE's dispatches with it): from the slot's
+        columns, the LDE, the trace forest, K15 (the constraint challenges
+        into the slot's sponge, weights and buffer), K11, then the FRI's
+        launches (Fri.chain_launches: the chain, K10, K13) into the slot's
+        buffer.  It reads nothing from the card and takes nothing but the
+        slot, so one CUDA graph a slot holds it.  Returns the query
+        gather's sources (the trace LDE and forest, every round's codewords
+        and forests)."""
+        with HB.own_tickets(slot.tickets):
+            trace_lde, trace_forest, composition = self._front(
+                slot.cols, slot.sponge, slot.weights, slot.packed, timer)
+            # 5. FRI, with the trace openings (step 6) in the same gather
+            return self.fri.chain_launches(composition, slot.sponge, slot.packed,
+                                           self._rule_plan(slot.b)[0],
+                                           [trace_lde, trace_forest.stack], timer)
+
+    def _front(self, cols: torch.Tensor, sponge: HB.Sponge, weights: torch.Tensor,
+               packed: G.Packed, timer=NULL_TIMER) -> tuple:
+        """Steps 1-4 on the card, nothing read back: the (B, c, T) columns'
+        LDE, the trace forest, K15 (the constraint challenges into
+        ``sponge``, K11's ``weights`` and ``packed``'s prefix sections),
+        K11.  Returns (trace LDE, trace forest, (B, N) codewords)."""
+        b = int(cols.shape[0])
+        n_terms = self.dom.num_transition + len(self.dom.boundary)
         # 1. trace columns -> coefficients -> LDE on the coset  [device]
         with timer.phase("lde"):
             trace_lde = self._lde_trace(cols)
@@ -346,18 +491,10 @@ class StarkProver:
         # (one forest); the roots stay on the card  [device]
         with timer.phase("trace_commit"):
             trace_forest = self._trace_tree(trace_lde)
-            prefix = {"trace_roots": 8 * b, "digests": 4 * n_terms * b}
-            if chained:
-                plan, round_slots, open_slots = self._rule_plan(b)
-                packed = G.Packed(fri.packed_sections(b, prefix, plan.words), self.device)
-            else:
-                packed = G.Packed(fri.packed_sections(b, prefix), self.device)
 
-        # 3. constraint-combination challenges from the trace roots, and
-        # the composition's weights: K15, into the one buffer  [device]
+        # 3. constraint-combination challenges from the trace roots, and the
+        # composition's weights: K15, into the one buffer  [device]
         with timer.phase("challenges"):
-            sponge = HB.Sponge(b, self.device)
-            weights = torch.empty((b, 4 * n_terms), dtype=torch.int32, device=self.device)
             HB.constraint_challenges(
                 trace_forest.roots_dev(), 2 * n_terms, sponge,
                 packed.dev["trace_roots"].view(torch.uint8).view(b, 32),
@@ -366,44 +503,57 @@ class StarkProver:
         # 4. composition codewords  [device]
         with timer.phase("compose"):
             composition = self._composition(trace_lde, weights=weights)
+        return trace_lde, trace_forest, composition
 
-        def prefix_replay(host: dict) -> None:
-            """The host's replay of the trace roots and the challenge draws
-            from the fetched buffer (stark_tpu/stark.py:426-444); raises on a
-            device/host divergence."""
-            roots = host["trace_roots"].view(np.uint8).reshape(b, 32)
-            digests = host["digests"].view(np.uint8).reshape(b, 2 * n_terms, 8)
-            for j in range(b):
-                root = Hash(roots[j].tobytes())
-                streams[j].push(MerkleRoot(root))
-                fss[j].absorb(root.data)
-                for i in range(2 * n_terms):
-                    raw = fss[j].challenge(field).value.to_bytes(8, "little")
-                    if raw != digests[j, i].tobytes():
-                        raise RuntimeError("device/host transcript divergence "
-                                           "(constraint challenges)")
-                    fss[j].absorb(raw)
+    def _prefix(self, b: int) -> dict:
+        """The STARK layer's sections of a single-fetch buffer of B proofs
+        (Fri.packed_sections' prefix): the trace roots, the challenges'
+        bytes (words each)."""
+        n_terms = self.dom.num_transition + len(self.dom.boundary)
+        return {"trace_roots": 8 * b, "digests": 4 * n_terms * b}
 
-        upstream = Upstream(sponge, packed, prefix_replay)
-        # 5. FRI, with the trace openings (step 6) in the same query gather
-        if chained:
-            fri_finish = fri.prove_chained(
-                composition, fss, streams, upstream, plan, round_slots,
-                [trace_lde, trace_forest.stack],
-                lambda fetched: self._open_emit(open_slots, fetched, streams), timer)
+    def _prefix_replay(self, host: dict, fss: list, streams: list) -> None:
+        """The host's replay of the trace roots and the challenge draws from
+        the fetched sections (stark_tpu/stark.py:426-444); raises on a
+        device/host divergence."""
+        b = len(fss)
+        field = FiniteField()
+        n_terms = self.dom.num_transition + len(self.dom.boundary)
+        roots = host["trace_roots"].view(np.uint8).reshape(b, 32)
+        digests = host["digests"].view(np.uint8).reshape(b, 2 * n_terms, 8)
+        for j in range(b):
+            root = Hash(roots[j].tobytes())
+            streams[j].push(MerkleRoot(root))
+            fss[j].absorb(root.data)
+            for i in range(2 * n_terms):
+                raw = fss[j].challenge(field).value.to_bytes(8, "little")
+                if raw != digests[j, i].tobytes():
+                    raise RuntimeError("device/host transcript divergence "
+                                       "(constraint challenges)")
+                fss[j].absorb(raw)
 
-            def finish() -> list[bytes]:
-                fri_finish()
-                return [stream.serialize() for stream in streams]
-
-            return finish
+    def _prove_two_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
+        """B proofs where the FRI is not chainable (fewer than two rounds,
+        or a last codeword the device sampler does not take): K15 still
+        draws the challenges on the card, its bytes ride the chain's fetch,
+        then the query gather with host indices: two reads."""
+        d, fri = self.dom, self.fri
+        b = int(cols.shape[0])
+        fss = [FiatShamir() for _ in range(b)]
+        streams = [ProofStream() for _ in range(b)]
+        sponge = HB.Sponge(b, self.device)
+        weights = torch.empty((b, 4 * (d.num_transition + len(d.boundary))),
+                              dtype=torch.int32, device=self.device)
+        packed = G.Packed(fri.packed_sections(b, self._prefix(b)), self.device)
+        trace_lde, trace_forest, composition = self._front(cols, sponge, weights, packed,
+                                                           timer)
         fri.prove_batch(composition, fss, streams, timer=timer,
                         extra_dispatch=self._open_dispatch(trace_lde, trace_forest),
                         extra_emit=lambda slots, fetched: self._open_emit(
                             slots, fetched, streams),
-                        upstream=upstream)
-        proofs = [stream.serialize() for stream in streams]
-        return lambda: proofs
+                        upstream=Upstream(sponge, packed,
+                                          lambda host: self._prefix_replay(host, fss, streams)))
+        return [stream.serialize() for stream in streams]
 
     def _rule_plan(self, b: int) -> tuple:
         """The single-fetch prove's query gather for B proofs, made once per

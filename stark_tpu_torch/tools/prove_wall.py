@@ -2,7 +2,7 @@
 that fall inside each prove.
 
     python3 -m stark_tpu_torch.tools.prove_wall [--model fib|mds] [--log2-t N] [--runs N]
-        [--phase-runs N] [--batch B] [--device-witness]
+        [--phase-runs N] [--turn-runs N] [--batch B] [--device-witness]
 
 Proves from host rows (``StarkProver.prove(rows)``, the entry every
 version of the port has; with ``--device-witness``, from the columns
@@ -18,7 +18,11 @@ wall-time quantiles, the collections of each generation in the runs and
 inside a prove (count and ms), and every prove over twice the median with
 the collections inside it; then each phase's synchronised time
 (``utils.profiling.PhaseTimer``), the median of ``--phase-runs`` more
-proves.  To measure an earlier checkout of the port
+proves.  Then the prove's two forms on the same prover in turn (graph,
+eager, eager, graph; ``--turn-runs`` synchronised calls a turn): the
+CUDA graph a card prove replays (the default path) and its body launched
+eagerly from Python (``StarkProver._eager``), each turn's median wall and
+each form's phases.  To measure an earlier checkout of the port
 with the same script, run it by path with that checkout's root first on
 ``PYTHONPATH``:
 
@@ -28,6 +32,7 @@ with the same script, run it by path with that checkout's root first on
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -43,6 +48,7 @@ def main() -> None:
     parser.add_argument("--log2-t", type=int, default=20)
     parser.add_argument("--runs", type=int, default=100)
     parser.add_argument("--phase-runs", type=int, default=5)
+    parser.add_argument("--turn-runs", type=int, default=10)
     parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--device-witness", action="store_true")
     args = parser.parse_args()
@@ -62,6 +68,7 @@ def main() -> None:
         from stark_tpu_torch import BatchStarkProver
 
         batch = BatchStarkProver(air, cfg, args.batch)
+        single = batch._single
 
         def prove(timer=NULL_TIMER):
             batch.prove_batch([rows] * args.batch, timer=timer)
@@ -119,12 +126,32 @@ def main() -> None:
     slow = [{"run": i, "ms": round(float(walls[i]), 3),
              "gc": [[g, round(m, 3)] for g, m in inside(*windows[i])]}
             for i in range(len(walls)) if walls[i] > 2 * median]
-    phases: dict[str, list[float]] = {}
-    for _ in range(args.phase_runs):
-        timer = PhaseTimer(sync=torch.cuda.synchronize)
-        prove(timer)
-        for phase, ms in timer.ms().items():
-            phases.setdefault(phase, []).append(ms)
+    def phase_medians(runs: int) -> dict:
+        phases: dict[str, list[float]] = {}
+        for _ in range(runs):
+            timer = PhaseTimer(sync=torch.cuda.synchronize)
+            prove(timer)
+            for phase, ms in timer.ms().items():
+                phases.setdefault(phase, []).append(ms)
+        return {k: round(float(np.median(v)), 3) for k, v in phases.items()}
+
+    phases = phase_medians(args.phase_runs)
+    # An earlier checkout of the port has no eager form of the graph path.
+    eager = getattr(single, "_eager", None)
+    in_turn = eager_phases = None
+    if eager is not None and args.turn_runs > 0:
+        in_turn = []
+        for form in ("graph", "eager", "eager", "graph"):
+            with eager() if form == "eager" else contextlib.nullcontext():
+                turn = []
+                for _ in range(args.turn_runs):
+                    t0 = time.perf_counter()
+                    prove()
+                    torch.cuda.synchronize()
+                    turn.append((time.perf_counter() - t0) * 1e3)
+            in_turn.append([form, round(float(np.median(turn)), 3)])
+        with eager():
+            eager_phases = phase_medians(args.phase_runs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -137,7 +164,8 @@ def main() -> None:
                              (round(float(v), 3) for v in q))),
         "proofs_per_s_median": round(args.batch * 1e3 / median, 2),
         "collections": by_gen, "over_twice_median": slow,
-        "phase_ms_median": {k: round(float(np.median(v)), 3) for k, v in phases.items()},
+        "phase_ms_median": phases,
+        "in_turn_median_ms": in_turn, "eager_phase_ms_median": eager_phases,
     }), flush=True)
 
 
