@@ -413,6 +413,8 @@ DIST_T = 1 << 21
 DIST_D = 4
 DIST_MDS_D = 2
 DIST_RUNS = 3
+#: Proves a turn of the NCCL world of one, graph and eager body in turn.
+DIST_TURN_RUNS = 10
 # K14 with the four-step's twiddle table at its (C/D, R) rows: (n, D).
 SCALE_TABLE_CASES = ((1 << 23, DIST_D), (1 << 22, 1))
 # K11 on the sharded paths' shares with their halos: (model, T, blowup, D).
@@ -1130,21 +1132,26 @@ def _check_windowed_gather(rng, dev) -> None:
 
 
 def _drive_distributed(smi: str, launches: dict) -> None:
-    """The distributed phase (stark_tpu_torch/tools/dist_prove.py): five
-    worlds at once, each rank a spawned process on the one card, every
-    library built first.  An NCCL world of one rank (Fibonacci T=2^20, the
-    pinned sha256); D=4 gloo ranks (Fibonacci T=2^21, N=2^23, against a
-    single-device card prove of the same witness made here, verified); D=2
-    gloo ranks (MDS T=2^16, the pinned sha256); D=2 gloo ranks at batch8's
-    shape (T=2^14: the sharded prove, then BatchStarkProver(mesh=) of 8,
-    every proof the single prove's); D=2 gloo ranks at T=2^14 on the FRI
-    commit's host path (K4 on the exchanged halves).  All but the last on
-    the single-fetch prove; then the D=4 world alone on each path in turn
-    (single fetch, three reads, three reads, single fetch).  Each rank: a warm-up, DIST_RUNS proves, the last
-    counted (every kernel of its World.kernels above 0, on the
-    single-fetch path K15 and K10 once, one read and one combine; three
-    reads on the three-read path; three all-to-alls of n/D words a
-    transform)."""
+    """The distributed phase (stark_tpu_torch/tools/dist_prove.py): an NCCL
+    world of one rank (Fibonacci T=2^20, the pinned sha256) alone on the
+    card, its sharded single-fetch prove one CUDA graph (captured at the
+    slot's second prove, its collectives inside) in turn with the eager
+    body (graph, eager, eager, graph; DIST_TURN_RUNS proves a turn); then
+    four worlds at once, each rank a spawned process on the one card, every
+    library built first: D=4 gloo ranks (Fibonacci T=2^21, N=2^23, against
+    a single-device card prove of the same witness made here, verified);
+    D=2 gloo ranks (MDS T=2^16, the pinned sha256); D=2 gloo ranks at
+    batch8's shape (T=2^14: the sharded prove, then BatchStarkProver(mesh=)
+    of 8, every proof the single prove's); D=2 gloo ranks at T=2^14 on the
+    FRI commit's host path (K4 on the exchanged halves).  All but the last
+    on the single-fetch prove, every gloo world's sharded body eager
+    (parallel/pstark.graphs_allowed); then the D=4 world alone on each path
+    in turn (single fetch, three reads, three reads, single fetch).  Each
+    rank: warm-ups, DIST_RUNS proves a turn, the last counted (every kernel
+    of its World.kernels above 0, on the single-fetch path K15 and K10
+    once, one read and one combine; three reads on the three-read path;
+    three all-to-alls of n/D words a transform; a graph turn's launches and
+    collectives those of the eager turn: DP.check)."""
     from stark_tpu_torch import StarkConfig, StarkVerifier
     from stark_tpu_torch.models import get_model
     from stark_tpu_torch.tools import dist_prove as DP
@@ -1152,14 +1159,33 @@ def _drive_distributed(smi: str, launches: dict) -> None:
     t_start = time.perf_counter()
     sha = {T: hashlib.sha256(DP.single_proof("fib", T)).hexdigest() for T in (DIST_T, BATCH_T)}
     torch.cuda.empty_cache()
-    worlds = [DP.World(1, "nccl", "fib", MAIN_T, MAIN_SHA256, runs=DIST_RUNS),
-              DP.World(DIST_D, "gloo", "fib", DIST_T, sha[DIST_T], runs=DIST_RUNS),
+    nccl = DP.World(1, "nccl", "fib", MAIN_T, MAIN_SHA256, runs=DIST_TURN_RUNS,
+                    forms=DP.IN_TURN)
+    got = DP.run([nccl])
+    ranks = got[nccl.name]
+    DP.check(nccl, ranks)
+    graph = ranks[0]["graph"]
+    nccl_turns = [(t["form"], float(np.median(t["wall_s"])) * 1e3,
+                   float(np.median(t["body_ms"]))) for t in ranks[0]["turns"]]
+    print(f"distributed {nccl.name} ({smi}): the sharded single-fetch prove's body one CUDA "
+          f"graph (NCCL's collectives inside), captured at prove {ranks[0]['captured_at']} "
+          f"in {graph['capture_s']:.4f} s, holding {sum(graph['launches'].values())} launches "
+          f"and collectives {json.dumps(graph['collectives'])} (words "
+          f"{json.dumps([words for _, words in graph['log']])}); slot memory "
+          f"{json.dumps(graph['slot_bytes'])} B; in turn with the eager body "
+          f"({DIST_TURN_RUNS} proves a turn; form, median wall ms of witness + prove, median "
+          "device ms of the replay or the eager body by CUDA events) "
+          + json.dumps([[form, round(wall, 4), round(body, 4)]
+                        for form, wall, body in nccl_turns])
+          + "; every proof's sha256 == the pin; each turn's launches and collectives equal "
+          "the eager turn's", flush=True)
+    worlds = [DP.World(DIST_D, "gloo", "fib", DIST_T, sha[DIST_T], runs=DIST_RUNS),
               DP.World(DIST_MDS_D, "gloo", "mds", MDS_T, MDS_SHA256, runs=DIST_RUNS),
               DP.World(DIST_MDS_D, "gloo", "fib", BATCH_T, sha[BATCH_T], batch=8,
                        runs=DIST_RUNS),
               DP.World(DIST_MDS_D, "gloo", "fib", BATCH_T, sha[BATCH_T], runs=DIST_RUNS,
                        host_path=True)]
-    got = DP.run(worlds)
+    got.update(DP.run(worlds))
     # The D=4 world alone on each path in turn: single fetch, three reads,
     # three reads, single fetch.
     paths = [DP.World(DIST_D, "gloo", "fib", DIST_T, sha[DIST_T], runs=DIST_RUNS,
@@ -1168,7 +1194,7 @@ def _drive_distributed(smi: str, launches: dict) -> None:
     for w in (paths[0], paths[1], paths[1], paths[0]):
         turns.append(DP.run([w])[w.name])
         DP.check(w, turns[-1])
-    worlds.append(paths[1])
+    worlds = [nccl, *worlds, paths[1]]
     got[paths[1].name] = turns[1]
     print(f"distributed {paths[0].name} in turn with {paths[1].name} (single fetch, three "
           f"reads, three reads, single fetch), each world alone on the card ({smi}): wall "
@@ -1181,6 +1207,9 @@ def _drive_distributed(smi: str, launches: dict) -> None:
     for w in worlds:
         ranks = got[w.name]
         DP.check(w, ranks)
+        if w.backend == "gloo" and any(o["graph"] is not None or o["graphs_allowed"]
+                                       for o in ranks):
+            raise AssertionError(f"{w.name}: a gloo rank's sharded body was a graph")
         air = get_model(w.model)[0]
         verifier = StarkVerifier(air, StarkConfig(trace_length=w.trace_length, blowup=4,
                                                   num_colinearity_tests=16))
@@ -1201,7 +1230,9 @@ def _drive_distributed(smi: str, launches: dict) -> None:
               + json.dumps({k: [o["counts"][k] for o in ranks]
                             for k in w.kernels + DP.SINGLE_KERNELS})
               + f"; collectives of rank 0 {json.dumps(ranks[0]['collectives'])} (all-to-alls "
-              f"of {c} T/D then {c} N/D words, three a transform); wall s of witness + "
+              f"of {c} T/D then {c} N/D words, three a transform); the sharded body "
+              + ("a CUDA graph on every rank" if ranks[0]["graph"] else "eager on every rank")
+              + "; wall s of witness + "
               f"prove by rank {json.dumps([[round(x, 4) for x in o['wall_s']] for o in ranks])}",
               flush=True)
         if w.batch:
@@ -1217,7 +1248,8 @@ def _drive_distributed(smi: str, launches: dict) -> None:
                   + json.dumps({k: [o["batch"]["counts"][k] for o in ranks]
                                 for k in ("merkle_forest", "compose", "query_gather") + single})
                   + "; wall s by rank "
-                  + json.dumps([round(o["batch"]["wall_s"], 4) for o in ranks]), flush=True)
+                  + json.dumps([[round(x, 4) for x in o["batch"]["wall_s"]] for o in ranks]),
+                  flush=True)
         launches[f"dist {w.name}"] = ranks[0]["counts"]
     print(f"distributed phase: {time.perf_counter() - t_start:.1f} s, the worlds' processes "
           "on the card at once (the walls above are no yardstick for the single-device "

@@ -134,6 +134,11 @@ class BatchStarkProver:
         proofs = finish()
         return self._gather_proofs(proofs) if self._cut else proofs
 
+    def close(self) -> None:
+        """Release the slots and CUDA graphs of the prover underneath
+        (StarkProver.close)."""
+        self._single.close()
+
     def prove_many(self, traces=None, depth: int = 2, *,
                    traces_cols=None) -> list[bytes]:
         """Any number of same-shape traces in batches of B, keeping up to

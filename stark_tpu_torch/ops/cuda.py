@@ -12,11 +12,13 @@ Every entry point is a :class:`Kernel` in :data:`KERNELS`, with a launch
 count that its wrapper raises by one per launch and nowhere else, so a run
 can show which kernels the main path went through.  A :class:`Graph` holds
 launches captured once as a CUDA graph and replays them; each replay adds
-the launches it holds to their kernels' counts.
+the launches it holds to their kernels' counts (and the collectives it
+holds to its mesh's, :func:`taken_back`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
@@ -117,9 +119,56 @@ def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+class _Launches:
+    """The kernels' launch counts as a ledger (:func:`taken_back`)."""
+
+    def mark(self) -> dict[str, int]:
+        return launch_counts()
+
+    def take_back(self, before: dict[str, int]) -> dict[str, int]:
+        held = {k: n - before.get(k, 0) for k, n in launch_counts().items()
+                if n != before.get(k, 0)}
+        for k, n in held.items():
+            KERNELS[k].launches -= n
+        return held
+
+    def add(self, held: dict[str, int]) -> None:
+        for k, n in held.items():
+            KERNELS[k].launches += n
+
+
+#: The launch counts' ledger: a capture takes its launches back from it.
+LAUNCHES = _Launches()
+
+
+@contextlib.contextmanager
+def taken_back(ledgers):
+    """Within the block, what the code adds to each ledger is recorded and,
+    at its end, taken back out: the block yields a list that then holds
+    (ledger, what it added) pairs, for :func:`add_back`.  A ledger has
+    ``mark()``, ``take_back(mark)`` -> what was added since, and
+    ``add(held)``: :data:`LAUNCHES`, and parallel/mesh.Mesh's collective
+    counts.  A capture runs nothing, so what its body counted is taken back
+    and each replay adds it again."""
+    marks = [(ledger, ledger.mark()) for ledger in ledgers]
+    held: list = []
+    try:
+        yield held
+    finally:
+        held.extend((ledger, ledger.take_back(mark)) for ledger, mark in marks)
+
+
+def add_back(held: list) -> None:
+    """Add to each ledger what :func:`taken_back` took out of it."""
+    for ledger, got in held:
+        ledger.add(got)
+
+
 class Graph:
     """The kernel launches of ``body()``, captured once on ``device`` as a
-    CUDA graph (``torch.cuda.graph``, global capture mode) and replayed on
+    CUDA graph (``torch.cuda.graph``, in ``mode``: ``global`` by default;
+    ``thread_local`` where other threads of the process make CUDA calls of
+    their own during the capture, as NCCL's watchdog does) and replayed on
     the current stream: the port's form of one jit (stark_tpu/batch.py:
     _batch_mega_fn).  Every kernel the body launches must have launched
     before (a module's first launch under lazy loading cannot be
@@ -129,36 +178,39 @@ class Graph:
     body returns (:attr:`result`) is what the caller keeps of them.  A
     failed capture or replay raises.
 
-    Nothing runs at capture, so the launches the body makes are taken back
-    from their kernels' counts and held in :attr:`launches`; each
-    :meth:`replay` adds them again.  :attr:`seconds`: the capture's host
-    time; :attr:`pool_bytes`: the device memory the graph's pool reserved."""
+    Nothing runs at capture, so what the body counts is taken back
+    (:func:`taken_back`) from the launch counts (held in :attr:`launches`)
+    and from ``ledgers`` (a mesh's collectives, held in :attr:`held`);
+    each :meth:`replay` adds it again.  :attr:`seconds`: the capture's host
+    time; :attr:`pool_bytes`: the device memory the graph's pool reserved;
+    :meth:`close` releases it."""
 
-    def __init__(self, body, device: torch.device):
+    def __init__(self, body, device: torch.device, ledgers=(), mode: str = "global"):
         # What torch.cuda.graph does on entry, done first here so that the
         # memory reserved before the capture is read after it.
         torch.cuda.synchronize(device)
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
-        before = launch_counts()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.device(device), torch.cuda.graph(self.graph):
-                self.result = body()
-        finally:
-            after = launch_counts()
-            self.launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
-            for k, n in self.launches.items():
-                KERNELS[k].launches -= n
+        with taken_back((LAUNCHES, *ledgers)) as self.held, torch.cuda.device(device), \
+                torch.cuda.graph(self.graph, capture_error_mode=mode):
+            self.result = body()
+        self.launches = self.held[0][1]
         self.seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
 
     def replay(self) -> None:
         self.graph.replay()
-        for k, n in self.launches.items():
-            KERNELS[k].launches += n
+        add_back(self.held)
+
+    def close(self) -> None:
+        """Release the graph (``CUDAGraph.reset``) and what it returned; it
+        replays no more.  NCCL's teardown waits for every graph that holds
+        its operations (parallel/pstark.py)."""
+        self.graph.reset()
+        self.result = None
 
 
 def check_operand(t: torch.Tensor, name: str,

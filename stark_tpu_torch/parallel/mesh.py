@@ -14,7 +14,9 @@ equal chunks, an all-gather, an exchange of chunks of any size between
 pairs of ranks (an all-to-all of uneven splits), and a sum of int32 words
 (the query gather's combine).  Each raises the mesh's
 counters (:attr:`Mesh.counts`: calls and words by collective, and a log of
-each call's words), so that tests can count them.
+each call's words), so that tests can count them; a CUDA graph that holds
+collectives takes them back at its capture and adds them at each replay
+(ops/cuda.taken_back).
 
 A world of one rank needs no process group: its collectives are local
 copies (counted all the same), as a one-device mesh is in JAX.
@@ -94,6 +96,24 @@ class Mesh:
         self.counts = {}
         self.log = []
 
+    # The counts as a ledger of ops/cuda.taken_back: a captured graph's
+    # collectives are taken back at its capture and added at each replay.
+
+    def mark(self) -> int:
+        return len(self.log)
+
+    def take_back(self, mark: int) -> list[tuple[str, int]]:
+        held = self.log[mark:]
+        del self.log[mark:]
+        for op, words in held:
+            self.counts[op] -= 1
+            self.counts[op + "_words"] -= words
+        return held
+
+    def add(self, held: list[tuple[str, int]]) -> None:
+        for op, words in held:
+            self._count(op, words)
+
     # -- collectives ------------------------------------------------------------------
 
     def all_to_all(self, x: torch.Tensor, async_op: bool = False):
@@ -146,6 +166,16 @@ class Mesh:
         out = torch.empty((sum(recv),) + rest, dtype=x.dtype, device=x.device)
         dist.all_to_all_single(out, x.contiguous(), recv, send, group=self.group)
         return out
+
+    def agree(self, ok: bool) -> bool:
+        """Whether ``ok`` holds on every rank: one all-reduce (the minimum)
+        of one word, uncounted, outside any graph (DistributedStarkProver's
+        captures: one that fails on a rank raises on every rank)."""
+        if self.group is None:
+            return ok
+        flag = torch.full((1,), int(ok), dtype=torch.int32, device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+        return bool(flag.item())
 
     def barrier(self) -> None:
         if self.group is not None:

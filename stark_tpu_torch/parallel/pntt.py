@@ -45,11 +45,12 @@ def _split(n: int) -> tuple[int, int]:
     return r, n // r
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def _twiddles(n: int, inverse: bool, size: int, rank: int, chunks: int,
               device: torch.device) -> tuple:
     """This rank's rows of T[j2, k1] = w^(+-j2 k1) (j2 in its block of C/D),
-    as ``chunks`` K14 tables of (C/D/chunks) R entries each."""
+    as ``chunks`` K14 tables of (C/D/chunks) R entries each.  Never
+    evicted: a captured graph reads them by address (pstark.py)."""
     r_len, c_len = _split(n)
     w = F.primitive_nth_root(n)
     if inverse:
@@ -62,9 +63,10 @@ def _twiddles(n: int, inverse: bool, size: int, rank: int, chunks: int,
     return tuple(NTT.table_of(row, device) for row in tw)
 
 
-@functools.lru_cache(maxsize=32)
+@functools.cache
 def _coset_table(offset: int, start: int, t: int, device: torch.device) -> torch.Tensor:
-    """K14's table of offset^(start + k), k < t."""
+    """K14's table of offset^(start + k), k < t (never evicted, as
+    :func:`_twiddles`)."""
     return NTT.table_of(F.host_powers(offset, t, scale=pow(offset, start, PRIME)), device)
 
 

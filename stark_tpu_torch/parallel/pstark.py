@@ -40,11 +40,18 @@ A FRI codeword halves every round; once a rank's share would hold fewer
 than ``ShardedFri.min_share`` points, the codeword is gathered whole to
 every rank and the rounds left run as the single-device chain does (a
 layout change, the same values).  The last codeword is always whole.
+
+On a card with NCCL (or a mesh of one) the single-fetch prove's device
+work, from the slot's columns to the buffer read, collectives included, is
+one CUDA graph a slot on every rank, as the single prove's is
+(stark.StarkProver._dispatch; stark_tpu's mesh mega dispatch).  Gloo
+meshes, the CPU, the three-read path and the host commit path run eagerly.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from stark_tpu_torch.fri import Fri, Upstream
 from stark_tpu_torch.hashfn import Hash
@@ -216,20 +223,36 @@ class ShardedFri(Fri):
         return cws, stacks
 
 
+def graphs_allowed(device_type: str, backend: str | None) -> bool:
+    """Whether a mesh's single-fetch body runs as one CUDA graph a slot: on
+    a card whose mesh has an NCCL group (a CUDA graph holds NCCL's
+    collectives) or none (a mesh of one: its collectives are copies).
+    Never for gloo, which carries the exchanges through the host outside
+    any stream, CUDA tensors or not, nor on the CPU."""
+    return device_type == "cuda" and backend in (None, "nccl")
+
+
 class DistributedStarkProver(StarkProver):
     """StarkProver over a 1-D mesh (parallel/mesh.py), on the mesh's
     device; every rank calls :meth:`prove` with the same witness and gets
     the same proof, byte-identical to the single-device prove.  ``overlap``:
     the sharded NTT's chunks (pntt.py).  A rank's share of the N coset
     points must hold the frame's reach (max offset x blowup points), which
-    the composition reads from the next share."""
+    the composition reads from the next share.
 
-    #: The body holds collectives (gloo's cannot be captured): eager.
-    _graphs = False
+    Where :func:`graphs_allowed` says so, the single-fetch prove's body is
+    one CUDA graph a slot on every rank, its collectives captured with its
+    kernels (stark_tpu's mesh mega dispatch, stark_tpu/parallel/pstark.py:
+    100-111): captured at the slot's second prove, replayed from its
+    third (:meth:`_capture`), the backend read from the mesh's group.
+    NCCL's teardown (``destroy_process_group``) waits for every graph that
+    holds its point-to-point operations: :meth:`close` the prover first."""
 
     def __init__(self, air, cfg: StarkConfig, mesh: Mesh, lazy_ntt: bool = False,
                  overlap: int = 1):
         self.mesh = mesh
+        self._graphs = graphs_allowed(mesh.device.type, None if mesh.group is None
+                                      else dist.get_backend(mesh.group))
         self.overlap = overlap
         reach, share = air.max_offset * cfg.blowup, cfg.blowup * cfg.trace_length // mesh.size
         if reach > share:
@@ -246,6 +269,26 @@ class DistributedStarkProver(StarkProver):
             # D ranks start at once: rank 0 builds the libraries, the others
             # load them after a barrier.
             mesh.first(lambda: (cuda.library(), CO.library(self.program.source)))
+
+    def _capture(self, slot) -> cuda.Graph:
+        """The slot's body as one CUDA graph on this rank: the collectives it
+        counts (Mesh.counts, Mesh.log) are taken back with its launches and
+        added at each replay.  With a process group the capture is
+        thread-local (NCCL's watchdog thread makes CUDA calls of its own
+        meanwhile), and every rank learns whether every rank's capture
+        succeeded (Mesh.agree) before any replays: a failed capture raises
+        on every rank, where the others would wait in their first replay."""
+        mesh = self.mesh
+        mode = "global" if mesh.group is None else "thread_local"
+        try:
+            graph = cuda.Graph(lambda: self._body(slot), self.device, (mesh,), mode)
+        except Exception:
+            mesh.agree(False)
+            raise
+        if not mesh.agree(True):
+            raise RuntimeError(f"rank {mesh.rank}: the CUDA graph capture failed on "
+                               "another rank of the mesh")
+        return graph
 
     def _points(self) -> tuple[int, int]:
         lo, hi = self.mesh.bounds(self.dom.N)

@@ -369,7 +369,8 @@ class StarkProver:
         between the two.  On a card the body is one CUDA graph a slot,
         captured at the slot's second prove (its first runs the body eagerly,
         the warm-up the capture needs) and replayed from then on; on the CPU,
-        in :meth:`_eager` and on the sharded prover it runs eagerly.  The
+        in :meth:`_eager` and on a sharded prover whose collectives no graph
+        can hold (gloo) it runs eagerly.  The
         other paths run to their end here: two reads with the challenges
         still on the card (the FRI not chainable: :meth:`_prove_two_reads`),
         three with ``fused_round`` False (:meth:`_prove_three_reads`)."""
@@ -392,7 +393,7 @@ class StarkProver:
                 with timer.phase("dispatch"):
                     slot.cols.copy_(cols)
                     if slot.graph is None:
-                        slot.graph = cuda.Graph(lambda: self._body(slot), self.device)
+                        slot.graph = self._capture(slot)
                     slot.graph.replay()
                     pending = G.to_host(slot.packed.buf, wait=False, into=slot.host)
                 sources = slot.graph.result
@@ -424,8 +425,27 @@ class StarkProver:
         return finish
 
     #: Whether the single-fetch prove's body is captured as a CUDA graph on a
-    #: card (the sharded prover's body holds collectives: it runs eagerly).
+    #: card (the sharded prover's: where its mesh's collectives can be held
+    #: in one, parallel/pstark.graphs_allowed).
     _graphs = True
+
+    def _capture(self, slot: "_Slot") -> cuda.Graph:
+        """The slot's body captured as one CUDA graph: its launches recorded,
+        nothing run."""
+        return cuda.Graph(lambda: self._body(slot), self.device)
+
+    def close(self) -> None:
+        """Release every slot and its CUDA graph (ops/cuda.Graph.close); a
+        later prove makes its slots anew.  Proves still in flight (a
+        ``prove_many`` interrupted) lose their state.  A sharded prover on
+        NCCL must be closed before ``destroy_process_group``, which waits for
+        every graph holding NCCL's operations."""
+        for slots in self._slots.values():
+            for slot in slots:
+                if slot.graph is not None:
+                    slot.graph.close()
+                    slot.graph = None
+        self._slots.clear()
 
     @contextlib.contextmanager
     def _eager(self):

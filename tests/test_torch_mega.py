@@ -8,22 +8,25 @@ same slot, every kernel's plain version.  Here: back-to-back proves of two
 different witnesses on one prover, so on one reused slot, each byte-equal
 to stark_tpu's prove of its witness (Fibonacci T=64, MdsSquareAir T=32,
 TwoRegisterFibonacciAir T=128: the sha256 of stark_tpu's proofs of the same
-seeded rows, pinned, since its JAX compiles of the three configurations
-take over a minute here); prove_many at depth 1, 2 and 3 with B = 2 and 3
+seeded rows, pinned in tests/torch_port_support.py, since its JAX
+compiles of the three configurations take over a minute here); prove_many at depth 1, 2 and 3 with B = 2 and 3
 over 7 traces (the ring of max(1, depth) + 1 slots rotates and the last
 batch is a partial one) equal to sequential prove_batch calls and to
 stark_tpu's proofs of the 7 traces, computed here (its BatchStarkProver's
 proofs are its single proves' bytes, stark_tpu's tests/test_batch.py, and
 tests/test_torch_batch.py holds the port's batches to its BatchStarkProver
-directly); a slot reused before its finish() raises;
-the forced sampler shortfall through a reused slot keeps its bytes.  On a
+directly); close() releases every slot and its graph, and the next
+prove makes them anew; a slot reused before its finish() raises;
+the forced sampler shortfall through a reused slot keeps its bytes; a
+capture's bookkeeping (ops/cuda.taken_back, add_back) takes back what its
+body counted, launches and a mesh's collectives (a mesh of one, no group),
+and each replay adds it again in order.  On a
 card (marker ``gpu``): the graph's replays give the eager body's bytes, one
 capture a (B, slot), and the launches counted at capture equal one eager
 prove's.  Tolerance zero throughout: proofs are bytes."""
 
 import hashlib
 
-import numpy as np
 import pytest
 import torch
 
@@ -32,21 +35,9 @@ from stark_tpu_torch import fri as FRI
 from stark_tpu_torch.models import get_model
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import gather as G
-from stark_tpu_torch.ops.fieldops import P
-from torch_port_support import cuda_device  # noqa: F401
+from torch_port_support import PINNED_PAIRS, cuda_device, witnesses  # noqa: F401
 
 TESTS = 4
-# sha256 of stark_tpu's proofs of _witnesses(model, T, 2, seed=T): the
-# model's trace, then random rows (StarkProver.prove, blowup as get_model
-# gives it, 4 tests).
-PINNED_PAIRS = {
-    ("fib", 64): ("0fbe172505bfeaaefa39b0fe788e0e84c845958ff92fdc1330338bfc4d31335c",
-                  "280fa344049d69a312c830563bb4feba9fafe239160c742ca01173b6aa2697d4"),
-    ("mds", 32): ("96923f8de37f8dbf40eeff4f4976402c2df0d0a22aec37d483ef279fe18c605c",
-                  "22c05026389f6ae089efe75274f815f8e176a7092105e41f245f20582961b55d"),
-    ("fib2", 128): ("afbb76e8614e5cf6e0017c4d29cd9d63a094e1cd148685ba26e524de502da28c",
-                    "f22235ad9b0f3f226fd063d7528a63e797bd52bda4fb179db7c862c1ed150461"),
-}
 # sha256 of stark_tpu's Fibonacci proof at T=1024, blowup 4, 16 tests
 # (tests/test_torch_chained.py pins the same).
 PINNED_FIB_1024 = "db5758edd257e895c25f040e3952b6aaebc8e3c5d25ef1408713b3710d2d5559"
@@ -55,17 +46,6 @@ PINNED_FIB_1024 = "db5758edd257e895c25f040e3952b6aaebc8e3c5d25ef1408713b3710d2d5
 def _config(model: str, trace_length: int) -> StarkConfig:
     return StarkConfig(trace_length=trace_length, blowup=get_model(model)[2],
                        num_colinearity_tests=TESTS)
-
-
-def _witnesses(model: str, trace_length: int, count: int, seed: int) -> list:
-    """The model's own trace rows, then ``count - 1`` rows of random field
-    values (a prove needs no valid witness to be held byte for byte)."""
-    air, trace_fn, _ = get_model(model)
-    rng = np.random.default_rng(seed)
-    rows = [np.asarray(trace_fn(trace_length), dtype=np.int64) % P]
-    rows += [rng.integers(0, P, size=(trace_length, air.num_registers), dtype=np.int64)
-             for _ in range(count - 1)]
-    return rows
 
 
 def _stark_tpu_fib(cfg: StarkConfig, rows: list) -> list:
@@ -82,7 +62,7 @@ def _stark_tpu_fib(cfg: StarkConfig, rows: list) -> list:
 @pytest.mark.parametrize("model, trace_length", [("fib", 64), ("mds", 32), ("fib2", 128)])
 def test_back_to_back_proves_on_one_slot_equal_stark_tpu(model, trace_length):
     cfg = _config(model, trace_length)
-    rows = _witnesses(model, trace_length, 2, seed=trace_length)
+    rows = witnesses(model, trace_length, 2, seed=trace_length)
     prover = StarkProver(get_model(model)[0], cfg, device="cpu")
     # Each witness twice, alternating: a slot that kept anything of the
     # prove before would change the next one's bytes.
@@ -97,7 +77,7 @@ def many():
     """7 Fibonacci witnesses at T=64 (the honest trace, then random rows)
     and stark_tpu's proofs of them."""
     cfg = _config("fib", 64)
-    rows = _witnesses("fib", 64, 7, seed=7)
+    rows = witnesses("fib", 64, 7, seed=7)
     return cfg, rows, _stark_tpu_fib(cfg, rows)
 
 
@@ -120,10 +100,34 @@ def test_prove_many_rotates_the_ring(many, b, depth):
     assert prover.prove_many(rows, depth=depth) == want
 
 
+def test_close_releases_every_slot_and_graph(many):
+    # A batch prover's ring of three slots, each given a stand-in for its
+    # graph: close() releases each once and drops the slots; the next
+    # prove_many makes them anew and gives the same bytes.
+    cfg, rows, want = many
+    prover = BatchStarkProver(get_model("fib")[0], cfg, 2, device="cpu")
+    assert prover.prove_many(rows, depth=2) == want
+    slots = prover._single._slots[2]
+    closed = []
+
+    class Held:
+        def close(self):
+            closed.append(self)
+
+    graphs = [Held() for _ in slots]
+    for slot, graph in zip(slots, graphs):
+        slot.graph = graph
+    prover.close()
+    assert closed == graphs and not prover._single._slots
+    assert all(slot.graph is None for slot in slots)
+    assert prover.prove_many(rows, depth=2) == want
+    assert len(prover._single._slots[2]) == 3
+
+
 def test_a_slot_reused_before_its_finish_raises():
     model, t = "fib", 64
     cfg = _config(model, t)
-    rows = _witnesses(model, t, 3, seed=3)
+    rows = witnesses(model, t, 3, seed=3)
     prover = StarkProver(get_model(model)[0], cfg, device="cpu")
     cols = [prover._witness(r, None)[None] for r in rows]
     want = [prover.prove(r) for r in rows]
@@ -157,6 +161,47 @@ def test_a_forced_shortfall_through_a_reused_slot_keeps_its_bytes(monkeypatch):
     assert len(prover._single._slots[2]) == 1
 
 
+def test_a_capture_takes_its_counts_back_and_each_replay_adds_them():
+    # ops/cuda.Graph's bookkeeping (taken_back at its capture, add_back at
+    # each replay) over the launch counts and a mesh's collectives (a mesh
+    # of one, no process group: its collectives are copies, counted all
+    # the same), as the sharded prover's graph holds them.
+    from stark_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    x = torch.arange(8, dtype=torch.int32)
+    cuda.reset_launches()
+    mesh.all_to_all(x)
+    before = (dict(mesh.counts), list(mesh.log), cuda.launch_counts())
+    with cuda.taken_back((cuda.LAUNCHES, mesh)) as held:
+        mesh.all_to_all(x[:4])
+        mesh.exchange(x[:2], [2], [2])
+        mesh.all_reduce(x[:1].clone())
+        cuda.KERNELS["compose"].launches += 1
+        cuda.KERNELS["query_gather"].launches += 2
+    # The capture ran nothing: every count is as it was before it.
+    assert {k: n for k, n in mesh.counts.items() if n} == before[0]
+    assert (mesh.log, cuda.launch_counts()) == before[1:]
+    assert held == [(cuda.LAUNCHES, {"compose": 1, "query_gather": 2}),
+                    (mesh, [("all_to_all", 4), ("exchange", 2), ("all_reduce", 1)])]
+    for _ in range(2):
+        cuda.add_back(held)
+    assert mesh.log == [("all_to_all", 8)] + [("all_to_all", 4), ("exchange", 2),
+                                             ("all_reduce", 1)] * 2
+    assert mesh.counts == {"all_to_all": 3, "all_to_all_words": 16, "exchange": 2,
+                           "exchange_words": 4, "all_reduce": 2, "all_reduce_words": 2}
+    counts = cuda.launch_counts()
+    assert (counts["compose"], counts["query_gather"]) == (2, 4)
+    assert sum(counts.values()) == 6
+    # A body that raises is taken back all the same.
+    with pytest.raises(RuntimeError, match="refused"):
+        with cuda.taken_back((cuda.LAUNCHES, mesh)):
+            mesh.all_gather(x)
+            raise RuntimeError("capture refused")
+    assert len(mesh.log) == 7 and "all_gather" not in {op for op, _ in mesh.log}
+    cuda.reset_launches()
+
+
 # -- on a card ---------------------------------------------------------------------------
 
 
@@ -167,7 +212,7 @@ def test_card_graph_replays_equal_the_eager_body(cuda_device, b, monkeypatch):
     cfg = StarkConfig(trace_length=1024, blowup=4, num_colinearity_tests=16)
     prover = BatchStarkProver(air, cfg, b, cuda_device)
     single = prover._single
-    rows = _witnesses("fib", 1024, 7, seed=b)
+    rows = witnesses("fib", 1024, 7, seed=b)
     captures = []
     graph = cuda.Graph
     monkeypatch.setattr(cuda, "Graph", lambda *a: captures.append(1) or graph(*a))

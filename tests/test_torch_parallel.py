@@ -36,11 +36,28 @@ every rank's results against stark_tpu's single-device functions:
   share's end and wraps mod N;
 * BatchStarkProver(mesh=) equals stark_tpu's single proves at B = 4 (D |
   B, the batch cut) and B = 3 (the domain cut where D does not divide B),
-  one read a batch, and prove_many at B = 3 with two batches in flight.
+  one read a batch, and prove_many at B = 3 with two batches in flight;
+  prove_many over three batches at depth 1 and 2 rotates its ring of
+  max(1, depth) + 1 slots, every proof stark_tpu's;
+* the sharded single-fetch body (StarkProver._body on the mesh) takes
+  nothing but its slot: two witnesses proved in turn twice on one slot
+  equal stark_tpu's proofs of them, made in this run (and its pins,
+  tests/torch_port_support.PINNED_PAIRS), and no read from the card
+  happens inside it;
+* the graph rule (parallel/pstark.graphs_allowed): a CUDA graph a slot on
+  a card with NCCL or no group, never for gloo or on the CPU, the backend
+  read from the mesh's group; the gloo and CPU worlds' proves made no
+  graph; a capture that fails on rank 0 raises
+  on every rank (a stand-in for ops/cuda.Graph; the ranks agree through
+  Mesh.agree), and one that succeeds is thread-local with a group.
 
 Tolerance zero: field values and proofs are bytes.  On a card (marker
 ``gpu``): a mesh of one rank through the kernels equals the CPU, on the
-single-fetch path (one read) and the three-read path."""
+single-fetch path (one read) and the three-read path; its single-fetch
+body is captured at the slot's second prove and replayed from the third,
+each proof the pin, the launches and collectives those of the eager
+body; an NCCL world of one that has captured, its prover closed, tears
+its process group down."""
 
 import hashlib
 import queue as queue_mod
@@ -79,8 +96,12 @@ from stark_tpu_torch.merkle import Forest
 from stark_tpu_torch.ops import fold as FOLD
 from stark_tpu_torch.ops import gather as G
 from stark_tpu_torch.parallel import pmerkle
+from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.parallel.mesh import replicated
-from torch_port_support import cuda_device, rand_field, to_torch  # noqa: F401
+from stark_tpu_torch.parallel import pstark
+from stark_tpu_torch.parallel.mesh import Mesh
+from stark_tpu_torch.parallel.pstark import graphs_allowed
+from torch_port_support import PINNED_PAIRS, cuda_device, rand_field, to_torch, witnesses  # noqa: F401
 
 SIZES = (1, 2, 4)
 NTT_N, OFFSET, BLOWUP = 256, 3, 4
@@ -118,6 +139,12 @@ PROOF_CASES = [*READS, ("fib", 512, 8, "host")]
 WIN_B, WIN_N, WIN_C, WIN_K, WIN_OFFS = 2, 64, 3, 5, (0, 4, 12)
 WINDOW_KINDS = ("cut values", "whole values", "cut paths", "whole paths",
                 "opening values", "opening paths")
+#: Back-to-back proves of two witnesses on one slot (the sharded body's
+#: state is its slot's alone): PINNED_PAIRS' configurations, 4 tests.
+SLOT_CASES, SLOT_TESTS = (("fib", 64), ("mds", 32)), 4
+#: prove_many over 7 batch traces (3 batches of BATCHES[-1] = 3, the last
+#: padded) at these depths: a ring of max(1, depth) + 1 slots.
+MANY_DEPTHS, MANY_COUNT = (1, 2), 7
 
 
 class VariantFibAir(FibonacciAir):
@@ -255,6 +282,86 @@ def _window(mesh) -> dict:
     return got
 
 
+def _slot_proves(mesh) -> dict:
+    """Per SLOT_CASES configuration, on one DistributedStarkProver (FRI
+    rounds cut down to the trees' floor): the two witnesses proved in turn
+    twice on its one slot (sha256s), the depth of the body
+    (StarkProver._body) at each read from the card (ops.gather.to_host),
+    the slots, whether graphs are on and the slot holds one; then the
+    capture of that slot through a stand-in for ops/cuda.Graph that fails
+    on rank 0 (the message each rank raises) and one that succeeds (the
+    capture mode it was given)."""
+    out = {}
+    to_host = G.to_host
+    for model, T in SLOT_CASES:
+        air, _, blowup = get_model(model)
+        cfg = StarkConfig(trace_length=T, blowup=blowup, num_colinearity_tests=SLOT_TESTS)
+        prover = DistributedStarkProver(air, cfg, mesh)
+        prover.fri.min_share = pmerkle.MIN_LOCAL
+        rows = witnesses(model, T, 2, seed=T)
+        body, depth, reads = prover._body, [0], []
+
+        def in_body(*args, body=body, depth=depth):
+            depth[0] += 1
+            try:
+                return body(*args)
+            finally:
+                depth[0] -= 1
+
+        prover._body = in_body
+        G.to_host = lambda t, depth=depth, **kw: reads.append(depth[0]) or to_host(t, **kw)
+        try:
+            shas = [hashlib.sha256(prover.prove(rows[i % 2])).hexdigest() for i in range(4)]
+        finally:
+            G.to_host = to_host
+        slots = prover._slots[1]
+        out[(model, T)] = {"shas": shas, "reads": reads, "slots": len(slots),
+                           "graphs": prover._graphs, "graph": slots[0].graph is not None}
+    # The rule reads the backend from the group, not from the mesh's label
+    # (a Mesh made with a group and no backend).
+    rule, seen = pstark.graphs_allowed, []
+    pstark.graphs_allowed = lambda *args: seen.append(args) or rule(*args)
+    try:
+        DistributedStarkProver(air, cfg, Mesh(mesh.group, mesh.rank, mesh.size, "cpu"))
+    finally:
+        pstark.graphs_allowed = rule
+    out["rule"] = seen
+    graph = cuda.Graph
+
+    def refusing(body, device, ledgers=(), mode="global"):
+        if mesh.rank == 0:
+            raise RuntimeError("capture refused")
+        return ("captured", mode, ledgers == (mesh,))
+
+    cuda.Graph = refusing
+    try:
+        try:
+            prover._capture(slots[0])
+            out["refused"] = ""
+        except RuntimeError as e:
+            out["refused"] = str(e)
+        cuda.Graph = lambda body, device, ledgers=(), mode="global": (
+            "captured", mode, ledgers == (mesh,))
+        out["captured"] = prover._capture(slots[0])
+    finally:
+        cuda.Graph = graph
+    return out
+
+
+def _prove_many(mesh) -> dict:
+    """{depth: (prove_many's proofs of MANY_COUNT traces at B = 3, the
+    slots the batch's prover made, whether any is still busy)}."""
+    b = BATCHES[-1]
+    traces = (_traces(b) * 3)[:MANY_COUNT]
+    out = {}
+    for depth in MANY_DEPTHS:
+        prover = BatchStarkProver(VariantFibAir(), _cfg(BATCH_T, 4), b, mesh=mesh)
+        proofs = prover.prove_many(traces, depth=depth)
+        slots = prover._single._slots[b // (mesh.size if prover._cut else 1)]
+        out[depth] = (proofs, len(slots), any(s.busy or s.graph is not None for s in slots))
+    return out
+
+
 def _rank_results(mesh) -> dict:
     """Everything the tests compare, from this rank (numpy and bytes)."""
     size = mesh.size
@@ -332,6 +439,8 @@ def _rank_results(mesh) -> dict:
         try:
             proofs[case], reads[case] = _counted_prove(mesh, lambda: prover.prove(trace_fn(T)))
             reads[case]["chainable"] = prover.fri._chainable()
+            reads[case]["graphs"] = (prover._graphs, sorted(prover._slots),
+                                     [s.graph for v in prover._slots.values() for s in v])
         finally:
             FRI._SAMPLE_SLACK, FRI._SAMPLE_MAX_REDUCED = slack, reduced
         reads[case]["shortfalls"] = prover.fri.shortfalls
@@ -349,6 +458,8 @@ def _rank_results(mesh) -> dict:
         out["batch_reads"][b] = got["reads"]
     # Batches in flight: two batches of 3 (the last padded), depth 2.
     out["many"] = prover.prove_many(_traces(max(BATCHES)), depth=2)
+    out["ring"] = _prove_many(mesh)
+    out["slot"] = _slot_proves(mesh)
     return out
 
 
@@ -375,7 +486,8 @@ def _free_port() -> int:
 
 def _stark_tpu_proofs(case) -> list[bytes]:
     """stark_tpu's proofs of one case, in a process of its own: StarkProver
-    with its own models at a PINNED configuration, or ("batch",) with the
+    with its own models at a PINNED configuration, ("slot", model, T) of
+    the two witnesses of a SLOT_CASES configuration, or ("batch",) with the
     variant AIR, one proof of each batch trace."""
     import jax
 
@@ -393,6 +505,14 @@ def _stark_tpu_proofs(case) -> list[bytes]:
         def boundary_constraints(self, trace_length: int):
             return [JBoundary(row=1, register=0, value=1)]
 
+    if case[0] == "slot":
+        # The two witnesses of a SLOT_CASES configuration (blowup as its
+        # model gives it).
+        _, model, T = case
+        air, _, blowup = j_get_model(model)
+        cfg = JConfig(trace_length=T, blowup=blowup, num_colinearity_tests=SLOT_TESTS)
+        return [JProver(air, cfg).prove(rows.tolist())
+                for rows in witnesses(model, T, 2, seed=T)]
     if case == ("batch",):
         single = JProver(JVariant(), JConfig(trace_length=BATCH_T, blowup=BLOWUP,
                                              num_colinearity_tests=4))
@@ -409,7 +529,7 @@ def reference_jobs():
     """stark_tpu's proofs (:func:`_stark_tpu_proofs`), each case in a process
     of its own, all started at once: XLA's compiles take the most of their
     time, and they run beside the gloo worlds."""
-    cases = [*PINNED, ("batch",)]
+    cases = [*PINNED, *(("slot", *c) for c in SLOT_CASES), ("batch",)]
     with ProcessPoolExecutor(len(cases), mp_context=mp.get_context("spawn")) as pool:
         yield {case: pool.submit(_stark_tpu_proofs, case) for case in cases}
 
@@ -417,9 +537,10 @@ def reference_jobs():
 @pytest.fixture(scope="module")
 def reference(reference_jobs):
     """({PINNED case: stark_tpu's proof}, stark_tpu's proofs of the batch
-    traces)."""
+    traces, {SLOT_CASES case: stark_tpu's proofs of its two witnesses})."""
     got = {case: job.result(timeout=TIMEOUT_S) for case, job in reference_jobs.items()}
-    return {case: got[case][0] for case in PINNED}, got[("batch",)]
+    return ({case: got[case][0] for case in PINNED}, got[("batch",)],
+            {case: got[("slot", *case)] for case in SLOT_CASES})
 
 
 @pytest.fixture(scope="module")
@@ -544,10 +665,15 @@ def test_sharded_fold_matches_stark_tpu(worlds, size, path):
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("case", PROOF_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_distributed_proofs_match_stark_tpu(worlds, reference, size, case):
-    model, T, tests, _ = case
+    model, T, tests, path = case
     air = get_model(model)[0]
+    # The body eager (graphs off on the CPU, with a gloo group or none);
+    # the three-read, the host and the not-chainable paths make no slot.
+    on_slot = path in ("chain", "default", "short")
     for rank, r in enumerate(worlds[size]):
         assert r["proofs"][case] == reference[0][(model, T, tests)], f"rank {rank}"
+        assert r["reads"][case]["graphs"] == (False, [1] if on_slot else [],
+                                              [None] if on_slot else []), f"rank {rank}"
     proof = worlds[size][0]["proofs"][case]
     verifier = DistributedStarkVerifier(air, _cfg(T, tests))
     assert verifier.verify(proof)
@@ -602,6 +728,60 @@ def test_batch_mesh_prove_many_keeps_batches_in_flight(worlds, reference, size):
     assert BATCHES[-1] == 3
     for r in worlds[size]:
         assert r["many"] == reference[1]
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("depth", MANY_DEPTHS)
+def test_batch_mesh_prove_many_rotates_its_ring(worlds, reference, size, depth):
+    # B = 3: the domain cut on two and four ranks (the sharded body on its
+    # slots), the batch cut on one; three batches, the last padded.
+    want = (reference[1][: BATCHES[-1]] * 3)[:MANY_COUNT]
+    for rank, r in enumerate(worlds[size]):
+        proofs, slots, held = r["ring"][depth]
+        assert proofs == want, f"rank {rank}"
+        assert slots == max(1, depth) + 1 and not held, f"rank {rank}"
+
+
+#: parallel/pstark.graphs_allowed: (mesh device, its group's backend; None
+#: for no group) -> whether the sharded body is one CUDA graph a slot.
+GRAPH_RULE = {("cpu", None): False, ("cpu", "gloo"): False, ("cpu", "nccl"): False,
+              ("cuda", None): True, ("cuda", "gloo"): False, ("cuda", "nccl"): True}
+
+
+@pytest.mark.parametrize("device, backend", list(GRAPH_RULE), ids=str)
+def test_graph_rule(device, backend):
+    assert graphs_allowed(device, backend) is GRAPH_RULE[device, backend]
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("case", SLOT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_sharded_body_on_one_slot_equals_stark_tpu(worlds, reference, size, case):
+    # Each witness twice, alternating, on one slot: a body that kept
+    # anything but its slot's state would change the next proof; one read
+    # a prove, none from inside the body.  The want is stark_tpu's proofs
+    # of this run; the pins (tests/test_torch_mega.py's) are those too.
+    want = tuple(hashlib.sha256(p).hexdigest() for p in reference[2][case])
+    assert want == PINNED_PAIRS[case]
+    for rank, r in enumerate(worlds[size]):
+        got = r["slot"][case]
+        assert got["shas"] == [want[0], want[1], want[0], want[1]], f"rank {rank}"
+        assert got["reads"] == [0] * 4, f"rank {rank}: reads at body depth {got['reads']}"
+        assert (got["slots"], got["graphs"], got["graph"]) == (1, False, False)
+        assert r["slot"]["rule"] == [("cpu", "gloo" if size > 1 else None)]
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_a_failed_capture_raises_on_every_rank(worlds, size):
+    for rank, r in enumerate(worlds[size]):
+        if rank == 0:
+            assert r["slot"]["refused"] == "capture refused"
+        else:
+            assert r["slot"]["refused"] == (f"rank {rank}: the CUDA graph capture failed on "
+                                            "another rank of the mesh")
+        # A capture that succeeds everywhere: thread-local with a process
+        # group, the mesh's collectives held with the launches.
+        mode = "thread_local" if size > 1 else "global"
+        assert r["slot"]["captured"] == ("captured", mode, True)
 
 
 def test_pinned_proofs_are_the_single_prove(reference):
@@ -683,3 +863,89 @@ def test_mesh_of_one_single_fetch_on_card(cuda_device, path):
     for k in ("constraint_challenges", "sample_indices"):
         assert counts[k] == int(single), k
     assert counts["query_gather"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [1, 2])
+def test_mesh_of_one_graph_on_card(cuda_device, overlap, monkeypatch):
+    # A mesh of one on the card (no group: its collectives are copies):
+    # the slot's first prove runs the body eagerly, the second captures it
+    # and replays, the third replays; every proof the pin, one read, and
+    # the launches and collectives counted equal to the eager body's.
+    mesh = make_mesh(device=cuda_device)
+    air, trace_fn, _ = get_model("fib")
+    prover = DistributedStarkProver(air, _cfg(1024, 4), mesh, overlap=overlap)
+    prover.fri.min_share = pmerkle.MIN_LOCAL
+    assert prover._graphs
+    captures = []
+    graph = cuda.Graph
+    monkeypatch.setattr(cuda, "Graph", lambda *a: captures.append(a) or graph(*a))
+    rows = trace_fn(1024)
+
+    def counted():
+        cuda.reset_launches()
+        proof, got = _counted_prove(mesh, lambda: prover.prove(rows))
+        assert hashlib.sha256(proof).hexdigest() == PINNED[("fib", 1024, 4)]
+        assert (got["reads"], got["combines"], got["host_plans"]) == (1, 1, 0)
+        return ({k: n for k, n in cuda.launch_counts().items() if n}, dict(mesh.counts),
+                list(mesh.log))
+
+    first = counted()
+    slot = prover._slots[1][0]
+    assert not captures and slot.graph is None
+    second = counted()
+    assert len(captures) == 1 and slot.graph is not None
+    assert counted() == second == first
+    assert slot.graph.launches == first[0]
+    assert [e for ledger, held in slot.graph.held if ledger is mesh for e in held] == first[2]
+    with prover._eager():
+        assert counted() == first
+    assert len(captures) == 1
+    # close() releases the slot and its graph; the next prove starts anew.
+    prover.close()
+    assert not prover._slots
+    assert counted() == first and prover._slots[1][0].graph is None
+
+
+def _nccl_teardown(port: int, results) -> None:
+    """An NCCL world of one rank on the card: three proves on one slot (the
+    third replays the graph captured at the second, NCCL's collectives
+    inside), the prover closed, the process group destroyed; puts the
+    proofs' sha256s and whether a graph was held, or the traceback."""
+    try:
+        initialize_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+        mesh = make_mesh(device="cuda:0")
+        air, trace_fn, _ = get_model("fib")
+        prover = DistributedStarkProver(air, _cfg(1024, 4), mesh)
+        prover.fri.min_share = pmerkle.MIN_LOCAL
+        rows = trace_fn(1024)
+        shas = [hashlib.sha256(prover.prove(rows)).hexdigest() for _ in range(3)]
+        held = prover._slots[1][0].graph is not None
+        # The prover stays referenced: only close() releases its graph.
+        prover.close()
+        torch.cuda.synchronize()
+        torch.distributed.destroy_process_group()
+        results.put((shas, held, prover._graphs))
+    except Exception:  # the parent reports it
+        results.put(traceback.format_exc())
+
+
+@pytest.mark.gpu
+def test_nccl_mesh_of_one_tears_down_after_a_capture(cuda_device):
+    # destroy_process_group waits for every CUDA graph that holds NCCL's
+    # operations: a prover that captured, then closed, lets it finish.
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=_nccl_teardown, args=(_free_port(), results), daemon=True)
+    proc.start()
+    try:
+        got = results.get(timeout=TIMEOUT_S)
+    except queue_mod.Empty:
+        raise AssertionError("the NCCL world of one did not tear down") from None
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+    assert not isinstance(got, str), got
+    assert got == ([PINNED[("fib", 1024, 4)]] * 3, True, True)
+    assert proc.exitcode == 0
