@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from stark_tpu_torch.stark import StarkConfig, StarkProver
-from stark_tpu_torch.utils.profiling import NULL_TIMER
+from stark_tpu_torch.utils.profiling import NULL_TIMER, proof_span
 
 
 class BatchStarkProver:
@@ -116,7 +116,8 @@ class BatchStarkProver:
         """B proofs, each byte-identical to StarkProver.prove of its trace.
         ``traces``: B host row traces; or ``traces_cols``: B (c, T) column
         arrays or int32 tensors on the prover's device."""
-        return self._finish(self._dispatch(traces, traces_cols, timer))
+        with proof_span():
+            return self._finish(self._dispatch(traces, traces_cols, timer))
 
     def _dispatch(self, traces=None, traces_cols=None, timer=NULL_TIMER, ring: int = 1):
         """A batch's launches and read, issued (stark_tpu's _mega_dispatch)

@@ -62,7 +62,7 @@ from stark_tpu_torch.stream import (
     wire_field_elements,
     wire_merkle_paths,
 )
-from stark_tpu_torch.utils.profiling import NULL_TIMER, reason
+from stark_tpu_torch.utils.profiling import NULL_TIMER, reason, span
 
 
 #: Candidates the device sampler (K10) hashes for ``number`` indices: M = 2
@@ -358,22 +358,23 @@ class Fri:
         sections of :meth:`packed_sections`): push the roots, replay each
         transcript, raise if an alpha it draws differs from the card's,
         push the last codewords."""
-        rounds = self.num_rounds()
-        last_h = host["last"].reshape(b, -1)
-        roots_h = host["roots"].view(np.uint8).reshape(rounds, b, 32)
-        alphas_h = host["alphas"].reshape(rounds - 1, b)
-        for j, (stream, fs) in enumerate(zip(proof_streams, fiat_shamirs)):
-            for r in range(rounds):
-                root = Hash(roots_h[r, j].tobytes())
-                stream.push(MerkleRoot(root))
-                fs.absorb(root.data)
-                if r < rounds - 1:
-                    alpha = fs.challenge(self.field)  # pure; unreduced u64
-                    if alpha.value % P != int(alphas_h[r, j]):
-                        # The tie between the card's challenges and the
-                        # transcript: not an assert, so that -O keeps it.
-                        raise RuntimeError("device/host transcript divergence")
-            stream.push(FieldElements(tuple(int(v) for v in last_h[j])))
+        with span("fri.chain_replay"):
+            rounds = self.num_rounds()
+            last_h = host["last"].reshape(b, -1)
+            roots_h = host["roots"].view(np.uint8).reshape(rounds, b, 32)
+            alphas_h = host["alphas"].reshape(rounds - 1, b)
+            for j, (stream, fs) in enumerate(zip(proof_streams, fiat_shamirs)):
+                for r in range(rounds):
+                    root = Hash(roots_h[r, j].tobytes())
+                    stream.push(MerkleRoot(root))
+                    fs.absorb(root.data)
+                    if r < rounds - 1:
+                        alpha = fs.challenge(self.field)  # pure; unreduced u64
+                        if alpha.value % P != int(alphas_h[r, j]):
+                            # The tie between the card's challenges and the
+                            # transcript: not an assert, so that -O keeps it.
+                            raise RuntimeError("device/host transcript divergence")
+                stream.push(FieldElements(tuple(int(v) for v in last_h[j])))
 
     # -- index sampling (fri.rs:168-213) ----------------------------------------
 
@@ -417,17 +418,18 @@ class Fri:
         """One round's triples and paths as raw wire segments, a segment a
         proof, in the order of fri.rs:215-248 (stark_tpu/fri.py:1020-1032):
         k triples (a, b, c), then per test the paths of a, b and c."""
-        b, k = len(proof_streams), self.num_colinearity_tests
-        cur_vals, nxt_vals, cur_sib, nxt_sib = (s.take(fetched) for s in slots)
-        cur_vals, nxt_vals = cur_vals.reshape(b, 2 * k), nxt_vals.reshape(b, k)
-        cur_sib = cur_sib.reshape((b, 2 * k) + cur_sib.shape[1:])
-        nxt_sib = nxt_sib.reshape((b, k) + nxt_sib.shape[1:])
-        for j, stream in enumerate(proof_streams):
-            triples = np.stack([cur_vals[j, :k], cur_vals[j, k:], nxt_vals[j]], axis=1)
-            cur = wire_merkle_paths(cur_sib[j])
-            paths = np.concatenate([cur[:k], cur[k:], wire_merkle_paths(nxt_sib[j])],
-                                   axis=1)
-            stream.push_raw(wire_field_elements(triples).tobytes() + paths.tobytes())
+        with span("fri.round_emit"):
+            b, k = len(proof_streams), self.num_colinearity_tests
+            cur_vals, nxt_vals, cur_sib, nxt_sib = (s.take(fetched) for s in slots)
+            cur_vals, nxt_vals = cur_vals.reshape(b, 2 * k), nxt_vals.reshape(b, k)
+            cur_sib = cur_sib.reshape((b, 2 * k) + cur_sib.shape[1:])
+            nxt_sib = nxt_sib.reshape((b, k) + nxt_sib.shape[1:])
+            for j, stream in enumerate(proof_streams):
+                triples = np.stack([cur_vals[j, :k], cur_vals[j, k:], nxt_vals[j]], axis=1)
+                cur = wire_merkle_paths(cur_sib[j])
+                paths = np.concatenate([cur[:k], cur[k:], wire_merkle_paths(nxt_sib[j])],
+                                       axis=1)
+                stream.push_raw(wire_field_elements(triples).tobytes() + paths.tobytes())
 
     def query(
         self,
@@ -643,24 +645,26 @@ class Fri:
         k, rounds = self.num_colinearity_tests, self.num_rounds()
         size, reduced = self.domain_length // 2, self.domain_length >> (rounds - 1)
         self._chain_replay(host, b, proof_streams, fiat_shamirs)
-        got, counts = host["indices"].reshape(b, k), host["counts"]
-        indices, short = [], False
-        for j, fs in enumerate(fiat_shamirs):
-            # Seed from the RAW (unreduced) challenge value (fri.rs:272).
-            seed = Hash.from_u64(fs.challenge(self.field).value).data
-            want = self.sample_indices(seed, size, reduced, k)
-            indices.append(want)
-            if int(counts[j]) < k:
-                short = True
-            elif [int(v) for v in got[j]] != want:
-                raise RuntimeError("device/host transcript divergence (query indices)")
+        with span("fri.sample_replay"):
+            got, counts = host["indices"].reshape(b, k), host["counts"]
+            indices, short = [], False
+            for j, fs in enumerate(fiat_shamirs):
+                # Seed from the RAW (unreduced) challenge value (fri.rs:272).
+                seed = Hash.from_u64(fs.challenge(self.field).value).data
+                want = self.sample_indices(seed, size, reduced, k)
+                indices.append(want)
+                if int(counts[j]) < k:
+                    short = True
+                elif [int(v) for v in got[j]] != want:
+                    raise RuntimeError("device/host transcript divergence (query indices)")
         fetched = host["gather"]
         if short:
-            self.shortfalls += 1
-            dev = sources[0].device
-            out = torch.empty(plan.words, dtype=torch.int32, device=dev)
-            plan.run(sources, torch.tensor(indices, dtype=torch.int32).to(dev), out)
-            fetched = G.to_host(out)
+            with span("fri.second_read"):
+                self.shortfalls += 1
+                dev = sources[0].device
+                out = torch.empty(plan.words, dtype=torch.int32, device=dev)
+                plan.run(sources, torch.tensor(indices, dtype=torch.int32).to(dev), out)
+                fetched = G.to_host(out)
         for slots in round_slots:
             self._round_emit(slots, fetched, proof_streams)
         if extra_emit is not None:

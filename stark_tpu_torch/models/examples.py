@@ -22,6 +22,7 @@ from stark_tpu_torch.models.air import Air, BoundaryConstraint
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import witness as W
 from stark_tpu_torch.ops.fieldops import P
+from stark_tpu_torch.utils.profiling import span
 
 
 class TwoRegisterFibonacciAir(Air):
@@ -189,9 +190,12 @@ def mds_square_trace_cols_device(length: int, block: int = 64,
     assert length >= 1
     block = max(1, min(block, length))
     nb = (length + block - 1) // block
-    m, rc = np.array(_MDS), np.array(_RC)
-    seeds = native.mds_seed_walk(m, rc, np.arange(1, _MDS_W + 1), nb, block, P)
-    packed = np.concatenate([m.reshape(-1), rc, seeds.reshape(-1)]).astype(np.uint32)
-    dev = torch.from_numpy(packed.view(np.int32)).to(device)
+    with span("witness.seeds"):
+        m, rc = np.array(_MDS), np.array(_RC)
+        seeds = native.mds_seed_walk(m, rc, np.arange(1, _MDS_W + 1), nb, block, P)
+        packed = np.concatenate([m.reshape(-1), rc, seeds.reshape(-1)]).astype(np.uint32)
+    with span("witness.upload"):
+        dev = torch.from_numpy(packed.view(np.int32)).to(device)
     k = _MDS_W * _MDS_W + _MDS_W
-    return W.mds_expand(dev[:k], dev[k:].view(nb, _MDS_W), block, length)
+    with span("witness.expand"):
+        return W.mds_expand(dev[:k], dev[k:].view(nb, _MDS_W), block, length)

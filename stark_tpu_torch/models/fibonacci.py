@@ -14,6 +14,7 @@ from stark_tpu_torch.models.air import Air, BoundaryConstraint
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import witness as W
 from stark_tpu_torch.ops.fieldops import P
+from stark_tpu_torch.utils.profiling import span
 
 
 class FibonacciAir(Air):
@@ -83,6 +84,9 @@ def fibonacci_trace_cols_device(length: int, device="cuda") -> torch.Tensor:
     seeds (kernel K12, ops/witness.fib_expand) instead of uploading the
     witness.  Feed it to ``StarkProver.prove(trace_cols=...)``."""
     device = cuda.device_or_raise(device, "fibonacci_trace_cols_device")
-    seeds, nb = fibonacci_seeds(length)
-    seeds_dev = torch.from_numpy(seeds.view(np.int32)).to(device)
-    return W.fib_expand(seeds_dev, nb, length)
+    with span("witness.seeds"):
+        seeds, nb = fibonacci_seeds(length)
+    with span("witness.upload"):
+        seeds_dev = torch.from_numpy(seeds.view(np.int32)).to(device)
+    with span("witness.expand"):
+        return W.fib_expand(seeds_dev, nb, length)

@@ -29,6 +29,7 @@ import time
 import torch
 
 from stark_tpu_torch.utils.build import PACKAGE_DIR, build_library
+from stark_tpu_torch.utils.profiling import span
 
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
 SOURCES = ("ntt.cu", "fold.cu", "hash.cu", "gather.cu", "witness.cu")
@@ -194,8 +195,8 @@ class Graph:
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with taken_back((LAUNCHES, *ledgers)) as self.held, torch.cuda.device(device), \
-                torch.cuda.graph(self.graph, capture_error_mode=mode):
+        with span("cuda.capture"), taken_back((LAUNCHES, *ledgers)) as self.held, \
+                torch.cuda.device(device), torch.cuda.graph(self.graph, capture_error_mode=mode):
             self.result = body()
         self.launches = self.held[0][1]
         self.seconds = time.perf_counter() - t0

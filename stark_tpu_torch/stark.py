@@ -65,7 +65,7 @@ from stark_tpu_torch.stream import (
     wire_merkle_paths,
 )
 from stark_tpu_torch.transcript import FiatShamir
-from stark_tpu_torch.utils.profiling import NULL_TIMER, reason
+from stark_tpu_torch.utils.profiling import NULL_TIMER, proof_span, reason, span
 
 
 @dataclass(frozen=True)
@@ -346,9 +346,10 @@ class StarkProver:
         models.examples.mds_square_trace_cols_device: the witness never
         crosses from the host), or numpy columns, uploaded once
         (stark_tpu/stark.py:364-387)."""
-        with timer.phase("lde"):
-            cols = self._witness(trace_rows, trace_cols)
-        return self._prove_columns(cols[None], timer)[0]
+        with proof_span():
+            with timer.phase("lde"):
+                cols = self._witness(trace_rows, trace_cols)
+            return self._prove_columns(cols[None], timer)[0]
 
     def _prove_columns(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
         """B proofs of (B, c, T) int32 witness columns on the prover's device,
@@ -411,8 +412,11 @@ class StarkProver:
         def finish() -> list[bytes]:
             try:
                 with timer.phase("fri_fetch"):
+                    with span("stark.fetch_wait"):
+                        words = pending.wait()
                     # A copy: the slot's next prove lands in the same buffer.
-                    host = slot.packed.host(pending.wait().copy())
+                    with span("stark.fetch_copy"):
+                        host = slot.packed.host(words.copy())
                 with timer.phase("fri_emit"):
                     self._prefix_replay(host, fss, streams)
                     fri.chained_replay(host, fss, streams, plan, round_slots, sources,
@@ -536,21 +540,22 @@ class StarkProver:
         """The host's replay of the trace roots and the challenge draws from
         the fetched sections (stark_tpu/stark.py:426-444); raises on a
         device/host divergence."""
-        b = len(fss)
-        field = FiniteField()
-        n_terms = self.dom.num_transition + len(self.dom.boundary)
-        roots = host["trace_roots"].view(np.uint8).reshape(b, 32)
-        digests = host["digests"].view(np.uint8).reshape(b, 2 * n_terms, 8)
-        for j in range(b):
-            root = Hash(roots[j].tobytes())
-            streams[j].push(MerkleRoot(root))
-            fss[j].absorb(root.data)
-            for i in range(2 * n_terms):
-                raw = fss[j].challenge(field).value.to_bytes(8, "little")
-                if raw != digests[j, i].tobytes():
-                    raise RuntimeError("device/host transcript divergence "
-                                       "(constraint challenges)")
-                fss[j].absorb(raw)
+        with span("stark.prefix_replay"):
+            b = len(fss)
+            field = FiniteField()
+            n_terms = self.dom.num_transition + len(self.dom.boundary)
+            roots = host["trace_roots"].view(np.uint8).reshape(b, 32)
+            digests = host["digests"].view(np.uint8).reshape(b, 2 * n_terms, 8)
+            for j in range(b):
+                root = Hash(roots[j].tobytes())
+                streams[j].push(MerkleRoot(root))
+                fss[j].absorb(root.data)
+                for i in range(2 * n_terms):
+                    raw = fss[j].challenge(field).value.to_bytes(8, "little")
+                    if raw != digests[j, i].tobytes():
+                        raise RuntimeError("device/host transcript divergence "
+                                           "(constraint challenges)")
+                    fss[j].absorb(raw)
 
     def _prove_two_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
         """B proofs where the FRI is not chainable (fewer than two rounds,
@@ -622,16 +627,17 @@ class StarkProver:
         """Per opening its values, then its path (raw wire segments), a
         segment a proof.  ``slots``: the values' slots (one a proof, or one
         for all) and the paths' slot."""
-        vals, sib = slots
-        b = len(streams)
-        vals = np.concatenate([s.take(fetched) for s in vals]).reshape(
-            b, -1, self.air.num_registers)
-        sib = sib.take(fetched)
-        sib = sib.reshape((b, -1) + sib.shape[1:])
-        for j in range(b):
-            streams[j].push_raw(np.concatenate(
-                [wire_field_elements(vals[j]), wire_merkle_paths(sib[j])], axis=1,
-            ).tobytes())
+        with span("stark.open_emit"):
+            vals, sib = slots
+            b = len(streams)
+            vals = np.concatenate([s.take(fetched) for s in vals]).reshape(
+                b, -1, self.air.num_registers)
+            sib = sib.take(fetched)
+            sib = sib.reshape((b, -1) + sib.shape[1:])
+            for j in range(b):
+                streams[j].push_raw(np.concatenate(
+                    [wire_field_elements(vals[j]), wire_merkle_paths(sib[j])], axis=1,
+                ).tobytes())
 
     def _prove_three_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
         """B proofs with the challenges drawn on the host (the classic flow,

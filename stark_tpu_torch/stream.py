@@ -22,6 +22,7 @@ import numpy as np
 
 from stark_tpu_torch.field import FieldElement, FiniteField
 from stark_tpu_torch.hashfn import Hash
+from stark_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -211,35 +212,36 @@ class ProofStream:
         return len(self.objects)
 
     def serialize(self) -> bytes:
-        out = bytearray()
-        for obj in self.objects:
-            if isinstance(obj, _Raw):
-                out.extend(obj)
-            elif isinstance(obj, MerkleRoot):
-                out.append(0)
-                out.extend(obj.hash.data)
-            elif isinstance(obj, FieldElementObj):
-                out.append(1)
-                out.extend(int(obj.element.value).to_bytes(8, "little"))
-            elif isinstance(obj, FieldElements):
-                out.append(2)
-                out.extend(len(obj).to_bytes(8, "little"))
-                if obj._elements is None:  # wire-backed: copy payload verbatim
-                    buf, off, count, _ = obj._wire
-                    out.extend(buf[off : off + 8 * count])
+        with span("stream.serialize"):
+            out = bytearray()
+            for obj in self.objects:
+                if isinstance(obj, _Raw):
+                    out.extend(obj)
+                elif isinstance(obj, MerkleRoot):
+                    out.append(0)
+                    out.extend(obj.hash.data)
+                elif isinstance(obj, FieldElementObj):
+                    out.append(1)
+                    out.extend(int(obj.element.value).to_bytes(8, "little"))
+                elif isinstance(obj, FieldElements):
+                    out.append(2)
+                    out.extend(len(obj).to_bytes(8, "little"))
+                    if obj._elements is None:  # wire-backed: copy payload verbatim
+                        buf, off, count, _ = obj._wire
+                        out.extend(buf[off : off + 8 * count])
+                    else:
+                        for fe in obj._elements:
+                            value = (
+                                fe.value if isinstance(fe, FieldElement) else int(fe)
+                            )
+                            out.extend(int(value).to_bytes(8, "little"))
+                elif isinstance(obj, MerklePath):
+                    out.append(3)
+                    out.extend(len(obj).to_bytes(8, "little"))
+                    out.extend(obj.raw_bytes())
                 else:
-                    for fe in obj._elements:
-                        value = (
-                            fe.value if isinstance(fe, FieldElement) else int(fe)
-                        )
-                        out.extend(int(value).to_bytes(8, "little"))
-            elif isinstance(obj, MerklePath):
-                out.append(3)
-                out.extend(len(obj).to_bytes(8, "little"))
-                out.extend(obj.raw_bytes())
-            else:
-                raise TypeError(f"unknown proof object {type(obj)}")
-        return bytes(out)
+                    raise TypeError(f"unknown proof object {type(obj)}")
+            return bytes(out)
 
     @staticmethod
     def deserialize(data: bytes, field: FiniteField) -> "ProofStream":

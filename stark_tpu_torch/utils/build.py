@@ -16,6 +16,8 @@ import platform
 import subprocess
 import threading
 
+from stark_tpu_torch.utils.profiling import span
+
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 
@@ -38,11 +40,12 @@ def build_library(
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    proc = subprocess.run(
-        command + ["-o", tmp] + list(sources),
-        capture_output=True,
-        text=True,
-    )
+    with span("cuda.build"):
+        proc = subprocess.run(
+            command + ["-o", tmp] + list(sources),
+            capture_output=True,
+            text=True,
+        )
     if proc.returncode != 0:
         raise RuntimeError(
             f"building {stem} failed ({' '.join(command)}):\n"
