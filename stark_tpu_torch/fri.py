@@ -26,7 +26,8 @@ and a fold with that challenge (K4) per round.
   (fri.rs:288-298).
 * **query** (fri.rs:215-248): every round's values and paths, and the
   caller's trace openings, are one gather (kernel K13, ops/gather.py) and
-  one fetch per prove, emitted as raw wire segments.
+  one fetch per prove, copied into the proof's wire layout
+  (stream.ProofLayout).
 * **host control plane**: the transcript's replay, index sampling
   (fri.rs:168-213) and proof-stream writes are sequential byte-exact
   Python over the native engine.
@@ -55,12 +56,14 @@ from stark_tpu_torch.ops import hash_batch as HB
 from stark_tpu_torch.ops import ntt as NTT
 from stark_tpu_torch.ops.fieldops import P
 from stark_tpu_torch.stream import (
+    PATH,
+    ROOT,
+    VALUES,
     FieldElements,
     MerklePath,
     MerkleRoot,
+    ProofLayout,
     ProofStream,
-    wire_field_elements,
-    wire_merkle_paths,
 )
 from stark_tpu_torch.utils.profiling import NULL_TIMER, reason, span
 
@@ -301,7 +304,11 @@ class Fri:
         host = packed.host(G.to_host(packed.buf))
         if upstream is not None:
             upstream.replay(host)
-        self._chain_replay(host, b, proof_streams, fiat_shamirs)
+        roots, last = self._chain_replay(host, b, fiat_shamirs)
+        for stream, proof_roots, cw in zip(proof_streams, roots, last):
+            for root in proof_roots:
+                stream.push(MerkleRoot(Hash(root.tobytes())))
+            stream.push(FieldElements(tuple(int(v) for v in cw)))
         return cws, forests
 
     def _chain(self, codewords: torch.Tensor, sponge: HB.Sponge, packed: G.Packed):
@@ -352,29 +359,26 @@ class Fri:
         return (v["last"].view(b, -1), v["roots"].view(torch.uint8).view(rounds, b, 32),
                 v["alphas"].view(rounds - 1, b))
 
-    def _chain_replay(self, host: dict, b: int, proof_streams: list,
-                      fiat_shamirs: list) -> None:
+    def _chain_replay(self, host: dict, b: int, fiat_shamirs: list) -> tuple:
         """The host side of the chain's fetch (``host``: the fetched
-        sections of :meth:`packed_sections`): push the roots, replay each
-        transcript, raise if an alpha it draws differs from the card's,
-        push the last codewords."""
+        sections of :meth:`packed_sections`): absorb the roots into each
+        transcript, raise if an alpha it draws differs from the card's.
+        Returns views of the fetch: (the roots (B, rounds, 32) u8, the last
+        codewords (B, n_last) u32)."""
         with span("fri.chain_replay"):
             rounds = self.num_rounds()
-            last_h = host["last"].reshape(b, -1)
             roots_h = host["roots"].view(np.uint8).reshape(rounds, b, 32)
             alphas_h = host["alphas"].reshape(rounds - 1, b)
-            for j, (stream, fs) in enumerate(zip(proof_streams, fiat_shamirs)):
+            for j, fs in enumerate(fiat_shamirs):
                 for r in range(rounds):
-                    root = Hash(roots_h[r, j].tobytes())
-                    stream.push(MerkleRoot(root))
-                    fs.absorb(root.data)
+                    fs.absorb(roots_h[r, j].tobytes())
                     if r < rounds - 1:
                         alpha = fs.challenge(self.field)  # pure; unreduced u64
                         if alpha.value % P != int(alphas_h[r, j]):
                             # The tie between the card's challenges and the
                             # transcript: not an assert, so that -O keeps it.
                             raise RuntimeError("device/host transcript divergence")
-                stream.push(FieldElements(tuple(int(v) for v in last_h[j])))
+            return roots_h.transpose(1, 0, 2), host["last"].reshape(b, -1)
 
     # -- index sampling (fri.rs:168-213) ----------------------------------------
 
@@ -414,22 +418,58 @@ class Fri:
             plan.paths(next_stack, c + half * rows, (half).bit_length() - 1),
         )
 
-    def _round_emit(self, slots, fetched: np.ndarray, proof_streams: list) -> None:
-        """One round's triples and paths as raw wire segments, a segment a
-        proof, in the order of fri.rs:215-248 (stark_tpu/fri.py:1020-1032):
-        k triples (a, b, c), then per test the paths of a, b and c."""
+    def _round_objects(self, layout: ProofLayout, r: int, n: int) -> None:
+        """Round r's objects (its codeword of n points), in the order of
+        fri.rs:215-248 (stark_tpu/fri.py:1020-1032): k triples (a, b, c),
+        then per test the paths of a, b (depth log2 n) and c."""
+        k, depth = self.num_colinearity_tests, n.bit_length() - 1
+        layout.add(f"fri.round{r}.triples", k, (VALUES, 3))
+        layout.add(f"fri.round{r}.paths", k, (PATH, depth), (PATH, depth), (PATH, depth - 1))
+
+    def proof_objects(self, layout: ProofLayout) -> None:
+        """The FRI's objects of a proof (fri.rs:250-311): every round's
+        root, the last codeword, then each query round's
+        (:meth:`_round_objects`)."""
+        rounds = self.num_rounds()
+        layout.add("fri.roots", rounds, (ROOT,))
+        layout.add("fri.last", 1, (VALUES, self.domain_length >> max(rounds - 1, 0)))
+        for r in range(rounds - 1):
+            self._round_objects(layout, r, self.domain_length >> r)
+
+    @staticmethod
+    def _round_emit(r: int, slots, fetched: np.ndarray, views: dict) -> None:
+        """Round r's values and paths from the fetched words into its views
+        of a proof layout (:meth:`_round_objects`), B proofs at once."""
         with span("fri.round_emit"):
-            b, k = len(proof_streams), self.num_colinearity_tests
+            (triples,), (path_a, path_b, path_c) = (views[f"fri.round{r}.triples"],
+                                                    views[f"fri.round{r}.paths"])
+            b, k = triples.shape[:2]
             cur_vals, nxt_vals, cur_sib, nxt_sib = (s.take(fetched) for s in slots)
-            cur_vals, nxt_vals = cur_vals.reshape(b, 2 * k), nxt_vals.reshape(b, k)
-            cur_sib = cur_sib.reshape((b, 2 * k) + cur_sib.shape[1:])
-            nxt_sib = nxt_sib.reshape((b, k) + nxt_sib.shape[1:])
-            for j, stream in enumerate(proof_streams):
-                triples = np.stack([cur_vals[j, :k], cur_vals[j, k:], nxt_vals[j]], axis=1)
-                cur = wire_merkle_paths(cur_sib[j])
-                paths = np.concatenate([cur[:k], cur[k:], wire_merkle_paths(nxt_sib[j])],
-                                       axis=1)
-                stream.push_raw(wire_field_elements(triples).tobytes() + paths.tobytes())
+            cur_vals = cur_vals.reshape(b, 2, k)
+            triples[:, :, 0] = cur_vals[:, 0]
+            triples[:, :, 1] = cur_vals[:, 1]
+            triples[:, :, 2] = nxt_vals.reshape(b, k)
+            cur_sib = cur_sib.reshape(b, 2, k, -1)
+            path_a[...] = cur_sib[:, 0]
+            path_b[...] = cur_sib[:, 1]
+            path_c[...] = nxt_sib.reshape(b, k, -1)
+
+    def _push_rounds(self, rounds: list, fetched: np.ndarray, proof_streams: list,
+                     lengths: list) -> None:
+        """The query rounds' objects (``rounds``: each round's slots, its
+        codeword of ``lengths[r]`` points) pushed to each stream as one
+        raw segment."""
+        if not rounds:
+            return
+        layout = ProofLayout(len(proof_streams))
+        for r in range(len(rounds)):
+            self._round_objects(layout, r, lengths[r])
+
+        def fill(views):
+            for r, slots in enumerate(rounds):
+                self._round_emit(r, slots, fetched, views)
+
+        layout.push(proof_streams, fill)
 
     def query(
         self,
@@ -445,8 +485,9 @@ class Fri:
         slots = self._round_dispatch(current_codeword[None, :], next_codeword[None, :],
                                      [c_indices], current_tree._stack,
                                      next_tree._stack, plan)
-        self._round_emit(slots, plan.fetch(), [proof_stream])
-        half = int(current_codeword.shape[0]) // 2
+        n = int(current_codeword.shape[0])
+        self._push_rounds([slots], plan.fetch(), [proof_stream], [n])
+        half = n // 2
         return list(c_indices) + [i + half for i in c_indices]
 
     # -- prove (fri.rs:250-311) -----------------------------------------------------
@@ -559,8 +600,8 @@ class Fri:
                 meta = extra_dispatch(indices, plan)
             if plan.requests:
                 fetched = plan.fetch()
-                for slots in rounds:
-                    self._round_emit(slots, fetched, proof_streams)
+                self._push_rounds(rounds, fetched, proof_streams,
+                                  [int(cw.shape[1]) for cw in cws])
                 if extra_emit is not None:
                     extra_emit(meta, fetched)
         return indices
@@ -627,24 +668,26 @@ class Fri:
             plan.run(sources, indices_dev, packed.dev["gather"])
         return sources
 
-    def chained_replay(self, host: dict, fiat_shamirs: list, proof_streams: list,
-                       plan: G.RulePlan, round_slots: list, sources: list,
-                       extra_emit=None) -> list[list[int]]:
+    def chained_replay(self, host: dict, fiat_shamirs: list, plan: G.RulePlan,
+                       round_slots: list, sources: list, views: dict) -> np.ndarray:
         """The host side of the single-fetch prove, from the fetched sections
         of :meth:`chain_launches`' buffer (``host``; the STARK layer's part
         of each transcript replayed first): the chain's replay, then the
         sampling's (native.sample_indices); raises RuntimeError where a
-        card's value differs from the replay; emits every round's reads and
-        then calls ``extra_emit(fetched)``; returns each proof's indices.
-        Where a proof's candidates gave fewer than ``tests`` distinct
-        indices, the host's indices go through ``plan`` over ``sources`` on
-        the card and a second read (stark_tpu's idx_override re-run; counted
-        in :attr:`shortfalls`): the sources must still hold this prove's
-        values."""
+        card's value differs from the replay; writes the roots, the last
+        codewords and every round's reads into ``views`` (a proof layout's,
+        :meth:`proof_objects`); returns the gathered words, where the
+        caller's reads lie.  Where a proof's candidates gave fewer than
+        ``tests`` distinct indices, the host's indices go through ``plan``
+        over ``sources`` on the card and a second read (stark_tpu's
+        idx_override re-run; counted in :attr:`shortfalls`): the sources
+        must still hold this prove's values."""
         b = len(fiat_shamirs)
         k, rounds = self.num_colinearity_tests, self.num_rounds()
         size, reduced = self.domain_length // 2, self.domain_length >> (rounds - 1)
-        self._chain_replay(host, b, proof_streams, fiat_shamirs)
+        roots, last = self._chain_replay(host, b, fiat_shamirs)
+        views["fri.roots"][0][...] = roots
+        views["fri.last"][0][:, 0] = last
         with span("fri.sample_replay"):
             got, counts = host["indices"].reshape(b, k), host["counts"]
             indices, short = [], False
@@ -665,11 +708,9 @@ class Fri:
                 out = torch.empty(plan.words, dtype=torch.int32, device=dev)
                 plan.run(sources, torch.tensor(indices, dtype=torch.int32).to(dev), out)
                 fetched = G.to_host(out)
-        for slots in round_slots:
-            self._round_emit(slots, fetched, proof_streams)
-        if extra_emit is not None:
-            extra_emit(fetched)
-        return indices
+        for r, slots in enumerate(round_slots):
+            self._round_emit(r, slots, fetched, views)
+        return fetched
 
     # -- verify (fri.rs:313-504) -------------------------------------------------------
 

@@ -57,12 +57,14 @@ from stark_tpu_torch.ops import hash_batch as HB
 from stark_tpu_torch.ops import ntt as NTT
 from stark_tpu_torch.ops.fieldops import GENERATOR, P, primitive_nth_root
 from stark_tpu_torch.stream import (
+    PATH,
+    ROOT,
+    VALUES,
     FieldElements,
     MerklePath,
     MerkleRoot,
+    ProofLayout,
     ProofStream,
-    wire_field_elements,
-    wire_merkle_paths,
 )
 from stark_tpu_torch.transcript import FiatShamir
 from stark_tpu_torch.utils.profiling import NULL_TIMER, proof_span, reason, span
@@ -207,10 +209,14 @@ class _Slot:
     on a card its CUDA graph (``graph``, ops/cuda.Graph), whose result is
     the gather's sources it writes: the trace LDE, the trace forest's
     stack, every round's codewords and forest stacks, tensors of the
-    graph's own memory pool.  ``warm``: the body has run eagerly on it
-    (a capture's warm-up); ``busy``: from a dispatch to its finish()."""
+    graph's own memory pool.  ``proofs``: the B proofs' bytes on the host
+    in their wire layout (stream.ProofLayout), the headers written here once
+    and the payloads at each finish() (``views``).  ``warm``: the body has
+    run eagerly on it (a capture's warm-up); ``busy``: from a dispatch to
+    its finish()."""
 
-    def __init__(self, shape: tuple, n_terms: int, sections: dict, device):
+    def __init__(self, shape: tuple, n_terms: int, sections: dict, layout: ProofLayout,
+                 device):
         b = shape[0]
         self.b = b
         self.cols = torch.empty(shape, dtype=torch.int32, device=device)
@@ -220,6 +226,8 @@ class _Slot:
         self.host = torch.empty(self.packed.buf.shape, dtype=torch.int32,
                                 pin_memory=torch.device(device).type == "cuda")
         self.tickets = torch.zeros(HB.FOREST_MAX_TREES, dtype=torch.int32, device=device)
+        self.proofs = layout.buffer()
+        self.views = layout.views(self.proofs)
         self.graph: cuda.Graph | None = None
         self.warm = False
         self.busy = False
@@ -258,6 +266,7 @@ class StarkProver:
         # The single-fetch prove's gather plan and slots, by batch size (the
         # plan's structure depends on the shapes only).
         self._rule_plans: dict[int, tuple] = {}
+        self._layouts: dict[int, ProofLayout] = {}
         self._slots: dict[int, list[_Slot]] = {}
         self._eager_depth = 0
 
@@ -384,7 +393,6 @@ class StarkProver:
             return lambda: proofs
         b = int(cols.shape[0])
         fss = [FiatShamir() for _ in range(b)]
-        streams = [ProofStream() for _ in range(b)]
         plan, round_slots, open_slots = self._rule_plan(b)
         slot = self._slot(b, ring)
         slot.busy = True
@@ -410,21 +418,22 @@ class StarkProver:
             raise
 
         def finish() -> list[bytes]:
+            # The slot's pinned words and its proofs' buffer are read in
+            # place: the slot's next prove lands in both, so every read ends
+            # before the slot is free, and each proof leaves as a copy.
             try:
                 with timer.phase("fri_fetch"):
                     with span("stark.fetch_wait"):
                         words = pending.wait()
-                    # A copy: the slot's next prove lands in the same buffer.
-                    with span("stark.fetch_copy"):
-                        host = slot.packed.host(words.copy())
                 with timer.phase("fri_emit"):
-                    self._prefix_replay(host, fss, streams)
-                    fri.chained_replay(host, fss, streams, plan, round_slots, sources,
-                                       lambda fetched: self._open_emit(open_slots, fetched,
-                                                                       streams))
+                    host = slot.packed.host(words)
+                    slot.views["stark.trace_root"][0][:, 0] = self._prefix_replay(host, fss)
+                    fetched = fri.chained_replay(host, fss, plan, round_slots, sources,
+                                                 slot.views)
+                    self._open_emit(open_slots, fetched, slot.views)
+                return [ProofStream.written(row).serialize() for row in slot.proofs]
             finally:
                 slot.busy = False
-            return [stream.serialize() for stream in streams]
 
         return finish
 
@@ -477,7 +486,7 @@ class StarkProver:
         d = self.dom
         sections = self.fri.packed_sections(b, self._prefix(b), self._rule_plan(b)[0].words)
         slot = _Slot((b, self.air.num_registers, d.T), d.num_transition + len(d.boundary),
-                     sections, self.device)
+                     sections, self._proof_layout(b), self.device)
         slots.append(slot)
         return slot
 
@@ -536,10 +545,11 @@ class StarkProver:
         n_terms = self.dom.num_transition + len(self.dom.boundary)
         return {"trace_roots": 8 * b, "digests": 4 * n_terms * b}
 
-    def _prefix_replay(self, host: dict, fss: list, streams: list) -> None:
+    def _prefix_replay(self, host: dict, fss: list) -> np.ndarray:
         """The host's replay of the trace roots and the challenge draws from
         the fetched sections (stark_tpu/stark.py:426-444); raises on a
-        device/host divergence."""
+        device/host divergence.  Returns the (B, 32) u8 trace roots (a view
+        of the fetch)."""
         with span("stark.prefix_replay"):
             b = len(fss)
             field = FiniteField()
@@ -547,15 +557,14 @@ class StarkProver:
             roots = host["trace_roots"].view(np.uint8).reshape(b, 32)
             digests = host["digests"].view(np.uint8).reshape(b, 2 * n_terms, 8)
             for j in range(b):
-                root = Hash(roots[j].tobytes())
-                streams[j].push(MerkleRoot(root))
-                fss[j].absorb(root.data)
+                fss[j].absorb(roots[j].tobytes())
                 for i in range(2 * n_terms):
                     raw = fss[j].challenge(field).value.to_bytes(8, "little")
                     if raw != digests[j, i].tobytes():
                         raise RuntimeError("device/host transcript divergence "
                                            "(constraint challenges)")
                     fss[j].absorb(raw)
+            return roots
 
     def _prove_two_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
         """B proofs where the FRI is not chainable (fewer than two rounds,
@@ -572,13 +581,28 @@ class StarkProver:
         packed = G.Packed(fri.packed_sections(b, self._prefix(b)), self.device)
         trace_lde, trace_forest, composition = self._front(cols, sponge, weights, packed,
                                                            timer)
+
+        def prefix_replay(host):
+            for stream, root in zip(streams, self._prefix_replay(host, fss)):
+                stream.push(MerkleRoot(Hash(root.tobytes())))
+
         fri.prove_batch(composition, fss, streams, timer=timer,
                         extra_dispatch=self._open_dispatch(trace_lde, trace_forest),
-                        extra_emit=lambda slots, fetched: self._open_emit(
+                        extra_emit=lambda slots, fetched: self._push_openings(
                             slots, fetched, streams),
-                        upstream=Upstream(sponge, packed,
-                                          lambda host: self._prefix_replay(host, fss, streams)))
+                        upstream=Upstream(sponge, packed, prefix_replay))
         return [stream.serialize() for stream in streams]
+
+    def _proof_layout(self, b: int) -> ProofLayout:
+        """The wire layout of B single-fetch proofs, made once per B: the
+        trace root, the FRI's objects (Fri.proof_objects), the openings."""
+        got = self._layouts.get(b)
+        if got is None:
+            got = self._layouts[b] = ProofLayout(b)
+            got.add("stark.trace_root", 1, (ROOT,))
+            self.fri.proof_objects(got)
+            self._open_objects(got)
+        return got
 
     def _rule_plan(self, b: int) -> tuple:
         """The single-fetch prove's query gather for B proofs, made once per
@@ -623,21 +647,32 @@ class StarkProver:
 
         return dispatch
 
-    def _open_emit(self, slots, fetched: np.ndarray, streams: list) -> None:
-        """Per opening its values, then its path (raw wire segments), a
-        segment a proof.  ``slots``: the values' slots (one a proof, or one
-        for all) and the paths' slot."""
+    def _open_objects(self, layout: ProofLayout) -> None:
+        """The trace openings' objects: per FRI round-0 query point (a, a +
+        N/2) of each test and per frame offset, the row's values, then its
+        path (stark_tpu/stark.py:533-548)."""
+        d, k = self.dom, self.cfg.num_colinearity_tests
+        layout.add("stark.openings", 2 * k * len(self.air.frame_offsets),
+                   (VALUES, self.air.num_registers), (PATH, d.N.bit_length() - 1))
+
+    @staticmethod
+    def _open_emit(slots, fetched: np.ndarray, views: dict) -> None:
+        """The openings from the fetched words into their views of a proof
+        layout (:meth:`_open_objects`), B proofs at once.  ``slots``: the
+        values' slots (one a proof, or one for all) and the paths' slot."""
         with span("stark.open_emit"):
             vals, sib = slots
-            b = len(streams)
-            vals = np.concatenate([s.take(fetched) for s in vals]).reshape(
-                b, -1, self.air.num_registers)
-            sib = sib.take(fetched)
-            sib = sib.reshape((b, -1) + sib.shape[1:])
-            for j in range(b):
-                streams[j].push_raw(np.concatenate(
-                    [wire_field_elements(vals[j]), wire_merkle_paths(sib[j])], axis=1,
-                ).tobytes())
+            values, paths = views["stark.openings"]
+            got = [s.take(fetched) for s in vals]
+            values[...] = (got[0] if len(got) == 1 else np.concatenate(got)).reshape(
+                values.shape)
+            paths[...] = sib.take(fetched).reshape(paths.shape)
+
+    def _push_openings(self, slots, fetched: np.ndarray, streams: list) -> None:
+        """The openings pushed to each stream as one raw segment."""
+        layout = ProofLayout(len(streams))
+        self._open_objects(layout)
+        layout.push(streams, lambda views: self._open_emit(slots, fetched, views))
 
     def _prove_three_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
         """B proofs with the challenges drawn on the host (the classic flow,
@@ -680,7 +715,7 @@ class StarkProver:
         # one gather and one fetch (stark_tpu/stark.py:446-548).
         self.fri.prove_batch(composition, fss, streams, timer=timer,
                              extra_dispatch=self._open_dispatch(trace_lde, trace_forest),
-                             extra_emit=lambda slots, fetched: self._open_emit(
+                             extra_emit=lambda slots, fetched: self._push_openings(
                                  slots, fetched, streams))
         return [stream.serialize() for stream in streams]
 

@@ -6,10 +6,14 @@ Wire format (stream.rs:35-64): per object a tag byte then payload —
   2: FieldElements — u64 LE count, then values as u64 LE
   3: MerklePath   — u64 LE count, then 32-byte hashes
 Deserialization is tolerant: truncated items are skipped, unknown tags end
-parsing (stream.rs:66-168).  Pop is FIFO (stream.rs:27-33).  The prover's
-bulk emission pushes pre-serialized segments (:meth:`ProofStream.push_raw`,
-built by :func:`wire_field_elements` / :func:`wire_merkle_paths`), which
-serialize verbatim.
+parsing (stream.rs:66-168).  Pop is FIFO (stream.rs:27-33).
+
+The prover writes a proof's bytes in place: a :class:`ProofLayout` places
+every object of B proofs of one shape once, tags and counts included, and
+the prover copies only the payloads into the views it cuts; a stream made
+over such a buffer (:meth:`ProofStream.written`) serializes it with one
+copy.  The paths that push objects push the query phase's objects as raw
+segments written the same way (:meth:`ProofLayout.push`).
 """
 
 from __future__ import annotations
@@ -146,63 +150,129 @@ class ProofObject:
     MerklePath = MerklePath
 
 
-def wire_field_elements(rows) -> np.ndarray:
-    """Wire bytes of k FieldElements objects (tag 2) at once: ``rows`` is
-    a (k, m) array of values (any integer dtype, field values < 2^32);
-    row q of the (k, 9 + 8m) u8 result is object q (stream.rs:45-52)."""
-    rows = np.asarray(rows)
-    k, m = rows.shape
-    out = np.empty((k, 9 + 8 * m), dtype=np.uint8)
-    out[:, 0] = 2
-    out[:, 1:9] = np.frombuffer(m.to_bytes(8, "little"), dtype=np.uint8)
-    out[:, 9:] = rows.astype("<u8").view(np.uint8).reshape(k, 8 * m)
-    return out
+#: The objects a :class:`ProofLayout` places: a Merkle root, a FieldElements
+#: of m values ``(VALUES, m)``, a MerklePath of L digests ``(PATH, L)``.
+ROOT, VALUES, PATH = 0, 2, 3
+
+#: Proofs serialized, by how their bytes were written: ``layout``, in place
+#: through a ProofLayout (:meth:`ProofStream.written`); ``objects``, pushed
+#: object by object.  Counted whether traced or not.
+SERIALIZED = {"layout": 0, "objects": 0}
 
 
-def wire_merkle_paths(sib) -> np.ndarray:
-    """Wire bytes of k MerklePath objects (tag 3) at once: ``sib`` is a
-    (k, L, 32) u8 array of sibling digests, bottom-up; row q of the
-    (k, 9 + 32L) u8 result is path q (stream.rs:53-63)."""
-    sib = np.asarray(sib, dtype=np.uint8)
-    k, L = sib.shape[:2]
-    out = np.empty((k, 9 + 32 * L), dtype=np.uint8)
-    out[:, 0] = 3
-    out[:, 1:9] = np.frombuffer(L.to_bytes(8, "little"), dtype=np.uint8)
-    out[:, 9:] = sib.reshape(k, 32 * L)
-    return out
+def _object_bytes(obj: tuple) -> tuple[int, int, int]:
+    """(header bytes, payload bytes, payload item bytes) of a layout object."""
+    kind, width = obj[0], (obj[1] if len(obj) > 1 else 1)
+    if kind == ROOT:
+        return 1, 32, 1
+    if kind == VALUES:
+        return 9, 8 * width, 8
+    if kind == PATH:
+        return 9, 32 * width, 1
+    raise ValueError(f"unknown layout object {obj}")
 
 
-def raw_field_elements(values) -> bytes:
-    """Wire bytes of ONE FieldElements object from a 1-D sequence of ints."""
-    return wire_field_elements(np.asarray(values, dtype=np.uint64)[None]).tobytes()
+class ProofLayout:
+    """Where every object of B proofs of one shape lies in their wire bytes:
+    groups of ``count`` records, each record the same objects, added in
+    proof order.  The shape fixes every tag, count and offset, so
+    :meth:`buffer` writes them once into a (B, :attr:`nbytes`) u8 buffer and
+    a prove copies only payloads, into the strided views :meth:`views` cuts
+    (the prover's single-fetch proofs: one buffer a slot, reused).  Field
+    values are below 2^32: a value view is the low half of each u64, whose
+    high half the buffer holds zero."""
 
+    def __init__(self, b: int):
+        self.b = b
+        self.nbytes = 0
+        #: name -> (first byte, records, record bytes, objects)
+        self.groups: dict[str, tuple[int, int, int, tuple]] = {}
 
-def raw_merkle_path(path) -> bytes:
-    """Wire bytes of ONE MerklePath object from its (L, 32) u8 sibling
-    digests.  (stark_tpu's ``raw_merkle_path(sib, q)`` takes query q of a
-    level-major (L, k, 32) array; the port's gathers are query-major.)"""
-    return wire_merkle_paths(np.asarray(path, dtype=np.uint8)[None]).tobytes()
+    def add(self, name: str, count: int, *objects: tuple) -> None:
+        """``count`` records of ``objects``, each ``(ROOT,)``, ``(VALUES, m)``
+        or ``(PATH, L)``, after every group added before."""
+        if name in self.groups:
+            raise ValueError(f"the layout already has a group {name!r}")
+        record = sum(sum(_object_bytes(o)[:2]) for o in objects)
+        self.groups[name] = (self.nbytes, count, record, tuple(objects))
+        self.nbytes += count * record
+
+    def _places(self):
+        """(name, object, its header's first byte, record bytes, count)."""
+        for name, (at, count, record, objects) in self.groups.items():
+            for obj in objects:
+                yield name, obj, at, record, count
+                at += sum(_object_bytes(obj)[:2])
+
+    def buffer(self) -> np.ndarray:
+        """A (B, nbytes) u8 buffer holding every header, its payloads zero."""
+        buf = np.zeros((self.b, self.nbytes), dtype=np.uint8)
+        for _, obj, at, record, count in self._places():
+            head = _object_bytes(obj)[0]
+            heads = self._view(buf, at, count, record, head, 1, np.uint8)
+            heads[:, :, 0] = obj[0]
+            if head > 1:
+                heads[:, :, 1:] = np.frombuffer(obj[1].to_bytes(8, "little"), dtype=np.uint8)
+        return buf
+
+    def views(self, buf: np.ndarray) -> dict[str, tuple[np.ndarray, ...]]:
+        """Each group's payload views of ``buf`` (a :meth:`buffer`), one an
+        object: (B, count, 32) u8 for a root, (B, count, m) u32 for m values,
+        (B, count, 32 L) u8 for a path of L digests."""
+        if buf.shape != (self.b, self.nbytes) or buf.dtype != np.uint8 \
+                or not buf.flags.c_contiguous:
+            raise ValueError(f"a layout buffer is ({self.b}, {self.nbytes}) u8, got "
+                             f"{buf.shape} {buf.dtype}")
+        out: dict[str, tuple] = {}
+        for name, obj, at, record, count in self._places():
+            head, size, step = _object_bytes(obj)
+            view = (self._view(buf, at + head, count, record, size // step, step, "<u4")
+                    if obj[0] == VALUES else
+                    self._view(buf, at + head, count, record, size, 1, np.uint8))
+            out[name] = out.get(name, ()) + (view,)
+        return out
+
+    def _view(self, buf, at: int, count: int, record: int, width: int, step: int, dtype):
+        return np.ndarray((self.b, count, width), dtype=dtype, buffer=buf, offset=at,
+                          strides=(self.nbytes, record, step))
+
+    def push(self, proof_streams: list, fill) -> None:
+        """``fill(views)`` into a new buffer, then each proof's bytes pushed
+        to its stream as one raw segment (the paths that push objects)."""
+        buf = self.buffer()
+        fill(self.views(buf))
+        for stream, row in zip(proof_streams, buf):
+            stream.push_raw(row)
 
 
 class _Raw(bytes):
     """Pre-serialized wire segment (one or more whole objects) pushed by
-    the prover's bulk emit paths: one bytes object per query phase round
-    instead of one Hash per tree level.  Serialization output is
-    byte-identical; prover-side streams are never popped, so the object
-    view is unused."""
+    the prover's paths that push objects (:meth:`ProofLayout.push`).
+    Serialization output is byte-identical; prover-side streams are never
+    popped, so the object view is unused."""
 
 
 class ProofStream:
     def __init__(self, objects=None):
         self.objects = deque(objects or [])
+        self._written = None
+
+    @classmethod
+    def written(cls, wire) -> "ProofStream":
+        """The stream of one proof whose bytes are already written, whole,
+        in ``wire`` (a row of a :class:`ProofLayout`'s buffer): nothing is
+        pushed to it, and :meth:`serialize` copies ``wire`` once."""
+        stream = cls()
+        stream._written = wire
+        return stream
 
     def push(self, obj) -> None:
         self.objects.append(obj)
 
-    def push_raw(self, data: bytes) -> None:
-        """Append an already-serialized segment (whole objects in wire
-        format; the caller is trusted, tests pin byte-equality with the
-        object path)."""
+    def push_raw(self, data) -> None:
+        """Append an already-serialized segment, copied (bytes or any
+        buffer of whole objects in wire format; the caller is trusted, tests
+        pin byte-equality with the object path)."""
         self.objects.append(_Raw(data))
 
     def pop(self):
@@ -213,6 +283,10 @@ class ProofStream:
 
     def serialize(self) -> bytes:
         with span("stream.serialize"):
+            if self._written is not None:
+                SERIALIZED["layout"] += 1
+                return bytes(self._written)
+            SERIALIZED["objects"] += 1
             out = bytearray()
             for obj in self.objects:
                 if isinstance(obj, _Raw):

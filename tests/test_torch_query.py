@@ -1,9 +1,10 @@
 """The query phase as stark_tpu runs it: one gather (kernel K13,
 ops/gather.py) and one fetch for every FRI round and the trace openings,
-emitted as raw wire segments; the prover's trace_cols entry; the
-verifier's path sink and verify_batch.  Against stark_tpu on the CPU: the
-raw segments equal the object path's bytes and stark_tpu's raw helpers;
-the plain gather equals per-round open_batch and value reads; proofs from
+copied into the proof's wire layout (tests/test_torch_layout.py holds the
+layout to the object path and stark_tpu's raw helpers); the prover's
+trace_cols entry; the verifier's path sink and verify_batch.  Against
+stark_tpu on the CPU: a raw segment serializes verbatim; the plain gather
+equals per-round open_batch and value reads; proofs from
 device columns, numpy columns and host rows are byte-identical to
 stark_tpu's; verify_batch and the sunk paths agree with stark_tpu's.  On a
 card, K13 equals its plain version and a prove launches it once.
@@ -24,15 +25,7 @@ from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
 from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import gather as G
 from stark_tpu_torch.ops.fieldops import P
-from stark_tpu_torch.stream import (
-    FieldElements,
-    MerklePath,
-    ProofStream,
-    raw_field_elements,
-    raw_merkle_path,
-    wire_field_elements,
-    wire_merkle_paths,
-)
+from stark_tpu_torch.stream import VALUES, FieldElements, MerklePath, ProofLayout, ProofStream
 from torch_port_support import cuda_device, rand_field, to_torch  # noqa: F401
 
 CFG_256 = dict(trace_length=256, blowup=4, num_colinearity_tests=4)
@@ -46,47 +39,17 @@ def _objects_bytes(objs) -> bytes:
     return ProofStream(objs).serialize()
 
 
-def _random_sib(rng, k, L):
-    return rng.integers(0, 256, size=(k, L, 32), dtype=np.uint8)
-
-
 # -- raw wire segments -----------------------------------------------------------
 
 
-@pytest.mark.parametrize("k,m", [(1, 1), (3, 3), (16, 3), (5, 8)])
-def test_wire_field_elements_equal_objects(k, m):
-    rows = rand_field(np.random.default_rng(k * m), (k, m))
-    want = _objects_bytes([FieldElements(tuple(int(v) for v in r)) for r in rows])
-    assert wire_field_elements(rows).tobytes() == want
-    assert wire_field_elements(rows.astype(np.int32)).tobytes() == want
-    assert b"".join(raw_field_elements(r) for r in rows) == want
-
-
-@pytest.mark.parametrize("k,L", [(1, 0), (1, 1), (4, 6), (7, 22)])
-def test_wire_merkle_paths_equal_objects(k, L):
-    sib = _random_sib(np.random.default_rng(k + L), k, L)
-    want = _objects_bytes(
-        [MerklePath(tuple(Hash(d.tobytes()) for d in path)) for path in sib])
-    assert wire_merkle_paths(sib).tobytes() == want
-    assert b"".join(raw_merkle_path(path) for path in sib) == want
-
-
-def test_raw_helpers_equal_stark_tpu():
-    from stark_tpu import stream as jstream
-
-    rng = np.random.default_rng(3)
-    vals = rand_field(rng, 5)
-    assert raw_field_elements(vals) == jstream.raw_field_elements(vals)
-    sib = _random_sib(rng, 4, 9)                      # (k, L, 32), query-major
-    level_major = np.ascontiguousarray(sib.transpose(1, 0, 2))
-    for q in range(4):
-        assert raw_merkle_path(sib[q]) == jstream.raw_merkle_path(level_major, q)
-
-
 def test_push_raw_serializes_verbatim():
+    layout = ProofLayout(1)
+    layout.add("v", 1, (VALUES, 2))
+    segment = layout.buffer()
+    layout.views(segment)["v"][0][...] = [3, P - 1]
     stream = ProofStream()
     stream.push(FieldElements((1, 2)))
-    stream.push_raw(raw_field_elements([3, P - 1]))
+    stream.push_raw(segment[0].tobytes())
     stream.push(FieldElements((4,)))
     want = _objects_bytes([FieldElements((1, 2)), FieldElements((3, P - 1)),
                            FieldElements((4,))])

@@ -44,7 +44,7 @@ PARENTS = {
     "stark.fri_commit": "stark.prove", "stark.fri_sample": "stark.prove",
     "stark.fri_query": "stark.prove",
     "stark.fri_fetch": "stark.prove",
-    "stark.fetch_wait": "stark.fri_fetch", "stark.fetch_copy": "stark.fri_fetch",
+    "stark.fetch_wait": "stark.fri_fetch",
     "stark.fri_emit": "stark.prove",
     "stark.prefix_replay": "stark.fri_emit", "fri.chain_replay": "stark.fri_emit",
     "fri.sample_replay": "stark.fri_emit", "fri.round_emit": "stark.fri_emit",
@@ -92,6 +92,24 @@ def test_a_prove_records_every_span_nested(ranges):
     totals = PR.snapshot_spans()
     assert set(totals) - {"python.gc"} == set(PARENTS)
     assert all(seconds > 0 and count >= 1 for seconds, count in totals.values())
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_the_in_place_fills_and_the_copy_are_spans(b):
+    """The single-fetch path writes each proof in place: each FRI round's
+    fill is a ``fri.round_emit``, the openings' a ``stark.open_emit``, each
+    proof's one copy a ``stream.serialize``, as the paths and serialization
+    metrics read them."""
+    air, trace_fn, _ = get_model("fib")
+    prover = BatchStarkProver(air, CFG, b, device="cpu")
+    PR.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        prover.prove_batch([trace_fn(T)] * b)
+    totals = PR.snapshot_spans()
+    for name, count in (("fri.round_emit", prover.fri.num_rounds() - 1),
+                        ("stark.open_emit", 1), ("stream.serialize", b)):
+        assert totals[name][1] == count and totals[name][0] > 0, name
+    assert "stark.fetch_copy" not in totals
 
 
 def test_a_proofs_spans_share_its_id(ranges):
