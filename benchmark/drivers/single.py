@@ -54,7 +54,7 @@ def run(cell: H.Cell, seed: int, seconds: float, trace: bool, started: float,
         rec.spans = step.spans
         if tr.prof is not None:
             rec.traces = [tr.summary()]
-    rec.proof_shas = [H.sha(p) for p in sample.kept]
+    sample.fill(rec)
     prover.close()
     del prover, step
     H.release(device)

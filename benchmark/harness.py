@@ -31,6 +31,11 @@ FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "stark_tpu")
 #: Proofs of a run kept for the comparison, drawn from the seed over every
 #: proof served in the window.
 SAMPLE = 128
+#: Distinct statements among a run's kept proofs that the reference proves
+#: after the window, drawn from the seed; the kept proofs of the others are
+#: not compared.  On an H100 the reference takes 3.6-4.4 s a statement at
+#: T=2^20 (a zkVM segment): 6 keep it inside a 30 s window (PERF.md).
+REFERENCE_STATEMENTS = 6
 #: Proofs a driver makes before its window, so that every kernel is built
 #: and every graph captured in set-up.
 WARMUP_PROOFS = 4
@@ -131,21 +136,31 @@ def metric_module(name: str, base: Path = HERE):
 
 class Sample:
     """A uniform sample of at most SAMPLE of the proofs a run serves
-    (reservoir sampling, its draws from the seed)."""
+    (reservoir sampling, its draws from the seed), each kept with its
+    statement: (public inputs, proof), None for the configuration's
+    default statement."""
 
     def __init__(self, seed: int):
         self.rng = random.Random(seed)
-        self.kept: list[bytes] = []
+        self.kept: list[tuple] = []
         self.seen = 0
 
-    def offer(self, proof: bytes) -> None:
+    def offer(self, proof: bytes, public=None) -> None:
+        """``proof`` served for the statement with the public inputs
+        ``public`` (a flat sequence of integers; None: the default)."""
+        item = (None if public is None else tuple(int(v) for v in public), proof)
         if len(self.kept) < SAMPLE:
-            self.kept.append(proof)
+            self.kept.append(item)
         else:
             j = self.rng.randrange(self.seen + 1)
             if j < SAMPLE:
-                self.kept[j] = proof
+                self.kept[j] = item
         self.seen += 1
+
+    def fill(self, rec: "Record") -> None:
+        """The kept proofs' sha256 and statements into ``rec``."""
+        rec.proof_shas = [sha(proof) for _, proof in self.kept]
+        rec.proof_publics = [public for public, _ in self.kept]
 
 
 @dataclasses.dataclass
@@ -160,6 +175,9 @@ class Record:
     latencies_s: list = dataclasses.field(default_factory=list)
     #: sha256 of each proof kept for the comparison
     proof_shas: list = dataclasses.field(default_factory=list)
+    #: the public inputs of each kept proof's statement (a tuple; None: the
+    #: configuration's default statement), one a sha
+    proof_publics: list = dataclasses.field(default_factory=list)
     memory_peak_bytes: int = 0
     #: per-proof spans of the traced run: name -> seconds, one a proof
     spans: dict = dataclasses.field(default_factory=dict)
@@ -305,12 +323,52 @@ def forbidden_loaded() -> list[str]:
     return sorted(t for t in tops if t in FORBIDDEN_MODULES)
 
 
-def judge(rec: Record, reference_sha: str) -> dict:
-    """The numbers compared, each beside its limit."""
-    mismatched = sum(1 for s in rec.proof_shas if s != reference_sha)
+def statements(rec: Record, seed: int) -> list:
+    """The statements the reference proves: the distinct ones among the
+    kept proofs, at most REFERENCE_STATEMENTS of them, drawn from the seed."""
+    distinct = sorted(set(rec.proof_publics), key=lambda p: (p is not None, p or ()))
+    if len(distinct) > REFERENCE_STATEMENTS:
+        distinct = random.Random(f"statements {seed}").sample(distinct, REFERENCE_STATEMENTS)
+    return distinct
+
+
+def reference_statement(cell: Cell, public=None, tests_less: int = 0):
+    """The statement with the public inputs ``public`` (None: the default)
+    at the cell's size, for the plain reference."""
+    from benchmark.reference import prover as R
+
+    return R.Statement(cell.reference_air, cell.trace_length, cell.config["blowup"],
+                       cell.config["num_colinearity_tests"] - tests_less, public)
+
+
+def reference_proofs(cell: Cell, publics: list, device, tests_less: int = 0) -> dict:
+    """{public inputs: the plain reference's proof bytes} of each statement
+    of ``publics``, proved one after the other on ``device``."""
+    import torch
+
+    from benchmark.reference import prover as R
+
+    out = {}
+    for public in publics:
+        st = reference_statement(cell, public, tests_less)
+        cols = torch.from_numpy(st.witness().astype("int64")).to(device)
+        with torch.no_grad():
+            out[public] = R.prove(st, cols)
+        del cols
+    return out
+
+
+def judge(rec: Record, reference_shas: dict) -> dict:
+    """The numbers compared, each beside its limit: every kept proof of a
+    statement that the reference proved (``reference_shas``: public inputs
+    -> the sha256 of its reference proof) against its own statement's."""
+    compared = [(public, s) for public, s in zip(rec.proof_publics, rec.proof_shas, strict=True)
+                if public in reference_shas]
+    mismatched = sum(1 for public, s in compared if s != reference_shas[public])
     return {"mismatched_proofs": {"value": mismatched, "max": 0},
             "failed_proofs": {"value": rec.failed, "max": 0},
-            "compared_proofs": {"value": len(rec.proof_shas), "min": 1}}
+            "compared_proofs": {"value": len(compared), "min": 1},
+            "compared_statements": {"value": len({public for public, _ in compared}), "min": 1}}
 
 
 def holds(checks: dict) -> bool:

@@ -224,12 +224,26 @@ def wire_path(sib: np.ndarray) -> bytes:
 @dataclass(frozen=True)
 class Statement:
     """What a proof is about: an AIR (``air``: a module of
-    benchmark/reference/airs), its witness columns, the parameters."""
+    benchmark/reference/airs), its public inputs (``public``; None: the
+    AIR's default statement), the parameters."""
 
     air: object
     trace_length: int
     blowup: int = 4
     num_colinearity_tests: int = 16
+    public: tuple | None = None
+
+    def boundary(self) -> list:
+        """(row, register, value) of every boundary constraint."""
+        if self.public is None:
+            return self.air.boundary(self.trace_length)
+        return self.air.boundary(self.trace_length, self.public)
+
+    def witness(self) -> np.ndarray:
+        """The (c, T) witness columns of the statement, from the AIR."""
+        if self.public is None:
+            return self.air.trace(self.trace_length)
+        return self.air.trace(self.trace_length, self.public)
 
 
 class Domain:
@@ -294,7 +308,7 @@ def composition(st: Statement, dom: Domain, lde: torch.Tensor, alphas, betas) ->
     total = torch.zeros_like(x)
     terms = [(c * exc % P * zinv % P, xs_t) for c in air.transition(frame)]
     denominators: dict[int, torch.Tensor] = {}
-    for row, register, value in air.boundary(T):
+    for row, register, value in st.boundary():
         if row not in denominators:
             denominators[row] = tensor_inv((x - pow(dom.omega, row, P)) % P)
         terms.append(((frame[0][register] - value) % P * denominators[row] % P, xs_b))
@@ -324,7 +338,7 @@ def prove(st: Statement, columns: torch.Tensor) -> bytes:
     out += wire_root(trace_tree.root())
     fs.absorb(trace_tree.root())
     # 3. two challenges a term, each absorbed
-    n_terms = air.TRANSITIONS + len(air.boundary(T))
+    n_terms = air.TRANSITIONS + len(st.boundary())
     alphas, betas = [], []
     for _ in range(n_terms):
         for got in (alphas, betas):

@@ -6,11 +6,13 @@ From the root of a checkout: loads the cell's files (BENCHMARK.json,
 configs/, traffic/, drivers/), sets up and warms up the program
 (stark_tpu_torch) on the cell's cards, measures for ``--seconds`` (with
 ``--trace 1`` a shorter traced window, under torch.profiler), then frees
-the program's state and proves the cell's statement once with the plain
-reference (reference/: its own AIR and witness walk), and compares a sample of the served proofs, drawn
-from the seed, with it byte for byte.  The last line of standard output is
-one JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
-cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
+the program's state, proves with the plain reference (reference/: its own
+AIR and witness walk) the statements of a sample of the served proofs
+drawn from the seed (at most ``harness.REFERENCE_STATEMENTS``, drawn from
+it too), and compares each sampled proof of those statements with its own
+statement's reference proof byte for byte.  The last line of standard
+output is one JSON object: ``correct``, ``attempted``, ``failed``,
+``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
 ``device``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
 number compared with its limit, also the last lines of standard error.
 Exits 2 without the program or the cards the cell asks for, 3 if jax,
@@ -42,16 +44,11 @@ def measure(cell: H.Cell, seed: int, seconds: float, trace: bool, device="cuda",
                           device=device)
     ref_device = torch.device(device, 0) if device == "cuda" else torch.device(device)
     t0 = time.time()
-    st = R.Statement(cell.reference_air, cell.trace_length, cell.config["blowup"],
-                     cell.config["num_colinearity_tests"])
-    cols = torch.from_numpy(cell.reference_air.trace(cell.trace_length).astype("int64"))
-    cols = cols.to(ref_device)
-    with torch.no_grad():
-        reference = R.prove(st, cols)
-    del cols
+    reference = H.reference_proofs(cell, H.statements(rec, seed), ref_device)
     H.release(ref_device)
     reference_s = time.time() - t0
-    checks = H.judge(rec, H.sha(reference))
+    checks = H.judge(rec, {public: H.sha(proof) for public, proof in reference.items()})
+    st = H.reference_statement(cell)
     shape = H.shape(cell, R.Domain(st).fri_rounds(st.num_colinearity_tests))
     out = {"correct": H.holds(checks), "attempted": rec.attempted, "failed": rec.failed,
            "metrics": H.read_metrics(cell, rec, trace, {"shape": shape}),
@@ -73,7 +70,8 @@ def measure(cell: H.Cell, seed: int, seconds: float, trace: bool, device="cuda",
             "device_ops": sorted(([k[:120], s] for k, s in ops.items()), key=lambda x: -x[1])[:10],
             "idle_gaps": sorted(([k[:120], s] for k, s in gaps.items()), key=lambda x: -x[1])[:10]}
     out["checks"] = checks
-    out["_info"] = {"reference_s": reference_s, "window_s": rec.window_s,
+    out["_info"] = {"reference_s": reference_s, "statements": len(reference),
+                    "window_s": rec.window_s,
                     "completed": rec.completed, "setup_s": rec.setup_s,
                     "setup_marks": rec.setup_marks}
     return out
@@ -112,7 +110,7 @@ def main(argv=None) -> int:
         return 3
     print(f"benchmark: {cell.name} seed {args.seed}: {info['completed']} proofs in "
           f"{info['window_s']:.3f} s, set-up {info['setup_s']:.3f} s, reference "
-          f"{info['reference_s']:.3f} s", file=sys.stderr)
+          f"{info['reference_s']:.3f} s for {info['statements']} statement(s)", file=sys.stderr)
     marks = ", ".join(f"{k} {v:.3f}" for k, v in info["setup_marks"].items())
     print(f"benchmark: set-up steps (seconds from the start): {marks}", file=sys.stderr)
     for name, c in out["checks"].items():

@@ -8,7 +8,8 @@ produced.  The cell proves one proof at a time, so no part of a batch can
 be left out, and it runs on one card, so no exchange can be; a step that
 returns its state unchanged is a training fault.  A proof handed out again
 in place of a new one is not caught while the statement fixes its witness,
-and a test records that.
+and a test records that; once proofs have statements of their own it is
+(test_benchmark_statements.py).
 
 Marked ``gpu``: the control at each cell's own size, on three seeds
 (``python3 -m pytest benchmark -m gpu -n 0 -s`` on a card); it skips where
@@ -33,6 +34,7 @@ def run_tiny(tiny, name, trace=False):
 def test_sound_runs_are_correct(tiny, trace):
     out = run_tiny(tiny, "fib21.latency", trace)
     assert out["correct"] and out["checks"]["mismatched_proofs"]["value"] == 0, out
+    assert out["checks"]["compared_statements"]["value"] == 1
 
 
 def test_control_fails(tiny):
@@ -58,12 +60,12 @@ def test_an_altered_proof_fails(tiny, monkeypatch):
 
 
 def test_a_proof_handed_out_again_passes_while_the_witness_is_fixed(tiny, monkeypatch):
-    """A limitation, recorded: the statement fixes its witness (FibonacciAir's
-    boundary), so every proof of a run has the same bytes, and a prover that
-    proves once and hands out that proof for every later call reads
-    ``correct``.  Such a fault is caught only once the program takes public
-    inputs as data and the traffic draws each proof's statement from the
-    seed (PERF.md, Open questions)."""
+    """A limitation, recorded: this cell's traffic serves one statement
+    (FibonacciAir's default boundary), so every proof of a run has the same
+    bytes, and a prover that proves once and hands out that proof for every
+    later call reads ``correct``.  Where each proof's statement is drawn
+    from the seed, the comparison catches it:
+    test_benchmark_statements.py::test_a_proof_handed_out_for_another_statement_fails."""
     from stark_tpu_torch import StarkProver
 
     prove = StarkProver.prove
