@@ -368,22 +368,27 @@ INT_PIPE_SPLIT_MIX = 4.5 * 4
 INT_PIPE_SPLIT_WAVE = 5 * 4
 INT_PIPE_SHORT_BYTE = 5
 # K11 against its plain version at every (model, T, blowup, B) the driven
-# paths and the pinned proofs give it; the first three also timed.
+# paths and the pinned proofs give it (the segment AIR's: fib20.segments'
+# batch of 4 at T=2^20, and the tests' T=64), each proof with a row of
+# boundary values of its own; the first three also timed.
 COMPOSE_CASES = (("fib", MAIN_T, 4, 1), ("mds", MDS_T, 4, 1), ("fib", BATCH_T, 4, 8),
                  ("fib", BATCH_T, 4, 32), ("mds", BATCH_T, 4, 8), ("fib", 64, 4, 1),
                  ("fib", 1024, 4, 1), ("fib", 1 << 16, 4, 1), ("fib2", 1024, 4, 1),
                  ("square", 1024, 4, 1), ("cube", 1024, 8, 1), ("mds", 1024, 4, 1),
                  ("mds", 4096, 4, 1), ("wide", 64, 4, 1)) + tuple(
     (model, 1024, 8 if model == "cube" else 4, b)
-    for model in ("fib", "fib2", "square", "cube", "mds", "wide") for b in (8, 32))
+    for model in ("fib", "fib2", "square", "cube", "mds", "wide") for b in (8, 32)) + (
+    ("fib_segment", MAIN_T, 4, 4), ("fib_segment", 64, 4, 1), ("fib_segment", 64, 4, 8))
 COMPOSE_TIMED = 3
 # K11's table form (an AIR past ops/compose.TABLE_LINES) at the shapes
 # tools/tune_kernels.py times it, (model, T, B) at blowup 4: the paths' AIRs
 # forced into it (Fibonacci T=2^20, MDS T=2^16, batch8's), then the
 # distinct counter (tools/tune_kernels.distinct_air) at 1,024 and 3,632
-# constraints; each in turn with the table form before its redesign.
+# constraints, then the segment AIR at fib20.segments' batch; each in turn
+# with the table form before its redesign.
 TABLE_CASES = (("fib", MAIN_T, 1), ("mds", MDS_T, 1), ("fib", BATCH_T, 8),
-               ("distinct1024", 1 << 16, 1), ("distinct3632", 1 << 16, 1))
+               ("distinct1024", 1 << 16, 1), ("distinct3632", 1 << 16, 1),
+               ("fib_segment", MAIN_T, 4))
 # K14 against its plain version at every (rows, T, N) the driven paths and
 # the pinned proofs give it (rows = B c: the main path, the wide path, the
 # three batched cells; the pins; T of 1 and 2, its edge route), then at T = N
@@ -417,8 +422,10 @@ DIST_RUNS = 3
 DIST_TURN_RUNS = 10
 # K14 with the four-step's twiddle table at its (C/D, R) rows: (n, D).
 SCALE_TABLE_CASES = ((1 << 23, DIST_D), (1 << 22, 1))
-# K11 on the sharded paths' shares with their halos: (model, T, blowup, D).
-HALO_CASES = (("fib", DIST_T, 4, DIST_D), ("mds", MDS_T, 4, DIST_MDS_D))
+# K11 on the sharded paths' shares with their halos: (model, T, blowup, D);
+# the segment AIR's last share holds its end pair's rows.
+HALO_CASES = (("fib", DIST_T, 4, DIST_D), ("mds", MDS_T, 4, DIST_MDS_D),
+              ("fib_segment", MAIN_T, 4, DIST_D))
 # K13's windowed form (a rank's share of the single-fetch plan) at every
 # distributed world's plan, (model, T, D): every rank held against the
 # plain version, the first (Fibonacci T=2^21 on D=4: cut and whole rounds)
@@ -964,7 +971,7 @@ def _check_sharded_forms(rng, dev, _results: _Results) -> None:
     four-step's twiddle w^(j2 k1) over a rank's (C/D, R) rows at
     SCALE_TABLE_CASES, and an LDE share's pad and scale with its offset
     table), and K11 on a share with its halo at HALO_CASES (the last rank's:
-    its frame reads run into rank 0's head).  The table is an input here,
+    its frame reads run into rank 0's head; random boundary values).  The table is an input here,
     so the bound counts its bytes."""
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.ops import compose as CO
@@ -1013,12 +1020,13 @@ def _check_sharded_forms(rng, dev, _results: _Results) -> None:
         lde = _rand_field(rng, dev, (air.num_registers, m + reach))
         al = rng.integers(0, 998244353, size=prog.terms)
         be = rng.integers(0, 998244353, size=prog.terms)
+        values = _boundary_words(rng, dev, prog, 1)
 
-        def kernel(x, a, w, prog=prog, tables=tables, blowup=blowup, m=m):
-            return CO.compose(prog, x, tables, a, w, blowup, points=m)
+        def kernel(x, a, w, prog=prog, tables=tables, blowup=blowup, m=m, values=values):
+            return CO.compose(prog, x, tables, a, w, blowup, points=m, values=values)
 
-        def plain(x, a, w, prog=prog, tables=tables, blowup=blowup, m=m):
-            return CO.compose_plain(prog, x, tables, a, w, blowup, points=m)
+        def plain(x, a, w, prog=prog, tables=tables, blowup=blowup, m=m, values=values):
+            return CO.compose_plain(prog, x, tables, a, w, blowup, points=m, values=values)
 
         want = plain(lde, al, be)
         for turn in (1, 2):
@@ -1028,7 +1036,8 @@ def _check_sharded_forms(rng, dev, _results: _Results) -> None:
                  f"({air.num_registers}, 2^{m.bit_length() - 1} + {reach})")
         entry = timed.add(
             CO.COMPOSE, shape, [(lde, al, be)], kernel, plain, 50,
-            nbytes=4 * (prog.registers_read() * (m + reach) + m * (prog.table_loads() + 1)),
+            nbytes=4 * (prog.registers_read() * (m + reach) + m * (prog.table_loads() + 1)
+                        + values.numel()),
             ops=m * prog.operations(), flush=flush)
         lines.append(f"compose {shape}: " + _line(entry) + ", L2 flushed before each call")
         del prover, lde, want, tables
@@ -2334,13 +2343,22 @@ def _compose_programs() -> dict:
     return dict(programs.values())
 
 
+def _boundary_words(rng, dev, prog, b: int) -> torch.Tensor:
+    """A random row of boundary values for each of ``b`` proofs, as the
+    (B, max(boundaries, 1)) words K11 reads (ComposeProgram.values)."""
+    return torch.from_numpy(prog.values(
+        rng.integers(0, 998244353, size=(b, len(prog.boundary))))).to(dev)
+
+
 def _check_compose(rng, dev, results: _Results) -> None:
     """K11 against its plain version (the eager compose on the card) at
-    every case of COMPOSE_CASES, each call twice; the first cases timed,
-    with the L2 flushed before each call, against their bound: one read
-    of the LDE rows the AIR reads and of each table, one write, or the
-    generated body's operations; each timed case also in turn with the
-    design before (every sum of the generated body eager)."""
+    every case of COMPOSE_CASES, each call twice, each proof with its own
+    random boundary values; the first cases timed, with the L2 flushed
+    before each call, against their bound: one read of the LDE rows the
+    AIR reads, of each table and of the boundary values, one write, or
+    the generated body's operations; each timed case also in turn with
+    the design before (every sum of the generated body eager, the default
+    statement's values compiled in)."""
     from stark_tpu_torch import StarkConfig, StarkProver
     from stark_tpu_torch.ops import compose as CO
 
@@ -2354,28 +2372,34 @@ def _check_compose(rng, dev, results: _Results) -> None:
         al = rng.integers(0, 998244353, size=(b, prog.terms))
         be = rng.integers(0, 998244353, size=(b, prog.terms))
         args = (lde[0], al[0], be[0]) if b == 1 else (lde, al, be)
+        values = _boundary_words(rng, dev, prog, b)
 
-        def plain(x, a, w, prog=prog, tables=tables, blowup=blowup):
-            return CO.compose_plain(prog, x, tables, a, w, blowup)
+        def kernel(x, a, w, prover=prover, values=values):
+            return prover._compose(x, a, w, values=values)
+
+        def plain(x, a, w, prog=prog, tables=tables, blowup=blowup, values=values):
+            return CO.compose_plain(prog, x, tables, a, w, blowup, values=values)
 
         want = plain(*args)
         for turn in (1, 2):
-            _require_equal(f"compose {model} T={T} B={b} call {turn}",
-                           prover._compose(*args), want)
+            _require_equal(f"compose {model} T={T} B={b} call {turn}", kernel(*args), want)
         if case < COMPOSE_TIMED:
             shape = f"{model} T=2^{T.bit_length() - 1}, (B, c, N) = ({b}, {air.num_registers}, 2^{n.bit_length() - 1})"
             entry = (results if case == 0 else _Results()).add(
-                CO.COMPOSE, shape, [args], prover._compose, plain, 50,
-                nbytes=4 * n * (b * prog.registers_read() + prog.table_loads() + b),
+                CO.COMPOSE, shape, [args], kernel, plain, 50,
+                nbytes=4 * n * (b * prog.registers_read() + prog.table_loads() + b)
+                + 4 * values.numel(),
                 ops=b * n * prog.operations(), flush=flush)
             entry["operations_per_point"] = prog.operations()
-            # The design before (eager sums; built from tools/tune_kernels.py)
-            # held against plain, then in turn.
+            # The design before (eager sums; built from tools/tune_kernels.py,
+            # the default statement's values compiled in) held against plain
+            # at those values, then in turn.
             old = BEFORE["compose"][(model, T)]
             _require_equal(f"compose before {model} T={T} B={b}",
-                           old(args[0], tables, args[1], args[2], blowup), want)
+                           old(args[0], tables, args[1], args[2], blowup),
+                           CO.compose_plain(prog, *args[:1], tables, *args[1:], blowup))
             calls = (lambda: (flush(), old(args[0], tables, args[1], args[2], blowup)),
-                     lambda: (flush(), prover._compose(*args)))
+                     lambda: (flush(), kernel(*args)))
             entry["turns_ms"] = [_device_ms(calls[i], 50, skip=flush.skip)
                                  for i in (0, 1, 1, 0)]
             timed.append(entry)
@@ -2390,19 +2414,21 @@ def _check_compose(rng, dev, results: _Results) -> None:
         lde = _rand_field(rng, dev, (b, air.num_registers, n))
         al, be = (rng.integers(0, 998244353, size=(b, prog.terms)) for _ in range(2))
         words = torch.from_numpy(prog.weights(al, be).view(np.int32)).to(dev)
-        want = CO.compose_plain(prog, lde, tables, al, be, 4)
+        values = _boundary_words(rng, dev, prog, b)
+        want = CO.compose_plain(prog, lde, tables, al, be, 4, values=values)
 
-        def table_call(prog=prog, lde=lde, tables=tables, words=words):
-            return CO.compose(prog, lde, tables, None, None, 4, weights=words)
+        def table_call(prog=prog, lde=lde, tables=tables, words=words, values=values):
+            return CO.compose(prog, lde, tables, None, None, 4, weights=words, values=values)
 
         for turn in (1, 2):
             _require_equal(f"compose table form {model} T={T} B={b} call {turn}", table_call(),
                            want)
+        # The form before compiles the default statement's values in.
         old = BEFORE["table"][(model, T)]
         _require_equal(f"compose table form before {model} T={T} B={b}",
-                       old(lde, tables, words, 4), want)
+                       old(lde, tables, words, 4), CO.compose_plain(prog, lde, tables, al, be, 4))
         calls = (lambda: (flush(), old(lde, tables, words, 4)), lambda: (flush(), table_call()))
-        nbytes = 4 * n * (b * prog.registers_read() + prog.table_loads() + b)
+        nbytes = 4 * n * (b * prog.registers_read() + prog.table_loads() + b) + 4 * values.numel()
         shape = f"{model} T=2^{T.bit_length() - 1}, (B, c, N) = ({b}, {air.num_registers}, " \
                 f"2^{n.bit_length() - 1})"
         entry["table_form"][shape] = {
@@ -2412,13 +2438,15 @@ def _check_compose(rng, dev, results: _Results) -> None:
             "steps": len(prog.form.steps) - CO.SPARE_STEPS, "slots": prog.form.slots,
             "threads": prog.form.threads}
         del prover, lde, want
-    print("compose, the table form: kernel == plain, each call twice, L2 flushed before each "
+    print("compose, the table form: kernel == plain, each call twice, each proof its own "
+          "random boundary values, L2 flushed before each "
           "timed call, in turn with the table form before its redesign (before, after, after, "
           "before) ms: "
           + json.dumps({k: {**v, "turns_ms": [round(t, 5) for t in v["turns_ms"]]}
                         for k, v in entry["table_form"].items()}), flush=True)
     print(f"compose: kernel == plain (the eager compose on the card), each call twice, at "
-          f"(model, T, blowup, B) {[c for c in COMPOSE_CASES]}; L2 flushed before each "
+          f"(model, T, blowup, B) {[c for c in COMPOSE_CASES]}, each proof its own random "
+          "boundary values; L2 flushed before each "
           "timed call: " + "; ".join(
               f"{e['shape']}: " + _line(e) + ", in turn with the design before (before, "
               f"after, after, before) {json.dumps([round(t, 5) for t in e['turns_ms']])}"

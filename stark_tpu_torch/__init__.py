@@ -11,7 +11,10 @@ or from columns made on the card: ``prove(trace_cols=...)``) and the
 batched prover ``BatchStarkProver.prove_batch`` / ``prove_many`` (B proofs
 at once, each byte-identical to its single prove) ->
 ``StarkVerifier.verify`` / ``verify_batch`` path for FibonacciAir and the
-example AIRs, with the API around it (``Polynomial``, ``Trace``, the
+example AIRs, each proof of its own statement (``public``: the public
+inputs that set the boundary values; ``prove_stream`` pipelines a stream
+of them, as for the segment AIR ``FibonacciSegmentAir``), with the API
+around it (``Polynomial``, ``Trace``, the
 parity structs ``FriProof`` / ``QueryData``) and the command line
 ``python -m stark_tpu_torch demo|prove|verify|inspect``, and the sharded
 prover over ``torch.distributed`` (``stark_tpu_torch.parallel``:

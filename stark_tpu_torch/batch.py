@@ -26,7 +26,13 @@ launches and its read are issued (StarkProver._dispatch; on a card one
 replay of the batch's slot's CUDA graph), and it is finished (the read
 waited for, the transcripts replayed, the proofs emitted) only after later
 batches' launches have gone out, so that the host's replay of batch k
-overlaps the card's work on batch k + 1.
+overlaps the card's work on batch k + 1.  ``prove_stream`` is that loop
+as a generator: it draws (witness, public inputs) pairs from any iterable
+as it dispatches and yields each batch's proofs as the batch finishes, so
+a server feeds it an endless stream of statements.  Every proof has its
+own statement (``publics``): the proofs' boundary values are data in the
+slot (StarkProver._dispatch), so one K11 build and one CUDA graph a slot
+serve any sequence of statements.
 
 With ``mesh=`` (parallel/mesh.py, one process per device; stark_tpu's
 :580-594 and :637-644): where D divides B the batch is cut, each rank
@@ -43,12 +49,13 @@ returns the same B proofs.
 from __future__ import annotations
 
 import collections
+import itertools
 
 import numpy as np
 import torch
 
 from stark_tpu_torch.stark import StarkConfig, StarkProver
-from stark_tpu_torch.utils.profiling import NULL_TIMER, proof_span
+from stark_tpu_torch.utils.profiling import NULL_TIMER, proof_span, span
 
 
 class BatchStarkProver:
@@ -101,32 +108,42 @@ class BatchStarkProver:
         arrays or tensors, which may already lie on the device (the device
         witnesses: no witness byte crosses from the host)
         (stark_tpu/batch.py:614).  ``lo``, ``hi``: only traces lo .. hi - 1
-        (a rank's share of a cut batch)."""
+        (a rank's share of a cut batch).  The span ``batch.stack``."""
         if (traces is None) == (traces_cols is None):
             raise ValueError("pass traces or traces_cols, one of them")
         items = traces if traces_cols is None else traces_cols
         if len(items) != self.B:
             raise ValueError(f"the batch holds {self.B} traces, got {len(items)}")
         rows = traces_cols is None
-        return torch.stack([self._single._witness(t if rows else None, None if rows else t)
-                            for t in items[lo:hi]])
+        with span("batch.stack"):
+            return torch.stack([self._single._witness(t if rows else None,
+                                                      None if rows else t)
+                                for t in items[lo:hi]])
 
-    def prove_batch(self, traces=None, *, traces_cols=None,
+    def prove_batch(self, traces=None, *, traces_cols=None, publics=None,
                     timer=NULL_TIMER) -> list[bytes]:
         """B proofs, each byte-identical to StarkProver.prove of its trace.
         ``traces``: B host row traces; or ``traces_cols``: B (c, T) column
-        arrays or int32 tensors on the prover's device."""
+        arrays or int32 tensors on the prover's device.  ``publics``: the B
+        statements' public inputs (each None for the AIR's default
+        statement; None: B default ones)."""
         with proof_span():
-            return self._finish(self._dispatch(traces, traces_cols, timer))
+            return self._finish(self._dispatch(traces, traces_cols, timer, publics=publics))
 
-    def _dispatch(self, traces=None, traces_cols=None, timer=NULL_TIMER, ring: int = 1):
+    def _dispatch(self, traces=None, traces_cols=None, timer=NULL_TIMER, ring: int = 1,
+                  publics=None):
         """A batch's launches and read, issued (stark_tpu's _mega_dispatch)
         on one of ``ring`` slots (StarkProver._dispatch): the state
         :meth:`_finish` takes."""
         lo, hi = self.mesh.bounds(self.B) if self._cut else (0, self.B)
+        if publics is not None:
+            publics = list(publics)
+            if len(publics) != self.B:
+                raise ValueError(f"the batch holds {self.B} statements, got {len(publics)}")
+            publics = publics[lo:hi]
         with timer.phase("lde"):
             cols = self._cols_stack(traces, traces_cols, lo, hi)
-        return self._single._dispatch(cols, timer, ring)
+        return self._single._dispatch(cols, timer, ring, publics=publics)
 
     def _finish(self, finish) -> list[bytes]:
         """A dispatched batch's proofs (stark_tpu's _mega_finish): the read
@@ -141,31 +158,56 @@ class BatchStarkProver:
         self._single.close()
 
     def prove_many(self, traces=None, depth: int = 2, *,
-                   traces_cols=None) -> list[bytes]:
+                   traces_cols=None, publics=None) -> list[bytes]:
         """Any number of same-shape traces in batches of B, keeping up to
-        ``depth`` batches in flight (stark_tpu/batch.py:653-715): batch k is
-        finished only after batch k + depth's launches have gone out, so the
-        host's replay and emission of one batch overlap the card's work on
-        the next.  A last partial batch is padded by repeating its last
-        trace and the pad proofs are dropped.  The bytes equal sequential
-        :meth:`prove_batch` calls'.  Every batch in flight holds its device
-        state (trace LDEs, trees, codewords, the buffer it reads) until it
-        is finished: a ring of ``max(1, depth) + 1`` slots of B proofs, each
+        ``depth`` batches in flight (stark_tpu/batch.py:653-715): the proofs
+        of :meth:`prove_stream` over the traces (host rows ``traces``, or
+        ``traces_cols``) and their statements' public inputs ``publics``
+        (None: every statement the default), in order.  The bytes equal
+        sequential :meth:`prove_batch` calls'."""
+        rows = traces_cols is None
+        items = list(traces if rows else traces_cols)
+        publics = [None] * len(items) if publics is None else list(publics)
+        if len(publics) != len(items):
+            raise ValueError(f"{len(items)} traces, {len(publics)} public inputs")
+        return [proof for batch in self.prove_stream(zip(items, publics), depth, rows=rows)
+                for proof in batch]
+
+    def prove_stream(self, items, depth: int = 2, *, rows: bool = False):
+        """Yield the proofs of ``items``, an iterable of (witness, public
+        inputs) pairs (the witness (c, T) columns, an array or an int32
+        tensor on the prover's device, or with ``rows`` (T, c) host rows;
+        the public inputs None for the AIR's default statement), a batch's
+        list at a time, keeping up to ``depth`` batches in flight: B items
+        are drawn and dispatched a batch, and batch k is finished (the span
+        ``batch.finish``, its args the batch's proof id) and yielded only
+        after batch k + depth's launches have gone out, so the host's
+        replay and emission of one batch overlap the card's work on the
+        next.  A last partial batch is padded by repeating its last item
+        and the pad proofs are dropped.  Items are drawn only as batches
+        are dispatched: a caller may feed an endless iterator and end it to
+        drain the pipeline.  Every batch in flight holds its device state
+        (trace LDEs, trees, codewords, the buffer it reads) until it is
+        finished: a ring of ``max(1, depth) + 1`` slots of B proofs, each
         its own CUDA graph on a card (StarkProver._dispatch)."""
-        use_cols = traces_cols is not None
-        items = list(traces_cols if use_cols else traces)
-        out: list[bytes] = []
+        items = iter(items)
         inflight: collections.deque = collections.deque()
-        for i in range(0, len(items), self.B):
-            chunk = items[i : i + self.B]
+        ring = max(1, depth) + 1
+        while chunk := list(itertools.islice(items, self.B)):
             pad = self.B - len(chunk)
-            chunk = chunk + [chunk[-1]] * pad
-            kw = {"traces_cols": chunk} if use_cols else {"traces": chunk}
-            inflight.append((pad, self._dispatch(**kw, ring=max(1, depth) + 1)))
+            chunk += [chunk[-1]] * pad
+            witnesses = [w for w, _ in chunk]
+            kw = {"traces": witnesses} if rows else {"traces_cols": witnesses}
+            with proof_span() as proof:
+                state = self._dispatch(**kw, ring=ring, publics=[p for _, p in chunk])
+            inflight.append((pad, proof, state))
             if len(inflight) > max(1, depth):
-                pad0, finish = inflight.popleft()
-                out.extend(self._finish(finish)[: self.B - pad0])
+                yield self._finish_batch(*inflight.popleft())
         while inflight:
-            pad0, finish = inflight.popleft()
-            out.extend(self._finish(finish)[: self.B - pad0])
-        return out
+            yield self._finish_batch(*inflight.popleft())
+
+    def _finish_batch(self, pad: int, proof, state) -> list[bytes]:
+        """A pipelined batch's proofs, the pad ones dropped, under the span
+        ``batch.finish`` with the batch's proof id."""
+        with proof_span("batch.finish", proof):
+            return self._finish(state)[: self.B - pad]

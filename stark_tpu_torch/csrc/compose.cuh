@@ -9,7 +9,7 @@
 //   struct Air {
 //     kTransitions, kBoundaries, kRows, kTerms, kTable = false,
 //     boundary_row(j) (the index of boundary j's row among the distinct
-//     rows), boundary_value(j),
+//     rows),
 //     values(at, c, v): the transition constraints c[k] at one point from
 //       the frame loads at(offset, register), and v[j] the register that
 //       boundary j reads, at offset 0;
@@ -24,11 +24,16 @@
 // take the LDE's row stride `span`: span = n, the whole coset, its frame
 // reads wrapping modulo n; or span > n, a rank's share of the coset in the
 // sharded prover (parallel/pstark.py), each row its n points and then the
-// next share's first points (the halo), read without a wrap.
+// next share's first points (the halo), read without a wrap.  The
+// boundary constraints' values are data, not code: a (B, kBoundaries) row
+// of words a proof in device memory (`values`), the statement's public
+// inputs, so that one build of an AIR (and one CUDA graph a slot) serves
+// every statement of a shape; the rows and registers they constrain are
+// the AIR's shape and fix the dinv tables.
 //
 // At point i of proof b, with x the coset point, the codeword is
 //   sum_k C_k(frame) exz(x) (a_k xt(x) + b_k)
-//   + sum_j (lde_reg_j(x) - value_j) dinv_row_j(x) (a_j xb(x) + b_j),
+//   + sum_j (lde_reg_j(x) - value_bj) dinv_row_j(x) (a_j xb(x) + b_j),
 // exz = excl zinv the transition zerofier's factor, xt and xb the degree
 // shifts x^s_t and x^s_b, dinv_r = 1 / (x - w^r), each an (N,) table of
 // canonical values made once per prover.  It is computed as
@@ -144,6 +149,7 @@ struct ComposeArgs {
   int proofs;
   long long span;        // a row's words: n, or n and the halo
   long long mask;        // n - 1 where span = n, else ~0 (no wrap)
+  const uint32_t* values;  // (B, kBoundaries) each proof's boundary values
 };
 
 // The mask of a row of `span` words holding n points (Frame).
@@ -208,9 +214,9 @@ struct STARK_ALIGN(8) Constant {
   uint32_t k, k_shoup;
 };
 // Boundary constraint `term` (among the boundaries): register `reg` at
-// offset 0 minus `value`.
+// offset 0 minus the proof's value `term` (ComposeArgs::values).
 struct BoundaryTerm {
-  uint32_t term, reg, value;
+  uint32_t term, reg;
 };
 
 constexpr int kTablePoints = 4;
@@ -337,6 +343,7 @@ __device__ __forceinline__ void compose_points_table(const ComposeArgs& a,
   if constexpr (Air::kBoundaries > 0) {
     const BoundaryTerm* terms = Air::boundaries();
     const int* ends = Air::row_ends();
+    const uint32_t* bvals = a.values + (long long)b * Air::kBoundaries;
     int jt = 0;
 #pragma unroll 1
     for (int r = 0; r < Air::kRows; ++r) {
@@ -349,7 +356,7 @@ __device__ __forceinline__ void compose_points_table(const ComposeArgs& a,
         const Weight wt = w[Air::kTransitions + t.term];
 #pragma unroll
         for (int j = 0; j < kP; ++j) {
-          const uint32_t d = sub_open(frame(j, 0, (int)t.reg), t.value);  // (0, 2p)
+          const uint32_t d = sub_open(frame(j, 0, (int)t.reg), bvals[t.term]);  // (0, 2p)
           sa[j] = add_mod(sa[j], shoup_mul(d, wt.a, wt.a_shoup));
           sb[j] = add_mod(sb[j], shoup_mul(d, wt.b, wt.b_shoup));
         }
@@ -385,13 +392,16 @@ __device__ __forceinline__ uint32_t compose_point(const ComposeArgs& a,
   }
   if (Air::kBoundaries > 0) {
     const uint32_t xb = a.xb[i];
+    // The proof's boundary values: the same words for every thread of the
+    // block, one load each.
+    const uint32_t* bvals = a.values + (long long)b * Air::kBoundaries;
 #pragma unroll
     for (int r = 0; r < Air::kRows; ++r) {
       uint32_t sa = 0, sb = 0;
 #pragma unroll
       for (int j = 0; j < Air::kBoundaries; ++j) {
         if (Air::boundary_row(j) != r) continue;
-        const uint32_t d = sub_open(v[j], Air::boundary_value(j));  // (0, 2p)
+        const uint32_t d = sub_open(v[j], bvals[j]);  // (0, 2p)
         const Weight wj = w[Air::kTransitions + j];
         sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
         sb = add_mod(sb, shoup_mul(d, wj.b, wj.b_shoup));
@@ -493,20 +503,22 @@ int launch_compose(const ComposeArgs& a, const Weight* w, cudaStream_t stream) {
 }  // namespace stark
 
 // The C entry of one AIR's library: B = proofs proofs' (c, span) LDEs of n
-// points each (frame_ok), and their nwords = 4 kTerms B weight words in
-// device memory at `words`, 16-byte aligned.
+// points each (frame_ok), their nwords = 4 kTerms B weight words in device
+// memory at `words`, 16-byte aligned, and their B kBoundaries boundary
+// values at `values`, a row a proof.
 #define STARK_COMPOSE_ENTRY(AIR)                                              \
   extern "C" int stark_compose(const void* lde, const void* exz,             \
                                const void* xt, const void* xb,               \
                                const void* dinv, void* out, long long n,     \
                                int c, int blowup, int proofs,                \
                                const void* words, int nwords, long long span,\
-                               void* stream) {                               \
+                               const void* values, void* stream) {           \
     const stark::ComposeArgs a{                                               \
         static_cast<const uint32_t*>(lde), static_cast<const uint32_t*>(exz), \
         static_cast<const uint32_t*>(xt),  static_cast<const uint32_t*>(xb),  \
         static_cast<const uint32_t*>(dinv), static_cast<uint32_t*>(out),      \
-        n, c, blowup, proofs, span, stark::frame_mask(n, span)};              \
+        n, c, blowup, proofs, span, stark::frame_mask(n, span),               \
+        static_cast<const uint32_t*>(values)};                                \
     if (!stark::frame_ok(n, span) || c != AIR::kRegisters || proofs < 1 ||    \
         proofs > 65535 || nwords != 4 * AIR::kTerms * proofs)                 \
       return (int)cudaErrorInvalidValue;                                      \
@@ -558,9 +570,10 @@ void compose_host(const ComposeArgs& a, const Weight* w) {
                                     const uint32_t* dinv, uint32_t* out,      \
                                     long long n, int c, int blowup,           \
                                     int proofs, const uint32_t* words,        \
-                                    long long span) {                         \
+                                    long long span, const uint32_t* values) { \
     const stark::ComposeArgs a{lde, exz, xt, xb, dinv, out, n, c, blowup,     \
-                               proofs, span, stark::frame_mask(n, span)};     \
+                               proofs, span, stark::frame_mask(n, span),      \
+                               values};                                       \
     if (c != AIR::kRegisters || !stark::frame_ok(n, span)) return 1;          \
     stark::compose_host<AIR>(a, reinterpret_cast<const stark::Weight*>(words)); \
     return 0;                                                                 \

@@ -1,10 +1,15 @@
 from stark_tpu_torch.models.air import Air, BoundaryConstraint
-from stark_tpu_torch.models.fibonacci import FibonacciAir, fibonacci_trace_mod_p
+from stark_tpu_torch.models.fibonacci import (
+    FibonacciAir,
+    FibonacciSegmentAir,
+    fibonacci_trace_mod_p,
+)
 
 __all__ = [
     "Air",
     "BoundaryConstraint",
     "FibonacciAir",
+    "FibonacciSegmentAir",
     "fibonacci_trace_mod_p",
 ]
 
@@ -20,9 +25,12 @@ def get_model(name: str):
         "square": (ex.SquareAir, ex.square_trace, 4),
         "cube": (ex.CubeAir, ex.cube_trace, 8),
         "mds": (ex.MdsSquareAir, ex.mds_square_trace, 4),
+        "fib_segment": (FibonacciSegmentAir, fibonacci_trace_mod_p, 4),
     }
     air_cls, trace_fn, min_blowup = registry[name]
     return air_cls(), trace_fn, min_blowup
 
 
+#: The models the JAX package has too (its tests and the CLI's); the registry
+#: also holds ``fib_segment``, whose statements take public inputs.
 MODEL_NAMES = ("fib", "fib2", "square", "cube", "mds")

@@ -11,7 +11,9 @@ completes the pipeline: an AIR declares
   vanish on every enforcement row, written once against a small op namespace
   so the SAME definition runs (a) batched on device over the whole LDE
   domain and (b) scalar on host at the verifier's spot-check points;
-* ``boundary_constraints`` — (row, register, value) fixtures.
+* ``boundary_constraints`` — (row, register, value) fixtures; their values
+  may be the statement's public inputs (``boundary_constraints(T,
+  public)``), their rows and registers are the AIR's shape.
 
 Constraint evaluation is pointwise over the LDE domain: :class:`BatchOps`
 runs it as int64 torch ops over whole (N,) tensors; :class:`TapeOps`
@@ -196,7 +198,14 @@ class Air:
         Returns a list of constraint evaluations."""
         raise NotImplementedError
 
-    def boundary_constraints(self, trace_length: int) -> list[BoundaryConstraint]:
+    def boundary_constraints(self, trace_length: int,
+                             public=None) -> list[BoundaryConstraint]:
+        """The boundary constraints of the statement with the public inputs
+        ``public``; None: the AIR's default statement, what it proves
+        without public inputs.  The public inputs set the values alone: every
+        statement's rows and registers are the default's, since they fix
+        the prover's tables and its K11 build.  An AIR without public
+        inputs may take ``trace_length`` alone."""
         raise NotImplementedError
 
     @property

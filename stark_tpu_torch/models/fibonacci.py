@@ -3,9 +3,17 @@ generator; the constraint system is new, since the reference has none).
 
 Single register t; transition t(w^2 x) = t(w x) + t(x) on rows 0..T-3;
 boundary t(row 0) = 1, t(row 1) = 1.
+
+FibonacciSegmentAir is one segment of a longer run of the same recurrence,
+as a zkVM proves an execution cut into segments: its public inputs are the
+state it starts from and the state it ends in, (a, b, y, z) with t(0) = a,
+t(1) = b, t(T-2) = y, t(T-1) = z (rows T-2 and T-1 lie outside the
+transition rows).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -35,15 +43,16 @@ class FibonacciAir(Air):
         ]
 
 
-def fibonacci_trace_mod_p(length: int) -> "np.ndarray":
+def fibonacci_trace_mod_p(length: int, start=(1, 1)) -> "np.ndarray":
     """The Fibonacci sequence in F_p — the honest witness for FibonacciAir,
-    as a (length, 1) uint32 ndarray.
+    as a (length, 1) uint32 ndarray; from the start pair ``start`` the
+    witness of FibonacciSegmentAir's segment that starts there.
 
     (The reference generator keeps exact integers; proving needs the
     field-reduced sequence so the transition holds mod p.)
     """
     def gen():
-        a, b = 1, 1
+        a, b = (int(v) % P for v in start)
         for _ in range(length):
             yield a
             a, b = b, (a + b) % P
@@ -76,6 +85,87 @@ def fibonacci_seeds(length: int) -> tuple[np.ndarray, int]:
         m0, m1 = (fB * m1 + fB_1 * m0) % P, (fB1 * m1 + fB * m0) % P
     u = np.array(fj[: B + 1], dtype=np.uint32)
     return np.concatenate([s0, s1, u[:B], u[1:]]), nb
+
+
+class FibonacciSegmentAir(FibonacciAir):
+    """A segment of a Fibonacci run: FibonacciAir's transition from the
+    start pair (a, b) to the end pair (y, z) at rows T-2, T-1, the public
+    inputs (a, b, y, z).  The default statement starts from (1, 1)."""
+
+    def boundary_constraints(self, trace_length: int, public=None):
+        if public is None:
+            public = (1, 1, *fibonacci_segment_end(trace_length, (1, 1)))
+        a, b, y, z = (int(v) % P for v in public)
+        return [
+            BoundaryConstraint(row=0, register=0, value=a),
+            BoundaryConstraint(row=1, register=0, value=b),
+            BoundaryConstraint(row=trace_length - 2, register=0, value=y),
+            BoundaryConstraint(row=trace_length - 1, register=0, value=z),
+        ]
+
+
+@functools.lru_cache(maxsize=8)
+def _segment_basis(length: int) -> tuple:
+    """The default statement's block seeds as the basis of any start pair's,
+    made once a length: (F_{kB-2}, F_{kB-1}, F_{kB}) over the blocks k as
+    int64 arrays (F_{-1} = 1, F_{-2} = -1 mod p), the packed ladder u0 |
+    u1, nb and B (:func:`fibonacci_seeds`)."""
+    seeds, nb = fibonacci_seeds(length)
+    f0 = seeds[:nb].astype(np.int64)                  # F_{kB}
+    f1 = seeds[nb : 2 * nb].astype(np.int64)          # F_{kB+1}
+    fm1 = (f1 - f0) % P                               # F_{kB-1}
+    fm2 = (f0 - fm1) % P                              # F_{kB-2}
+    return fm2, fm1, f0, seeds[2 * nb :], nb, (len(seeds) - 2 * nb) // 2
+
+
+def fibonacci_segment_seeds(length: int, start) -> tuple[np.ndarray, int]:
+    """The packed seeds s0 | s1 | u0 | u1 of K12's expansion for the run
+    from the start pair (a, b) = (a_0, a_1), and nb.  With a_{-1} = b - a,
+    a_{kB+j} = a_{kB} F_{j+1} + a_{kB-1} F_j: the block seeds are s0[k] =
+    a_{kB-1} and s1[k] = a_{kB}, each a combination of the default
+    statement's (a_n = a F_{n-1} + b F_n), and the ladder is the same."""
+    fm2, fm1, f0, ladder, nb, _ = _segment_basis(length)
+    a, b = (int(v) % P for v in start)
+    s1 = (a * fm1 + b * f0) % P                       # a_{kB}
+    s0 = (a * fm2 + b * fm1) % P                      # a_{kB-1}
+    return np.concatenate([s0.astype(np.uint32), s1.astype(np.uint32), ladder]), nb
+
+
+def _segment_value(seeds: np.ndarray, nb: int, i: int) -> int:
+    """a_i of the run whose packed seeds are ``seeds``: block i // B's seeds
+    and the ladder at i mod B."""
+    b = (len(seeds) - 2 * nb) // 2
+    k, j = divmod(i, b)
+    u = seeds[2 * nb :]
+    return (int(seeds[nb + k]) * int(u[b + j]) + int(seeds[k]) * int(u[j])) % P
+
+
+def fibonacci_segment_end(length: int, start) -> tuple[int, int]:
+    """The end pair (a_{length-2}, a_{length-1}) of the run from ``start``,
+    from its last blocks' seeds (O(1) once the length's basis is made)."""
+    seeds, nb = fibonacci_segment_seeds(length, start)
+    return _segment_value(seeds, nb, length - 2), _segment_value(seeds, nb, length - 1)
+
+
+def fibonacci_segment_cols_device(length: int, start, device="cuda") -> tuple:
+    """A segment's witness on ``device`` and its end pair: ((1, length) int32
+    columns, (y, z)), the run from the start pair ``start`` made there by
+    K12 from its seeds (:func:`fibonacci_segment_seeds`).  The public
+    inputs of its statement are (*start, y, z); feed the columns to
+    ``StarkProver.prove(trace_cols=..., public=...)`` or a batch's
+    ``traces_cols``.  The seeds go up from pinned memory without a wait:
+    a pipelined feed makes the next batch's witnesses while the card still
+    runs the batches before them."""
+    device = cuda.device_or_raise(device, "fibonacci_segment_cols_device")
+    with span("witness.seeds"):
+        seeds, nb = fibonacci_segment_seeds(length, start)
+        end = _segment_value(seeds, nb, length - 2), _segment_value(seeds, nb, length - 1)
+    with span("witness.upload"):
+        host = torch.from_numpy(seeds.view(np.int32))
+        seeds_dev = (host.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
+                     else host.to(device))
+    with span("witness.expand"):
+        return W.fib_expand(seeds_dev, nb, length), end
 
 
 def fibonacci_trace_cols_device(length: int, device="cuda") -> torch.Tensor:

@@ -19,7 +19,10 @@ a thread, its slots given out by liveness (:class:`TableForm`: the table
 form), and
 csrc/compose.cuh adds what no AIR changes: the frame loads, the zerofier
 factor, the boundary quotients, the weights and the sum, over a (B, c, N)
-grid.  The generated source goes into ``stark_tpu_torch/_build/`` and is
+grid.  The boundary constraints' values are not in the source: each proof's
+lie in device memory (``compose(values=)``, a row a proof), the statement's
+public inputs, so that one build serves every statement of an AIR.  The
+generated source goes into ``stark_tpu_torch/_build/`` and is
 built at first use by ``utils.build.build_library``, which keys the
 library by its bytes: one library per AIR, built once.  Every AIR's
 library counts its launches under one name, ``compose`` (:data:`COMPOSE`).
@@ -46,11 +49,12 @@ from stark_tpu_torch.ops import cuda
 from stark_tpu_torch.ops import fieldops as F
 from stark_tpu_torch.ops.fieldops import P
 from stark_tpu_torch.utils.build import BUILD_DIR, build_library
+from stark_tpu_torch.utils import profiling
 
 COMPOSE = cuda.Kernel(
     "compose", "stark_compose",
     [cuda.ptr] * 6 + [ctypes.c_longlong] + [cuda.i32] * 3 + [cuda.ptr, cuda.i32,
-                                                             ctypes.c_longlong],
+                                                             ctypes.c_longlong, cuda.ptr],
     source="stark_tpu_torch/csrc/compose.cuh",
     replaces="stark_tpu/stark.py:570", generated=True,
 )
@@ -159,7 +163,9 @@ class ComposeProgram:
     order of first use, one ``dinv`` table each; ``groups[j]`` boundary
     j's index among them.  ``table``: the form of the generated source,
     the table form (True), the straight-line form (False), or (None) the
-    straight-line form unless its lines pass :data:`TABLE_LINES`."""
+    straight-line form unless its lines pass :data:`TABLE_LINES`.  The
+    boundaries' values are the default statement's (:meth:`values`); the
+    source holds their rows and registers only."""
 
     def __init__(self, air: Air, boundary: list[BoundaryConstraint],
                  table: bool | None = None):
@@ -177,6 +183,8 @@ class ComposeProgram:
         if self.table:
             self.source, self.body_operations = generate_table_source(self)
         self.sha256 = hashlib.sha256(self.source.encode()).hexdigest()
+        #: The default statement's values on a device, by (device, B).
+        self._defaults: dict = {}
 
     def weights(self, alphas, betas) -> np.ndarray:
         """(B, terms) challenges (or (terms,)) -> (B, 4 terms) uint32
@@ -188,6 +196,26 @@ class ComposeProgram:
         wa = (a.astype(np.uint64) * np.uint64(R2) % np.uint64(P)).astype(np.uint32)
         wb = (b.astype(np.uint64) * np.uint64(R1) % np.uint64(P)).astype(np.uint32)
         return np.stack([wa, shoup(wa), wb, shoup(wb)], axis=2).reshape(a.shape[0], -1)
+
+    def values(self, values=None, b: int = 1) -> np.ndarray:
+        """(B, boundaries) boundary values (host ints, a row a proof; None:
+        the default statement's for each of ``b`` proofs) -> the (B,
+        max(boundaries, 1)) int32 words K11 reads, canonical in [0, p)."""
+        if values is None:
+            values = [[int(bc.value) for bc in self.boundary]] * b
+        v = np.asarray(values, dtype=np.int64).reshape(-1, len(self.boundary))
+        out = np.zeros((v.shape[0], max(len(self.boundary), 1)), dtype=np.int32)
+        out[:, : len(self.boundary)] = v % P
+        return out
+
+    def default_values(self, b: int, device) -> torch.Tensor:
+        """The default statement's words (:meth:`values`) for ``b`` proofs
+        on ``device``, made once."""
+        key = (torch.device(device), b)
+        got = self._defaults.get(key)
+        if got is None:
+            got = self._defaults[key] = torch.from_numpy(self.values(None, b)).to(device)
+        return got
 
     def challenges(self, words: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
         """The inverse of :meth:`weights`: (B, 4 terms) int32 weight words
@@ -313,7 +341,6 @@ def generate_source(program: ComposeProgram) -> tuple[str, int, int]:
     outs = [f"    c[{k}] = {ref(j)};" for k, j in enumerate(tape.outputs)]
     nb = len(program.boundary)
     rows = ", ".join(str(g) for g in program.groups) or "0"
-    values = ", ".join(f"{int(bc.value) % P}u" for bc in program.boundary) or "0u"
     source = "\n".join([
         f"// Kernel K11 for the AIR {type(air).__name__}, generated by",
         "// stark_tpu_torch/ops/compose.py from its transition constraints.",
@@ -328,14 +355,10 @@ def generate_source(program: ComposeProgram) -> tuple[str, int, int]:
         f"  static constexpr int kRows = {len(program.rows)};",
         f"  static constexpr int kTerms = {program.terms};",
         "  static constexpr bool kTable = false;",
-        "  // Boundary j's row (its index among the distinct rows) and value;",
-        "  // arrays local to a function, which device code may index.",
+        "  // Boundary j's row (its index among the distinct rows): an array",
+        "  // local to a function, which device code may index.",
         "  __device__ __forceinline__ static int boundary_row(int j) {",
         f"    constexpr int k[{max(nb, 1)}] = {{{rows}}};",
-        "    return k[j];",
-        "  }",
-        "  __device__ __forceinline__ static uint32_t boundary_value(int j) {",
-        f"    constexpr uint32_t k[{max(nb, 1)}] = {{{values}}};",
         "    return k[j];",
         "  }",
         "  __device__ __forceinline__ static void values(",
@@ -482,9 +505,9 @@ def _table_order(tape) -> list[tuple[int, int | None, bool]]:
 def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
     """The AIR's C++ source in the table form, and the operations per
     point of its steps: the step stream of :class:`TableForm`, its
-    constants, and the boundary constraints by row, as arrays in device
-    memory that compose.cuh's loops read.  The same values as the
-    straight-line form."""
+    constants, and the boundary constraints by row (each its index and
+    register; its value is the proof's), as arrays in device memory that
+    compose.cuh's loops read.  The same values as the straight-line form."""
     air, form = program.air, program.form
     by_row = sorted(range(len(program.boundary)), key=lambda j: program.groups[j])
     ends = np.cumsum(np.bincount(np.asarray(program.groups, dtype=np.int64),
@@ -498,8 +521,7 @@ def generate_table_source(program: ComposeProgram) -> tuple[str, int]:
     step_items = [f"{{{op | dst << 16}u, {a | b << 16}u}}" for op, dst, a, b in
                   form.steps.tolist()]
     const_items = [f"{{{k}u, {int(shoup(k))}u}}" for k in form.constants]
-    bound_items = [f"{{{j}u, {int(program.boundary[j].register)}u, "
-                   f"{int(program.boundary[j].value) % P}u}}" for j in by_row]
+    bound_items = [f"{{{j}u, {int(program.boundary[j].register)}u}}" for j in by_row]
     source = "\n".join([
         f"// Kernel K11 for the AIR {type(air).__name__}, generated by",
         "// stark_tpu_torch/ops/compose.py from its transition constraints",
@@ -561,10 +583,12 @@ def _headers() -> list[str]:
 
 @functools.lru_cache(maxsize=None)
 def library(source: str) -> ctypes.CDLL:
-    """The AIR's kernel library: built with nvcc at first use, loaded."""
+    """The AIR's kernel library: built with nvcc at first use, loaded (the
+    span ``compose.build``, once a source in a process)."""
     t0 = time.perf_counter()
-    path = build_library("stark_compose", [_source_file(source)], _headers(),
-                         [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", cuda.CSRC])
+    with profiling.span("compose.build"):
+        path = build_library("stark_compose", [_source_file(source)], _headers(),
+                             [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", cuda.CSRC])
     BUILD_SECONDS[hashlib.sha256(source.encode()).hexdigest()] = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
     lib.stark_compose.argtypes = [*COMPOSE.argtypes, cuda.ptr]
@@ -584,7 +608,7 @@ def host_library(source: str) -> ctypes.CDLL:
                           "-I", cuda.CSRC])
     lib = ctypes.CDLL(path)
     lib.stark_compose_host.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong]
+        [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     lib.stark_compose_host.restype = ctypes.c_int
     return lib
 
@@ -634,7 +658,7 @@ class Tables:
 
 def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
             betas, blowup: int, points: int | None = None, *,
-            weights: torch.Tensor | None = None) -> torch.Tensor:
+            weights: torch.Tensor | None = None, values=None) -> torch.Tensor:
     """(c, N) int32 LDE -> (N,) int32 codeword, or B proofs at once: (B, c,
     N) -> (B, N).  ``alphas``, ``betas``: (terms,) host ints, or (B, terms)
     for B proofs; or, instead (both None), ``weights``: the (B, 4 terms)
@@ -642,22 +666,33 @@ def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
     layout).  ``points``: the halo form (a rank's share): each row holds
     ``points`` points of the coset and then the frame's reach past them
     (the next share's first points), read without a wrap; the tables are
-    the share's, the result (B, points).  On a card one K11 launch, reading
-    the weights from device memory (host weights go up from pinned memory
-    first); on the CPU the plain version."""
+    the share's, the result (B, points).  ``values``: each proof's boundary
+    values, the (B, max(boundaries, 1)) int32 words of
+    :meth:`ComposeProgram.values` on the LDE's device; None: the default
+    statement's.  On a card one K11 launch, reading the weights and values
+    from device memory (host weights go up from pinned memory first); on
+    the CPU the plain version."""
     if (weights is None) == (alphas is None and betas is None):
         raise ValueError("pass alphas and betas, or weights")
     single = lde.dim() == 2
     if weights is not None and weights.device != lde.device:
         raise ValueError(f"weights on {weights.device}, the LDE on {lde.device}")
+    lde3 = lde[None] if single else lde
+    b, c, span = lde3.shape
+    if values is None:
+        values = program.default_values(b, lde.device)
+    if tuple(values.shape) != (b, max(len(program.boundary), 1)):
+        raise ValueError(f"values {tuple(values.shape)} for {b} proofs of "
+                         f"{len(program.boundary)} boundaries")
+    if values.device != lde.device:
+        raise ValueError(f"values on {values.device}, the LDE on {lde.device}")
     if lde.device.type == "cpu":
         if weights is not None:
             alphas, betas = program.challenges(weights)
             if single:
                 alphas, betas = alphas[0], betas[0]
-        return compose_plain(program, lde, tables, alphas, betas, blowup, points)
-    lde3 = lde[None] if single else lde
-    b, c, span = lde3.shape
+        return compose_plain(program, lde, tables, alphas, betas, blowup, points,
+                             values=values)
     n = span if points is None else points
     if weights is None:
         words = torch.from_numpy(program.weights(alphas, betas).view(np.int32))
@@ -676,7 +711,8 @@ def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
         raise ValueError(f"rows of {span} words hold no halo of "
                          f"{program.air.max_offset * blowup} past {n} points")
     for t, name in ((lde3, "lde"), (tables.exz, "exz"), (tables.xt, "xt"),
-                    (tables.xb, "xb"), (tables.dinv, "dinv"), (weights, "weights")):
+                    (tables.xb, "xb"), (tables.dinv, "dinv"), (weights, "weights"),
+                    (values, "values")):
         cuda.check_operand(t, name)
     if weights.data_ptr() % 16:
         raise ValueError("weights must be 16-byte aligned (a term is one 16-byte load)")
@@ -685,16 +721,18 @@ def compose(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
     COMPOSE.launch(
         lde3.device, lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
         tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
-        weights.data_ptr(), weights.numel(), span, lib=lib,
+        weights.data_ptr(), weights.numel(), span, values.data_ptr(), lib=lib,
     )
     return out[0] if single else out
 
 
 def compose_plain(program: ComposeProgram, lde: torch.Tensor, tables: Tables, alphas,
-                  betas, blowup: int, points: int | None = None) -> torch.Tensor:
+                  betas, blowup: int, points: int | None = None, *,
+                  values=None) -> torch.Tensor:
     """K11's plain version: elementwise int64 torch ops
     (stark_tpu/stark.py:_compose_impl; vmapped for B proofs); ``points``
-    the halo form, as in :func:`compose`."""
+    the halo form and ``values`` the proofs' boundary values, as in
+    :func:`compose`."""
     from stark_tpu_torch.models.air import BatchOps
 
     air, dev = program.air, lde.device
@@ -726,8 +764,13 @@ def compose_plain(program: ComposeProgram, lde: torch.Tensor, tables: Tables, al
         q = F.mulmod(c, exz)
         w = F.addmod(F.mulmod(xt, weights[ci][0]), weights[ci][1])
         total = F.addmod(total, F.mulmod(w, q))
+    # Per boundary the proofs' values: one int for one proof, a (B, 1)
+    # column for B.
+    v = (program.values(None) if values is None else values.cpu().numpy()).astype(np.int64)
+    bvals = [torch.from_numpy(v[:, j, None]).to(dev) if x.dim() > 2 else int(v[0, j])
+             for j in range(len(program.boundary))]
     for bi, bc in enumerate(program.boundary):
-        num = F.submod(frame[0][bc.register], int(bc.value) % P)
+        num = F.submod(frame[0][bc.register], bvals[bi])
         q = F.mulmod(num, tables.dinv[program.groups[bi]].long())
         wa, wb = weights[program.transitions + bi]
         w = F.addmod(F.mulmod(xb, wa), wb)

@@ -324,12 +324,12 @@ class DistributedStarkProver(StarkProver):
                                   split=d.N // self.mesh.size >= pmerkle.MIN_LOCAL))
 
     def _composition(self, trace_lde: Shard, alphas=None, betas=None, *,
-                     weights: torch.Tensor | None = None) -> Shard:
+                     weights: torch.Tensor | None = None, values=None) -> Shard:
         """K11 on this rank's share and its halo: the frame's reach past the
         share (max offset x blowup points of each row) comes from the next
         rank, the last rank's from rank 0 (one exchange).  The weights are
         host ints (``alphas``, ``betas``) or K15's words on the card
-        (``weights``)."""
+        (``weights``); ``values`` the proofs' boundary values."""
         mesh, d = self.mesh, self.dom
         x = trace_lde.local
         b, c, m = x.shape
@@ -341,7 +341,7 @@ class DistributedStarkProver(StarkProver):
                              [words if s == frm else 0 for s in range(mesh.size)])
         lde = torch.cat([x, halo.reshape(b, c, reach)], dim=-1)
         out = CO.compose(self.program, lde if b > 1 else lde[0], self.tables, alphas,
-                         betas, self.cfg.blowup, points=m, weights=weights)
+                         betas, self.cfg.blowup, points=m, weights=weights, values=values)
         return Shard(mesh, out.reshape(b, m), d.N)
 
 

@@ -34,6 +34,14 @@ on the host, three reads.  Protocol (prover):
 The verifier mirrors 2-5 from the proof stream on the host, then checks at
 each FRI query point that the composition value FRI recorded equals the one
 recomputed from the opened trace values.
+
+A proof's statement is its AIR and its public inputs (``public``; None:
+the AIR's default statement), which set the boundary constraints' values
+(``Air.boundary_constraints(T, public)``) and not their rows: the prover
+writes each proof's values into device memory for K11 (one build, and one
+graph a slot, for every statement of a shape) and the verifier checks the
+proof against the public inputs it is given.  The transcript does not
+absorb them, as in stark_tpu: a proof is verified against a statement.
 """
 
 from __future__ import annotations
@@ -103,11 +111,13 @@ class _Domain:
         self.excluded = [pow(self.omega, i, P) for i in range(T - self.max_off, T)]
         self.num_transition = air.num_transition_constraints()
         # Python ints: a numpy scalar boundary value would wrap the
-        # verifier's spot-check arithmetic at uint64 width.
+        # verifier's spot-check arithmetic at uint64 width.  The default
+        # statement's; a statement's public inputs change the values only.
         self.boundary = [
             BoundaryConstraint(int(bc.row), int(bc.register), int(bc.value))
             for bc in air.boundary_constraints(T)
         ]
+        self._default_values = [bc.value % P for bc in self.boundary]
         # Degree bookkeeping: trace polys have degree T-1; a constraint of
         # degree d has degree d*(T-1), its quotient that minus deg Z =
         # T - max_off.  The composition target is the FRI low-degree bound
@@ -133,6 +143,21 @@ class _Domain:
         self.boundary_shift = self.target_degree - (T - 2)
         assert self.transition_shift >= 0 and self.boundary_shift >= 0
 
+    def values(self, public=None) -> list[int]:
+        """The boundary values of the statement with the public inputs
+        ``public`` (None: the AIR's default statement), from
+        ``air.boundary_constraints(T, public)``, whose rows and registers
+        must be the default's: they are the shape (K11's tables, its
+        source)."""
+        if public is None:
+            return self._default_values
+        got = self.air.boundary_constraints(self.T, public)
+        if [(int(bc.row), int(bc.register)) for bc in got] != [
+                (bc.row, bc.register) for bc in self.boundary]:
+            raise ValueError(f"the public inputs {public} move the boundary constraints' "
+                             "rows or registers, which the AIR's shape fixes")
+        return [int(bc.value) % P for bc in got]
+
     def fri(self) -> Fri:
         return Fri(
             omega=self.Omega,
@@ -156,10 +181,12 @@ class _Domain:
         return e
 
     def composition_value_at(
-        self, idx: int, trace_rows: dict[int, list[int]], alphas, betas
+        self, idx: int, trace_rows: dict[int, list[int]], alphas, betas, values=None
     ) -> int:
         """Recompute the composition codeword value at coset index idx from
-        opened trace rows (trace_rows[k] = registers at index idx+k*blowup)."""
+        opened trace rows (trace_rows[k] = registers at index idx+k*blowup);
+        ``values``: the statement's boundary values (:meth:`values`; None:
+        the default statement's)."""
         x = (self.offset * pow(self.Omega, idx, P)) % P
         frame = {k: [v % P for v in trace_rows[k]] for k in self.air.frame_offsets}
         cons = self.air.transition_constraints(frame, ScalarOps)
@@ -176,10 +203,11 @@ class _Domain:
             total = (total + w * q) % P
             ci += 1
         xs_b = pow(x, self.boundary_shift, P)
-        for bc in self.boundary:
+        for bc, value in zip(self.boundary, self.values() if values is None else values,
+                             strict=True):
             tv = frame[0][bc.register]
             denom = (x - pow(self.omega, bc.row, P)) % P
-            q = (tv - bc.value) % P * pow(denom, P - 2, P) % P
+            q = (tv - value) % P * pow(denom, P - 2, P) % P
             w = (alphas[ci] * xs_b + betas[ci]) % P
             total = (total + w * q) % P
             ci += 1
@@ -203,7 +231,9 @@ def _draw_constraint_challenges(fs: FiatShamir, field: FiniteField, count: int):
 class _Slot:
     """One batch's device state for the single-fetch prove, at addresses that
     stay (the buffers of stark_tpu/batch.py:_batch_mega_fn): the (B, c, T)
-    columns the body starts from, K15's sponge and K11's weight words, the
+    columns the body starts from, the B proofs' boundary values
+    (``values``, K11's; written at each dispatch from their pinned host
+    twin, :meth:`statement`), K15's sponge and K11's weight words, the
     one buffer the body writes (``packed``), the host buffer its read
     lands in (pinned on a card), and K8's and K8-forest's ticket words;
     on a card its CUDA graph (``graph``, ops/cuda.Graph), whose result is
@@ -215,11 +245,14 @@ class _Slot:
     run eagerly on it (a capture's warm-up); ``busy``: from a dispatch to
     its finish()."""
 
-    def __init__(self, shape: tuple, n_terms: int, sections: dict, layout: ProofLayout,
-                 device):
+    def __init__(self, shape: tuple, n_terms: int, n_values: int, sections: dict,
+                 layout: ProofLayout, device):
         b = shape[0]
         self.b = b
         self.cols = torch.empty(shape, dtype=torch.int32, device=device)
+        self.values = torch.zeros((b, max(n_values, 1)), dtype=torch.int32, device=device)
+        self.values_host = torch.zeros(self.values.shape, dtype=torch.int32,
+                                       pin_memory=torch.device(device).type == "cuda")
         self.sponge = HB.Sponge(b, device)
         self.weights = torch.empty((b, 4 * n_terms), dtype=torch.int32, device=device)
         self.packed = G.Packed(sections, device)
@@ -236,11 +269,22 @@ class _Slot:
         """Bytes held: ``device`` by the slot's own buffers, ``pool`` by its
         graph's memory pool (0 before the capture), ``host`` pinned."""
         sponge = self.sponge
-        own = (self.cols, sponge.state, sponge.pending, sponge.next_state,
+        own = (self.cols, self.values, sponge.state, sponge.pending, sponge.next_state,
                sponge.next_pending, self.weights, self.packed.buf, self.tickets)
         return {"device": sum(t.numel() * t.element_size() for t in own),
                 "pool": 0 if self.graph is None else self.graph.pool_bytes,
-                "host": self.host.numel() * self.host.element_size()}
+                "host": sum(t.numel() * t.element_size() for t in (self.host,
+                                                                   self.values_host))}
+
+    def statement(self, values: np.ndarray) -> None:
+        """The B proofs' boundary values (ComposeProgram.values' words) into
+        the slot, in stream order: the pinned twin written, then one copy
+        that the body's K11 (a graph's replay) follows.  The twin is free
+        again: the slot's last copy went before its read, which its
+        finish() waited for."""
+        with span("stark.statement"):
+            self.values_host.numpy()[...] = values
+            self.values.copy_(self.values_host, non_blocking=True)
 
 
 class StarkProver:
@@ -285,15 +329,17 @@ class StarkProver:
             rows=self.program.rows, device=self.device, start=start, count=count)
 
     def _compose(self, trace_lde: torch.Tensor, alphas=None, betas=None, *,
-                 weights: torch.Tensor | None = None) -> torch.Tensor:
+                 weights: torch.Tensor | None = None, values=None) -> torch.Tensor:
         """(c, N) int32 LDE -> (N,) int32 composition codeword, or B proofs
         at once: (B, c, N) -> (B, N) (stark_tpu/stark.py:_compose_impl,
         which stark_tpu/batch.py vmaps): kernel K11 on a card, its plain
         version on the CPU (ops/compose.py).  ``alphas``, ``betas``: the
         terms' weights, (terms,) host ints for one proof, (B, terms) for B;
-        or ``weights``, K15's (B, 4 terms) weight words on the device."""
+        or ``weights``, K15's (B, 4 terms) weight words on the device.
+        ``values``: the B proofs' boundary values (ops/compose.compose; None:
+        the default statement's)."""
         return CO.compose(self.program, trace_lde, self.tables, alphas, betas,
-                          self.cfg.blowup, weights=weights)
+                          self.cfg.blowup, weights=weights, values=values)
 
     # -- the seams the sharded prover (parallel/pstark.py) overrides ------------
 
@@ -317,11 +363,20 @@ class StarkProver:
                 plan.stack_source(b * d.N, d.N.bit_length() - 1))
 
     def _composition(self, trace_lde: torch.Tensor, alphas=None, betas=None, *,
-                     weights: torch.Tensor | None = None) -> torch.Tensor:
+                     weights: torch.Tensor | None = None, values=None) -> torch.Tensor:
         """The (B, N) composition codewords of the (B, c, N) trace LDEs."""
         b = int(trace_lde.shape[0])
         return self._compose(trace_lde if b > 1 else trace_lde[0], alphas, betas,
-                             weights=weights).reshape(b, self.dom.N)
+                             weights=weights, values=values).reshape(b, self.dom.N)
+
+    def _values(self, b: int, publics=None) -> np.ndarray:
+        """The (B, max(boundaries, 1)) int32 words of B proofs' boundary
+        values (ComposeProgram.values): ``publics`` B public inputs, each
+        None for the default statement, or None for B default ones."""
+        publics = [None] * b if publics is None else list(publics)
+        if len(publics) != b:
+            raise ValueError(f"{b} proofs, {len(publics)} public inputs")
+        return self.program.values([self.dom.values(p) for p in publics])
 
     def _witness(self, trace_rows, trace_cols) -> torch.Tensor:
         """The (c, T) int32 witness on the prover's device: host rows or
@@ -347,30 +402,36 @@ class StarkProver:
                              f"{(self.air.num_registers, d.T)}")
         return cols
 
-    def prove(self, trace_rows=None, timer=NULL_TIMER, *, trace_cols=None) -> bytes:
+    def prove(self, trace_rows=None, timer=NULL_TIMER, *, trace_cols=None,
+              public=None) -> bytes:
         """``trace_rows``: (T, c) rows (list or ndarray, reference
         trace.rs:29-34 ingestion semantics).  ``trace_cols``: instead, the
         (c, T) columns of reduced values: an int32 tensor on the prover's
         device (models.fibonacci_trace_cols_device,
         models.examples.mds_square_trace_cols_device: the witness never
         crosses from the host), or numpy columns, uploaded once
-        (stark_tpu/stark.py:364-387)."""
+        (stark_tpu/stark.py:364-387).  ``public``: the statement's public
+        inputs (None: the AIR's default statement)."""
         with proof_span():
             with timer.phase("lde"):
                 cols = self._witness(trace_rows, trace_cols)
-            return self._prove_columns(cols[None], timer)[0]
+            return self._prove_columns(cols[None], timer, [public])[0]
 
-    def _prove_columns(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
+    def _prove_columns(self, cols: torch.Tensor, timer=NULL_TIMER,
+                       publics=None) -> list[bytes]:
         """B proofs of (B, c, T) int32 witness columns on the prover's device,
         each byte-identical to its own prove (stark_tpu/stark.py:364-568;
         for B > 1 stark_tpu/batch.py:_prove_batch_mega, :716-940, and
         _prove_batch_classic, :941-1149): :meth:`_dispatch`, then its
         finish."""
-        return self._dispatch(cols, timer)()
+        return self._dispatch(cols, timer, publics=publics)()
 
-    def _dispatch(self, cols: torch.Tensor, timer=NULL_TIMER, ring: int = 1):
-        """Start B proofs of (B, c, T) witness columns; returns ``finish()``
-        -> the B proofs.  The single-fetch prove (the device chain with
+    def _dispatch(self, cols: torch.Tensor, timer=NULL_TIMER, ring: int = 1,
+                  publics=None):
+        """Start B proofs of (B, c, T) witness columns, of the statements
+        with the public inputs ``publics`` (B of them, each None for the
+        default statement; or None); returns ``finish()`` -> the B
+        proofs.  The single-fetch prove (the device chain with
         ``fused_round``, where the FRI is ``_chainable``) runs on one of
         ``ring`` slots of B (:class:`_Slot`): the columns copied into it, its
         device work (:meth:`_body`) issued and its one read issued, and
@@ -385,13 +446,14 @@ class StarkProver:
         still on the card (the FRI not chainable: :meth:`_prove_two_reads`),
         three with ``fused_round`` False (:meth:`_prove_three_reads`)."""
         fri = self.fri
+        b = int(cols.shape[0])
+        values = self._values(b, publics)
         if not (fri.device_chain and fri.fused_round):
-            proofs = self._prove_three_reads(cols, timer)
+            proofs = self._prove_three_reads(cols, values, timer)
             return lambda: proofs
         if not fri._chainable():
-            proofs = self._prove_two_reads(cols, timer)
+            proofs = self._prove_two_reads(cols, values, timer)
             return lambda: proofs
-        b = int(cols.shape[0])
         fss = [FiatShamir() for _ in range(b)]
         plan, round_slots, open_slots = self._rule_plan(b)
         slot = self._slot(b, ring)
@@ -400,6 +462,7 @@ class StarkProver:
             if slot.warm and self._graphs and not self._eager_depth \
                     and self.device.type == "cuda":
                 with timer.phase("dispatch"):
+                    slot.statement(values)
                     slot.cols.copy_(cols)
                     if slot.graph is None:
                         slot.graph = self._capture(slot)
@@ -408,6 +471,7 @@ class StarkProver:
                 sources = slot.graph.result
             else:
                 with timer.phase("lde"):
+                    slot.statement(values)
                     slot.cols.copy_(cols)
                 sources = self._body(slot, timer)
                 with timer.phase("fri_query"):
@@ -486,7 +550,7 @@ class StarkProver:
         d = self.dom
         sections = self.fri.packed_sections(b, self._prefix(b), self._rule_plan(b)[0].words)
         slot = _Slot((b, self.air.num_registers, d.T), d.num_transition + len(d.boundary),
-                     sections, self._proof_layout(b), self.device)
+                     len(d.boundary), sections, self._proof_layout(b), self.device)
         slots.append(slot)
         return slot
 
@@ -497,23 +561,25 @@ class StarkProver:
         into the slot's sponge, weights and buffer), K11, then the FRI's
         launches (Fri.chain_launches: the chain, K10, K13) into the slot's
         buffer.  It reads nothing from the card and takes nothing but the
-        slot, so one CUDA graph a slot holds it.  Returns the query
+        slot (K11 reads the proofs' boundary values there), so one CUDA graph
+        a slot holds it, whatever the statements.  Returns the query
         gather's sources (the trace LDE and forest, every round's codewords
         and forests)."""
         with HB.own_tickets(slot.tickets):
             trace_lde, trace_forest, composition = self._front(
-                slot.cols, slot.sponge, slot.weights, slot.packed, timer)
+                slot.cols, slot.sponge, slot.weights, slot.packed, timer, slot.values)
             # 5. FRI, with the trace openings (step 6) in the same gather
             return self.fri.chain_launches(composition, slot.sponge, slot.packed,
                                            self._rule_plan(slot.b)[0],
                                            [trace_lde, trace_forest.stack], timer)
 
     def _front(self, cols: torch.Tensor, sponge: HB.Sponge, weights: torch.Tensor,
-               packed: G.Packed, timer=NULL_TIMER) -> tuple:
+               packed: G.Packed, timer=NULL_TIMER, values=None) -> tuple:
         """Steps 1-4 on the card, nothing read back: the (B, c, T) columns'
         LDE, the trace forest, K15 (the constraint challenges into
         ``sponge``, K11's ``weights`` and ``packed``'s prefix sections),
-        K11.  Returns (trace LDE, trace forest, (B, N) codewords)."""
+        K11 (with the proofs' boundary ``values``).  Returns (trace LDE,
+        trace forest, (B, N) codewords)."""
         b = int(cols.shape[0])
         n_terms = self.dom.num_transition + len(self.dom.boundary)
         # 1. trace columns -> coefficients -> LDE on the coset  [device]
@@ -535,7 +601,7 @@ class StarkProver:
 
         # 4. composition codewords  [device]
         with timer.phase("compose"):
-            composition = self._composition(trace_lde, weights=weights)
+            composition = self._composition(trace_lde, weights=weights, values=values)
         return trace_lde, trace_forest, composition
 
     def _prefix(self, b: int) -> dict:
@@ -566,7 +632,8 @@ class StarkProver:
                     fss[j].absorb(raw)
             return roots
 
-    def _prove_two_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
+    def _prove_two_reads(self, cols: torch.Tensor, values: np.ndarray,
+                         timer=NULL_TIMER) -> list[bytes]:
         """B proofs where the FRI is not chainable (fewer than two rounds,
         or a last codeword the device sampler does not take): K15 still
         draws the challenges on the card, its bytes ride the chain's fetch,
@@ -579,8 +646,8 @@ class StarkProver:
         weights = torch.empty((b, 4 * (d.num_transition + len(d.boundary))),
                               dtype=torch.int32, device=self.device)
         packed = G.Packed(fri.packed_sections(b, self._prefix(b)), self.device)
-        trace_lde, trace_forest, composition = self._front(cols, sponge, weights, packed,
-                                                           timer)
+        trace_lde, trace_forest, composition = self._front(
+            cols, sponge, weights, packed, timer, torch.from_numpy(values).to(self.device))
 
         def prefix_replay(host):
             for stream, root in zip(streams, self._prefix_replay(host, fss)):
@@ -674,7 +741,8 @@ class StarkProver:
         self._open_objects(layout)
         layout.push(streams, lambda views: self._open_emit(slots, fetched, views))
 
-    def _prove_three_reads(self, cols: torch.Tensor, timer=NULL_TIMER) -> list[bytes]:
+    def _prove_three_reads(self, cols: torch.Tensor, values: np.ndarray,
+                           timer=NULL_TIMER) -> list[bytes]:
         """B proofs with the challenges drawn on the host (the classic flow,
         ``Fri.fused_round`` False; stark_tpu's chain_upstream False): three
         reads from the card for the batch: the B trace roots, the FRI
@@ -709,7 +777,8 @@ class StarkProver:
 
         # 4. composition codewords  [device]
         with timer.phase("compose"):
-            composition = self._composition(trace_lde, alphas, betas)
+            composition = self._composition(trace_lde, alphas, betas,
+                                            values=torch.from_numpy(values).to(self.device))
 
         # 5. FRI, with the trace openings (step 6) riding the query phase's
         # one gather and one fetch (stark_tpu/stark.py:446-548).
@@ -729,10 +798,13 @@ class StarkVerifier:
         self.dom = _Domain(cfg, air)
         self.fri = self.dom.fri()
 
-    def verify(self, proof: bytes, path_sink: list | None = None) -> bool:
-        """``path_sink``: defer Merkle path authentication to the caller
-        (see :meth:`verify_batch`); every other check still runs here."""
+    def verify(self, proof: bytes, path_sink: list | None = None, public=None) -> bool:
+        """Whether ``proof`` proves the statement with the public inputs
+        ``public`` (None: the AIR's default statement).  ``path_sink``:
+        defer Merkle path authentication to the caller (see
+        :meth:`verify_batch`); every other check still runs here."""
         d, cfg = self.dom, self.cfg
+        statement = d.values(public)
         field = FiniteField()
         fs = FiatShamir()
         stream = ProofStream.deserialize(proof, field)
@@ -780,28 +852,31 @@ class StarkVerifier:
             reason("trace_path_verify", "trace opening fails authentication")
             return False
         for idx, comp_fe, trace_rows in openings:
-            expected = d.composition_value_at(idx, trace_rows, alphas, betas)
+            expected = d.composition_value_at(idx, trace_rows, alphas, betas, statement)
             if comp_fe.value >= P or comp_fe.value != expected:
                 reason("composition_mismatch", "composition spot check failed")
                 return False
         return True
 
-    def verify_batch(self, proofs: list[bytes]) -> list[bool]:
+    def verify_batch(self, proofs: list[bytes], publics=None) -> list[bool]:
         """Every proof's checks but the Merkle paths run as in
-        :meth:`verify`; then ALL proofs' paths go through one amortized
-        native batch call (grouped by path length and leaf arity).  If any
-        path fails, the proofs still standing are verified one by one, so
-        each result stays exact (stark_tpu/stark.py:703-730)."""
+        :meth:`verify` (``publics``: each proof's public inputs, or None
+        for the default statement's); then ALL proofs' paths go through one
+        amortized native batch call (grouped by path length and leaf
+        arity).  If any path fails, the proofs still standing are verified
+        one by one, so each result stays exact
+        (stark_tpu/stark.py:703-730)."""
+        publics = [None] * len(proofs) if publics is None else list(publics)
         results, all_triples = [], []
-        for proof in proofs:
+        for proof, public in zip(proofs, publics, strict=True):
             sink: list = []
-            ok = self.verify(proof, path_sink=sink)
+            ok = self.verify(proof, path_sink=sink, public=public)
             if ok:
                 all_triples.extend(sink)
             results.append(ok)
         if _verify_paths_batch(all_triples) is None:
             return results
         return [
-            self.verify(proof) if ok else False
-            for proof, ok in zip(proofs, results)
+            self.verify(proof, public=public) if ok else False
+            for proof, public, ok in zip(proofs, publics, results)
         ]

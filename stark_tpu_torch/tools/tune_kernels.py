@@ -1669,6 +1669,11 @@ struct Step {
   uint32_t k, k_shoup;
 };
 
+// A boundary term with its value compiled in, as the design before had it.
+struct BoundaryTerm {
+  uint32_t term, reg, value;
+};
+
 template <class Air>
 __device__ __forceinline__ uint32_t point(const stark::ComposeArgs& a,
                                           const stark::Weight* w, int b, long long i) {
@@ -1706,7 +1711,7 @@ __device__ __forceinline__ uint32_t point(const stark::ComposeArgs& a,
   }
   if constexpr (Air::kBoundaries > 0) {
     const uint32_t xb = a.xb[i];
-    const BoundaryTerm* terms = Air::boundaries();
+    const table_before::BoundaryTerm* terms = Air::boundaries();
     const int* ends = Air::row_ends();
     int j = 0;
 #pragma unroll 1
@@ -1714,7 +1719,7 @@ __device__ __forceinline__ uint32_t point(const stark::ComposeArgs& a,
       uint32_t sa = 0, sb = 0;
 #pragma unroll 1
       for (; j < ends[r]; ++j) {
-        const BoundaryTerm t = terms[j];
+        const table_before::BoundaryTerm t = terms[j];
         const uint32_t d = sub_open(at(0, (int)t.reg), t.value);
         const Weight wj = w[Air::kTransitions + t.term];
         sa = add_mod(sa, shoup_mul(d, wj.a, wj.a_shoup));
@@ -1742,7 +1747,7 @@ __global__ void __launch_bounds__(256) table_before_kernel(
                                const void* xb, const void* dinv, void* out,    \
                                long long n, int c, int blowup, int proofs,     \
                                const void* words, int nwords, long long span,  \
-                               void* stream) {                                 \
+                               const void* values, void* stream) {             \
     const stark::ComposeArgs a{                                                \
         static_cast<const uint32_t*>(lde), static_cast<const uint32_t*>(exz),  \
         static_cast<const uint32_t*>(xt), static_cast<const uint32_t*>(xb),    \
@@ -1810,7 +1815,7 @@ def table_before_source(program) -> str:
                [f"{{{ops.index(op)}u, {a % (1 << 32)}u, {b}u, {k}u, {int(shoup(k))}u}}"
                 for op, a, b, k in steps]),
         *array("int", "kOutputs", [str(slot[j]) for j in tape.outputs]),
-        *array("stark::BoundaryTerm", "kBoundaryTerms",
+        *array("table_before::BoundaryTerm", "kBoundaryTerms",
                [f"{{{j}u, {int(program.boundary[j].register)}u, "
                 f"{int(program.boundary[j].value) % 998244353}u}}" for j in by_row]),
         *array("int", "kRowEnds", [str(int(e)) for e in ends]),
@@ -1823,7 +1828,7 @@ def table_before_source(program) -> str:
         f"  static constexpr int kSlots = {len(steps)};",
         "  __device__ __forceinline__ static const table_before::Step* steps() { return kSteps; }",
         "  __device__ __forceinline__ static const int* outputs() { return kOutputs; }",
-        "  __device__ __forceinline__ static const stark::BoundaryTerm* boundaries() {",
+        "  __device__ __forceinline__ static const table_before::BoundaryTerm* boundaries() {",
         "    return kBoundaryTerms;",
         "  }",
         "  __device__ __forceinline__ static const int* row_ends() { return kRowEnds; }",
@@ -1889,7 +1894,7 @@ __global__ void __launch_bounds__(256) pieces_kernel(
                                const void* xb, const void* dinv, void* out,    \
                                long long n, int c, int blowup, int proofs,     \
                                const void* words, int nwords, long long span,  \
-                               void* stream) {                                 \
+                               const void* values, void* stream) {             \
     const stark::ComposeArgs a{                                                \
         static_cast<const uint32_t*>(lde), static_cast<const uint32_t*>(exz),  \
         static_cast<const uint32_t*>(xt), static_cast<const uint32_t*>(xb),    \
@@ -2031,9 +2036,11 @@ def pieces_source(program, piece_lines: int = PIECE_LINES) -> str:
     return "\n".join(out)
 
 
-def _compose_call(lib):
-    """``lib``'s stark_compose (ops.compose.compose's entry and operands)
-    as a call ``(lde, tables, words, blowup) -> codeword``."""
+def _compose_call(lib, program):
+    """``lib``'s stark_compose (ops.compose.compose's entry and operands,
+    ``program``'s default boundary values; the designs before compile
+    theirs in and take the pointer unread) as a call ``(lde, tables, words,
+    blowup) -> codeword``."""
     from stark_tpu_torch.ops.compose import COMPOSE
 
     fn = lib.stark_compose
@@ -2046,6 +2053,7 @@ def _compose_call(lib):
         if fn(lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
               tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
               words.data_ptr(), words.numel(), n,
+              program.default_values(b, lde.device).data_ptr(),
               torch.cuda.current_stream(lde.device).cuda_stream) != 0:
             raise RuntimeError("stark_compose failed")
         return out[0] if lde.dim() == 2 else out
@@ -2058,7 +2066,7 @@ def table_before(program):
     AIR: a call ``(lde, tables, words, blowup) -> codeword`` (not part of
     the port)."""
     return _compose_call(build_temporary(table_before_source(program), "table_before",
-                                         {"table_before.cuh": TABLE_BEFORE_HEADER}))
+                                         {"table_before.cuh": TABLE_BEFORE_HEADER}), program)
 
 
 def compose_pieces(program):
@@ -2066,7 +2074,7 @@ def compose_pieces(program):
     ``program``'s AIR: a call ``(lde, tables, words, blowup) -> codeword``
     (not part of the port)."""
     return _compose_call(build_temporary(pieces_source(program), "compose_pieces",
-                                         {"compose_pieces.cuh": PIECES_HEADER}))
+                                         {"compose_pieces.cuh": PIECES_HEADER}), program)
 
 
 def compose_before(program):
@@ -2090,6 +2098,7 @@ def compose_before(program):
         if fn(lde3.data_ptr(), tables.exz.data_ptr(), tables.xt.data_ptr(),
               tables.xb.data_ptr(), tables.dinv.data_ptr(), out.data_ptr(), n, c, blowup, b,
               words.data_ptr(), words.numel(), n,
+              program.default_values(b, lde.device).data_ptr(),
               torch.cuda.current_stream(lde.device).cuda_stream) != 0:
             raise RuntimeError("compose_before failed")
         return out[0] if lde.dim() == 2 else out
@@ -2174,7 +2183,8 @@ def compose_turns(rng, dev, shapes=COMPOSE_TURN_SHAPES) -> dict:
             for threads in TABLE_THREADS_TRIED:
                 builds[f"table form, {threads} threads"] = lambda table=table, t=threads: \
                     _compose_call(build_temporary(re.sub(
-                        r"kThreads = \d+;", f"kThreads = {t};", table.source), "table_threads"))
+                        r"kThreads = \d+;", f"kThreads = {t};", table.source), "table_threads"),
+                        table)
             if path:
                 builds.update({"before": lambda prover=prover: compose_before(prover.program),
                                "coset redesign": lambda prover=prover: compose_coset(prover),

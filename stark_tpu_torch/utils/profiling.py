@@ -99,14 +99,20 @@ class _On:
 
 
 class _Proof(_On):
-    """The root span of a proof: a new id, which the spans inside carry."""
+    """The root span of a proof: a new id (or the id ``proof``), which the
+    spans inside carry; entering it gives the id."""
 
-    __slots__ = ("outer",)
+    __slots__ = ("outer", "proof")
+
+    def __init__(self, name: str, proof: int | None = None):
+        super().__init__(name)
+        self.proof = proof
 
     def __enter__(self):
         global _proof
-        self.outer, _proof = _proof, next(_proof_ids)
+        self.outer, _proof = _proof, next(_proof_ids) if self.proof is None else self.proof
         super().__enter__()
+        return _proof
 
     def __exit__(self, *exc):
         global _proof
@@ -125,9 +131,12 @@ def phase_span(phase: str):
     return _On("stark." + phase) if _profiling() else _OFF
 
 
-def proof_span():
-    """A proof's root span, ``stark.prove``: it draws the proof's id."""
-    return _Proof("stark.prove") if _profiling() else _OFF
+def proof_span(name: str = "stark.prove", proof: int | None = None):
+    """A proof's root span, ``stark.prove``: it draws the proof's id, which
+    ``with ... as proof`` gives (None while the profiler is off).  With
+    ``proof``, the span ``name`` carries that id instead (work for the
+    proof done later, a pipelined batch's ``batch.finish``)."""
+    return _Proof(name, proof) if _profiling() else _OFF
 
 
 def snapshot_spans() -> dict[str, tuple[float, int]]:

@@ -131,20 +131,23 @@ def test_generated_source_same_bytes_per_air_and_distinct():
 
 
 def host_compose(prog, tables, lde: np.ndarray, alphas, betas, blowup: int,
-                 points: int | None = None) -> np.ndarray:
+                 points: int | None = None, values=None) -> np.ndarray:
     """The generated per-point function built with the host C++ compiler
     (csrc/compose.cuh's host entry), run at every point of B = lde.shape[0]
-    proofs; ``points``: each row a share of that many points and its halo."""
+    proofs; ``points``: each row a share of that many points and its halo;
+    ``values``: the proofs' boundary values (None: the default statement's)."""
     lib = CO.host_library(prog.source)
     arrs = [np.ascontiguousarray(t.numpy()) for t in
             (tables.exz, tables.xt, tables.xb, tables.dinv)]
     words = np.ascontiguousarray(prog.weights(alphas, betas))
     lde = np.ascontiguousarray(lde.astype(np.uint32))
     b, c, span = lde.shape
+    vals = np.ascontiguousarray(prog.values(values, b))
     n = span if points is None else points
     out = np.zeros((b, n), dtype=np.uint32)
     rc = lib.stark_compose_host(lde.ctypes.data, *(x.ctypes.data for x in arrs),
-                                out.ctypes.data, n, c, blowup, b, words.ctypes.data, span)
+                                out.ctypes.data, n, c, blowup, b, words.ctypes.data, span,
+                                vals.ctypes.data)
     assert rc == 0
     return out
 

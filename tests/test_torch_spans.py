@@ -39,7 +39,8 @@ CFG = StarkConfig(trace_length=T, blowup=4, num_colinearity_tests=16)
 PARENTS = {
     "witness.seeds": None, "witness.upload": None, "witness.expand": None,
     "stark.prove": None,
-    "stark.lde": "stark.prove", "stark.trace_commit": "stark.prove",
+    "stark.lde": "stark.prove", "stark.statement": "stark.lde",
+    "stark.trace_commit": "stark.prove",
     "stark.challenges": "stark.prove", "stark.compose": "stark.prove",
     "stark.fri_commit": "stark.prove", "stark.fri_sample": "stark.prove",
     "stark.fri_query": "stark.prove",
