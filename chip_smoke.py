@@ -113,8 +113,10 @@ Phases, one or a few lines each (any failure raises and exits non-zero):
       the pinned proofs use and at lengths that cut the last block,
       mds_expand at (T, block) up to (2^16, 64) and (2^16, 1) and at blocks
       longer than its staging chunk, each call twice, and the whole witness
-      functions against the host traces; fib_expand's time beside the
-      design it replaced (built here from tools/tune_kernels.py), in turn;
+      functions against the host traces; fib_expand at start pairs (0, 0),
+      (p-1, p-1) and a drawn one besides (1, 1), and its time beside the
+      designs it replaced (the host's seeds of each run; an element a
+      thread; built here from tools/tune_kernels.py), in turn;
     - the query gather (K13) on a synthetic plan too large for one
       launch's parameters, which goes out in several;
  4. proofs whose sha256 must equal the JAX package's (stark_tpu on the CPU,
@@ -494,14 +496,16 @@ OPS_MIX = 208                         # 6.5 per state byte
 OPS_MIX_BEFORE = 9 * 32
 # K12.  A Montgomery product is 7 (multiply low, multiply high, multiply by
 # -p^-1, multiply high, add, carry, add-and-minimum), a Shoup product 4, an
-# addition mod p 2.  fib_expand: three products and an addition per element.
+# addition mod p 2.  fib_expand: two products and an addition an element,
+# and a row's seeds from the basis (four products and two additions) over
+# a thread's 8 columns of the row.
 # mds_expand per step as csrc/witness.cu now computes it: 64 wide
 # multiply-adds (the lazy 64-bit row sums), and per row one reduction by
 # the constant p (multiply by -p^-1, multiply high, carry, add, two
 # add-and-minimums: 6), one Montgomery square and an addition mod p.  Until
 # then it was 64 Shoup products, 64 additions and 8 squares of two
 # Montgomery products, OPS_MDS_STEP_BEFORE: its bound is printed beside.
-OPS_FIB_EXPAND = 2 * 7 + 2  # now: two products and an addition (3 * 7 + 2 before)
+OPS_FIB_EXPAND = 2 * 7 + 2 + (4 * 7 + 2 * 2) / 8  # (3 * 7 + 2 before its redesign)
 OPS_MDS_STEP = 64 + 8 * (6 + 7 + 2)
 OPS_MDS_STEP_BEFORE = 64 * 4 + 64 * 2 + 8 * 2 * 7
 # K4-dyn: K4's count, the Shoup product by alpha a Montgomery one (7).
@@ -512,7 +516,7 @@ OPS_SHOUP = 5
 
 
 #: The designs before each redesign (tools/tune_kernels.py), built in the
-#: build step: sponge, fib_expand, forest, fold_dyn (the K9 + fold pair),
+#: build step: sponge, fib_expand, fib_expand_seeds, forest, fold_dyn (the K9 + fold pair),
 #: challenges (K15), sample (K10), floor (an empty kernel) and compose by
 #: (model, T).
 BEFORE: dict = {}
@@ -2473,26 +2477,37 @@ def _check_witness(rng, dev, results: _Results) -> None:
     path's and the wide path's shapes."""
     from stark_tpu_torch import native
     from stark_tpu_torch.models import examples as ex
+    from stark_tpu_torch.models import fibonacci as FIB
     from stark_tpu_torch.models.fibonacci import (
         fibonacci_seeds,
+        fibonacci_segment_cols_device,
         fibonacci_trace_cols_device,
         fibonacci_trace_mod_p,
     )
+    from stark_tpu_torch.ops import cuda
     from stark_tpu_torch.ops import witness as W
 
     def fib_seeds(T):
         seeds, nb = fibonacci_seeds(T)
         return torch.from_numpy(seeds.view(np.int32)).to(dev), nb
 
+    fib_dev = cuda.device_or_raise(dev, "fib_expand")
+    starts = [(1, 1), (0, 0), (998244352, 998244352),
+              tuple(int(v) for v in rng.integers(0, 998244353, 2))]
     for T in FIB_WITNESS_LENGTHS:
-        seeds, nb = fib_seeds(T)
-        for turn in (1, 2):
-            _require_equal(f"fib_expand T={T} call {turn}", W.fib_expand(seeds, nb, T),
-                           W.fib_expand_plain(seeds, nb, T))
+        basis, _, nb = FIB._basis(T, fib_dev)
+        for start in starts:
+            for turn in (1, 2):
+                _require_equal(f"fib_expand T={T} start {start} call {turn}",
+                               W.fib_expand(basis, nb, T, start),
+                               W.fib_expand_plain(basis, nb, T, start))
         if T <= 1 << 16:
             host = torch.from_numpy(fibonacci_trace_mod_p(T).T.astype(np.int32))
             _require_equal(f"fibonacci_trace_cols_device T={T}",
                            fibonacci_trace_cols_device(T).cpu(), host)
+            host = torch.from_numpy(fibonacci_trace_mod_p(T, starts[3]).T.astype(np.int32))
+            _require_equal(f"fibonacci_segment_cols_device T={T}",
+                           fibonacci_segment_cols_device(T, starts[3])[0].cpu(), host)
     consts = _rand_field(rng, dev, (72,))
     for T, block in MDS_WITNESS_SHAPES:
         nb = -(-T // block)
@@ -2506,22 +2521,32 @@ def _check_witness(rng, dev, results: _Results) -> None:
             _require_equal(f"mds_square_trace_cols_device T={T} block={block}",
                            ex.mds_square_trace_cols_device(T, block).cpu(), host)
 
-    seeds, nb = fib_seeds(MAIN_T)
+    basis, _, nb = FIB._basis(MAIN_T, fib_dev)
     fib = results.add(
-        W.FIB_EXPAND, "T=2^20", [(seeds,)],
-        lambda s: W.fib_expand(s, nb, MAIN_T), lambda s: W.fib_expand_plain(s, nb, MAIN_T),
-        50, nbytes=4 * MAIN_T + 4 * seeds.numel(), ops=OPS_FIB_EXPAND * MAIN_T)
-    # The kernel before its redesign, built beside it, on the same seeds:
-    # the two in turn (before, after, after, before).
-    before_fn = BEFORE["fib_expand"]
+        W.FIB_EXPAND, "T=2^20", [(basis,)],
+        lambda b: W.fib_expand(b, nb, MAIN_T, starts[3]),
+        lambda b: W.fib_expand_plain(b, nb, MAIN_T, starts[3]),
+        50, nbytes=4 * MAIN_T + 4 * basis.numel(), ops=OPS_FIB_EXPAND * MAIN_T)
+    # The kernels before the basis (the seeds of one run, made on the host)
+    # and before its redesign (an element a thread), built beside it, on the
+    # default run: the three in turn (before, seeds, in use, in use, seeds,
+    # before).
+    before_fn, seeds_fn = BEFORE["fib_expand"], BEFORE["fib_expand_seeds"]
     for T in FIB_WITNESS_LENGTHS:
         s, n = fib_seeds(T)
-        _require_equal(f"fib_expand before T={T}", before_fn(s, n, T),
-                       W.fib_expand_plain(s, n, T))
-    turns = [_device_ms(lambda f=f: f(seeds, nb, MAIN_T), 50)
-             for f in (before_fn, W.fib_expand, W.fib_expand, before_fn)]
+        b, _, nb_t = FIB._basis(T, fib_dev)
+        want = W.fib_expand_plain(b, nb_t, T, (1, 1))
+        _require_equal(f"fib_expand before T={T}", before_fn(s, n, T), want)
+        _require_equal(f"fib_expand seeds T={T}", seeds_fn(s, n, T), want)
+    seeds, _ = fib_seeds(MAIN_T)
+    calls = {"before": lambda: before_fn(seeds, nb, MAIN_T),
+             "seeds": lambda: seeds_fn(seeds, nb, MAIN_T),
+             "basis": lambda: W.fib_expand(basis, nb, MAIN_T, starts[3])}
+    turns = [_device_ms(calls[key], 50)
+             for key in ("before", "seeds", "basis", "basis", "seeds", "before")]
     print("witness: fib_expand at T=2^20, device time per call in turn (ms), the "
-          "design before (one thread an element), the kernel in use twice, the one "
+          "design before (one thread an element), the seeds design (the host's seeds "
+          "of one run), the basis entry in use twice, the seeds design, the one "
           f"before: {json.dumps([round(t, 5) for t in turns])}", flush=True)
     m, rc = np.array(ex._MDS), np.array(ex._RC)
     nb = MDS_T // MDS_BLOCK
@@ -2535,7 +2560,8 @@ def _check_witness(rng, dev, results: _Results) -> None:
         lambda c, s: W.mds_expand_plain(c, s, MDS_BLOCK, MDS_T), 50,
         nbytes=32 * MDS_T + 32 * nb + 4 * 72, ops=OPS_MDS_STEP * MDS_T)
     before = _bound(32 * MDS_T + 32 * nb + 4 * 72, OPS_MDS_STEP_BEFORE * MDS_T)
-    print(f"witness: fib_expand == plain at T={list(FIB_WITNESS_LENGTHS)}, mds_expand "
+    print(f"witness: fib_expand == plain at T={list(FIB_WITNESS_LENGTHS)} and start pairs "
+          f"{starts}, mds_expand "
           f"== plain at (T, block) {list(MDS_WITNESS_SHAPES)}, each call twice; the "
           "device columns == the host traces up to T=2^16 / 4096; "
           + _line(fib) + "; " + _line(mds) + "; device time per call; mds_expand's "
@@ -3451,6 +3477,7 @@ def main() -> int:
     # The designs before each redesign, built beside the port (nvcc each,
     # all at once), into BEFORE: timed in turn with the kernels in use.
     befores = {"sponge": TK.sponge_before, "fib_expand": TK.fib_expand_before,
+               "fib_expand_seeds": TK.fib_expand_seeds,
                "forest": TK.forest_before, "fold_dyn": TK.fold_dyn_before,
                "challenges": TK.challenges_before, "sample": TK.sample_before,
                "floor": TK.floor_kernel}

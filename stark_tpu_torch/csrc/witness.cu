@@ -2,10 +2,16 @@
 // package's jit-fused witness expansions, which let a prove start from
 // columns made on the device instead of uploading the trace:
 //
-//   stark_fib_expand   stark_tpu/models/fibonacci.py:_fib_block_fn (:58)
-//     out[k B + j] = s1[k] u1[j] + s0[k] u0[j]  mod p, cut to `length`:
-//     the rank-2 block expansion a_{kB+j} = F_{kB+1} F_{j+1} + F_{kB} F_j
-//     of the Fibonacci trace from O(sqrt T) seeds the host computes;
+//   stark_fib_expand_basis   stark_tpu/models/fibonacci.py:_fib_block_fn (:58)
+//     out[k B + j] = s1[k] u1[j] + s0[k] u0[j]  mod p, cut to `length`,
+//     the run a_0 = a, a_1 = b of the Fibonacci recurrence: the rank-2
+//     block expansion a_{kB+j} = a_{kB} F_{j+1} + a_{kB-1} F_j, whose block
+//     seeds s1[k] = a_{kB} = a F_{kB-1} + b F_{kB} and s0[k] = a_{kB-1} =
+//     a F_{kB-2} + b F_{kB-1} each thread forms from the length's basis
+//     (F_{kB-2}, F_{kB-1}, F_{kB}) and the start pair (a, b), a launch
+//     argument: one launch a witness, the basis made once a length (the
+//     design before, whose seeds the host made and uploaded for every run,
+//     is tools/tune_kernels.fib_expand_seeds);
 //   stark_mds_expand   stark_tpu/models/examples.py:_mds_expand_fn (:173)
 //     from (nb, 8) block-start states, `block` steps of s' = (M s)^2 + rc
 //     mod p each; row t = b block + k of the (8, length) output is state k
@@ -15,15 +21,17 @@
 // is bound by bytes (4 MB at T = 2^20, 1.3 us at 3.35 TB/s), on top of the
 // ~1.2-1.7 us any launch takes.  So the grid is one wave, a CTA per SM,
 // and a thread owns 8 consecutive columns j of the block and walks rows k
-// four at a time: it issues its loads (its 16 u values, the seeds of four
-// rows) before it computes, puts the u values into Montgomery form once
-// (u 2^32 mod p), so that an element is two Montgomery products and one
-// addition mod p, with no product to undo 2^-32, and writes each row's 8
-// elements as two 16-byte stores.  (The grid of 4,096 x 256 threads, an
-// element each, ran its blocks in waves, each wave a trip to memory: 5.0
-// us at T = 2^20; a load at the top of each row's step made a chain of
-// trips too: 5.2 us, PERF.md.)  Blocks narrower than 8
-// columns (T < 64) take one element at a time.  mds_expand is a chain of
+// four at a time: it issues its loads (its 16 u values, the words of four
+// rows) before it computes, puts the u values and the start pair into
+// Montgomery form once (u 2^32 mod p), so that a row's seeds are four
+// Montgomery products and an element two and one addition mod p, with no
+// product to undo 2^-32, and writes each row's 8 elements as two 16-byte
+// stores.  The basis adds a word a row to the seeds: 24 KB against 8 MB
+// of output at T = 2^21.  (The grid of 4,096 x 256 threads, an element
+// each, ran its blocks in waves, each wave a trip to memory: 5.0 us at T
+// = 2^20; a load at the top of each row's step made a chain of trips too:
+// 5.2 us, PERF.md.)  Blocks narrower than 8 columns (T < 64) take one
+// element at a time.  mds_expand is a chain of
 // `block` dependent steps per block: T = 2^16 at block 64 is only 1,024
 // blocks, so what bounds it is the latency of one step times `block`, and
 // what the design does is shorten the step and spread the blocks.  An
@@ -79,6 +87,16 @@ __device__ __forceinline__ uint32_t mds_row_step(uint32_t s, const uint32_t* mh,
   return add_mod(mont_mul(u, u), rc);
 }
 
+// Row k's seeds of the run from (a, b): s0 = a_{kB-1} = a F_{kB-2} + b
+// F_{kB-1} and s1 = a_{kB} = a F_{kB-1} + b F_{kB}, from its basis words
+// w0, w1, w2 and am, bm = (a, b) in Montgomery form.
+__device__ __forceinline__ void fib_seeds(uint32_t am, uint32_t bm, uint32_t w0,
+                                          uint32_t w1, uint32_t w2, uint32_t& s0,
+                                          uint32_t& s1) {
+  s0 = add_mod(mont_mul(am, w0), mont_mul(bm, w1));
+  s1 = add_mod(mont_mul(am, w1), mont_mul(bm, w2));
+}
+
 }  // namespace
 
 // C linkage, so that a profile names the kernels plainly.
@@ -90,24 +108,31 @@ constexpr int kFibThreads = 256;
 constexpr int kFibCols = 8;
 constexpr int kFibRows = 4;
 
-// seeds: s0 (nb), s1 (nb), u0 (B), u1 (B), one after the other; B = 2^lg_b.
-// The grid's thread count is a multiple of B / kFibCols (stark_fib_expand).
+// basis: F_{kB-2} (nb), F_{kB-1} (nb), F_{kB} (nb), u0 (B), u1 (B), one
+// after the other; B = 2^lg_b; (a, b) the start pair, reduced.  The grid's
+// thread count is a multiple of B / kFibCols (stark_fib_expand_basis).
 __global__ void __launch_bounds__(kFibThreads)
-    stark_fib_expand_kernel(const uint32_t* __restrict__ seeds,
-                            uint32_t* __restrict__ out, int nb, int lg_b,
-                            long long length) {
-  const uint32_t* s0 = seeds;
-  const uint32_t* s1 = seeds + nb;
-  const uint32_t* u0 = seeds + 2 * nb;
+    stark_fib_expand_basis_kernel(const uint32_t* __restrict__ basis,
+                                  uint32_t* __restrict__ out, int nb, int lg_b,
+                                  long long length, uint32_t a, uint32_t b) {
+  const uint32_t* fm2 = basis;
+  const uint32_t* fm1 = basis + nb;
+  const uint32_t* f0 = basis + 2 * nb;
+  const uint32_t* u0 = basis + 3 * nb;
   const uint32_t* u1 = u0 + (1 << lg_b);
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long threads = (long long)gridDim.x * blockDim.x;
+  // a 2^32 mod p, b 2^32 mod p: mont_mul(am, f) = a f mod p.
+  const uint32_t am = mont_mul(a, kR2);
+  const uint32_t bm = mont_mul(b, kR2);
   if (lg_b < 3) {  // blocks of 1, 2 or 4 columns: an element a step
     for (long long i = tid; i < length; i += threads) {
       const long long k = i >> lg_b;
       const int j = (int)(i & ((1 << lg_b) - 1));
-      out[i] = add_mod(mont_mul(s1[k], mont_mul(u1[j], kR2)),
-                       mont_mul(s0[k], mont_mul(u0[j], kR2)));
+      uint32_t s0, s1;
+      fib_seeds(am, bm, fm2[k], fm1[k], f0[k], s0, s1);
+      out[i] = add_mod(mont_mul(s1, mont_mul(u1[j], kR2)),
+                       mont_mul(s0, mont_mul(u0[j], kR2)));
     }
     return;
   }
@@ -115,8 +140,8 @@ __global__ void __launch_bounds__(kFibThreads)
   const int j0 = (int)(tid & ((1 << lg_groups) - 1)) * kFibCols;
   const long long lanes = threads >> lg_groups;
   // Every load a thread makes is issued before it computes: its u values
-  // and the seeds of its first kFibRows rows (one trip to memory, where
-  // a load at the top of each row's step would make a chain of them).
+  // and the basis words of its first kFibRows rows (one trip to memory,
+  // where a load at the top of each row's step would make a chain of them).
   uint32_t m0[kFibCols], m1[kFibCols];
 #pragma unroll
   for (int c = 0; c < kFibCols; ++c) {
@@ -124,12 +149,13 @@ __global__ void __launch_bounds__(kFibThreads)
     m1[c] = u1[j0 + c];
   }
   long long k0 = tid >> lg_groups;
-  uint32_t a[kFibRows], b[kFibRows];
+  uint32_t w0[kFibRows], w1[kFibRows], w2[kFibRows];
 #pragma unroll
   for (int r = 0; r < kFibRows; ++r) {
     const long long k = k0 + r * lanes;
-    a[r] = k < nb ? s0[k] : 0u;
-    b[r] = k < nb ? s1[k] : 0u;
+    w0[r] = k < nb ? fm2[k] : 0u;
+    w1[r] = k < nb ? fm1[k] : 0u;
+    w2[r] = k < nb ? f0[k] : 0u;
   }
   // u 2^32 mod p: mont_mul(s, that) = s u mod p.
 #pragma unroll
@@ -142,10 +168,11 @@ __global__ void __launch_bounds__(kFibThreads)
     for (int r = 0; r < kFibRows; ++r) {
       const long long k = k0 + r * lanes;
       if (k >= nb) break;
-      uint32_t v[kFibCols];
+      uint32_t s0, s1, v[kFibCols];
+      fib_seeds(am, bm, w0[r], w1[r], w2[r], s0, s1);
 #pragma unroll
       for (int c = 0; c < kFibCols; ++c)
-        v[c] = add_mod(mont_mul(b[r], m1[c]), mont_mul(a[r], m0[c]));
+        v[c] = add_mod(mont_mul(s1, m1[c]), mont_mul(s0, m0[c]));
       const long long first = (k << lg_b) + j0;
       if (first + kFibCols <= length) {
         uint4* dst = reinterpret_cast<uint4*>(out + first);
@@ -158,17 +185,19 @@ __global__ void __launch_bounds__(kFibThreads)
       }
     }
 #pragma unroll
-    for (int r = 0; r < kFibRows; ++r) {  // the next rows' seeds
+    for (int r = 0; r < kFibRows; ++r) {  // the next rows' words
       const long long k = k0 + (kFibRows + r) * lanes;
-      a[r] = k < nb ? s0[k] : 0u;
-      b[r] = k < nb ? s1[k] : 0u;
+      w0[r] = k < nb ? fm2[k] : 0u;
+      w1[r] = k < nb ? fm1[k] : 0u;
+      w2[r] = k < nb ? f0[k] : 0u;
     }
   }
 }
 
 // out must be 16-byte aligned.  sms: the card's SM count (the grid).
-int stark_fib_expand(const void* seeds, void* out, int nb, int lg_b,
-                     long long length, int sms, void* stream) {
+int stark_fib_expand_basis(const void* basis, void* out, int nb, int lg_b,
+                           long long length, unsigned a, unsigned b, int sms,
+                           void* stream) {
   long long blocks = sms;
   if (lg_b >= 3) {
     // a whole number of rows of column groups: threads % (B / 8) == 0
@@ -176,10 +205,10 @@ int stark_fib_expand(const void* seeds, void* out, int nb, int lg_b,
     const long long per_block = groups > kFibThreads ? groups / kFibThreads : 1;
     blocks = (blocks + per_block - 1) / per_block * per_block;
   }
-  stark_fib_expand_kernel<<<(unsigned)blocks, kFibThreads, 0,
-                            (cudaStream_t)stream>>>(
-      static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(out), nb,
-      lg_b, length);
+  stark_fib_expand_basis_kernel<<<(unsigned)blocks, kFibThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(basis), static_cast<uint32_t*>(out), nb, lg_b,
+      length, a, b);
   return (int)cudaGetLastError();
 }
 

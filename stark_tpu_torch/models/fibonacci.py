@@ -104,79 +104,87 @@ class FibonacciSegmentAir(FibonacciAir):
         ]
 
 
-@functools.lru_cache(maxsize=8)
-def _segment_basis(length: int) -> tuple:
-    """The default statement's block seeds as the basis of any start pair's,
-    made once a length: (F_{kB-2}, F_{kB-1}, F_{kB}) over the blocks k as
-    int64 arrays (F_{-1} = 1, F_{-2} = -1 mod p), the packed ladder u0 |
-    u1, nb and B (:func:`fibonacci_seeds`)."""
-    seeds, nb = fibonacci_seeds(length)
-    f0 = seeds[:nb].astype(np.int64)                  # F_{kB}
-    f1 = seeds[nb : 2 * nb].astype(np.int64)          # F_{kB+1}
-    fm1 = (f1 - f0) % P                               # F_{kB-1}
-    fm2 = (f0 - fm1) % P                              # F_{kB-2}
-    return fm2, fm1, f0, seeds[2 * nb :], nb, (len(seeds) - 2 * nb) // 2
+#: Bases made (:func:`_basis`), one a (length, device): a window of
+#: witnesses at lengths already seen adds none.
+BASIS_BUILDS = 0
 
 
-def fibonacci_segment_seeds(length: int, start) -> tuple[np.ndarray, int]:
-    """The packed seeds s0 | s1 | u0 | u1 of K12's expansion for the run
-    from the start pair (a, b) = (a_0, a_1), and nb.  With a_{-1} = b - a,
-    a_{kB+j} = a_{kB} F_{j+1} + a_{kB-1} F_j: the block seeds are s0[k] =
-    a_{kB-1} and s1[k] = a_{kB}, each a combination of the default
-    statement's (a_n = a F_{n-1} + b F_n), and the ladder is the same."""
-    fm2, fm1, f0, ladder, nb, _ = _segment_basis(length)
-    a, b = (int(v) % P for v in start)
-    s1 = (a * fm1 + b * f0) % P                       # a_{kB}
-    s0 = (a * fm2 + b * fm1) % P                      # a_{kB-1}
-    return np.concatenate([s0.astype(np.uint32), s1.astype(np.uint32), ladder]), nb
+@functools.lru_cache(maxsize=16)
+def _basis(length: int, device: torch.device) -> tuple[torch.Tensor, np.ndarray, int]:
+    """The length's basis on ``device``, made once: (words there, the same
+    words on the host (uint32), nb).  The words are F_{kB-2} | F_{kB-1} |
+    F_{kB} over the blocks k (F_{-1} = 1, F_{-2} = -1 mod p), then the
+    ladder u0 | u1 of :func:`fibonacci_seeds`, whose default seeds F_{kB},
+    F_{kB+1} they are made from; any start pair's seeds are their
+    combination (:func:`fibonacci_segment_cols_device`).  To a card they go
+    up from pinned memory without a wait."""
+    global BASIS_BUILDS
+    with span("witness.basis"):
+        BASIS_BUILDS += 1
+        seeds, nb = fibonacci_seeds(length)
+        f0 = seeds[:nb].astype(np.int64)                  # F_{kB}
+        fm1 = (seeds[nb : 2 * nb] - f0) % P               # F_{kB-1}
+        fm2 = (f0 - fm1) % P                              # F_{kB-2}
+        words = np.concatenate([fm2.astype(np.uint32), fm1.astype(np.uint32),
+                                seeds[:nb], seeds[2 * nb :]])
+        host = torch.from_numpy(words.view(np.int32))
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True), words, nb
+        return host.to(device), words, nb
 
 
-def _segment_value(seeds: np.ndarray, nb: int, i: int) -> int:
-    """a_i of the run whose packed seeds are ``seeds``: block i // B's seeds
-    and the ladder at i mod B."""
-    b = (len(seeds) - 2 * nb) // 2
-    k, j = divmod(i, b)
-    u = seeds[2 * nb :]
-    return (int(seeds[nb + k]) * int(u[b + j]) + int(seeds[k]) * int(u[j])) % P
+def _end_pair(words: np.ndarray, nb: int, length: int, a: int, b: int) -> tuple[int, int]:
+    """(a_{length-2}, a_{length-1}) of the run from (a, b), each from its
+    block's basis words and two ladder values (a_{-1} = b - a)."""
+    width = (len(words) - 3 * nb) // 2
+
+    def value(i: int) -> int:
+        if i < 0:
+            return (b - a) % P
+        k, j = divmod(i, width)
+        fm2, fm1, f0 = (int(words[r * nb + k]) for r in range(3))
+        s0, s1 = (a * fm2 + b * fm1) % P, (a * fm1 + b * f0) % P
+        u0, u1 = int(words[3 * nb + j]), int(words[3 * nb + width + j])
+        return (s1 * u1 + s0 * u0) % P
+
+    return value(length - 2), value(length - 1)
 
 
 def fibonacci_segment_end(length: int, start) -> tuple[int, int]:
     """The end pair (a_{length-2}, a_{length-1}) of the run from ``start``,
-    from its last blocks' seeds (O(1) once the length's basis is made)."""
-    seeds, nb = fibonacci_segment_seeds(length, start)
-    return _segment_value(seeds, nb, length - 2), _segment_value(seeds, nb, length - 1)
+    in O(1) once the length's basis is made."""
+    _, words, nb = _basis(length, torch.device("cpu"))
+    return _end_pair(words, nb, length, *(int(v) % P for v in start))
+
+
+def _run_cols(length: int, start, device: torch.device) -> tuple:
+    """The run from ``start`` on ``device`` and its end pair: the length's
+    basis (made on its first call), the start pair reduced, one K12 launch.
+    Nothing here waits for the card."""
+    with span("witness.upload"):
+        basis, words, nb = _basis(length, device)
+    with span("witness.seeds"):
+        a, b = (int(v) % P for v in start)
+        end = _end_pair(words, nb, length, a, b)
+    with span("witness.expand"):
+        return W.fib_expand(basis, nb, length, (a, b)), end
 
 
 def fibonacci_segment_cols_device(length: int, start, device="cuda") -> tuple:
     """A segment's witness on ``device`` and its end pair: ((1, length) int32
     columns, (y, z)), the run from the start pair ``start`` made there by
-    K12 from its seeds (:func:`fibonacci_segment_seeds`).  The public
-    inputs of its statement are (*start, y, z); feed the columns to
-    ``StarkProver.prove(trace_cols=..., public=...)`` or a batch's
-    ``traces_cols``.  The seeds go up from pinned memory without a wait:
-    a pipelined feed makes the next batch's witnesses while the card still
-    runs the batches before them."""
-    device = cuda.device_or_raise(device, "fibonacci_segment_cols_device")
-    with span("witness.seeds"):
-        seeds, nb = fibonacci_segment_seeds(length, start)
-        end = _segment_value(seeds, nb, length - 2), _segment_value(seeds, nb, length - 1)
-    with span("witness.upload"):
-        host = torch.from_numpy(seeds.view(np.int32))
-        seeds_dev = (host.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
-                     else host.to(device))
-    with span("witness.expand"):
-        return W.fib_expand(seeds_dev, nb, length), end
+    K12 from the length's basis.  The public inputs of its statement are
+    (*start, y, z); feed the columns to ``StarkProver.prove(trace_cols=...,
+    public=...)`` or a batch's ``traces_cols``.  No upload and no wait
+    after a length's first call: a pipelined feed makes the next batch's
+    witnesses while the card still runs the batches before them."""
+    return _run_cols(length, start, cuda.device_or_raise(device, "fibonacci_segment_cols_device"))
 
 
 def fibonacci_trace_cols_device(length: int, device="cuda") -> torch.Tensor:
     """(1, length) int32 trace columns on ``device``, equal to
-    ``fibonacci_trace_mod_p(length).T``, made there from O(sqrt(length))
-    seeds (kernel K12, ops/witness.fib_expand) instead of uploading the
-    witness.  Feed it to ``StarkProver.prove(trace_cols=...)``."""
-    device = cuda.device_or_raise(device, "fibonacci_trace_cols_device")
-    with span("witness.seeds"):
-        seeds, nb = fibonacci_seeds(length)
-    with span("witness.upload"):
-        seeds_dev = torch.from_numpy(seeds.view(np.int32)).to(device)
-    with span("witness.expand"):
-        return W.fib_expand(seeds_dev, nb, length)
+    ``fibonacci_trace_mod_p(length).T``: the default statement's segment,
+    the run from (1, 1) (:func:`fibonacci_segment_cols_device`), made there
+    by K12 (ops/witness.fib_expand) instead of uploading the witness.  Feed
+    it to ``StarkProver.prove(trace_cols=...)``."""
+    return _run_cols(length, (1, 1), cuda.device_or_raise(device, "fibonacci_trace_cols_device"))[0]

@@ -4,11 +4,14 @@ plain version of each.
 Counterparts of the JAX package's jit-fused expansions that let a prove
 start from trace columns made on the device (stark_tpu/models/fibonacci.py:
 _fib_block_fn, stark_tpu/models/examples.py:_mds_expand_fn).  The host
-computes the seeds (models/fibonacci.py, models/examples.py); these
-functions expand them:
+makes a length's basis once (models/fibonacci.py) or the seeds
+(models/examples.py); these functions expand them:
 
-    fib_expand   (2 nb + 2 B,) seeds s0 | s1 | u0 | u1 -> (1, length):
-                 out[k B + j] = s1[k] u1[j] + s0[k] u0[j] mod p;
+    fib_expand   (3 nb + 2 B,) basis F_{kB-2} | F_{kB-1} | F_{kB} | u0 | u1
+                 and a start pair (a, b) -> (1, length), the run a_0 = a,
+                 a_1 = b: out[k B + j] = s1[k] u1[j] + s0[k] u0[j] mod p
+                 with s1[k] = a F_{kB-1} + b F_{kB}, s0[k] = a F_{kB-2} + b
+                 F_{kB-1};
     mds_expand   (nb, 8) block-start states -> (8, length): block b's
                  states k = 0 .. block-1 under s' = (M s)^2 + rc mod p fill
                  columns b block + k.
@@ -29,8 +32,10 @@ from stark_tpu_torch.ops.fieldops import P
 
 _SRC = "stark_tpu_torch/csrc/witness.cu"
 _I64 = ctypes.c_longlong
+_U32 = ctypes.c_uint
 FIB_EXPAND = cuda.Kernel(
-    "fib_expand", "stark_fib_expand", [cuda.ptr] * 2 + [cuda.i32] * 2 + [_I64, cuda.i32],
+    "fib_expand", "stark_fib_expand_basis",
+    [cuda.ptr] * 2 + [cuda.i32] * 2 + [_I64, _U32, _U32, cuda.i32],
     source=_SRC, replaces="stark_tpu/models/fibonacci.py:58",
 )
 MDS_EXPAND = cuda.Kernel(
@@ -41,36 +46,42 @@ MDS_EXPAND = cuda.Kernel(
 MDS_WIDTH = 8
 
 
-def _fib_split(seeds: torch.Tensor, nb: int) -> int:
-    """The block width B of packed Fibonacci seeds (a power of two)."""
-    b = (int(seeds.shape[0]) - 2 * nb) // 2
-    if seeds.dim() != 1 or nb < 1 or b < 1 or b & (b - 1) or 2 * (nb + b) != seeds.shape[0]:
-        raise ValueError(f"seeds must be s0 | s1 (nb = {nb}) | u0 | u1 (a power of "
-                         f"two), got {tuple(seeds.shape)}")
+def _fib_split(basis: torch.Tensor, nb: int, length: int) -> int:
+    """The block width B of a packed Fibonacci basis (a power of two),
+    checked against ``length``."""
+    b = (int(basis.shape[0]) - 3 * nb) // 2
+    if basis.dim() != 1 or nb < 1 or b < 1 or b & (b - 1) or 3 * nb + 2 * b != basis.shape[0]:
+        raise ValueError(f"basis must be F_{{kB-2}} | F_{{kB-1}} | F_{{kB}} (nb = {nb}) | "
+                         f"u0 | u1 (a power of two), got {tuple(basis.shape)}")
+    if not (nb - 1) * b < length <= nb * b:
+        raise ValueError(f"length {length} is not cut from {nb} blocks of {b}")
     return b
 
 
-def fib_expand_plain(seeds: torch.Tensor, nb: int, length: int) -> torch.Tensor:
-    b = _fib_split(seeds, nb)
-    s = seeds.long()
-    s0, s1 = s[:nb], s[nb : 2 * nb]
-    u0, u1 = s[2 * nb : 2 * nb + b], s[2 * nb + b :]
+def fib_expand_plain(basis: torch.Tensor, nb: int, length: int, start) -> torch.Tensor:
+    b = _fib_split(basis, nb, length)
+    x, y = (int(v) % P for v in start)
+    f = basis.long()
+    fm2, fm1, f0 = f[:nb], f[nb : 2 * nb], f[2 * nb : 3 * nb]
+    u0, u1 = f[3 * nb : 3 * nb + b], f[3 * nb + b :]
+    s0 = (x * fm2 + y * fm1) % P                     # a_{kB-1}
+    s1 = (x * fm1 + y * f0) % P                      # a_{kB}
     out = (s1[:, None] * u1[None, :] % P + s0[:, None] * u0[None, :] % P) % P
     return out.reshape(1, -1)[:, :length].to(torch.int32)
 
 
-def fib_expand(seeds: torch.Tensor, nb: int, length: int) -> torch.Tensor:
-    """(2 nb + 2 B,) int32 seeds -> (1, length) int32 trace columns, with
-    nb B >= length > (nb - 1) B."""
-    b = _fib_split(seeds, nb)
-    if not (nb - 1) * b < length <= nb * b:
-        raise ValueError(f"length {length} is not cut from {nb} blocks of {b}")
-    if seeds.device.type == "cpu":
-        return fib_expand_plain(seeds, nb, length)
-    cuda.check_operand(seeds, "seeds")
-    out = torch.empty((1, length), dtype=torch.int32, device=seeds.device)
-    FIB_EXPAND.launch(seeds.device, seeds.data_ptr(), out.data_ptr(), nb,
-                      b.bit_length() - 1, length, cuda.sm_count(seeds.device))
+def fib_expand(basis: torch.Tensor, nb: int, length: int, start) -> torch.Tensor:
+    """(3 nb + 2 B,) int32 basis and the start pair (a, b) -> (1, length)
+    int32 trace columns of the run from it, with nb B >= length > (nb - 1)
+    B: one launch, and nothing waits for the card."""
+    b = _fib_split(basis, nb, length)
+    if basis.device.type == "cpu":
+        return fib_expand_plain(basis, nb, length, start)
+    cuda.check_operand(basis, "basis")
+    x, y = (int(v) % P for v in start)
+    out = torch.empty((1, length), dtype=torch.int32, device=basis.device)
+    FIB_EXPAND.launch(basis.device, basis.data_ptr(), out.data_ptr(), nb,
+                      b.bit_length() - 1, length, x, y, cuda.sm_count(basis.device))
     return out
 
 

@@ -68,12 +68,16 @@ Prints, in this order:
   empty launch, in turn and back: what bounds the kernel; then ``chain
   turns``: K15 at (1, 6), (1, 32), (8, 6) and (1, 7,266), the design
   before (the whole chain's raw draws in shared memory) and the window in
-  use, in turn and back (``--only chain``).
+  use, in turn and back (``--only chain``);
+* ``witness turns``: K12's Fibonacci entry at T = 2^20 and 2^21, the
+  seeds design before the basis and the basis entry in use, in turn and
+  back, with the bound and the shares (``--only witness``).
 
 (K8's subtree size, ``hash_batch.tail_sub_lg``, and ``TAIL_CUTOVER`` have
 their sweeps in chip_smoke.py.)  ``fib_expand_before`` builds K12
 ``fib_expand`` as it was before its redesign (one thread an element, three
-Montgomery products), ``sponge_before`` K9 as it was (byte loads and
+Montgomery products), ``fib_expand_seeds`` as it was before the basis (the
+host's seeds of each run), ``sponge_before`` K9 as it was (byte loads and
 stores), ``forest_before`` K8 and K8-forest as they were (one lane a hash
 at every level), ``compose_before`` K11 as it was (every sum eager),
 ``fold_dyn_before`` the pair K9 + K4-dyn as it was (alpha through device
@@ -429,6 +433,121 @@ int fib_expand_before(const void* seeds, void* out, int nb, int lg_b,
   long long blocks = (length + 255) / 256;
   if (blocks > 4096) blocks = 4096;
   fib_expand_before_kernel<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(out), nb,
+      lg_b, length);
+  return (int)cudaGetLastError();
+}
+}
+"""
+
+
+# K12 fib_expand before the basis (as csrc/witness.cu had it): the same
+# grid and walk, from the seeds s0 | s1 | u0 | u1 of one run, which the host
+# made and uploaded for every witness (models/fibonacci.fibonacci_seeds).
+FIB_EXPAND_SEEDS_SOURCE = """
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "field.cuh"
+using stark::add_mod;
+using stark::kP;
+using stark::mont_mul;
+constexpr uint64_t kR1 = (1ull << 32) % kP;
+constexpr uint32_t kR2 = static_cast<uint32_t>(kR1 * kR1 % kP);
+extern "C" {
+// fib_expand: one CTA of kFibThreads per SM; a thread owns kFibCols
+// columns and takes its rows kFibRows at a time.
+constexpr int kFibThreads = 256;
+constexpr int kFibCols = 8;
+constexpr int kFibRows = 4;
+
+// seeds: s0 (nb), s1 (nb), u0 (B), u1 (B), one after the other; B = 2^lg_b.
+// The grid's thread count is a multiple of B / kFibCols (fib_expand_seeds).
+__global__ void __launch_bounds__(kFibThreads)
+    fib_expand_seeds_kernel(const uint32_t* __restrict__ seeds,
+                            uint32_t* __restrict__ out, int nb, int lg_b,
+                            long long length) {
+  const uint32_t* s0 = seeds;
+  const uint32_t* s1 = seeds + nb;
+  const uint32_t* u0 = seeds + 2 * nb;
+  const uint32_t* u1 = u0 + (1 << lg_b);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  if (lg_b < 3) {  // blocks of 1, 2 or 4 columns: an element a step
+    for (long long i = tid; i < length; i += threads) {
+      const long long k = i >> lg_b;
+      const int j = (int)(i & ((1 << lg_b) - 1));
+      out[i] = add_mod(mont_mul(s1[k], mont_mul(u1[j], kR2)),
+                       mont_mul(s0[k], mont_mul(u0[j], kR2)));
+    }
+    return;
+  }
+  const int lg_groups = lg_b - 3;  // column groups of kFibCols
+  const int j0 = (int)(tid & ((1 << lg_groups) - 1)) * kFibCols;
+  const long long lanes = threads >> lg_groups;
+  // Every load a thread makes is issued before it computes: its u values
+  // and the seeds of its first kFibRows rows (one trip to memory, where
+  // a load at the top of each row's step would make a chain of them).
+  uint32_t m0[kFibCols], m1[kFibCols];
+#pragma unroll
+  for (int c = 0; c < kFibCols; ++c) {
+    m0[c] = u0[j0 + c];
+    m1[c] = u1[j0 + c];
+  }
+  long long k0 = tid >> lg_groups;
+  uint32_t a[kFibRows], b[kFibRows];
+#pragma unroll
+  for (int r = 0; r < kFibRows; ++r) {
+    const long long k = k0 + r * lanes;
+    a[r] = k < nb ? s0[k] : 0u;
+    b[r] = k < nb ? s1[k] : 0u;
+  }
+  // u 2^32 mod p: mont_mul(s, that) = s u mod p.
+#pragma unroll
+  for (int c = 0; c < kFibCols; ++c) {
+    m0[c] = mont_mul(m0[c], kR2);
+    m1[c] = mont_mul(m1[c], kR2);
+  }
+  for (; k0 < nb; k0 += kFibRows * lanes) {
+#pragma unroll
+    for (int r = 0; r < kFibRows; ++r) {
+      const long long k = k0 + r * lanes;
+      if (k >= nb) break;
+      uint32_t v[kFibCols];
+#pragma unroll
+      for (int c = 0; c < kFibCols; ++c)
+        v[c] = add_mod(mont_mul(b[r], m1[c]), mont_mul(a[r], m0[c]));
+      const long long first = (k << lg_b) + j0;
+      if (first + kFibCols <= length) {
+        uint4* dst = reinterpret_cast<uint4*>(out + first);
+        dst[0] = make_uint4(v[0], v[1], v[2], v[3]);
+        dst[1] = make_uint4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kFibCols; ++c)
+          if (first + c < length) out[first + c] = v[c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kFibRows; ++r) {  // the next rows' seeds
+      const long long k = k0 + (kFibRows + r) * lanes;
+      a[r] = k < nb ? s0[k] : 0u;
+      b[r] = k < nb ? s1[k] : 0u;
+    }
+  }
+}
+
+// out must be 16-byte aligned.  sms: the card's SM count (the grid).
+int fib_expand_seeds(const void* seeds, void* out, int nb, int lg_b,
+                     long long length, int sms, void* stream) {
+  long long blocks = sms;
+  if (lg_b >= 3) {
+    // a whole number of rows of column groups: threads % (B / 8) == 0
+    const long long groups = 1LL << (lg_b - 3);
+    const long long per_block = groups > kFibThreads ? groups / kFibThreads : 1;
+    blocks = (blocks + per_block - 1) / per_block * per_block;
+  }
+  fib_expand_seeds_kernel<<<(unsigned)blocks, kFibThreads, 0,
+                            (cudaStream_t)stream>>>(
       static_cast<const uint32_t*>(seeds), static_cast<uint32_t*>(out), nb,
       lg_b, length);
   return (int)cudaGetLastError();
@@ -831,6 +950,61 @@ def fib_expand_before():
         return out
 
     return call
+
+
+def fib_expand_seeds():
+    """A call ``(seeds, nb, length) -> (1, length) int32`` of K12
+    fib_expand as it was before the basis (the seeds of one run made on
+    the host), built here (not part of the port): the yardstick of the
+    basis entry."""
+    fn = build_temporary(FIB_EXPAND_SEEDS_SOURCE, "fib_seeds").fib_expand_seeds
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+    def call(seeds, nb, length):
+        out = torch.empty((1, length), dtype=torch.int32, device=seeds.device)
+        lg_b = ((seeds.shape[0] - 2 * nb) // 2).bit_length() - 1
+        if fn(seeds.data_ptr(), out.data_ptr(), nb, lg_b, length, cuda.sm_count(seeds.device),
+              torch.cuda.current_stream(seeds.device).cuda_stream) != 0:
+            raise RuntimeError("fib_expand_seeds failed")
+        return out
+
+    return call
+
+
+def witness_turns(rng, dev, lengths=(1 << 20, 1 << 21), reps: int = 50) -> dict:
+    """K12's Fibonacci entry at the two Fibonacci cells' lengths: the design
+    before the basis (fib_expand_seeds, on the default run's seeds) and the
+    basis entry in use (a seeded start pair's seeds formed in the kernel),
+    each first held against the plain version, then in turn and back
+    (before, in use, in use, before); us per call, the bound (4 T bytes
+    written at 3.35 TB/s) and each one's share of it (its mean)."""
+    from stark_tpu_torch.models import fibonacci as FIB
+    from stark_tpu_torch.ops import witness as W
+
+    before = fib_expand_seeds()
+    dev = cuda.device_or_raise(dev, "witness_turns")
+    table = {}
+    for length in lengths:
+        seeds, nb = FIB.fibonacci_seeds(length)
+        seeds = torch.from_numpy(seeds.view(np.int32)).to(dev)
+        basis, _, nb = FIB._basis(length, dev)
+        start = tuple(int(v) for v in rng.integers(0, 998244353, 2))
+        if not (torch.equal(before(seeds, nb, length),
+                            W.fib_expand_plain(basis, nb, length, (1, 1)))
+                and torch.equal(W.fib_expand(basis, nb, length, start),
+                                W.fib_expand_plain(basis, nb, length, start))):
+            raise AssertionError(f"fib_expand at T={length} != plain")
+        calls = {"before": lambda: before(seeds, nb, length),
+                 "in use": lambda: W.fib_expand(basis, nb, length, start)}
+        times = {}
+        for key in ("before", "in use", "in use", "before"):
+            times.setdefault(key, []).append(round(device_us(calls[key], reps), 2))
+        bound = 4 * length / 3.35e12 * 1e6
+        table[f"2^{length.bit_length() - 1}"] = {
+            **times, "bound_us": round(bound, 3),
+            "share_%": {k: round(100 * bound * len(v) / sum(v), 1) for k, v in times.items()}}
+    return table
 
 
 def sponge_before():
@@ -2721,8 +2895,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", choices=("latency", "forest", "tail-in-prove", "compose",
-                                           "lde", "fold", "sponge", "chain", "floor",
-                                           "parts", "ntt"),
+                                           "lde", "fold", "sponge", "chain", "witness",
+                                           "floor", "parts", "ntt"),
                         help="run one sweep (after ptxas)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -2769,6 +2943,10 @@ def main() -> int:
         print("chain turns, K15 by (B, challenges): the design before, the window in use, "
               "us per call in turn and back (CUDA-graph replay): "
               + json.dumps(chain_turns(rng, dev)), flush=True)
+    if args.only in (None, "witness"):
+        print("witness turns, K12 fib_expand: the seeds design before and the basis entry "
+              "in use, us per call in turn and back (CUDA-graph replay): "
+              + json.dumps(witness_turns(rng, dev)), flush=True)
     if args.only in (None, "floor"):
         tune_floor(dev)
     if args.only in (None, "parts"):

@@ -9,7 +9,9 @@ statement, and ``stark_tpu``'s through a subclass of its FibonacciAir with
 the four boundaries made here (JAX in the test only); the verifier holds
 each proof to its own public inputs; one prover proves every statement with
 no further build; the device witness and its end pair equal the
-reference's walk at awkward start pairs; K11's three forms (straight-line,
+reference's walk at awkward start pairs, the end pair made in O(1) from
+the length's basis equals every block's seeds combined, and a second
+statement at a length makes no basis; K11's three forms (straight-line,
 table, a share with its halo), built with the host compiler, take each
 proof's values; and every existing AIR's default statement keeps the bytes
 it had while its boundary values were compiled into K11 (pinned).  Marked
@@ -31,10 +33,13 @@ from stark_tpu_torch import StarkConfig, StarkProver, StarkVerifier
 from stark_tpu_torch.batch import BatchStarkProver
 from stark_tpu_torch.models import MODEL_NAMES, get_model
 from stark_tpu_torch.models.air import BoundaryConstraint
+from stark_tpu_torch.models import fibonacci as FIB
 from stark_tpu_torch.models.fibonacci import (
     FibonacciSegmentAir,
+    fibonacci_seeds,
     fibonacci_segment_cols_device,
     fibonacci_segment_end,
+    fibonacci_trace_cols_device,
     fibonacci_trace_mod_p,
 )
 from stark_tpu_torch.ops import compose as CO
@@ -191,7 +196,8 @@ def test_one_build_serves_every_statement(monkeypatch):
     assert "stark_air" in source and "boundary_value" not in source
 
 
-@pytest.mark.parametrize("start", [(0, 0), (P - 1, P - 1), (123456789, 123456789)])
+@pytest.mark.parametrize("start", [(0, 0), (P - 1, P - 1), (123456789, 123456789), (1, 1),
+                                   (0, 1)])
 @pytest.mark.parametrize("T", [64, 256])
 def test_device_witness_and_end_pair_equal_the_reference(T, start):
     cols, end = fibonacci_segment_cols_device(T, start, device="cpu")
@@ -200,6 +206,49 @@ def test_device_witness_and_end_pair_equal_the_reference(T, start):
     np.testing.assert_array_equal(cols.numpy().astype(np.uint32), want)
     assert end == RS.end_pair(T, start)
     np.testing.assert_array_equal(fibonacci_trace_mod_p(T, start).T, want)
+
+
+def _end_from_every_seed(T: int, start) -> tuple[int, int]:
+    """The end pair as the segment path made it before the basis went to the
+    card: every block's seeds combined on the host from the default run's
+    (fibonacci_seeds), then the last rows' values."""
+    seeds, nb = fibonacci_seeds(T)
+    b = (len(seeds) - 2 * nb) // 2
+    f0 = seeds[:nb].astype(np.int64)
+    fm1 = (seeds[nb : 2 * nb] - f0) % P
+    fm2 = (f0 - fm1) % P
+    x, y = (int(v) % P for v in start)
+    s1, s0 = (x * fm1 + y * f0) % P, (x * fm2 + y * fm1) % P
+    u = seeds[2 * nb :]
+
+    def value(i):
+        k, j = divmod(i, b)
+        return (int(s1[k]) * int(u[b + j]) + int(s0[k]) * int(u[j])) % P
+
+    return value(T - 2), value(T - 1)
+
+
+@pytest.mark.parametrize("T", [64, 256, 1 << 20])
+def test_the_end_pair_in_o1_equals_every_seed_combined(T):
+    for start in STARTS + [(1, 1), (0, 1)]:
+        assert fibonacci_segment_end(T, start) == _end_from_every_seed(T, start)
+    if T <= 256:
+        assert fibonacci_segment_end(T, STARTS[2]) == tuple(
+            int(v) for v in fibonacci_trace_mod_p(T, STARTS[2])[-2:, 0])
+
+
+@pytest.mark.parametrize("T", [64, 1000])
+def test_a_second_statement_builds_no_basis(T):
+    """The length's basis is made once a (length, device): the first
+    witness at a length may make it, no later statement does."""
+    first = fibonacci_segment_cols_device(T, STARTS[3], device="cpu")
+    builds = FIB.BASIS_BUILDS
+    for start in STARTS[:3] + [(1, 1)]:
+        fibonacci_segment_cols_device(T, start, device="cpu")
+    assert fibonacci_trace_cols_device(T, device="cpu").shape == (1, T)
+    fibonacci_segment_end(T, STARTS[4])
+    assert FIB.BASIS_BUILDS == builds
+    assert torch.equal(fibonacci_segment_cols_device(T, STARTS[3], device="cpu")[0], first[0])
 
 
 @pytest.mark.parametrize("form", ["straight", "table"])

@@ -23,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 from stark_tpu_torch import BatchStarkProver, StarkConfig, StarkProver
 from stark_tpu_torch import fri as FRI
 from stark_tpu_torch.models import get_model
+from stark_tpu_torch.models import fibonacci as FIB
 from stark_tpu_torch.models.examples import mds_square_trace_cols_device
 from stark_tpu_torch.models.fibonacci import fibonacci_trace_cols_device
 from stark_tpu_torch.utils import build
@@ -34,8 +35,9 @@ CFG = StarkConfig(trace_length=T, blowup=4, num_colinearity_tests=16)
 
 #: Each span of the single-fetch prove's host work on the CPU, with the
 #: span it opens inside (None: outside any of the program's spans).  The
-#: graph path's ``stark.dispatch`` runs on a card only, and
-#: ``fri.second_read`` where the sampler falls short.
+#: graph path's ``stark.dispatch`` runs on a card only, ``fri.second_read``
+#: where the sampler falls short, and ``witness.basis`` (inside
+#: ``witness.upload``) at a length's first witness on a device.
 PARENTS = {
     "witness.seeds": None, "witness.upload": None, "witness.expand": None,
     "stark.prove": None,
@@ -81,17 +83,20 @@ def _prove(prover, device="cpu"):
 
 def test_a_prove_records_every_span_nested(ranges):
     prover = StarkProver(get_model("fib")[0], CFG, device="cpu")
+    FIB._basis.cache_clear()  # the length's first witness: its basis made in the window
     PR.reset_spans()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         _prove(prover)
-    # a collection may come anywhere
+    # a collection may come anywhere; the length's first witness makes its basis
     got = [(n, p) for n, p in _program_spans(prof) if n != "python.gc"]
+    assert got.count(("witness.basis", "witness.upload")) == 1
+    got.remove(("witness.basis", "witness.upload"))
     assert {name for name, _ in got} == set(PARENTS)
     for name, parent in got:
         assert parent == PARENTS[name], (name, parent)
     assert [n for n, _ in got].count("fri.round_emit") == prover.fri.num_rounds() - 1
     totals = PR.snapshot_spans()
-    assert set(totals) - {"python.gc"} == set(PARENTS)
+    assert set(totals) - {"python.gc"} == set(PARENTS) | {"witness.basis"}
     assert all(seconds > 0 and count >= 1 for seconds, count in totals.values())
 
 

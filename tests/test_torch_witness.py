@@ -1,10 +1,12 @@
 """The device witnesses (kernel K12, ops/witness.py; models.fibonacci_trace
 _cols_device, models.examples.mds_square_trace_cols_device) and the C seed
 walk against stark_tpu: on the CPU the plain versions equal stark_tpu's
-functions and the host traces, at lengths that are not powers of two and
-at several MDS block sizes; the MDS proof from device columns equals the
-one from host rows and stark_tpu's.  On a card, each kernel equals its
-plain version.  Tolerance zero: every value is an exact integer mod p."""
+functions and the host traces, at lengths that are not powers of two, at
+awkward start pairs of the Fibonacci run and at several MDS block sizes;
+the MDS proof from device columns equals the one from host rows and
+stark_tpu's.  On a card, each kernel equals its plain version, and the
+Fibonacci witness, its length's basis made, runs without a synchronizing
+call.  Tolerance zero: every value is an exact integer mod p."""
 
 import hashlib
 import os
@@ -18,8 +20,10 @@ from hypothesis import strategies as st
 
 from stark_tpu_torch import StarkConfig, StarkProver, StarkVerifier, native
 from stark_tpu_torch.models import examples as ex
+from stark_tpu_torch.models import fibonacci as FIB
 from stark_tpu_torch.models.fibonacci import (
     fibonacci_seeds,
+    fibonacci_segment_cols_device,
     fibonacci_trace_cols_device,
     fibonacci_trace_mod_p,
 )
@@ -29,6 +33,10 @@ from stark_tpu_torch.ops.fieldops import P
 from torch_port_support import cuda_device, rand_field, to_numpy, to_torch  # noqa: F401
 
 FIB_LENGTHS = [1, 2, 3, 1000, 1024]
+#: Start pairs of the Fibonacci run: the default statement's, the awkward
+#: ones and one drawn from a seed.
+FIB_STARTS = [(1, 1), (0, 0), (0, 1), (P - 1, P - 1),
+              tuple(int(v) for v in np.random.default_rng(26).integers(0, P, 2))]
 MDS_LENGTHS = [1, 5, 64, 1000]
 MDS_BLOCKS = [1, 7, 64]
 # sha256 of stark_tpu's MdsSquareAir proof at T=1024, blowup 4, 16 tests,
@@ -49,17 +57,50 @@ def test_fibonacci_device_cols_equal_stark_tpu(T):
 
 @pytest.mark.parametrize("T", FIB_LENGTHS)
 def test_fib_expand_plain_equals_stark_tpu_block_fn(T):
-    """Random seeds (not only Fibonacci's) through both expansions."""
+    """Random basis words (not only Fibonacci's) and a random start pair
+    through the plain version and stark_tpu's block function on the seeds
+    they combine to."""
     from stark_tpu.models.fibonacci import _fib_block_fn
 
     _, nb = fibonacci_seeds(T)
     b = 1 << max(0, (T.bit_length() - 1) // 2)
     rng = np.random.default_rng(T)
-    s0, s1 = rand_field(rng, nb), rand_field(rng, nb)
-    u0, u1 = rand_field(rng, b), rand_field(rng, b)
-    want = np.asarray(_fib_block_fn(T)(s0, s1, u0, u1))
-    got = W.fib_expand(to_torch(np.concatenate([s0, s1, u0, u1])), nb, T)
+    words = np.concatenate([rand_field(rng, 3 * nb), rand_field(rng, 2 * b)])
+    start = tuple(int(v) for v in rng.integers(0, P, 2))
+    want = np.asarray(_fib_block_fn(T)(*_seeds_of(words, nb, start)))
+    got = W.fib_expand(to_torch(words), nb, T, start)
     np.testing.assert_array_equal(to_numpy(got), want)
+
+
+def _seeds_of(words: np.ndarray, nb: int, start) -> list[np.ndarray]:
+    """s0, s1, u0, u1 of the run from ``start``, combined from basis words
+    in Python ints: s0[k] = a F_{kB-2} + b F_{kB-1}, s1[k] = a F_{kB-1} + b
+    F_{kB}."""
+    a, b = (int(v) % P for v in start)
+    fm2, fm1, f0 = ([int(v) for v in words[r * nb : (r + 1) * nb]] for r in range(3))
+    s0 = np.array([(a * x + b * y) % P for x, y in zip(fm2, fm1)], dtype=np.uint32)
+    s1 = np.array([(a * x + b * y) % P for x, y in zip(fm1, f0)], dtype=np.uint32)
+    width = (len(words) - 3 * nb) // 2
+    return [s0, s1, words[3 * nb : 3 * nb + width], words[3 * nb + width :]]
+
+
+@pytest.mark.parametrize("start", FIB_STARTS)
+@pytest.mark.parametrize("T", FIB_LENGTHS + [100, 4096])
+def test_fib_basis_plain_equals_the_trace_and_stark_tpu_block_fn(T, start):
+    """The main path's plain version (the length's basis and a start pair)
+    equals the host walk from the start pair and stark_tpu's block function
+    on that run's seeds; so do the device witness and its end pair."""
+    from stark_tpu.models.fibonacci import _fib_block_fn
+
+    basis, words, nb = FIB._basis(T, torch.device("cpu"))
+    got = to_numpy(W.fib_expand_plain(basis, nb, T, start))
+    assert got.shape == (1, T)
+    np.testing.assert_array_equal(got, fibonacci_trace_mod_p(T, start).T)
+    np.testing.assert_array_equal(got, np.asarray(_fib_block_fn(T)(*_seeds_of(words, nb, start))))
+    cols, end = fibonacci_segment_cols_device(T, start, device="cpu")
+    np.testing.assert_array_equal(to_numpy(cols), got)
+    a, b = (int(v) % P for v in start)
+    assert end == ((b - a) % P if T == 1 else int(got[0, -2]), int(got[0, -1]))
 
 
 @pytest.mark.parametrize("block", MDS_BLOCKS)
@@ -158,17 +199,23 @@ def test_lane_model_constants_are_the_kernels():
     assert _mont_mul(1, K_R80) == pow(2, 48, P)
 
 
-def _fib_thread_model(seeds: np.ndarray, nb: int, length: int) -> np.ndarray:
+def _fib_thread_model(words: np.ndarray, nb: int, length: int, start) -> np.ndarray:
     """fib_expand as the kernel's threads compute it (csrc/witness.cu): a
-    thread owns 8 columns j of the block (every column alone where the
-    block is narrower than 8), puts u0[j], u1[j] into Montgomery form once
-    (mont_mul(u, 2^64 mod p) = u 2^32 mod p), and for each row k writes
-    mont_mul(s1[k], that of u1) + mont_mul(s0[k], that of u0) mod p, the
-    row's elements past ``length`` not written."""
-    b = (len(seeds) - 2 * nb) // 2
-    s0, s1 = [int(v) for v in seeds[:nb]], [int(v) for v in seeds[nb : 2 * nb]]
-    u0 = [int(v) for v in seeds[2 * nb : 2 * nb + b]]
-    u1 = [int(v) for v in seeds[2 * nb + b :]]
+    thread puts the start pair (a, b) into Montgomery form once (am, bm =
+    mont_mul(a, 2^64 mod p), ...), owns 8 columns j of the block (every
+    column alone where the block is narrower than 8), puts u0[j], u1[j] into
+    Montgomery form once, and for each row k forms the row's seeds from its
+    basis words, s0 = mont_mul(am, F_{kB-2}) + mont_mul(bm, F_{kB-1}) and s1
+    = mont_mul(am, F_{kB-1}) + mont_mul(bm, F_{kB}) mod p, then writes
+    mont_mul(s1, that of u1) + mont_mul(s0, that of u0) mod p, the row's
+    elements past ``length`` not written."""
+    b = (len(words) - 3 * nb) // 2
+    fm2, fm1, f0 = ([int(v) for v in words[r * nb : (r + 1) * nb]] for r in range(3))
+    u0 = [int(v) for v in words[3 * nb : 3 * nb + b]]
+    u1 = [int(v) for v in words[3 * nb + b :]]
+    am, bm = (_mont_mul(int(v) % P, K_R2) for v in start)
+    s0 = [_min_wrapped(_mont_mul(am, x) + _mont_mul(bm, y), P) for x, y in zip(fm2, fm1)]
+    s1 = [_min_wrapped(_mont_mul(am, x) + _mont_mul(bm, y), P) for x, y in zip(fm1, f0)]
     cols = 8 if b >= 8 else 1
     out = np.zeros(nb * b, dtype=np.uint32)
     for j0 in range(0, b, cols):
@@ -183,20 +230,21 @@ def _fib_thread_model(seeds: np.ndarray, nb: int, length: int) -> np.ndarray:
 
 @pytest.mark.parametrize("T", FIB_LENGTHS + [8, 64, 100, 4096])
 def test_fib_thread_model_equals_stark_tpu_block_fn(T):
-    """Random seeds, 0 and p - 1 among them, through the kernel's
-    arithmetic with u pre-scaled into Montgomery form, stark_tpu's block
-    function and the plain version."""
+    """Random basis words and a start pair, 0 and p - 1 among them, through
+    the kernel's arithmetic (the seeds formed from the start pair in
+    Montgomery form, u pre-scaled into it), stark_tpu's block function on
+    the seeds they combine to, and the plain version."""
     from stark_tpu.models.fibonacci import _fib_block_fn
 
     _, nb = fibonacci_seeds(T)
     b = 1 << max(0, (T.bit_length() - 1) // 2)
     rng = np.random.default_rng(T + 1)
-    parts = [rand_field(rng, nb), rand_field(rng, nb), rand_field(rng, b), rand_field(rng, b)]
-    seeds = np.concatenate(parts)
-    want = np.asarray(_fib_block_fn(T)(*parts)).reshape(-1)
-    np.testing.assert_array_equal(_fib_thread_model(seeds, nb, T), want)
+    words = np.concatenate([rand_field(rng, 3 * nb), rand_field(rng, 2 * b)])
+    start = (0, P - 1) if T % 2 else tuple(int(v) for v in rng.integers(0, P, 2))
+    want = np.asarray(_fib_block_fn(T)(*_seeds_of(words, nb, start))).reshape(-1)
+    np.testing.assert_array_equal(_fib_thread_model(words, nb, T, start), want)
     np.testing.assert_array_equal(
-        to_numpy(W.fib_expand_plain(to_torch(seeds), nb, T)).reshape(-1), want)
+        to_numpy(W.fib_expand_plain(to_torch(words), nb, T, start)).reshape(-1), want)
 
 
 _field = st.one_of(st.sampled_from([0, 1, P - 1]), st.integers(0, P - 1))
@@ -252,11 +300,13 @@ def test_witness_functions_require_a_card():
 
 
 def test_expand_rejects_bad_shapes():
-    seeds = torch.zeros(2 * 3 + 2 * 4, dtype=torch.int32)
+    basis = torch.zeros(3 * 3 + 2 * 4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        W.fib_expand(seeds, 3, 13)          # 3 blocks of 4 hold at most 12
+        W.fib_expand(basis, 3, 13, (1, 1))         # 3 blocks of 4 hold at most 12
     with pytest.raises(ValueError):
-        W.fib_expand(seeds[:-2], 3, 8)      # B = 3 is no power of two
+        W.fib_expand(basis[:-2], 3, 8, (1, 1))     # B = 3 is no power of two
+    with pytest.raises(ValueError):
+        W.fib_expand(basis[3:], 3, 12, (1, 1))     # two words a block: seeds, not a basis
     consts = torch.zeros(72, dtype=torch.int32)
     with pytest.raises(ValueError):
         W.mds_expand(consts, torch.zeros((2, 8), dtype=torch.int32), 4, 4)
@@ -293,17 +343,35 @@ def test_mds_changed_device_cols_rejected(mds_proofs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", FIB_LENGTHS + [1 << 16, 1 << 20])
+@pytest.mark.parametrize("T", FIB_LENGTHS + [1 << 16, 1 << 20, 1 << 21])
 def test_card_fib_expand(cuda_device, T):
-    seeds, nb = fibonacci_seeds(T)
-    seeds = torch.from_numpy(seeds.view(np.int32)).to(cuda_device)
-    want = W.fib_expand_plain(seeds, nb, T)
+    """K12 equals its plain version at every start pair; the two witness
+    functions, once the length's basis is made, run with the card's sync
+    debug mode at "error": no synchronizing call and no pageable copy."""
+    device = cuda.device_or_raise(cuda_device, "test_card_fib_expand")
+    basis, _, nb = FIB._basis(T, device)
+    cpu_basis = FIB._basis(T, torch.device("cpu"))[0]
     cuda.reset_launches()
-    for _ in range(2):
-        assert torch.equal(W.fib_expand(seeds, nb, T), want)
-    assert cuda.launch_counts()["fib_expand"] == 2
+    for start in FIB_STARTS:
+        want = W.fib_expand_plain(cpu_basis, nb, T, start)
+        for _ in range(2):
+            assert torch.equal(W.fib_expand(basis, nb, T, start).cpu(), want)
+    assert cuda.launch_counts()["fib_expand"] == 2 * len(FIB_STARTS)
     assert torch.equal(fibonacci_trace_cols_device(T).cpu(),
                        fibonacci_trace_cols_device(T, device="cpu"))
+    builds = FIB.BASIS_BUILDS
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cols = fibonacci_trace_cols_device(T)
+        segments = [fibonacci_segment_cols_device(T, start) for start in FIB_STARTS]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert FIB.BASIS_BUILDS == builds
+    assert torch.equal(cols.cpu(), fibonacci_trace_cols_device(T, device="cpu"))
+    for start, (got, end) in zip(FIB_STARTS, segments, strict=True):
+        want, want_end = fibonacci_segment_cols_device(T, start, device="cpu")
+        assert torch.equal(got.cpu(), want) and end == want_end
 
 
 @pytest.mark.gpu
